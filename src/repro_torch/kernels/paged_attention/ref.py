@@ -1,0 +1,57 @@
+"""Plain PyTorch versions of the fused serving step's paged kernels: the
+CPU path of ``ops.py`` and the oracle the CUDA kernels are held against.
+They mirror the reference's jnp oracles (``repro/kernels/paged_attention/
+ref.py``) operation for operation."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def paged_mixed_attention_pool_ref(q, kv_pool, block_tables, q_starts,
+                                   n_reals, is_decode,
+                                   scale: Optional[float] = None):
+    """Mixed-mode (decode lanes + prefill chunk rows) paged attention.
+
+    q: (R,Tc,H,hd); kv_pool: (P,2,K,page,hd); block_tables: (R,pps);
+    q_starts/n_reals/is_decode: (R,) per-row metadata — a decode lane is a
+    one-token row at absolute position q_start whose tail rows are fully
+    masked (a finite uniform mean, never read); a chunk row attends
+    causally at every row, bucket padding included.
+    -> (R,Tc,H,hd)
+    """
+    R, Tc, H, hd = q.shape
+    _, _, K, page, _ = kv_pool.shape
+    G = H // K
+    pps = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+
+    pages = kv_pool[block_tables.long()]               # (R,pps,2,K,page,hd)
+    kg = pages[:, :, 0].permute(0, 2, 1, 3, 4).reshape(R, K, pps * page, hd)
+    vg = pages[:, :, 1].permute(0, 2, 1, 3, 4).reshape(R, K, pps * page, hd)
+
+    qg = q.reshape(R, Tc, K, G, hd)
+    scores = torch.einsum("btkgd,bksd->bkgts", qg, kg).float() * scale
+    k_pos = torch.arange(pps * page, device=q.device)[None, None, None, None]
+    t = torch.arange(Tc, device=q.device)[None, :]
+    dec = is_decode.long()[:, None] != 0
+    q_pos = (q_starts.long()[:, None]
+             + torch.where(dec, 0, t))[:, None, None, :, None]
+    valid = (k_pos <= q_pos) \
+        & (~dec | (t < n_reals.long()[:, None]))[:, None, None, :, None]
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bksd->bkgtd", probs, vg)
+    return out.permute(0, 3, 1, 2, 4).reshape(R, Tc, H, hd)
+
+
+def append_kv_ref(kv_pool, k_new, v_new, slots, offsets):
+    """Page-append writer, in place: pool[slots[b], 0|1, :, offsets[b]] =
+    k_new[b] / v_new[b]. kv_pool: (P,2,K,page,hd); k_new/v_new: (B,K,hd).
+    Returns the pool."""
+    slots, offsets = slots.long(), offsets.long()
+    kv_pool[slots, 0, :, offsets] = k_new.to(kv_pool.dtype)
+    kv_pool[slots, 1, :, offsets] = v_new.to(kv_pool.dtype)
+    return kv_pool

@@ -1,0 +1,147 @@
+"""GQA attention against the paged KV pool — the paged half of
+``repro/layers/attention.py`` that the fused serving step runs.
+
+``impl='kernel'`` routes to ``kernels/paged_attention`` (the CUDA kernels on
+a CUDA device, their plain versions on the CPU); ``impl='ref'`` calls the
+plain versions directly (the reference's ``'pallas'`` / ``'xla'``).
+Pools are updated IN PLACE (the reference returns new arrays; here the
+mutated pool is returned for the same call shape).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention.ref import (
+    append_kv_ref, paged_mixed_attention_pool_ref)
+from repro_torch.layers.core import Linear, apply_rope, linear
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.use_qk_norm or cfg.attn_logit_softcap > 0:
+            raise NotImplementedError(f"{cfg.name}: qk-norm / logit softcap "
+                                      "attention is not ported")
+        d, hd, dt = cfg.d_model, cfg.resolved_head_dim, cfg.dtype()
+        kw = dict(generator=generator)
+        self.wq = Linear(d, cfg.n_heads * hd, dt, device, bias=cfg.qkv_bias,
+                         **kw)
+        self.wk = Linear(d, cfg.n_kv_heads * hd, dt, device,
+                         bias=cfg.qkv_bias, **kw)
+        self.wv = Linear(d, cfg.n_kv_heads * hd, dt, device,
+                         bias=cfg.qkv_bias, **kw)
+        self.wo = Linear(cfg.n_heads * hd, d, dt, device, **kw)
+
+
+def _project_qkv(p: Attention, cfg: ModelConfig, x, positions):
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = linear(p.wq, x).reshape(B, T, cfg.n_heads, hd)
+    k = linear(p.wk, x).reshape(B, T, cfg.n_kv_heads, hd)
+    v = linear(p.wv, x).reshape(B, T, cfg.n_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def write_chunk_pages(kv_pool, k, v, window, offset: int, *,
+                      page_tokens: int):
+    """Chunked prefill writes pages in place: K/V (1,Tc,K,hd) of one chunk
+    land at token row ``offset`` of the chunk's page WINDOW — the pages
+    covering ``[q_start, q_start + Tc)``, gathered, row-updated and scattered
+    back so rows written by earlier chunks survive a mid-page boundary.
+
+    kv_pool: (P,2,K,page,hd); window: (W,) int64 pool slots (padding points
+    at the scratch page, whose content is never read unmasked); offset:
+    ``q_start % page_tokens``.
+    """
+    _, Tc, K, hd = k.shape
+    W = window.shape[0]
+    pages = kv_pool[window]                                 # (W,2,K,page,hd)
+    flat = pages.permute(0, 3, 1, 2, 4).reshape(W * page_tokens, 2, K, hd)
+    flat[offset:offset + Tc] = torch.stack([k[0], v[0]],
+                                           dim=1).to(flat.dtype)
+    kv_pool[window] = (flat.reshape(W, page_tokens, 2, K, hd)
+                       .permute(0, 2, 3, 1, 4))
+    return kv_pool
+
+
+def attention_mixed_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
+                          block_table, q_starts, n_reals, *, n_decode: int,
+                          read_pps: Optional[int] = None,
+                          impl: str = "kernel", meta=None):
+    """Fused mixed-mode attention: decode lanes AND prefill chunk rows of a
+    packed engine step against the pool, in ONE kernel launch.
+
+    x: (R,Tc,d) packed rows — rows ``[:n_decode]`` are decode lanes (their
+    single real token at column 0, absolute position ``q_starts[r]``), the
+    rest prefill chunk rows (``n_reals[r]`` real tokens from ``q_starts[r]``;
+    ``n_real == 0`` marks a bucket-pad row pointing at the scratch page).
+    kv_pool: (P,2,K,page,hd); block_table: (R, pps_pad) int32 LOCAL slots
+    from position 0, scratch-padded, on the pool's device; q_starts /
+    n_reals: (R,) host integer arrays. ``meta`` optionally carries the
+    device copies ``_step_meta`` makes once per step (shared by every
+    layer).
+
+    Decode lanes append through the page-append writer, each chunk row
+    writes its read-modify-write page window, then every row attends in
+    one ``paged_mixed_attention_pool`` launch. Returns (out (R,Tc,d), pool).
+    """
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
+    R, Tc, _ = x.shape
+    page = kv_pool.shape[3]
+    if meta is None:
+        meta = step_meta(q_starts, n_reals, n_decode, Tc, x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, meta["positions"])
+
+    if n_decode:
+        # decode lanes: one-token page append (idle lanes target scratch)
+        pos = meta["q_starts"][:n_decode]
+        slot = torch.gather(block_table[:n_decode], 1,
+                            (pos // page)[:, None].long())[:, 0]
+        off = pos % page
+        kd, vd = k_new[:n_decode, 0], v_new[:n_decode, 0]
+        if impl == "kernel":
+            pa_ops.append_kv(kv_pool, kd, vd, slot.contiguous(), off)
+        else:
+            append_kv_ref(kv_pool, kd, vd, slot, off)
+    qs = np.asarray(q_starts)
+    pps_win = Tc // page + (1 if Tc % page else 0) + 1
+    for r in range(n_decode, R):
+        # chunk rows: the per-request page-window read-modify-write (pad
+        # rows rewrite the scratch window, never read unmasked)
+        start = int(qs[r]) // page
+        win = block_table[r, start:start + pps_win].long()
+        write_chunk_pages(kv_pool, k_new[r:r + 1], v_new[r:r + 1], win,
+                          int(qs[r]) % page, page_tokens=page)
+
+    bt = block_table[:, :read_pps]
+    args = (q, kv_pool, bt, meta["q_starts"], meta["n_reals"],
+            meta["is_decode"])
+    if impl == "kernel":
+        ctx = pa_ops.paged_mixed_attention_pool(*args)
+    else:
+        ctx = paged_mixed_attention_pool_ref(*args)
+    out = linear(p.wo, ctx.reshape(R, Tc, -1))
+    return out, kv_pool
+
+
+def step_meta(q_starts, n_reals, n_decode: int, Tc: int, device) -> dict:
+    """Device copies of a packed step's per-row metadata (int32) and the
+    token positions, made once per step and shared by every layer."""
+    qs = torch.as_tensor(np.asarray(q_starts, np.int32)).to(device)
+    nr = torch.as_tensor(np.asarray(n_reals, np.int32)).to(device)
+    R = qs.shape[0]
+    is_dec = (torch.arange(R, device=device) < n_decode).to(torch.int32)
+    positions = qs[:, None] + torch.arange(Tc, dtype=torch.int32,
+                                           device=device)[None, :]
+    return {"q_starts": qs, "n_reals": nr, "is_decode": is_dec,
+            "positions": positions}

@@ -1,0 +1,142 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on an
+NVIDIA GPU (``cuda`` marker; every test skips where
+``torch.cuda.is_available()`` is false). Imports neither JAX nor ``repro``,
+so it runs on a card's machine as it is:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+Tolerances: attention 3e-5 in float32, 3e-2 in bfloat16 (the plain version
+rounds the probabilities to bfloat16 before the value product); append,
+gather and scatter bit-exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.kv_gather import ops as kv_ops
+from repro_torch.kernels.kv_gather import ref as kv_ref
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import ref as pa_ref
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _mixed_inputs(seed, R, Tc, H, K, hd, P, page, pps, starts, n_reals,
+                  is_dec):
+    rng = np.random.default_rng(seed)
+    return dict(q=rng.standard_normal((R, Tc, H, hd)),
+                pool=rng.standard_normal((P, 2, K, page, hd)),
+                bt=rng.integers(0, P, (R, pps)).astype(np.int32),
+                starts=np.asarray(starts, np.int32),
+                n_reals=np.asarray(n_reals, np.int32),
+                is_dec=np.asarray(is_dec, np.int32))
+
+
+MIXED_CASES = {
+    "ref_plan": (0, 4, 8, 4, 2, 32, 12, 8, 4, [5, 9, 0, 3], [1, 1, 6, 0],
+                 [1, 1, 0, 0]),
+    "mha_midpage": (1, 3, 16, 4, 4, 64, 10, 16, 3, [20, 13, 0],
+                    [1, 16, 0], [1, 0, 0]),
+    "wide_page": (2, 2, 4, 8, 2, 32, 6, 40, 2, [70, 33], [1, 4], [1, 0]),
+    # more query rows than one tile, decode tails mixed with live rows
+    "many_rows": (3, 3, 40, 2, 2, 64, 20, 16, 6, [77, 0, 50], [1, 40, 17],
+                  [1, 0, 0]),
+    # decode-only steps (Tc = 1): every tile holds only live decode rows
+    # and takes the cut page loop; MHA as qwen, and grouped heads
+    "decode_only": (4, 4, 1, 4, 4, 64, 30, 16, 6, [77, 5, 40, 0],
+                    [1, 1, 1, 1], [1, 1, 1, 1]),
+    "decode_only_gqa": (5, 5, 1, 8, 2, 64, 40, 16, 8, [120, 15, 16, 63, 0],
+                        [1, 1, 1, 1, 1], [1, 1, 1, 1, 1]),
+}
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(MIXED_CASES))
+def test_cuda_mixed_attention_matches_plain(case, dtype):
+    dev = _cuda()
+    x = _mixed_inputs(*MIXED_CASES[case])
+    td = DTYPES[dtype]
+    q = torch.from_numpy(x["q"]).to(dev, td)
+    pool = torch.from_numpy(x["pool"]).to(dev, td)
+    meta = [torch.from_numpy(x[k]).to(dev)
+            for k in ("bt", "starts", "n_reals", "is_dec")]
+    out = pa_ops.paged_mixed_attention_pool(q, pool, *meta)
+    ref = pa_ref.paged_mixed_attention_pool_ref(q, pool, *meta)
+    torch.cuda.synchronize()
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_append_gather_scatter_match_plain(dtype):
+    dev = _cuda()
+    td = DTYPES[dtype]
+    g = torch.Generator(device=dev).manual_seed(0)
+    pool = torch.randn((12, 2, 4, 16, 64), generator=g, device=dev).to(td)
+    k = torch.randn((3, 4, 64), generator=g, device=dev).to(td)
+    v = torch.randn((3, 4, 64), generator=g, device=dev).to(td)
+    slots = torch.tensor([5, 2, 9], dtype=torch.int32, device=dev)
+    offs = torch.tensor([15, 0, 7], dtype=torch.int32, device=dev)
+    want = pa_ref.append_kv_ref(pool.clone(), k, v, slots, offs)
+    got = pa_ops.append_kv(pool.clone(), k, v, slots, offs)
+    assert torch.equal(got, want)
+    ids = torch.tensor([7, 1, 11, 0], dtype=torch.int32, device=dev)
+    staging = kv_ops.gather_pages(pool, ids)
+    assert torch.equal(staging, kv_ref.gather_pages_ref(pool, ids))
+    new = torch.randn(staging.shape, generator=g, device=dev).to(td)
+    want = kv_ref.scatter_pages_ref(pool.clone(), new, ids)
+    assert torch.equal(kv_ops.scatter_pages(pool.clone(), new, ids), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rows_independent_of_packing_and_sweep_length(dtype):
+    """A row's result is bit-identical whatever else rides the launch, and
+    sweeping extra (fully masked) pages leaves live rows bit-identical."""
+    dev = _cuda()
+    x = _mixed_inputs(*MIXED_CASES["many_rows"])
+    td = DTYPES[dtype]
+    q = torch.from_numpy(x["q"]).to(dev, td)
+    pool = torch.from_numpy(x["pool"]).to(dev, td)
+    meta = [torch.from_numpy(x[k]).to(dev)
+            for k in ("bt", "starts", "n_reals", "is_dec")]
+    full = pa_ops.paged_mixed_attention_pool(q, pool, *meta)
+    alone = pa_ops.paged_mixed_attention_pool(
+        q[1:2].contiguous(), pool, meta[0][1:2], *[m[1:2] for m in meta[1:]])
+    assert torch.equal(alone[0], full[1])
+    # row 1 is a chunk of 40 from position 0: it needs 3 pages of 16; a
+    # table twice as long (extra pages masked) must not change it
+    bt2 = torch.cat([meta[0], meta[0]], dim=1)
+    longer = pa_ops.paged_mixed_attention_pool(q, pool, bt2, *meta[1:])
+    assert torch.equal(longer[1], full[1])
+    assert torch.equal(longer[2], full[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_only_cut_matches_full_sweep(dtype):
+    """A decode-only launch (Tc = 1) stops each lane's page loop at its last
+    needed page; the same lanes packed with Tc = 8, where fully masked tail
+    rows make every tile sweep all pages, give bit-identical real tokens."""
+    dev = _cuda()
+    x = _mixed_inputs(*MIXED_CASES["decode_only_gqa"])
+    td = DTYPES[dtype]
+    q1 = torch.from_numpy(x["q"]).to(dev, td)
+    pool = torch.from_numpy(x["pool"]).to(dev, td)
+    meta = [torch.from_numpy(x[k]).to(dev)
+            for k in ("bt", "starts", "n_reals", "is_dec")]
+    q8 = torch.zeros((q1.shape[0], 8) + tuple(q1.shape[2:]), device=dev,
+                     dtype=td)
+    q8[:, :1] = q1
+    cut = pa_ops.paged_mixed_attention_pool(q1, pool, *meta)
+    swept = pa_ops.paged_mixed_attention_pool(q8, pool, *meta)
+    assert torch.equal(cut[:, 0], swept[:, 0])

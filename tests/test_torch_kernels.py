@@ -1,0 +1,211 @@
+"""The port's kernels of the fused serving step against the JAX reference.
+
+On the CPU each wrapper runs its plain PyTorch version; those are held here
+against the reference's Pallas kernels in interpret mode on the same numpy
+inputs: mixed paged attention at 3e-5 (float32) / 3e-2 (bfloat16), page
+append, gather and scatter exactly. ``test_torch_cuda.py`` holds the CUDA
+kernels against these plain versions on a card.
+"""
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.kv_gather.kernel import gather_pages as j_gather
+from repro.kernels.kv_gather.kernel import scatter_pages as j_scatter
+from repro.kernels.paged_attention.kernel import append_kv as j_append
+from repro.kernels.paged_attention.kernel import \
+    paged_mixed_attention_pool as j_mixed
+from repro_torch.kernels import build
+from repro_torch.kernels.kv_gather import ops as kv_ops
+from repro_torch.kernels.kv_gather import ref as kv_ref
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import ref as pa_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(a, name):
+    """One numpy array as a JAX array and a torch tensor of ``name``."""
+    jd, td = DTYPES[name]
+    return (jnp.asarray(a, jnp.float32).astype(jd),
+            torch.from_numpy(np.asarray(a, np.float32)).to(td))
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _mixed_inputs(seed, R, Tc, H, K, hd, P, page, pps, starts, n_reals,
+                  is_dec):
+    rng = np.random.default_rng(seed)
+    return dict(q=rng.standard_normal((R, Tc, H, hd)),
+                pool=rng.standard_normal((P, 2, K, page, hd)),
+                bt=rng.integers(0, P, (R, pps)).astype(np.int32),
+                starts=np.asarray(starts, np.int32),
+                n_reals=np.asarray(n_reals, np.int32),
+                is_dec=np.asarray(is_dec, np.int32))
+
+
+MIXED_CASES = {
+    # the reference's test_mixed_kernel_matches_ref plan: 2 decode lanes,
+    # a chunk row and a pad row
+    "ref_plan": (0, 4, 8, 4, 2, 32, 12, 8, 4, [5, 9, 0, 3], [1, 1, 6, 0],
+                 [1, 1, 0, 0]),
+    # MHA (G=1, as qwen), a mid-page chunk start, hd 64, 16-token pages
+    "mha_midpage": (1, 3, 16, 4, 4, 64, 10, 16, 3, [20, 13, 0],
+                    [1, 16, 0], [1, 0, 0]),
+    # pages wider than a warp, grouped heads G=4
+    "wide_page": (2, 2, 4, 8, 2, 32, 6, 40, 2, [70, 33], [1, 4], [1, 0]),
+    # a decode-only step (Tc = 1, every row a live decode lane), as the
+    # engine packs it when no prompt chunk is scheduled
+    "decode_only": (4, 4, 1, 4, 4, 64, 30, 16, 6, [77, 5, 40, 0],
+                    [1, 1, 1, 1], [1, 1, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(MIXED_CASES))
+def test_mixed_attention_plain_matches_reference_kernel(case, dtype):
+    x = _mixed_inputs(*MIXED_CASES[case])
+    jq, tq = _both(x["q"], dtype)
+    jp, tp = _both(x["pool"], dtype)
+    meta = [x["bt"], x["starts"], x["n_reals"], x["is_dec"]]
+    ref = j_mixed(jq, jp, *[jnp.asarray(m) for m in meta], interpret=True)
+    out = pa_ops.paged_mixed_attention_pool(
+        tq, tp, *[torch.from_numpy(m) for m in meta])
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_append_kv_plain_matches_reference_kernel(dtype):
+    rng = np.random.default_rng(5)
+    P, K, page, hd, B = 10, 2, 8, 32, 4
+    pool = rng.standard_normal((P, 2, K, page, hd))
+    k, v = (rng.standard_normal((B, K, hd)) for _ in range(2))
+    slots = np.asarray([3, 7, 0, 0], np.int32)      # idle lanes on scratch 0
+    offs = np.asarray([5, 0, 0, 0], np.int32)
+    k[3], v[3] = k[2], v[2]                         # idle lanes: same data
+    jp, tp = _both(pool, dtype)
+    (jk, tk), (jv, tv) = _both(k, dtype), _both(v, dtype)
+    ref = j_append(jp, jk, jv, jnp.asarray(slots), jnp.asarray(offs),
+                   interpret=True)
+    out = pa_ops.append_kv(tp, tk, tv, torch.from_numpy(slots),
+                           torch.from_numpy(offs))
+    assert out is tp                                # in place
+    np.testing.assert_array_equal(_np(out), _np(ref))
+
+
+def _pool(rng, shape, dtype):
+    if dtype == "int8":
+        a = rng.integers(-100, 100, shape)
+        return jnp.asarray(a, jnp.int8), torch.from_numpy(a.astype(np.int8))
+    return _both(rng.standard_normal(shape), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("P,page,d,n", [(16, 8, 32, 5), (64, 16, 128, 64),
+                                        (8, 4, 8, 1)])
+def test_gather_plain_matches_reference_kernel(P, page, d, n, dtype):
+    rng = np.random.default_rng(3)
+    jp, tp = _pool(rng, (P, page, d), dtype)
+    ids = rng.choice(P, n, replace=False).astype(np.int32)
+    ref = j_gather(jp, jnp.asarray(ids), interpret=True)
+    out = kv_ops.gather_pages(tp, torch.from_numpy(ids))
+    np.testing.assert_array_equal(_np(out), _np(ref))
+
+
+@pytest.mark.parametrize("P,n", [(2, 1), (9, 4), (32, 16), (17, 17)])
+def test_gather_scatter_roundtrip_matches_reference(P, n):
+    rng = np.random.default_rng(P * 31 + n)
+    pool = rng.standard_normal((P, 8, 16)).astype(np.float32)
+    ids = rng.choice(P, n, replace=False).astype(np.int32)
+    tpool = torch.from_numpy(pool.copy())
+    tids = torch.from_numpy(ids)
+    staging = kv_ops.gather_pages(tpool, tids)
+    kv_ops.scatter_pages(tpool, staging, tids)
+    np.testing.assert_array_equal(tpool.numpy(), pool)
+    new = np.full((n, 8, 16), 7.0, np.float32)
+    ref = j_scatter(jnp.asarray(pool), jnp.asarray(new), jnp.asarray(ids),
+                    interpret=True)
+    out = kv_ops.scatter_pages(tpool, torch.from_numpy(new), tids)
+    assert out is tpool                             # in place
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_gather_scatter_fold_any_payload():
+    """A (P, 2, K, page, hd) KV page moves as flat bytes, like ``_canon``."""
+    rng = np.random.default_rng(9)
+    pool = torch.from_numpy(rng.standard_normal((6, 2, 2, 4, 8)))
+    ids = torch.tensor([4, 1], dtype=torch.int32)
+    staging = kv_ops.gather_pages(pool, ids)
+    assert tuple(staging.shape) == (2, 2, 2, 4, 8)
+    assert torch.equal(staging, pool[[4, 1]])
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    calls = []
+
+    def spy(fn):
+        def wrapped(*a, **k):
+            calls.append(fn.__name__)
+            return fn(*a, **k)
+        return wrapped
+    monkeypatch.setattr(kv_ops, "gather_pages_ref",
+                        spy(kv_ref.gather_pages_ref))
+    monkeypatch.setattr(kv_ops, "scatter_pages_ref",
+                        spy(kv_ref.scatter_pages_ref))
+    monkeypatch.setattr(pa_ops, "append_kv_ref", spy(pa_ref.append_kv_ref))
+    monkeypatch.setattr(pa_ops, "paged_mixed_attention_pool_ref",
+                        spy(pa_ref.paged_mixed_attention_pool_ref))
+    build.reset_launch_counts()
+    x = _mixed_inputs(*MIXED_CASES["ref_plan"])
+    q = torch.from_numpy(x["q"]).float()
+    pool = torch.from_numpy(x["pool"]).float()
+    ids = torch.tensor([1, 2], dtype=torch.int32)
+    kv_ops.scatter_pages(pool, kv_ops.gather_pages(pool, ids), ids)
+    pa_ops.append_kv(pool, q[:2, 0, :2], q[:2, 0, 2:], ids, ids)
+    pa_ops.paged_mixed_attention_pool(
+        q, pool, *[torch.from_numpy(x[k])
+                   for k in ("bt", "starts", "n_reals", "is_dec")])
+    assert calls == ["gather_pages_ref", "scatter_pages_ref",
+                     "append_kv_ref", "paged_mixed_attention_pool_ref"]
+    assert build.launch_counts() == {}              # no kernel launched
+
+
+def test_kernel_modules_import_without_nvcc(monkeypatch, tmp_path):
+    """This module imported every kernel module already; building is what
+    needs nvcc, and without it the build fails loudly, writing nothing."""
+    b = build
+    monkeypatch.setattr(b.shutil, "which", lambda _: None)
+    monkeypatch.setattr(b, "NVCC_DEFAULT", tmp_path / "no-nvcc")
+    monkeypatch.setattr(b, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        b.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_every_csrc_kernel_notes_what_it_replaces():
+    """Each CUDA source names the TPU kernel it replaces, its bound on the
+    card and what its design does about it."""
+    csrc = Path(build.CSRC)
+    sources = sorted(csrc.glob("*.cu"))
+    assert [s.name for s in sources] == ["kv_gather.cu",
+                                         "paged_attention.cu"]
+    for s in sources:
+        text = s.read_text()
+        assert "Replaces" in text or "replaces" in text
+        assert "src/repro/kernels/" in text
+        assert "Bound:" in text and "design" in text.lower()
+    names = set()
+    for s in sources:
+        for line in s.read_text().splitlines():
+            if line.startswith('extern "C" int '):
+                names.add(line.split()[3].split("(")[0])
+    assert names == set(build._SIGNATURES)
