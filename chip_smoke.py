@@ -7,18 +7,25 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — compile the port's CUDA kernels from ``src/repro_torch/csrc``.
-3. kernels — each kernel of the fused serving step against its plain
-   PyTorch version on the card, at the shapes of qwen1.5-0.5b serving
-   (bf16, 16-token pages, 4 decode lanes + 8 chunk rows of 256 tokens):
-   paged mixed attention within 3e-2 absolute (bf16 rounding of the
-   probabilities, as the reference's own kernel test), page append, gather
-   and scatter bit-exact. Each is timed interleaved plain, kernel, kernel,
-   plain with CUDA events, beside the one PyTorch call that computes the
-   same function where there is one, and beside its bound: the larger of
-   the bytes it must move over 3.35 TB/s and its operations over 989
-   TFLOP/s (H100 SXM datasheet). Attention is checked and timed at both
-   shapes the engine packs: the mixed step above and the decode-only step
-   (4 lanes, Tc = 1), reported under ``decode_only``.
+3. kernels — each kernel of the serving paths against its plain PyTorch
+   version on the card, at the shapes of qwen1.5-0.5b serving (bf16,
+   16-token pages, 64 pages per request): paged mixed attention (4 decode
+   lanes + 8 chunk rows of 256 tokens), chunked-prefill attention (one
+   256-token chunk from 512 and from mid-page 200), decode attention over
+   the fused pool and over its split K/V halves (4 lanes at 700/431/255/40)
+   all within 3e-2 absolute (bf16 rounding of the probabilities, as the
+   reference's own kernel tests); page append, gather and scatter
+   bit-exact. Decode over the split halves must equal decode over the pool
+   bit for bit, and in one mixed launch of the 4 lanes and the 256-token
+   chunk each row must equal the per-request kernels' bit for bit. Each
+   kernel's device time comes from CUDA events around back-to-back calls
+   queued behind a device-side wait (interleaved plain, kernel, kernel,
+   plain), beside the one PyTorch call that computes the same function
+   where there is one, and beside its bound: the larger of the bytes it
+   must move over 3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM
+   datasheet). Mixed attention is checked and timed at both shapes the
+   engine packs: the mixed step above and the decode-only step (4 lanes,
+   Tc = 1), reported under ``decode_only``.
 4. layer step — one full-width packed step (24 layers, random seeded
    weights: decode lanes, a mid-page chunk row and pad rows). Per layer, on
    the same input and pool, the attention through the kernels and through
@@ -27,7 +34,22 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    too few must differ by more. Whole step, against the same step in
    float32: the kernel path's logits no further than twice the plain bf16
    path's, and the control further.
-5. engine  — ``ServingEngine`` (CFS, REMOTE donor lease) serves 12 seeded
+5. per-request — the four prompts (700, 431, 255 and 40 tokens) prefilled
+   chunk by chunk, from mid-page starts, through ``api.prefill_chunk_paged``
+   into a ``PagedStateRuntime``, then 32 steps of ``api.decode_step_paged``
+   over the 4 lanes, at full width; its kernels must all launch (counts
+   reset just before, read after). Per layer, at the 40-token prompt's
+   mid-page chunk and at the first decode step, the same checks as phase 4
+   (the decode control swaps the shortest lane's newest page for scratch);
+   each prompt's last-token logits no further from float32 than twice the
+   plain bf16 path's, a one-page-short control further. Then decode over
+   the split K/V halves of that runtime's pool, driven directly for every
+   layer's tables (its own count), equal bit for bit to the pool kernel.
+   Walls and launch counts are printed beside the same prompts served
+   through the fused step (``ServingEngine``, FCFS), with how many greedy
+   tokens the two paths share (reported, not asserted: the GEMMs' tiling
+   changes with the number of rows).
+6. engine  — ``ServingEngine`` (CFS, REMOTE donor lease) serves 12 seeded
    requests at full width; every request finishes, CFS preempts and
    restores, each park/restore is one fabric message, and every kernel of
    the path was launched (counts reset just before the run, read after).
@@ -72,12 +94,51 @@ def ms_timer(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device time per call: ``iters`` calls queued behind a device-side
+    wait long enough for the host to enqueue all of them, so the events
+    bracket back-to-back execution on the card, not the host's launch rate.
+    The wait is lengthened until the enqueue fits inside it."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(2_000_000)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 2_000_000 / start.elapsed_time(end)
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    wait_ms = 3e3 * (time.perf_counter() - t) + 2.0
+    torch.cuda.synchronize()
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(cycles_per_ms * wait_ms))
+        start.record()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        enqueue_ms = 1e3 * (time.perf_counter() - t)
+        end.synchronize()
+        if enqueue_ms < wait_ms:
+            return start.elapsed_time(end) / iters
+        wait_ms *= 2
+    raise AssertionError("device_ms: the host could not enqueue the calls "
+                         "inside the device-side wait")
+
+
 def interleaved(plain, kernel, iters: int):
-    """plain, kernel, kernel, plain: the mean of each side."""
-    p1 = ms_timer(plain, iters)
-    k1 = ms_timer(kernel, iters)
-    k2 = ms_timer(kernel, iters)
-    p2 = ms_timer(plain, iters)
+    """plain, kernel, kernel, plain (device times): the mean of each side."""
+    p1 = device_ms(plain, iters)
+    k1 = device_ms(kernel, iters)
+    k2 = device_ms(kernel, iters)
+    p2 = device_ms(plain, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -174,6 +235,136 @@ def attention_case(torch, np, pool, rng, g, plan, H, read_pps):
                 bound_by=by, library_ms=None)
 
 
+LANES = (700, 431, 255, 40)         # decode lanes' positions, as above
+KERNEL_SRC = "src/repro_torch/csrc/paged_attention.cu"
+TPU_SRC = "src/repro/kernels/paged_attention/kernel.py"
+
+
+def attention_bound(np, bt_np, q_pos_rows, H, hd, page, page_bytes,
+                    io_bytes):
+    """Bound of an attention call from what its data needs: the bytes of q
+    and the output (``io_bytes``), of the pages the unmasked keys live on
+    and of the table entries read, and 4 * hd operations per unmasked
+    (query head, key) pair. ``q_pos_rows``: per table row, the query
+    positions (each attends to keys 0 .. q_pos)."""
+    pairs, pages, entries = 0, set(), 0
+    for r, q_pos in enumerate(q_pos_rows):
+        for p in q_pos:
+            pairs += (int(p) + 1) * H
+        n = int(max(q_pos)) // page + 1
+        pages.update(bt_np[r, :n].tolist())
+        entries += n
+    return bound_ms(io_bytes + len(pages) * page_bytes + entries * 4 + 4
+                    * len(q_pos_rows), 4.0 * pairs * hd)
+
+
+def per_request_kernels(torch, np, pool, rng, g, H, read_pps, report):
+    """The per-request kernels at the engine's shapes, each against its
+    plain version and timed; decode over the split halves against decode
+    over the pool, and both per-request kernels against one mixed launch,
+    bit for bit."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    dev = pool.device
+    P, _, K, page, hd = pool.shape
+    page_bytes = pool[0].numel() * pool.element_size()
+
+    def check(name, out, ref):
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (err <= 3e-2 and torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: max abs err {err}")
+        return err
+
+    # -- chunked prefill: one request's 256-token chunk from 512 (page
+    # aligned) and from 200 (mid-page)
+    cases, chunk = {}, {}
+    Tc = 256
+    for q_start in (512, 200):
+        bt_np = rng.integers(1, P, (1, read_pps)).astype(np.int32)
+        q = torch.randn((1, Tc, H, hd), generator=g, device=dev,
+                        dtype=pool.dtype)
+        args = (q, pool, torch.as_tensor(bt_np).to(dev),
+                torch.tensor([q_start], dtype=torch.int32, device=dev))
+        out = pa_ops.paged_prefill_attention_pool(*args)
+        err = check("paged_prefill_attention_pool", out,
+                    pa_ref.paged_prefill_attention_pool_ref(*args))
+        ms, plain_ms = interleaved(
+            lambda: pa_ref.paged_prefill_attention_pool_ref(*args),
+            lambda: pa_ops.paged_prefill_attention_pool(*args), 10)
+        b, by = attention_bound(np, bt_np, [range(q_start, q_start + Tc)], H,
+                                hd, page, page_bytes,
+                                2 * q.numel() * q.element_size())
+        cases[q_start] = dict(
+            shape=f"B=1 Tc={Tc} q_start={q_start} read_pps={read_pps}",
+            max_abs_err=err, tolerance=3e-2, ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=by, library_ms=None)
+        chunk[q_start] = (args, out)
+    report.append(dict(
+        name="paged_prefill_attention_pool", route="cuda", source=KERNEL_SRC,
+        replaces=f"{TPU_SRC}:245",
+        **{**cases[512], "max_abs_err": max(c["max_abs_err"]
+                                            for c in cases.values())},
+        mid_page=cases[200]))
+
+    # -- decode: 4 lanes at 700/431/255/40, lengths pos + 1, over the pool
+    # and over its split halves read in place
+    B = len(LANES)
+    bt_np = rng.integers(1, P, (B, read_pps)).astype(np.int32)
+    q = torch.randn((B, H, hd), generator=g, device=dev, dtype=pool.dtype)
+    bt = torch.as_tensor(bt_np).to(dev)
+    lengths = torch.tensor(LANES, dtype=torch.int32, device=dev) + 1
+    k_half, v_half = pool[:, 0].movedim(1, 0), pool[:, 1].movedim(1, 0)
+    b, by = attention_bound(np, bt_np, [[p] for p in LANES], H, hd, page,
+                            page_bytes, 2 * q.numel() * q.element_size())
+    shape = f"B={B} lanes {'/'.join(map(str, LANES))} pps={read_pps}"
+    dec_pool = pa_ops.paged_attention_pool(q, pool, bt, lengths)
+    err = check("paged_attention_pool", dec_pool,
+                pa_ref.paged_attention_pool_ref(q, pool, bt, lengths))
+    ms, plain_ms = interleaved(
+        lambda: pa_ref.paged_attention_pool_ref(q, pool, bt, lengths),
+        lambda: pa_ops.paged_attention_pool(q, pool, bt, lengths), 10)
+    report.append(dict(
+        name="paged_attention_pool", route="cuda", source=KERNEL_SRC,
+        replaces=f"{TPU_SRC}:157", shape=shape, max_abs_err=err,
+        tolerance=3e-2, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        library_ms=None))
+    dec_split = pa_ops.paged_attention(q, k_half, v_half, bt, lengths)
+    err = check("paged_attention", dec_split,
+                pa_ref.paged_attention_ref(q, k_half, v_half, bt, lengths))
+    ms, plain_ms = interleaved(
+        lambda: pa_ref.paged_attention_ref(q, k_half, v_half, bt, lengths),
+        lambda: pa_ops.paged_attention(q, k_half, v_half, bt, lengths), 10)
+    report.append(dict(
+        name="paged_attention", route="cuda", source=KERNEL_SRC,
+        replaces=f"{TPU_SRC}:454", shape=shape + " (split K/V views)",
+        max_abs_err=err, tolerance=3e-2, ms=ms, plain_ms=plain_ms,
+        bound_ms=b, bound_by=by, library_ms=None))
+
+    # -- bit for bit: split == pool; one mixed launch of the 4 lanes and
+    # the 256-token chunk from 512 == the per-request kernels' rows
+    if not torch.equal(dec_split, dec_pool):
+        raise AssertionError("paged_attention on the split halves differs "
+                             "from paged_attention_pool on the pool")
+    (cq, _, cbt, cqs), chunk_out = chunk[512]
+    qm = torch.zeros((B + 1, Tc, H, hd), device=dev, dtype=pool.dtype)
+    qm[:B, 0], qm[B] = q, cq[0]
+    starts = torch.cat([lengths - 1, cqs])
+    mixed = pa_ops.paged_mixed_attention_pool(
+        qm, pool, torch.cat([bt, cbt]), starts,
+        torch.tensor([1] * B + [Tc], dtype=torch.int32, device=dev),
+        torch.tensor([1] * B + [0], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    same = (torch.equal(mixed[:B, 0], dec_pool),
+            torch.equal(mixed[B:], chunk_out))
+    print(f"bit-identity: split == pool True; mixed launch decode lanes == "
+          f"paged_attention_pool {same[0]}; chunk row == "
+          f"paged_prefill_attention_pool {same[1]}")
+    if not all(same):
+        raise AssertionError("a mixed launch's rows differ from the "
+                             "per-request kernels' on the same q and pool")
+
+
 def phase_kernels(torch, np, cfg, report):
     from repro_torch.kernels.kv_gather import ops as kv_ops
     from repro_torch.kernels.kv_gather import ref as kv_ref
@@ -205,6 +396,7 @@ def phase_kernels(torch, np, cfg, report):
         **{**mixed, "max_abs_err": max(mixed["max_abs_err"],
                                        decode["max_abs_err"])},
         decode_only=decode))
+    per_request_kernels(torch, np, pool, rng, g, H, read_pps, report)
 
     # -- page append -----------------------------------------------------
     bt_np = rng.integers(1, P, (n_dec, read_pps)).astype(np.int32)
@@ -221,17 +413,30 @@ def phase_kernels(torch, np, cfg, report):
     if not torch.equal(got, want):
         raise AssertionError(f"append_kv differs from its plain version "
                              f"(max abs err {err})")
+    # the one PyTorch call that makes the same write: index_put_ with
+    # broadcast (slot, K|V, head, offset) indices
+    idx = (slots.long()[:, None, None],
+           torch.arange(2, device=dev)[None, :, None],
+           torch.arange(K, device=dev)[None, None, :],
+           offs.long()[:, None, None])
+    kv_rows = torch.stack([k_new, v_new], dim=1)        # (B, 2, K, hd)
+    if not torch.equal(pool.clone().index_put_(idx, kv_rows), want):
+        raise AssertionError("index_put_ differs from append_kv's plain "
+                             "version")
     del got, want
     ms, plain_ms = interleaved(
         lambda: pa_ref.append_kv_ref(pool, k_new, v_new, slots, offs),
+        lambda: pa_ops.append_kv(pool, k_new, v_new, slots, offs), 100)
+    host_ms = ms_timer(
         lambda: pa_ops.append_kv(pool, k_new, v_new, slots, offs), 50)
+    lib = device_ms(lambda: pool.index_put_(idx, kv_rows), 100)
     b, by = bound_ms(4 * k_new.numel() * k_new.element_size() + 2 * n_dec * 4)
     report.append(dict(
         name="append_kv", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:423",
         max_abs_err=err, tolerance=0.0, ms=ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=by, library_ms=None))
+        bound_ms=b, bound_by=by, library_ms=lib, host_ms=host_ms))
 
     # -- gather / scatter: one park of a request at ~800 tokens of context
     n = cfg.n_layers * 50
@@ -245,7 +450,7 @@ def phase_kernels(torch, np, cfg, report):
         raise AssertionError("gather_pages differs from its plain version")
     ms, plain_ms = interleaved(lambda: kv_ref.gather_pages_ref(pool, ids),
                                lambda: kv_ops.gather_pages(pool, ids), 20)
-    lib1 = ms_timer(lambda: torch.index_select(pool, 0, ids64), 20)
+    lib1 = device_ms(lambda: torch.index_select(pool, 0, ids64), 20)
     b, by = bound_ms(2 * n * page_bytes + n * 4)
     report.append(dict(
         name="gather_pages", route="cuda",
@@ -268,7 +473,7 @@ def phase_kernels(torch, np, cfg, report):
     ms, plain_ms = interleaved(
         lambda: kv_ref.scatter_pages_ref(remote, staging, dst),
         lambda: kv_ops.scatter_pages(remote, staging, dst), 20)
-    lib2 = ms_timer(lambda: remote.index_copy_(0, dst64, staging), 20)
+    lib2 = device_ms(lambda: remote.index_copy_(0, dst64, staging), 20)
     report.append(dict(
         name="scatter_pages", route="cuda",
         source="src/repro_torch/csrc/kv_gather.cu",
@@ -276,13 +481,46 @@ def phase_kernels(torch, np, cfg, report):
         max_abs_err=0.0, tolerance=0.0, ms=ms, plain_ms=plain_ms,
         bound_ms=b, bound_by=by, library_ms=lib2))
     for k in report:
-        for case in [k] + ([k["decode_only"]] if "decode_only" in k else []):
+        for case in [k] + [k[sub] for sub in ("decode_only", "mid_page")
+                           if sub in k]:
             print(f"kernel {k['name']} {case.get('shape', '')}: err "
                   f"{case['max_abs_err']:.3g} kernel {case['ms']:.4f} ms "
                   f"plain {case['plain_ms']:.4f} ms bound "
                   f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}) "
-                  f"library {case['library_ms']}")
+                  f"library {case['library_ms']}"
+                  + (f" host-paced {case['host_ms']:.4f} ms"
+                     if "host_ms" in case else ""))
     del pool, remote, staging
+
+
+def per_layer_attention(torch, cfg, model, x, pool, attend, real, keep):
+    """Run the layers from input ``x`` on a copy of ``pool``; at each layer,
+    on the same input and pool, the attention through the kernels, through
+    the plain versions and through the plain versions' control
+    (``attend(mix, h, pool, layer, impl, control) -> (out, pool)``). The
+    plain output carries the layer on. Returns each layer's largest
+    per-token distance to the plain output over the ``real`` tokens,
+    relative to that token's largest output, for the kernel and for the
+    control, and whether the pages written by the kernel and plain paths
+    are equal over the ``keep`` slots."""
+    from repro_torch.layers.core import mlp, rms_norm
+    p_ref = pool.clone()
+    rel = {"kernel": [], "control": []}
+    pages_equal = True
+    for layer, blk in enumerate(model.blocks):
+        h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
+        out_k, p_k = attend(blk.mix, h, p_ref.clone(), layer, "kernel", False)
+        out_c, _ = attend(blk.mix, h, p_ref.clone(), layer, "ref", True)
+        out_r, p_ref = attend(blk.mix, h, p_ref, layer, "ref", False)
+        scale = out_r.float().abs().amax(-1).clamp_min(1e-6)
+        for name, o in (("kernel", out_k), ("control", out_c)):
+            d = (o.float() - out_r.float()).abs().amax(-1) / scale
+            rel[name].append(d[real].max().item())
+        pages_equal &= torch.equal(p_k[keep], p_ref[keep])
+        del p_k
+        x = x + out_r
+        x = x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
+    return rel, pages_equal
 
 
 def phase_layer_step(torch, np, cfg, model, dev):
@@ -301,7 +539,7 @@ def phase_layer_step(torch, np, cfg, model, dev):
     path must be no further than twice the plain bf16 path, and the control
     further."""
     from repro_torch.layers import attention as attn
-    from repro_torch.layers.core import embed, mlp, rms_norm
+    from repro_torch.layers.core import embed
     from repro_torch.models import api
     rng = np.random.default_rng(1)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -331,27 +569,14 @@ def phase_layer_step(torch, np, cfg, model, dev):
     # writes)
     compared = torch.as_tensor(np.arange(Tc)[None] < n_reals[:, None]).to(dev)
     x = embed(model.embed, cfg, torch.as_tensor(tokens).to(dev))
-    p_ref = pool.clone()
-    rel = {"kernel": [], "control": []}
-    pages_equal = True
-    for layer, blk in enumerate(model.blocks):
-        h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
 
-        def run(p, impl, pps):
-            return attn.attention_mixed_paged(
-                blk.mix, cfg, h, p, bt_dev[layer, 0], q_starts, n_reals,
-                n_decode=n_dec, read_pps=pps, impl=impl, meta=meta)
-        out_k, p_k = run(p_ref.clone(), "kernel", read_pps)
-        out_c, _ = run(p_ref.clone(), "ref", short_pps)
-        out_r, p_ref = run(p_ref, "ref", read_pps)
-        scale = out_r.float().abs().amax(-1).clamp_min(1e-6)
-        for name, o in (("kernel", out_k), ("control", out_c)):
-            d = (o.float() - out_r.float()).abs().amax(-1) / scale
-            rel[name].append(d[compared].max().item())
-        pages_equal &= torch.equal(p_k[1:], p_ref[1:])
-        x = x + out_r
-        x = x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
-    del p_k, p_ref, out_k, out_c, out_r
+    def attend(mix, h, p, layer, impl, control):
+        return attn.attention_mixed_paged(
+            mix, cfg, h, p, bt_dev[layer, 0], q_starts, n_reals,
+            n_decode=n_dec, read_pps=short_pps if control else read_pps,
+            impl=impl, meta=meta)
+    rel, pages_equal = per_layer_attention(torch, cfg, model, x, pool,
+                                           attend, compared, slice(1, None))
     lk, lc = max(rel["kernel"]), min(rel["control"])
     print(f"layer step, per layer ({L} layers, R={R} Tc={Tc}): attention "
           f"output max per-row relative diff to plain: kernel {lk:.4g} "
@@ -408,6 +633,266 @@ def phase_layer_step(torch, np, cfg, model, dev):
             f"from float32) must be within twice the plain bf16 path's "
             f"({limit}), and the one-page-short control "
             f"({max(dist['control'])}) beyond it")
+
+
+# the per-request phase's prompts: length -> chunk split; chunks start
+# mid-page (200, 456, 120, 376, 24 with 16-token pages) and stay within the
+# 256-token step budget the engine runs with
+PROMPTS = {700: (200, 256, 244), 431: (120, 256, 55), 255: (255,),
+           40: (24, 16)}
+DECODE_STEPS = 32
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def per_request_run(torch, np, cfg, model, dev, prompts, impl, *,
+                    decode_steps=0, read_pps=None, hook=None):
+    """Serve ``prompts`` [(tokens, chunk split)] through the per-request
+    entry points: each prompt chunk by chunk through
+    ``api.prefill_chunk_paged`` (bucket-padded), then ``decode_steps`` steps
+    of ``api.decode_step_paged`` over all lanes, greedy. Each chunk's and
+    step's wall covers the runtime bookkeeping and the call, synchronised.
+    ``hook(kind, kv, tokens, tables, pos, n_real)`` sees each call's
+    operands just before it runs."""
+    from repro_torch.models import api
+    from repro_torch.serving.kv_cache import PagedStateRuntime
+    from repro_torch.serving.scheduler import bucket_tokens
+    kv = PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=4,
+                           prefix_cache=False, device=dev)
+    pad = kv.pps + 256 // kv.page_tokens + 1
+    run = dict(kv=kv, logits=[], tokens=[], chunk_s=[], step_s=[])
+    for rid, (prompt, split) in enumerate(prompts):
+        pos = 0
+        for c in split:
+            tk = np.zeros((1, bucket_tokens(c)), np.int32)
+            tk[0, :c] = prompt[pos:pos + c]
+            t = time.perf_counter()
+            kv.ensure_capacity(rid, pos + c)
+            bt = kv.block_tables_prefill(rid, pad_to=pad)
+            if hook:
+                hook("prefill", kv, tk, bt, pos, c)
+                t = time.perf_counter()
+            lg, kv.pools = api.prefill_chunk_paged(
+                model, cfg, tk, kv.pools, bt, pos, c - 1,
+                read_pps=read_pps or kv.pps, impl=impl)
+            _sync(torch, dev)
+            run["chunk_s"].append(time.perf_counter() - t)
+            pos += c
+        run["logits"].append(lg[0].float())
+        run["tokens"].append([int(lg[0].argmax())])
+    lanes = list(range(len(prompts)))
+    for step in range(decode_steps):
+        pos = np.asarray([len(p) + step for p, _ in prompts], np.int64)
+        last = np.asarray([t[-1] for t in run["tokens"]], np.int64)
+        t = time.perf_counter()
+        for rid in lanes:
+            kv.ensure_capacity(rid, int(pos[rid]) + 1)
+        bts = kv.block_tables(lanes)
+        if hook:
+            hook("decode", kv, last, bts, pos, len(lanes))
+            t = time.perf_counter()
+        lg, kv.pools = api.decode_step_paged(model, cfg, kv.pools, bts, last,
+                                             pos, impl=impl)
+        _sync(torch, dev)
+        run["step_s"].append(time.perf_counter() - t)
+        for rid, nxt in enumerate(lg.argmax(-1).tolist()):
+            run["tokens"][rid].append(int(nxt))
+    return run
+
+
+def layer_check(torch, np, cfg, model, kind, kv, tokens, tables, pos,
+                n_real):
+    """Phase 4's per-layer check on one per-request call: on the same layer
+    input and pool, the layer's attention through the kernels and through
+    the plain versions writes bit-equal pages (all but scratch) and its
+    output differs by at most ``LAYER_REL_LIMIT`` per real token, relative
+    to that token's output; a control must differ by more. Prefill's
+    control reads one page too few (the page of the chunk's last real
+    token); decode's swaps the shortest lane's newest page for scratch.
+    Each control drops 8 or 9 of a short context's ~40 keys: the layer
+    step of phase 4 showed the limit sees one lost page of 701 keys, so a
+    short context makes the control's margin wide."""
+    from repro_torch.layers import attention as attn
+    from repro_torch.layers.core import embed
+    dev, page = kv.device, kv.page_tokens
+    scratch = kv.planes["kv"].scratch_slot
+    keep = torch.ones(kv.pools["kv"].shape[0], dtype=torch.bool, device=dev)
+    keep[scratch] = False
+    bt = torch.as_tensor(tables["kv"]).to(dev)
+    tok = torch.as_tensor(tokens).to(dev)
+    if kind == "prefill":
+        Tc = tokens.shape[1]
+        meta = attn.step_meta([pos], [Tc], 0, Tc, dev)
+        short = (pos + n_real - 1) // page
+        x = embed(model.embed, cfg, tok)
+
+        def attend(mix, h, p, layer, impl, control):
+            return attn.attention_prefill_chunk(
+                mix, cfg, h, p, bt[layer, 0], pos,
+                read_pps=short if control else kv.pps, impl=impl, meta=meta)
+        real = (slice(0, 1), slice(0, n_real))
+        what = f"prefill chunk from {pos} ({n_real} tokens)"
+        ctrl_what = f"reading {short} of {kv.pps} pages"
+    else:
+        meta = attn.decode_meta(pos, dev)
+        lane = int(np.argmin(pos))
+        bt_c = bt.clone()
+        bt_c[:, 0, lane, int(pos[lane]) // page] = scratch
+        x = embed(model.embed, cfg, tok[:, None])
+
+        def attend(mix, h, p, layer, impl, control):
+            return attn.attention_decode_paged(
+                mix, cfg, h, p, (bt_c if control else bt)[layer, 0], pos,
+                impl=impl, meta=meta)
+        real = (slice(None), slice(None))
+        what = f"decode step of {len(pos)} lanes at {list(map(int, pos))}"
+        ctrl_what = f"lane at {int(pos[lane])} reading scratch for its page"
+    rel, pages_equal = per_layer_attention(torch, cfg, model, x,
+                                           kv.pools["kv"], attend, real, keep)
+    lk, lc = max(rel["kernel"]), min(rel["control"])
+    print(f"per-request, per layer, {what}: attention output max per-token "
+          f"relative diff to plain: kernel {lk:.4g}; control ({ctrl_what}) "
+          f"least {lc:.4g}; written pages equal: {pages_equal}")
+    if not pages_equal:
+        raise AssertionError(f"per-request {kind}: pages written by the "
+                             "kernel path differ from the plain path's")
+    if not lk <= LAYER_REL_LIMIT < lc:
+        raise AssertionError(
+            f"per-request {kind}: kernel vs plain {lk} must be within "
+            f"{LAYER_REL_LIMIT}, and the control ({lc}) beyond it")
+
+
+def _walls(np, label, secs):
+    x = np.asarray(secs) * 1e3
+    return (f"{label} ({len(x)}): p50 {np.percentile(x, 50):.2f} p99 "
+            f"{np.percentile(x, 99):.2f} mean {x.mean():.2f} ms")
+
+
+def phase_per_request(torch, np, cfg, model, dev):
+    """The per-request serving path at full width (module docstring, phase
+    5). Returns {kernel: launches} of its run and of the split-pool
+    drive."""
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_cache import PagedStateRuntime
+    rng = np.random.default_rng(3)
+    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), split)
+               for n, split in PROMPTS.items()]
+
+    # -- the kernel path, counted and timed --------------------------------
+    _sync(torch, dev)
+    build.reset_launch_counts()
+    run = per_request_run(torch, np, cfg, model, dev, prompts, "kernel",
+                          decode_steps=DECODE_STEPS)
+    launches = build.launch_counts()
+    print("per-request (api.prefill_chunk_paged / api.decode_step_paged): "
+          + _walls(np, "prefill chunk wall", run["chunk_s"]) + "; "
+          + _walls(np, "decode step wall", run["step_s"]))
+    print(f"per-request: kernel launches {json.dumps(launches, sort_keys=True)}")
+    need = ("paged_prefill_attention_pool", "paged_attention_pool",
+            "append_kv")
+    if not all(launches.get(k, 0) > 0 for k in need):
+        raise AssertionError(f"per-request run never launched some of {need}")
+    if not all(len(t) == DECODE_STEPS + 1 and all(0 <= v < cfg.vocab_size
+                                                  for v in t)
+               for t in run["tokens"]):
+        raise AssertionError("per-request: wrong greedy tokens")
+
+    # -- split-pool decode, driven directly on every layer's tables --------
+    kv = run.pop("kv")
+    pool = kv.pools["kv"]
+    pos = np.asarray([len(p) + DECODE_STEPS for p, _ in prompts])
+    bts = torch.as_tensor(kv.block_tables(list(range(len(prompts))))["kv"]
+                          ).to(dev)
+    lengths = torch.as_tensor(pos.astype(np.int32)).to(dev)
+    k_half, v_half = pool[:, 0].movedim(1, 0), pool[:, 1].movedim(1, 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    qs = [torch.randn((len(pos), cfg.n_heads, cfg.resolved_head_dim),
+                      generator=g, device=dev, dtype=pool.dtype)
+          for _ in range(cfg.n_layers)]
+    build.reset_launch_counts()
+    split = [pa_ops.paged_attention(qs[l], k_half, v_half, bts[l, 0],
+                                    lengths) for l in range(cfg.n_layers)]
+    split_launches = build.launch_counts()
+    same = all(torch.equal(o, pa_ops.paged_attention_pool(
+        qs[l], pool, bts[l, 0], lengths)) for l, o in enumerate(split))
+    print(f"split-pool decode over the per-request pool, {cfg.n_layers} "
+          f"layers' tables: launches {json.dumps(split_launches)}; equal to "
+          f"paged_attention_pool bit for bit: {same}")
+    if not same or split_launches.get("paged_attention", 0) == 0:
+        raise AssertionError("split-pool decode: not launched, or differs "
+                             "from the pool kernel")
+    del split, qs, k_half, v_half, pool, kv
+
+    # -- per layer, and whole prefills against float32 ---------------------
+    def hook(kind, kv, tokens, tables, pos, n_real):
+        # the 40-token prompt's mid-page chunk, and the one decode step
+        if kind == "decode" or pos == 24:
+            layer_check(torch, np, cfg, model, kind, kv, tokens, tables, pos,
+                        n_real)
+    run_ref = per_request_run(torch, np, cfg, model, dev, prompts, "ref",
+                              decode_steps=1, hook=hook)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    logits = {"kernel": run["logits"], "ref": run_ref["logits"]}
+    del run_ref
+    logits["control"] = per_request_run(
+        torch, np, cfg, model, dev, prompts, "ref",
+        read_pps=max(PROMPTS) // 16)["logits"]
+    logits["f32"] = per_request_run(torch, np, cfg32, model32, dev, prompts,
+                                    "ref")["logits"]
+    del model32
+    dist = {k: [round((a - b).abs().max().item(), 4)
+                for a, b in zip(v, logits["f32"])]
+            for k, v in logits.items() if k != "f32"}
+    limit = 2 * max(dist["ref"])
+    print(f"per-request prefill, last-token logits max abs diff to f32 per "
+          f"prompt {list(PROMPTS)}: {json.dumps(dist)}; limit {limit:.4g}")
+    if not max(dist["kernel"]) <= limit < max(dist["control"]):
+        raise AssertionError(
+            f"per-request prefill: the kernel path's logits "
+            f"({max(dist['kernel'])} from float32) must be within twice the "
+            f"plain bf16 path's ({limit}), and the one-page-short control "
+            f"({max(dist['control'])}) beyond it")
+
+    # -- the same prompts through the fused step, side by side -------------
+    kv = PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=4,
+                           prefix_cache=False, device=dev)
+    eng = ServingEngine(cfg, model, max_running=4, max_seq=1024,
+                        scheduler="fcfs", step_tokens=256,
+                        offload_tier=REMOTE, kv=kv, spec_chunk_ahead=False,
+                        device=dev)
+    reqs = [eng.submit(list(map(int, p)), DECODE_STEPS + 1)
+            for p, _ in prompts]
+    _sync(torch, dev)
+    build.reset_launch_counts()
+    step_s = []
+    while (eng.waiting or eng.running) and len(step_s) < 1000:
+        t = time.perf_counter()
+        eng.step()
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t)
+    fused = build.launch_counts()
+    mixed = np.asarray(eng.metrics.prefill_tokens_trace) > 0
+    step_s = np.asarray(step_s)
+    print("fused (ServingEngine FCFS, same prompts, "
+          f"{DECODE_STEPS + 1} tokens each): {len(step_s)} steps; "
+          + _walls(np, "step wall with prompt chunks", step_s[mixed]) + "; "
+          + _walls(np, "decode-only step wall", step_s[~mixed]))
+    print(f"fused: kernel launches {json.dumps(fused, sort_keys=True)}")
+    agree = [sum(a == b for a, b in zip(r.generated, t))
+             for r, t in zip(reqs, run["tokens"])]
+    print(f"greedy tokens, per-request vs fused, agreeing per prompt "
+          f"{list(PROMPTS)}: {agree} of {DECODE_STEPS + 1} each "
+          f"({sum(agree)} of {len(agree) * (DECODE_STEPS + 1)})")
+    if not all(len(r.generated) == DECODE_STEPS + 1 for r in reqs):
+        raise AssertionError("fused: not every request finished")
+    return launches, split_launches
 
 
 def phase_engine(torch, np, cfg, model, dev):
@@ -516,12 +1001,19 @@ def main() -> int:
     model = lm.init_params(cfg, gen, "cuda")
     dev = torch.device("cuda")
     phase_layer_step(torch, np, cfg, model, dev)
+    per_request, split = phase_per_request(torch, np, cfg, model, dev)
     launches = phase_engine(torch, np, cfg, model, dev)
+    # each kernel's launches on the first path that runs it: the engine
+    # (the fused step), the per-request path, the split-pool drive
+    paths = (("engine", launches), ("per-request", per_request),
+             ("split-pool drive", split))
     for k in report:
-        k["launches"] = int(launches.get(k["name"], 0))
+        k["path"], counts = next(((p, c) for p, c in paths
+                                  if c.get(k["name"], 0) > 0), ("none", {}))
+        k["launches"] = int(counts.get(k["name"], 0))
     missing = [k["name"] for k in report if k["launches"] == 0]
     if missing:
-        raise AssertionError(f"engine run never launched {missing}")
+        raise AssertionError(f"no path launched {missing}")
     print(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

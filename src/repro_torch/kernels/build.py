@@ -28,8 +28,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# -fmad=false: no multiply-add is contracted behind the source's back, so
+# the attention kernels' shared row step rounds the same in every kernel
+# (its own fused multiply-adds are explicit intrinsics).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 
@@ -44,6 +47,12 @@ _SIGNATURES = {
     "aqua_append_kv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P],
     "aqua_mixed_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _L, ctypes.c_float, _I, _P],
+    "aqua_prefill_attention_pool": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _L, ctypes.c_float, _I, _P],
+    "aqua_decode_attention_pool": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _L, ctypes.c_float, _I, _P],
+    "aqua_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _L, _L, _L, ctypes.c_float, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,4 +1,4 @@
-"""Public wrappers for the fused serving step's paged kernels.
+"""Public wrappers for the serving paths' paged kernels.
 
 Dispatch goes by the tensors' device: CPU tensors take the plain versions
 in ``ref.py``; CUDA tensors launch the kernels of ``csrc/paged_attention.cu``
@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import (
-    append_kv_ref, paged_mixed_attention_pool_ref)
+    append_kv_ref, paged_attention_pool_ref, paged_attention_ref,
+    paged_mixed_attention_pool_ref, paged_prefill_attention_pool_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -23,6 +24,147 @@ def _index(name, *ts):
     for t in ts:
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: index operands must be int32")
+
+
+def _heads(name, q, H, K, hd, pool_dtype):
+    if H % K:
+        raise ValueError(f"{name}: {H} query heads are not a multiple of "
+                         f"{K} kv heads")
+    if hd % 32 or hd > 128:
+        raise ValueError(f"{name}: head_dim {hd} must be a multiple of 32, "
+                         "at most 128")
+    if q.dtype != pool_dtype or q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: q and pool must share float32 or "
+                         f"bfloat16, got {q.dtype} and {pool_dtype}")
+
+
+def _table(name, q, block_tables, B):
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"{name}: block_tables must be (B, pages)")
+    if block_tables.device != q.device or block_tables.stride(1) != 1:
+        raise ValueError(f"{name}: block_tables must be on q's device with "
+                         "unit stride along pages")
+
+
+def _per_seq(name, t, B):
+    if tuple(t.shape) != (B,):
+        raise ValueError(f"{name}: per-sequence operand must be ({B},), got "
+                         f"{tuple(t.shape)}")
+
+
+def _scale(scale, hd):
+    return float(scale if scale is not None else 1.0 / math.sqrt(hd))
+
+
+def paged_prefill_attention_pool(q, kv_pool, block_tables, q_starts, *,
+                                 scale: Optional[float] = None):
+    """Chunked-prefill attention over the page pool: chunk token t of
+    sequence b at q_starts[b] + t attends to keys at positions <= it.
+
+    q: (B,Tc,H,hd); kv_pool: (P,2,K,page,hd) of q's dtype; block_tables:
+    (B, read_pps) int32 pool slots; q_starts: (B,) int32. -> (B,Tc,H,hd)
+    """
+    if q.device.type == "cpu":
+        return paged_prefill_attention_pool_ref(q, kv_pool, block_tables,
+                                                q_starts, scale=scale)
+    name = "paged_prefill_attention_pool"
+    B, Tc, H, hd = q.shape
+    P, two, K, page, hd2 = kv_pool.shape
+    if two != 2 or hd2 != hd:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match pool "
+                         f"{tuple(kv_pool.shape)}")
+    _heads(name, q, H, K, hd, kv_pool.dtype)
+    _per_seq(name, q_starts, B)
+    _index(name, block_tables, q_starts)
+    build.require_cuda(name, q, kv_pool, q_starts)
+    _table(name, q, block_tables, B)
+    out = torch.empty_like(q)
+    rc = build.lib().aqua_prefill_attention_pool(
+        q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
+        q_starts.data_ptr(), out.data_ptr(), B, Tc, H, K, page, hd,
+        block_tables.shape[1], block_tables.stride(0), P, _scale(scale, hd),
+        _DTYPE_CODES[q.dtype], build.stream_of(q))
+    build.check(name, rc)
+    build.LAUNCHES[name] += 1
+    return out
+
+
+def paged_attention_pool(q, kv_pool, block_tables, lengths, *,
+                         scale: Optional[float] = None):
+    """Decode attention over the page pool: one query token per sequence,
+    keys at positions < lengths[b].
+
+    q: (B,H,hd); kv_pool: (P,2,K,page,hd) of q's dtype; block_tables:
+    (B, pps) int32 pool slots; lengths: (B,) int32. -> (B,H,hd)
+    """
+    if q.device.type == "cpu":
+        return paged_attention_pool_ref(q, kv_pool, block_tables, lengths,
+                                        scale=scale)
+    name = "paged_attention_pool"
+    B, H, hd = q.shape
+    P, two, K, page, hd2 = kv_pool.shape
+    if two != 2 or hd2 != hd:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match pool "
+                         f"{tuple(kv_pool.shape)}")
+    _heads(name, q, H, K, hd, kv_pool.dtype)
+    _per_seq(name, lengths, B)
+    _index(name, block_tables, lengths)
+    build.require_cuda(name, q, kv_pool, lengths)
+    _table(name, q, block_tables, B)
+    out = torch.empty_like(q)
+    rc = build.lib().aqua_decode_attention_pool(
+        q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, H, K, page, hd,
+        block_tables.shape[1], block_tables.stride(0), P, _scale(scale, hd),
+        _DTYPE_CODES[q.dtype], build.stream_of(q))
+    build.check(name, rc)
+    build.LAUNCHES[name] += 1
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                    scale: Optional[float] = None):
+    """Decode attention over split K and V pools (K,P,page,hd). The pools
+    may be strided along (K, P), as the halves ``pool[:, 0|1]
+    .movedim(1, 0)`` of the fused pool are; each page's (page, hd) block
+    must be contiguous, and K and V must share their strides.
+
+    q: (B,H,hd); block_tables: (B, pps) int32 page ids; lengths: (B,) int32.
+    -> (B,H,hd)
+    """
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   lengths, scale=scale)
+    name = "paged_attention"
+    B, H, hd = q.shape
+    K, P, page, hd2 = k_pages.shape
+    if hd2 != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match pools "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    if v_pages.stride() != k_pages.stride() \
+            or k_pages.stride()[2:] != (hd, 1):
+        raise ValueError(f"{name}: K and V must share strides, each page's "
+                         "(page, head_dim) block contiguous")
+    if v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"{name}: K and V pools of different dtypes")
+    _heads(name, q, H, K, hd, k_pages.dtype)
+    _per_seq(name, lengths, B)
+    _index(name, block_tables, lengths)
+    build.require_cuda(name, q, lengths)
+    for t in (k_pages, v_pages):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
+    _table(name, q, block_tables, B)
+    out = torch.empty_like(q)
+    rc = build.lib().aqua_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, K,
+        page, hd, block_tables.shape[1], block_tables.stride(0),
+        k_pages.stride(0), k_pages.stride(1), P, _scale(scale, hd),
+        _DTYPE_CODES[q.dtype], build.stream_of(q))
+    build.check(name, rc)
+    build.LAUNCHES[name] += 1
+    return out
 
 
 def paged_mixed_attention_pool(q, kv_pool, block_tables, q_starts, n_reals,
@@ -41,33 +183,21 @@ def paged_mixed_attention_pool(q, kv_pool, block_tables, q_starts, n_reals,
     name = "paged_mixed_attention_pool"
     R, Tc, H, hd = q.shape
     P, two, K, page, hd2 = kv_pool.shape
-    if two != 2 or hd2 != hd or H % K:
+    if two != 2 or hd2 != hd:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match pool "
                          f"{tuple(kv_pool.shape)}")
-    if hd % 32 or hd > 128:
-        raise ValueError(f"{name}: head_dim {hd} must be a multiple of 32, "
-                         "at most 128")
-    if q.dtype != kv_pool.dtype or q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: q and pool must share float32 or "
-                         f"bfloat16, got {q.dtype} and {kv_pool.dtype}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != R:
-        raise ValueError(f"{name}: block_tables must be (R, read_pps)")
+    _heads(name, q, H, K, hd, kv_pool.dtype)
     for t in (q_starts, n_reals, is_decode):
-        if tuple(t.shape) != (R,):
-            raise ValueError(f"{name}: per-row metadata must be (R,)")
+        _per_seq(name, t, R)
     _index(name, block_tables, q_starts, n_reals, is_decode)
     build.require_cuda(name, q, kv_pool, q_starts, n_reals, is_decode)
-    if block_tables.device != q.device or block_tables.stride(1) != 1:
-        raise ValueError(f"{name}: block_tables must be on q's device with "
-                         "unit stride along pages")
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    _table(name, q, block_tables, R)
     out = torch.empty_like(q)
-    lib = build.lib()
-    rc = lib.aqua_mixed_attention(
+    rc = build.lib().aqua_mixed_attention(
         q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
         q_starts.data_ptr(), n_reals.data_ptr(), is_decode.data_ptr(),
         out.data_ptr(), R, Tc, H, K, page, hd, block_tables.shape[1],
-        block_tables.stride(0), P, float(scale), _DTYPE_CODES[q.dtype],
+        block_tables.stride(0), P, _scale(scale, hd), _DTYPE_CODES[q.dtype],
         build.stream_of(q))
     build.check(name, rc)
     build.LAUNCHES[name] += 1

@@ -1,13 +1,86 @@
-"""Plain PyTorch versions of the fused serving step's paged kernels: the
-CPU path of ``ops.py`` and the oracle the CUDA kernels are held against.
-They mirror the reference's jnp oracles (``repro/kernels/paged_attention/
-ref.py``) operation for operation."""
+"""Plain PyTorch versions of the serving paths' paged kernels: the CPU path
+of ``ops.py`` and the oracle the CUDA kernels are held against. They mirror
+the reference's jnp oracles (``repro/kernels/paged_attention/ref.py``)
+operation for operation."""
 from __future__ import annotations
 
 import math
 from typing import Optional
 
 import torch
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                        scale: Optional[float] = None):
+    """Decode attention over split K and V page pools.
+
+    q: (B,H,hd) one query token per sequence; k_pages/v_pages: (K,P,page,hd);
+    block_tables: (B,pps) page ids per sequence; lengths: (B,) tokens present
+    per sequence (keys at positions < lengths[b] attend; a sequence with
+    lengths 0 gets the uniform mean over all pps * page keys).
+    -> (B,H,hd)
+    """
+    B, H, hd = q.shape
+    K, _, page, _ = k_pages.shape
+    G = H // K
+    pps = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+
+    bt = block_tables.long()
+    kg = k_pages[:, bt].movedim(1, 0).reshape(B, K, pps * page, hd)
+    vg = v_pages[:, bt].movedim(1, 0).reshape(B, K, pps * page, hd)
+
+    qg = q.reshape(B, K, G, hd)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, kg).float() * scale
+    pos = torch.arange(pps * page, device=q.device)[None, None, None, :]
+    mask = pos < lengths.long()[:, None, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgs,bksd->bkgd", probs, vg)
+    return out.reshape(B, H, hd)
+
+
+def paged_attention_pool_ref(q, kv_pool, block_tables, lengths,
+                             scale: Optional[float] = None):
+    """The same over the fused page-major pool (P,2,K,page,hd)."""
+    k_pages = kv_pool[:, 0].movedim(1, 0)              # (K,P,page,hd)
+    v_pages = kv_pool[:, 1].movedim(1, 0)
+    return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                               scale=scale)
+
+
+def paged_prefill_attention_pool_ref(q, kv_pool, block_tables, q_starts,
+                                     scale: Optional[float] = None):
+    """Chunked-prefill attention over the fused pool: chunk token t of
+    sequence b sits at q_starts[b] + t and attends to keys at positions
+    <= q_starts[b] + t, at every row (bucket padding included).
+
+    q: (B,Tc,H,hd); kv_pool: (P,2,K,page,hd); block_tables: (B,pps);
+    q_starts: (B,). -> (B,Tc,H,hd)
+    """
+    B, Tc, H, hd = q.shape
+    _, _, K, page, _ = kv_pool.shape
+    G = H // K
+    pps = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+
+    bt = block_tables.long()
+    k_pages = kv_pool[:, 0].movedim(1, 0)              # (K,P,page,hd)
+    v_pages = kv_pool[:, 1].movedim(1, 0)
+    kg = k_pages[:, bt].movedim(1, 0).reshape(B, K, pps * page, hd)
+    vg = v_pages[:, bt].movedim(1, 0).reshape(B, K, pps * page, hd)
+
+    qg = q.reshape(B, Tc, K, G, hd)
+    scores = torch.einsum("btkgd,bksd->bkgts", qg, kg).float() * scale
+    k_pos = torch.arange(pps * page, device=q.device)[None, None, None, None]
+    q_pos = (q_starts.long()[:, None]
+             + torch.arange(Tc, device=q.device)[None, :])[:, None, None, :,
+                                                          None]
+    scores = torch.where(k_pos <= q_pos, scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bksd->bkgtd", probs, vg)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Tc, H, hd)
 
 
 def paged_mixed_attention_pool_ref(q, kv_pool, block_tables, q_starts,

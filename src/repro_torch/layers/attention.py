@@ -1,5 +1,6 @@
 """GQA attention against the paged KV pool — the paged half of
-``repro/layers/attention.py`` that the fused serving step runs.
+``repro/layers/attention.py``: the fused serving step's mixed attention and
+the per-request chunked-prefill and decode attention.
 
 ``impl='kernel'`` routes to ``kernels/paged_attention`` (the CUDA kernels on
 a CUDA device, their plain versions on the CPU); ``impl='ref'`` calls the
@@ -18,7 +19,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
-    append_kv_ref, paged_mixed_attention_pool_ref)
+    append_kv_ref, paged_attention_pool_ref, paged_mixed_attention_pool_ref,
+    paged_prefill_attention_pool_ref)
 from repro_torch.layers.core import Linear, apply_rope, linear
 
 
@@ -73,6 +75,97 @@ def write_chunk_pages(kv_pool, k, v, window, offset: int, *,
     return kv_pool
 
 
+def _check_impl(impl: str):
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
+
+
+def _window_pages(Tc: int, page: int) -> int:
+    """Pages a chunk's write window spans: ceil(Tc/page) + 1 (a mid-page
+    chunk start touches one extra page)."""
+    return Tc // page + (1 if Tc % page else 0) + 1
+
+
+def attention_prefill_chunk(p: Attention, cfg: ModelConfig, x, kv_pool,
+                            block_table, q_start: int, *,
+                            read_pps: Optional[int] = None,
+                            impl: str = "kernel", meta=None):
+    """Chunked prefill attention for ONE request.
+
+    x: (1,Tc,d) — one chunk of the prompt at absolute positions
+    ``q_start + [0, Tc)``; kv_pool: (P,2,K,page,hd); block_table: (pps_pad,)
+    int32 LOCAL slots of the request's pages from position 0, scratch-padded,
+    on the pool's device; q_start: host int. ``meta`` optionally carries the
+    device copies ``step_meta`` makes once per chunk (shared by every
+    layer).
+
+    The chunk's K/V is written into its page window first, then the chunk
+    attends to every page written so far (causal within the chunk, bucket
+    padding included) in one ``paged_prefill_attention_pool`` launch.
+    ``read_pps`` bounds the attention sweep to the pages a request can own:
+    the table's tail entries exist only so the write window stays in
+    bounds, and always point at scratch. Returns (out (1,Tc,d), pool).
+    """
+    _check_impl(impl)
+    B, Tc, _ = x.shape
+    if B != 1:
+        raise ValueError(f"chunked prefill is per-request, got {B} rows")
+    page = kv_pool.shape[3]
+    if meta is None:
+        meta = step_meta([q_start], [Tc], 0, Tc, x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, meta["positions"])
+    start = q_start // page
+    win = block_table[start:start + _window_pages(Tc, page)].long()
+    write_chunk_pages(kv_pool, k_new, v_new, win, q_start % page,
+                      page_tokens=page)
+    bt = block_table[None, :read_pps]
+    if impl == "kernel":
+        ctx = pa_ops.paged_prefill_attention_pool(q, kv_pool, bt,
+                                                  meta["q_starts"])
+    else:
+        ctx = paged_prefill_attention_pool_ref(q, kv_pool, bt,
+                                               meta["q_starts"])
+    out = linear(p.wo, ctx.reshape(B, Tc, -1))
+    return out, kv_pool
+
+
+def attention_decode_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
+                           block_table, pos, *, impl: str = "kernel",
+                           meta=None):
+    """One-token decode for a batch of lanes against the page pool.
+
+    x: (B,1,d); kv_pool: (P,2,K,page,hd); block_table: (B,pps) int32 LOCAL
+    slots on the pool's device (idle lanes point at scratch); pos: (B,) host
+    positions of the new tokens. ``meta`` optionally carries the device
+    copies ``decode_meta`` makes once per step.
+
+    Each lane's K/V is appended in place through the page-append writer,
+    then every lane attends to its keys at positions <= pos in one
+    ``paged_attention_pool`` launch over the whole table. Returns
+    (out (B,1,d), pool).
+    """
+    _check_impl(impl)
+    B = x.shape[0]
+    page = kv_pool.shape[3]
+    if meta is None:
+        meta = decode_meta(pos, x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, meta["positions"])
+    pos_d = meta["q_starts"]
+    slot = torch.gather(block_table, 1, (pos_d // page)[:, None].long())[:, 0]
+    off = pos_d % page
+    qd, kd, vd = q[:, 0], k_new[:, 0], v_new[:, 0]
+    if impl == "kernel":
+        pa_ops.append_kv(kv_pool, kd, vd, slot.contiguous(), off)
+        ctx = pa_ops.paged_attention_pool(qd, kv_pool, block_table,
+                                          meta["lengths"])
+    else:
+        append_kv_ref(kv_pool, kd, vd, slot, off)
+        ctx = paged_attention_pool_ref(qd, kv_pool, block_table,
+                                       meta["lengths"])
+    out = linear(p.wo, ctx.reshape(B, 1, -1))
+    return out, kv_pool
+
+
 def attention_mixed_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
                           block_table, q_starts, n_reals, *, n_decode: int,
                           read_pps: Optional[int] = None,
@@ -94,8 +187,7 @@ def attention_mixed_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
     writes its read-modify-write page window, then every row attends in
     one ``paged_mixed_attention_pool`` launch. Returns (out (R,Tc,d), pool).
     """
-    if impl not in ("kernel", "ref"):
-        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
+    _check_impl(impl)
     R, Tc, _ = x.shape
     page = kv_pool.shape[3]
     if meta is None:
@@ -114,7 +206,7 @@ def attention_mixed_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
         else:
             append_kv_ref(kv_pool, kd, vd, slot, off)
     qs = np.asarray(q_starts)
-    pps_win = Tc // page + (1 if Tc % page else 0) + 1
+    pps_win = _window_pages(Tc, page)
     for r in range(n_decode, R):
         # chunk rows: the per-request page-window read-modify-write (pad
         # rows rewrite the scratch window, never read unmasked)
@@ -145,3 +237,12 @@ def step_meta(q_starts, n_reals, n_decode: int, Tc: int, device) -> dict:
                                            device=device)[None, :]
     return {"q_starts": qs, "n_reals": nr, "is_decode": is_dec,
             "positions": positions}
+
+
+def decode_meta(pos, device) -> dict:
+    """Device copies of a decode step's lane positions (int32), their token
+    positions (B,1) and lengths pos + 1, made once per step and shared by
+    every layer."""
+    meta = step_meta(pos, np.ones(len(pos), np.int32), len(pos), 1, device)
+    meta["lengths"] = meta["q_starts"] + 1
+    return meta

@@ -1,5 +1,6 @@
 """Uniform model API of the paged serving runtime (the part of
-``repro/models/api.py`` the fused engine step calls)."""
+``repro/models/api.py`` the serving paths call): the fused engine step and
+the per-request chunked prefill and decode it is held against."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -12,6 +13,23 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 def paged_layout(cfg: ModelConfig) -> dict:
     return lm.paged_layout(cfg)
+
+
+def prefill_chunk_paged(model, cfg: ModelConfig, tokens, pools, block_tables,
+                        q_start: int, last_index: int, *, read_pps=None,
+                        impl: str = "kernel"):
+    """One bucket-padded prompt chunk of one request -> (logits (1,V) of
+    ``last_index``, pools)."""
+    return lm.prefill_chunk_paged(model, cfg, tokens, pools, block_tables,
+                                  q_start, last_index, read_pps=read_pps,
+                                  impl=impl)
+
+
+def decode_step_paged(model, cfg: ModelConfig, pools, block_tables, tokens,
+                      pos, *, impl: str = "kernel"):
+    """One token for every decode lane -> (logits (B,V), pools)."""
+    return lm.decode_step_paged(model, cfg, pools, block_tables, tokens, pos,
+                                impl=impl)
 
 
 def serve_step_paged(model, cfg: ModelConfig, tokens, pools, block_tables,

@@ -83,6 +83,83 @@ def paged_layout(cfg: ModelConfig) -> dict:
                        shareable=True)}
 
 
+def _device_tables(name: str, block_tables: dict, pool) -> torch.Tensor:
+    """The kv plane's host block tables as int32 on the pool's device,
+    after checking on the host that every slot lies in the pool."""
+    bt_host = np.asarray(block_tables["kv"])
+    if bt_host.size and (bt_host.min() < 0 or bt_host.max() >= pool.shape[0]):
+        raise ValueError(f"{name}: block table slot outside the pool of "
+                         f"{pool.shape[0]} pages")
+    return torch.as_tensor(bt_host.astype(np.int32)).to(pool.device)
+
+
+def _layer(blk: Block, cfg: ModelConfig, x, attend):
+    """One pre-norm layer; ``attend(mix, h) -> out`` runs the attention."""
+    x = x + attend(blk.mix, rms_norm(blk.n1, x, cfg.rmsnorm_eps))
+    return x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
+
+
+def prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, tokens, pools,
+                        block_tables, q_start: int, last_index: int, *,
+                        read_pps: Optional[int] = None, impl: str = "kernel"):
+    """Prefill ONE CHUNK of one request, writing its K/V straight into the
+    page pool.
+
+    tokens: (1, Tc) int — the chunk, bucket-padded (rows past the real
+    length are attended causally like any other and overwritten by later
+    chunks or decode); pools: {"kv": (P,2,K,page,hd)} LOCAL pool, updated in
+    place; block_tables: {"kv": (n_layers, 1, pps_pad)} int32 slots from
+    position 0, scratch-padded (``PagedStateRuntime.block_tables_prefill``);
+    q_start: the chunk's absolute start position; last_index: the row whose
+    logits the caller wants. ``read_pps`` bounds the attention sweep.
+    -> (logits (1, V) of ``last_index``, pools)
+    """
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: not paged-servable by the port")
+    pool = pools["kv"]
+    bt = _device_tables("prefill_chunk_paged", block_tables, pool)
+    tokens = torch.as_tensor(np.asarray(tokens)).to(pool.device)
+    if tokens.shape[0] != 1:
+        raise ValueError("chunked prefill is per-request")
+    Tc = tokens.shape[1]
+    meta = attn.step_meta([q_start], [Tc], 0, Tc, pool.device)
+
+    x = embed(model.embed, cfg, tokens)
+    for layer, blk in enumerate(model.blocks):
+        x = _layer(blk, cfg, x, lambda mix, h: attn.attention_prefill_chunk(
+            mix, cfg, h, pool, bt[layer, 0], q_start, read_pps=read_pps,
+            impl=impl, meta=meta)[0])
+    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
+    logits = unembed(model.embed, cfg, x[:, int(last_index)])
+    return logits, {**pools, "kv": pool}
+
+
+def decode_step_paged(model: DenseLM, cfg: ModelConfig, pools, block_tables,
+                      tokens, pos, *, impl: str = "kernel"):
+    """One token for every lane against the page pool.
+
+    tokens / pos: (B,) host ints — each lane's next token and its position
+    (idle lanes: token 0 at position 0 on scratch); pools: {"kv": pool}
+    updated in place; block_tables: {"kv": (n_layers, 1, B, pps)} int32
+    LOCAL slots (``PagedStateRuntime.block_tables``).
+    -> (logits (B, V), pools)
+    """
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: not paged-servable by the port")
+    pool = pools["kv"]
+    bt = _device_tables("decode_step_paged", block_tables, pool)
+    pos = np.asarray(pos, np.int64).reshape(-1)
+    meta = attn.decode_meta(pos, pool.device)
+    tokens = torch.as_tensor(np.asarray(tokens).reshape(-1, 1)).to(pool.device)
+
+    x = embed(model.embed, cfg, tokens)
+    for layer, blk in enumerate(model.blocks):
+        x = _layer(blk, cfg, x, lambda mix, h: attn.attention_decode_paged(
+            mix, cfg, h, pool, bt[layer, 0], pos, impl=impl, meta=meta)[0])
+    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
+    return unembed(model.embed, cfg, x[:, 0]), {**pools, "kv": pool}
+
+
 def serve_step_paged(model: DenseLM, cfg: ModelConfig, tokens, pools,
                      block_tables, q_starts, n_reals, *, n_decode: int,
                      read_pps: Optional[int] = None, impl: str = "kernel"):
@@ -105,11 +182,7 @@ def serve_step_paged(model: DenseLM, cfg: ModelConfig, tokens, pools,
         raise ValueError(f"{cfg.name}: not paged-servable by the port")
     pool = pools["kv"]
     device = pool.device
-    bt_host = np.asarray(block_tables["kv"])
-    if bt_host.size and (bt_host.min() < 0 or bt_host.max() >= pool.shape[0]):
-        raise ValueError("serve_step_paged: block table slot outside the "
-                         f"pool of {pool.shape[0]} pages")
-    bt = torch.as_tensor(bt_host.astype(np.int32)).to(device)
+    bt = _device_tables("serve_step_paged", block_tables, pool)
     tokens = torch.as_tensor(np.asarray(tokens)).to(device)
     R, Tc = tokens.shape
     qs = np.asarray(q_starts, np.int64).reshape(-1)
@@ -118,13 +191,9 @@ def serve_step_paged(model: DenseLM, cfg: ModelConfig, tokens, pools,
 
     x = embed(model.embed, cfg, tokens)
     for layer, blk in enumerate(model.blocks):
-        h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
-        h, pool = attn.attention_mixed_paged(
-            blk.mix, cfg, h, pool, bt[layer, 0], qs, nr, n_decode=n_decode,
-            read_pps=read_pps, impl=impl, meta=meta)
-        x = x + h
-        h = rms_norm(blk.n2, x, cfg.rmsnorm_eps)
-        x = x + mlp(blk.ffn, cfg, h)
+        x = _layer(blk, cfg, x, lambda mix, h: attn.attention_mixed_paged(
+            mix, cfg, h, pool, bt[layer, 0], qs, nr, n_decode=n_decode,
+            read_pps=read_pps, impl=impl, meta=meta)[0])
     x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
     last_idx = torch.as_tensor(np.clip(nr - 1, 0, Tc - 1)).to(device)
     last = x[torch.arange(R, device=device), last_idx]

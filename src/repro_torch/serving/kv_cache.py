@@ -625,6 +625,20 @@ class PagedStateRuntime:
                 for n, p in self.planes.items()}
 
     # -- block tables (the step operands) ----------------------------------
+    def block_tables_prefill(self, rid: int, pad_to: Optional[int] = None
+                             ) -> Dict[str, np.ndarray]:
+        """One request's tables from position 0: per plane a host
+        (G, n_sub, pad_to) int32 table of LOCAL slots, scratch-padded.
+        Chunked prefill passes a fixed ``pad_to`` (pps plus the write-window
+        spill) so every chunk's window slice stays in bounds."""
+        out = {}
+        for name, plane in self.planes.items():
+            rows = plane.pages[rid]
+            bt = plane.aqua.block_tables(rows, pad_to=pad_to or len(rows[0]),
+                                         pad_slot=plane.scratch_slot)
+            out[name] = bt.reshape(self.G, plane.n_sub, -1)
+        return out
+
     def block_tables(self, lane_rids: Sequence[Optional[int]],
                      pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Packed row query: per plane a host (G, n_sub, B, pad_to) int32

@@ -7,7 +7,10 @@ so it runs on a card's machine as it is:
 
 Tolerances: attention 3e-5 in float32, 3e-2 in bfloat16 (the plain version
 rounds the probabilities to bfloat16 before the value product); append,
-gather and scatter bit-exact.
+gather and scatter bit-exact. The attention kernels share one row step, so
+decode over split pools equals decode over the fused pool, and a mixed
+launch's decode lanes and chunk rows equal the per-request kernels' rows,
+bit for bit.
 """
 import numpy as np
 import pytest
@@ -140,3 +143,143 @@ def test_cuda_decode_only_cut_matches_full_sweep(dtype):
     cut = pa_ops.paged_mixed_attention_pool(q1, pool, *meta)
     swept = pa_ops.paged_mixed_attention_pool(q8, pool, *meta)
     assert torch.equal(cut[:, 0], swept[:, 0])
+
+
+# (B, H, K, hd, P, page, pps) and lengths: a row at 1, a row at 0 (the
+# uniform mean over every page), full and mid-page lengths
+DECODE_CASES = {
+    "gqa": ((2, 4, 2, 64, 16, 8, 4), [1, 0]),
+    "mha_qwen": ((4, 16, 16, 64, 40, 16, 8), [128, 77, 1, 0]),
+    "mqa_wide_page": ((3, 8, 1, 64, 20, 40, 3), [100, 41, 0]),
+    "hd128": ((2, 8, 8, 128, 8, 8, 8), [64, 13]),
+}
+# (B, Tc, H, K, hd, P, page, pps, starts): mid-page chunk starts
+PREFILL_CASES = {
+    "ref_plan": (2, 6, 4, 2, 32, 16, 8, 4, [3, 10]),
+    "mha_midpage": (2, 40, 16, 16, 64, 30, 16, 8, [0, 53]),
+    "gqa_many_rows": (1, 24, 8, 2, 64, 12, 16, 4, [9]),
+}
+
+
+def _decode_case(case, dev, td, seed=6):
+    (B, H, K, hd, P, page, pps), lengths = DECODE_CASES[case]
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd))).to(dev, td)
+    pool = torch.from_numpy(rng.standard_normal((P, 2, K, page, hd))).to(
+        dev, td)
+    bt = torch.from_numpy(rng.integers(0, P, (B, pps)).astype(np.int32))
+    return q, pool, bt.to(dev), torch.tensor(lengths, dtype=torch.int32,
+                                             device=dev)
+
+
+def _split(pool):
+    return pool[:, 0].movedim(1, 0), pool[:, 1].movedim(1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_cuda_decode_attention_matches_plain(case, dtype):
+    dev = _cuda()
+    q, pool, bt, ln = _decode_case(case, dev, DTYPES[dtype])
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    want = pa_ref.paged_attention_pool_ref(q, pool, bt, ln)
+    for got in (pa_ops.paged_attention_pool(q, pool, bt, ln),
+                pa_ops.paged_attention(q, *_split(pool), bt, ln)):
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_cuda_prefill_attention_matches_plain(case, dtype):
+    dev = _cuda()
+    B, Tc, H, K, hd, P, page, pps, starts = PREFILL_CASES[case]
+    rng = np.random.default_rng(7)
+    td = DTYPES[dtype]
+    q = torch.from_numpy(rng.standard_normal((B, Tc, H, hd))).to(dev, td)
+    pool = torch.from_numpy(rng.standard_normal((P, 2, K, page, hd))).to(
+        dev, td)
+    bt = torch.from_numpy(rng.integers(0, P, (B, pps)).astype(np.int32)).to(
+        dev)
+    qs = torch.tensor(starts, dtype=torch.int32, device=dev)
+    got = pa_ops.paged_prefill_attention_pool(q, pool, bt, qs)
+    want = pa_ref.paged_prefill_attention_pool_ref(q, pool, bt, qs)
+    torch.cuda.synchronize()
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_split_pools_equal_fused_pool_bitwise(dtype):
+    """Decode over the split halves, read in place as strided views or
+    copied out contiguous, equals decode over the fused pool."""
+    dev = _cuda()
+    q, pool, bt, ln = _decode_case("mha_qwen", dev, DTYPES[dtype])
+    fused = pa_ops.paged_attention_pool(q, pool, bt, ln)
+    k, v = _split(pool)
+    assert not k.is_contiguous()
+    assert torch.equal(pa_ops.paged_attention(q, k, v, bt, ln), fused)
+    assert torch.equal(pa_ops.paged_attention(q, k.contiguous(),
+                                              v.contiguous(), bt, ln), fused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_cuda_per_request_kernels_equal_mixed_rows_bitwise(G, dtype):
+    """One mixed launch of 3 decode lanes and 2 chunk rows (one from a
+    mid-page start): each decode lane equals the decode kernel's row and
+    each chunk row the prefill kernel's, on the same q and pool."""
+    dev = _cuda()
+    td = DTYPES[dtype]
+    rng = np.random.default_rng(8)
+    K, hd, P, page, pps, Tc = 4, 64, 40, 16, 6, 24
+    H = K * G
+    q = torch.from_numpy(rng.standard_normal((5, Tc, H, hd))).to(dev, td)
+    pool = torch.from_numpy(rng.standard_normal((P, 2, K, page, hd))).to(
+        dev, td)
+    bt = torch.from_numpy(rng.integers(0, P, (5, pps)).astype(np.int32)).to(
+        dev)
+    starts = torch.tensor([90, 0, 47, 37, 0], dtype=torch.int32, device=dev)
+    n_reals = torch.tensor([1, 1, 1, 24, 11], dtype=torch.int32, device=dev)
+    is_dec = torch.tensor([1, 1, 1, 0, 0], dtype=torch.int32, device=dev)
+    mixed = pa_ops.paged_mixed_attention_pool(q, pool, bt, starts, n_reals,
+                                              is_dec)
+    dec = pa_ops.paged_attention_pool(q[:3, 0].contiguous(), pool, bt[:3],
+                                      starts[:3] + 1)
+    assert torch.equal(mixed[:3, 0], dec)
+    split = pa_ops.paged_attention(q[:3, 0].contiguous(), *_split(pool),
+                                   bt[:3], starts[:3] + 1)
+    assert torch.equal(split, dec)
+    chunk = pa_ops.paged_prefill_attention_pool(q[3:].contiguous(), pool,
+                                                bt[3:].contiguous(),
+                                                starts[3:].contiguous())
+    assert torch.equal(mixed[3:], chunk)
+
+
+@pytest.mark.cuda
+def test_cuda_per_request_kernels_reject_mixed_devices_and_index_types():
+    dev = _cuda()
+    q, pool, bt, ln = _decode_case("gqa", dev, torch.float32)
+    calls = {
+        "paged_attention_pool": lambda q_, p_, b_, l_: (
+            pa_ops.paged_attention_pool(q_, p_, b_, l_)),
+        "paged_attention": lambda q_, p_, b_, l_: (
+            pa_ops.paged_attention(q_, *_split(p_), b_, l_)),
+        "paged_prefill_attention_pool": lambda q_, p_, b_, l_: (
+            pa_ops.paged_prefill_attention_pool(
+                q_[:, None].contiguous(), p_, b_, l_)),
+    }
+    for call in calls.values():
+        for args in ((q, pool.cpu(), bt, ln), (q, pool, bt.cpu(), ln),
+                     (q, pool, bt, ln.cpu())):
+            with pytest.raises(ValueError, match="device|tensors on"):
+                call(*args)
+        for args in ((q, pool, bt.long(), ln), (q, pool, bt, ln.long())):
+            with pytest.raises(ValueError, match="int32"):
+                call(*args)

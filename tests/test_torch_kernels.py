@@ -1,9 +1,10 @@
-"""The port's kernels of the fused serving step against the JAX reference.
+"""The port's kernels of the serving paths against the JAX reference.
 
 On the CPU each wrapper runs its plain PyTorch version; those are held here
 against the reference's Pallas kernels in interpret mode on the same numpy
-inputs: mixed paged attention at 3e-5 (float32) / 3e-2 (bfloat16), page
-append, gather and scatter exactly. ``test_torch_cuda.py`` holds the CUDA
+inputs: the four paged attention kernels (mixed, chunked prefill, decode
+over the fused pool and over split pools) at 3e-5 (float32) / 3e-2
+(bfloat16), page append, gather and scatter exactly. ``test_torch_cuda.py`` holds the CUDA
 kernels against these plain versions on a card.
 """
 from pathlib import Path
@@ -16,8 +17,13 @@ import torch
 from repro.kernels.kv_gather.kernel import gather_pages as j_gather
 from repro.kernels.kv_gather.kernel import scatter_pages as j_scatter
 from repro.kernels.paged_attention.kernel import append_kv as j_append
+from repro.kernels.paged_attention.kernel import paged_attention as j_split
+from repro.kernels.paged_attention.kernel import \
+    paged_attention_pool as j_pool
 from repro.kernels.paged_attention.kernel import \
     paged_mixed_attention_pool as j_mixed
+from repro.kernels.paged_attention.kernel import \
+    paged_prefill_attention_pool as j_prefill
 from repro_torch.kernels import build
 from repro_torch.kernels.kv_gather import ops as kv_ops
 from repro_torch.kernels.kv_gather import ref as kv_ref
@@ -79,6 +85,89 @@ def test_mixed_attention_plain_matches_reference_kernel(case, dtype):
     ref = j_mixed(jq, jp, *[jnp.asarray(m) for m in meta], interpret=True)
     out = pa_ops.paged_mixed_attention_pool(
         tq, tp, *[torch.from_numpy(m) for m in meta])
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol)
+
+
+# the reference's test_paged_attention_sweep shapes (GQA, GQA, MHA, MQA)
+# as (B, H, K, hd, P, page, pps), each with a row at lengths == 1 and
+# (where B > 1) a row at lengths == 0, plus a case of the edges alone
+DECODE_CASES = {
+    "gqa": ((2, 4, 2, 64, 16, 8, 4), [1, 0]),
+    "gqa_hd32": ((3, 6, 2, 32, 32, 16, 6), [1, 57, 0]),
+    "mha": ((1, 8, 8, 128, 8, 8, 8), [1]),
+    "mqa": ((4, 8, 1, 64, 64, 32, 4), [1, 100, 128, 0]),
+    "edges": ((3, 4, 2, 32, 12, 8, 5), [0, 1, 40]),
+}
+
+
+def _decode_inputs(case, seed=6):
+    (B, H, K, hd, P, page, pps), lengths = DECODE_CASES[case]
+    rng = np.random.default_rng(seed)
+    return dict(q=rng.standard_normal((B, H, hd)),
+                pool=rng.standard_normal((P, 2, K, page, hd)),
+                bt=rng.integers(0, P, (B, pps)).astype(np.int32),
+                lengths=np.asarray(lengths, np.int32))
+
+
+def _split(pool):
+    """The fused pool's K and V halves as (K, P, page, hd)."""
+    if torch.is_tensor(pool):
+        return pool[:, 0].movedim(1, 0), pool[:, 1].movedim(1, 0)
+    return jnp.moveaxis(pool[:, 0], 1, 0), jnp.moveaxis(pool[:, 1], 1, 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["split", "pool"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_attention_plain_matches_reference_kernel(case, layout,
+                                                         dtype):
+    x = _decode_inputs(case)
+    jq, tq = _both(x["q"], dtype)
+    jp, tp = _both(x["pool"], dtype)
+    jbt, jln = jnp.asarray(x["bt"]), jnp.asarray(x["lengths"])
+    tbt, tln = torch.from_numpy(x["bt"]), torch.from_numpy(x["lengths"])
+    if layout == "split":
+        jk, jv = (jnp.asarray(a) for a in _split(jp))
+        ref = j_split(jq, jk, jv, jbt, jln, interpret=True)
+        out = pa_ops.paged_attention(tq, *_split(tp), tbt, tln)
+    else:
+        ref = j_pool(jq, jp, jbt, jln, interpret=True)
+        out = pa_ops.paged_attention_pool(tq, tp, tbt, tln)
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol)
+    # a sequence with no tokens gets the uniform mean over every swept key
+    (B, H, K, hd, P, page, pps), _ = DECODE_CASES[case]
+    G = H // K
+    for b in np.nonzero(x["lengths"] == 0)[0]:
+        v = _np(tp)[x["bt"][b], 1]                    # (pps, K, page, hd)
+        mean = v.transpose(1, 0, 2, 3).reshape(K, pps * page, hd).mean(1)
+        np.testing.assert_allclose(_np(out)[b], np.repeat(mean, G, axis=0),
+                                   atol=tol)
+
+
+# the reference's test_chunk_kernel_matches_ref plan (mid-page chunk starts
+# 3 and 10) as (B, Tc, H, K, hd, P, page, pps, starts), and an MHA chunk of
+# 16-token pages over a page boundary
+PREFILL_CASES = {
+    "ref_plan": (2, 6, 4, 2, 32, 16, 8, 4, [3, 10]),
+    "mha_midpage": (2, 16, 4, 4, 64, 12, 16, 3, [0, 21]),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_prefill_attention_plain_matches_reference_kernel(case, dtype):
+    B, Tc, H, K, hd, P, page, pps, starts = PREFILL_CASES[case]
+    rng = np.random.default_rng(0)
+    jq, tq = _both(rng.standard_normal((B, Tc, H, hd)), dtype)
+    jp, tp = _both(rng.standard_normal((P, 2, K, page, hd)), dtype)
+    bt = rng.integers(0, P, (B, pps)).astype(np.int32)
+    starts = np.asarray(starts, np.int32)
+    ref = j_prefill(jq, jp, jnp.asarray(bt), jnp.asarray(starts),
+                    interpret=True)
+    out = pa_ops.paged_prefill_attention_pool(tq, tp, torch.from_numpy(bt),
+                                              torch.from_numpy(starts))
     tol = 3e-5 if dtype == "float32" else 3e-2
     np.testing.assert_allclose(_np(out), _np(ref), atol=tol)
 
@@ -176,6 +265,27 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
                    for k in ("bt", "starts", "n_reals", "is_dec")])
     assert calls == ["gather_pages_ref", "scatter_pages_ref",
                      "append_kv_ref", "paged_mixed_attention_pool_ref"]
+    assert build.launch_counts() == {}              # no kernel launched
+
+
+def test_cpu_tensors_take_the_plain_per_request_versions(monkeypatch):
+    calls = []
+    for name in ("paged_attention_ref", "paged_attention_pool_ref",
+                 "paged_prefill_attention_pool_ref"):
+        fn = getattr(pa_ref, name)
+        monkeypatch.setattr(pa_ops, name,
+                            lambda *a, _f=fn, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+    build.reset_launch_counts()
+    x = _decode_inputs("gqa")
+    q = torch.from_numpy(x["q"]).float()
+    pool = torch.from_numpy(x["pool"]).float()
+    bt, ln = torch.from_numpy(x["bt"]), torch.from_numpy(x["lengths"])
+    pa_ops.paged_attention(q, *_split(pool), bt, ln)
+    pa_ops.paged_attention_pool(q, pool, bt, ln)
+    pa_ops.paged_prefill_attention_pool(q[:, None], pool, bt, ln)
+    assert calls == ["paged_attention_ref", "paged_attention_pool_ref",
+                     "paged_prefill_attention_pool_ref"]
     assert build.launch_counts() == {}              # no kernel launched
 
 
