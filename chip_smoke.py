@@ -54,6 +54,37 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    restores, each park/restore is one fabric message, and every kernel of
    the path was launched (counts reset just before the run, read after).
 
+Then rwkv6-3b at its published width (32 layers, d 2560, 40 heads of 64,
+d_ff 8960, vocab 65536, bf16; random seeded weights), whose context is two
+state planes, ``wkv`` (40, 64, 64) float32 and ``shift`` (2, 2560), one
+page each per layer:
+
+7. wkv kernel — ``wkv6`` against the float32 scan and the plain dispatch
+   (the chunked form at T 256) at the engine's three launch shapes: the
+   chunk region (8, 256, 40, 64), the decode region (4, 1, 40, 64) and a
+   short bucket (8, 24, 40, 64), decays from weak to the strong-decay
+   stress (wmax 5.0), within the reference's sweep limits (bf16 y rtol
+   2e-2 / atol 5e-2, float32 state rtol 1e-3 / atol 5e-4); a control with
+   one lane's incoming state zeroed must land beyond them. Device times
+   beside the plain version's and the bound (bytes, float32 operations and
+   exponentials; no PyTorch call computes the recurrence, so no library
+   time).
+8. rwkv layer step — one full-width packed step: per layer, on the same
+   input and pools, the time-mix of both row regions through the kernel
+   and the plain versions (outputs within 2% per real token, new wkv
+   states within the WKV limits; a control with a lane's state zeroed
+   beyond both) and the sub-layer's shift pages (within 2%); the whole
+   step's logits against float32 (within twice the plain bf16 path's
+   distance, the control further).
+9. rwkv per-request — phase 5's prompts and decode steps through
+   ``api.prefill_chunk_paged`` / ``api.decode_step_paged`` (``wkv6`` must
+   launch), prefill logits against float32 with a control that drops the
+   state between chunks, and beside them the fused engine: walls, launches
+   and agreeing greedy tokens.
+10. rwkv engine — phase 6 for rwkv6-3b; besides its checks, every park and
+   restore moves exactly one request's whole state (21,299,200 bytes), and
+   ``wkv6`` launched on the path.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -133,12 +164,14 @@ def device_ms(fn, iters: int) -> float:
                          "inside the device-side wait")
 
 
-def interleaved(plain, kernel, iters: int):
-    """plain, kernel, kernel, plain (device times): the mean of each side."""
-    p1 = device_ms(plain, iters)
+def interleaved(plain, kernel, iters: int, plain_iters: int = 0):
+    """plain, kernel, kernel, plain (device times): the mean of each side.
+    ``plain_iters`` (default ``iters``) keeps a plain version of many small
+    launches inside the device's launch queue while it waits."""
+    p1 = device_ms(plain, plain_iters or iters)
     k1 = device_ms(kernel, iters)
     k2 = device_ms(kernel, iters)
-    p2 = device_ms(plain, iters)
+    p2 = device_ms(plain, plain_iters or iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -895,15 +928,20 @@ def phase_per_request(torch, np, cfg, model, dev):
     return launches, split_launches
 
 
-def phase_engine(torch, np, cfg, model, dev):
+def phase_engine(torch, np, cfg, model, dev, need=()):
+    """``ServingEngine`` (CFS, a same-card REMOTE donor lease) serves 12
+    seeded requests at full width. Every request finishes, CFS preempts and
+    restores, each park/restore is one fabric message, a family whose
+    context is all state planes moves exactly its whole state per leg, and
+    every kernel in ``need`` launched (counts reset just before the run)."""
     from repro_torch.core.aqua_tensor import REMOTE
     from repro_torch.kernels import build
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.kv_cache import PagedStateRuntime
 
     n_req, new_tokens = 12, 32
-    # logical ids must cover the LOCAL pool and every parked page: 24
-    # layers x up to 50 pages x 12 requests, plus the pool itself
+    # logical ids must cover the LOCAL pool and every parked page (qwen: 24
+    # layers x up to 50 pages x 12 requests, plus the pool itself)
     kv = PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=4,
                            host_pages=1024, n_logical=32768,
                            prefix_cache=False, device=dev)
@@ -966,6 +1004,415 @@ def phase_engine(torch, np, cfg, model, dev):
         raise AssertionError(
             f"engine: {meter.messages_fabric} fabric messages != "
             f"{m.preemptions} preemptions + {m.restores} restores")
+    if all(p.kind == "state" for p in kv.planes.values()):
+        state = kv.footprint_bytes(0)
+        print(f"engine: {cfg.name} state per request {state:.0f} bytes; "
+              f"bytes_fabric / (preemptions + restores) = "
+              f"{meter.bytes_fabric / (m.preemptions + m.restores):.0f}")
+        if meter.bytes_fabric != (m.preemptions + m.restores) * state:
+            raise AssertionError(
+                f"engine: bytes_fabric {meter.bytes_fabric} != "
+                f"({m.preemptions} + {m.restores}) x {state:.0f}")
+    if not all(launches.get(k, 0) > 0 for k in need):
+        raise AssertionError(f"engine: {cfg.name}'s run never launched some "
+                             f"of {list(need)}")
+    return launches
+
+
+# -- rwkv6-3b: the RWKV-6 family's paths ------------------------------------
+F32_FLOPS = 67e12                   # H100 SXM datasheet, outside tensor cores
+# exponentials: 16 results per clock per SM (CUDA programming guide,
+# compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
+SFU_PER_S = 132 * 16 * 1.98e9
+WKV_SRC = "src/repro_torch/csrc/wkv6.cu"
+# (B, T) of the engine's WKV launches at full width with max_running 4 and
+# step_tokens 256: the chunk region (8 rows of a 256 bucket), the decode
+# region, and a short bucket whose only chunk is short
+WKV_SHAPES = {"chunk": (8, 256), "decode": (4, 1), "short_bucket": (8, 24)}
+# the reference's test_wkv6_sweep limits (rtol, atol): bf16 y, f32 state
+WKV_LIMITS = ((2e-2, 5e-2), (1e-3, 5e-4))
+WKV_DECAYS = (0.1, 5.0)             # weak .. the sweep's strong-decay stress
+
+
+def wkv_bound(B, T, H, hd, io_bytes):
+    """Least time of one WKV call: the bytes it must move (r, k, v, y in
+    the compute dtype, w and the state in and out in float32, u) over the
+    memory rate, against the chunked algorithm's float32 operations over
+    67 TFLOP/s and its exponentials (the causal pairs of each chunk) over
+    the special-function units' rate. Returns (ms, bound_by, parts)."""
+    nbytes = B * T * H * hd * (4 * io_bytes + 4) + 2 * B * H * hd * hd * 4 \
+        + H * hd * 4
+    flops = exps = 0
+    for t0 in range(0, T, 32):
+        c = min(32, T - t0)
+        pairs = c * (c - 1) // 2
+        flops += (7 * c * hd + 4 * pairs * hd + 4 * c * hd * hd
+                  + 2 * (pairs + c) * hd + hd * hd)
+        exps += 2 * c * hd + pairs * hd + hd
+    flops, exps = flops * B * H, exps * B * H
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32": flops / F32_FLOPS * 1e3, "exp": exps / SFU_PER_S * 1e3}
+    ms = max(parts.values())
+    return ms, "bytes" if parts["bytes"] >= ms else "operations", parts
+
+
+def wkv_inputs(torch, g, B, T, H, hd, wmax, dev):
+    """The sweep's distributions: r, k, v standard normal in bf16, w
+    uniform in [-wmax, -1e-3], u standard normal, state 0.1 x normal."""
+    r, k, v = (torch.randn((B, T, H, hd), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    w = -(torch.rand((B, T, H, hd), generator=g, device=dev)
+          * (wmax - 1e-3) + 1e-3)
+    u = torch.randn((H, hd), generator=g, device=dev)
+    s0 = torch.randn((B, H, hd, hd), generator=g, device=dev) * 0.1
+    return r, k, v, w, u, s0
+
+
+def limit_ratio(a, b, rtol, atol):
+    """Largest |a - b| / (atol + rtol |b|): within the limit when <= 1."""
+    b = b.float()
+    return ((a.float() - b).abs() / (atol + rtol * b.abs())).max().item()
+
+
+def wkv_ratio(got, want):
+    """``limit_ratio`` of y and of the state, at their limits; the larger."""
+    return max(limit_ratio(a, b, *lim)
+               for a, b, lim in zip(got, want, WKV_LIMITS))
+
+
+def phase_wkv_kernel(torch, np, cfg, report):
+    """``wkv6`` against its plain versions at the engine's shapes (the
+    float32 scan ``wkv6_ref``, and ``wkv6_plain``, which takes the chunked
+    form at T 256), weak and strong decays; a control with one lane's
+    incoming state zeroed must land beyond the limits. Device times as for
+    the attention kernels."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    hd = cfg.ssm.rwkv_head_dim
+    H = cfg.d_model // hd
+    cases = {}
+    for name, (B, T) in WKV_SHAPES.items():
+        ratios, controls, errs = [], [], []
+        for wmax in WKV_DECAYS:
+            args = wkv_inputs(torch, g, B, T, H, hd, wmax, dev)
+            got = wkv_ops.wkv6(*args)
+            s0c = args[5].clone()
+            s0c[0] = 0.0
+            ctrl = wkv_ops.wkv6(*args[:5], s0c)
+            scan = wkv_ref.wkv6_ref(*args)
+            plain = wkv_ref.wkv6_plain(*args)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"wkv6 {name}: not finite")
+            ratios += [wkv_ratio(got, scan), wkv_ratio(got, plain)]
+            controls.append(wkv_ratio(ctrl, scan))
+            errs.append((got[0].float() - scan[0].float()).abs().max().item())
+            del got, ctrl, scan, plain
+        # the plain chunked form and scan issue ~100-200 launches per call
+        # at T > 1: two calls stay inside the launch queue
+        ms, plain_ms = interleaved(lambda: wkv_ref.wkv6_plain(*args),
+                                   lambda: wkv_ops.wkv6(*args),
+                                   20 if T > 1 else 100,
+                                   plain_iters=2 if T > 1 else 20)
+        b, by, parts = wkv_bound(B, T, H, hd, 2)
+        cases[name] = dict(
+            shape=f"B={B} T={T} H={H} hd={hd} (bf16 r/k/v/y)",
+            max_abs_err=max(errs), limit_ratio=max(ratios),
+            control_ratio=min(controls), tolerance=(
+                "y rtol 2e-2 atol 5e-2, state rtol 1e-3 atol 5e-4"),
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            bound_parts_ms=parts, library_ms=None)
+        print(f"kernel wkv6 {cases[name]['shape']}: error/limit "
+              f"{max(ratios):.3g} (vs scan and plain, decays up to "
+              f"{max(WKV_DECAYS)}); control (one lane's state zeroed) "
+              f"{min(controls):.3g}; max abs y err {max(errs):.3g}; kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b * 1e3:.3f} us "
+              f"({by}: bytes {parts['bytes'] * 1e3:.2f}, f32 "
+              f"{parts['f32'] * 1e3:.2f}, exp {parts['exp'] * 1e3:.2f} us)")
+        if not max(ratios) <= 1.0 < min(controls):
+            raise AssertionError(
+                f"wkv6 {name}: error/limit {max(ratios)} must be <= 1 and "
+                f"the control's {min(controls)} above it")
+        del args
+    report.append(dict(
+        name="wkv6", route="cuda", source=WKV_SRC,
+        replaces="src/repro/kernels/rwkv6_wkv/kernel.py:81",
+        **{**cases["chunk"], "max_abs_err": max(c["max_abs_err"]
+                                                for c in cases.values())},
+        decode=cases["decode"], short_bucket=cases["short_bucket"]))
+
+
+def rwkv_state_pools(torch, np, cfg, dev, rows, seed):
+    """Random full-width state pools (wkv float32 with unit entries, shift
+    in the compute dtype) with one slot per (layer, real row); slot 0 is
+    scratch. Returns (pools, tables (n_layers, 1, R))."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hd = cfg.ssm.rwkv_head_dim
+    L, R = cfg.n_layers, len(rows)
+    P = 1 + L * int(sum(rows))
+    pools = {"wkv": torch.randn((P, cfg.d_model // hd, hd, hd), generator=g,
+                                device=dev),
+             "shift": torch.randn((P, 2, cfg.d_model), generator=g,
+                                  device=dev).to(cfg.torch_compute_dtype())}
+    bt = np.zeros((L, 1, R), np.int32)
+    free = rng.permutation(np.arange(1, P)).astype(np.int32)
+    for l in range(L):
+        for r in range(R):
+            if rows[r]:
+                bt[l, 0, r], free = free[0], free[1:]
+    return pools, bt
+
+
+def rwkv_time_mix_regions(torch, cfg, blk, x, pools, ws, nr_dev, n_dec,
+                          impl):
+    """Layer ``blk``'s ``rwkv_time_mix`` on the packed step's two regions
+    (decode lanes' first column, chunk rows with their ``n_real``), reading
+    the lanes' incoming wkv and shift pages at slots ``ws`` (the pools are
+    not written). -> (output per region, new wkv state per region)."""
+    from repro_torch.layers.core import rms_norm
+    from repro_torch.layers.rwkv6 import rwkv_time_mix
+    h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
+    shift, wkv = pools["shift"][ws.long()], pools["wkv"][ws.long()]
+    out_d, _, s_d = rwkv_time_mix(blk.mix.tm, cfg, h[:n_dec, :1],
+                                  shift[:n_dec, 0], wkv[:n_dec], impl=impl)
+    out_c, _, s_c = rwkv_time_mix(blk.mix.tm, cfg, h[n_dec:],
+                                  shift[n_dec:, 0], wkv[n_dec:], impl=impl,
+                                  n_real=nr_dev[n_dec:])
+    return (out_d, out_c), torch.cat([s_d, s_c])
+
+
+def phase_rwkv_layer_step(torch, np, cfg, model, model32, dev):
+    """One full-width rwkv6-3b packed step (4 decode lanes, a 200-token and
+    a 56-token chunk row, 6 pad rows; R 12, Tc 256), checked two ways.
+
+    Per layer, on the same input and pools: the time-mix of both regions
+    through the kernel and through the plain versions. Each real token's
+    output may differ by at most ``LAYER_REL_LIMIT`` relative to that
+    token's output, and each real row's new wkv state stays within the WKV
+    limits; a control (the plain version with decode lane 0's incoming wkv
+    page zeroed) must land beyond both. The whole sub-layer
+    (``lm.rwkv_mixed_paged``) then runs both ways: its shift pages within
+    ``LAYER_REL_LIMIT`` of the pages' largest entry (scratch excluded: idle
+    and pad rows all write it); the plain run carries the layer on.
+
+    Whole step: logits of the kernel path no further from a float32 step
+    than twice the plain bf16 path's, the control (lane 0's wkv pages zeroed
+    in every layer) further."""
+    from repro_torch.layers.core import embed
+    from repro_torch.models import api, lm
+    q_starts, n_reals, n_dec, Tc = main_path_plan()
+    R = len(q_starts)
+    pools, bt = rwkv_state_pools(torch, np, cfg, dev, n_reals > 0, 6)
+    tables = {"wkv": bt, "shift": bt}
+    tokens = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (R, Tc)).astype(np.int32)
+    real = np.nonzero(n_reals > 0)[0]
+    compared = torch.as_tensor(np.arange(Tc)[None]
+                               < n_reals[n_dec:, None]).to(dev)
+    keep = torch.ones(pools["wkv"].shape[0], dtype=torch.bool, device=dev)
+    keep[0] = False
+    nr_dev = torch.as_tensor(n_reals.astype(np.int64)).to(dev)
+    bt_dev = torch.as_tensor(bt).to(dev)
+    x = embed(model.embed, cfg, torch.as_tensor(tokens).to(dev))
+    p_ref = {k: v.clone() for k, v in pools.items()}
+    p_ctrl = {k: v.clone() for k, v in pools.items()}
+    rows = {"out_k": [], "out_c": [], "wkv_k": [], "wkv_c": [], "shift_k": []}
+    for layer, blk in enumerate(model.blocks):
+        ws = bt_dev[layer, 0]
+        p_ctrl["wkv"].copy_(p_ref["wkv"])
+        p_ctrl["wkv"][int(bt[layer, 0, 0])] = 0.0
+        outs = {name: rwkv_time_mix_regions(torch, cfg, blk, x, p, ws,
+                                            nr_dev, n_dec, impl)
+                for name, p, impl in (("k", p_ref, "kernel"),
+                                      ("r", p_ref, "ref"),
+                                      ("c", p_ctrl, "ref"))}
+        (ref_d, ref_c), ref_s = outs["r"]
+        for key, name in (("k", "out_k"), ("c", "out_c")):
+            (od, oc), _ = outs[key]
+            d_dec = ((od.float() - ref_d.float()).abs().amax(-1)
+                     / ref_d.float().abs().amax(-1).clamp_min(1e-6))
+            d_chk = ((oc.float() - ref_c.float()).abs().amax(-1)
+                     / ref_c.float().abs().amax(-1).clamp_min(1e-6))
+            rows[name].append(max(d_dec.max().item(),
+                                  d_chk[compared].max().item()))
+        for key, name in (("k", "wkv_k"), ("c", "wkv_c")):
+            rows[name].append(limit_ratio(outs[key][1][real], ref_s[real],
+                                          *WKV_LIMITS[1]))
+        del outs
+        p_k = {k: v.clone() for k, v in p_ref.items()}
+        lm.rwkv_mixed_paged(blk, cfg, x, p_k, ws, ws, nr_dev, n_dec,
+                            "kernel")
+        x = lm.rwkv_mixed_paged(blk, cfg, x, p_ref, ws, ws, nr_dev, n_dec,
+                                "ref")
+        sd = p_k["shift"][keep].float() - p_ref["shift"][keep].float()
+        rows["shift_k"].append(sd.abs().max().item() / p_ref["shift"][
+            keep].float().abs().max().item())
+        del p_k
+    print(f"rwkv layer step, per layer ({cfg.n_layers} layers, R={R} "
+          f"Tc={Tc}): time-mix output max per-token relative diff to "
+          f"plain: kernel {max(rows['out_k']):.4g}, control (lane 0's state "
+          f"zeroed) least {min(rows['out_c']):.4g}; new wkv state "
+          f"error/limit kernel {max(rows['wkv_k']):.4g}, control least "
+          f"{min(rows['wkv_c']):.4g}; shift pages max relative diff "
+          f"{max(rows['shift_k']):.4g}")
+    if not (max(rows["out_k"]) <= LAYER_REL_LIMIT < min(rows["out_c"])
+            and max(rows["wkv_k"]) <= 1.0 < min(rows["wkv_c"])
+            and max(rows["shift_k"]) <= LAYER_REL_LIMIT):
+        raise AssertionError(f"rwkv layer step: kernel vs plain outside the "
+                             f"limits, or a control within them: {rows}")
+
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    runs = {"ref": (model, cfg, "ref", False),
+            "kernel": (model, cfg, "kernel", False),
+            "control": (model, cfg, "ref", True),
+            "f32": (model32, cfg32, "ref", False)}
+    outs = {}
+    for name, (mdl, c, impl, control) in runs.items():
+        p = {"wkv": pools["wkv"].clone(),
+             "shift": pools["shift"].to(c.torch_compute_dtype()).clone()}
+        if control:
+            p["wkv"][torch.as_tensor(bt[:, 0, 0].astype(np.int64))] = 0.0
+        logits, _ = api.serve_step_paged(mdl, c, tokens, p, tables,
+                                         q_starts, n_reals, n_decode=n_dec,
+                                         impl=impl)
+        _sync(torch, dev)
+        outs[name] = logits.float()
+        del p
+    if tuple(outs["kernel"].shape) != (R, cfg.vocab_size) \
+            or not torch.isfinite(outs["kernel"]).all():
+        raise AssertionError("rwkv layer step: logits of the wrong shape or "
+                             "not finite")
+    dist = {name: [round(v, 4) for v in (outs[name] - outs["f32"]).abs()
+                   .amax(-1)[real].tolist()]
+            for name in ("kernel", "ref", "control")}
+    agree = (outs["kernel"][real].argmax(-1)
+             == outs["f32"][real].argmax(-1)).float().mean().item()
+    print(f"rwkv layer step, whole: logits |f32| max "
+          f"{outs['f32'][real].abs().max().item():.3g}; per real row max abs "
+          f"diff to f32: {json.dumps(dist)}; argmax agreement of the kernel "
+          f"path with f32 {agree:.3f}")
+    limit = 2 * max(dist["ref"])
+    if not max(dist["kernel"]) <= limit < max(dist["control"]):
+        raise AssertionError(
+            f"rwkv layer step: the kernel path's logits "
+            f"({max(dist['kernel'])} from float32) must be within twice the "
+            f"plain bf16 path's ({limit}), and the control "
+            f"({max(dist['control'])}) beyond it")
+
+
+def phase_rwkv_per_request(torch, np, cfg, model, model32, dev):
+    """rwkv6-3b through the per-request entry points at full width: the
+    four prompts of phase 5, chunk by chunk through
+    ``api.prefill_chunk_paged``, then 32 steps of ``api.decode_step_paged``
+    (counts reset just before, read after; ``wkv6`` must launch). Each
+    prompt's last-token logits no further from float32 than twice the plain
+    bf16 path's; a control that drops the state between chunks (wkv pages
+    zeroed before every chunk but the first) further. Beside it, the same
+    prompts through the fused engine (FCFS): walls, launches, and how many
+    greedy tokens the two paths share, in bf16 and, as a yardstick for
+    bf16 noise, in float32 through the kernel on both sides (reported, not
+    asserted), with how far the float32 kernel path's prefill logits lie
+    from the float32 plain path's (how much the model amplifies a rounding
+    difference)."""
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    rng = np.random.default_rng(8)
+    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), split)
+               for n, split in PROMPTS.items()]
+    _sync(torch, dev)
+    build.reset_launch_counts()
+    run = per_request_run(torch, np, cfg, model, dev, prompts, "kernel",
+                          decode_steps=DECODE_STEPS)
+    launches = build.launch_counts()
+    print("rwkv per-request (api.prefill_chunk_paged / "
+          "api.decode_step_paged): "
+          + _walls(np, "prefill chunk wall", run["chunk_s"]) + "; "
+          + _walls(np, "decode step wall", run["step_s"]))
+    print(f"rwkv per-request: kernel launches "
+          f"{json.dumps(launches, sort_keys=True)}")
+    if launches.get("wkv6", 0) == 0:
+        raise AssertionError("rwkv per-request run never launched wkv6")
+    if not all(len(t) == DECODE_STEPS + 1 and all(0 <= v < cfg.vocab_size
+                                                  for v in t)
+               for t in run["tokens"]):
+        raise AssertionError("rwkv per-request: wrong greedy tokens")
+
+    def drop_state(kind, kv, tokens, tables, pos, n_real):
+        if kind == "prefill" and pos > 0:
+            slots = torch.as_tensor(tables["wkv"].reshape(-1).astype(
+                np.int64)).to(dev)
+            kv.pools["wkv"][slots] = 0.0
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    run32 = per_request_run(torch, np, cfg32, model32, dev, prompts, "ref")
+    logits = {"kernel": run["logits"],
+              "ref": per_request_run(torch, np, cfg, model, dev, prompts,
+                                     "ref")["logits"],
+              "control": per_request_run(torch, np, cfg, model, dev, prompts,
+                                         "ref", hook=drop_state)["logits"],
+              "f32": run32["logits"]}
+    dist = {k: [round((a - b).abs().max().item(), 4)
+                for a, b in zip(v, logits["f32"])]
+            for k, v in logits.items() if k != "f32"}
+    limit = 2 * max(dist["ref"])
+    print(f"rwkv per-request prefill, last-token logits max abs diff to f32 "
+          f"per prompt {list(PROMPTS)}: {json.dumps(dist)}; limit "
+          f"{limit:.4g}")
+    if not max(dist["kernel"]) <= limit < max(dist["control"]):
+        raise AssertionError(
+            f"rwkv per-request prefill: the kernel path's logits "
+            f"({max(dist['kernel'])} from float32) must be within twice the "
+            f"plain bf16 path's ({limit}), and the control "
+            f"({max(dist['control'])}) beyond it")
+
+    def fused(c, mdl):
+        eng = ServingEngine(c, mdl, max_running=4, max_seq=1024,
+                            scheduler="fcfs", step_tokens=256,
+                            offload_tier=REMOTE, kv_page_tokens=16,
+                            spec_chunk_ahead=False, device=dev)
+        reqs = [eng.submit(list(map(int, p)), DECODE_STEPS + 1)
+                for p, _ in prompts]
+        _sync(torch, dev)
+        build.reset_launch_counts()
+        step_s = []
+        while (eng.waiting or eng.running) and len(step_s) < 1000:
+            t = time.perf_counter()
+            eng.step()
+            _sync(torch, dev)
+            step_s.append(time.perf_counter() - t)
+        if not all(len(r.generated) == DECODE_STEPS + 1 for r in reqs):
+            raise AssertionError("rwkv fused: not every request finished")
+        mixed = np.asarray(eng.metrics.prefill_tokens_trace) > 0
+        return ([r.generated for r in reqs], np.asarray(step_s), mixed,
+                build.launch_counts())
+
+    def agreeing(a, b):
+        return [sum(x == y for x, y in zip(p, q)) for p, q in zip(a, b)]
+    tokens, step_s, mixed, launched = fused(cfg, model)
+    print("rwkv fused (ServingEngine FCFS, same prompts, "
+          f"{DECODE_STEPS + 1} tokens each): {len(step_s)} steps; "
+          + _walls(np, "step wall with prompt chunks", step_s[mixed]) + "; "
+          + _walls(np, "decode-only step wall", step_s[~mixed]))
+    print(f"rwkv fused: kernel launches "
+          f"{json.dumps(launched, sort_keys=True)}")
+    agree = agreeing(tokens, run["tokens"])
+    run32k = per_request_run(torch, np, cfg32, model32, dev, prompts,
+                             "kernel", decode_steps=DECODE_STEPS)
+    agree32 = agreeing(fused(cfg32, model32)[0], run32k["tokens"])
+    spread32 = [round((a - b).abs().max().item(), 5)
+                for a, b in zip(run32k["logits"], run32["logits"])]
+    margins = [round(float(v[0] - v[1]), 4)
+               for v in (lg.topk(2).values for lg in run["logits"])]
+    n = len(agree) * (DECODE_STEPS + 1)
+    print(f"rwkv greedy tokens, per-request vs fused, agreeing per prompt "
+          f"{list(PROMPTS)}: bf16 {agree} ({sum(agree)} of {n}), float32 "
+          f"{agree32} ({sum(agree32)} of {n}); bf16 prefill logits' top-2 "
+          f"margin per prompt {margins} (against their distance to float32 "
+          f"above); float32 prefill logits, kernel vs plain, max abs diff "
+          f"per prompt {spread32}")
     return launches
 
 
@@ -1002,11 +1449,32 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_layer_step(torch, np, cfg, model, dev)
     per_request, split = phase_per_request(torch, np, cfg, model, dev)
-    launches = phase_engine(torch, np, cfg, model, dev)
-    # each kernel's launches on the first path that runs it: the engine
-    # (the fused step), the per-request path, the split-pool drive
+    launches = phase_engine(torch, np, cfg, model, dev,
+                            need=("paged_mixed_attention_pool", "append_kv",
+                                  "gather_pages", "scatter_pages"))
+    del model
+    torch.cuda.empty_cache()
+    print(f"qwen1.5-0.5b phases done at {time.perf_counter() - t0:.1f} s")
+
+    # -- rwkv6-3b: the wkv state and shift planes, the WKV kernel ---------
+    rcfg = get_config("rwkv6-3b")
+    phase_wkv_kernel(torch, np, rcfg, report)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = lm.init_params(rcfg, gen, "cuda")
+    model32 = copy.deepcopy(model).float()
+    phase_rwkv_layer_step(torch, np, rcfg, model, model32, dev)
+    rwkv_per_request = phase_rwkv_per_request(torch, np, rcfg, model,
+                                              model32, dev)
+    del model32
+    torch.cuda.empty_cache()
+    rwkv_engine = phase_engine(torch, np, rcfg, model, dev,
+                               need=("wkv6", "gather_pages", "scatter_pages"))
+    # each kernel's launches on the first path that runs it: the qwen engine
+    # (the fused step), the qwen per-request path, the split-pool drive, the
+    # rwkv engine, the rwkv per-request path
     paths = (("engine", launches), ("per-request", per_request),
-             ("split-pool drive", split))
+             ("split-pool drive", split), ("rwkv engine", rwkv_engine),
+             ("rwkv per-request", rwkv_per_request))
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))

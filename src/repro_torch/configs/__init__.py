@@ -1,7 +1,7 @@
 """Per-architecture configs the port serves (one module per arch)."""
 import importlib
 
-_ARCH_MODULES = ["qwen1_5_0_5b"]
+_ARCH_MODULES = ["qwen1_5_0_5b", "rwkv6_3b"]
 
 
 def load_all():
@@ -10,4 +10,4 @@ def load_all():
 
 
 from repro_torch.configs.base import (  # noqa: E402,F401
-    DENSE, ModelConfig, get_config, smoke_config)
+    DENSE, SSM, ModelConfig, SSMConfig, get_config, smoke_config)

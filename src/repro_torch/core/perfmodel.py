@@ -83,8 +83,10 @@ class ModelCost:
 
     @staticmethod
     def from_config(cfg) -> "ModelCost":
-        """Costs of a dense config (every layer is attention)."""
-        kvtok = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * cfg.n_layers * 2
+        """Costs of a dense config (every layer is attention) or an RWKV-6
+        one (O(1) recurrent state, no per-token cache)."""
+        kvtok = (0.0 if cfg.family == "ssm" else
+                 2 * cfg.n_kv_heads * cfg.resolved_head_dim * cfg.n_layers * 2)
         return ModelCost(float(cfg.param_count()), float(kvtok),
                          n_layers=int(cfg.n_layers))
 

@@ -51,6 +51,7 @@ _SIGNATURES = {
                                     _I, _I, _I, _L, ctypes.c_float, _I, _P],
     "aqua_decode_attention_pool": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _L, ctypes.c_float, _I, _P],
+    "aqua_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "aqua_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _L, _L, _L, ctypes.c_float, _I, _P],
 }

@@ -3,6 +3,9 @@ scheduling on a CUDA card (or, with ``--device cpu``, the CPU).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --smoke --scheduler cfs --offload fabric --requests 8 --device cpu
+
+``--arch`` is ``qwen1.5-0.5b`` (the ``kv`` token plane) or ``rwkv6-3b``
+(the ``wkv`` and ``shift`` state planes).
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ def main(argv=None):
                         offload_tier=REMOTE if args.offload == "fabric"
                         else HOST, device=device)
     eng.pager.add_remote_lease("donor0", 512 * 2048 * 4)
-    print(f"runtime: paged state on {device} "
+    print(f"runtime: unified paged state on {device} "
           f"(planes: {', '.join(eng.kv.planes)})")
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):

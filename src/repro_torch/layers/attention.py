@@ -21,7 +21,7 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
     append_kv_ref, paged_attention_pool_ref, paged_mixed_attention_pool_ref,
     paged_prefill_attention_pool_ref)
-from repro_torch.layers.core import Linear, apply_rope, linear
+from repro_torch.layers.core import Linear, apply_rope, check_impl, linear
 
 
 class Attention(nn.Module):
@@ -75,11 +75,6 @@ def write_chunk_pages(kv_pool, k, v, window, offset: int, *,
     return kv_pool
 
 
-def _check_impl(impl: str):
-    if impl not in ("kernel", "ref"):
-        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
-
-
 def _window_pages(Tc: int, page: int) -> int:
     """Pages a chunk's write window spans: ceil(Tc/page) + 1 (a mid-page
     chunk start touches one extra page)."""
@@ -106,7 +101,7 @@ def attention_prefill_chunk(p: Attention, cfg: ModelConfig, x, kv_pool,
     the table's tail entries exist only so the write window stays in
     bounds, and always point at scratch. Returns (out (1,Tc,d), pool).
     """
-    _check_impl(impl)
+    check_impl(impl)
     B, Tc, _ = x.shape
     if B != 1:
         raise ValueError(f"chunked prefill is per-request, got {B} rows")
@@ -144,7 +139,7 @@ def attention_decode_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
     ``paged_attention_pool`` launch over the whole table. Returns
     (out (B,1,d), pool).
     """
-    _check_impl(impl)
+    check_impl(impl)
     B = x.shape[0]
     page = kv_pool.shape[3]
     if meta is None:
@@ -187,7 +182,7 @@ def attention_mixed_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
     writes its read-modify-write page window, then every row attends in
     one ``paged_mixed_attention_pool`` launch. Returns (out (R,Tc,d), pool).
     """
-    _check_impl(impl)
+    check_impl(impl)
     R, Tc, _ = x.shape
     page = kv_pool.shape[3]
     if meta is None:

@@ -21,6 +21,13 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def check_impl(impl: str):
+    """The layers' implementation switch: ``"kernel"`` (the kernels'
+    wrappers) or ``"ref"`` (their plain versions)."""
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
+
+
 def trunc_normal(shape, std: float, dtype: torch.dtype,
                  generator: torch.Generator, device) -> torch.Tensor:
     """``std`` x a standard normal truncated to [-2, 2] (the reference's
@@ -120,17 +127,25 @@ def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 class Embedding(nn.Module):
+    """Token embeddings ``tok`` (vocab, d); an untied LM head ``head``
+    (d, vocab) unless the config ties them."""
+
     def __init__(self, cfg: ModelConfig, device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not cfg.tie_embeddings:
-            raise NotImplementedError(f"{cfg.name}: untied LM heads are not "
-                                      "ported")
         shape, dt = (cfg.vocab_size, cfg.d_model), cfg.dtype()
         self.tok = _param(
             trunc_normal(shape, 0.02, dt, generator, device)
             if generator is not None
             else torch.zeros(shape, dtype=dt, device=device))
+        self.head = None
+        if not cfg.tie_embeddings:
+            hshape = (cfg.d_model, cfg.vocab_size)
+            self.head = _param(
+                trunc_normal(hshape, 1.0 / math.sqrt(cfg.d_model), dt,
+                             generator, device)
+                if generator is not None
+                else torch.zeros(hshape, dtype=dt, device=device))
 
 
 def embed(p: Embedding, cfg: ModelConfig, tokens: torch.Tensor
@@ -142,7 +157,10 @@ def embed(p: Embedding, cfg: ModelConfig, tokens: torch.Tensor
 
 
 def unembed(p: Embedding, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    logits = x @ p.tok.to(x.dtype).T
+    if p.head is None:
+        logits = x @ p.tok.to(x.dtype).T
+    else:
+        logits = x @ p.head.to(x.dtype)
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

@@ -36,8 +36,7 @@ def serve_step_paged(model, cfg: ModelConfig, tokens, pools, block_tables,
                      q_starts, n_reals, *, n_decode: int, read_pps=None,
                      impl: str = "kernel"):
     """One fused engine step: every decode lane and every request's prompt
-    chunk packed into a (R, Tc) row batch, one attention launch per layer
-    -> (logits (R, V), pools)."""
+    chunk packed into a (R, Tc) row batch -> (logits (R, V), pools)."""
     return lm.serve_step_paged(model, cfg, tokens, pools, block_tables,
                                q_starts, n_reals, n_decode=n_decode,
                                read_pps=read_pps, impl=impl)

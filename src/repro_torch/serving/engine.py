@@ -74,7 +74,7 @@ class ServingEngine:
 
         Args:
             cfg: model config (paged-servable by the port); ``params`` its
-                weights (``lm.DenseLM``) on ``device``.
+                weights (``lm.LM``) on ``device``.
             max_running: batch slots (concurrent decode lanes).
             max_seq: maximum context length per request.
             scheduler: ``"cfs"`` (fair, preempting) or ``"fcfs"``.

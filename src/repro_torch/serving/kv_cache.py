@@ -1,11 +1,15 @@
-"""Paged state runtime: a request's KV context on AquaTensor pages, behind
-per-request block tables — the ``kv`` plane of ``repro/serving/kv_cache.py``.
+"""Paged state runtime: a request's dynamic context on AquaTensor pages,
+behind per-request block tables — ``repro/serving/kv_cache.py`` for the
+token and state planes of the families the port serves.
 
 ``PagedStateRuntime`` is the serving engine's state manager. Each plane of
-``lm.paged_layout`` is one tiered AquaTensor pool (the dense family has one,
-``kv``, payload ``(2, n_kv, page, hd)``, ``ceil(ctx/page)`` pages per layer).
-The fused step reads and writes the LOCAL pool directly, so preemption is a
-page-table tier flip:
+``lm.paged_layout`` is one tiered AquaTensor pool: a TOKEN plane (dense
+``kv``, payload ``(2, n_kv, page, hd)``) holds ``ceil(ctx/page)`` pages per
+layer; a STATE plane (RWKV-6 ``wkv`` ``(H, hd, hd)`` float32 and ``shift``
+``(2, d_model)``) holds ONE page per layer, zeroed when allocated (a
+reused slot holds its last occupant's state, and the zero page is the
+initial recurrent state). The fused step reads and writes the LOCAL pools
+directly, so preemption is a page-table tier flip of all planes together:
 
     park    = offload(pages)      one coalesced message per (tier, donor)
     restore = ensure_local(pages)
@@ -42,6 +46,7 @@ class _Plane:
     """One page plane: an AquaTensor pool + the per-request page
     bookkeeping."""
     name: str
+    kind: str                        # "tokens" | "state"
     aqua: AquaTensor
     n_layers: int                    # plane layers across the whole stack
     n_sub: int                       # plane sub-layers per group
@@ -99,8 +104,10 @@ class PagedStateRuntime:
             cfg: model config; must be paged-servable by the port.
             max_seq: maximum context length a request may reach.
             page_tokens: tokens per page.
-            local_pages: LOCAL slots per plane (the admission budget);
-                default sizes for ``max_running`` full-length requests.
+            local_pages: LOCAL slots per token plane (the admission
+                budget); default sizes for ``max_running`` full-length
+                requests. State planes always hold ``max_running`` requests'
+                pages.
             host_pages: host-tier slots per plane.
             n_logical: logical page ids per plane (must cover resident AND
                 parked pages).
@@ -141,16 +148,21 @@ class PagedStateRuntime:
         for name, spec in layout.items():
             n_sub = len(spec["positions"])
             n_layers = self.G * n_sub
-            K, hd = spec["dims"]
-            page_shape = (2, K, page_tokens, hd)
-            slots = (local_pages if local_pages is not None
-                     else max_running * n_layers * self.pps + 1)
+            if spec["kind"] == "tokens":
+                K, hd = spec["dims"]
+                page_shape = (2, K, page_tokens, hd)
+                # +1 is the scratch page
+                slots = (local_pages if local_pages is not None
+                         else max_running * n_layers * self.pps + 1)
+            else:
+                page_shape = tuple(spec["shape"])
+                slots = max_running * n_layers + 1
             aqua = AquaTensor(n_logical=n_logical, page_shape=page_shape,
                               local_slots=slots, host_slots=host_pages,
                               dtype=spec["dtype"], meter=self.meter,
                               name=f"{cfg.name}/{name}", device=self.device)
-            plane = _Plane(name, aqua, n_layers, n_sub,
-                           token_bytes=spec["token_bytes"])
+            plane = _Plane(name, spec["kind"], aqua, n_layers, n_sub,
+                           token_bytes=spec.get("token_bytes", 0))
             # pinned LOCAL dummy page: idle lanes and block-table padding
             # point here so masked reads stay in bounds
             plane.scratch_lp = int(aqua.allocate(1, prefer=LOCAL)[0])
@@ -161,11 +173,25 @@ class PagedStateRuntime:
 
     # -- geometry ---------------------------------------------------------
     def pages_for(self, n_tokens: int) -> int:
-        """Pages per layer covering n_tokens."""
+        """Token-plane pages per layer covering n_tokens."""
         return max(1, math.ceil(n_tokens / self.page_tokens))
 
     def _plane_pages(self, plane: _Plane, n_tokens: int) -> int:
-        return plane.n_layers * self.pages_for(n_tokens)
+        if plane.kind == "tokens":
+            return plane.n_layers * self.pages_for(n_tokens)
+        return plane.n_layers
+
+    def footprint_bytes(self, n_tokens: int) -> float:
+        """Native-dtype whole-context bytes of a request (no page slack):
+        token planes at n_tokens, state planes at their fixed size — what
+        one park or restore moves."""
+        total = 0.0
+        for p in self.planes.values():
+            if p.kind == "tokens":
+                total += p.n_layers * n_tokens * p.token_bytes
+            else:
+                total += p.n_layers * p.aqua.page_bytes
+        return float(total)
 
     def pages_per_request(self, n_tokens: int) -> np.ndarray:
         """Per-plane page cost of a request at n_tokens of context."""
@@ -214,8 +240,10 @@ class PagedStateRuntime:
     # -- allocation -------------------------------------------------------
     def ensure_capacity(self, rid: int, n_tokens: int):
         """Grow the request's block tables to cover ``n_tokens``, all or
-        nothing across planes; implicitly activates the request. New pages
-        must be LOCAL.
+        nothing across planes; implicitly activates the request. Token
+        planes add pages as the context crosses page boundaries; state
+        planes take their one page per layer on first touch, zeroed. New
+        pages must be LOCAL.
 
         Raises:
             MemoryError: a fresh page cannot be placed (or kept) LOCAL.
@@ -229,7 +257,9 @@ class PagedStateRuntime:
                     fresh_rids.append(plane)
                 rows = plane.pages.setdefault(
                     rid, [[] for _ in range(plane.n_layers)])
-                need = self.pages_for(n_tokens)
+                need = (self.pages_for(n_tokens) if plane.kind == "tokens"
+                        else 1)
+                fresh: List[int] = []
                 for row in rows:
                     while len(row) < need:
                         lp = int(plane.aqua.allocate(1, prefer=LOCAL)[0])
@@ -242,6 +272,14 @@ class PagedStateRuntime:
                         row.append(lp)
                         added.append((plane, row, lp))
                         plane.pin[lp] = plane.pin.get(lp, 0) + 1
+                        if plane.kind == "state":
+                            fresh.append(lp)
+                if fresh:
+                    plane.aqua.write_local(
+                        fresh, torch.zeros((len(fresh),)
+                                           + plane.aqua.page_shape,
+                                           dtype=plane.aqua.dtype,
+                                           device=self.device))
         except MemoryError:
             for plane, row, lp in reversed(added):
                 self._unpin(plane, lp)
@@ -612,9 +650,10 @@ class PagedStateRuntime:
         return root.children.get(blocks[0])
 
     def cow_reserve(self) -> np.ndarray:
-        """Per-plane pages a pending copy-on-write may allocate."""
-        return np.asarray([p.n_layers for p in self.planes.values()],
-                          np.int64)
+        """Per-plane pages a pending copy-on-write may allocate (one clone
+        per layer row of each token plane)."""
+        return np.asarray([p.n_layers if p.kind == "tokens" else 0
+                           for p in self.planes.values()], np.int64)
 
     def physical_pages(self) -> Dict[str, int]:
         return {n: int((p.aqua.page_table[:, 0] != -1).sum())
@@ -627,22 +666,27 @@ class PagedStateRuntime:
     # -- block tables (the step operands) ----------------------------------
     def block_tables_prefill(self, rid: int, pad_to: Optional[int] = None
                              ) -> Dict[str, np.ndarray]:
-        """One request's tables from position 0: per plane a host
-        (G, n_sub, pad_to) int32 table of LOCAL slots, scratch-padded.
-        Chunked prefill passes a fixed ``pad_to`` (pps plus the write-window
-        spill) so every chunk's window slice stays in bounds."""
+        """One request's tables from position 0: token planes as host
+        (G, n_sub, pad_to) int32 tables of LOCAL slots, scratch-padded;
+        state planes as (G, n_sub) bare slots. Chunked prefill passes a
+        fixed ``pad_to`` (pps plus the write-window spill) so every chunk's
+        window slice stays in bounds."""
         out = {}
         for name, plane in self.planes.items():
             rows = plane.pages[rid]
-            bt = plane.aqua.block_tables(rows, pad_to=pad_to or len(rows[0]),
-                                         pad_slot=plane.scratch_slot)
-            out[name] = bt.reshape(self.G, plane.n_sub, -1)
+            tokens = plane.kind == "tokens"
+            bt = plane.aqua.block_tables(
+                rows, pad_to=(pad_to or len(rows[0])) if tokens else 1,
+                pad_slot=plane.scratch_slot)
+            out[name] = bt.reshape((self.G, plane.n_sub)
+                                   + ((-1,) if tokens else ()))
         return out
 
     def block_tables(self, lane_rids: Sequence[Optional[int]],
                      pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
-        """Packed row query: per plane a host (G, n_sub, B, pad_to) int32
-        table of LOCAL slots; empty lanes and padding point at scratch."""
+        """Packed row query: token planes as host (G, n_sub, B, pad_to)
+        int32 tables of LOCAL slots, state planes as (G, n_sub, B); empty
+        lanes and padding point at each plane's scratch page."""
         B = len(lane_rids)
         tok_pad = pad_to or self.pps
         out = {}
@@ -651,28 +695,32 @@ class PagedStateRuntime:
             for l in range(plane.n_layers):
                 for rid in lane_rids:
                     rows.append(plane.pages[rid][l] if rid is not None else [])
-            bt = plane.aqua.block_tables(rows, pad_to=tok_pad,
+            tokens = plane.kind == "tokens"
+            bt = plane.aqua.block_tables(rows, pad_to=tok_pad if tokens else 1,
                                          pad_slot=plane.scratch_slot)
-            out[name] = bt.reshape(self.G, plane.n_sub, B, tok_pad)
+            out[name] = bt.reshape((self.G, plane.n_sub, B)
+                                   + ((tok_pad,) if tokens else ()))
         return out
 
     # -- tier migration (preempt / restore as page-table flips) ------------
     def park(self, rid: int, n_tokens: int, *, prefer: int = REMOTE):
-        """Preempt: flip the request's pages out of LOCAL as one coalesced
-        message per (tier, donor), token pages metered at their fill
-        (``n_tokens`` resident positions). Shared pages move once: only
-        pages whose pin reaches zero are offloaded."""
+        """Preempt: flip the request's pages out of LOCAL, every plane in
+        one coalesced message per (tier, donor); token pages metered at
+        their fill (``n_tokens`` resident positions), state pages whole.
+        Shared pages move once: only pages whose pin reaches zero are
+        offloaded."""
         with self.meter.coalesce():
             for plane in self.planes.values():
                 if rid not in plane.pages:
                     continue
-                for row in plane.pages[rid]:
-                    fills = np.clip(
-                        n_tokens - np.arange(len(row)) * self.page_tokens,
-                        0, self.page_tokens) / self.page_tokens
-                    fills = np.where(plane.aqua.refcounts(row) > 1, 1.0,
-                                     fills)
-                    plane.aqua.set_page_fill(row, fills)
+                if plane.kind == "tokens":
+                    for row in plane.pages[rid]:
+                        fills = np.clip(
+                            n_tokens - np.arange(len(row)) * self.page_tokens,
+                            0, self.page_tokens) / self.page_tokens
+                        fills = np.where(plane.aqua.refcounts(row) > 1, 1.0,
+                                         fills)
+                        plane.aqua.set_page_fill(row, fills)
                 lps = plane.flat(rid)
                 if rid in self._active:
                     for lp in lps:

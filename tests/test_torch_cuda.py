@@ -10,16 +10,22 @@ rounds the probabilities to bfloat16 before the value product); append,
 gather and scatter bit-exact. The attention kernels share one row step, so
 decode over split pools equals decode over the fused pool, and a mixed
 launch's decode lanes and chunk rows equal the per-request kernels' rows,
-bit for bit.
+bit for bit. The WKV recurrence is held against the float32 scan (and the
+chunked form) at the reference's ``test_wkv6_sweep`` tolerances: float32
+rtol 1e-3 / atol 5e-4, bfloat16 rtol 2e-2 / atol 5e-2 (bf16 rounding of
+outputs that grow to ~1e2 under weak decay).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.kv_gather import ops as kv_ops
 from repro_torch.kernels.kv_gather import ref as kv_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -283,3 +289,128 @@ def test_cuda_per_request_kernels_reject_mixed_devices_and_index_types():
         for args in ((q, pool, bt.long(), ln), (q, pool, bt, ln.long())):
             with pytest.raises(ValueError, match="int32"):
                 call(*args)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV recurrence (csrc/wkv6.cu)
+# ---------------------------------------------------------------------------
+# (B, T, H, hd, wmax): the reference's test_wkv6_sweep, then the engine's
+# launch lengths (a decode lane, a short bucket, a length no chunk divides,
+# a full chunk bucket) at the model's head_dim 64
+WKV_CASES = {
+    "sweep_weak": (2, 64, 3, 32, 0.1),
+    "sweep_mid": (1, 128, 2, 64, 1.0),
+    "sweep_strong": (2, 96, 4, 32, 5.0),
+    "decode": (4, 1, 5, 64, 1.0),
+    "short_bucket": (2, 24, 3, 64, 5.0),
+    "ragged": (1, 70, 2, 64, 0.5),
+    "bucket_256": (2, 256, 2, 64, 0.05),
+}
+WKV_TOL = {"float32": dict(rtol=1e-3, atol=5e-4),
+           "bfloat16": dict(rtol=2e-2, atol=5e-2)}
+
+
+def _wkv_case(case, dev, td, seed=4):
+    B, T, H, hd, wmax = WKV_CASES[case]
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, hd))).to(
+        dev, td) for _ in range(3))
+    w = -torch.from_numpy(rng.uniform(1e-3, wmax, (B, T, H, hd))).to(
+        dev, torch.float32)
+    u = torch.from_numpy(rng.standard_normal((H, hd))).to(dev, torch.float32)
+    s0 = torch.from_numpy(rng.standard_normal((B, H, hd, hd)) * 0.1).to(
+        dev, torch.float32)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(WKV_CASES))
+def test_cuda_wkv6_matches_plain(case, dtype):
+    """The kernel against the float32 scan, and against the chunked form
+    where the reference's dispatch takes it; a launch is counted."""
+    dev = _cuda()
+    args = _wkv_case(case, dev, DTYPES[dtype])
+    before = build.launch_counts().get("wkv6", 0)
+    y, s = wkv_ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["wkv6"] == before + 1
+    assert y.dtype == args[0].dtype and s.dtype == torch.float32
+    refs = [wkv_ref.wkv6_ref(*args), wkv_ref.wkv6_plain(*args)]
+    for yr, sr in refs:
+        np.testing.assert_allclose(y.float().cpu().numpy(),
+                                   yr.float().cpu().numpy(), **WKV_TOL[dtype])
+        np.testing.assert_allclose(s.cpu().numpy(), sr.cpu().numpy(),
+                                   **WKV_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_state_handoff_across_calls():
+    """70 tokens in one launch equal 40 then 30 with the state carried
+    (the chunked prefill's handoff), and a padded tail with k = 0, w = 0
+    leaves the state of the last real token."""
+    dev = _cuda()
+    r, k, v, w, u, s0 = _wkv_case("ragged", dev, torch.float32, seed=9)
+    y, s = wkv_ops.wkv6(r, k, v, w, u, s0)
+    part = [a[:, :40].contiguous() for a in (r, k, v, w)]
+    y1, s1 = wkv_ops.wkv6(*part, u, s0)
+    rest = [a[:, 40:].contiguous() for a in (r, k, v, w)]
+    y2, s2 = wkv_ops.wkv6(*rest, u, s1)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).cpu().numpy(),
+                               y.cpu().numpy(), **WKV_TOL["float32"])
+    np.testing.assert_allclose(s2.cpu().numpy(), s.cpu().numpy(),
+                               **WKV_TOL["float32"])
+    kp, wp = k.clone(), w.clone()
+    kp[:, 40:], wp[:, 40:] = 0, 0
+    _, sp = wkv_ops.wkv6(r, kp, v, wp, u, s0)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(sp.cpu().numpy(), s1.cpu().numpy(),
+                               **WKV_TOL["float32"])
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_rejects_what_it_does_not_take():
+    dev = _cuda()
+    r, k, v, w, u, s0 = _wkv_case("decode", dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        wkv_ops.wkv6(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="share"):
+        wkv_ops.wkv6(r, k.float(), v, w, u, s0)
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv_ops.wkv6(*(a[..., :48].contiguous() for a in (r, k, v, w)),
+                     u[:, :48].contiguous(), s0[..., :48, :48].contiguous())
+    strided = torch.cat([r, r], dim=-1)[..., :r.shape[-1]]  # same shape
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_ops.wkv6(strided, k, v, w, u, s0)
+    with pytest.raises(ValueError, match="device|tensors on"):
+        wkv_ops.wkv6(r, k, v, w, u, s0.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_real", [None, [24, 5, 1, 0]])
+def test_cuda_rwkv_time_mix_kernel_matches_plain(n_real):
+    """One rwkv6-3b-width time-mix (d 2560, 40 heads of 64, bf16) on a
+    24-token bucket, through the kernel and the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers import rwkv6 as trwkv
+    dev = _cuda()
+    cfg = get_config("rwkv6-3b").replace(n_layers=1)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tm = trwkv.TimeMix(cfg, dev, g)
+    x = torch.randn((4, 24, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    shift = torch.randn((4, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    st = torch.randn((4, 40, 64, 64), generator=g, device=dev) * 0.1
+    out_k, sh_k, s_k = trwkv.rwkv_time_mix(tm, cfg, x, shift, st,
+                                           impl="kernel", n_real=n_real)
+    out_r, sh_r, s_r = trwkv.rwkv_time_mix(tm, cfg, x, shift, st,
+                                           impl="ref", n_real=n_real)
+    torch.cuda.synchronize()
+    assert torch.equal(sh_k, sh_r)
+    np.testing.assert_allclose(s_k.cpu().numpy(), s_r.cpu().numpy(),
+                               **WKV_TOL["float32"])
+    scale = out_r.float().abs().amax(-1).clamp_min(1e-6)
+    rel = ((out_k.float() - out_r.float()).abs().amax(-1) / scale).max()
+    assert rel.item() <= 2e-2

@@ -1,9 +1,11 @@
 """The port's ServingEngine against the JAX reference engine: the same
 weights, the same 8 seeded requests, CFS with preemption and a REMOTE donor
 lease, each engine priced on its own package's A100 profile (the chunk
-budget depends on the profile through ``piggyback_tokens``). Greedy token
-streams, preemption/restore counts and TransferMeter bytes and messages
-must be identical. Also: the engine's entry points refuse to run on a
+budget depends on the profile through ``piggyback_tokens``), for the dense
+family (qwen1.5-0.5b, one ``kv`` token plane) and RWKV-6 (rwkv6-3b, the
+``wkv`` and ``shift`` state planes). Greedy token streams,
+preemption/restore counts and TransferMeter bytes and messages must be
+identical. Also: the engine's entry points refuse to run on a
 missing GPU by default, and knobs of the reference that the port has not
 ported yet are refused, not ignored."""
 import jax
@@ -55,15 +57,16 @@ def _serve(eng):
             "messages_host": meter.messages_host}
 
 
-@pytest.fixture(scope="module")
-def served():
-    cfg = smoke_config(get_config(ARCH))
+@pytest.fixture(scope="module", params=[ARCH, "rwkv6-3b"])
+def served(request):
+    arch = request.param
+    cfg = smoke_config(get_config(arch))
     params = japi.init_params(jax.random.PRNGKey(0), cfg)
     jeng = JEngine(cfg, params, offload_tier=J_REMOTE, hw=J_A100,
                    paged_impl="xla", **KNOBS)
     jeng.pager.add_remote_lease("donor0", LEASE)
     ref = _serve(jeng)
-    tcfg = t_smoke_config(t_get_config(ARCH))
+    tcfg = t_smoke_config(t_get_config(arch))
     model = from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
     teng = TEngine(tcfg, model, offload_tier=T_REMOTE, hw=T_A100,
                    device="cpu", **KNOBS)
@@ -89,7 +92,7 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     cfg = t_smoke_config(t_get_config(ARCH))
-    model = tlm.DenseLM(cfg, torch.device("cpu"))
+    model = tlm.LM(cfg, torch.device("cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         TEngine(cfg, model)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -119,7 +122,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     dict(paged_impl="ref")])
 def test_engine_refuses_unported_knobs(knob):
     cfg = t_smoke_config(t_get_config(ARCH))
-    model = tlm.DenseLM(cfg, torch.device("cpu"))
+    model = tlm.LM(cfg, torch.device("cpu"))
     with pytest.raises(TypeError):
         TEngine(cfg, model, device="cpu", **knob)
 

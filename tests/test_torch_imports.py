@@ -25,15 +25,19 @@ def _imports(path):
 def test_port_files_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for want in ("configs/base.py", "configs/qwen1_5_0_5b.py",
+                 "configs/rwkv6_3b.py",
                  "core/errors.py", "core/perfmodel.py", "core/aqua_tensor.py",
                  "kernels/kv_gather/ops.py", "kernels/kv_gather/ref.py",
                  "kernels/paged_attention/ops.py",
-                 "kernels/paged_attention/ref.py", "layers/core.py",
-                 "layers/attention.py", "models/lm.py", "models/api.py",
+                 "kernels/paged_attention/ref.py",
+                 "kernels/rwkv6_wkv/ops.py", "kernels/rwkv6_wkv/ref.py",
+                 "layers/core.py", "layers/attention.py", "layers/rwkv6.py",
+                 "models/lm.py", "models/api.py",
                  "params.py", "serving/scheduler.py", "serving/kv_cache.py",
                  "serving/engine.py", "launch/serve.py"):
         assert want in names, want
     assert (ROOT / "chip_smoke.py").exists()
+    assert (PORT / "csrc" / "wkv6.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)

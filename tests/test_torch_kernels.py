@@ -307,7 +307,7 @@ def test_every_csrc_kernel_notes_what_it_replaces():
     csrc = Path(build.CSRC)
     sources = sorted(csrc.glob("*.cu"))
     assert [s.name for s in sources] == ["kv_gather.cu",
-                                         "paged_attention.cu"]
+                                         "paged_attention.cu", "wkv6.cu"]
     for s in sources:
         text = s.read_text()
         assert "Replaces" in text or "replaces" in text
