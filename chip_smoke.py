@@ -85,6 +85,35 @@ page each per layer:
    restore moves exactly one request's whole state (21,299,200 bytes), and
    ``wkv6`` launched on the path.
 
+Then qwen1.5-0.5b's training path at its published width (bf16 params,
+float32 AdamW master and moments):
+
+11. flash kernels — the forward (``flash_attention``) and the backward
+   (``flash_attention_bwd``: its dQ and dK/dV kernels) against their plain
+   versions, over the reference's sweep (GQA, window, Sq < Sk,
+   bidirectional, MQA at hd 256) and the training shape (4, 2048, 16, 64)
+   causal, in float32 and bfloat16: forward within the reference's TOL
+   (3e-5 / 3e-2 absolute), dq/dk/dv within 1e-4 / 2e-2 of the plain
+   formula's norm; a control that masks every row's diagonal key as well
+   must land beyond both. Device times at the training shape in bf16
+   beside the plain versions', the bound (FLOP of the visible pairs over
+   989 TFLOP/s, bytes over 3.35 TB/s) and the library call (PyTorch's
+   fused attention, forward and forward + backward, timed in
+   ``library_attention_ms`` and nowhere else).
+12. train step — ``init_params`` at full width, one ``make_batch`` batch of
+   1 x 2048 tokens: per layer, on the same input, the attention through the
+   kernel and the plain version within 2% per token (a control whose first
+   layer loses its diagonal key beyond); the loss and the gradients through
+   ``api.loss_fn(impl="kernel")`` against ``impl="ref"``: loss within 2e-2
+   absolute, every parameter's gradient within 5e-2 of the plain one's
+   norm, the control's beyond; 24 ``flash_attention`` and at least 24
+   ``flash_attention_bwd`` launches in the kernel step.
+13. train run — ``training/train_loop.train`` for 10 steps at batch 4 x
+   2048, cosine schedule, no checkpoints: every loss finite, the last below
+   the first; step time p50/p99, tokens/s, peak memory, launches per step
+   and the model-FLOP share of the p50 step (6 x params x tokens plus the
+   attention FLOP, over 989 TFLOP/s). Its launches are the flash rows'.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -1416,6 +1445,331 @@ def phase_rwkv_per_request(torch, np, cfg, model, model32, dev):
     return launches
 
 
+# -- qwen1.5-0.5b training: the flash attention kernels --------------------
+FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:76"
+# (B, Sq, Sk, H, K, hd, causal, window): the reference's test_kernels sweep
+# (GQA, window, right-aligned Sq < Sk, bidirectional, MQA at hd 256), then
+# the training shape of qwen1.5-0.5b at batch 4 and 2048 tokens
+FLASH_SWEEP = [(2, 128, 128, 4, 2, 64, True, 0),
+               (1, 256, 256, 4, 4, 32, True, 64),
+               (2, 64, 192, 6, 2, 64, True, 0),
+               (1, 128, 128, 2, 2, 128, False, 0),
+               (1, 64, 64, 8, 1, 256, True, 0)]
+TRAIN_ATTN = (4, 2048, 2048, 16, 16, 64, True, 0)
+# forward: the reference's TOL (tests/test_kernels.py); backward: distance
+# of dq / dk / dv to the plain formula, relative to its norm
+FLASH_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+FLASH_BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the train step, kernel path against plain path at batch 1: each
+# parameter's gradient (distance relative to the plain gradient's norm)
+# and the loss (absolute); attention outputs per layer as LAYER_REL_LIMIT
+GRAD_REL_LIMIT = 5e-2
+LOSS_ABS_LIMIT = 2e-2
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 4, 2048
+
+
+def flash_control(torch, q, k, v, causal, window):
+    """The plain version with every row's diagonal key (k_pos == q_pos)
+    masked as well: each row loses one visible key. Differentiable."""
+    from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                         attention_mask)
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
+    q_pos = torch.arange(Sq, device=q.device) + (Sk - Sq)
+    mask &= torch.arange(Sk, device=q.device)[None, :] != q_pos[:, None]
+    qg = q.float().reshape(B, Sq, K, H // K, hd)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) / hd ** 0.5
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bkgts,bskd->btkgd", probs, v).reshape(B, Sq, H, hd)
+
+
+def flash_inputs(torch, g, shape, dtype):
+    B, Sq, Sk, H, K, hd, _, _ = shape
+    return [torch.randn(s, generator=g, device="cuda").to(dtype)
+            for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd),
+                      (B, Sq, H, hd))]
+
+
+def flash_work(shape, itemsize):
+    """(forward FLOP, forward bytes, backward FLOP, backward bytes) the
+    call must do and move: 2 products forward and 5 backward of 2 FLOP per
+    visible (query, key) pair and head dim per query head; q, k, v (and o,
+    dO) read once, o (dq, dk, dv) written once, lse and D in float32."""
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    B, Sq, Sk, H, K, hd, causal, window = shape
+    pairs = int(attention_mask(Sq, Sk, causal, window, "cpu").sum())
+    qb, kb = B * Sq * H * hd * itemsize, B * Sk * K * hd * itemsize
+    lse = B * H * Sq * 4
+    return (4 * B * H * hd * pairs, 2 * qb + 2 * kb + lse,
+            10 * B * H * hd * pairs, 4 * qb + 4 * kb + 2 * lse)
+
+
+def library_attention_ms(torch, q, k, v, do, iters):
+    """The yardstick: ``scaled_dot_product_attention`` (is_causal, so
+    Sq == Sk) on the same inputs, forward alone and forward + backward,
+    device ms per call. Timed here only; the port never calls it."""
+    from torch.nn import functional as F
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return torch.autograd.grad(out, leaves, dot)
+    return device_ms(fwd, iters), device_ms(fwd_bwd, iters)
+
+
+def phase_flash_kernels(torch, report):
+    """Flash attention forward and backward kernels against their plain
+    versions (module docstring, phase 11); returns nothing, appends the
+    two rows to ``report``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    g = torch.Generator(device="cuda").manual_seed(11)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rows = {"fwd": [], "bwd": []}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    for shape in FLASH_SWEEP + [TRAIN_ATTN]:
+        causal, window = shape[6], shape[7]
+        kw = dict(causal=causal, window=window)
+        for dname, dt in dtypes.items():
+            q, k, v, do = flash_inputs(torch, g, shape, dt)
+            o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+            want = fa_ref.flash_attention_ref(q, k, v, **kw)
+            ctrl = flash_control(torch, q, k, v, causal, window)
+            err = (o.float() - want.float()).abs().max().item()
+            c_err = (ctrl.float() - want.float()).abs().max().item()
+            del want, ctrl
+            ro, rlse = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+            got = fa_ops.flash_attention_bwd(q, k, v, ro, rlse.float(), do,
+                                             **kw)
+            ref = fa_ref.flash_attention_bwd_ref(q, k, v, ro, rlse, do, **kw)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            c_out = flash_control(torch, *leaves, causal, window)
+            c_grads = torch.autograd.grad(c_out, leaves, do)
+            torch.cuda.synchronize()
+            b_err = max(rel(a, b) for a, b in zip(got, ref))
+            cb_err = min(rel(a, b) for a, b in zip(c_grads, ref))
+            finite = bool(torch.isfinite(o).all()) and all(
+                bool(torch.isfinite(t).all()) for t in got)
+            del got, ref, c_out, c_grads, leaves, ro, rlse
+            name = (f"B={shape[0]} Sq={shape[1]} Sk={shape[2]} H={shape[3]}"
+                    f" K={shape[4]} hd={shape[5]} causal={causal} "
+                    f"window={window} {dname}")
+            print(f"flash {name}: fwd err {err:.3g} (limit "
+                  f"{FLASH_TOL[dname]}, control {c_err:.3g}); bwd rel "
+                  f"{b_err:.3g} (limit {FLASH_BWD_REL[dname]}, control "
+                  f"{cb_err:.3g})")
+            if not (finite and err <= FLASH_TOL[dname] < c_err
+                    and b_err <= FLASH_BWD_REL[dname] < cb_err):
+                raise AssertionError(
+                    f"flash attention {name}: forward error {err} (control "
+                    f"{c_err}) / backward {b_err} (control {cb_err}) "
+                    f"against limits {FLASH_TOL[dname]} / "
+                    f"{FLASH_BWD_REL[dname]}, finite {finite}")
+            rows["fwd"].append(dict(shape=name, max_abs_err=err,
+                                    control=c_err))
+            rows["bwd"].append(dict(shape=name, max_rel_err=b_err,
+                                    control=cb_err))
+
+    # times at the training shape, bf16
+    q, k, v, do = flash_inputs(torch, g, TRAIN_ATTN, torch.bfloat16)
+    kw = dict(causal=True, window=0)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    ms_f, plain_f = interleaved(
+        lambda: fa_ref.flash_attention_ref(q, k, v, **kw),
+        lambda: fa_ops.flash_attention_fwd(q, k, v, **kw), 10, plain_iters=3)
+    ms_b, plain_b = interleaved(
+        lambda: fa_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+        lambda: fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw), 10,
+        plain_iters=3)
+    lib_f, lib_fb = library_attention_ms(torch, q, k, v, do, 10)
+    f_flop, f_bytes, b_flop, b_bytes = flash_work(TRAIN_ATTN, 2)
+    bf, byf = bound_ms(f_bytes, f_flop)
+    bb, byb = bound_ms(b_bytes, b_flop)
+    shape = rows["fwd"][-1]["shape"]
+    print(f"flash train shape {shape}: forward kernel {ms_f:.4f} ms plain "
+          f"{plain_f:.4f} bound {bf:.4f} ({byf}) library {lib_f:.4f}; "
+          f"backward kernel {ms_b:.4f} ms plain {plain_b:.4f} bound "
+          f"{bb:.4f} ({byb}) library fwd+bwd {lib_fb:.4f} "
+          f"(minus fwd {lib_fb - lib_f:.4f})")
+    del q, k, v, do, o, lse
+    common = dict(route="cuda", source=FLASH_SRC, replaces=FLASH_TPU)
+    report.append(dict(
+        name="flash_attention", **common, shape=shape,
+        max_abs_err=rows["fwd"][-1]["max_abs_err"],
+        tolerance=FLASH_TOL["bfloat16"], ms=ms_f, plain_ms=plain_f,
+        bound_ms=bf, bound_by=byf, library_ms=lib_f, sweep=rows["fwd"]))
+    report.append(dict(
+        name="flash_attention_bwd", **common, shape=shape,
+        max_abs_err=rows["bwd"][-1]["max_rel_err"],
+        error_kind="dq/dk/dv distance relative to the plain formula's norm",
+        tolerance=FLASH_BWD_REL["bfloat16"], ms=ms_b, plain_ms=plain_b,
+        bound_ms=bb, bound_by=byb, library_ms=lib_fb - lib_f,
+        library_note="the library attention's forward + backward "
+        f"({lib_fb:.4f} ms) minus its forward", sweep=rows["bwd"]))
+
+
+def train_step_grads(torch, model, batch, loss_fn):
+    from repro_torch.training.train_loop import trainable_params
+    params = trainable_params(model)
+    loss = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.item(), dict(zip(params, grads))
+
+
+def phase_train_step(torch, np, cfg, model, dev):
+    """One full-width train step at batch 1 through the kernels and the
+    plain versions (module docstring, phase 12). Returns its launches."""
+    from repro_torch.kernels import build
+    from repro_torch.layers import attention as attn
+    from repro_torch.layers.core import (embed, linear, mlp, rms_norm,
+                                         unembed)
+    from repro_torch.models import api, lm
+    from repro_torch.models.losses import shifted_xent
+    from repro_torch.training.data import DataConfig, make_batch
+    batch = make_batch(DataConfig(seed=0, batch=1, seq_len=TRAIN_SEQ), cfg, 0)
+    tokens = batch["tokens"].to(dev)
+    # the first layer: its control changes every later layer's input
+    control_layer = 0
+
+    def control_attention(mix, h):
+        B, T, _ = h.shape
+        pos = torch.arange(T, device=h.device)[None, :]
+        q, k, v = attn._project_qkv(mix, cfg, h, pos)
+        ctx = flash_control(torch, q, k, v, True, 0)
+        return linear(mix.wo, ctx.reshape(B, T, -1))
+
+    def control_loss(m, b):
+        x = embed(m.embed, cfg, tokens)
+        for layer, blk in enumerate(m.blocks):
+            x = lm._layer(blk, cfg, x, lambda mix, h: (
+                control_attention(mix, h) if layer == control_layer else
+                attn.attention_full(mix, cfg, h, impl="ref")))
+        x = rms_norm(m.final_norm, x, cfg.rmsnorm_eps)
+        return shifted_xent(unembed(m.embed, cfg, x), tokens)
+
+    # per layer, on the same input: kernel, plain and control attention
+    rel = {"kernel": [], "control": []}
+    with torch.no_grad():
+        x = embed(model.embed, cfg, tokens)
+        for blk in model.blocks:
+            h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
+            out_r = attn.attention_full(blk.mix, cfg, h, impl="ref")
+            scale = out_r.float().abs().amax(-1).clamp_min(1e-6)
+            for name, o in (("kernel", attn.attention_full(
+                    blk.mix, cfg, h, impl="kernel")),
+                    ("control", control_attention(blk.mix, h))):
+                d = (o.float() - out_r.float()).abs().amax(-1) / scale
+                rel[name].append(d.max().item())
+            x = x + out_r
+            x = x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
+        del x, h, out_r
+    build.reset_launch_counts()
+    loss_k, g_k = train_step_grads(torch, model, batch, lambda m, b:
+                                   api.loss_fn(m, cfg, b, impl="kernel"))
+    _sync(torch, dev)
+    launches = build.launch_counts()
+    loss_r, g_r = train_step_grads(torch, model, batch, lambda m, b:
+                                   api.loss_fn(m, cfg, b, impl="ref"))
+    loss_c, g_c = train_step_grads(torch, model, batch, control_loss)
+    _sync(torch, dev)
+
+    def grad_rel(gs):
+        return {n: ((gs[n].float() - g_r[n].float()).norm()
+                    / g_r[n].float().norm().clamp_min(1e-30)).item()
+                for n in g_r}
+    gk, gc = grad_rel(g_k), grad_rel(g_c)
+    worst = sorted(gk.items(), key=lambda kv: -kv[1])[:3]
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    print(f"train step (batch 1, seq {TRAIN_SEQ}): attention per layer, "
+          f"kernel vs plain per token max {max(rel['kernel']):.4g} (limit "
+          f"{LAYER_REL_LIMIT}), control (layer loses its diagonal key) min "
+          f"{min(rel['control']):.4g}")
+    print(f"train step: loss kernel {loss_k:.6f} plain {loss_r:.6f} (|d| "
+          f"{abs(loss_k - loss_r):.3g}, limit {LOSS_ABS_LIMIT}) control "
+          f"(layer {control_layer}) {loss_c:.6f} (|d| "
+          f"{abs(loss_c - loss_r):.3g})")
+    print(f"train step: gradients kernel vs plain, relative norm, worst "
+          f"{[(n, float(f'{r:.3g}')) for n, r in worst]} (limit "
+          f"{GRAD_REL_LIMIT});"
+          f" control worst {max(gc.values()):.4g} "
+          f"({max(gc, key=gc.get)})")
+    print(f"train step: launches {json.dumps(launches, sort_keys=True)}")
+    del g_k, g_r, g_c
+    if not (finite and max(rel["kernel"]) <= LAYER_REL_LIMIT
+            < min(rel["control"])):
+        raise AssertionError(f"train step attention: kernel {rel['kernel']} "
+                             f"control {rel['control']} finite {finite}")
+    if not (abs(loss_k - loss_r) <= LOSS_ABS_LIMIT
+            and max(gk.values()) <= GRAD_REL_LIMIT < max(gc.values())):
+        raise AssertionError(f"train step: loss {loss_k} vs {loss_r}, "
+                             f"gradients {worst}, control {max(gc.values())}")
+    if launches.get("flash_attention", 0) != cfg.n_layers or launches.get(
+            "flash_attention_bwd", 0) < cfg.n_layers:
+        raise AssertionError(f"train step launches {launches}: want "
+                             f"{cfg.n_layers} forward, >= {cfg.n_layers} "
+                             "backward")
+    return launches
+
+
+def phase_train_run(torch, np, cfg, dev, steps=TRAIN_STEPS,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """``train_loop.train`` for ``steps`` steps at full width (module
+    docstring, phase 13). Returns its launches."""
+    from repro_torch.kernels import build
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig, cosine_schedule
+    from repro_torch.training.train_loop import TrainConfig, train
+    dcfg = DataConfig(seed=0, batch=batch, seq_len=seq)
+    ocfg = AdamWConfig(lr=cosine_schedule(3e-4, warmup=1, total=steps))
+    tcfg = TrainConfig(steps=steps, impl="kernel")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    out = train(cfg, dcfg, ocfg, tcfg, device=dev, generator=gen)
+    _sync(torch, dev)
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    losses = out["losses"]
+    secs = np.asarray(out["step_times"])
+    steady = secs[1:]
+    tokens = batch * seq
+    f_flop, _, b_flop, _ = flash_work(
+        (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads,
+                cfg.resolved_head_dim, True, 0), 2)
+    attn_flop = cfg.n_layers * (f_flop + b_flop)
+    model_flop = 6 * cfg.param_count() * tokens + attn_flop
+    p50 = float(np.percentile(steady, 50))
+    print(f"train run: {steps} steps, batch {batch} x {seq}, losses "
+          f"{[round(l, 4) for l in losses]}")
+    print(f"train run: step time (steps 2-{steps}) p50 "
+          f"{p50 * 1e3:.2f} ms p99 {np.percentile(steady, 99) * 1e3:.2f} ms;"
+          f" first step {secs[0] * 1e3:.2f} ms; {tokens / p50:.1f} tokens/s;"
+          f" peak memory {peak:.2f} GiB")
+    print(f"train run: launches per step "
+          f"{json.dumps({k: v / steps for k, v in launches.items()})}"
+          f"; model FLOP per step {model_flop:.4g} (6 x "
+          f"{cfg.param_count()} params x {tokens} tokens + attention "
+          f"{attn_flop:.4g}), {model_flop / BF16_FLOPS * 1e3:.2f} ms at the"
+          f" bf16 peak: model-FLOP share "
+          f"{model_flop / (p50 * BF16_FLOPS):.4f} of the p50 step")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train run losses {losses}: must be finite "
+                             "and fall")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1469,12 +1823,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     rwkv_engine = phase_engine(torch, np, rcfg, model, dev,
                                need=("wkv6", "gather_pages", "scatter_pages"))
+    del model
+    torch.cuda.empty_cache()
+    print(f"rwkv6-3b phases done at {time.perf_counter() - t0:.1f} s")
+
+    # -- qwen1.5-0.5b training: the flash attention kernels ----------------
+    phase_flash_kernels(torch, report)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    model = lm.init_params(cfg, gen, "cuda")
+    phase_train_step(torch, np, cfg, model, dev)
+    del model
+    torch.cuda.empty_cache()
+    train_run = phase_train_run(torch, np, cfg, dev)
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
-    # rwkv engine, the rwkv per-request path
+    # rwkv engine, the rwkv per-request path, the train run
     paths = (("engine", launches), ("per-request", per_request),
              ("split-pool drive", split), ("rwkv engine", rwkv_engine),
-             ("rwkv per-request", rwkv_per_request))
+             ("rwkv per-request", rwkv_per_request), ("train", train_run))
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))

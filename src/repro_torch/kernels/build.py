@@ -54,6 +54,10 @@ _SIGNATURES = {
     "aqua_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "aqua_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _L, _L, _L, ctypes.c_float, _I, _P],
+    "aqua_flash_attention_fwd": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _I,
+                                                       _P],
+    "aqua_flash_attention_bwd": [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I,
+                                                        _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

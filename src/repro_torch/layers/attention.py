@@ -1,12 +1,15 @@
-"""GQA attention against the paged KV pool — the paged half of
-``repro/layers/attention.py``: the fused serving step's mixed attention and
-the per-request chunked-prefill and decode attention.
+"""GQA attention — ``repro/layers/attention.py`` for the dense family:
+full-sequence training attention (``attention_full``) and, against the
+paged KV pool, the fused serving step's mixed attention and the
+per-request chunked-prefill and decode attention.
 
-``impl='kernel'`` routes to ``kernels/paged_attention`` (the CUDA kernels on
-a CUDA device, their plain versions on the CPU); ``impl='ref'`` calls the
-plain versions directly (the reference's ``'pallas'`` / ``'xla'``).
-Pools are updated IN PLACE (the reference returns new arrays; here the
-mutated pool is returned for the same call shape).
+``impl='kernel'`` routes to ``kernels/flash_attention`` (training) and
+``kernels/paged_attention`` (serving): the CUDA kernels on a CUDA device,
+their plain versions on the CPU; ``impl='ref'`` calls the plain versions
+directly (the reference's ``'pallas'`` / ``'xla'``), under autograd for
+training. Pools are updated IN PLACE (the reference returns new arrays;
+here the mutated pool is returned for the same call shape). The dense
+KV-cache prefill (``return_kv``) is not ported.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
     append_kv_ref, paged_attention_pool_ref, paged_mixed_attention_pool_ref,
@@ -51,6 +56,24 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attention_full(p: Attention, cfg: ModelConfig, x, *, window: int = 0,
+                   pos_offset: int = 0, impl: str = "kernel"):
+    """Training full-sequence causal attention: x (B,T,d) at positions
+    ``pos_offset + [0, T)`` -> (B,T,d). The reference's einsum ``_sdpa``
+    under ``_causal_mask`` is exactly flash attention with ``Sq == Sk`` when
+    there is no logit softcap, so ``impl='kernel'`` runs the flash op
+    (forward and backward kernels on CUDA) and ``impl='ref'`` its plain
+    version under autograd."""
+    check_impl(impl)
+    B, T, _ = x.shape
+    positions = pos_offset + torch.arange(T, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    attend = fa_ops.flash_attention if impl == "kernel" else \
+        flash_attention_ref
+    ctx = attend(q, k, v, causal=True, window=window)
+    return linear(p.wo, ctx.reshape(B, T, -1))
 
 
 def write_chunk_pages(kv_pool, k, v, window, offset: int, *,

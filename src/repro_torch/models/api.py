@@ -1,10 +1,27 @@
-"""Uniform model API of the paged serving runtime (the part of
-``repro/models/api.py`` the serving paths call): the fused engine step and
-the per-request chunked prefill and decode it is held against."""
+"""Uniform model API (the part of ``repro/models/api.py`` the port runs):
+the training loss and forward, and for the paged serving runtime the fused
+engine step and the per-request chunked prefill and decode it is held
+against."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+
+
+def init_params(cfg: ModelConfig, generator, device=None):
+    return lm.init_params(cfg, generator, device)
+
+
+def forward(model, cfg: ModelConfig, tokens, *, remat: bool = False,
+            impl: str = "kernel"):
+    """tokens (B,T) -> (logits (B,T,V), aux)."""
+    return lm.forward(model, cfg, tokens, remat=remat, impl=impl)
+
+
+def loss_fn(model, cfg: ModelConfig, batch: dict, *, remat: bool = False,
+            impl: str = "kernel"):
+    """Next-token cross-entropy of ``batch["tokens"]``."""
+    return lm.loss_fn(model, cfg, batch, remat=remat, impl=impl)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:

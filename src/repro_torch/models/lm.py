@@ -1,5 +1,5 @@
-"""Decoder LM for the paged serving runtime — the dense and RWKV-6 subset of
-``repro/models/lm.py``.
+"""Decoder LM for training and the paged serving runtime — the dense and
+RWKV-6 subset of ``repro/models/lm.py`` (training: the dense family).
 
 The reference stacks layer groups for ``lax.scan``; here the model is an
 ``nn.Module`` whose ``blocks`` are one module per layer and the step is a
@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE, SSM, ModelConfig
 from repro_torch.core.device import resolve_device
@@ -23,6 +24,7 @@ from repro_torch.layers import attention as attn
 from repro_torch.layers import rwkv6 as rwkv
 from repro_torch.layers.core import (MLP, Embedding, RMSNorm, embed, mlp,
                                      rms_norm, unembed)
+from repro_torch.models.losses import shifted_xent
 
 
 def mixer_kind(cfg: ModelConfig) -> str:
@@ -149,6 +151,50 @@ def _layer(blk: Block, cfg: ModelConfig, x, attend):
     attention."""
     x = x + attend(blk.mix, rms_norm(blk.n1, x, cfg.rmsnorm_eps))
     return x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
+
+
+def _tokens_on(tokens, device) -> torch.Tensor:
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(np.asarray(tokens))
+    return tokens.to(device)
+
+
+def _train_layer(blk: Block, cfg: ModelConfig, x, impl: str):
+    return _layer(blk, cfg, x, lambda mix, h: attn.attention_full(
+        mix, cfg, h, impl=impl))
+
+
+def forward(model: LM, cfg: ModelConfig, tokens, *, remat: bool = False,
+            impl: str = "kernel"):
+    """Training forward of the dense family (the reference's ``forward`` and
+    ``_group_train``): tokens (B,T) -> (logits (B,T,V), aux 0.0). Tokens
+    move to the model's device. ``remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``, the counterpart of
+    ``jax.checkpoint`` of the group body)."""
+    if mixer_kind(cfg) == "rwkv":
+        raise NotImplementedError(f"{cfg.name}: RWKV-6 training is not "
+                                  "ported (wkv6 has no backward kernel)")
+    device = model.embed.tok.device
+    tokens = _tokens_on(tokens, device)
+    x = embed(model.embed, cfg, tokens)
+    for blk in model.blocks:
+        if remat:
+            x = checkpoint(_train_layer, blk, cfg, x, impl,
+                           use_reentrant=False)
+        else:
+            x = _train_layer(blk, cfg, x, impl)
+    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
+    logits = unembed(model.embed, cfg, x)
+    return logits, torch.zeros((), dtype=torch.float32, device=device)
+
+
+def loss_fn(model: LM, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False, impl: str = "kernel"):
+    """Next-token cross-entropy of ``batch["tokens"]`` (B,T) -> float32
+    scalar (the dense family has no auxiliary loss)."""
+    tokens = _tokens_on(batch["tokens"], model.embed.tok.device)
+    logits, _ = forward(model, cfg, tokens, remat=remat, impl=impl)
+    return shifted_xent(logits, tokens)
 
 
 def _rwkv_layer(blk: Block, cfg: ModelConfig, x, pools: dict, ws, ss, *,

@@ -13,13 +13,19 @@ launch's decode lanes and chunk rows equal the per-request kernels' rows,
 bit for bit. The WKV recurrence is held against the float32 scan (and the
 chunked form) at the reference's ``test_wkv6_sweep`` tolerances: float32
 rtol 1e-3 / atol 5e-4, bfloat16 rtol 2e-2 / atol 5e-2 (bf16 rounding of
-outputs that grow to ~1e2 under weak decay).
+outputs that grow to ~1e2 under weak decay). Flash attention forward at
+the attention tolerances above (the kernel keeps the probabilities in
+float32), its row log-sum-exp at rtol 1e-5; the backward's dq/dk/dv within
+1e-4 (float32) and 2e-2 (bfloat16) of the plain formula's norm, and, in
+float32, the autograd op within 1e-4 of autograd through the plain forward.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.kv_gather import ops as kv_ops
 from repro_torch.kernels.kv_gather import ref as kv_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -414,3 +420,103 @@ def test_cuda_rwkv_time_mix_kernel_matches_plain(n_real):
     scale = out_r.float().abs().amax(-1).clamp_min(1e-6)
     rel = ((out_k.float() - out_r.float()).abs().amax(-1) / scale).max()
     assert rel.item() <= 2e-2
+
+
+# (B, Sq, Sk, H, K, hd, causal, window): the reference's sweep, rows that
+# see no key (Sq > Sk), and ragged tiles with G > 1 under a window
+FLASH_CASES = {
+    "gqa": (2, 128, 128, 4, 2, 64, True, 0),
+    "window": (1, 256, 256, 4, 4, 32, True, 64),
+    "sq_lt_sk": (2, 64, 192, 6, 2, 64, True, 0),
+    "bidir": (1, 128, 128, 2, 2, 128, False, 0),
+    "mqa_hd256": (1, 64, 64, 8, 1, 256, True, 0),
+    "sq_gt_sk": (1, 96, 64, 4, 2, 32, True, 0),
+    "ragged_gqa_window": (2, 100, 150, 6, 3, 64, True, 40),
+    "bidir_window_sq_gt_sk": (1, 80, 50, 4, 4, 128, False, 16),
+}
+FLASH_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+FLASH_BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _flash_case(case, dev, td, seed=7):
+    B, Sq, Sk, H, K, hd, causal, window = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+    t = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev, td) for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd),
+                           (B, Sq, H, hd))]
+    return t, dict(causal=causal, window=window)
+
+
+def _rel_norm(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_cuda_flash_forward_matches_plain(case, dtype):
+    dev = _cuda()
+    (q, k, v, _), kw = _flash_case(case, dev, DTYPES[dtype])
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    ro, rlse = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and lse.dtype == torch.float32
+    assert (o.float() - ro.float()).abs().max().item() <= FLASH_TOL[dtype]
+    np.testing.assert_allclose(lse.cpu().numpy(), rlse.cpu().numpy(),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_cuda_flash_backward_matches_plain(case, dtype):
+    """The backward kernels on the plain forward's o and lse, against the
+    plain formula; twice, bit-identical (no atomics)."""
+    dev = _cuda()
+    (q, k, v, do), kw = _flash_case(case, dev, DTYPES[dtype])
+    o, lse = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse.float(), do, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, lse.float(), do, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip("qkv", got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, g2), name
+        assert _rel_norm(g, w) <= FLASH_BWD_REL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gqa", "sq_gt_sk", "ragged_gqa_window"])
+def test_cuda_flash_op_grads_match_autograd_of_plain(case):
+    dev = _cuda()
+    (q, k, v, do), kw = _flash_case(case, dev, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = build.launch_counts()
+    out = fa_ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    after = build.launch_counts()
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_out = fa_ref.flash_attention_ref(*ref_leaves, **kw)
+    want = torch.autograd.grad(ref_out, ref_leaves, do)
+    torch.cuda.synchronize()
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert after.get(name, 0) - before.get(name, 0) == 1, name
+    assert (out - ref_out).abs().max().item() <= FLASH_TOL["float32"]
+    for g, w in zip(got, want):
+        assert _rel_norm(g, w) <= FLASH_BWD_REL["float32"]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_what_it_does_not_take():
+    dev = _cuda()
+    (q, k, v, do), kw = _flash_case("gqa", dev, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention_fwd(*(a[..., :48].contiguous()
+                                     for a in (q, k, v)))
+    with pytest.raises(ValueError, match="share"):
+        fa_ops.flash_attention_fwd(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention_fwd(q.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="device|tensors on"):
+        fa_ops.flash_attention_fwd(q, k, v.cpu())

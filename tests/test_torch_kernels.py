@@ -306,7 +306,8 @@ def test_every_csrc_kernel_notes_what_it_replaces():
     card and what its design does about it."""
     csrc = Path(build.CSRC)
     sources = sorted(csrc.glob("*.cu"))
-    assert [s.name for s in sources] == ["kv_gather.cu",
+    assert [s.name for s in sources] == ["flash_attention.cu",
+                                         "kv_gather.cu",
                                          "paged_attention.cu", "wkv6.cu"]
     for s in sources:
         text = s.read_text()
