@@ -99,7 +99,10 @@ float32 AdamW master and moments):
    beside the plain versions', the bound (FLOP of the visible pairs over
    989 TFLOP/s, bytes over 3.35 TB/s) and the library call (PyTorch's
    fused attention, forward and forward + backward, timed in
-   ``library_attention_ms`` and nowhere else).
+   ``library_attention_ms`` and nowhere else), with each kernel's achieved
+   TFLOP/s and share of its bound; two bf16 backward calls at the training
+   shape must agree bit for bit; the bf16 tensor-core kernels' registers
+   and spills (``-Xptxas -v``) and shared memory at every head dim.
 12. train step — ``init_params`` at full width, one ``make_batch`` batch of
    1 x 2048 tokens: per layer, on the same input, the attention through the
    kernel and the plain version within 2% per token (a control whose first
@@ -113,6 +116,10 @@ float32 AdamW master and moments):
    the first; step time p50/p99, tokens/s, peak memory, launches per step
    and the model-FLOP share of the p50 step (6 x params x tokens plus the
    attention FLOP, over 989 TFLOP/s). Its launches are the flash rows'.
+   Then one more steady step under ``torch.profiler`` (CPU and CUDA
+   activities): device time by kernel name (top 10), the flash kernels'
+   sum against the step and the device's idle share ("not measured" where
+   the trace holds no device time).
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -1524,6 +1531,54 @@ def library_attention_ms(torch, q, k, v, do, iters):
     return device_ms(fwd, iters), device_ms(fwd_bwd, iters)
 
 
+TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkdv_tc")
+
+
+def ptxas_resources(log):
+    """{(kernel, hd): (registers, spill stores, spill loads)} of the bf16
+    tensor-core flash kernels, from ``nvcc -Xptxas -v``'s log."""
+    import re
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        key = next(((k, int(h)) for k, h in re.findall(
+            r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_tc)ILi(\d+)E", name or "")),
+            None)
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            regs = found.get(key, (0, 0, 0))[0]
+            found[key] = (regs, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            _, st, ld = found.get(key, (0, 0, 0))
+            found[key] = (int(m.group(1)), st, ld)
+    return found
+
+
+def print_flash_resources(fa_ops):
+    """Registers and spills (ptxas) and dynamic shared memory of the bf16
+    tensor-core kernels at every head dim."""
+    from repro_torch.kernels import build
+    ptxas = ptxas_resources(build.build_log)
+    for hd in fa_ops.HEAD_DIMS:
+        info = fa_ops.tc_kernel_info(hd)
+        parts = []
+        for kern, rec in zip(TC_KERNELS, info.values()):
+            regs, st, ld = ptxas.get((kern, hd), (None, None, None))
+            parts.append(f"{kern} {rec['registers']} registers (ptxas "
+                         f"{regs}), spill stores/loads {st}/{ld}, local "
+                         f"{rec['local_bytes']} B, shared "
+                         f"{rec['smem_bytes']} B")
+        print(f"flash bf16 kernels hd {hd}: " + "; ".join(parts))
+
+
 def phase_flash_kernels(torch, report):
     """Flash attention forward and backward kernels against their plain
     versions (module docstring, phase 11); returns nothing, appends the
@@ -1584,6 +1639,15 @@ def phase_flash_kernels(torch, report):
     q, k, v, do = flash_inputs(torch, g, TRAIN_ATTN, torch.bfloat16)
     kw = dict(causal=True, window=0)
     o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    # deterministic backward: no atomics, so two calls agree bit for bit
+    first = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"flash train shape bf16 backward, two calls bit-identical: {same}")
+    if not same:
+        raise AssertionError("flash attention bf16 backward differs between "
+                             "two calls on the same inputs")
+    del first, second
     ms_f, plain_f = interleaved(
         lambda: fa_ref.flash_attention_ref(q, k, v, **kw),
         lambda: fa_ops.flash_attention_fwd(q, k, v, **kw), 10, plain_iters=3)
@@ -1601,6 +1665,12 @@ def phase_flash_kernels(torch, report):
           f"backward kernel {ms_b:.4f} ms plain {plain_b:.4f} bound "
           f"{bb:.4f} ({byb}) library fwd+bwd {lib_fb:.4f} "
           f"(minus fwd {lib_fb - lib_f:.4f})")
+    for part, flop, ms, bound in (("forward", f_flop, ms_f, bf),
+                                  ("backward", b_flop, ms_b, bb)):
+        print(f"flash {part}: {flop / (ms * 1e9):.1f} TFLOP/s of the "
+              f"algorithm's {flop:.4g} FLOP, {bound / ms:.4f} of its bound "
+              f"({bound:.4f} ms / {ms:.4f} ms)")
+    print_flash_resources(fa_ops)
     del q, k, v, do, o, lse
     common = dict(route="cuda", source=FLASH_SRC, replaces=FLASH_TPU)
     report.append(dict(
@@ -1767,7 +1837,80 @@ def phase_train_run(torch, np, cfg, dev, steps=TRAIN_STEPS,
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"train run losses {losses}: must be finite "
                              "and fall")
+    if cuda:
+        profile_train_step(torch, cfg, dcfg, ocfg, tcfg, out, steps)
     return launches
+
+
+# device time of the profiled step by kind of kernel, matched on its name
+PROFILE_KINDS = (("flash", ("flash_",)),
+                 ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                 ("reduction", ("reduce_kernel", "softmax", "Reduce")),
+                 ("copy", ("copy_kernel", "Memcpy", "Memset")),
+                 ("elementwise", ("elementwise_kernel",)))
+
+
+def device_time_summary(events, wall_us):
+    """From device events (name, start us, end us) of one step and its wall
+    time: device time by kernel name (top 10) and by kind, the flash
+    kernels' sum against the step, and the idle share (1 - the union of
+    device activity over the wall)."""
+    by_name: dict = {}
+    for name, start, end in events:
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    spans = sorted((start, end) for _, start, end in events)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    flash = sum(t for n, t in by_name.items() if "flash_" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    kinds: dict = {}
+    for n, t in by_name.items():
+        kind = next((k for k, keys in PROFILE_KINDS if any(
+            key in n for key in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + t / 1e3
+    return {"step_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall_us, "device_events": len(events),
+            "flash_ms": flash / 1e3, "flash_share_of_step": flash / wall_us,
+            "flash_share_of_busy": flash / busy, "by_kind_ms": kinds,
+            "top10_ms": [[n[:200], t / 1e3] for n, t in top]}
+
+
+def profile_train_step(torch, cfg, dcfg, ocfg, tcfg, out, step):
+    """One more steady step of the trained model under ``torch.profiler``
+    (CPU and CUDA activities): device time by kernel name (top 10), the
+    flash kernels' sum against the step, and the device's idle share (1 -
+    the union of device activity over the step's wall). Prints "not
+    measured" where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.train_loop import make_train_step
+    step_fn = make_train_step(cfg, ocfg, tcfg)
+    batch = make_batch(dcfg, cfg, step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step_fn(out["params"], out["opt"], batch)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    device = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and e.time_range.elapsed_us() > 0]
+    if not device:
+        print(f"train profile: one step {wall_us / 1e3:.2f} ms wall; device "
+              "time by kernel, flash share and idle share: not measured "
+              "(the trace holds no device events)")
+        return
+    print("train profile: " + json.dumps(device_time_summary(
+        [(e.name, e.time_range.start, e.time_range.end) for e in device],
+        wall_us)))
 
 
 def main() -> int:

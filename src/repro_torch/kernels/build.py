@@ -58,6 +58,7 @@ _SIGNATURES = {
                                                        _P],
     "aqua_flash_attention_bwd": [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I,
                                                         _P],
+    "aqua_flash_attention_tc_info": [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -5,13 +5,16 @@ gradient.
 tensors' device: CPU tensors take the plain versions of ``ref.py``
 (``flash_attention_fwd_ref`` forward, ``flash_attention_bwd_ref`` backward);
 CUDA tensors launch the kernels of ``csrc/flash_attention.cu`` (the forward,
-and in the backward its dQ and dK/dV kernels) and raise if they cannot.
+and in the backward its dQ and dK/dV kernels) and raise if they cannot:
+bfloat16 the tensor-core kernels (16-byte aligned operands: they are copied
+in 16-byte pieces), float32 the CUDA-core ones.
 The TPU kernel's ``block_q`` / ``block_k`` arguments are its tiling for the
 TPU and are not part of this signature: the CUDA kernels pick their own
 tiles by head dim.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -42,10 +45,34 @@ def _check(name, q, k, v):
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def _check_aligned(name, *tensors):
+    """The bf16 kernels copy rows in 16-byte pieces (cp.async)."""
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: bfloat16 operands must start on a "
+                             f"16-byte boundary (data_ptr {t.data_ptr()})")
+
+
+def tc_kernel_info(hd: int) -> dict:
+    """Registers, local bytes (spills and stack) and dynamic shared memory
+    of the three bf16 tensor-core kernels at head dim ``hd``, as the loaded
+    library reports them. Builds the library on first use."""
+    out = (ctypes.c_int * 3)()
+    info = {}
+    for part, name in enumerate(("forward", "dq", "dkdv")):
+        build.check(f"flash_attention tc_info {name}",
+                    build.lib().aqua_flash_attention_tc_info(
+                        part, hd, ctypes.addressof(out)))
+        info[name] = dict(registers=out[0], local_bytes=out[1],
+                          smem_bytes=out[2])
+    return info
+
+
 def _forward_kernel(q, k, v, causal, window, scale):
     name = "flash_attention"
     _check(name, q, k, v)
     build.require_cuda(name, q, k, v)
+    _check_aligned(name, q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -67,6 +94,7 @@ def _backward_kernel(q, k, v, o, lse, do, causal, window, scale):
         raise ValueError(f"{name}: o / dO must match q {tuple(q.shape)} "
                          f"{q.dtype}")
     build.require_cuda(name, q, k, v, o, lse, do)
+    _check_aligned(name, q, k, v, o, do)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)

@@ -14,10 +14,17 @@ bit for bit. The WKV recurrence is held against the float32 scan (and the
 chunked form) at the reference's ``test_wkv6_sweep`` tolerances: float32
 rtol 1e-3 / atol 5e-4, bfloat16 rtol 2e-2 / atol 5e-2 (bf16 rounding of
 outputs that grow to ~1e2 under weak decay). Flash attention forward at
-the attention tolerances above (the kernel keeps the probabilities in
-float32), its row log-sum-exp at rtol 1e-5; the backward's dq/dk/dv within
-1e-4 (float32) and 2e-2 (bfloat16) of the plain formula's norm, and, in
+the attention tolerances above (the bf16 tensor-core kernels round the
+probabilities to bf16 before the value product, as the plain version
+does), its row log-sum-exp at rtol 1e-5 over the reference's sweep; the
+backward's dq/dk/dv within 1e-4 (float32) and 2e-2 (bfloat16, where the
+kernels also round dS to bf16) of the plain formula's norm, and, in
 float32, the autograd op within 1e-4 of autograd through the plain forward.
+The bf16 kernels are also swept over every head dim and G in {1, 2, 8} at
+sizes that are no multiple of a tile (their lse within 1e-5 absolute: the
+kernel sums the scores in another order, and at a row that sees few keys
+lse = m + log l nearly cancels), and both passes are bit-identical from
+call to call.
 """
 import numpy as np
 import pytest
@@ -520,3 +527,70 @@ def test_cuda_flash_rejects_what_it_does_not_take():
                                    .transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="device|tensors on"):
         fa_ops.flash_attention_fwd(q, k, v.cpu())
+
+
+# (B, Sq, Sk, causal, window) for the bf16 tensor-core sweep, with K = 2 KV
+# heads and H = 2 G: ragged tiles on both sides, right-aligned queries, rows
+# that see no key, a window edge inside a tile
+TC_CASES = {
+    "causal_200": (1, 200, 200, True, 0),
+    "right_aligned_100_300": (1, 100, 300, True, 0),
+    "empty_rows_96_64": (1, 96, 64, True, 0),
+    "window_48": (1, 200, 200, True, 48),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_cuda_flash_bf16_tensor_cores_match_plain(case, hd, G):
+    """The bf16 forward and backward against the plain versions, each
+    bit-identical across two calls."""
+    dev = _cuda()
+    B, Sq, Sk, causal, window = TC_CASES[case]
+    K = 2
+    rng = np.random.default_rng(hd + G)
+    q, k, v, do = [torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev, torch.bfloat16)
+        for s in ((B, Sq, K * G, hd), (B, Sk, K, hd), (B, Sk, K, hd),
+                  (B, Sq, K * G, hd))]
+    kw = dict(causal=causal, window=window)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    o2, lse2 = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    ro, rlse = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+    got = fa_ops.flash_attention_bwd(q, k, v, ro, rlse.float(), do, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, ro, rlse.float(), do, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, ro, rlse, do, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (o.float() - ro.float()).abs().max().item() <= FLASH_TOL["bfloat16"]
+    np.testing.assert_allclose(lse.cpu().numpy(), rlse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for name, g, g2, w in zip("qkv", got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert torch.equal(g, g2), name
+        assert _rel_norm(g, w) <= FLASH_BWD_REL["bfloat16"], name
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_rejects_unaligned_operands():
+    dev = _cuda()
+    (q, k, v, _), kw = _flash_case("gqa", dev, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention_fwd(shifted, k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_cuda_flash_bf16_kernels_do_not_spill(hd):
+    """No local memory (spills or stack) in the tensor-core kernels, and
+    their shared memory within the 227 KB a block may use."""
+    _cuda()
+    for name, info in fa_ops.tc_kernel_info(hd).items():
+        assert info["local_bytes"] == 0, (name, info)
+        assert 0 < info["smem_bytes"] <= 232448, (name, info)
