@@ -25,7 +25,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    must move over 3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM
    datasheet). Mixed attention is checked and timed at both shapes the
    engine packs: the mixed step above and the decode-only step (4 lanes,
-   Tc = 1), reported under ``decode_only``.
+   Tc = 1), reported under ``decode_only``. First it prints the bf16
+   paged-attention kernels' registers and spills (``-Xptxas -v``) and
+   dynamic shared memory at hd 32, 64 and 128.
 4. layer step — one full-width packed step (24 layers, random seeded
    weights: decode lanes, a mid-page chunk row and pad rows). Per layer, on
    the same input and pool, the attention through the kernels and through
@@ -440,6 +442,7 @@ def phase_kernels(torch, np, cfg, report):
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
 
+    print_paged_resources(pa_ops)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1532,11 +1535,30 @@ def library_attention_ms(torch, q, k, v, do, iters):
 
 
 TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkdv_tc")
+# the bf16 paged-attention kernels, in the order of ops.tc_kernel_info
+PAGED_TC = ("paged_mixed_tc", "paged_prefill_tc",
+            "paged_decode_tc<FusedPool>", "paged_decode_tc<SplitPools>")
+
+
+def _ptxas_key(name):
+    """(kernel, hd) of a bf16 flash or paged-attention kernel's mangled
+    name, else None; a decode kernel's name carries its pool layout."""
+    import re
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_tc)ILi(\d+)E", name)
+    if m:
+        return m.group(1), int(m.group(2))
+    m = re.search(r"(paged_(?:mixed|prefill|decode)_tc)ILi(\d+)E"
+                  r"(?:N\w*?\d(FusedPool|SplitPools)E)?", name)
+    if m:
+        return (m.group(1) + (f"<{m.group(3)}>" if m.group(3) else ""),
+                int(m.group(2)))
+    return None
 
 
 def ptxas_resources(log):
     """{(kernel, hd): (registers, spill stores, spill loads)} of the bf16
-    tensor-core flash kernels, from ``nvcc -Xptxas -v``'s log."""
+    tensor-core flash kernels and the bf16 paged-attention kernels, from
+    ``nvcc -Xptxas -v``'s log."""
     import re
     found, name = {}, None
     for line in log.splitlines():
@@ -1545,9 +1567,7 @@ def ptxas_resources(log):
         if m:
             name = m.group(1)
             continue
-        key = next(((k, int(h)) for k, h in re.findall(
-            r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_tc)ILi(\d+)E", name or "")),
-            None)
+        key = _ptxas_key(name or "")
         if key is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1577,6 +1597,22 @@ def print_flash_resources(fa_ops):
                          f"{rec['local_bytes']} B, shared "
                          f"{rec['smem_bytes']} B")
         print(f"flash bf16 kernels hd {hd}: " + "; ".join(parts))
+
+
+def print_paged_resources(pa_ops):
+    """Registers and spills (ptxas) and dynamic shared memory of the bf16
+    paged-attention kernels at every head dim they take."""
+    from repro_torch.kernels import build
+    ptxas = ptxas_resources(build.build_log)
+    for hd in pa_ops.BF16_HEAD_DIMS:
+        parts = []
+        for kern, rec in zip(PAGED_TC, pa_ops.tc_kernel_info(hd).values()):
+            regs, st, ld = ptxas.get((kern, hd), (None, None, None))
+            parts.append(f"{kern} {rec['registers']} registers (ptxas "
+                         f"{regs}), spill stores/loads {st}/{ld}, local "
+                         f"{rec['local_bytes']} B, shared "
+                         f"{rec['smem_bytes']} B")
+        print(f"paged attention bf16 kernels hd {hd}: " + "; ".join(parts))
 
 
 def phase_flash_kernels(torch, report):

@@ -5,9 +5,10 @@ interface, compiled at first use with ``nvcc`` for ``sm_90a`` into one shared
 library and bound with ``ctypes``. Each source compiles in its own ``nvcc``
 process, all started together, then one link step joins them. The library
 lands in ``build/repro_torch/`` at the repository root (git-ignored), named
-by a hash of the sources and flags, so an edited source never loads a stale
-build. Nothing happens at import: the CPU tests import every module of the
-port on a machine without ``nvcc``.
+by a hash of the sources, the headers they share (``csrc/*.cuh``) and the
+flags, so an edited source or header never loads a stale build. Nothing
+happens at import: the CPU tests import every module of the port on a
+machine without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name. A wrapper adds one exactly
 where it launches its kernel, so a run can show that its path went through
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "aqua_flash_attention_bwd": [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I,
                                                         _P],
     "aqua_flash_attention_tc_info": [_I, _I, _P],
+    "aqua_paged_attention_tc_info": [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -84,17 +86,24 @@ def _nvcc() -> str:
                        "toolkit")
 
 
+def build_tag() -> str:
+    """Hash of the flags and of every source and header under ``CSRC``
+    (``*.cu``, ``*.cuh``): the name of the library they build, so an edited
+    source or shared header never loads a stale build."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build() -> Path:
     """Compile every ``csrc/*.cu`` (one ``nvcc`` each, in parallel) and link
     them into one shared library; returns its path. Reuses a library built
     from the same sources and flags."""
     global build_log
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    tag = h.hexdigest()[:16]
+    tag = build_tag()
     out = BUILD_DIR / f"libaqua_kernels_{tag}.so"
     if out.exists():
         return out
@@ -159,3 +168,12 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def require_aligned16(name: str, *tensors: torch.Tensor) -> None:
+    """The bf16 kernels read and write rows in 16-byte pieces (``cp.async``,
+    vector loads), so their operands start on a 16-byte boundary."""
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: bfloat16 operands must start on a "
+                             f"16-byte boundary (data_ptr {t.data_ptr()})")

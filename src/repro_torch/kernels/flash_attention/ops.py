@@ -45,14 +45,6 @@ def _check(name, q, k, v):
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def _check_aligned(name, *tensors):
-    """The bf16 kernels copy rows in 16-byte pieces (cp.async)."""
-    for t in tensors:
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"{name}: bfloat16 operands must start on a "
-                             f"16-byte boundary (data_ptr {t.data_ptr()})")
-
-
 def tc_kernel_info(hd: int) -> dict:
     """Registers, local bytes (spills and stack) and dynamic shared memory
     of the three bf16 tensor-core kernels at head dim ``hd``, as the loaded
@@ -72,7 +64,7 @@ def _forward_kernel(q, k, v, causal, window, scale):
     name = "flash_attention"
     _check(name, q, k, v)
     build.require_cuda(name, q, k, v)
-    _check_aligned(name, q, k, v)
+    build.require_aligned16(name, q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -94,7 +86,7 @@ def _backward_kernel(q, k, v, o, lse, do, causal, window, scale):
         raise ValueError(f"{name}: o / dO must match q {tuple(q.shape)} "
                          f"{q.dtype}")
     build.require_cuda(name, q, k, v, o, lse, do)
-    _check_aligned(name, q, k, v, o, do)
+    build.require_aligned16(name, q, k, v, o, do)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)

@@ -7,6 +7,7 @@ per-row metadata) are int32 tensors on the pool's device.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -18,6 +19,25 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_mixed_attention_pool_ref, paged_prefill_attention_pool_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims of the bf16 kernels (rows of a power-of-two count of 16-byte
+# chunks); float32 takes any multiple of 32 up to 128
+BF16_HEAD_DIMS = (32, 64, 128)
+TC_KERNELS = ("mixed", "prefill", "decode_pool", "decode_split")
+
+
+def tc_kernel_info(hd: int) -> dict:
+    """Registers, local bytes (spills and stack) and dynamic shared memory
+    of the bf16 paged-attention kernels at head dim ``hd``, as the loaded
+    library reports them. Builds the library on first use."""
+    out = (ctypes.c_int * 3)()
+    info = {}
+    for part, name in enumerate(TC_KERNELS):
+        build.check(f"paged_attention tc_info {name}",
+                    build.lib().aqua_paged_attention_tc_info(
+                        part, hd, ctypes.addressof(out)))
+        info[name] = dict(registers=out[0], local_bytes=out[1],
+                          smem_bytes=out[2])
+    return info
 
 
 def _index(name, *ts):
@@ -36,6 +56,9 @@ def _heads(name, q, H, K, hd, pool_dtype):
     if q.dtype != pool_dtype or q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: q and pool must share float32 or "
                          f"bfloat16, got {q.dtype} and {pool_dtype}")
+    if q.dtype == torch.bfloat16 and hd not in BF16_HEAD_DIMS:
+        raise ValueError(f"{name}: bfloat16 head_dim {hd} not in "
+                         f"{BF16_HEAD_DIMS}")
 
 
 def _table(name, q, block_tables, B):
@@ -78,6 +101,7 @@ def paged_prefill_attention_pool(q, kv_pool, block_tables, q_starts, *,
     _index(name, block_tables, q_starts)
     build.require_cuda(name, q, kv_pool, q_starts)
     _table(name, q, block_tables, B)
+    build.require_aligned16(name, q, kv_pool)
     out = torch.empty_like(q)
     rc = build.lib().aqua_prefill_attention_pool(
         q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
@@ -111,6 +135,7 @@ def paged_attention_pool(q, kv_pool, block_tables, lengths, *,
     _index(name, block_tables, lengths)
     build.require_cuda(name, q, kv_pool, lengths)
     _table(name, q, block_tables, B)
+    build.require_aligned16(name, q, kv_pool)
     out = torch.empty_like(q)
     rc = build.lib().aqua_decode_attention_pool(
         q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
@@ -155,6 +180,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
     _table(name, q, block_tables, B)
+    build.require_aligned16(name, q, k_pages, v_pages)
+    if q.dtype == torch.bfloat16 and (k_pages.stride(0) % 8
+                                      or k_pages.stride(1) % 8):
+        raise ValueError(f"{name}: bfloat16 pools need strides that are "
+                         "multiples of 8 elements (16-byte pages)")
     out = torch.empty_like(q)
     rc = build.lib().aqua_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -192,6 +222,7 @@ def paged_mixed_attention_pool(q, kv_pool, block_tables, q_starts, n_reals,
     _index(name, block_tables, q_starts, n_reals, is_decode)
     build.require_cuda(name, q, kv_pool, q_starts, n_reals, is_decode)
     _table(name, q, block_tables, R)
+    build.require_aligned16(name, q, kv_pool)
     out = torch.empty_like(q)
     rc = build.lib().aqua_mixed_attention(
         q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),

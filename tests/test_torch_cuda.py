@@ -7,10 +7,12 @@ so it runs on a card's machine as it is:
 
 Tolerances: attention 3e-5 in float32, 3e-2 in bfloat16 (the plain version
 rounds the probabilities to bfloat16 before the value product); append,
-gather and scatter bit-exact. The attention kernels share one row step, so
-decode over split pools equals decode over the fused pool, and a mixed
-launch's decode lanes and chunk rows equal the per-request kernels' rows,
-bit for bit. The WKV recurrence is held against the float32 scan (and the
+gather and scatter bit-exact. The attention kernels share their row
+arithmetic (float32: one row step; bf16: one decode path and one
+tensor-core chunk path), so decode over split pools equals decode over the
+fused pool, and a mixed launch's decode lanes and chunk rows equal the
+per-request kernels' rows, bit for bit, at every head dim, group size and
+page size the cases cover. The WKV recurrence is held against the float32 scan (and the
 chunked form) at the reference's ``test_wkv6_sweep`` tolerances: float32
 rtol 1e-3 / atol 5e-4, bfloat16 rtol 2e-2 / atol 5e-2 (bf16 rounding of
 outputs that grow to ~1e2 under weak decay). Flash attention forward at
@@ -69,6 +71,17 @@ MIXED_CASES = {
                     [1, 1, 1, 1], [1, 1, 1, 1]),
     "decode_only_gqa": (5, 5, 1, 8, 2, 64, 40, 16, 8, [120, 15, 16, 63, 0],
                         [1, 1, 1, 1, 1], [1, 1, 1, 1, 1]),
+    # head dims 32 and 128, G 8 and 2, pages of 8 and 40, Tc below 16; a
+    # decode lane with n_real 0 (every row the uniform mean)
+    "hd32_g8_page8": (6, 3, 12, 8, 1, 32, 30, 8, 10, [61, 5, 0],
+                      [1, 12, 7], [1, 0, 0]),
+    "hd128_g2_page40": (7, 3, 20, 4, 2, 128, 12, 40, 4, [150, 41, 0],
+                        [1, 0, 3], [1, 1, 0]),
+    "g4_page16": (8, 4, 33, 8, 2, 64, 40, 16, 8, [100, 3, 17, 0],
+                  [1, 1, 33, 5], [1, 1, 0, 0]),
+    # the engine's chunk length from a mid-page start, beside a long lane
+    "tc256_midpage": (9, 3, 256, 4, 4, 64, 70, 16, 40, [600, 200, 0],
+                      [1, 256, 0], [1, 0, 0]),
 }
 
 
@@ -147,8 +160,9 @@ def test_cuda_rows_independent_of_packing_and_sweep_length(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_decode_only_cut_matches_full_sweep(dtype):
     """A decode-only launch (Tc = 1) stops each lane's page loop at its last
-    needed page; the same lanes packed with Tc = 8, where fully masked tail
-    rows make every tile sweep all pages, give bit-identical real tokens."""
+    needed page; the same lanes packed with Tc = 8, whose fully masked tail
+    rows sweep all pages (float32: in the same tiles; bf16: in one pass of
+    their own), give bit-identical real tokens."""
     dev = _cuda()
     x = _mixed_inputs(*MIXED_CASES["decode_only_gqa"])
     td = DTYPES[dtype]
@@ -171,12 +185,22 @@ DECODE_CASES = {
     "mha_qwen": ((4, 16, 16, 64, 40, 16, 8), [128, 77, 1, 0]),
     "mqa_wide_page": ((3, 8, 1, 64, 20, 40, 3), [100, 41, 0]),
     "hd128": ((2, 8, 8, 128, 8, 8, 8), [64, 13]),
+    # every warp gets pages (500 tokens: 63 pages of 8) beside a lane whose
+    # pages all land on warp 0; G 8 takes two passes of 4 heads
+    "hd32_g8_page8": ((3, 8, 1, 32, 80, 8, 64), [500, 3, 0]),
+    "hd128_g2_page40": ((3, 8, 4, 128, 30, 40, 12), [470, 7, 0]),
+    "g4_long_short": ((2, 16, 4, 64, 100, 16, 64), [1000, 5]),
+    "g1_page16_long": ((2, 4, 4, 64, 80, 16, 64), [700, 40]),
 }
 # (B, Tc, H, K, hd, P, page, pps, starts): mid-page chunk starts
 PREFILL_CASES = {
     "ref_plan": (2, 6, 4, 2, 32, 16, 8, 4, [3, 10]),
     "mha_midpage": (2, 40, 16, 16, 64, 30, 16, 8, [0, 53]),
     "gqa_many_rows": (1, 24, 8, 2, 64, 12, 16, 4, [9]),
+    "hd32_g8_page8_short": (2, 9, 8, 1, 32, 40, 8, 12, [5, 60]),
+    "hd128_g2_page40": (1, 70, 8, 4, 128, 10, 40, 4, [33]),
+    "g4_page16": (2, 20, 16, 4, 64, 40, 16, 8, [0, 77]),
+    "tc256_midpage": (1, 256, 16, 16, 64, 80, 16, 64, [200]),
 }
 
 
@@ -249,7 +273,7 @@ def test_cuda_split_pools_equal_fused_pool_bitwise(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
 def test_cuda_per_request_kernels_equal_mixed_rows_bitwise(G, dtype):
     """One mixed launch of 3 decode lanes and 2 chunk rows (one from a
     mid-page start): each decode lane equals the decode kernel's row and
@@ -279,6 +303,95 @@ def test_cuda_per_request_kernels_equal_mixed_rows_bitwise(G, dtype):
                                                 bt[3:].contiguous(),
                                                 starts[3:].contiguous())
     assert torch.equal(mixed[3:], chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,page,G,Tc", [(32, 8, 8, 12), (128, 40, 2, 70),
+                                          (64, 16, 1, 256)])
+def test_cuda_mixed_rows_equal_per_request_rows_across_shapes(hd, page, G,
+                                                              Tc, dtype):
+    """The same bit-identities at other head dims, page sizes, groups and
+    chunk lengths: a long decode lane (every warp gets pages), a short one,
+    a chunk row from a mid-page start and a pad-only chunk row."""
+    dev = _cuda()
+    td = DTYPES[dtype]
+    rng = np.random.default_rng(hd + page + G)
+    K, pps = 2, 900 // page + 1
+    H, P = K * G, pps + 9
+    q = torch.from_numpy(rng.standard_normal((4, Tc, H, hd))).to(dev, td)
+    pool = torch.from_numpy(rng.standard_normal((P, 2, K, page, hd))).to(
+        dev, td)
+    bt = torch.from_numpy(rng.integers(0, P, (4, pps)).astype(np.int32)).to(
+        dev)
+    starts = torch.tensor([880, 2, page + 3, 0], dtype=torch.int32,
+                          device=dev)
+    n_reals = torch.tensor([1, 1, Tc, 0], dtype=torch.int32, device=dev)
+    is_dec = torch.tensor([1, 1, 0, 0], dtype=torch.int32, device=dev)
+    mixed = pa_ops.paged_mixed_attention_pool(q, pool, bt, starts, n_reals,
+                                              is_dec)
+    dec = pa_ops.paged_attention_pool(q[:2, 0].contiguous(), pool, bt[:2],
+                                      starts[:2] + 1)
+    assert torch.equal(mixed[:2, 0], dec)
+    assert torch.equal(pa_ops.paged_attention(
+        q[:2, 0].contiguous(), *_split(pool), bt[:2], starts[:2] + 1), dec)
+    chunk = pa_ops.paged_prefill_attention_pool(q[2:].contiguous(), pool,
+                                                bt[2:].contiguous(),
+                                                starts[2:].contiguous())
+    assert torch.equal(mixed[2:], chunk)
+    want = pa_ref.paged_mixed_attention_pool_ref(q, pool, bt, starts,
+                                                 n_reals, is_dec)
+    torch.cuda.synchronize()
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(mixed.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["hd32_g8_page8", "hd128_g2_page40",
+                                  "g4_long_short", "g1_page16_long"])
+def test_cuda_decode_cut_equals_sweep_bitwise(case, dtype):
+    """A lane long enough that every warp gets pages and one so short that
+    most warps see no live key: the row stops at its last page, and pages
+    past it (a table four times as long, pointing anywhere in the pool)
+    change no bit; the same lanes as decode rows of a mixed launch whose
+    fully masked tail rows sweep every page (Tc 8) give the same bits."""
+    dev = _cuda()
+    td = DTYPES[dtype]
+    q, pool, bt, ln = _decode_case(case, dev, td)
+    P, pps = pool.shape[0], bt.shape[1]
+    rng = np.random.default_rng(9)
+    extra = torch.from_numpy(rng.integers(0, P, (bt.shape[0], 3 * pps))
+                             .astype(np.int32)).to(dev)
+    bt4 = torch.cat([bt, extra], dim=1)
+    live = ln > 0
+    cut = pa_ops.paged_attention_pool(q, pool, bt, ln)
+    longer = pa_ops.paged_attention_pool(q, pool, bt4, ln)
+    assert torch.equal(cut[live], longer[live])
+    B, H, hd = q.shape
+    q8 = torch.zeros((B, 8, H, hd), device=dev, dtype=td)
+    q8[:, 0] = q
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    mixed = pa_ops.paged_mixed_attention_pool(q8, pool, bt, ln - 1, ones,
+                                              ones)
+    assert torch.equal(mixed[live, 0], cut[live])
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    want = pa_ref.paged_attention_pool_ref(q, pool, bt4, ln)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(longer.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_cuda_paged_bf16_kernels_do_not_spill(hd):
+    """No local memory (spills or stack) in the bf16 paged-attention
+    kernels, and their shared memory within the 227 KB a block may use."""
+    _cuda()
+    for name, info in pa_ops.tc_kernel_info(hd).items():
+        assert info["local_bytes"] == 0, (name, info)
+        assert 0 < info["smem_bytes"] <= 232448, (name, info)
 
 
 @pytest.mark.cuda
