@@ -70,7 +70,8 @@ page each per layer:
    one lane's incoming state zeroed must land beyond them. Device times
    beside the plain version's and the bound (bytes, float32 operations and
    exponentials; no PyTorch call computes the recurrence, so no library
-   time).
+   time); the kernel's registers and spills (``-Xptxas -v``), local
+   memory, shared memory and resident blocks per SM at hd 32 and 64.
 8. rwkv layer step — one full-width packed step: per layer, on the same
    input and pools, the time-mix of both row regions through the kernel
    and the plain versions (outputs within 2% per real token, new wkv
@@ -1127,6 +1128,7 @@ def phase_wkv_kernel(torch, np, cfg, report):
     the attention kernels."""
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
+    print_wkv_resources(wkv_ops)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     hd = cfg.ssm.rwkv_head_dim
@@ -1542,8 +1544,13 @@ PAGED_TC = ("paged_mixed_tc", "paged_prefill_tc",
 
 def _ptxas_key(name):
     """(kernel, hd) of a bf16 flash or paged-attention kernel's mangled
-    name, else None; a decode kernel's name carries its pool layout."""
+    name, or of the WKV kernel's (``wkv6<float32|bfloat16>``), else None; a
+    decode kernel's name carries its pool layout."""
     import re
+    m = re.search(r"wkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+    if m:
+        return (f"wkv6<{'float32' if m.group(1) == 'f' else 'bfloat16'}>",
+                int(m.group(2)))
     m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_tc)ILi(\d+)E", name)
     if m:
         return m.group(1), int(m.group(2))
@@ -1557,8 +1564,8 @@ def _ptxas_key(name):
 
 def ptxas_resources(log):
     """{(kernel, hd): (registers, spill stores, spill loads)} of the bf16
-    tensor-core flash kernels and the bf16 paged-attention kernels, from
-    ``nvcc -Xptxas -v``'s log."""
+    tensor-core flash kernels, the bf16 paged-attention kernels and the WKV
+    kernel, from ``nvcc -Xptxas -v``'s log."""
     import re
     found, name = {}, None
     for line in log.splitlines():
@@ -1582,37 +1589,41 @@ def ptxas_resources(log):
     return found
 
 
-def print_flash_resources(fa_ops):
-    """Registers and spills (ptxas) and dynamic shared memory of the bf16
-    tensor-core kernels at every head dim."""
+def print_resources(label, head_dims, kernel_info):
+    """One line per head dim: each kernel's registers and spills (ptxas),
+    local and dynamic shared memory, and resident blocks per SM where
+    ``kernel_info(hd)`` ({kernel: record}) reports them."""
     from repro_torch.kernels import build
     ptxas = ptxas_resources(build.build_log)
-    for hd in fa_ops.HEAD_DIMS:
-        info = fa_ops.tc_kernel_info(hd)
+    for hd in head_dims:
         parts = []
-        for kern, rec in zip(TC_KERNELS, info.values()):
+        for kern, rec in kernel_info(hd).items():
             regs, st, ld = ptxas.get((kern, hd), (None, None, None))
-            parts.append(f"{kern} {rec['registers']} registers (ptxas "
-                         f"{regs}), spill stores/loads {st}/{ld}, local "
-                         f"{rec['local_bytes']} B, shared "
-                         f"{rec['smem_bytes']} B")
-        print(f"flash bf16 kernels hd {hd}: " + "; ".join(parts))
+            part = (f"{kern} {rec['registers']} registers (ptxas {regs}), "
+                    f"spill stores/loads {st}/{ld}, local "
+                    f"{rec['local_bytes']} B, shared {rec['smem_bytes']} B")
+            if "blocks_per_sm" in rec:
+                part += f", {rec['blocks_per_sm']} blocks per SM"
+            parts.append(part)
+        print(f"{label} hd {hd}: " + "; ".join(parts))
+
+
+def print_flash_resources(fa_ops):
+    """The bf16 tensor-core flash kernels at every head dim."""
+    print_resources("flash bf16 kernels", fa_ops.HEAD_DIMS, lambda hd: dict(
+        zip(TC_KERNELS, fa_ops.tc_kernel_info(hd).values())))
 
 
 def print_paged_resources(pa_ops):
-    """Registers and spills (ptxas) and dynamic shared memory of the bf16
-    paged-attention kernels at every head dim they take."""
-    from repro_torch.kernels import build
-    ptxas = ptxas_resources(build.build_log)
-    for hd in pa_ops.BF16_HEAD_DIMS:
-        parts = []
-        for kern, rec in zip(PAGED_TC, pa_ops.tc_kernel_info(hd).values()):
-            regs, st, ld = ptxas.get((kern, hd), (None, None, None))
-            parts.append(f"{kern} {rec['registers']} registers (ptxas "
-                         f"{regs}), spill stores/loads {st}/{ld}, local "
-                         f"{rec['local_bytes']} B, shared "
-                         f"{rec['smem_bytes']} B")
-        print(f"paged attention bf16 kernels hd {hd}: " + "; ".join(parts))
+    """The bf16 paged-attention kernels at every head dim they take."""
+    print_resources("paged attention bf16 kernels", pa_ops.BF16_HEAD_DIMS,
+                    lambda hd: dict(zip(PAGED_TC,
+                                        pa_ops.tc_kernel_info(hd).values())))
+
+
+def print_wkv_resources(wkv_ops):
+    """The WKV kernel at hd 32 and 64, both compute dtypes."""
+    print_resources("wkv6 kernel", (32, 64), wkv_ops.wkv6_kernel_info)
 
 
 def phase_flash_kernels(torch, report):

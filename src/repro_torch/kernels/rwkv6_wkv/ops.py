@@ -6,12 +6,31 @@ tensors launch the kernel of ``csrc/wkv6.cu`` (and raise if they cannot).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_plain
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def wkv6_kernel_info(hd: int) -> dict:
+    """Registers, local bytes (spills and stack), dynamic shared memory and
+    resident blocks per SM of the kernel at head dim ``hd``, per compute
+    dtype, as the loaded library reports them. Builds the library on first
+    use."""
+    out = (ctypes.c_int * 4)()
+    info = {}
+    for dtype, code in _DTYPE_CODES.items():
+        name = f"wkv6<{str(dtype).split('.')[-1]}>"
+        build.check(f"wkv6 info {name}",
+                    build.lib().aqua_wkv6_info(code, hd,
+                                               ctypes.addressof(out)))
+        info[name] = dict(registers=out[0], local_bytes=out[1],
+                          smem_bytes=out[2], blocks_per_sm=out[3])
+    return info
 
 
 def wkv6(r, k, v, w, u, state):
@@ -27,6 +46,10 @@ def wkv6(r, k, v, w, u, state):
         raise ValueError(f"{name}: needs at least one token")
     if hd not in (32, 64):
         raise ValueError(f"{name}: head_dim {hd} must be 32 or 64")
+    if T * H * hd >= 2 ** 31:
+        raise ValueError(f"{name}: T * H * head_dim must stay below "
+                         "2**31 (the kernel's offsets within a sequence "
+                         "are 32-bit)")
     if r.dtype not in _DTYPE_CODES or k.dtype != r.dtype \
             or v.dtype != r.dtype:
         raise ValueError(f"{name}: r, k, v must share float32 or bfloat16, "
@@ -41,6 +64,11 @@ def wkv6(r, k, v, w, u, state):
             raise ValueError(f"{name}: {what} {tuple(t.shape)} != "
                              f"{tuple(shape)}")
     build.require_cuda(name, r, k, v, w, u, state)
+    for t, what in ((r, "r"), (k, "k"), (v, "v"), (w, "w"),
+                    (state, "state")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must start on a 16-byte "
+                             f"boundary (data_ptr {t.data_ptr()})")
     y = torch.empty_like(r)
     s_out = torch.empty_like(state)
     lib = build.lib()

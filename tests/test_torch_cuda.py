@@ -422,7 +422,9 @@ def test_cuda_per_request_kernels_reject_mixed_devices_and_index_types():
 # ---------------------------------------------------------------------------
 # (B, T, H, hd, wmax): the reference's test_wkv6_sweep, then the engine's
 # launch lengths (a decode lane, a short bucket, a length no chunk divides,
-# a full chunk bucket) at the model's head_dim 64
+# a full chunk bucket) at the model's head_dim 64, the chunk's edges (one
+# token short of a chunk, one chunk, one token into the next, one short of
+# two) and the engine's whole chunk region at full width, strong decay
 WKV_CASES = {
     "sweep_weak": (2, 64, 3, 32, 0.1),
     "sweep_mid": (1, 128, 2, 64, 1.0),
@@ -431,6 +433,11 @@ WKV_CASES = {
     "short_bucket": (2, 24, 3, 64, 5.0),
     "ragged": (1, 70, 2, 64, 0.5),
     "bucket_256": (2, 256, 2, 64, 0.05),
+    "edge_31": (2, 31, 3, 64, 5.0),
+    "edge_32": (2, 32, 3, 64, 5.0),
+    "edge_33": (2, 33, 3, 64, 5.0),
+    "edge_63": (2, 63, 3, 64, 5.0),
+    "engine_chunk": (8, 256, 40, 64, 5.0),
 }
 WKV_TOL = {"float32": dict(rtol=1e-3, atol=5e-4),
            "bfloat16": dict(rtol=2e-2, atol=5e-2)}
@@ -511,6 +518,27 @@ def test_cuda_wkv6_rejects_what_it_does_not_take():
         wkv_ops.wkv6(strided, k, v, w, u, s0)
     with pytest.raises(ValueError, match="device|tensors on"):
         wkv_ops.wkv6(r, k, v, w, u, s0.cpu())
+    shifted = torch.empty(r.numel() + 8, dtype=r.dtype, device=dev)[1:]
+    shifted = shifted[:r.numel()].view(r.shape)         # 2 bytes off
+    shifted.copy_(r)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv_ops.wkv6(shifted, k, v, w, u, s0)
+    long_seq = torch.empty((1, 2 ** 25, 1, 64), dtype=r.dtype, device=dev)
+    with pytest.raises(ValueError, match="32-bit"):
+        wkv_ops.wkv6(long_seq, k, v, w, u, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64])
+def test_cuda_wkv6_resources(hd):
+    """No local memory (spills or stack), dynamic shared memory within a
+    third of the SM's (76,800 bytes) and three resident blocks per SM, so
+    the engine's 320 (b, h) blocks run in one wave on 132 SMs."""
+    _cuda()
+    for name, info in wkv_ops.wkv6_kernel_info(hd).items():
+        assert info["local_bytes"] == 0, (name, info)
+        assert 0 < info["smem_bytes"] <= 76800, (name, info)
+        assert info["blocks_per_sm"] >= 3, (name, info)
 
 
 @pytest.mark.cuda
