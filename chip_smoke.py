@@ -14,7 +14,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    256-token chunk from 512 and from mid-page 200), decode attention over
    the fused pool and over its split K/V halves (4 lanes at 700/431/255/40)
    all within 3e-2 absolute (bf16 rounding of the probabilities, as the
-   reference's own kernel tests); page append, gather and scatter
+   reference's own kernel tests); the page writer, gather and scatter
    bit-exact. Decode over the split halves must equal decode over the pool
    bit for bit, and in one mixed launch of the 4 lanes and the 256-token
    chunk each row must equal the per-request kernels' bit for bit. Each
@@ -25,9 +25,18 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    must move over 3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM
    datasheet). Mixed attention is checked and timed at both shapes the
    engine packs: the mixed step above and the decode-only step (4 lanes,
-   Tc = 1), reported under ``decode_only``. First it prints the bf16
-   paged-attention kernels' registers and spills (``-Xptxas -v``) and
-   dynamic shared memory at hd 32, 64 and 128.
+   Tc = 1), reported under ``decode_only``. The page writer (row 5) too:
+   the packed step's form (``write_kv_rows``, 516 tokens of the 12-row
+   plan in one launch; its plain version's time is host-paced, it
+   synchronises) and the decode form (``append_kv``, 4 lanes, under
+   ``decode_only``), each beside one ``index_put_``; at the step form also
+   the old path it replaced (``append_kv`` + the per-row
+   ``write_chunk_pages`` loop), equal off scratch, with its device and
+   host-paced times. Gather and scatter are also held against
+   ``index_select`` / ``index_copy_`` over 5 interleaved rounds (min and
+   median). First it prints the bf16 paged-attention kernels' registers
+   and spills (``-Xptxas -v``) and dynamic shared memory at hd 32, 64 and
+   128, and the page writer's registers and local memory.
 4. layer step — one full-width packed step (24 layers, random seeded
    weights: decode lanes, a mid-page chunk row and pad rows). Per layer, on
    the same input and pool, the attention through the kernels and through
@@ -35,7 +44,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    real token, relative to that token's output; a control reading one page
    too few must differ by more. Whole step, against the same step in
    float32: the kernel path's logits no further than twice the plain bf16
-   path's, and the control further.
+   path's, and the control further. The same kernel step with the old
+   page writes (``append_kv`` and a ``write_chunk_pages`` call per chunk
+   row) must give the real rows' logits bit for bit and the same pages
+   but scratch.
 5. per-request — the four prompts (700, 431, 255 and 40 tokens) prefilled
    chunk by chunk, from mid-page starts, through ``api.prefill_chunk_paged``
    into a ``PagedStateRuntime``, then 32 steps of ``api.decode_step_paged``
@@ -53,8 +65,12 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    changes with the number of rows).
 6. engine  — ``ServingEngine`` (CFS, REMOTE donor lease) serves 12 seeded
    requests at full width; every request finishes, CFS preempts and
-   restores, each park/restore is one fabric message, and every kernel of
-   the path was launched (counts reset just before the run, read after).
+   restores, each park/restore is one fabric message, every kernel of
+   the path was launched (counts reset just before the run, read after),
+   and the page writer once per layer per step (as many launches as mixed
+   attention). A second run of the same requests profiles one chunk step
+   and one decode-only step under ``torch.profiler``: kernels launched,
+   device busy ms, idle share, top-5 device kernels.
 
 Then rwkv6-3b at its published width (32 layers, d 2560, 40 heads of 64,
 d_ff 8960, vocab 65536, bf16; random seeded weights), whose context is two
@@ -437,6 +453,204 @@ def per_request_kernels(torch, np, pool, rng, g, H, read_pps, report):
                              "per-request kernels' on the same q and pool")
 
 
+REPEATS = 5                         # rounds of a kernel against its library call
+
+
+def against_library(np, library, kernel, iters):
+    """A kernel against the one PyTorch call that computes the same
+    function: ``REPEATS`` rounds of library, kernel, kernel, library
+    (device times), with the min and median of each side."""
+    lib, ker = [], []
+    for _ in range(REPEATS):
+        lib.append(device_ms(library, iters))
+        ker.append(device_ms(kernel, iters))
+        ker.append(device_ms(kernel, iters))
+        lib.append(device_ms(library, iters))
+    return dict(kernel_ms=ker, library_ms=lib, kernel_min_ms=min(ker),
+                kernel_median_ms=float(np.median(ker)),
+                library_min_ms=min(lib),
+                library_median_ms=float(np.median(lib)))
+
+
+def print_writer_resources(pa_ops):
+    """The page writer's registers and local memory at every head dim, for
+    bfloat16 and float32 pools; it must use no local memory."""
+    for hd in pa_ops.BF16_HEAD_DIMS:
+        info = pa_ops.writer_kernel_info(hd)
+        print(f"page writer kernel hd {hd}: " + "; ".join(
+            f"{dt} {r['registers']} registers, local {r['local_bytes']} B"
+            for dt, r in info.items()))
+        if any(r["local_bytes"] for r in info.values()):
+            raise AssertionError(f"page writer kernel at hd {hd} uses local "
+                                 "memory")
+
+
+def old_step_writer(q_starts, n_dec):
+    """The page writes of ``attention_mixed_paged`` before the step writer,
+    with ``ops.write_kv_rows``'s signature: the decode lanes through
+    ``append_kv``, then each chunk row's page-window read-modify-write
+    (``write_chunk_pages``, bucket-pad rows included, on scratch), a Python
+    loop over the rows that reads their starts from the host array
+    ``q_starts``."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    def write(kv_pool, k_new, v_new, block_table, q_starts_dev, n_write):
+        R, Tc = k_new.shape[:2]
+        page = kv_pool.shape[3]
+        if n_dec:
+            pos = q_starts_dev[:n_dec]
+            slot = torch.gather(block_table[:n_dec], 1,
+                                (pos // page)[:, None].long())[:, 0]
+            pa_ops.append_kv(kv_pool, k_new[:n_dec, 0], v_new[:n_dec, 0],
+                             slot.contiguous(), pos % page)
+        win = pa_ref.window_pages(Tc, page)
+        for r in range(n_dec, R):
+            start = int(q_starts[r]) // page
+            pa_ref.write_chunk_pages(
+                kv_pool, k_new[r:r + 1], v_new[r:r + 1],
+                block_table[r, start:start + win].long(),
+                int(q_starts[r]) % page, page_tokens=page)
+        return kv_pool
+    return write
+
+
+def append_case(torch, np, pool, rng, g, lanes, read_pps):
+    """Row 5 in its decode form: one token per lane at ``lanes`` through
+    ``append_kv``, against its plain version (bit for bit) and the one
+    ``index_put_`` that makes the same write; times and bound."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    dev = pool.device
+    P, _, K, page, hd = pool.shape
+    n_dec = len(lanes)
+    bt_np = rng.integers(1, P, (n_dec, read_pps)).astype(np.int32)
+    k_new = torch.randn((n_dec, K, hd), generator=g, device=dev,
+                        dtype=pool.dtype)
+    v_new = torch.randn_like(k_new)
+    slots = torch.as_tensor(bt_np[np.arange(n_dec), lanes // page]).to(dev)
+    offs = torch.as_tensor(lanes % page).to(dev)
+    want = pa_ref.append_kv_ref(pool.clone(), k_new, v_new, slots, offs)
+    got = pa_ops.append_kv(pool.clone(), k_new, v_new, slots, offs)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"append_kv differs from its plain version "
+                             f"(max abs err {err})")
+    # the one PyTorch call that makes the same write: index_put_ with
+    # broadcast (slot, K|V, head, offset) indices
+    idx = (slots.long()[:, None, None],
+           torch.arange(2, device=dev)[None, :, None],
+           torch.arange(K, device=dev)[None, None, :],
+           offs.long()[:, None, None])
+    kv_rows = torch.stack([k_new, v_new], dim=1)        # (B, 2, K, hd)
+    if not torch.equal(pool.clone().index_put_(idx, kv_rows), want):
+        raise AssertionError("index_put_ differs from append_kv's plain "
+                             "version")
+    del got, want
+    ms, plain_ms = interleaved(
+        lambda: pa_ref.append_kv_ref(pool, k_new, v_new, slots, offs),
+        lambda: pa_ops.append_kv(pool, k_new, v_new, slots, offs), 100)
+    host_ms = ms_timer(
+        lambda: pa_ops.append_kv(pool, k_new, v_new, slots, offs), 50)
+    lib = device_ms(lambda: pool.index_put_(idx, kv_rows), 100)
+    b, by = bound_ms(4 * k_new.numel() * k_new.element_size() + 2 * n_dec * 4)
+    return dict(shape=f"B={n_dec} decode lanes", max_abs_err=err,
+                tolerance=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib, host_ms=host_ms)
+
+
+def step_writer_case(torch, np, pool, rng, g, read_pps):
+    """Row 5 in the packed step's form: ``write_kv_rows`` at the main
+    path's plan (4 decode lanes, 2 chunk rows of Tc 256, 6 bucket-pad
+    rows writing nothing) against its plain version and the one
+    ``index_put_`` that makes the same write, bit for bit over the whole
+    pool (every table entry its own page, pad rows on scratch), and against
+    the old path it replaced (``append_kv`` + the per-row
+    ``write_chunk_pages`` loop), equal at every page but scratch. Device
+    times in turns; the old path's device and host-paced times beside the
+    kernel's. The plain version finds its (row, token) pairs with
+    ``nonzero``, a host synchronisation, so its time is host-paced."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.layers import attention as attn
+    dev = pool.device
+    P, _, K, page, hd = pool.shape
+    q_starts, n_reals, n_dec, Tc = main_path_plan()
+    R = len(q_starts)
+    W = read_pps + Tc // page + 1               # the engine's padded width
+    bt_np = rng.permutation(np.arange(1, P))[:R * W].reshape(R, W)
+    bt_np = bt_np.astype(np.int32)
+    bt_np[(np.arange(R) >= n_dec) & (n_reals == 0)] = 0   # pad rows: scratch
+    meta = attn.step_meta(q_starts, n_reals, n_dec, Tc, dev)
+    k_new = torch.randn((R, Tc, K, hd), generator=g, device=dev,
+                        dtype=pool.dtype)
+    v_new = torch.randn_like(k_new)
+    args = (k_new, v_new, torch.as_tensor(bt_np).to(dev), meta["q_starts"],
+            meta["n_write"])
+    want = pa_ref.write_kv_rows_ref(pool.clone(), *args)
+    got = pa_ops.write_kv_rows(pool.clone(), *args)
+    old = old_step_writer(q_starts, n_dec)
+    got_old = old(pool.clone(), *args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"write_kv_rows differs from its plain version "
+                             f"(max abs err {err})")
+    if not torch.equal(got_old[1:], got[1:]):
+        raise AssertionError("write_kv_rows differs from the old path "
+                             "(append_kv + write_chunk_pages) off scratch")
+    # the (row, token) pairs with work, and the one index_put_ that writes
+    # their rows with broadcast (slot, K|V, head, offset) indices
+    n_write = meta["n_write"].cpu().numpy()
+    rows = np.repeat(np.arange(R), n_write)
+    cols = np.concatenate([np.arange(n) for n in n_write])
+    pos = q_starts[rows].astype(np.int64) + cols
+    slots = bt_np[rows, pos // page]
+    rows_d, cols_d = (torch.as_tensor(a).to(dev) for a in (rows, cols))
+    idx = (torch.as_tensor(slots).long().to(dev)[:, None, None],
+           torch.arange(2, device=dev)[None, :, None],
+           torch.arange(K, device=dev)[None, None, :],
+           torch.as_tensor(pos % page).to(dev)[:, None, None])
+    kv_rows = torch.stack([k_new[rows_d, cols_d], v_new[rows_d, cols_d]],
+                          dim=1)                        # (N, 2, K, hd)
+    if not torch.equal(pool.clone().index_put_(idx, kv_rows), want):
+        raise AssertionError("index_put_ differs from write_kv_rows' plain "
+                             "version")
+    del got, want, got_old
+
+    def kernel():
+        pa_ops.write_kv_rows(pool, *args)
+
+    def plain():
+        pa_ref.write_kv_rows_ref(pool, *args)
+
+    def old_path():
+        old(pool, *args)
+    p1 = ms_timer(plain, 20)
+    o1 = device_ms(old_path, 5)
+    k1 = device_ms(kernel, 100)
+    k2 = device_ms(kernel, 100)
+    o2 = device_ms(old_path, 5)
+    p2 = ms_timer(plain, 20)
+    oh1 = ms_timer(old_path, 10)
+    kh1 = ms_timer(kernel, 50)
+    kh2 = ms_timer(kernel, 50)
+    oh2 = ms_timer(old_path, 10)
+    lib = device_ms(lambda: pool.index_put_(idx, kv_rows), 100)
+    N = len(rows)
+    b, by = bound_ms(2 * N * 2 * K * hd * pool.element_size() + N * 4
+                     + 2 * R * 4)
+    return dict(shape=f"R={R} Tc={Tc} step, {N} tokens written",
+                max_abs_err=err, tolerance=0.0, ms=(k1 + k2) / 2,
+                plain_ms=(p1 + p2) / 2, plain_host_paced=True, bound_ms=b,
+                bound_by=by, library_ms=lib, host_ms=(kh1 + kh2) / 2,
+                old_path=dict(device_ms=(o1 + o2) / 2,
+                              host_ms=(oh1 + oh2) / 2,
+                              equal_off_scratch=True))
+
+
 def phase_kernels(torch, np, cfg, report):
     from repro_torch.kernels.kv_gather import ops as kv_ops
     from repro_torch.kernels.kv_gather import ref as kv_ref
@@ -471,45 +685,19 @@ def phase_kernels(torch, np, cfg, report):
         decode_only=decode))
     per_request_kernels(torch, np, pool, rng, g, H, read_pps, report)
 
-    # -- page append -----------------------------------------------------
-    bt_np = rng.integers(1, P, (n_dec, read_pps)).astype(np.int32)
-    k_new = torch.randn((n_dec, K, hd), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-    v_new = torch.randn_like(k_new)
-    slots = torch.as_tensor(bt_np[np.arange(n_dec),
-                                  q_starts[:n_dec] // page]).to(dev)
-    offs = torch.as_tensor(q_starts[:n_dec] % page).to(dev)
-    want = pa_ref.append_kv_ref(pool.clone(), k_new, v_new, slots, offs)
-    got = pa_ops.append_kv(pool.clone(), k_new, v_new, slots, offs)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not torch.equal(got, want):
-        raise AssertionError(f"append_kv differs from its plain version "
-                             f"(max abs err {err})")
-    # the one PyTorch call that makes the same write: index_put_ with
-    # broadcast (slot, K|V, head, offset) indices
-    idx = (slots.long()[:, None, None],
-           torch.arange(2, device=dev)[None, :, None],
-           torch.arange(K, device=dev)[None, None, :],
-           offs.long()[:, None, None])
-    kv_rows = torch.stack([k_new, v_new], dim=1)        # (B, 2, K, hd)
-    if not torch.equal(pool.clone().index_put_(idx, kv_rows), want):
-        raise AssertionError("index_put_ differs from append_kv's plain "
-                             "version")
-    del got, want
-    ms, plain_ms = interleaved(
-        lambda: pa_ref.append_kv_ref(pool, k_new, v_new, slots, offs),
-        lambda: pa_ops.append_kv(pool, k_new, v_new, slots, offs), 100)
-    host_ms = ms_timer(
-        lambda: pa_ops.append_kv(pool, k_new, v_new, slots, offs), 50)
-    lib = device_ms(lambda: pool.index_put_(idx, kv_rows), 100)
-    b, by = bound_ms(4 * k_new.numel() * k_new.element_size() + 2 * n_dec * 4)
+    # -- row 5, the page writer: the decode form (4 lanes through
+    # append_kv) and the packed step's form (write_kv_rows at the main
+    # path's plan), beside the old path the step form replaced -----------
+    print_writer_resources(pa_ops)
+    decode = append_case(torch, np, pool, rng, g, q_starts[:n_dec], read_pps)
+    step = step_writer_case(torch, np, pool, rng, g, read_pps)
     report.append(dict(
         name="append_kv", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:423",
-        max_abs_err=err, tolerance=0.0, ms=ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=by, library_ms=lib, host_ms=host_ms))
+        **{**step, "max_abs_err": max(step["max_abs_err"],
+                                      decode["max_abs_err"])},
+        decode_only=decode))
 
     # -- gather / scatter: one park of a request at ~800 tokens of context
     n = cfg.n_layers * 50
@@ -523,14 +711,17 @@ def phase_kernels(torch, np, cfg, report):
         raise AssertionError("gather_pages differs from its plain version")
     ms, plain_ms = interleaved(lambda: kv_ref.gather_pages_ref(pool, ids),
                                lambda: kv_ops.gather_pages(pool, ids), 20)
-    lib1 = device_ms(lambda: torch.index_select(pool, 0, ids64), 20)
+    vs_lib = against_library(
+        np, lambda: torch.index_select(pool, 0, ids64),
+        lambda: kv_ops.gather_pages(pool, ids), 20)
     b, by = bound_ms(2 * n * page_bytes + n * 4)
     report.append(dict(
         name="gather_pages", route="cuda",
         source="src/repro_torch/csrc/kv_gather.cu",
         replaces="src/repro/kernels/kv_gather/kernel.py:31",
         max_abs_err=0.0, tolerance=0.0, ms=ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=by, library_ms=lib1))
+        bound_ms=b, bound_by=by, library_ms=vs_lib["library_median_ms"],
+        vs_library=vs_lib))
 
     remote = torch.zeros((2 * n, 2, K, page, hd), device=dev,
                          dtype=torch.bfloat16)
@@ -546,13 +737,16 @@ def phase_kernels(torch, np, cfg, report):
     ms, plain_ms = interleaved(
         lambda: kv_ref.scatter_pages_ref(remote, staging, dst),
         lambda: kv_ops.scatter_pages(remote, staging, dst), 20)
-    lib2 = device_ms(lambda: remote.index_copy_(0, dst64, staging), 20)
+    vs_lib = against_library(
+        np, lambda: remote.index_copy_(0, dst64, staging),
+        lambda: kv_ops.scatter_pages(remote, staging, dst), 20)
     report.append(dict(
         name="scatter_pages", route="cuda",
         source="src/repro_torch/csrc/kv_gather.cu",
         replaces="src/repro/kernels/kv_gather/kernel.py:49",
         max_abs_err=0.0, tolerance=0.0, ms=ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=by, library_ms=lib2))
+        bound_ms=b, bound_by=by, library_ms=vs_lib["library_median_ms"],
+        vs_library=vs_lib))
     for k in report:
         for case in [k] + [k[sub] for sub in ("decode_only", "mid_page")
                            if sub in k]:
@@ -563,6 +757,12 @@ def phase_kernels(torch, np, cfg, report):
                   f"library {case['library_ms']}"
                   + (f" host-paced {case['host_ms']:.4f} ms"
                      if "host_ms" in case else ""))
+        if "old_path" in k:
+            print(f"kernel {k['name']} old path at {k['shape']}: "
+                  + json.dumps(k["old_path"]))
+        if "vs_library" in k:
+            print(f"kernel {k['name']} vs library, {REPEATS} interleaved "
+                  f"repeats: " + json.dumps(k["vs_library"]))
     del pool, remote, staging
 
 
@@ -674,8 +874,35 @@ def phase_layer_step(torch, np, cfg, model, dev):
         if dev.type == "cuda":
             torch.cuda.synchronize()
         outs[name] = logits.float()
+        if name == "kernel":
+            new_logits, new_pool = logits, p
         del p
     del runs
+
+    # -- the same kernel step with the old page writes (append_kv and the
+    # per-row write_chunk_pages loop): equal bit for bit ------------------
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    writer = pa_ops.write_kv_rows
+    pa_ops.write_kv_rows = old_step_writer(q_starts, n_dec)
+    try:
+        old_pool = pool.clone()
+        old_logits, _ = api.serve_step_paged(
+            model, cfg, tokens, {"kv": old_pool}, {"kv": bt}, q_starts,
+            n_reals, n_decode=n_dec, read_pps=read_pps, impl="kernel")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        pa_ops.write_kv_rows = writer
+    same_logits = torch.equal(old_logits[real], new_logits[real])
+    same_pages = torch.equal(old_pool[1:], new_pool[1:])
+    print(f"layer step, page writes: the kernel step through write_kv_rows "
+          f"and through the old path (append_kv + write_chunk_pages per "
+          f"row): logits of the {len(real)} real rows equal bit for bit: "
+          f"{same_logits}; pages equal but scratch: {same_pages}")
+    if not (same_logits and same_pages):
+        raise AssertionError("layer step: the step writer and the old path "
+                             "give different logits or pages")
+    del old_pool, new_pool, old_logits, new_logits
     if tuple(outs["kernel"].shape) != (R, cfg.vocab_size) \
             or not torch.isfinite(outs["kernel"]).all():
         raise AssertionError("layer step: logits of the wrong shape or "
@@ -968,17 +1195,13 @@ def phase_per_request(torch, np, cfg, model, dev):
     return launches, split_launches
 
 
-def phase_engine(torch, np, cfg, model, dev, need=()):
-    """``ServingEngine`` (CFS, a same-card REMOTE donor lease) serves 12
-    seeded requests at full width. Every request finishes, CFS preempts and
-    restores, each park/restore is one fabric message, a family whose
-    context is all state planes moves exactly its whole state per leg, and
-    every kernel in ``need`` launched (counts reset just before the run)."""
+def make_engine(np, cfg, model, dev):
+    """The 12-request CFS engine of phase 6 (a same-card REMOTE donor
+    lease, seeded prompts of 128-768 tokens, 32 new tokens each). Returns
+    (engine, runtime, requests)."""
     from repro_torch.core.aqua_tensor import REMOTE
-    from repro_torch.kernels import build
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.kv_cache import PagedStateRuntime
-
     n_req, new_tokens = 12, 32
     # logical ids must cover the LOCAL pool and every parked page (qwen: 24
     # layers x up to 50 pages x 12 requests, plus the pool itself)
@@ -997,6 +1220,71 @@ def phase_engine(torch, np, cfg, model, dev, need=()):
         reqs.append(eng.submit(list(map(int, rng.integers(0, cfg.vocab_size,
                                                           n))),
                                new_tokens, arrival=0.01 * i))
+    return eng, kv, reqs
+
+
+ENGINE_PROFILE_WARMUP = 8           # engine steps before the profiled ones
+
+
+def profile_engine_steps(torch, eng):
+    """One chunk step and one decode-only step of ``eng`` under
+    ``torch.profiler`` (CPU and CUDA activities), after
+    ``ENGINE_PROFILE_WARMUP`` plain steps: per step its wall, the device
+    kernels launched, device busy ms, the idle share and the top-5 device
+    kernels. A step of a kind already profiled is dropped. Returns {kind:
+    record}, "not measured" where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out, n = {}, 0
+    while (eng.waiting or eng.running) and len(out) < 2 and n < 1000:
+        n += 1
+        torch.cuda.synchronize()
+        if n <= ENGINE_PROFILE_WARMUP:
+            eng.step()
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t)
+        kind = ("chunk" if eng.metrics.prefill_tokens_trace[-1] > 0
+                else "decode_only")
+        if kind in out:
+            continue
+        device = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.time_range.elapsed_us() > 0]
+        if not device:
+            out[kind] = {"step_wall_ms": wall_us / 1e3,
+                         "device": "not measured"}
+            continue
+        summary = device_time_summary(device, wall_us)
+        out[kind] = {
+            "step": n, "step_wall_ms": summary["step_wall_ms"],
+            "kernels": sum(1 for name, _, _ in device
+                           if not name.startswith(("Memcpy", "Memset"))),
+            "device_events": summary["device_events"],
+            "device_busy_ms": summary["device_busy_ms"],
+            "idle_share": summary["idle_share"],
+            "by_kind_ms": summary["by_kind_ms"],
+            "top5_ms": summary["top10_ms"][:5]}
+    return out
+
+
+def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
+    """``ServingEngine`` (CFS, a same-card REMOTE donor lease) serves 12
+    seeded requests at full width. Every request finishes, CFS preempts and
+    restores, each park/restore is one fabric message, a family whose
+    context is all state planes moves exactly its whole state per leg, and
+    every kernel in ``need`` launched (counts reset just before the run).
+    With ``profile``, a second run of the same requests profiles one chunk
+    step and one decode-only step (``profile_engine_steps``)."""
+    from repro_torch.kernels import build
+
+    eng, kv, reqs = make_engine(np, cfg, model, dev)
+    n_req, new_tokens = len(reqs), reqs[0].max_new_tokens
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
@@ -1056,6 +1344,11 @@ def phase_engine(torch, np, cfg, model, dev, need=()):
     if not all(launches.get(k, 0) > 0 for k in need):
         raise AssertionError(f"engine: {cfg.name}'s run never launched some "
                              f"of {list(need)}")
+    if profile:
+        del eng, kv, reqs
+        torch.cuda.empty_cache()
+        eng, _, _ = make_engine(np, cfg, model, dev)
+        print(f"engine profile: {json.dumps(profile_engine_steps(torch, eng))}")
     return launches
 
 
@@ -1995,7 +2288,13 @@ def main() -> int:
     per_request, split = phase_per_request(torch, np, cfg, model, dev)
     launches = phase_engine(torch, np, cfg, model, dev,
                             need=("paged_mixed_attention_pool", "append_kv",
-                                  "gather_pages", "scatter_pages"))
+                                  "gather_pages", "scatter_pages"),
+                            profile=True)
+    if launches["append_kv"] != launches["paged_mixed_attention_pool"]:
+        raise AssertionError(
+            f"engine: {launches['append_kv']} page-writer launches, not one "
+            f"per layer per step ({launches['paged_mixed_attention_pool']} "
+            f"mixed attention launches)")
     del model
     torch.cuda.empty_cache()
     print(f"qwen1.5-0.5b phases done at {time.perf_counter() - t0:.1f} s")

@@ -92,12 +92,30 @@
 // (bit-identical to the full sweep); a tile holding a fully masked row
 // sweeps every page, as the reference does.
 //
-// 5) aqua_append_kv replaces append_kv (_append_kernel): one block per
-//    decode lane writes that token's K and V rows in place at
-//    pool[slots[b], 0|1, :, offsets[b], :]. Bound: bytes (2 * B * K * hd
-//    elements written); the TPU's input-output aliasing becomes a plain
-//    in-place store. Idle lanes all target the scratch page at offset 0
-//    with identical data, a benign race.
+// 5) aqua_write_kv_rows replaces append_kv (_append_kernel) together with
+//    the reference's chunk writer (repro/layers/attention.py:
+//    write_chunk_pages): ONE launch writes every new token of a packed step
+//    through its row's block table, in place,
+//      for r < R, t < n_write[r]:  pos = q_starts[r] + t
+//        pool[bt[r, pos / page], 0|1, :, pos % page, :] = k_new|v_new[r, t]
+//    (decode lanes write 1 token, chunk rows their Tc, bucket-pad rows 0).
+//    Bound: bytes, each written token's K and V rows read once and written
+//    once (4 KiB a token at K 16, hd 64, bf16); one decode lane's token is
+//    too little to fill the card, so the design is about latency: the grid
+//    runs over the flattened (row, token) pairs that have work (a warp
+//    finds its row and the row's start by a shuffle scan of n_write and
+//    q_starts, no host round trip), one warp moves one token's K and V
+//    rows in 16-byte vectors (4-byte for float32 pools), its first loads
+//    issued before the slot lookup so the two round trips overlap, all of
+//    a lane's loads in flight before its stores, reads of k_new/v_new
+//    contiguous and each head row's 128 bytes written by 8 neighbouring
+//    lanes. hd is a template parameter, so a vector's
+//    head and chunk come from shifts, not divisions. A position before 0,
+//    a page index at or past the table's width and a slot outside the pool
+//    are skipped; no table row is read past its width. The TPU's
+//    input-output aliasing becomes a plain in-place store. Only the scratch
+//    page takes duplicate writes (idle lanes, a chunk's padding past its
+//    pages), a benign race.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -1105,36 +1123,145 @@ int launch_decode(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
-__global__ void __launch_bounds__(256)
-append_kv_kernel(E* __restrict__ pool, const E* __restrict__ k_new,
-                 const E* __restrict__ v_new, const int* __restrict__ slots,
-                 const int* __restrict__ offsets, int K, int page, int hd,
-                 long long n_pool) {
-  const int b = blockIdx.x;
-  const long long slot = slots[b];
-  const int off = offsets[b];
-  if (slot < 0 || slot >= n_pool || off < 0 || off >= page) return;
-  const int n = K * hd;
-  const long long page_elems = static_cast<long long>(page) * hd;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int h = e / hd, d = e % hd;
-    const long long row = static_cast<long long>(off) * hd + d;
-    pool[((slot * 2 + 0) * K + h) * page_elems + row] =
-        k_new[static_cast<long long>(b) * n + e];
-    pool[((slot * 2 + 1) * K + h) * page_elems + row] =
-        v_new[static_cast<long long>(b) * n + e];
+// Row writer (entry point 5): 4 warps a block, one (row, token) pair a
+// warp; a lane keeps kUnroll vectors of K and of V in flight.
+constexpr int kWriterWarps = 4;
+constexpr int kUnroll = 4;
+
+// Tokens row r writes: n_write[r] clamped to [0, T] (all T when n_write is
+// null).
+__device__ __forceinline__ long long row_tokens(const int* n_write, int r,
+                                                int T) {
+  return n_write ? min(max(n_write[r], 0), T) : T;
+}
+
+// The row holding flattened pair i (pairs counted row by row over the
+// rows' token counts), the pair index its row starts at and the row's
+// q_start; -1 past the last pair. Warp-uniform: 32 rows a step, each lane
+// loading its row's count and start together, an inclusive shuffle scan.
+__device__ __forceinline__ int pair_row(const int* n_write,
+                                        const int* q_starts, int R, int T,
+                                        long long i, long long* row_start,
+                                        int* q_start) {
+  const int lane = threadIdx.x & 31;
+  long long base = 0;
+  for (int r0 = 0; r0 < R; r0 += 32) {
+    const int r = r0 + lane;
+    const long long n = r < R ? row_tokens(n_write, r, T) : 0;
+    const int qs = r < R ? q_starts[r] : 0;
+    long long incl = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const unsigned hit = __ballot_sync(kFull, base + incl > i);
+    if (hit) {
+      const int l = __ffs(hit) - 1;
+      *row_start = base + __shfl_sync(kFull, incl - n, l);
+      *q_start = __shfl_sync(kFull, qs, l);
+      return r0 + l;
+    }
+    base += __shfl_sync(kFull, incl, 31);
+  }
+  return -1;
+}
+
+// A lane's vectors v0 + 32 u (u < kUnroll) of one token's K and V rows.
+template <typename Vec>
+__device__ __forceinline__ void load_rows(Vec (&kb)[kUnroll],
+                                          Vec (&vb)[kUnroll],
+                                          const Vec* __restrict__ k_new,
+                                          const Vec* __restrict__ v_new,
+                                          long long src, int v0,
+                                          int row_vecs) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int v = v0 + 32 * u;
+    if (v < row_vecs) {
+      kb[u] = k_new[src + v];
+      vb[u] = v_new[src + v];
+    }
   }
 }
 
-template <typename E>
-int launch_append(void* pool, const void* k, const void* v, const int* slots,
-                  const int* offsets, int B, int K, int page, int hd,
-                  long long n_pool, cudaStream_t stream) {
-  append_kv_kernel<E><<<B, 256, 0, stream>>>(
-      static_cast<E*>(pool), static_cast<const E*>(k),
-      static_cast<const E*>(v), slots, offsets, K, page, hd, n_pool);
+// Vec: the unit a lane moves (uint4 for 2-byte elements, uint32_t for
+// 4-byte); VPR: Vecs in one head row of hd elements. A lane's first
+// vectors of K and V are loaded before the slot is looked up, so the two
+// round trips overlap.
+template <typename Vec, int VPR>
+__global__ void __launch_bounds__(kWriterWarps * 32)
+write_kv_rows_kernel(Vec* __restrict__ pool, const Vec* __restrict__ k_new,
+                     const Vec* __restrict__ v_new,
+                     const int* __restrict__ bt,
+                     const int* __restrict__ q_starts,
+                     const int* __restrict__ n_write, int R, int T, int K,
+                     int page, int bt_width, int bt_stride,
+                     long long n_pool) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kWriterWarps + (threadIdx.x >> 5);
+  long long row_start = 0;
+  int q_start = 0;
+  const int r = pair_row(n_write, q_starts, R, T, i, &row_start, &q_start);
+  if (r < 0) return;
+  const int t = static_cast<int>(i - row_start);
+  const int lane = threadIdx.x & 31;
+  const int row_vecs = K * VPR;                  // one token's K (or V)
+  const long long src = (static_cast<long long>(r) * T + t) * row_vecs;
+  Vec kb[kUnroll] = {}, vb[kUnroll] = {};
+  load_rows(kb, vb, k_new, v_new, src, lane, row_vecs);
+  const long long pos = static_cast<long long>(q_start) + t;
+  if (pos < 0) return;
+  const long long pi = pos / page;
+  if (pi >= bt_width) return;
+  const long long slot = bt[static_cast<long long>(r) * bt_stride + pi];
+  if (slot < 0 || slot >= n_pool) return;
+  const long long head_vecs = static_cast<long long>(page) * VPR;
+  const long long k_dst =
+      slot * 2 * K * head_vecs + (pos - pi * page) * VPR;
+  const long long v_dst = k_dst + K * head_vecs;
+  for (int v0 = lane;;) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int v = v0 + 32 * u;
+      if (v < row_vecs) {
+        const long long d = (v / VPR) * head_vecs + v % VPR;
+        pool[k_dst + d] = kb[u];
+        pool[v_dst + d] = vb[u];
+      }
+    }
+    v0 += 32 * kUnroll;
+    if (v0 >= row_vecs) break;
+    load_rows(kb, vb, k_new, v_new, src, v0, row_vecs);
+  }
+}
+
+template <typename Vec, int VPR>
+int launch_write(void* pool, const void* k, const void* v, const int* bt,
+                 const int* q_starts, const int* n_write, int R, int T,
+                 int K, int page, int bt_width, int bt_stride,
+                 long long n_pool, cudaStream_t stream) {
+  const long long pairs = static_cast<long long>(R) * T;
+  const long long blocks = (pairs + kWriterWarps - 1) / kWriterWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  write_kv_rows_kernel<Vec, VPR><<<static_cast<unsigned>(blocks),
+                                   kWriterWarps * 32, 0, stream>>>(
+      static_cast<Vec*>(pool), static_cast<const Vec*>(k),
+      static_cast<const Vec*>(v), bt, q_starts, n_write, R, T, K, page,
+      bt_width, bt_stride, n_pool);
   return static_cast<int>(cudaGetLastError());
+}
+
+// f(Vec, VPR) for a pool of elem_bytes-byte elements at head dim hd: 16-byte
+// vectors for 2-byte elements, 4-byte ones for 4-byte elements.
+template <typename F>
+int by_row(int elem_bytes, int hd, F&& f) {
+  return by_hd(hd, [&](auto HD) {
+    constexpr int D = decltype(HD)::value;
+    if (elem_bytes == 2) return f(uint4(), std::integral_constant<int, D / 8>());
+    if (elem_bytes == 4) return f(uint32_t(), std::integral_constant<int, D>());
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 }  // namespace
@@ -1237,19 +1364,32 @@ extern "C" int aqua_paged_attention(const void* q, const void* k_pages,
   return -1;
 }
 
-extern "C" int aqua_append_kv(void* pool, const void* k_new, const void* v_new,
-                              const int* slots, const int* offsets, int B,
-                              int K, int page, int hd, long long n_pool,
-                              int elem_bytes, void* stream) {
-  if (B == 0) return 0;
+// n_write: tokens each row writes, or null for all T; bt_stride: element
+// stride between the table's rows, each row bt_width entries.
+extern "C" int aqua_write_kv_rows(void* pool, const void* k_new,
+                                  const void* v_new, const int* block_table,
+                                  const int* q_starts, const int* n_write,
+                                  int R, int T, int K, int page, int hd,
+                                  int bt_width, int bt_stride,
+                                  long long n_pool, int elem_bytes,
+                                  void* stream) {
+  if (R == 0 || T == 0) return 0;
+  if (K <= 0 || page <= 0 || bt_width <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem_bytes == 2)
-    return launch_append<uint16_t>(pool, k_new, v_new, slots, offsets, B, K,
-                                   page, hd, n_pool, s);
-  if (elem_bytes == 4)
-    return launch_append<uint32_t>(pool, k_new, v_new, slots, offsets, B, K,
-                                   page, hd, n_pool, s);
-  return -1;
+  return by_row(elem_bytes, hd, [&](auto vec, auto vpr) {
+    return launch_write<decltype(vec), decltype(vpr)::value>(
+        pool, k_new, v_new, block_table, q_starts, n_write, R, T, K, page,
+        bt_width, bt_stride, n_pool, s);
+  });
+}
+
+// Registers and local bytes of the row writer for elem_bytes-byte elements
+// at head dim hd (no shared memory).
+extern "C" int aqua_write_kv_rows_info(int elem_bytes, int hd, int* out) {
+  return by_row(elem_bytes, hd, [&](auto vec, auto vpr) {
+    return tc::info(write_kv_rows_kernel<decltype(vec), decltype(vpr)::value>,
+                    0, out);
+  });
 }
 
 // Registers, local bytes (spills and stack) and dynamic shared memory of a

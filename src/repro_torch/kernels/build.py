@@ -45,7 +45,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "aqua_gather_pages": [_P, _P, _P, _L, _L, _L, _P],
     "aqua_scatter_pages": [_P, _P, _P, _L, _L, _L, _P],
-    "aqua_append_kv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P],
+    "aqua_write_kv_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _L, _I, _P],
+    "aqua_write_kv_rows_info": [_I, _I, _P],
     "aqua_mixed_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _L, ctypes.c_float, _I, _P],
     "aqua_prefill_attention_pool": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

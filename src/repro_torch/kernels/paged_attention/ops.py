@@ -16,13 +16,29 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import (
     append_kv_ref, paged_attention_pool_ref, paged_attention_ref,
-    paged_mixed_attention_pool_ref, paged_prefill_attention_pool_ref)
+    paged_mixed_attention_pool_ref, paged_prefill_attention_pool_ref,
+    write_kv_rows_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims of the bf16 kernels (rows of a power-of-two count of 16-byte
 # chunks); float32 takes any multiple of 32 up to 128
 BF16_HEAD_DIMS = (32, 64, 128)
 TC_KERNELS = ("mixed", "prefill", "decode_pool", "decode_split")
+
+
+def writer_kernel_info(hd: int) -> dict:
+    """Registers and local bytes (spills and stack) of the row writer for
+    bfloat16 and float32 pools at head dim ``hd`` (it uses no shared
+    memory), as the loaded library reports them."""
+    out = (ctypes.c_int * 3)()
+    info = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        build.check(f"write_kv_rows info {name}",
+                    build.lib().aqua_write_kv_rows_info(
+                        dtype.itemsize, hd, ctypes.addressof(out)))
+        info[name] = dict(registers=out[0], local_bytes=out[1])
+    return info
 
 
 def tc_kernel_info(hd: int) -> dict:
@@ -235,33 +251,69 @@ def paged_mixed_attention_pool(q, kv_pool, block_tables, q_starts, n_reals,
     return out
 
 
-def append_kv(kv_pool, k_new, v_new, slots, offsets):
-    """Append one decode token's K/V per lane into its page, in place:
-    pool[slots[b], 0|1, :, offsets[b], :]. Returns the pool."""
-    if kv_pool.device.type == "cpu":
-        return append_kv_ref(kv_pool, k_new, v_new, slots, offsets)
-    name = "append_kv"
+def _write_rows(name, kv_pool, k_new, v_new, table, starts, n_write):
+    """Launch the row writer: row r writes its tokens t < n_write[r] (all of
+    them when ``n_write`` is None) at positions starts[r] + t through
+    table row r. k_new/v_new: (R, T, K, hd)."""
     P, two, K, page, hd = kv_pool.shape
-    B = k_new.shape[0]
+    R, T = k_new.shape[:2]
     k_new = k_new.to(kv_pool.dtype).contiguous()
     v_new = v_new.to(kv_pool.dtype).contiguous()
-    if (two != 2 or tuple(k_new.shape) != (B, K, hd)
-            or tuple(v_new.shape) != (B, K, hd)):
-        raise ValueError(f"{name}: k/v {tuple(k_new.shape)} do not match "
-                         f"pool {tuple(kv_pool.shape)}")
-    if tuple(slots.shape) != (B,) or tuple(offsets.shape) != (B,):
-        raise ValueError(f"{name}: slots/offsets must be (B,)")
-    if kv_pool.element_size() not in (2, 4):
-        raise ValueError(f"{name}: pool element size must be 2 or 4 bytes")
-    _index(name, slots, offsets)
-    build.require_cuda(name, kv_pool, k_new, v_new, slots, offsets)
-    if B == 0:
+    if (two != 2 or tuple(k_new.shape) != (R, T, K, hd)
+            or tuple(v_new.shape) != (R, T, K, hd)):
+        raise ValueError(f"{name}: k/v {tuple(k_new.shape)} / "
+                         f"{tuple(v_new.shape)} do not match pool "
+                         f"{tuple(kv_pool.shape)}")
+    if kv_pool.dtype not in _DTYPE_CODES or hd not in BF16_HEAD_DIMS:
+        raise ValueError(f"{name}: pool must be float32 or bfloat16 with "
+                         f"head_dim in {BF16_HEAD_DIMS}, got {kv_pool.dtype} "
+                         f"and {hd}")
+    index = [starts] + ([] if n_write is None else [n_write])
+    for t in index:
+        _per_seq(name, t, R)
+    _index(name, table, *index)
+    build.require_cuda(name, kv_pool, k_new, v_new, *index)
+    _table(name, kv_pool, table, R)
+    build.require_aligned16(name, kv_pool, k_new, v_new)
+    if R == 0 or T == 0 or table.shape[1] == 0:
         return kv_pool
-    lib = build.lib()
-    rc = lib.aqua_append_kv(kv_pool.data_ptr(), k_new.data_ptr(),
-                            v_new.data_ptr(), slots.data_ptr(),
-                            offsets.data_ptr(), B, K, page, hd, P,
-                            kv_pool.element_size(), build.stream_of(kv_pool))
+    rc = build.lib().aqua_write_kv_rows(
+        kv_pool.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        table.data_ptr(), starts.data_ptr(),
+        None if n_write is None else n_write.data_ptr(), R, T, K, page, hd,
+        table.shape[1], table.stride(0), P, kv_pool.element_size(),
+        build.stream_of(kv_pool))
     build.check(name, rc)
-    build.LAUNCHES[name] += 1
+    # row 5 of the kernel table: one count for both entry points
+    build.LAUNCHES["append_kv"] += 1
     return kv_pool
+
+
+def write_kv_rows(kv_pool, k_new, v_new, block_table, q_starts, n_write):
+    """Write a packed step's new K/V into the pages, in place, in one
+    launch: for each row r and token t < n_write[r], at position
+    pos = q_starts[r] + t, pool[block_table[r, pos // page], 0|1, :,
+    pos % page] = k_new[r, t] / v_new[r, t]. Positions whose page index is
+    at or past the table's width, and slots outside the pool, are skipped.
+
+    kv_pool: (P,2,K,page,hd); k_new/v_new: (R,T,K,hd); block_table: (R, W)
+    int32 pool slots; q_starts/n_write: (R,) int32. Returns the pool.
+    """
+    if kv_pool.device.type == "cpu":
+        return write_kv_rows_ref(kv_pool, k_new, v_new, block_table,
+                                 q_starts, n_write)
+    return _write_rows("write_kv_rows", kv_pool, k_new, v_new, block_table,
+                       q_starts, n_write)
+
+
+def append_kv(kv_pool, k_new, v_new, slots, offsets):
+    """Append one decode token's K/V per lane into its page, in place:
+    pool[slots[b], 0|1, :, offsets[b], :]. Returns the pool. On the card
+    the row writer's launch with a one-entry table per lane."""
+    if kv_pool.device.type == "cpu":
+        return append_kv_ref(kv_pool, k_new, v_new, slots, offsets)
+    B = k_new.shape[0]
+    if tuple(slots.shape) != (B,) or tuple(offsets.shape) != (B,):
+        raise ValueError("append_kv: slots/offsets must be (B,)")
+    return _write_rows("append_kv", kv_pool, k_new[:, None], v_new[:, None],
+                       slots.contiguous().view(B, 1), offsets, None)

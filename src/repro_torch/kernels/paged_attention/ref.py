@@ -128,3 +128,59 @@ def append_kv_ref(kv_pool, k_new, v_new, slots, offsets):
     kv_pool[slots, 0, :, offsets] = k_new.to(kv_pool.dtype)
     kv_pool[slots, 1, :, offsets] = v_new.to(kv_pool.dtype)
     return kv_pool
+
+
+def write_kv_rows_ref(kv_pool, k_new, v_new, block_table, q_starts,
+                      n_write):
+    """The packed step's page writer, in place: for each row r and token
+    t < n_write[r] at pos = q_starts[r] + t, pool[block_table[r, pos //
+    page], 0|1, :, pos % page] = k_new[r, t] / v_new[r, t] — the
+    page-append writer over every (row, token) pair with work. Positions
+    before 0 or whose page index is at or past the table's width, and
+    slots outside the pool, are skipped.
+
+    kv_pool: (P,2,K,page,hd); k_new/v_new: (R,T,K,hd); block_table: (R,W);
+    q_starts/n_write: (R,). Returns the pool.
+    """
+    P, _, _, page, _ = kv_pool.shape
+    T, W = k_new.shape[1], block_table.shape[1]
+    t = torch.arange(T, device=kv_pool.device)
+    pos = q_starts.long()[:, None] + t[None, :]
+    page_idx = torch.div(pos, page, rounding_mode="floor")
+    live = (t[None, :] < n_write.long()[:, None]) & (pos >= 0) \
+        & (page_idx < W)
+    rows, cols = live.nonzero(as_tuple=True)
+    slots = block_table.long()[rows, page_idx[rows, cols]]
+    keep = (slots >= 0) & (slots < P)
+    rows, cols, slots = rows[keep], cols[keep], slots[keep]
+    return append_kv_ref(kv_pool, k_new[rows, cols], v_new[rows, cols],
+                         slots, pos[rows, cols] % page)
+
+
+def window_pages(Tc: int, page: int) -> int:
+    """Pages a chunk's write window spans: ceil(Tc/page) + 1 (a mid-page
+    chunk start touches one extra page)."""
+    return Tc // page + (1 if Tc % page else 0) + 1
+
+
+def write_chunk_pages(kv_pool, k, v, window, offset: int, *,
+                      page_tokens: int):
+    """The reference's chunk writer (``repro/layers/attention.py``), which
+    the serving paths ran once per chunk row before ``write_kv_rows``:
+    K/V (1,Tc,K,hd) of one chunk land at token row ``offset`` of the
+    chunk's page WINDOW — the pages covering ``[q_start, q_start + Tc)``,
+    gathered, row-updated and scattered back so rows written by earlier
+    chunks survive a mid-page boundary. Kept as the old path's yardstick.
+
+    kv_pool: (P,2,K,page,hd); window: (W,) int64 pool slots (padding points
+    at the scratch page); offset: ``q_start % page_tokens``.
+    """
+    _, Tc, K, hd = k.shape
+    W = window.shape[0]
+    pages = kv_pool[window]                                 # (W,2,K,page,hd)
+    flat = pages.permute(0, 3, 1, 2, 4).reshape(W * page_tokens, 2, K, hd)
+    flat[offset:offset + Tc] = torch.stack([k[0], v[0]],
+                                           dim=1).to(flat.dtype)
+    kv_pool[window] = (flat.reshape(W, page_tokens, 2, K, hd)
+                       .permute(0, 2, 3, 1, 4))
+    return kv_pool

@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
     append_kv_ref, paged_attention_pool_ref, paged_mixed_attention_pool_ref,
-    paged_prefill_attention_pool_ref)
+    paged_prefill_attention_pool_ref, write_kv_rows_ref)
 from repro_torch.layers.core import Linear, apply_rope, check_impl, linear
 
 
@@ -76,34 +76,6 @@ def attention_full(p: Attention, cfg: ModelConfig, x, *, window: int = 0,
     return linear(p.wo, ctx.reshape(B, T, -1))
 
 
-def write_chunk_pages(kv_pool, k, v, window, offset: int, *,
-                      page_tokens: int):
-    """Chunked prefill writes pages in place: K/V (1,Tc,K,hd) of one chunk
-    land at token row ``offset`` of the chunk's page WINDOW — the pages
-    covering ``[q_start, q_start + Tc)``, gathered, row-updated and scattered
-    back so rows written by earlier chunks survive a mid-page boundary.
-
-    kv_pool: (P,2,K,page,hd); window: (W,) int64 pool slots (padding points
-    at the scratch page, whose content is never read unmasked); offset:
-    ``q_start % page_tokens``.
-    """
-    _, Tc, K, hd = k.shape
-    W = window.shape[0]
-    pages = kv_pool[window]                                 # (W,2,K,page,hd)
-    flat = pages.permute(0, 3, 1, 2, 4).reshape(W * page_tokens, 2, K, hd)
-    flat[offset:offset + Tc] = torch.stack([k[0], v[0]],
-                                           dim=1).to(flat.dtype)
-    kv_pool[window] = (flat.reshape(W, page_tokens, 2, K, hd)
-                       .permute(0, 2, 3, 1, 4))
-    return kv_pool
-
-
-def _window_pages(Tc: int, page: int) -> int:
-    """Pages a chunk's write window spans: ceil(Tc/page) + 1 (a mid-page
-    chunk start touches one extra page)."""
-    return Tc // page + (1 if Tc % page else 0) + 1
-
-
 def attention_prefill_chunk(p: Attention, cfg: ModelConfig, x, kv_pool,
                             block_table, q_start: int, *,
                             read_pps: Optional[int] = None,
@@ -117,25 +89,25 @@ def attention_prefill_chunk(p: Attention, cfg: ModelConfig, x, kv_pool,
     device copies ``step_meta`` makes once per chunk (shared by every
     layer).
 
-    The chunk's K/V is written into its page window first, then the chunk
-    attends to every page written so far (causal within the chunk, bucket
-    padding included) in one ``paged_prefill_attention_pool`` launch.
+    The chunk's K/V is written into its pages first (one row-writer
+    launch), then the chunk attends to every page written so far (causal
+    within the chunk, bucket padding included) in one
+    ``paged_prefill_attention_pool`` launch.
     ``read_pps`` bounds the attention sweep to the pages a request can own:
-    the table's tail entries exist only so the write window stays in
-    bounds, and always point at scratch. Returns (out (1,Tc,d), pool).
+    the table's tail entries always point at scratch, which takes the
+    writes of the chunk's bucket padding past the request's pages. Returns
+    (out (1,Tc,d), pool).
     """
     check_impl(impl)
     B, Tc, _ = x.shape
     if B != 1:
         raise ValueError(f"chunked prefill is per-request, got {B} rows")
-    page = kv_pool.shape[3]
     if meta is None:
         meta = step_meta([q_start], [Tc], 0, Tc, x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, meta["positions"])
-    start = q_start // page
-    win = block_table[start:start + _window_pages(Tc, page)].long()
-    write_chunk_pages(kv_pool, k_new, v_new, win, q_start % page,
-                      page_tokens=page)
+    write = pa_ops.write_kv_rows if impl == "kernel" else write_kv_rows_ref
+    write(kv_pool, k_new, v_new, block_table[None], meta["q_starts"],
+          meta["n_write"])
     bt = block_table[None, :read_pps]
     if impl == "kernel":
         ctx = pa_ops.paged_prefill_attention_pool(q, kv_pool, bt,
@@ -198,41 +170,23 @@ def attention_mixed_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
     kv_pool: (P,2,K,page,hd); block_table: (R, pps_pad) int32 LOCAL slots
     from position 0, scratch-padded, on the pool's device; q_starts /
     n_reals: (R,) host integer arrays. ``meta`` optionally carries the
-    device copies ``_step_meta`` makes once per step (shared by every
+    device copies ``step_meta`` makes once per step (shared by every
     layer).
 
-    Decode lanes append through the page-append writer, each chunk row
-    writes its read-modify-write page window, then every row attends in
-    one ``paged_mixed_attention_pool`` launch. Returns (out (R,Tc,d), pool).
+    Every row's new K/V goes into its pages in one row-writer launch
+    (decode lanes 1 token, chunk rows their Tc, bucket-pad rows none), then
+    every row attends in one ``paged_mixed_attention_pool`` launch.
+    Returns (out (R,Tc,d), pool).
     """
     check_impl(impl)
     R, Tc, _ = x.shape
-    page = kv_pool.shape[3]
     if meta is None:
         meta = step_meta(q_starts, n_reals, n_decode, Tc, x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, meta["positions"])
 
-    if n_decode:
-        # decode lanes: one-token page append (idle lanes target scratch)
-        pos = meta["q_starts"][:n_decode]
-        slot = torch.gather(block_table[:n_decode], 1,
-                            (pos // page)[:, None].long())[:, 0]
-        off = pos % page
-        kd, vd = k_new[:n_decode, 0], v_new[:n_decode, 0]
-        if impl == "kernel":
-            pa_ops.append_kv(kv_pool, kd, vd, slot.contiguous(), off)
-        else:
-            append_kv_ref(kv_pool, kd, vd, slot, off)
-    qs = np.asarray(q_starts)
-    pps_win = _window_pages(Tc, page)
-    for r in range(n_decode, R):
-        # chunk rows: the per-request page-window read-modify-write (pad
-        # rows rewrite the scratch window, never read unmasked)
-        start = int(qs[r]) // page
-        win = block_table[r, start:start + pps_win].long()
-        write_chunk_pages(kv_pool, k_new[r:r + 1], v_new[r:r + 1], win,
-                          int(qs[r]) % page, page_tokens=page)
-
+    write = pa_ops.write_kv_rows if impl == "kernel" else write_kv_rows_ref
+    write(kv_pool, k_new, v_new, block_table, meta["q_starts"],
+          meta["n_write"])
     bt = block_table[:, :read_pps]
     args = (q, kv_pool, bt, meta["q_starts"], meta["n_reals"],
             meta["is_decode"])
@@ -246,14 +200,23 @@ def attention_mixed_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
 
 def step_meta(q_starts, n_reals, n_decode: int, Tc: int, device) -> dict:
     """Device copies of a packed step's per-row metadata (int32) and the
-    token positions, made once per step and shared by every layer."""
-    qs = torch.as_tensor(np.asarray(q_starts, np.int32)).to(device)
-    nr = torch.as_tensor(np.asarray(n_reals, np.int32)).to(device)
-    R = qs.shape[0]
-    is_dec = (torch.arange(R, device=device) < n_decode).to(torch.int32)
+    token positions, made once per step and shared by every layer.
+    ``n_write``, the tokens each row writes into its pages: 1 for a decode
+    lane (an idle one writes scratch), Tc for a chunk row with real tokens
+    (its padding too, as the reference's page window does), 0 for a
+    bucket-pad row."""
+    qs_np = np.asarray(q_starts, np.int32).reshape(-1)
+    nr_np = np.asarray(n_reals, np.int32).reshape(-1)
+    R = qs_np.shape[0]
+    is_dec_np = np.arange(R) < n_decode
+    n_write = np.where(is_dec_np, 1, np.where(nr_np > 0, Tc, 0))
+    qs = torch.as_tensor(qs_np).to(device)
+    nr = torch.as_tensor(nr_np).to(device)
+    is_dec = torch.as_tensor(is_dec_np.astype(np.int32)).to(device)
     positions = qs[:, None] + torch.arange(Tc, dtype=torch.int32,
                                            device=device)[None, :]
     return {"q_starts": qs, "n_reals": nr, "is_decode": is_dec,
+            "n_write": torch.as_tensor(n_write.astype(np.int32)).to(device),
             "positions": positions}
 
 

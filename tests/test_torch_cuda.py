@@ -6,8 +6,9 @@ so it runs on a card's machine as it is:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 Tolerances: attention 3e-5 in float32, 3e-2 in bfloat16 (the plain version
-rounds the probabilities to bfloat16 before the value product); append,
-gather and scatter bit-exact. The attention kernels share their row
+rounds the probabilities to bfloat16 before the value product); the page
+writer (``write_kv_rows`` and its ``append_kv`` form), gather and scatter
+bit-exact. The attention kernels share their row
 arithmetic (float32: one row step; bf16: one decode path and one
 tensor-core chunk path), so decode over split pools equals decode over the
 fused pool, and a mixed launch's decode lanes and chunk rows equal the
@@ -130,6 +131,69 @@ def test_cuda_append_gather_scatter_match_plain(dtype):
     new = torch.randn(staging.shape, generator=g, device=dev).to(td)
     want = kv_ref.scatter_pages_ref(pool.clone(), new, ids)
     assert torch.equal(kv_ops.scatter_pages(pool.clone(), new, ids), want)
+
+
+def _writer_case(dev, td, hd, page, seed=12, K=2, T=256):
+    """Rows of the page writer: n_write 0, 1, below a page, 256 from
+    mid-page, 256 running past the table's end, and an idle lane on
+    scratch; every table entry its own page, so no write lands twice."""
+    W = (page + page // 2 + T) // page + 2
+    q_starts = [37, 13, 2 * page + 3, page + page // 2, (W - 2) * page + 1,
+                0]
+    n_write = [0, 1, page - 5, T, T, 1]
+    R = len(q_starts)
+    rng = np.random.default_rng(seed)
+    P = R * W + 1
+    bt = rng.permutation(np.arange(1, P))[:R * W].reshape(R, W)
+    bt[-1] = 0                                      # the idle lane: scratch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool = torch.randn((P, 2, K, page, hd), generator=g, device=dev).to(td)
+    k = torch.randn((R, T, K, hd), generator=g, device=dev).to(td)
+    v = torch.randn((R, T, K, hd), generator=g, device=dev).to(td)
+    ints = [torch.tensor(a, dtype=torch.int32, device=dev)
+            for a in (bt, q_starts, n_write)]
+    return pool, k, v, *ints
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("page", [8, 16, 40])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_cuda_write_kv_rows_matches_plain_bitwise(hd, page, dtype):
+    dev = _cuda()
+    pool, k, v, bt, qs, nw = _writer_case(dev, DTYPES[dtype], hd, page)
+    want = pa_ref.write_kv_rows_ref(pool.clone(), k, v, bt, qs, nw)
+    build.reset_launch_counts()
+    got = pa_ops.write_kv_rows(pool.clone(), k, v, bt, qs, nw)
+    torch.cuda.synchronize()
+    assert build.launch_counts() == {"append_kv": 1}
+    assert torch.equal(got, want)
+    assert not torch.equal(got, pool)               # it wrote something
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_cuda_write_kv_rows_kernel_has_no_local_memory(hd):
+    _cuda()
+    for dtype, info in pa_ops.writer_kernel_info(hd).items():
+        assert info["local_bytes"] == 0, (dtype, info)
+        assert 0 < info["registers"] <= 128, (dtype, info)
+
+
+@pytest.mark.cuda
+def test_cuda_write_kv_rows_rejects_what_it_does_not_take():
+    dev = _cuda()
+    pool, k, v, bt, qs, nw = _writer_case(dev, torch.bfloat16, 64, 16)
+    with pytest.raises(ValueError, match="int32"):
+        pa_ops.write_kv_rows(pool, k, v, bt, qs.long(), nw)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa_ops.write_kv_rows(pool[..., :48], k[..., :48], v[..., :48], bt,
+                             qs, nw)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)
+        pa_ops.write_kv_rows(pool, flat[1:].view(k.shape), v, bt, qs, nw)
+    with pytest.raises(ValueError, match="do not match"):
+        pa_ops.write_kv_rows(pool, k[:, :, :1], v[:, :, :1], bt, qs, nw)
 
 
 @pytest.mark.cuda

@@ -4,8 +4,13 @@ On the CPU each wrapper runs its plain PyTorch version; those are held here
 against the reference's Pallas kernels in interpret mode on the same numpy
 inputs: the four paged attention kernels (mixed, chunked prefill, decode
 over the fused pool and over split pools) at 3e-5 (float32) / 3e-2
-(bfloat16), page append, gather and scatter exactly. ``test_torch_cuda.py`` holds the CUDA
-kernels against these plain versions on a card.
+(bfloat16), page append, gather and scatter exactly. The packed step's
+page writer (``write_kv_rows``) equals the reference's two writers together,
+``append_kv`` in interpret mode for the decode lanes and
+``write_chunk_pages`` for the chunk rows, exactly at every page but scratch
+(which takes duplicate writes of idle lanes, pad rows and chunk padding).
+``test_torch_cuda.py`` holds the CUDA kernels against these plain versions
+on a card.
 """
 from pathlib import Path
 
@@ -24,11 +29,14 @@ from repro.kernels.paged_attention.kernel import \
     paged_mixed_attention_pool as j_mixed
 from repro.kernels.paged_attention.kernel import \
     paged_prefill_attention_pool as j_prefill
+from repro.layers.attention import write_chunk_pages as j_write_chunk
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import build
 from repro_torch.kernels.kv_gather import ops as kv_ops
 from repro_torch.kernels.kv_gather import ref as kv_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
+from repro_torch.layers import attention as tattn
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -189,6 +197,114 @@ def test_append_kv_plain_matches_reference_kernel(dtype):
                            torch.from_numpy(offs))
     assert out is tp                                # in place
     np.testing.assert_array_equal(_np(out), _np(ref))
+
+
+# the packed step's page writes: page, Tc, table width W and rows of
+# (kind, q_start, n_real) — "dec" a decode lane, "idle" an idle lane on
+# scratch, "chunk" a prompt chunk row (n_real 0: a bucket-pad row)
+WRITER_CASES = {
+    "decode_idle_lanes": (8, 1, 6, [("dec", 13, 1), ("dec", 30, 1),
+                                    ("idle", 0, 1), ("idle", 0, 1)]),
+    "chunk_from_mid_page": (8, 12, 6, [("dec", 9, 1), ("chunk", 5, 12),
+                                       ("chunk", 0, 0)]),
+    "chunk_crossing_pages": (8, 16, 8, [("dec", 3, 1), ("chunk", 20, 16)]),
+    "tc_below_one_page": (16, 5, 5, [("dec", 47, 1), ("chunk", 35, 3)]),
+    "pad_rows": (8, 8, 4, [("dec", 2, 1), ("chunk", 0, 8), ("chunk", 0, 0),
+                           ("chunk", 0, 0), ("chunk", 0, 0)]),
+    # the window (pages 3..5) ends at the table's last entry; the padding
+    # past the chunk's 4 pages lands on the table's scratch tail
+    "window_reaches_scratch_tail": (8, 16, 6, [("chunk", 26, 5)]),
+}
+SCRATCH = 0
+
+
+def _writer_inputs(case, seed=11, K=2, hd=32, P=40):
+    page, T, W, rows = WRITER_CASES[case]
+    rng = np.random.default_rng(seed)
+    free = list(rng.permutation(np.arange(1, P)))
+    bt = np.full((len(rows), W), SCRATCH, np.int32)
+    for r, (kind, q, n) in enumerate(rows):
+        need = 0 if kind == "idle" or n == 0 else -(-(q + n) // page)
+        bt[r, :need], free = free[:need], free[need:]
+    return dict(page=page, T=T, rows=rows, bt=bt,
+                pool=rng.standard_normal((P, 2, K, page, hd)),
+                k=rng.standard_normal((len(rows), T, K, hd)),
+                v=rng.standard_normal((len(rows), T, K, hd)),
+                q_starts=np.asarray([q for _, q, _ in rows], np.int32),
+                n_reals=np.asarray([n for _, _, n in rows], np.int32),
+                n_dec=sum(kind != "chunk" for kind, _, _ in rows))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(WRITER_CASES))
+def test_write_kv_rows_plain_matches_reference_writers(case, dtype):
+    """One ``write_kv_rows`` call (n_write as ``step_meta`` makes it) ==
+    the reference's ``append_kv`` over the decode lanes then
+    ``write_chunk_pages`` per chunk row == the port's own old pair, at every
+    page but scratch."""
+    x = _writer_inputs(case)
+    page, T, n_dec, bt = x["page"], x["T"], x["n_dec"], x["bt"]
+    jp, tp = _both(x["pool"], dtype)
+    (jk, tk), (jv, tv) = _both(x["k"], dtype), _both(x["v"], dtype)
+    old = tp.clone()
+    win = pa_ref.window_pages(T, page)
+    if n_dec:
+        pos = x["q_starts"][:n_dec]
+        slots = bt[np.arange(n_dec), pos // page].astype(np.int32)
+        offs = (pos % page).astype(np.int32)
+        jp = j_append(jp, jk[:n_dec, 0], jv[:n_dec, 0], jnp.asarray(slots),
+                      jnp.asarray(offs), interpret=True)
+        pa_ref.append_kv_ref(old, tk[:n_dec, 0], tv[:n_dec, 0],
+                             torch.from_numpy(slots), torch.from_numpy(offs))
+    for r in range(n_dec, len(x["rows"])):
+        q = int(x["q_starts"][r])
+        window = bt[r, q // page:q // page + win]
+        jp = j_write_chunk(jp, jk[r:r + 1], jv[r:r + 1], jnp.asarray(window),
+                           q % page, page_tokens=page)
+        pa_ref.write_chunk_pages(old, tk[r:r + 1], tv[r:r + 1],
+                                 torch.from_numpy(window).long(), q % page,
+                                 page_tokens=page)
+    meta = tattn.step_meta(x["q_starts"], x["n_reals"], n_dec, T, "cpu")
+    out = pa_ops.write_kv_rows(tp, tk, tv, torch.from_numpy(bt),
+                               meta["q_starts"], meta["n_write"])
+    assert out is tp                                # in place
+    real = np.arange(x["pool"].shape[0]) != SCRATCH
+    np.testing.assert_array_equal(_np(out)[real], _np(jp)[real])
+    np.testing.assert_array_equal(_np(out)[real], _np(old)[real])
+
+
+@pytest.mark.parametrize("entry", ["mixed", "prefill_chunk"])
+def test_layers_write_pages_through_one_writer_call(monkeypatch, entry):
+    """One ``attention_mixed_paged`` (or ``attention_prefill_chunk``) call
+    on the kernel path makes exactly one ``write_kv_rows`` call, and neither
+    ``append_kv`` nor ``write_chunk_pages``."""
+    calls = []
+    for mod, name in ((pa_ops, "write_kv_rows"), (pa_ops, "append_kv"),
+                      (pa_ref, "write_chunk_pages")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+    assert not hasattr(tattn, "write_chunk_pages")
+    cfg = smoke_config(get_config("qwen1.5-0.5b"))
+    mix = tattn.Attention(cfg, "cpu", generator=torch.Generator()
+                          .manual_seed(0))
+    x = _writer_inputs("pad_rows", K=cfg.n_kv_heads,
+                       hd=cfg.resolved_head_dim)
+    pool = torch.from_numpy(x["pool"]).float()
+    bt = torch.from_numpy(x["bt"])
+    rng = np.random.default_rng(0)
+    if entry == "mixed":
+        h = torch.from_numpy(rng.standard_normal(
+            (len(x["rows"]), x["T"], cfg.d_model))).float()
+        tattn.attention_mixed_paged(mix, cfg, h, pool, bt, x["q_starts"],
+                                    x["n_reals"], n_decode=x["n_dec"],
+                                    impl="kernel")
+    else:
+        h = torch.from_numpy(rng.standard_normal(
+            (1, x["T"], cfg.d_model))).float()
+        tattn.attention_prefill_chunk(mix, cfg, h, pool, bt[1], 0,
+                                      impl="kernel")
+    assert calls == ["write_kv_rows"]
 
 
 def _pool(rng, shape, dtype):
