@@ -32,11 +32,18 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``decode_only``), each beside one ``index_put_``; at the step form also
    the old path it replaced (``append_kv`` + the per-row
    ``write_chunk_pages`` loop), equal off scratch, with its device and
-   host-paced times. Gather and scatter are also held against
-   ``index_select`` / ``index_copy_`` over 5 interleaved rounds (min and
-   median). First it prints the bf16 paged-attention kernels' registers
-   and spills (``-Xptxas -v``) and dynamic shared memory at hd 32, 64 and
-   128, and the page writer's registers and local memory.
+   host-paced times. The gather (row 6) is checked and timed at the
+   engine's three leg shapes: a qwen park (1200 kv pages of 64 KiB) and
+   one rwkv6-3b request's state (32 wkv pages of 655,360 B, 32 shift pages
+   of 10,240 B, under ``rwkv_wkv`` / ``rwkv_shift``), each cold (disjoint
+   id sets and their staging buffers taken in turn, more than 100 MB
+   between two uses of one); the scatter at the qwen park's shape. Both
+   are also held against ``index_select`` / ``index_copy_`` over 5
+   interleaved rounds (min and median). First it prints the bf16
+   paged-attention kernels' registers and spills (``-Xptxas -v``) and
+   dynamic shared memory at hd 32, 64 and 128, the page writer's
+   registers and local memory, and the bulk-copy gather's plan, registers,
+   local memory and ring at each leg shape.
 4. layer step — one full-width packed step (24 layers, random seeded
    weights: decode lanes, a mid-page chunk row and pad rows). Per layer, on
    the same input and pool, the attention through the kernels and through
@@ -651,6 +658,115 @@ def step_writer_case(torch, np, pool, rng, g, read_pps):
                               equal_off_scratch=True))
 
 
+ROTATION_BYTES = 100e6              # moved between two uses of one id set
+
+
+def rotation(fn, args):
+    """A call that runs ``fn`` on the next of ``args`` in turn and keeps its
+    result alive until that turn comes round again."""
+    keep = [None] * len(args)
+    turn = [0]
+
+    def call():
+        i = turn[0] % len(args)
+        turn[0] += 1
+        keep[i] = fn(args[i])
+    return call
+
+
+def gather_leg_shapes(torch, qcfg, rcfg):
+    """Row 6's shapes on the engine paths: leg -> (page shape, dtype, pages
+    per leg, pages in the pool or 0 for just the id sets). qwen: a park of
+    ~800 tokens (50 pages of 16 tokens a layer) from the engine's LOCAL
+    pool; rwkv6-3b: one request's wkv and shift planes, a page a layer."""
+    hd = rcfg.ssm.rwkv_head_dim
+    return {
+        "qwen_kv": ((2, qcfg.n_kv_heads, 16, qcfg.resolved_head_dim),
+                    torch.bfloat16, qcfg.n_layers * 50,
+                    4 * qcfg.n_layers * 64 + 1),
+        "rwkv_wkv": ((rcfg.d_model // hd, hd, hd), torch.float32,
+                     rcfg.n_layers, 0),
+        "rwkv_shift": ((2, rcfg.d_model), rcfg.torch_compute_dtype(),
+                       rcfg.n_layers, 0)}
+
+
+def gather_leg_inputs(torch, qcfg, rcfg, dev):
+    """Per leg shape: (leg, pool, id sets, bytes a call moves). The ids
+    come in disjoint sets, enough that more than ``ROTATION_BYTES`` move
+    between two uses of one set and of its staging buffer when they are
+    taken in turn (the L2 holds 50 MB; the engine finds a parked request's
+    pages cold)."""
+    import math
+    g = torch.Generator(device=dev).manual_seed(3)
+    for leg, (page, dtype, n, P) in gather_leg_shapes(torch, qcfg,
+                                                      rcfg).items():
+        row = math.prod(page) * dtype.itemsize
+        call_bytes = 2 * n * row + 4 * n
+        sets = math.ceil(ROTATION_BYTES / call_bytes) + 1
+        P = max(P, sets * n + 1)
+        pool = torch.randn((P,) + page, generator=g, device=dev).to(dtype)
+        perm = torch.randperm(P - 1, generator=g, device=dev) + 1
+        yield (leg, pool, list(perm[:sets * n].to(torch.int32).view(sets, n)),
+               call_bytes)
+
+
+def gather_legs(torch, np, kv_ops, kv_ref, qcfg, rcfg, dev):
+    """Row 6 at each leg shape, cold (``gather_leg_inputs``): on every id
+    set bit-exact against the plain version; then device times over the
+    sets in turn (plain, kernel, kernel, plain) and ``REPEATS`` rounds
+    beside ``index_select``."""
+    legs = {}
+    for leg, pool, id_sets, call_bytes in gather_leg_inputs(torch, qcfg,
+                                                            rcfg, dev):
+        for ids in id_sets:
+            if not torch.equal(kv_ops.gather_pages(pool, ids),
+                               kv_ref.gather_pages_ref(pool, ids)):
+                raise AssertionError(f"gather_pages differs from its plain "
+                                     f"version at {leg}")
+        kernel = rotation(lambda ids: kv_ops.gather_pages(pool, ids), id_sets)
+        plain = rotation(lambda ids: kv_ref.gather_pages_ref(pool, ids),
+                         id_sets)
+        library = rotation(lambda ids: torch.index_select(pool, 0, ids),
+                           [ids.long() for ids in id_sets])
+        ms, plain_ms = interleaved(plain, kernel, 20)
+        vs_lib = against_library(np, library, kernel, 20)
+        b, by = bound_ms(call_bytes)
+        n, sets = len(id_sets[0]), len(id_sets)
+        legs[leg] = dict(
+            shape=f"{leg}: {n} pages of {pool[0].nbytes} B from "
+                  f"{pool.shape[0]}, {pool.dtype}",
+            max_abs_err=0.0, tolerance=0.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=by, library_ms=vs_lib["library_median_ms"],
+            vs_library=vs_lib,
+            rotation=f"{sets} id sets and staging buffers in turn, "
+                     f"{(sets - 1) * call_bytes / 1e6:.1f} MB between two "
+                     f"uses of one")
+        del pool, id_sets, kernel, plain, library
+        torch.cuda.empty_cache()
+    return legs
+
+
+def print_gather_resources(torch, kv_ops, qcfg, rcfg):
+    """The bulk-copy gather's plan, registers, local memory and ring at each
+    leg shape; it must use no local memory and fit the card's opt-in shared
+    memory per block."""
+    import math
+    for leg, (page, dtype, n, _) in gather_leg_shapes(torch, qcfg,
+                                                      rcfg).items():
+        row = math.prod(page) * dtype.itemsize
+        plan = kv_ops.gather_plan(n, row, 16, kv_ops.sm_count(0))
+        info = kv_ops.gather_kernel_info(plan)
+        print(f"gather kernel {leg}: plan {json.dumps(plan._asdict())}; "
+              f"{info['registers']} registers, local {info['local_bytes']} "
+              f"B, ring {info['smem_bytes']} B of {info['smem_optin_bytes']}"
+              f" B a block")
+        if plan.route != "bulk" or info["local_bytes"] or not (
+                0 < info["smem_bytes"] <= info["smem_optin_bytes"]):
+            raise AssertionError(f"gather kernel at {leg}: not the bulk "
+                                 f"copy, or local memory, or its ring "
+                                 f"exceeds the card's shared memory")
+
+
 def phase_kernels(torch, np, cfg, report):
     from repro_torch.kernels.kv_gather import ops as kv_ops
     from repro_torch.kernels.kv_gather import ref as kv_ref
@@ -699,29 +815,23 @@ def phase_kernels(torch, np, cfg, report):
                                       decode["max_abs_err"])},
         decode_only=decode))
 
-    # -- gather / scatter: one park of a request at ~800 tokens of context
-    n = cfg.n_layers * 50
-    ids = torch.as_tensor(rng.choice(np.arange(1, P), n, replace=False)
-                          .astype(np.int32)).to(dev)
-    ids64 = ids.long()
-    staging = kv_ops.gather_pages(pool, ids)
-    want = kv_ref.gather_pages_ref(pool, ids)
-    torch.cuda.synchronize()
-    if not torch.equal(staging, want):
-        raise AssertionError("gather_pages differs from its plain version")
-    ms, plain_ms = interleaved(lambda: kv_ref.gather_pages_ref(pool, ids),
-                               lambda: kv_ops.gather_pages(pool, ids), 20)
-    vs_lib = against_library(
-        np, lambda: torch.index_select(pool, 0, ids64),
-        lambda: kv_ops.gather_pages(pool, ids), 20)
-    b, by = bound_ms(2 * n * page_bytes + n * 4)
+    # -- row 6, gather, at the engine's three leg shapes (cold); then
+    # scatter at the qwen park's shape, its staging from one gather --------
+    from repro_torch.configs import get_config
+    rcfg = get_config("rwkv6-3b")
+    print_gather_resources(torch, kv_ops, cfg, rcfg)
+    legs = gather_legs(torch, np, kv_ops, kv_ref, cfg, rcfg, dev)
     report.append(dict(
         name="gather_pages", route="cuda",
         source="src/repro_torch/csrc/kv_gather.cu",
         replaces="src/repro/kernels/kv_gather/kernel.py:31",
-        max_abs_err=0.0, tolerance=0.0, ms=ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=by, library_ms=vs_lib["library_median_ms"],
-        vs_library=vs_lib))
+        **legs["qwen_kv"], rwkv_wkv=legs["rwkv_wkv"],
+        rwkv_shift=legs["rwkv_shift"]))
+    n = cfg.n_layers * 50
+    ids = torch.as_tensor(rng.choice(np.arange(1, P), n, replace=False)
+                          .astype(np.int32)).to(dev)
+    staging = kv_ops.gather_pages(pool, ids)
+    b, by = bound_ms(2 * n * page_bytes + n * 4)
 
     remote = torch.zeros((2 * n, 2, K, page, hd), device=dev,
                          dtype=torch.bfloat16)
@@ -748,7 +858,8 @@ def phase_kernels(torch, np, cfg, report):
         bound_ms=b, bound_by=by, library_ms=vs_lib["library_median_ms"],
         vs_library=vs_lib))
     for k in report:
-        for case in [k] + [k[sub] for sub in ("decode_only", "mid_page")
+        for case in [k] + [k[sub] for sub in ("decode_only", "mid_page",
+                                              "rwkv_wkv", "rwkv_shift")
                            if sub in k]:
             print(f"kernel {k['name']} {case.get('shape', '')}: err "
                   f"{case['max_abs_err']:.3g} kernel {case['ms']:.4f} ms "
@@ -757,12 +868,14 @@ def phase_kernels(torch, np, cfg, report):
                   f"library {case['library_ms']}"
                   + (f" host-paced {case['host_ms']:.4f} ms"
                      if "host_ms" in case else ""))
+            if "vs_library" in case:
+                print(f"kernel {k['name']} {case.get('shape', '')} vs "
+                      f"library, {REPEATS} interleaved repeats"
+                      + (f" ({case['rotation']})" if "rotation" in case
+                         else "") + ": " + json.dumps(case["vs_library"]))
         if "old_path" in k:
             print(f"kernel {k['name']} old path at {k['shape']}: "
                   + json.dumps(k["old_path"]))
-        if "vs_library" in k:
-            print(f"kernel {k['name']} vs library, {REPEATS} interleaved "
-                  f"repeats: " + json.dumps(k["vs_library"]))
     del pool, remote, staging
 
 

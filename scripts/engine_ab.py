@@ -43,17 +43,23 @@ def one(root: Path) -> int:
     return 0
 
 
-def main() -> int:
+def in_turns(script: str, one_root, doc: str) -> int:
+    """``script --one ROOT`` runs ``one_root(ROOT)``; ``script ROOT...``
+    runs that for each ROOT in turn, each in a process of its own."""
     if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        return one(Path(sys.argv[2]).resolve())
+        return one_root(Path(sys.argv[2]).resolve())
     if len(sys.argv) < 2:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     rc = 0
     for root in sys.argv[1:]:
-        rc |= subprocess.run([sys.executable, __file__, "--one",
+        rc |= subprocess.run([sys.executable, script, "--one",
                               root]).returncode
     return rc
+
+
+def main() -> int:
+    return in_turns(__file__, one, __doc__)
 
 
 if __name__ == "__main__":

@@ -43,7 +43,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "aqua_gather_pages": [_P, _P, _P, _L, _L, _L, _P],
+    "aqua_gather_pages": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P],
+    "aqua_gather_pages_info": [_I, _I, _P],
     "aqua_scatter_pages": [_P, _P, _P, _L, _L, _L, _P],
     "aqua_write_kv_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _L, _I, _P],

@@ -8,7 +8,9 @@ so it runs on a card's machine as it is:
 Tolerances: attention 3e-5 in float32, 3e-2 in bfloat16 (the plain version
 rounds the probabilities to bfloat16 before the value product); the page
 writer (``write_kv_rows`` and its ``append_kv`` form), gather and scatter
-bit-exact. The attention kernels share their row
+bit-exact; the gather on both of its routes (the bulk copy at the port's
+row sizes, the vector kernel for rows that are no multiple of 16 bytes or
+start off a 16-byte boundary), ids outside the pool leaving their rows. The attention kernels share their row
 arithmetic (float32: one row step; bf16: one decode path and one
 tensor-core chunk path), so decode over split pools equals decode over the
 fused pool, and a mixed launch's decode lanes and chunk rows equal the
@@ -131,6 +133,129 @@ def test_cuda_append_gather_scatter_match_plain(dtype):
     new = torch.randn(staging.shape, generator=g, device=dev).to(td)
     want = kv_ref.scatter_pages_ref(pool.clone(), new, ids)
     assert torch.equal(kv_ops.scatter_pages(pool.clone(), new, ids), want)
+
+
+GATHER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int8": torch.int8}
+
+
+def _gather_pool(dev, dtype, row_bytes, P, seed=7):
+    td = GATHER_DTYPES[dtype]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (P, row_bytes // td.itemsize)
+    if td == torch.int8:
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+    return torch.randn(shape, generator=g, device=dev).to(td)
+
+
+def _spy_plans(monkeypatch):
+    plans = []
+    plan = kv_ops.gather_plan
+
+    def spy(*args):
+        plans.append(plan(*args))
+        return plans[-1]
+    monkeypatch.setattr(kv_ops, "gather_plan", spy)
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_case", ["one", "below_grid", "above_grid"])
+@pytest.mark.parametrize("dtype", sorted(GATHER_DTYPES))
+@pytest.mark.parametrize("row_bytes", [16, 10240, 65536, 655360])
+def test_cuda_gather_bulk_copy_bit_exact(row_bytes, dtype, n_case,
+                                         monkeypatch):
+    """The bulk-copy gather at the port's row sizes (one 16-byte vector,
+    the shift, kv and wkv pages), for one row, fewer work items than the
+    grid and a multiple of the grid plus a remainder, duplicates included."""
+    dev = _cuda()
+    sms = kv_ops.sm_count(dev.index or 0)
+    n = {"one": 1, "below_grid": 7,
+         "above_grid": 3 * kv_ops.BLOCKS_PER_SM * sms + 5}[n_case]
+    pool = _gather_pool(dev, dtype, row_bytes, P=48)
+    rng = np.random.default_rng(row_bytes + n)
+    ids = torch.from_numpy(rng.integers(0, 48, n).astype(np.int32)).to(dev)
+    plans = _spy_plans(monkeypatch)
+    before = build.launch_counts().get("gather_pages", 0)
+    got = kv_ops.gather_pages(pool, ids)
+    torch.cuda.synchronize()
+    assert [p.route for p in plans] == ["bulk"]
+    assert build.launch_counts()["gather_pages"] == before + 1
+    assert torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("row_bytes", [12, 10240, 65536])
+def test_cuda_gather_keeps_rows_of_ids_outside_the_pool(row_bytes, dtype):
+    """Duplicate ids are copied each time; an id outside [0, P) leaves its
+    row as the caller's buffer held it (through the wrapper's launch into a
+    pre-filled buffer), on both routes."""
+    dev = _cuda()
+    P = 10
+    pool = _gather_pool(dev, dtype, row_bytes, P)
+    ids_np = np.array([3, -1, 9, 10, 3, 0, 1 << 30, 7, 3], np.int32)
+    ids = torch.from_numpy(ids_np).to(dev)
+    out = torch.full((len(ids_np),) + tuple(pool.shape[1:]), 7,
+                     dtype=pool.dtype, device=dev)
+    kv_ops._gather_into(pool, ids, out)
+    torch.cuda.synchronize()
+    bad = torch.from_numpy((ids_np < 0) | (ids_np >= P)).to(dev)
+    assert torch.equal(out[~bad], pool[ids[~bad].long()])
+    assert (out[bad] == 7).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["row_12_bytes", "row_1000_bytes",
+                                  "pool_offset_4_bytes"])
+def test_cuda_gather_unaligned_rows_take_the_vector_kernel(case,
+                                                           monkeypatch):
+    dev = _cuda()
+    if case == "pool_offset_4_bytes":
+        flat = _gather_pool(dev, "float32", 4 * (6 * 4096 + 1), 1)
+        pool = flat[0, 1:].view(6, 4096)            # 16 KiB rows, base + 4
+        assert pool.data_ptr() % 16 == 4
+    else:
+        row = int(case.split("_")[1])
+        pool = _gather_pool(dev, "int8", row, 6)
+    ids = torch.tensor([5, 0, 5, 2], dtype=torch.int32, device=dev)
+    plans = _spy_plans(monkeypatch)
+    got = kv_ops.gather_pages(pool, ids)
+    torch.cuda.synchronize()
+    assert [p.route for p in plans] == ["vector"]
+    assert torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_bytes,plan", [
+    (24, kv_ops.GatherPlan("bulk", 16, kv_ops.STAGES, 1)),     # unaligned
+    (64, kv_ops.GatherPlan("bulk", 16, 1, 1)),     # a ring of one stage
+    (64, kv_ops.GatherPlan("bulk", 24, kv_ops.STAGES, 1))])    # chunk % 16
+def test_cuda_gather_bulk_copy_refuses_plans_it_cannot_run(row_bytes, plan,
+                                                           monkeypatch):
+    """A bulk plan the kernel cannot run fails the launch, and the wrapper
+    raises: nothing retries on the vector kernel."""
+    dev = _cuda()
+    pool = _gather_pool(dev, "int8", row_bytes, 4)
+    monkeypatch.setattr(kv_ops, "gather_plan", lambda *a: plan)
+    with pytest.raises(RuntimeError, match="gather_pages"):
+        kv_ops.gather_pages(pool, torch.tensor([1], dtype=torch.int32,
+                                               device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,row_bytes", [(1200, 65536), (32, 655360),
+                                         (32, 10240)])
+def test_cuda_gather_bulk_copy_resources(n, row_bytes):
+    """At the engine's leg shapes: no local memory, and the ring within the
+    card's opt-in shared memory per block."""
+    _cuda()
+    plan = kv_ops.gather_plan(n, row_bytes, 16, kv_ops.sm_count(0))
+    info = kv_ops.gather_kernel_info(plan)
+    assert info["local_bytes"] == 0
+    assert info["smem_bytes"] == plan.smem_bytes
+    assert 0 < info["smem_bytes"] <= info["smem_optin_bytes"]
 
 
 def _writer_case(dev, td, hd, page, seed=12, K=2, T=256):
