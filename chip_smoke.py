@@ -78,6 +78,18 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    attention). A second run of the same requests profiles one chunk step
    and one decode-only step under ``torch.profiler``: kernels launched,
    device busy ms, idle share, top-5 device kernels.
+6b. lease lifecycle — the same 12 requests four more times on a lease
+   granted by a ``Coordinator`` (donor0 offers 2 GiB, reclaims polled
+   every step) and a 10,240-page host tier: a baseline; a coordinator
+   reclaim after the first step that leaves pages on donor0 (evacuated to
+   HOST at the next boundary: one fabric leg of the pages' live bytes,
+   one gather; ``reclaim_status`` true, the remote tier 0); a lease
+   shrink of donor0 at that step beside a second donor (the pages move
+   donor to donor, one gather and one scatter; ``migrated_pages`` > 0, no
+   recompute); a donor loss at that step with ``audit=True`` (recomputes,
+   an audit per step, no LOST page left, every request's 32 tokens in the
+   vocab). The reclaim and the shrink must give the baseline's tokens.
+   Each move's span is timed by CUDA events and printed with the card.
 
 Then rwkv6-3b at its published width (32 layers, d 2560, 40 heads of 64,
 d_ff 8960, vocab 65536, bf16; random seeded weights), whose context is two
@@ -1308,10 +1320,13 @@ def phase_per_request(torch, np, cfg, model, dev):
     return launches, split_launches
 
 
-def make_engine(np, cfg, model, dev):
+def make_engine(np, cfg, model, dev, *, host_pages=1024, coordinator=None,
+                want_remote_bytes=0.0, faults=None, audit=False):
     """The 12-request CFS engine of phase 6 (a same-card REMOTE donor
-    lease, seeded prompts of 128-768 tokens, 32 new tokens each). Returns
-    (engine, runtime, requests)."""
+    lease of 2 GiB, seeded prompts of 128-768 tokens, 32 new tokens each).
+    With a ``coordinator`` the lease is the coordinator's grant of
+    ``want_remote_bytes`` instead, polled for reclaims every step.
+    Returns (engine, runtime, requests)."""
     from repro_torch.core.aqua_tensor import REMOTE
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.kv_cache import PagedStateRuntime
@@ -1319,13 +1334,16 @@ def make_engine(np, cfg, model, dev):
     # logical ids must cover the LOCAL pool and every parked page (qwen: 24
     # layers x up to 50 pages x 12 requests, plus the pool itself)
     kv = PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=4,
-                           host_pages=1024, n_logical=32768,
+                           host_pages=host_pages, n_logical=32768,
                            prefix_cache=False, device=dev)
     eng = ServingEngine(cfg, model, max_running=4, max_seq=1024,
                         scheduler="cfs", slice_tokens=8, step_tokens=256,
                         offload_tier=REMOTE, kv=kv, spec_chunk_ahead=False,
-                        device=dev)
-    eng.pager.add_remote_lease("donor0", 2 * 1024 ** 3)
+                        coordinator=coordinator,
+                        want_remote_bytes=want_remote_bytes, respond_every=1,
+                        faults=faults, audit=audit, device=dev)
+    if coordinator is None:
+        eng.pager.add_remote_lease("donor0", 2 * 1024 ** 3)
     rng = np.random.default_rng(2)
     reqs = []
     for i in range(n_req):
@@ -1463,6 +1481,233 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
         eng, _, _ = make_engine(np, cfg, model, dev)
         print(f"engine profile: {json.dumps(profile_engine_steps(torch, eng))}")
     return launches
+
+
+# -- the lease lifecycle: coordinator reclaim, lease shrink, donor loss -----
+LEASE_BYTES = 2 * 1024 ** 3
+# the host tier takes every page a reclaim or a shrink parks there: at most
+# 8 parked requests x 24 layers x 50 pages (800 tokens / 16) = 9,600 pages
+LIFECYCLE_HOST_PAGES = 10240
+
+
+def timed_moves(torch, np, kv, names, records):
+    """Wrap the runtime's ``names`` (evict_remote, shrink_lease,
+    fail_donor) on this instance: each call the engine makes is bracketed
+    by CUDA events on the serving stream (the call's span on the card, the
+    host leg's copies included) and records the meter's and the gather /
+    scatter launch counts' deltas, and the live bytes of the pages that
+    sat on the donor before the call."""
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.kernels import build
+    meter = kv.meter
+    keys = ("bytes_fabric", "bytes_host", "messages_fabric", "messages_host")
+
+    def wrap(name, fn):
+        def call(donor, *args):
+            aq = kv.planes["kv"].aqua
+            pt = aq.page_table
+            on = ((pt[:, 0] == REMOTE) & (pt[:, 2] == aq._donors.index(donor))
+                  if donor in aq.remote_pools else np.zeros(len(pt), bool))
+            if name == "shrink_lease":      # only the reclaimed top slots
+                lo = aq.remote_capacity[donor] - int(np.ceil(
+                    args[0] * aq.remote_capacity[donor]))
+                on &= pt[:, 1] >= lo
+            live = float(aq.page_fill[on].sum()) * aq.page_bytes
+            before = [getattr(meter, k) for k in keys]
+            c0 = build.launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start.record()
+            out = fn(donor, *args)
+            end.record()
+            end.synchronize()
+            c1 = build.launch_counts()
+            records.append(dict(
+                call=name, donor=donor, pages=int(on.sum()), live_bytes=live,
+                ms=start.elapsed_time(end),
+                wall_ms=1e3 * (time.perf_counter() - t),
+                **{k: getattr(meter, k) - b for k, b in zip(keys, before)},
+                **{k: c1.get(k, 0) - c0.get(k, 0)
+                   for k in ("gather_pages", "scatter_pages")}))
+            return out
+        return call
+
+    for name in names:
+        setattr(kv, name, wrap(name, getattr(kv, name)))
+
+
+def lifecycle_run(torch, np, cfg, model, dev, card, label, *, offers,
+                  want, faults=None, audit=False, reclaim_at=None,
+                  watch_remote=False):
+    """One coordinator-granted engine run of ``make_engine``'s requests on
+    the ``LIFECYCLE_HOST_PAGES`` host tier; ``reclaim_at``: the donor asks
+    for its memory back after that many steps. Prints wall, steps,
+    preemptions and restores, per-tier messages and bytes and each timed
+    move. Returns a record."""
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.core.coordinator import Coordinator
+    from repro_torch.kernels import build
+    coord = Coordinator(strict_pairing=False)
+    for donor, nbytes in offers:
+        coord.offer(donor, nbytes)
+    eng, kv, reqs = make_engine(np, cfg, model, dev,
+                                host_pages=LIFECYCLE_HOST_PAGES,
+                                coordinator=coord, want_remote_bytes=want,
+                                faults=faults, audit=audit)
+    moves: list = []
+    timed_moves(torch, np, kv, ("evict_remote", "shrink_lease",
+                                "fail_donor"), moves)
+    plane = kv.planes["kv"].aqua
+    first_remote = None
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    while (eng.waiting or eng.running) and eng.metrics.steps < 5000:
+        if reclaim_at is not None and eng.metrics.steps == reclaim_at:
+            coord.request_reclaim("donor0")
+        eng.step()
+        if (watch_remote and first_remote is None
+                and (plane.page_table[:, 0] == REMOTE).any()):
+            first_remote = eng.metrics.steps
+    eng.run(0)                      # the final respond of ServingEngine.run
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = build.launch_counts()
+    m, meter = eng.metrics, kv.meter
+    print(f"lease {label}: {m.steps} steps, {wall:.3f} s wall, preemptions "
+          f"{m.preemptions} restores {m.restores}; fabric "
+          f"{meter.messages_fabric} messages {meter.bytes_fabric:.0f} bytes, "
+          f"host {meter.messages_host} messages {meter.bytes_host:.0f} bytes"
+          f"; retries {meter.retries_fabric + meter.retries_host}; tiers "
+          f"{json.dumps(kv.stats()['tiers'], sort_keys=True)}; gather "
+          f"{launches.get('gather_pages', 0)} scatter "
+          f"{launches.get('scatter_pages', 0)} launches; on {card}")
+    for mv in moves:
+        verb = {"evict_remote": "evacuated", "shrink_lease": "migrated",
+                "fail_donor": "lost"}[mv["call"]]
+        print(f"lease {label}: {mv['call']}({mv['donor']}) {verb} "
+              f"{mv['pages']} pages, {mv['live_bytes']:.0f} live bytes: "
+              f"{mv['ms']:.4f} ms by CUDA events ({mv['wall_ms']:.3f} ms "
+              f"wall); meter +{mv['messages_fabric']} fabric messages "
+              f"+{mv['bytes_fabric']:.0f} bytes, +{mv['messages_host']} "
+              f"host messages +{mv['bytes_host']:.0f} bytes; launches "
+              f"+{mv['gather_pages']} gather +{mv['scatter_pages']} "
+              f"scatter; on {card}")
+    if len(eng.finished) != len(reqs) or not all(
+            len(r.generated) == r.max_new_tokens
+            and all(0 <= x < cfg.vocab_size for x in r.generated)
+            for r in reqs):
+        raise AssertionError(f"lease {label}: not every request finished "
+                             "with its tokens in the vocab")
+    if not (launches.get("gather_pages", 0) > 0
+            and launches.get("scatter_pages", 0) > 0):
+        raise AssertionError(f"lease {label}: rows 6 and 7 never launched")
+    return dict(tokens=[list(r.generated) for r in reqs], eng=eng, kv=kv,
+                coord=coord, moves=moves, first_remote=first_remote)
+
+
+def phase_lease_lifecycle(torch, np, cfg, model, dev, card):
+    """Phase 6b: the AQUA lease lifecycle on the engine of phase 6, its
+    lease granted by a ``Coordinator`` (donor0 offers 2 GiB, the engine
+    wants 2 GiB, reclaims polled every step) and a host tier that takes
+    every parked page. Four runs of the same 12 requests: a baseline; a
+    coordinator reclaim after the first step that leaves pages on the
+    donor (evacuated to HOST at the next iteration boundary); a lease
+    shrink at that step (a second donor takes donor0's pages, so the
+    migration moves them device to device); a donor loss at that step
+    (victims recomputed from their prompts, the auditor after every
+    step). The reclaim and the shrink must give the baseline's tokens."""
+    from repro_torch.core.faults import FaultEvent, FaultInjector
+    offer = [("donor0", LEASE_BYTES)]
+    base = lifecycle_run(torch, np, cfg, model, dev, card, "baseline",
+                         offers=offer, want=LEASE_BYTES, watch_remote=True)
+    hit = base["first_remote"]
+    if hit is None:
+        raise AssertionError("lease baseline: CFS never parked on the donor")
+    print(f"lease: the first step after which pages sit on donor0: {hit}")
+    steps = {"baseline": base.pop("eng").metrics.steps}
+    del base["kv"]
+
+    rec = lifecycle_run(torch, np, cfg, model, dev, card, "reclaim",
+                        offers=offer, want=LEASE_BYTES, reclaim_at=hit)
+    ev = [mv for mv in rec["moves"] if mv["call"] == "evict_remote"]
+    if not rec["coord"].reclaim_status("donor0"):
+        raise AssertionError("lease reclaim: reclaim_status is false")
+    if rec["kv"].stats()["tiers"]["remote"] != 0 or len(ev) != 1:
+        raise AssertionError(f"lease reclaim: remote tier "
+                             f"{rec['kv'].stats()['tiers']['remote']}, "
+                             f"{len(ev)} evacuations")
+    ev = ev[0]
+    # a leg that touches REMOTE is a fabric message (the reference's
+    # TransferMeter rule), also when it lands on HOST
+    if not (ev["pages"] > 0 and ev["messages_fabric"] == 1
+            and ev["bytes_fabric"] == ev["live_bytes"]
+            and ev["messages_host"] == 0
+            and ev["gather_pages"] == ev["messages_fabric"]
+            and ev["scatter_pages"] == 0):
+        raise AssertionError(f"lease reclaim: evacuation not one metered "
+                             f"leg of the donor's live bytes: {ev}")
+    if rec["tokens"] != base["tokens"]:
+        raise AssertionError("lease reclaim: tokens differ from the "
+                             "baseline's (the move changed page bits)")
+    steps["reclaim"] = rec.pop("eng").metrics.steps
+    del rec
+    torch.cuda.empty_cache()
+
+    fi = FaultInjector(seed=0, events=[FaultEvent(
+        kind="lease_shrink", donor="donor0", frac=1.0, at_step=hit)])
+    shr = lifecycle_run(torch, np, cfg, model, dev, card, "shrink",
+                        offers=offer + [("donor1", LEASE_BYTES)],
+                        want=2 * LEASE_BYTES, faults=fi)
+    m = shr["eng"].metrics
+    mv = [x for x in shr["moves"] if x["call"] == "shrink_lease"]
+    if not (m.lease_shrinks == 1 and m.migrated_pages > 0
+            and m.recomputes == 0 and len(mv) == 1):
+        raise AssertionError(f"lease shrink: shrinks {m.lease_shrinks} "
+                             f"migrated {m.migrated_pages} recomputes "
+                             f"{m.recomputes}")
+    mv = mv[0]
+    # one leg, donor0 -> donor1 through rows 6 and 7; a move within one tier
+    # is not priced (the reference's TransferMeter rule), so the meter stays
+    if not (mv["pages"] == m.migrated_pages and mv["gather_pages"] == 1
+            and mv["scatter_pages"] == 1 and mv["messages_fabric"] == 0
+            and mv["messages_host"] == 0 and mv["bytes_fabric"] == 0):
+        raise AssertionError(f"lease shrink: migration not one "
+                             f"device-to-device leg: {mv}")
+    if shr["tokens"] != base["tokens"]:
+        raise AssertionError("lease shrink: tokens differ from the "
+                             "baseline's (the migration changed page bits)")
+    steps["shrink"] = m.steps
+    del shr
+    torch.cuda.empty_cache()
+
+    fi = FaultInjector(seed=0, events=[FaultEvent(
+        kind="donor_loss", donor="donor0", at_step=hit)])
+    loss = lifecycle_run(torch, np, cfg, model, dev, card, "donor loss",
+                         offers=offer, want=LEASE_BYTES, faults=fi,
+                         audit=True)
+    eng = loss["eng"]
+    m = eng.metrics
+    if not (m.donor_losses == 1 and m.recomputes > 0):
+        raise AssertionError(f"lease donor loss: losses {m.donor_losses} "
+                             f"recomputes {m.recomputes}")
+    if eng.auditor.audits != m.steps:
+        raise AssertionError(f"lease donor loss: {eng.auditor.audits} "
+                             f"audits in {m.steps} steps")
+    if "lost" in loss["kv"].stats()["tiers"]:
+        raise AssertionError("lease donor loss: LOST pages left")
+    agree = sum(a == b for a, b in zip(loss["tokens"], base["tokens"]))
+    print(f"lease donor loss: {m.recomputes} recomputes (rids "
+          f"{m.recovered_rids}), {m.steps} steps audited; {agree} of "
+          f"{len(base['tokens'])} requests' tokens equal the baseline's "
+          f"(reported, not asserted: recomputed rows run in other batch "
+          f"compositions)")
+    steps["donor_loss"] = m.steps
+    del loss, eng
+    torch.cuda.empty_cache()
+    return steps
 
 
 # -- rwkv6-3b: the RWKV-6 family's paths ------------------------------------
@@ -2408,6 +2653,9 @@ def main() -> int:
             f"engine: {launches['append_kv']} page-writer launches, not one "
             f"per layer per step ({launches['paged_mixed_attention_pool']} "
             f"mixed attention launches)")
+    t_lease = time.perf_counter()
+    phase_lease_lifecycle(torch, np, cfg, model, dev, card)
+    print(f"lease lifecycle phase: {time.perf_counter() - t_lease:.1f} s")
     del model
     torch.cuda.empty_cache()
     print(f"qwen1.5-0.5b phases done at {time.perf_counter() - t0:.1f} s")

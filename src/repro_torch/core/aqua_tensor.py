@@ -17,6 +17,12 @@ is a slab on that device, as in the reference's single-device backend — and
 every tier move is a gather into staging plus a scatter, through
 ``kernels/kv_gather``. Every movement is metered by ``TransferMeter`` and
 priced by ``core/perfmodel.py``.
+
+Donors are mortal (``core/faults.py``): an attached ``FaultInjector`` is
+consulted before every transfer leg (transient failures retry with priced
+backoff), a donor may shrink its lease (``shrink_lease``: the reclaimed
+slots' pages live-migrate elsewhere) or die (``fail_donor``: its pages flip
+to the LOST tier, and touching them raises ``PageLossError``).
 """
 from __future__ import annotations
 
@@ -27,11 +33,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.perfmodel import H100_SXM, HardwareProfile
+from repro_torch.core.errors import (AquaError, LeaseRevokedError,
+                                     PageLossError, TransferFaultError)
+from repro_torch.core.perfmodel import (H100_SXM, HardwareProfile,
+                                        retry_backoff_time)
 from repro_torch.kernels.kv_gather import ops as kv_ops
 
 LOCAL, REMOTE, HOST = 0, 1, 2
-TIER_NAMES = {LOCAL: "local", REMOTE: "remote", HOST: "host"}
+# LOST: the page's only copy was on a donor that died (``fail_donor``). Lost
+# pages keep their refcounts until recovery releases them; any read or move
+# of one raises PageLossError.
+LOST = 3
+TIER_NAMES = {LOCAL: "local", REMOTE: "remote", HOST: "host", LOST: "lost"}
 
 
 @dataclass
@@ -46,6 +59,10 @@ class TransferMeter:
     bytes_host: float = 0.0
     messages_fabric: int = 0
     messages_host: int = 0
+    # failed-then-retried leg attempts (fault injection): priced like a
+    # message plus backoff, counted apart from the messages
+    retries_fabric: int = 0
+    retries_host: int = 0
     sim_time: float = 0.0
     _txn: Optional[Dict] = field(default=None, repr=False, compare=False)
 
@@ -64,6 +81,20 @@ class TransferMeter:
             self.bytes_host += nbytes
             self.messages_host += 1
         self.sim_time += link.time(nbytes)
+
+    def record_retry(self, nbytes: float, tier: int, n_pages: int,
+                     attempt: int):
+        """Price one failed transfer-leg attempt: the wasted message time
+        plus exponential backoff. Bypasses any open transaction and counts
+        in ``retries_*``, never ``messages_*``. (Messages are coalesced, so
+        ``n_pages`` does not change the count.)"""
+        link = self.hw.fabric if tier == REMOTE else self.hw.host_link
+        if tier == REMOTE:
+            self.retries_fabric += 1
+        else:
+            self.retries_host += 1
+        self.sim_time += (link.time(nbytes)
+                          + retry_backoff_time(self.hw, attempt))
 
     def coalesce(self):
         """Context manager fusing every ``record`` inside it into one
@@ -102,9 +133,12 @@ class AquaTensor:
                  local_slots: int, host_slots: int,
                  dtype: torch.dtype = torch.bfloat16,
                  meter: Optional[TransferMeter] = None, name: str = "kv",
-                 device=None):
+                 device=None, faults=None):
         self.name = name
         self.device = resolve_device(device)
+        # optional core/faults.FaultInjector, consulted before every
+        # transfer leg and at lease boundaries
+        self.faults = faults
         self.page_shape = tuple(page_shape)
         self.dtype = dtype
         itemsize = torch.empty((), dtype=dtype).element_size()
@@ -156,10 +190,15 @@ class AquaTensor:
 
         Raises:
             ValueError: the donor already holds a live lease here.
+            LeaseRevokedError: the donor was marked permanently lost.
         """
         if donor in self.remote_pools:
             raise ValueError(f"{self.name}: donor {donor} already holds a "
                              "live lease (evict before re-leasing)")
+        if self.faults is not None and self.faults.donor_lost(donor):
+            raise LeaseRevokedError(
+                f"{self.name}: donor {donor} is permanently lost and cannot "
+                "offer a lease", donor=donor)
         self.remote_pools[donor] = torch.zeros(
             (slots,) + self.page_shape, dtype=self.dtype, device=self.device)
         self._remote_free[donor] = list(range(slots))[::-1]
@@ -176,10 +215,62 @@ class AquaTensor:
         if len(victims):
             self._move(victims, HOST)
             moved = len(victims)
+        self._drop_lease(donor)
+        return moved
+
+    def _drop_lease(self, donor: str):
+        """Forget a donor's pool; it stays in ``_donors`` so the indices of
+        the others stay stable."""
         del self.remote_pools[donor]
         del self._remote_free[donor]
         del self.remote_capacity[donor]
-        return moved
+
+    def shrink_lease(self, donor: str, n_slots: int) -> int:
+        """Donor reclaims its TOP ``n_slots`` slots now. Occupied reclaimed
+        slots live-migrate to the other donors or HOST, never back onto the
+        shrinking donor; free ones leave the free list. A shrink to zero
+        drops the lease. Returns pages migrated.
+
+        Raises:
+            LeaseRevokedError: no live lease from this donor.
+            MemoryError: the surviving tiers cannot absorb the migration.
+        """
+        if donor not in self.remote_pools:
+            raise LeaseRevokedError(
+                f"{self.name}: shrink of donor {donor} without a live lease",
+                donor=donor)
+        cap = self.remote_capacity[donor]
+        n = int(min(max(n_slots, 0), cap))
+        if n == 0:
+            return 0
+        lo = cap - n
+        di = self._donors.index(donor)
+        victims = np.nonzero((self.page_table[:, 0] == REMOTE)
+                             & (self.page_table[:, 2] == di)
+                             & (self.page_table[:, 1] >= lo))[0]
+        if len(victims):
+            self._move(victims, REMOTE, exclude_donor=donor)
+        self._remote_free[donor] = [s for s in self._remote_free[donor]
+                                    if s < lo]
+        self.remote_capacity[donor] = lo
+        if lo == 0:
+            self._drop_lease(donor)
+        return len(victims)
+
+    def fail_donor(self, donor: str) -> np.ndarray:
+        """Permanent donor loss: every page resident on it flips to LOST
+        (refcounts kept until recovery releases them), the lease drops and
+        the injector marks the donor lost. Returns the lost logical ids."""
+        if donor not in self.remote_pools:
+            return np.zeros((0,), np.int64)
+        di = self._donors.index(donor)
+        lost = np.nonzero((self.page_table[:, 0] == REMOTE)
+                          & (self.page_table[:, 2] == di))[0]
+        self.page_table[lost, 0] = LOST
+        self._drop_lease(donor)
+        if self.faults is not None:
+            self.faults.mark_donor_lost(donor)
+        return lost
 
     # ------------------------------------------------------------------
     # allocation
@@ -219,6 +310,7 @@ class AquaTensor:
             self._free_host.append(int(slot))
         elif tier == REMOTE:
             self._remote_free[self._donors[donor]].append(int(slot))
+        # LOST: the slot's pool is gone, nothing to hand back
         self.page_table[lp] = (-1, -1, -1)
         self.page_fill[lp] = 1.0
 
@@ -257,13 +349,17 @@ class AquaTensor:
     # ------------------------------------------------------------------
     def free_to_cache(self, lps: Sequence[int]) -> List[int]:
         """Drop one reference per page but KEEP the slot of pages whose
-        count reaches zero (CACHED). Returns the ids that became cached."""
+        count reaches zero (CACHED). Returns the ids that became cached. A
+        LOST page cannot be cached (its payload is gone): it is freed."""
         cached: List[int] = []
         for lp in lps:
             if self.page_refs[lp] > 1:
                 self.page_refs[lp] -= 1
                 continue
             self.page_refs[lp] = 0
+            if self.page_table[lp, 0] == LOST:
+                self._free_slot_of(lp)
+                continue
             cached.append(int(lp))
         return cached
 
@@ -312,17 +408,57 @@ class AquaTensor:
         raise MemoryError(f"{self.name}: all tiers full")
 
     # ------------------------------------------------------------------
-    # tier legs
+    # tier legs (fault-guarded)
     # ------------------------------------------------------------------
+    def _leg_guard(self, tier: int, donor: Optional[str], n_pages: int):
+        """Consult the fault injector before a transfer leg: each failed
+        attempt is priced (``record_retry``) and retried; the injector's
+        streak cap makes the retries converge.
+
+        Raises:
+            LeaseRevokedError: the addressed donor is permanently lost.
+            TransferFaultError: the leg failed ``max_leg_retries`` times in
+                a row.
+        """
+        f = self.faults
+        if f is None:
+            return
+        if f.donor_lost(donor):
+            raise LeaseRevokedError(
+                f"{self.name}: transfer leg addressed lost donor {donor}",
+                donor=donor)
+        nbytes = float(n_pages) * self.page_bytes
+        attempt = 0
+        while f.leg_fails(tier, donor):
+            attempt += 1
+            self.meter.record_retry(nbytes, tier, n_pages, attempt)
+            if attempt >= f.max_leg_retries:
+                raise TransferFaultError(
+                    f"{self.name}: {TIER_NAMES[tier]} leg"
+                    f"{' to ' + donor if donor else ''} failed "
+                    f"{attempt} consecutive attempts (retry budget "
+                    f"{f.max_leg_retries})", tier=tier, donor=donor,
+                    attempts=attempt)
+
+    def _live_pool(self, donor: str, op: str) -> torch.Tensor:
+        if donor not in self.remote_pools:
+            raise LeaseRevokedError(
+                f"{self.name}: {op} donor {donor} without a live lease",
+                donor=donor)
+        return self.remote_pools[donor]
+
     def _remote_gather(self, donor: str, slots) -> torch.Tensor:
         """Pull ``slots`` out of a donor pool as one contiguous staging
         batch."""
-        return kv_ops.gather_pages(self.remote_pools[donor], self._ids(slots))
+        pool = self._live_pool(donor, "gather from")
+        self._leg_guard(REMOTE, donor, len(slots))
+        return kv_ops.gather_pages(pool, self._ids(slots))
 
     def _remote_scatter(self, donor: str, slots, data: torch.Tensor):
         """Push a contiguous staging batch into a donor pool at ``slots``."""
-        kv_ops.scatter_pages(self.remote_pools[donor], data.to(self.dtype),
-                             self._ids(slots))
+        pool = self._live_pool(donor, "scatter to")
+        self._leg_guard(REMOTE, donor, len(slots))
+        kv_ops.scatter_pages(pool, data.to(self.dtype), self._ids(slots))
 
     def _host_gather(self, slots) -> torch.Tensor:
         rows = self.host_pool[torch.as_tensor(np.asarray(slots, np.int64))]
@@ -368,6 +504,7 @@ class AquaTensor:
                     if meter:
                         self.meter.record(len(sub) * self.page_bytes, REMOTE)
             else:
+                self._leg_guard(HOST, None, len(idx))
                 self._host_scatter(rows[idx, 1], part)
                 if meter:
                     self.meter.record(len(idx) * self.page_bytes, HOST)
@@ -382,6 +519,7 @@ class AquaTensor:
         if len(lps) == 0:
             return torch.zeros((0,) + self.page_shape, dtype=self.dtype,
                                device=self.device)
+        self._check_not_lost(lps, rows, "read")
         parts: List[torch.Tensor] = []
         order: List[np.ndarray] = []
         for tier in (LOCAL, REMOTE, HOST):
@@ -393,6 +531,7 @@ class AquaTensor:
                                                  self._ids(rows[idx, 1])))
                 order.append(idx)
             elif tier == HOST:
+                self._leg_guard(HOST, None, len(idx))
                 parts.append(self._host_gather(rows[idx, 1]))
                 order.append(idx)
             else:
@@ -427,6 +566,7 @@ class AquaTensor:
                                  f" > pad_to={pad_to}")
             rows = self.page_table[np.asarray(lps, np.int64)]
             if not (rows[:, 0] == LOCAL).all():
+                self._check_not_lost(lps, rows, "block-table build")
                 bad = [int(l) for l, r in zip(lps, rows) if r[0] != LOCAL]
                 raise ValueError(f"{self.name}: pages {bad} not LOCAL; "
                                  "ensure_local before building block tables")
@@ -445,9 +585,14 @@ class AquaTensor:
     # ------------------------------------------------------------------
     def ensure_local(self, lps: Sequence[int]):
         """Page-in: make all listed logical pages LOCAL (coalesced per
-        tier)."""
+        tier).
+
+        Raises:
+            PageLossError: a listed page is LOST.
+        """
         lps = np.asarray(lps, np.int64)
         rows = self.page_table[lps]
+        self._check_not_lost(lps, rows, "ensure_local")
         for tier in (REMOTE, HOST):
             sel = lps[rows[:, 0] == tier]
             if len(sel):
@@ -455,20 +600,43 @@ class AquaTensor:
 
     def offload(self, lps: Sequence[int], *, prefer: int = REMOTE):
         """Page-out LOCAL pages to the fast remote tier (host as
-        fallback)."""
+        fallback).
+
+        Raises:
+            PageLossError: a listed page is LOST (skipping it would hide a
+                donor's death from the park path).
+        """
         lps = np.asarray(lps, np.int64)
         rows = self.page_table[lps]
+        self._check_not_lost(lps, rows, "offload")
         sel = lps[rows[:, 0] == LOCAL]
         if len(sel):
             self._move(sel, prefer)
 
-    def _move(self, lps: np.ndarray, dst_tier: int):
+    def _check_not_lost(self, lps, rows, op: str):
+        """Touching a LOST page raises the typed loss, the engine's cue to
+        recompute the request from its prompt."""
+        lost = [int(l) for l, r in zip(lps, rows) if r[0] == LOST]
+        if lost:
+            raise PageLossError(
+                f"{self.name}: {op} of page(s) {lost[:8]} whose donor died "
+                "holding the only copy", plane=self.name, pages=lost)
+
+    def _move(self, lps: np.ndarray, dst_tier: int,
+              exclude_donor: Optional[str] = None):
         """Coalesced migration of a batch of pages between tiers, atomic per
         (source tier, donor) group: destination slots are acquired and
         written before any source slot is freed, and a failed placement
-        hands every acquired slot back, leaving the page table and free
-        lists as they were."""
+        (a tier exhausted, a leg fault, a revoked lease) hands every
+        acquired slot back, leaving the page table and free lists as they
+        were. ``exclude_donor`` is never a REMOTE destination (a shrinking
+        donor must not take back the pages it reclaims).
+
+        Raises:
+            PageLossError: a listed page is LOST.
+        """
         rows = self.page_table[lps]
+        self._check_not_lost(lps, rows, "migration")
         groups: Dict[Tuple[int, int], List[int]] = {}
         for lp, (tier, slot, donor) in zip(lps, rows):
             groups.setdefault((int(tier), int(donor)), []).append(int(lp))
@@ -482,6 +650,7 @@ class AquaTensor:
             elif src_tier == REMOTE:
                 staging = self._remote_gather(self._donors[src_donor], slots)
             else:
+                self._leg_guard(HOST, None, len(slots))
                 staging = self._host_gather(slots)
             fills = self.page_fill[group] * self.page_bytes
             transfer_tier = (REMOTE if (src_tier == REMOTE
@@ -510,6 +679,8 @@ class AquaTensor:
                 elif dst_tier == REMOTE:
                     placed = 0
                     for di, d in enumerate(self._donors):
+                        if d == exclude_donor:
+                            continue
                         free = self._remote_free.get(d, [])
                         take = min(len(free), len(group) - placed)
                         if take <= 0:
@@ -523,6 +694,7 @@ class AquaTensor:
                         placed += take
                     if placed < len(group):      # remote full -> host
                         need = len(group) - placed
+                        self._leg_guard(HOST, None, need)
                         dst_slots = [self._pop_free(self._free_host, HOST,
                                                     need)
                                      for _ in range(need)]
@@ -531,6 +703,7 @@ class AquaTensor:
                         new_rows += [(HOST, s, -1) for s in dst_slots]
                         meter(placed, len(group), HOST, None)
                 else:
+                    self._leg_guard(HOST, None, len(group))
                     dst_slots = [self._pop_free(self._free_host, HOST,
                                                 len(group))
                                  for _ in group]
@@ -538,7 +711,7 @@ class AquaTensor:
                     self._host_scatter(dst_slots, staging)
                     new_rows = [(HOST, s, -1) for s in dst_slots]
                     meter(0, len(group), HOST, None)
-            except MemoryError:
+            except (MemoryError, AquaError):
                 for free_list, s in popped:
                     free_list.append(s)
                 raise
@@ -569,8 +742,12 @@ class AquaTensor:
     # ------------------------------------------------------------------
     def tier_counts(self) -> Dict[str, int]:
         t = self.page_table[:, 0]
-        return {TIER_NAMES[k]: int((t == k).sum())
-                for k in (LOCAL, REMOTE, HOST)}
+        out = {TIER_NAMES[k]: int((t == k).sum())
+               for k in (LOCAL, REMOTE, HOST)}
+        n_lost = int((t == LOST).sum())
+        if n_lost:                    # only while a loss is unrecovered
+            out["lost"] = n_lost
+        return out
 
     @property
     def local_free(self) -> int:

@@ -10,9 +10,10 @@
 // Bound: bytes. A page copy does no arithmetic; the least time is
 // 2 * n * page_bytes over the card's memory rate. A page payload is flat
 // bytes (the reference's ``_canon`` folding of any payload shape). Page ids
-// are bounds-checked in the kernel; an id outside the pool leaves its row
-// untouched instead of reading or writing out of bounds. Duplicate ids are
-// allowed.
+// are bounds-checked in the kernel, one contract on both devices (the
+// plain versions in kernels/kv_gather/ref.py keep it too): the gather
+// writes a zero row for an id outside [0, P), the scatter writes nothing
+// for it. Duplicate ids are allowed.
 //
 // Gather design, routed by shape (the route is part of the work plan that
 // kernels/kv_gather/ops.py computes and passes in; nothing is retried):
@@ -52,11 +53,19 @@ page_copy_kernel(V* __restrict__ pool, V* __restrict__ staging,
                  long long n_pool) {
   const long long i = blockIdx.x;
   const long long id = ids[i];
-  if (id < 0 || id >= n_pool) return;
-  V* pool_row = pool + id * row_vecs;
   V* stage_row = staging + i * row_vecs;
   const long long base =
       static_cast<long long>(blockIdx.y) * kThreads * kVecPerThread;
+  if (id < 0 || id >= n_pool) {
+    if (!kGather) return;                 // scatter: no write
+#pragma unroll
+    for (int k = 0; k < kVecPerThread; ++k) {  // gather: a zero row
+      const long long j = base + k * kThreads + threadIdx.x;
+      if (j < row_vecs) stage_row[j] = V{};
+    }
+    return;
+  }
+  V* pool_row = pool + id * row_vecs;
 #pragma unroll
   for (int k = 0; k < kVecPerThread; ++k) {
     const long long j = base + k * kThreads + threadIdx.x;
@@ -119,7 +128,8 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-// completes the phase with no bytes (an id outside the pool)
+// completes the phase with no bytes (an id outside the pool: the warp
+// writes the chunk's zeros itself, see gather_bulk_kernel)
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
                : "memory");
@@ -231,6 +241,18 @@ gather_bulk_kernel(const char* __restrict__ pool, char* __restrict__ staging,
   int s = 0, prev = 0;
   uint32_t phase = 0;
   for (long long j = 0; j < my_items; ++j) {
+    // stage s holds item j's chunk unless its id lay outside the pool; the
+    // warp then writes the chunk's zeros with 16-byte stores (the bulk
+    // route's rows and chunks are multiples of 16 bytes on 16-byte bases)
+    if (!(__shfl_sync(0xffffffffu, valid, 0) >> s & 1u)) {
+      const long long k = first + j * stride;
+      const long long i = k / cpr;
+      const long long off = (k - i * cpr) * chunk;
+      const long long n16 = min(static_cast<long long>(chunk),
+                                row_bytes - off) / 16;
+      uint4* dst = reinterpret_cast<uint4*>(staging + i * row_bytes + off);
+      for (long long t = lane; t < n16; t += kBulkThreads) dst[t] = uint4{};
+    }
     if (lane == 0) {
       mbar_wait(bar0 + 8 * s, phase);
       if (valid >> s & 1u) {

@@ -4,6 +4,8 @@ Dispatch goes by the tensors' device: CPU tensors take the plain version in
 ``ref.py``; CUDA tensors launch the kernels of ``csrc/kv_gather.cu`` (and
 raise if they cannot). A page payload of any shape is moved as flat bytes,
 the reference's ``_canon`` folding. Page ids are int32, on the pool's device.
+An id outside [0, P) gathers a zero row and scatters nothing, on both
+devices.
 
 The gather's work plan (route, chunk, ring stages, grid) is computed here
 by ``gather_plan``, a pure function of the shapes, the base addresses'
@@ -88,8 +90,8 @@ def gather_pages(pool: torch.Tensor, page_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_into(pool, page_ids, out):
-    """Launch the gather into ``out``; rows whose id lies outside the pool
-    keep what ``out`` held."""
+    """Launch the gather into ``out``; the row of an id outside the pool is
+    written zero on the card, as the plain version does."""
     n = page_ids.shape[0]
     if n == 0:
         return out

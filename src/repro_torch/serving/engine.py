@@ -10,9 +10,20 @@ message per (tier, donor)). Step times are priced on the analytic clock of
 ``core/perfmodel.py`` (``EngineMetrics.sim_time``); the engine's real
 numerics run on the serving device.
 
+The AQUA lease lifecycle: with a ``coordinator`` the engine leases donor
+memory at construction and polls pending reclaims every ``respond_every``
+steps (the paper's ``aqua.respond()``), evacuating a reclaimed donor's pages
+to HOST at the iteration boundary. A ``faults`` injector's scheduled events
+apply at the top of a step: a lease shrink live-migrates the reclaimed
+slots' pages, a donor loss flips its pages to LOST and recomputes every
+victim request from its prompt; both re-plan the scheduler's page budget.
+``audit=True`` runs the invariant auditor after every step.
+
 Not ported yet, and refused by the constructor's signature: admission
-control, the coordinator, fault injection and recovery, cancellation,
-deadlines, drain, the watchdog, snapshot/restore and clock calibration.
+control, the mesh tier domain, the watchdog and the ``paged_impl`` switch;
+cancellation, deadlines, drain, snapshot/restore and clock calibration are
+absent, and a ``cancel`` or ``engine_crash`` fault event raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,8 +36,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.aqua_tensor import REMOTE
+from repro_torch.core.coordinator import Coordinator
 from repro_torch.core.device import resolve_device
 from repro_torch.core.errors import SchedulingInvariantError
+from repro_torch.core.faults import InvariantAuditor
 from repro_torch.core.perfmodel import (H100_SXM, HardwareProfile, ModelCost,
                                         overlapped_transfer_time)
 from repro_torch.models import api
@@ -57,6 +70,15 @@ class EngineMetrics:
     prefill_tokens_trace: List[int] = field(default_factory=list)
     launch_trace: List[int] = field(default_factory=list)
     baseline_launch_trace: List[int] = field(default_factory=list)
+    # fault accounting (zero on a fault-free run): leg retries absorbed by
+    # backoff, donor losses and lease shrinks applied, pages migrated off
+    # shrinking donors, requests recomputed from the prompt after a loss
+    leg_retries: int = 0
+    donor_losses: int = 0
+    lease_shrinks: int = 0
+    migrated_pages: int = 0
+    recomputes: int = 0
+    recovered_rids: List[int] = field(default_factory=list)
     submitted: int = 0
 
 
@@ -66,10 +88,17 @@ class ServingEngine:
                  slice_tokens: int = 4, offload_tier: int = REMOTE,
                  kv: Optional[PagedStateRuntime] = None,
                  kv_page_tokens: int = 8,
+                 kv_local_pages: Optional[int] = None,
+                 kv_host_pages: int = 8192,
+                 prefix_sharing: bool = True,
+                 prefix_cache: bool = True,
                  step_tokens: Optional[int] = None,
+                 prefetch: bool = True,
                  spec_chunk_ahead: bool = True,
+                 coordinator: Optional[Coordinator] = None,
                  name: str = "llm0", hw: HardwareProfile = H100_SXM,
-                 device=None):
+                 want_remote_bytes: float = 0.0, respond_every: int = 4,
+                 faults=None, audit: bool = False, device=None):
         """Build a serving engine on the paged state runtime.
 
         Args:
@@ -81,14 +110,32 @@ class ServingEngine:
             slice_tokens: CFS fair-pick period in generated tokens.
             offload_tier: preferred park tier (``REMOTE`` / ``HOST``).
             kv: an existing :class:`PagedStateRuntime` (on ``device``); by
-                default one is built with ``kv_page_tokens``-token pages,
-                prefix sharing and the prefix cache on.
+                default one is built from the ``kv_*`` sizing knobs and the
+                two prefix knobs.
+            kv_page_tokens / kv_local_pages / kv_host_pages: the default
+                runtime's tokens per page, LOCAL slots per token plane
+                (``None``: ``max_running`` full-length requests) and host
+                slots per plane.
+            prefix_sharing: copy-on-write prompt-prefix sharing (effective
+                only on all-token-plane families).
+            prefix_cache: retain refcount-0 prefix pages in the radix index
+                (effective only with ``prefix_sharing``).
             step_tokens: per-step token budget for chunked prefill
                 (``None`` = whole-prompt chunks); must be >= 8.
+            prefetch: restore the next plan's parked requests during this
+                step (the transfer hidden up to the step's compute time).
             spec_chunk_ahead: hand budget slack to waiting prefills as
                 speculative chunks.
-            name: engine id used in errors.
+            coordinator / want_remote_bytes / respond_every: the AQUA-LIB
+                consumer side: lease ``want_remote_bytes`` of donor memory
+                at construction, poll reclaims every ``respond_every``
+                steps.
+            name: engine id in coordinator bookkeeping and errors.
             hw: hardware profile pricing the simulated clock.
+            faults: a ``core/faults.FaultInjector``, attached to every
+                plane; its step-scheduled lease shrinks and donor losses
+                apply at the top of each step.
+            audit: run ``InvariantAuditor`` after every step.
             device: serving device; CUDA unless the caller passes another
                 (raises when CUDA is requested and absent).
 
@@ -112,11 +159,14 @@ class ServingEngine:
             (), dtype=cfg.dtype()).element_size()
         self.offload_tier = offload_tier
         self.step_tokens = step_tokens
+        self.prefetch = prefetch
         self.spec_chunk_ahead = spec_chunk_ahead
 
         self.kv = kv or PagedStateRuntime(
             cfg, max_seq=max_seq, page_tokens=kv_page_tokens,
-            max_running=max_running, device=self.device)
+            local_pages=kv_local_pages, host_pages=kv_host_pages,
+            max_running=max_running, prefix_sharing=prefix_sharing,
+            prefix_cache=prefix_cache, device=self.device)
         if self.kv.device != self.device:
             raise ValueError(f"runtime on {self.kv.device}, engine on "
                              f"{self.device}")
@@ -129,6 +179,13 @@ class ServingEngine:
         hi = bucket_tokens(max_seq)
         self._pps_pad = (self.kv.pps
                          + math.ceil(hi / self.kv.page_tokens) + 1)
+        self.coord = coordinator
+        self.respond_every = respond_every
+        self._grants: List[tuple] = []
+        if coordinator is not None and want_remote_bytes > 0:
+            for donor, nbytes in coordinator.allocate(name, want_remote_bytes):
+                self.pager.add_remote_lease(donor, nbytes)
+                self._grants.append((donor, nbytes))
         self.slice_tokens = slice_tokens
         self._free_slots = list(range(max_running))[::-1]
         prefix_group = ((lambda r: self.kv.prefix_group_of(r.rid))
@@ -150,6 +207,10 @@ class ServingEngine:
         self._prefetched: List[ReqState] = []
         self.metrics = EngineMetrics()
         self._next_rid = 0
+        self.faults = faults
+        if faults is not None:
+            self.kv.attach_faults(faults)
+        self.auditor = InvariantAuditor() if audit else None
 
     def _shared_discount(self, r: ReqState,
                          chosen: Sequence[ReqState]) -> np.ndarray:
@@ -208,27 +269,124 @@ class ServingEngine:
         self.waiting.append(r)
         return r
 
-    def _retire(self, r: ReqState) -> None:
-        """The one exit: free the slot, release the pages, move the request
-        to ``finished``."""
+    # ------------------------------------------------------------------
+    def _respond(self):
+        """The paper's ``aqua.respond()``: honour donor reclaims at an
+        iteration boundary (evacuate the donor's pages to HOST, release its
+        grants), then re-plan the page budget."""
+        reclaimed = False
+        for donor in self.coord.pending_reclaims(self.name):
+            self.pager.evict_remote(donor)
+            reclaimed = True
+            for d, nbytes in list(self._grants):
+                if d == donor:
+                    self.coord.free(self.name, donor, nbytes)
+                    self._grants.remove((d, nbytes))
+        if reclaimed:
+            self._replan_capacity()
+
+    # teardown helpers: retirement and lost-page recovery share them
+    def _free_slot(self, r: ReqState) -> None:
+        """Return a request's batch slot to the pool (no-op if slotless)."""
         if r.slot is not None:
             self._free_slots.append(r.slot)
             r.slot = None
+
+    def _release_pages(self, r: ReqState) -> None:
+        """Release every page the request holds; a same-step prefetched
+        restore of it must not re-park it at the next ``_place``."""
         self._prefetched = [p for p in self._prefetched if p.rid != r.rid]
         self.kv.release(r.rid)
+
+    def _retire(self, r: ReqState) -> None:
+        """The one exit: free the slot, release the pages, move the request
+        to ``finished``."""
+        self._free_slot(r)
+        self._release_pages(r)
         r.parked = None
         r.terminal = "finished"
         r.finish_step = self.metrics.steps
         self.finished.append(r)
 
     # ------------------------------------------------------------------
+    # fault application and recovery
+    # ------------------------------------------------------------------
+    def _replan_capacity(self):
+        """Cap the scheduler's budget by what the tiers can still hold: the
+        run set must fit LOCAL, and after a shrink or loss the tiers behind
+        preemption may hold fewer pages than LOCAL itself."""
+        self.sched.update_budget(
+            np.minimum(self.kv.page_budget, self.kv.total_capacity()))
+
+    def _recover_lost(self, rid: int):
+        """A request whose pages died with a donor: release what survives,
+        reset it to the start of prefill (past a still-resident shared
+        prefix) and re-queue it; greedy decoding regenerates its tokens."""
+        m = self.metrics
+        r = next((x for x in self.running + self.waiting if x.rid == rid),
+                 None)
+        if r is None or r.done:
+            return
+        self._free_slot(r)
+        if r in self.running:
+            self.running.remove(r)
+        self._release_pages(r)
+        r.parked = None
+        r.prefill_pos = 0
+        r.generated = []
+        r.shared_tokens = 0
+        if self.kv.sharing:
+            shared = self.kv.adopt_prefix(r.rid, r.prompt_tokens,
+                                          seed=r.lora_id)
+            if shared:
+                r.shared_tokens = shared
+                r.prefill_pos = min(shared, r.prompt_positions - 1)
+        if r not in self.waiting:
+            self.waiting.append(r)
+        m.recomputes += 1
+        m.recovered_rids.append(rid)
+
+    def _apply_faults(self) -> float:
+        """Apply the injector's events due at this step: a ``lease_shrink``
+        live-migrates the reclaimed slots' pages, a ``donor_loss`` sends
+        every victim through :meth:`_recover_lost`; then re-plan the
+        budget. Returns the metered transfer time of the recovery moves.
+
+        Raises:
+            NotImplementedError: a ``cancel`` or ``engine_crash`` event (the
+                request lifecycle is not ported yet).
+        """
+        m = self.metrics
+        t_before = self.pager.meter.sim_time
+        fired = False
+        for ev in self.faults.due_events(step=m.steps, now=m.sim_time):
+            if ev.kind in ("cancel", "engine_crash"):
+                raise NotImplementedError(
+                    f"{self.name}: a {ev.kind!r} fault event needs the "
+                    "request lifecycle (cancel, snapshot/restore), not "
+                    "ported yet (ROADMAP queue 1 item 5)")
+            fired = True
+            if ev.kind == "lease_shrink":
+                m.lease_shrinks += 1
+                m.migrated_pages += self.kv.shrink_lease(ev.donor, ev.frac)
+            elif ev.kind == "donor_loss":
+                m.donor_losses += 1
+                for rid in self.kv.fail_donor(ev.donor):
+                    self._recover_lost(rid)
+        if fired:
+            self._replan_capacity()
+        return self.pager.meter.sim_time - t_before
+
+    # ------------------------------------------------------------------
     def step(self):
-        """Run ONE engine step: plan the run set (``sched.plan`` under the
-        page budget), park the preempted and slot + restore the scheduled
-        (``_place``), run every decode token and every fair-share prompt
-        chunk in one fused call (``_fused_step``), retire finished requests
-        and prefetch the next step's restores. Metrics accrue on
-        ``self.metrics``.
+        """Run ONE engine step: poll coordinator reclaims every
+        ``respond_every`` steps and apply due fault events, plan the run
+        set (``sched.plan`` under the page budget), park the preempted and
+        slot + restore the scheduled (``_place``), run every decode token
+        and every fair-share prompt chunk in one fused call
+        (``_fused_step``), retire finished requests and prefetch the next
+        step's restores; with ``audit``, audit the runtime. Metrics accrue
+        on ``self.metrics``.
 
         Raises:
             SchedulingInvariantError: the plan needs more batch slots than
@@ -236,6 +394,10 @@ class ServingEngine:
             MemoryError: a page allocation or tier flip found its tier full.
         """
         m = self.metrics
+        if self.coord is not None and m.steps % self.respond_every == 0:
+            self._respond()
+        fault_time = (self._apply_faults() if self.faults is not None
+                      else 0.0)
         decision = self.sched.plan(m.steps, self.waiting, self.running)
         lanes = [r for r in decision.run if r.prefilled and not r.done]
         pending = [r for r in decision.run if not r.prefilled]
@@ -262,7 +424,7 @@ class ServingEngine:
                                        len(chunk_plan), flops_slack)
         compute_time, fused_transfer = self._fused_step(live, chunk_plan,
                                                         specs)
-        step_time = compute_time + transfer_time + fused_transfer
+        step_time = compute_time + transfer_time + fused_transfer + fault_time
 
         retired = []
         for r in list(self.running):
@@ -285,6 +447,10 @@ class ServingEngine:
         m.step_times.append(step_time)
         m.fairness_trace.append(
             fairness_spread(self.waiting + self.running))
+        m.leg_retries = (self.pager.meter.retries_fabric
+                         + self.pager.meter.retries_host)
+        if self.auditor is not None:
+            self.auditor.audit(self.kv, engine=self)
 
     # ------------------------------------------------------------------
     def _place(self, decision: Decision) -> float:
@@ -305,9 +471,7 @@ class ServingEngine:
         for r in decision.preempt:
             self.kv.park(r.rid, r.resident_tokens, prefer=self.offload_tier)
             r.parked = True
-            if r.slot is not None:
-                self._free_slots.append(r.slot)
-                r.slot = None
+            self._free_slot(r)
             m.preemptions += 1
         for r in decision.run:
             if r.slot is not None:
@@ -327,7 +491,7 @@ class ServingEngine:
     def _prefetch_restores(self, compute_time: float) -> float:
         """Restore the next plan's parked requests during this step; the
         transfer is hidden up to the step's compute time."""
-        if not (self.waiting or self.running):
+        if not self.prefetch or not (self.waiting or self.running):
             return 0.0
         m = self.metrics
         nxt = self.sched.peek(m.steps + 1, self.waiting, self.running)
@@ -493,10 +657,13 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def run(self, max_steps: int = 1000):
-        """Step until every submitted request finished (or ``max_steps``).
-        Returns the engine's :class:`EngineMetrics`."""
+        """Step until every submitted request finished (or ``max_steps``);
+        honours pending coordinator reclaims before returning. Returns the
+        engine's :class:`EngineMetrics`."""
         for _ in range(max_steps):
             if not (self.waiting or self.running):
                 break
             self.step()
+        if self.coord is not None:
+            self._respond()        # no lease left dangling after the drain
         return self.metrics

@@ -24,6 +24,12 @@ GLOBAL PREFIX CACHE: with ``prefix_cache`` on, tree-indexed pages outlive
 their last referencer in the CACHED state and yield on demand: each plane's
 AquaTensor ``reclaim`` hook evicts the coldest cached blocks (LRU), demoting
 LOCAL -> REMOTE -> HOST before freeing, before any allocation can fail.
+
+LEASES AND FAULTS: a donor's byte grant is split across the planes
+(``add_remote_lease``); a coordinator reclaim evacuates it to HOST
+(``evict_remote``), a lease shrink live-migrates the reclaimed slots' pages
+(``shrink_lease``), and a donor loss flips its pages to LOST and names the
+victim requests (``fail_donor``), pruning the radix coverage they backed.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.aqua_tensor import (HOST, LOCAL, REMOTE, AquaTensor,
                                           TransferMeter)
 from repro_torch.core.device import resolve_device
+from repro_torch.core.errors import LeaseRevokedError
 from repro_torch.models import lm
 
 
@@ -126,6 +133,7 @@ class PagedStateRuntime:
         self.max_seq = max_seq
         self.pps = math.ceil(max_seq / page_tokens)
         self.meter = meter or TransferMeter()
+        self.faults = None
         self.planes: Dict[str, _Plane] = {}
         self.sharing = bool(prefix_sharing) and all(
             spec.get("shareable", False) for spec in layout.values())
@@ -308,6 +316,11 @@ class PagedStateRuntime:
             plane.aqua.free(plain)
             if self.caching:
                 plane.aqua.free_to_cache(indexed)
+                # a LOST page cannot be cached (free_to_cache freed it):
+                # prune its coverage so no arrival adopts it
+                for lp in indexed:
+                    if plane.aqua.page_table[lp, 0] == -1:
+                        self._drop_tree_page(plane.name, lp)
             else:
                 for lp in plane.aqua.free(indexed):
                     self._drop_tree_page(plane.name, lp)
@@ -787,6 +800,69 @@ class PagedStateRuntime:
                        for p in self.planes.values()
                        if donor in p.aqua.remote_pools)
 
+    # -- fault plumbing (lease shrink, donor loss) --------------------------
+    def attach_faults(self, faults) -> None:
+        """Share one ``core/faults.FaultInjector`` with every plane's
+        tensor (transfer-leg retries, lost-donor guards)."""
+        self.faults = faults
+        for plane in self.planes.values():
+            plane.aqua.faults = faults
+
+    def shrink_lease(self, donor: str, frac: float) -> int:
+        """The donor reclaims ``frac`` of its slots in every plane, now.
+        Occupied reclaimed slots live-migrate to the other donors or HOST,
+        all planes in one coalesced message per (tier, donor). Returns pages
+        migrated.
+
+        Raises:
+            ValueError: ``frac`` is not in (0, 1].
+            LeaseRevokedError: no live lease from this donor in any plane.
+            MemoryError: the surviving tiers cannot absorb the migration.
+        """
+        if not 0.0 < frac <= 1.0:
+            raise ValueError(f"shrink fraction {frac} not in (0, 1]")
+        holders = [p for p in self.planes.values()
+                   if donor in p.aqua.remote_pools]
+        if not holders:
+            raise LeaseRevokedError(
+                f"shrink of donor {donor} without a live lease in any plane",
+                donor=donor)
+        moved = 0
+        with self.meter.coalesce():
+            for plane in holders:
+                n = math.ceil(frac * plane.aqua.remote_capacity[donor])
+                moved += plane.aqua.shrink_lease(donor, n)
+        return moved
+
+    def fail_donor(self, donor: str) -> List[int]:
+        """Permanent donor loss: every page on the donor (every plane) flips
+        to LOST and the leases drop. Radix coverage backed by a lost page is
+        pruned now, and CACHED pages on the dead slab are dropped with it.
+        Returns the sorted rids whose block tables reference a lost page."""
+        victims: set = set()
+        for plane in self.planes.values():
+            if donor not in plane.aqua.remote_pools:
+                continue
+            lost = set(int(l) for l in plane.aqua.fail_donor(donor))
+            if not lost:
+                continue
+            for lp in lost:
+                self._drop_tree_page(plane.name, lp)
+            for rid, rows in plane.pages.items():
+                if any(int(lp) in lost for row in rows for lp in row):
+                    victims.add(rid)
+        if self.faults is not None:
+            self.faults.mark_donor_lost(donor)
+        return sorted(victims)
+
+    def total_capacity(self) -> np.ndarray:
+        """Per-plane physical slots across every live tier (scratch
+        excluded): what the runtime can hold at all, LOCAL or parked."""
+        return np.asarray(
+            [p.aqua.local_pool.shape[0] - 1 + p.aqua.host_pool.shape[0]
+             + sum(p.aqua.remote_capacity.values())
+             for p in self.planes.values()], np.int64)
+
     def stats(self) -> Dict:
         """Tier occupancy, transfer-meter totals and sharing/cache
         counters."""
@@ -815,4 +891,6 @@ class PagedStateRuntime:
                           "bytes_host": self.meter.bytes_host,
                           "messages_fabric": self.meter.messages_fabric,
                           "messages_host": self.meter.messages_host,
+                          "retries_fabric": self.meter.retries_fabric,
+                          "retries_host": self.meter.retries_host,
                           "sim_time": self.meter.sim_time}}

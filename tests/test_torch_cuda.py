@@ -10,7 +10,9 @@ rounds the probabilities to bfloat16 before the value product); the page
 writer (``write_kv_rows`` and its ``append_kv`` form), gather and scatter
 bit-exact; the gather on both of its routes (the bulk copy at the port's
 row sizes, the vector kernel for rows that are no multiple of 16 bytes or
-start off a 16-byte boundary), ids outside the pool leaving their rows. The attention kernels share their row
+start off a 16-byte boundary), an id outside the pool gathering a zero
+row and scattering nothing, as the plain versions do. The attention
+kernels share their row
 arithmetic (float32: one row step; bf16: one decode path and one
 tensor-core chunk path), so decode over split pools equals decode over the
 fused pool, and a mixed launch's decode lanes and chunk rows equal the
@@ -189,9 +191,9 @@ def test_cuda_gather_bulk_copy_bit_exact(row_bytes, dtype, n_case,
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
 @pytest.mark.parametrize("row_bytes", [12, 10240, 65536])
 def test_cuda_gather_keeps_rows_of_ids_outside_the_pool(row_bytes, dtype):
-    """Duplicate ids are copied each time; an id outside [0, P) leaves its
-    row as the caller's buffer held it (through the wrapper's launch into a
-    pre-filled buffer), on both routes."""
+    """Duplicate ids are copied each time; an id outside [0, P) gets a zero
+    row, whatever the caller's buffer held (through the wrapper's launch
+    into a pre-filled buffer), on both routes."""
     dev = _cuda()
     P = 10
     pool = _gather_pool(dev, dtype, row_bytes, P)
@@ -203,7 +205,40 @@ def test_cuda_gather_keeps_rows_of_ids_outside_the_pool(row_bytes, dtype):
     torch.cuda.synchronize()
     bad = torch.from_numpy((ids_np < 0) | (ids_np >= P)).to(dev)
     assert torch.equal(out[~bad], pool[ids[~bad].long()])
-    assert (out[bad] == 7).all()
+    assert (out[bad] == 0).all()
+
+
+OUT_OF_POOL = (-11, -2, -1, 10, 11, 1 << 30)       # P = 10: -P-1 .. 2^30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_bytes,route", [
+    (12, "vector"), (1000, "vector"), (10240, "bulk"), (65536, "bulk")])
+def test_cuda_gather_and_scatter_equal_plain_outside_the_pool(
+        row_bytes, route, monkeypatch):
+    """The one out-of-pool contract, kernel against plain version: gather
+    gives a zero row and scatter writes nothing for every id outside
+    [0, P), beside in-pool ids and duplicates, on both gather routes."""
+    dev = _cuda()
+    P = 10
+    pool = _gather_pool(dev, "float32", row_bytes, P, seed=row_bytes)
+    ids_np = np.array([4, *OUT_OF_POOL, 0, 4, 9], np.int32)
+    ids = torch.from_numpy(ids_np).to(dev)
+    plans = _spy_plans(monkeypatch)
+    got = kv_ops.gather_pages(pool, ids)
+    torch.cuda.synchronize()
+    assert [p.route for p in plans] == [route]
+    assert torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+    assert (got[1:1 + len(OUT_OF_POOL)] == 0).all()
+    g = torch.Generator(device=dev).manual_seed(1)
+    new = torch.randn(got.shape, generator=g, device=dev)
+    new[-2] = new[0]               # the duplicate id 4 carries one row
+    want = kv_ref.scatter_pages_ref(pool.clone(), new, ids)
+    out = kv_ops.scatter_pages(pool.clone(), new, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    untouched = sorted(set(range(P)) - set(ids_np.tolist()))
+    assert torch.equal(out[untouched], pool[untouched])
 
 
 @pytest.mark.cuda

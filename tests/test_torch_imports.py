@@ -1,6 +1,8 @@
 """Guards on the PyTorch port: it imports neither JAX nor anything of the
-JAX package (even modules of it that hold no JAX), and the source guards
-the CI applies to ``src/`` hold for it too. No file of the port names
+JAX package (even modules of it that hold no JAX, such as the coordinator,
+the control loop and the fault injector, of which it keeps its own copies),
+and the source guards the CI applies to ``src/`` hold for it too, the
+engine's one on per-request calls included. No file of the port names
 ``scaled_dot_product_attention`` or ``torch.compile``; ``chip_smoke.py``
 may name the former only inside the one function that times it as the
 flash kernels' yardstick (``LIBRARY_FN``, found with ``ast``)."""
@@ -43,6 +45,8 @@ def test_port_files_exist():
     for want in ("configs/base.py", "configs/qwen1_5_0_5b.py",
                  "configs/rwkv6_3b.py",
                  "core/errors.py", "core/perfmodel.py", "core/aqua_tensor.py",
+                 "core/coordinator.py", "core/control_loop.py",
+                 "core/faults.py",
                  "kernels/kv_gather/ops.py", "kernels/kv_gather/ref.py",
                  "kernels/paged_attention/ops.py",
                  "kernels/paged_attention/ref.py",
@@ -82,6 +86,16 @@ def test_source_guards(pattern):
             if i in allowed:
                 line = line.replace(LIBRARY_NAME, "")
             assert not re.search(pattern, line), f"{path}:{i}: {line}"
+
+
+def test_engine_calls_no_per_request_entry_point():
+    """The port's twin of the reference's CI guard on its engine: the
+    engine's only model entry point is the fused ``serve_step_paged``; the
+    per-request entry points are API calls for tests and ``chip_smoke.py``."""
+    path = PORT / "serving" / "engine.py"
+    for i, line in enumerate(path.read_text().splitlines(), 1):
+        assert not re.search(r"prefill_chunk_paged|decode_step_paged",
+                             line), f"{path}:{i}: {line}"
 
 
 def test_chip_smoke_times_the_library_attention_in_one_function():

@@ -9,7 +9,10 @@ bulk copy cannot take, and ``_model_gather`` replays the kernel's loop in
 Python (its item order, its id windows, its ring of stages with a load
 only into a stage whose store has read it): every byte of every staging
 row is written exactly once, and the rows equal ``gather_pages_ref`` and
-the reference's Pallas ``gather_pages`` in interpret mode, exactly.
+the reference's Pallas ``gather_pages`` in interpret mode, exactly. Ids
+outside the pool: the port gathers a zero row and scatters nothing on
+both devices, where the reference's kernels clamp into the pool; the
+reference's answers are recorded beside the port's.
 ``test_torch_cuda.py`` holds the kernel itself against the plain version
 on a card.
 """
@@ -93,7 +96,7 @@ def _model_gather(pool_rows, ids, plan, out_rows):
             assert pid == id_of(m)
             assert ring[s] is None, "load into a stage still being read"
             if not 0 <= pid < len(pool_rows):
-                ring[s] = (m, None)
+                ring[s] = (m, None)       # the warp writes the zeros
                 return
             off = ((b + m * blocks) % cpr) * chunk
             ring[s] = (m, pool_rows[pid, off:off + min(chunk, row - off)]
@@ -105,12 +108,13 @@ def _model_gather(pool_rows, ids, plan, out_rows):
         for j in range(my):
             m_loaded, data = ring[s]
             assert m_loaded == j
-            if data is not None:
-                k = b + j * blocks
-                i, off = divmod(k, cpr)
-                off *= chunk
-                out_rows[i, off:off + len(data)] = data
-                writes[i, off:off + len(data)] += 1
+            k = b + j * blocks
+            i, off = divmod(k, cpr)
+            off *= chunk
+            if data is None:              # an id outside the pool
+                data = np.zeros(min(chunk, row - off), np.uint8)
+            out_rows[i, off:off + len(data)] = data
+            writes[i, off:off + len(data)] += 1
             pending.append(s)         # the item's bulk group, maybe empty
             m = j - 1 + S
             if j >= 1 and m < my:
@@ -172,8 +176,9 @@ def test_model_of_bulk_kernel_matches_reference(case):
 
 
 def test_model_skips_ids_outside_the_pool():
-    """An id outside [0, P) leaves its staging row as it was; its stage
-    still turns over, so the rows after it are gathered as usual."""
+    """An id outside [0, P) gets a zero staging row, written once like
+    every other row; its stage still turns over, so the rows after it are
+    gathered as usual, and the rows equal the plain version's."""
     rng = np.random.default_rng(5)
     _, tp = _pool(rng, 12, (8, 16), "float32")
     ids = np.array([3, -1, 11, 12, 3, 0, 99, 7, 5], np.int32)
@@ -182,6 +187,46 @@ def test_model_skips_ids_outside_the_pool():
     out = np.full((len(ids), rows.shape[1]), 0xAB, np.uint8)
     writes = _model_gather(rows, ids, plan, out)
     bad = (ids < 0) | (ids >= len(rows))
-    assert (writes[bad] == 0).all() and (writes[~bad] == 1).all()
-    assert (out[bad] == 0xAB).all()
+    assert (writes == 1).all()
+    assert (out[bad] == 0).all()
     np.testing.assert_array_equal(out[~bad], rows[ids[~bad]])
+    np.testing.assert_array_equal(
+        out, _bytes(kv_ref.gather_pages_ref(tp, torch.from_numpy(ids))))
+
+
+# ids outside a 4-page pool: -P-1, -2, -1, P, P+1, 2^30
+OUT_OF_POOL = (-5, -2, -1, 4, 5, 1 << 30)
+# the page the reference's Pallas kernels (interpret mode) read or write
+# for each: a negative id wraps once, then the index is clamped into the
+# pool. The port's contract differs on purpose: a zero row, no write.
+REFERENCE_PAGE = (0, 2, 3, 3, 3, 3)
+
+
+@pytest.mark.parametrize("pid,ref_page", list(zip(OUT_OF_POOL,
+                                                  REFERENCE_PAGE)))
+def test_out_of_pool_ids_port_contract_beside_the_reference(pid, ref_page):
+    from repro.kernels.kv_gather.kernel import scatter_pages as j_scatter
+    P = 4
+    a = np.arange(P * 2 * 8, dtype=np.float32).reshape(P, 2, 8) + 1
+    new = -np.ones((2, 2, 8), np.float32)
+    ids = np.array([1, pid], np.int32)
+    # the reference: pages clamped into the pool
+    ref = np.asarray(j_gather(jnp.asarray(a), jnp.asarray(ids),
+                              interpret=True))
+    np.testing.assert_array_equal(ref[1], a[ref_page])
+    ref_pool = np.asarray(j_scatter(jnp.asarray(a), jnp.asarray(new),
+                                    jnp.asarray(ids), interpret=True))
+    changed = [p for p in range(P) if (ref_pool[p] != a[p]).any()]
+    assert changed == sorted({1, ref_page})
+    # the port's plain versions (the CPU path of ops.py): a zero row, and
+    # no write for the out-of-pool id
+    for fn in (kv_ref.gather_pages_ref, kv_ops.gather_pages):
+        got = fn(torch.from_numpy(a), torch.from_numpy(ids)).numpy()
+        np.testing.assert_array_equal(got[0], a[1])
+        assert (got[1] == 0).all()
+    for fn in (kv_ref.scatter_pages_ref, kv_ops.scatter_pages):
+        pool = fn(torch.from_numpy(a.copy()), torch.from_numpy(new),
+                  torch.from_numpy(ids)).numpy()
+        want = a.copy()
+        want[1] = -1
+        np.testing.assert_array_equal(pool, want)
