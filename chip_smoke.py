@@ -90,6 +90,27 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    an audit per step, no LOST page left, every request's 32 tokens in the
    vocab). The reclaim and the shrink must give the baseline's tokens.
    Each move's span is timed by CUDA events and printed with the card.
+6c. admission and the request lifecycle — the same 12 requests on a
+   16,384-page host tier. First with ``admission=True``, ``audit=True``
+   and ``watchdog_steps=16``: the occupancy trace stays <= 1, every
+   request finishes, an audit per step; printed: deferrals, the largest
+   queue depth, watchdog trips, TTFT p50/p99 on the analytic clock and how
+   many tokens agree with phase 6's run (reported, not asserted: admission
+   changes the schedule). Then without admission: after the first step
+   that leaves a request parked on donor0, a waiting, a prefilling, a
+   decoding and that parked request are cancelled (each leaves no page in
+   any plane and no slot, ``output`` raises ``CancelledError``, the auditor
+   is clean); a few steps later ``drain`` (no slot, no pin, only scratch
+   LOCAL) and ``resume``; later a ``snapshot`` (pages, bytes), then the
+   original runs to its end and the snapshot is restored into a fresh
+   runtime of the phase's geometry and run to its end: every request in
+   flight at the snapshot must get the original's tokens, or part only at
+   a token whose two steps packed other shapes, the logits of every token
+   made at steps packed alike within 2% (reported: the agreement and how
+   many of those rows are bit-identical). Drain, snapshot and restore are
+   each timed by CUDA events with their gather/scatter launches (the
+   snapshot also split into its read and its copy to the host, and
+   ``restore_state`` alone) and printed with the card.
 
 Then rwkv6-3b at its published width (32 layers, d 2560, 40 heads of 64,
 d_ff 8960, vocab 65536, bf16; random seeded weights), whose context is two
@@ -1320,28 +1341,34 @@ def phase_per_request(torch, np, cfg, model, dev):
     return launches, split_launches
 
 
+def make_runtime(cfg, dev, host_pages):
+    """Phase 6's paged runtime: 16-token pages, 1,024-token contexts, four
+    lanes; logical ids cover the LOCAL pool and every parked page (qwen: 24
+    layers x up to 50 pages x 12 requests, plus the pool itself)."""
+    from repro_torch.serving.kv_cache import PagedStateRuntime
+    return PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=4,
+                             host_pages=host_pages, n_logical=32768,
+                             prefix_cache=False, device=dev)
+
+
 def make_engine(np, cfg, model, dev, *, host_pages=1024, coordinator=None,
-                want_remote_bytes=0.0, faults=None, audit=False):
+                want_remote_bytes=0.0, **engine_kw):
     """The 12-request CFS engine of phase 6 (a same-card REMOTE donor
     lease of 2 GiB, seeded prompts of 128-768 tokens, 32 new tokens each).
     With a ``coordinator`` the lease is the coordinator's grant of
-    ``want_remote_bytes`` instead, polled for reclaims every step.
+    ``want_remote_bytes`` instead, polled for reclaims every step;
+    ``engine_kw`` (faults, audit, admission, ...) go to the engine.
     Returns (engine, runtime, requests)."""
     from repro_torch.core.aqua_tensor import REMOTE
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.kv_cache import PagedStateRuntime
     n_req, new_tokens = 12, 32
-    # logical ids must cover the LOCAL pool and every parked page (qwen: 24
-    # layers x up to 50 pages x 12 requests, plus the pool itself)
-    kv = PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=4,
-                           host_pages=host_pages, n_logical=32768,
-                           prefix_cache=False, device=dev)
+    kv = make_runtime(cfg, dev, host_pages)
     eng = ServingEngine(cfg, model, max_running=4, max_seq=1024,
                         scheduler="cfs", slice_tokens=8, step_tokens=256,
                         offload_tier=REMOTE, kv=kv, spec_chunk_ahead=False,
                         coordinator=coordinator,
                         want_remote_bytes=want_remote_bytes, respond_every=1,
-                        faults=faults, audit=audit, device=dev)
+                        device=dev, **engine_kw)
     if coordinator is None:
         eng.pager.add_remote_lease("donor0", 2 * 1024 ** 3)
     rng = np.random.default_rng(2)
@@ -1411,7 +1438,8 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
     context is all state planes moves exactly its whole state per leg, and
     every kernel in ``need`` launched (counts reset just before the run).
     With ``profile``, a second run of the same requests profiles one chunk
-    step and one decode-only step (``profile_engine_steps``)."""
+    step and one decode-only step (``profile_engine_steps``). Returns
+    (launch counts, each request's generated tokens)."""
     from repro_torch.kernels import build
 
     eng, kv, reqs = make_engine(np, cfg, model, dev)
@@ -1475,12 +1503,13 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
     if not all(launches.get(k, 0) > 0 for k in need):
         raise AssertionError(f"engine: {cfg.name}'s run never launched some "
                              f"of {list(need)}")
+    tokens = [list(r.generated) for r in reqs]
     if profile:
         del eng, kv, reqs
         torch.cuda.empty_cache()
         eng, _, _ = make_engine(np, cfg, model, dev)
         print(f"engine profile: {json.dumps(profile_engine_steps(torch, eng))}")
-    return launches
+    return launches, tokens
 
 
 # -- the lease lifecycle: coordinator reclaim, lease shrink, donor loss -----
@@ -1490,15 +1519,35 @@ LEASE_BYTES = 2 * 1024 ** 3
 LIFECYCLE_HOST_PAGES = 10240
 
 
+def cuda_span(torch, fn, *args, **kw):
+    """One call of ``fn`` bracketed by CUDA events on the serving stream.
+    Returns (its result, ms by the events, wall ms, gather and scatter
+    launches during the call)."""
+    from repro_torch.kernels import build
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    c0 = build.launch_counts()
+    t = time.perf_counter()
+    start.record()
+    out = fn(*args, **kw)
+    end.record()
+    end.synchronize()
+    wall = 1e3 * (time.perf_counter() - t)
+    c1 = build.launch_counts()
+    return out, start.elapsed_time(end), wall, {
+        k: c1.get(k, 0) - c0.get(k, 0) for k in ("gather_pages",
+                                                  "scatter_pages")}
+
+
 def timed_moves(torch, np, kv, names, records):
     """Wrap the runtime's ``names`` (evict_remote, shrink_lease,
-    fail_donor) on this instance: each call the engine makes is bracketed
-    by CUDA events on the serving stream (the call's span on the card, the
-    host leg's copies included) and records the meter's and the gather /
-    scatter launch counts' deltas, and the live bytes of the pages that
-    sat on the donor before the call."""
+    fail_donor) on this instance: each call the engine makes is timed by
+    ``cuda_span`` (the call's span on the card, the host leg's copies
+    included) and records the meter's and the gather / scatter launch
+    counts' deltas, and the live bytes of the pages that sat on the donor
+    before the call."""
     from repro_torch.core.aqua_tensor import REMOTE
-    from repro_torch.kernels import build
     meter = kv.meter
     keys = ("bytes_fabric", "bytes_host", "messages_fabric", "messages_host")
 
@@ -1514,23 +1563,12 @@ def timed_moves(torch, np, kv, names, records):
                 on &= pt[:, 1] >= lo
             live = float(aq.page_fill[on].sum()) * aq.page_bytes
             before = [getattr(meter, k) for k in keys]
-            c0 = build.launch_counts()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            start.record()
-            out = fn(donor, *args)
-            end.record()
-            end.synchronize()
-            c1 = build.launch_counts()
+            out, ms, wall, moved = cuda_span(torch, fn, donor, *args)
             records.append(dict(
                 call=name, donor=donor, pages=int(on.sum()), live_bytes=live,
-                ms=start.elapsed_time(end),
-                wall_ms=1e3 * (time.perf_counter() - t),
+                ms=ms, wall_ms=wall,
                 **{k: getattr(meter, k) - b for k, b in zip(keys, before)},
-                **{k: c1.get(k, 0) - c0.get(k, 0)
-                   for k in ("gather_pages", "scatter_pages")}))
+                **moved))
             return out
         return call
 
@@ -1708,6 +1746,375 @@ def phase_lease_lifecycle(torch, np, cfg, model, dev, card):
     del loss, eng
     torch.cuda.empty_cache()
     return steps
+
+
+# -- admission and the request lifecycle --------------------------------------
+# the host tier takes every page a drain parks and every page a restore lands
+# there: at most 12 requests x 24 layers x 50 pages = 14,400 kv pages of 64 KiB
+REQUEST_HOST_PAGES = 16384
+DRAIN_AFTER = 4                     # steps from the cancels to the drain
+SNAPSHOT_AFTER = 6                  # steps from the resume to the snapshot
+
+
+def drive(eng, made_at, shapes, logits=None, max_steps=5000):
+    """Step ``eng`` to its end (or ``max_steps`` more steps), recording in
+    ``made_at[rid]`` the step that produced each generated token (None for
+    tokens made before the first drive), in ``shapes[step]`` the packed
+    token batch (R, Tc) of each fused call and, given a ``logits`` dict, in
+    ``logits[(rid, position)]`` the float32 logits row that produced each
+    token (on the host; the rows' rids are the ones the engine builds its
+    block tables for)."""
+    from repro_torch.models import api
+    serve = api.serve_step_paged
+    kv = eng.kv
+    tables = kv.block_tables
+    row_rids: list = []
+    rows: dict = {}
+
+    def recorded_tables(lane_rids, *args, **kw):
+        row_rids[:] = list(lane_rids)
+        return tables(lane_rids, *args, **kw)
+
+    def recorded(params, cfg, tokens, *args, **kw):
+        shapes[eng.metrics.steps] = tuple(tokens.shape)
+        out = serve(params, cfg, tokens, *args, **kw)
+        if logits is not None:
+            idx = [i for i, rid in enumerate(row_rids) if rid is not None]
+            host = out[0][idx].float().cpu()
+            rows.clear()
+            rows.update({row_rids[i]: host[j] for j, i in enumerate(idx)})
+        return out
+
+    def stamp(step):
+        for r in eng.running + eng.waiting + eng.finished:
+            got = made_at.setdefault(r.rid, [])
+            for pos in range(len(got), len(r.generated)):
+                got.append(step)
+                if logits is not None and step is not None:
+                    logits[(r.rid, pos)] = rows[r.rid]
+
+    stamp(None)                     # tokens made before this drive
+    api.serve_step_paged = recorded
+    kv.block_tables = recorded_tables
+    try:
+        n = 0
+        while (eng.waiting or eng.running) and n < max_steps:
+            step = eng.metrics.steps
+            eng.step()
+            n += 1
+            stamp(step)
+    finally:
+        api.serve_step_paged = serve
+        del kv.block_tables
+
+
+def restored_agreement(inflight, at_snapshot, runs):
+    """Hold the restored run against the original for every request in
+    flight at the snapshot, from its first token made after the snapshot to
+    its first parting token (the contexts are equal up to there): the two
+    logits rows of a token whose steps packed the same (R, Tc) within 2% of
+    the original's norm (phase 5's limit), the others reported. Raises when
+    a same-shape row is beyond the limit or the tokens part where the
+    shapes agree. Returns a record."""
+    (orig, made, shapes, logits), (rest, made2, shapes2, logits2) = runs
+    rec = dict(tokens=0, agree=0, same_shape=0, bit_identical=0,
+               same_rel=0.0, other_shape=0, other_rel=0.0, parting=None)
+    for rid in inflight:
+        a, b = orig[rid], rest[rid]
+        rec["tokens"] += len(a)
+        rec["agree"] += sum(x == y for x, y in zip(a, b))
+        part = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        last = part if part is not None else min(len(a), len(b)) - 1
+        for pos in range(at_snapshot[rid], last + 1):
+            s1, s2 = made[rid][pos], made2[rid][pos]
+            l1, l2 = logits[(rid, pos)], logits2[(rid, pos)]
+            rel = float((l1 - l2).norm() / l1.norm())
+            if shapes[s1] == shapes2[s2]:
+                rec["same_shape"] += 1
+                rec["bit_identical"] += int(bool((l1 == l2).all()))
+                rec["same_rel"] = max(rec["same_rel"], rel)
+                if rel > LAYER_REL_LIMIT:
+                    raise AssertionError(
+                        f"restore: rid {rid} position {pos}: logits "
+                        f"{rel:.4f} apart at steps {s1}/{s2} of one packed "
+                        f"shape {shapes[s1]} (limit {LAYER_REL_LIMIT})")
+            else:
+                rec["other_shape"] += 1
+                rec["other_rel"] = max(rec["other_rel"], rel)
+        if part is not None and rec["parting"] is None:
+            s1, s2 = made[rid][part], made2[rid][part]
+            rec["parting"] = dict(rid=rid, position=part, steps=(s1, s2),
+                                  shapes=(shapes.get(s1), shapes2.get(s2)))
+            print(f"restore: tokens part at rid {rid} position {part}: "
+                  f"original step {s1} packed {shapes.get(s1)}, restored "
+                  f"step {s2} packed {shapes2.get(s2)}")
+            if shapes.get(s1) == shapes2.get(s2):
+                raise AssertionError(
+                    f"restore: rid {rid} parts at position {part} where "
+                    f"both runs packed {shapes.get(s1)}")
+    return rec
+
+
+def admission_run(torch, np, cfg, model, dev, card, base_tokens):
+    """Phase 6c, part 1: phase 6's requests under admission, the auditor
+    after every step and the watchdog at 16 steps."""
+    eng, _, reqs = make_engine(np, cfg, model, dev,
+                               host_pages=REQUEST_HOST_PAGES, audit=True,
+                               admission=True, watchdog_steps=16)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    while (eng.waiting or eng.running) and eng.metrics.steps < 5000:
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    m = eng.metrics
+    censored = m.submitted - len(m.ttft)
+    first = np.asarray([r.ttft_step for r in reqs], np.float64)
+    same = sum(list(r.generated) == b for r, b in zip(reqs, base_tokens))
+    tokens = sum(x == y for r, b in zip(reqs, base_tokens)
+                 for x, y in zip(r.generated, b))
+    print(f"admission: {m.steps} steps, {wall:.3f} s wall; occupancy max "
+          f"{max(m.occupancy_trace):.4f}; deferrals {m.admission_deferrals}"
+          f"; queue depth max {max(m.queue_depth_trace)}; watchdog trips "
+          f"{m.watchdog_trips}; slo_at_risk {eng.admission.slo_at_risk}; "
+          f"TTFT p50 {m.ttft_quantile(0.5, censored=censored):.6f} s p99 "
+          f"{m.ttft_quantile(0.99, censored=censored):.6f} s (analytic "
+          f"clock, arrivals 0.01 s apart); first-token step p50 "
+          f"{np.percentile(first, 50):.1f} p99 {np.percentile(first, 99):.1f}"
+          f"; preemptions {m.preemptions}; {same} of {len(reqs)} "
+          f"requests and {tokens} of {sum(map(len, base_tokens))} tokens "
+          f"equal phase 6's (reported, not asserted: admission changes the "
+          f"schedule); on {card}")
+    if max(m.occupancy_trace) > 1.0 + 1e-9:
+        raise AssertionError(f"admission: occupancy {max(m.occupancy_trace)}"
+                             " above the page budget")
+    if len(eng.finished) != len(reqs) or not all(
+            r.terminal == "finished" and len(r.generated) == r.max_new_tokens
+            and all(0 <= x < cfg.vocab_size for x in r.generated)
+            for r in reqs):
+        raise AssertionError("admission: not every request finished with "
+                             "its tokens in the vocab")
+    if eng.auditor.audits != m.steps:
+        raise AssertionError(f"admission: {eng.auditor.audits} audits in "
+                             f"{m.steps} steps")
+    return m.steps
+
+
+def snapshot_split(torch, np, kv, snap, total_ms, card):
+    """The snapshot's ``kv`` payload read again on the same pages, in its
+    two halves: ``AquaTensor.read`` (LOCAL and REMOTE pages gathered on the
+    card, HOST pages copied up, reassembled in order) and the copy of the
+    result to host memory; the rest of the snapshot's span is bookkeeping
+    in Python. Returns the re-read's gather launches (a measurement, not
+    the path)."""
+    from repro_torch.core.aqua_tensor import HOST, LOCAL, REMOTE
+    aq = kv.planes["kv"].aqua
+    lps = snap["kv"]["planes"]["kv"]["lps"]
+    tiers = aq.page_table[np.asarray(lps, np.int64), 0]
+    data, read_ms, _, moved = cuda_span(torch, aq.read, lps)
+    _, copy_ms, _, _ = cuda_span(torch, data.cpu)
+    print(f"lifecycle: snapshot split: read {read_ms:.4f} ms (LOCAL "
+          f"{int((tiers == LOCAL).sum())}, REMOTE {int((tiers == REMOTE).sum())}"
+          f", HOST {int((tiers == HOST).sum())} pages; "
+          f"+{moved['gather_pages']} gather), to host {copy_ms:.4f} ms, the "
+          f"rest {total_ms - read_ms - copy_ms:.4f} ms; on {card}")
+    return moved
+
+
+def cancel_every_state(eng, kv, auditor):
+    """Cancel a waiting, a prefilling, a decoding and a parked request (the
+    last with its pages on donor0) at the first step that has all four;
+    each must leave no page and no slot, ``output`` must raise and the
+    auditor stay clean. Returns [(state, rid)]."""
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.core.errors import CancelledError
+    plane = kv.planes["kv"]
+
+    def on_donor(r):
+        lps = plane.flat(r.rid)
+        return bool(r.parked) and len(lps) > 0 and bool(
+            (plane.aqua.page_table[lps, 0] == REMOTE).all())
+
+    picks = None
+    while (eng.waiting or eng.running) and eng.metrics.steps < 5000:
+        eng.step()
+        if picks is None and not any(on_donor(r) for r in eng.waiting):
+            continue
+        picks = [("waiting", next((r for r in eng.waiting
+                                   if r.lifecycle == "waiting"), None)),
+                 ("prefilling", next((r for r in eng.running
+                                      if r.lifecycle == "prefilling"), None)),
+                 ("decoding", next((r for r in eng.running
+                                    if r.lifecycle == "running"), None)),
+                 ("parked", next((r for r in eng.waiting if on_donor(r)),
+                                 None))]
+        if all(r is not None for _, r in picks):
+            break
+    if picks is None or not all(r is not None for _, r in picks):
+        raise AssertionError(f"lifecycle: no step with a waiting, a "
+                             f"prefilling, a decoding and a parked request: "
+                             f"{picks}")
+    print(f"lifecycle: step {eng.metrics.steps}: cancelling "
+          + ", ".join(f"{k} rid {r.rid}" for k, r in picks))
+    for kind, r in picks:
+        if not eng.cancel(r.rid):
+            raise AssertionError(f"lifecycle: cancel of {kind} rid {r.rid} "
+                                 "was a no-op")
+        held = [n for n, p in kv.planes.items() if r.rid in p.pages]
+        if held or r.slot is not None or r.terminal != "cancelled":
+            raise AssertionError(f"lifecycle: cancelled {kind} rid {r.rid} "
+                                 f"holds pages in {held}, slot {r.slot}, "
+                                 f"terminal {r.terminal}")
+        try:
+            eng.output(r.rid)
+        except CancelledError:
+            pass
+        else:
+            raise AssertionError(f"lifecycle: output of cancelled rid "
+                                 f"{r.rid} did not raise CancelledError")
+        bad = auditor.check(kv, engine=eng)
+        if bad:
+            raise AssertionError(f"lifecycle: auditor after cancelling "
+                                 f"{kind} rid {r.rid}: {bad}")
+    return [(k, r.rid) for k, r in picks]
+
+
+def lifecycle_moves(torch, np, cfg, model, dev, card):
+    """Phase 6c, part 2: cancels, a drain and resume, a snapshot mid-stream
+    and its restore into a fresh runtime, on phase 6's requests without
+    admission. Returns the launches the snapshot's timing re-read made."""
+    from repro_torch.core.aqua_tensor import HOST, LOCAL
+    from repro_torch.core.faults import InvariantAuditor
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    eng, kv, reqs = make_engine(np, cfg, model, dev,
+                                host_pages=REQUEST_HOST_PAGES)
+    auditor = InvariantAuditor()
+    cancelled = cancel_every_state(eng, kv, auditor)
+
+    made_at: dict = {}
+    shapes: dict = {}
+    drive(eng, made_at, shapes, max_steps=DRAIN_AFTER)
+    pt = kv.planes["kv"].aqua.page_table
+    host0, meter0 = int((pt[:, 0] == HOST).sum()), kv.meter.bytes_host
+    n, ms, wall, moved = cuda_span(torch, eng.drain)
+    local = pt[:, 0] == LOCAL
+    print(f"lifecycle: drain at step {eng.metrics.steps} parked {n} requests"
+          f", {int((pt[:, 0] == HOST).sum()) - host0} pages to HOST, "
+          f"{kv.meter.bytes_host - meter0:.0f} live bytes: {ms:.4f} ms by "
+          f"CUDA events ({wall:.3f} ms wall); launches +{moved['gather_pages']}"
+          f" gather +{moved['scatter_pages']} scatter; on {card}")
+    scratch = kv.planes["kv"].scratch_lp
+    if (eng.running or kv._active or any(r.slot is not None
+                                         for r in eng.waiting)
+            or sorted(eng._free_slots) != list(range(eng.max_running))
+            or int(local.sum()) != 1 or not local[scratch]):
+        raise AssertionError(f"lifecycle: drain left running "
+                             f"{[r.rid for r in eng.running]}, pins "
+                             f"{sorted(kv._active)}, {int(local.sum())} "
+                             f"LOCAL pages")
+    if n and moved["gather_pages"] == 0:
+        raise AssertionError("lifecycle: the drain's parks launched no "
+                             "gather")
+    eng.step()                      # a draining engine admits nothing
+    if eng.running:
+        raise AssertionError("lifecycle: a draining engine admitted work")
+    eng.resume()
+    drive(eng, made_at, shapes, max_steps=SNAPSHOT_AFTER)
+    snap, ms, wall, moved = cuda_span(torch, eng.snapshot)
+    planes = snap["kv"]["planes"].values()
+    pages = sum(len(p["lps"]) for p in planes)
+    nbytes = sum(p["data"].nbytes for p in planes if p["data"] is not None)
+    inflight = sorted(d["rid"] for d in snap["running"] + snap["waiting"])
+    print(f"lifecycle: snapshot at step {eng.metrics.steps}: {pages} pages, "
+          f"{nbytes} payload bytes on the host, {len(inflight)} requests in "
+          f"flight: {ms:.4f} ms by CUDA events ({wall:.3f} ms wall); "
+          f"launches +{moved['gather_pages']} gather "
+          f"+{moved['scatter_pages']} scatter; on {card}")
+    if not all(isinstance(p["data"], np.ndarray) for p in planes) \
+            or not pages or not inflight:
+        raise AssertionError("lifecycle: the snapshot holds no host payload "
+                             "or nothing in flight")
+    measured = snapshot_split(torch, np, kv, snap, ms, card)
+    at_snapshot = {d["rid"]: len(d["generated"])
+                   for d in snap["running"] + snap["waiting"]}
+    logits: dict = {}
+    drive(eng, made_at, shapes, logits)
+    original = {r.rid: list(r.generated) for r in reqs}
+    steps = eng.metrics.steps
+    if not all(r.done for r in reqs if r.terminal != "cancelled"):
+        raise AssertionError("lifecycle: the original run did not finish")
+    del eng, kv, reqs
+    torch.cuda.empty_cache()
+
+    spare = make_runtime(cfg, dev, REQUEST_HOST_PAGES)
+    _, alone, _, _ = cuda_span(torch, spare.restore_state, snap["kv"])
+    print(f"lifecycle: restore_state alone, on another fresh runtime: "
+          f"{alone:.4f} ms by CUDA events; on {card}")
+    del spare
+    torch.cuda.empty_cache()
+    kv2 = make_runtime(cfg, dev, REQUEST_HOST_PAGES)
+    eng2, ms, wall, moved = cuda_span(torch, ServingEngine.restore, cfg,
+                                      model, snap, device=dev, kv=kv2)
+    eng2.pager.add_remote_lease("donor0", LEASE_BYTES)
+    pt = kv2.planes["kv"].aqua.page_table
+    print(f"lifecycle: restore of {pages} pages: {ms:.4f} ms by CUDA events "
+          f"({wall:.3f} ms wall), {int((pt[:, 0] == HOST).sum())} pages on "
+          f"HOST; launches +{moved['gather_pages']} gather "
+          f"+{moved['scatter_pages']} scatter; on {card}")
+    bad = InvariantAuditor().check(kv2, engine=eng2)
+    if bad:
+        raise AssertionError(f"lifecycle: auditor after restore: {bad}")
+    made2: dict = {}
+    shapes2: dict = {}
+    logits2: dict = {}
+    c0 = build.launch_counts()
+    t = time.perf_counter()
+    drive(eng2, made2, shapes2, logits2)
+    torch.cuda.synchronize()
+    c1 = build.launch_counts()
+    restored = {r.rid: list(r.generated)
+                for r in eng2.finished + eng2.waiting + eng2.running}
+    if not all(len(restored[rid]) == len(original[rid]) for rid in inflight):
+        raise AssertionError("lifecycle: the restored run did not finish "
+                             "every request in flight at the snapshot")
+    print(f"lifecycle: restored run {eng2.metrics.steps - snap['metrics']['steps']}"
+          f" steps (the original: {steps - snap['metrics']['steps']}), "
+          f"{time.perf_counter() - t:.3f} s wall; launches "
+          f"+{c1.get('gather_pages', 0) - c0.get('gather_pages', 0)} gather "
+          f"+{c1.get('scatter_pages', 0) - c0.get('scatter_pages', 0)} "
+          f"scatter; cancelled {eng2.metrics.cancelled}, drained "
+          f"{eng2.metrics.drained}")
+    rec = restored_agreement(inflight, at_snapshot, (
+        (original, made_at, shapes, logits),
+        (restored, made2, shapes2, logits2)))
+    print(f"lifecycle: restore agreement: {json.dumps(rec)} (cancelled "
+          f"before the snapshot: {cancelled})")
+    if rec["parting"] is None:
+        print(f"lifecycle: the {len(inflight)} requests in flight at the "
+              f"snapshot finish with the original's tokens after restore")
+    else:
+        print(f"lifecycle: restored tokens part from the original's where "
+              f"the packed shapes differ: {rec['agree']} of {rec['tokens']} "
+              f"tokens agree; every logits row of a step packed alike is "
+              f"within {LAYER_REL_LIMIT}")
+    return measured
+
+
+def phase_request_lifecycle(torch, np, cfg, model, dev, card, base_tokens):
+    """Phase 6c: admission and the request lifecycle on phase 6's engine.
+    Returns the gather/scatter/attention launches of the phase."""
+    from repro_torch.kernels import build
+    build.reset_launch_counts()
+    admission_run(torch, np, cfg, model, dev, card, base_tokens)
+    torch.cuda.empty_cache()
+    measured = lifecycle_moves(torch, np, cfg, model, dev, card)
+    torch.cuda.empty_cache()
+    counts = build.launch_counts()
+    for k, n in measured.items():
+        counts[k] -= n
+    return counts
 
 
 # -- rwkv6-3b: the RWKV-6 family's paths ------------------------------------
@@ -2644,10 +3051,10 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_layer_step(torch, np, cfg, model, dev)
     per_request, split = phase_per_request(torch, np, cfg, model, dev)
-    launches = phase_engine(torch, np, cfg, model, dev,
-                            need=("paged_mixed_attention_pool", "append_kv",
-                                  "gather_pages", "scatter_pages"),
-                            profile=True)
+    launches, base_tokens = phase_engine(
+        torch, np, cfg, model, dev, need=("paged_mixed_attention_pool",
+                                          "append_kv", "gather_pages",
+                                          "scatter_pages"), profile=True)
     if launches["append_kv"] != launches["paged_mixed_attention_pool"]:
         raise AssertionError(
             f"engine: {launches['append_kv']} page-writer launches, not one "
@@ -2656,6 +3063,11 @@ def main() -> int:
     t_lease = time.perf_counter()
     phase_lease_lifecycle(torch, np, cfg, model, dev, card)
     print(f"lease lifecycle phase: {time.perf_counter() - t_lease:.1f} s")
+    t_req = time.perf_counter()
+    request_lifecycle = phase_request_lifecycle(torch, np, cfg, model, dev,
+                                                card, base_tokens)
+    print(f"admission and request lifecycle phase: "
+          f"{time.perf_counter() - t_req:.1f} s")
     del model
     torch.cuda.empty_cache()
     print(f"qwen1.5-0.5b phases done at {time.perf_counter() - t0:.1f} s")
@@ -2671,8 +3083,9 @@ def main() -> int:
                                               model32, dev)
     del model32
     torch.cuda.empty_cache()
-    rwkv_engine = phase_engine(torch, np, rcfg, model, dev,
-                               need=("wkv6", "gather_pages", "scatter_pages"))
+    rwkv_engine, _ = phase_engine(torch, np, rcfg, model, dev,
+                                  need=("wkv6", "gather_pages",
+                                        "scatter_pages"))
     del model
     torch.cuda.empty_cache()
     print(f"rwkv6-3b phases done at {time.perf_counter() - t0:.1f} s")
@@ -2687,14 +3100,18 @@ def main() -> int:
     train_run = phase_train_run(torch, np, cfg, dev)
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
-    # rwkv engine, the rwkv per-request path, the train run
+    # rwkv engine, the rwkv per-request path, the train run; and on every
+    # path that runs it, phase 6c's admission and request lifecycle included
     paths = (("engine", launches), ("per-request", per_request),
              ("split-pool drive", split), ("rwkv engine", rwkv_engine),
-             ("rwkv per-request", rwkv_per_request), ("train", train_run))
+             ("rwkv per-request", rwkv_per_request), ("train", train_run),
+             ("request lifecycle", request_lifecycle))
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
         k["launches"] = int(counts.get(k["name"], 0))
+        k["launches_by_path"] = {p: int(c[k["name"]]) for p, c in paths
+                                 if c.get(k["name"], 0) > 0}
     missing = [k["name"] for k in report if k["launches"] == 0]
     if missing:
         raise AssertionError(f"no path launched {missing}")

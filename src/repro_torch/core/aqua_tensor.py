@@ -481,16 +481,18 @@ class AquaTensor:
     def write(self, lps: Sequence[int], data: torch.Tensor, *,
               meter: bool = True):
         """Write page payloads wherever the pages live; each non-local group
-        is one coalesced (metered) transfer."""
-        data = data.to(self.device, self.dtype)
+        is one coalesced (metered) transfer. ``data`` may sit on the host or
+        the device: each group crosses to its tier's memory once (host
+        payloads bound for HOST never touch the device)."""
+        data = data.to(dtype=self.dtype)
         rows = self.page_table[np.asarray(lps, np.int64)]
         for tier in (LOCAL, REMOTE, HOST):
             idx = np.nonzero(rows[:, 0] == tier)[0]
             if not len(idx):
                 continue
-            part = data[torch.as_tensor(idx, device=self.device)]
+            part = data[torch.as_tensor(idx, device=data.device)]
             if tier == LOCAL:
-                kv_ops.scatter_pages(self.local_pool, part,
+                kv_ops.scatter_pages(self.local_pool, part.to(self.device),
                                      self._ids(rows[idx, 1]))
                 continue
             if tier == REMOTE:
@@ -498,9 +500,9 @@ class AquaTensor:
                     sel = rows[idx, 2] == di
                     sub = idx[sel]
                     sub_data = part[torch.as_tensor(np.nonzero(sel)[0],
-                                                    device=self.device)]
+                                                    device=data.device)]
                     self._remote_scatter(self._donors[int(di)], rows[sub, 1],
-                                         sub_data)
+                                         sub_data.to(self.device))
                     if meter:
                         self.meter.record(len(sub) * self.page_bytes, REMOTE)
             else:

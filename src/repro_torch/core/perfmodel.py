@@ -98,6 +98,15 @@ class ModelCost:
         per layer each."""
         return launch_overhead_time(hw, n_calls * self.n_layers)
 
+    def decode_step_time(self, hw: HardwareProfile, batch: int,
+                         ctx_tokens: float, weight_bytes: float) -> float:
+        """One token for ``batch`` sequences with mean context
+        ``ctx_tokens`` (roofline max)."""
+        t_flops = 2.0 * self.n_params * batch / (hw.flops_peak * hw.mfu)
+        kv_read = self.kv_bytes_per_token * ctx_tokens * batch
+        t_mem = (weight_bytes + kv_read) / (hw.hbm_bw * hw.membw_util)
+        return max(t_flops, t_mem)
+
     def fused_step_time(self, hw: HardwareProfile, batch: int,
                         ctx_tokens: float, weight_bytes: float,
                         chunk_tokens: int = 0) -> float:

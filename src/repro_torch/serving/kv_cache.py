@@ -30,6 +30,10 @@ LEASES AND FAULTS: a donor's byte grant is split across the planes
 (``evict_remote``), a lease shrink live-migrates the reclaimed slots' pages
 (``shrink_lease``), and a donor loss flips its pages to LOST and names the
 victim requests (``fail_donor``), pruning the radix coverage they backed.
+
+SNAPSHOTS: ``snapshot_state`` serializes the block tables, every page's
+payload (as host numpy), the radix tree and the counters; ``restore_state``
+rebuilds them on a fresh runtime, every page landing on HOST first.
 """
 from __future__ import annotations
 
@@ -894,3 +898,173 @@ class PagedStateRuntime:
                           "retries_fabric": self.meter.retries_fabric,
                           "retries_host": self.meter.retries_host,
                           "sim_time": self.meter.sim_time}}
+
+    # -- crash-consistent snapshot / restore --------------------------------
+    _SNAP_COUNTERS = ("prefix_hits", "adopted_tokens", "cow_copies",
+                      "cache_hits", "cache_hit_tokens", "cache_evictions",
+                      "cache_demotions")
+
+    def snapshot_state(self) -> Dict:
+        """Serialize the runtime's serving state to a plain dict: per-request
+        block tables, every referenced page's payload (read from whatever
+        tier it sits on, each physical page once however many tables alias
+        it), the radix prefix tree with its per-block pages, the prompt
+        records behind ``register_prefix`` and the sharing/cache counters.
+
+        Payloads are host numpy arrays, never device tensors: a journal
+        record must outlive the process. A plane's ``data`` is its pages in
+        ``lps`` order, stored as ``dtype`` says: float32 as float32, bf16
+        as its raw 16-bit words (int16, as ``training/checkpoint.py`` stores
+        bf16 leaves). The reference's ``req_tokens`` record is absent: the
+        port's runtime keeps no per-request prompt copy (the reference
+        writes it and reads it only here and in ``restore_state``).
+
+        Logical page ids are snapshot-relative (``restore_state`` remaps
+        them). Call between engine steps.
+
+        Raises:
+            PageLossError: a referenced page is LOST (recovery must re-queue
+                its victim first).
+        """
+        def ser_node(node: _RadixNode) -> Dict:
+            return {"blocks": [list(b) for b in node.blocks],
+                    "pages": [{n: [int(x) for x in lps]
+                               for n, lps in pd.items()}
+                              for pd in node.pages],
+                    "last_use": int(node.last_use),
+                    "children": [ser_node(c)
+                                 for c in node.children.values()]}
+
+        tree_lps: Dict[str, set] = {name: set() for name in self.planes}
+        for node in self._iter_nodes():
+            for pd in node.pages:
+                for n, lps in pd.items():
+                    tree_lps[n].update(int(x) for x in lps)
+        planes: Dict[str, Dict] = {}
+        for name, plane in self.planes.items():
+            rows = {int(rid): [[int(lp) for lp in row] for row in rws]
+                    for rid, rws in plane.pages.items()}
+            lps = sorted({lp for rws in rows.values()
+                          for row in rws for lp in row} | tree_lps[name])
+            data = None
+            if lps:
+                data = plane.aqua.read(lps).cpu()
+                if data.dtype == torch.bfloat16:
+                    data = data.view(torch.int16)
+                data = data.numpy()
+            planes[name] = {
+                "pages": rows, "lps": lps, "data": data,
+                "dtype": _dtype_name(plane.aqua.dtype),
+                "fills": (plane.aqua.page_fill[
+                    np.asarray(lps, np.int64)].tolist() if lps else [])}
+        return {
+            "version": 1,
+            "planes": planes,
+            "tree": [{"seed": seed,
+                      "children": [ser_node(c)
+                                   for c in root.children.values()]}
+                     for seed, root in self._roots.items()],
+            "req_blocks": {int(r): [list(b) for b in bl]
+                           for r, bl in self._req_blocks.items()},
+            "req_seed": dict(self._req_seed),
+            "req_registered": dict(self._req_registered),
+            "clock": int(self._clock),
+            "counters": {k: getattr(self, k) for k in self._SNAP_COUNTERS}}
+
+    def restore_state(self, snap: Dict) -> None:
+        """Rebuild a :meth:`snapshot_state` dict on a FRESH runtime of the
+        same configuration and geometry.
+
+        Every snapshot page is allocated preferring HOST (then a remote
+        lease, then LOCAL) and its payload written back verbatim, unmetered.
+        Refcounts are rebuilt exactly: one reference per aliasing block
+        table, and the CACHED state (refcount 0) for pages only the radix
+        index owns. No request is active afterwards; the engine re-queues
+        every in-flight request as parked.
+
+        Raises:
+            ValueError: this runtime already holds request state, or a
+                plane's payload dtype differs from the plane's (checked for
+                every plane before anything is written).
+        """
+        if (any(p.pages for p in self.planes.values()) or self._roots
+                or self._active):
+            raise ValueError(f"{self.cfg.name}: restore_state on a runtime "
+                             "already holding request state — restore "
+                             "targets a FRESH engine")
+        for name, ps in snap["planes"].items():
+            want = _dtype_name(self.planes[name].aqua.dtype)
+            if ps["dtype"] != want:
+                raise ValueError(f"{self.cfg.name}/{name}: snapshot payload "
+                                 f"is {ps['dtype']}, the plane holds {want}")
+        maps: Dict[str, Dict[int, int]] = {}
+        for name, ps in snap["planes"].items():
+            plane = self.planes[name]
+            ref_rids: Dict[int, set] = {}
+            for rid, rws in ps["pages"].items():
+                for row in rws:
+                    for lp in row:
+                        ref_rids.setdefault(int(lp), set()).add(int(rid))
+            lp_map: Dict[int, int] = {}
+            old_lps = [int(x) for x in ps["lps"]]
+            if old_lps:
+                data = torch.from_numpy(np.ascontiguousarray(ps["data"]))
+                if ps["dtype"] == "bfloat16":
+                    data = data.view(torch.bfloat16)
+                new = plane.aqua.allocate(len(old_lps), prefer=HOST)
+                plane.aqua.write(new, data, meter=False)
+                plane.aqua.set_page_fill(new, np.asarray(ps["fills"]))
+                cached: List[int] = []
+                for old, nlp in zip(old_lps, new):
+                    nlp = int(nlp)
+                    lp_map[old] = nlp
+                    k = len(ref_rids.get(old, ()))
+                    if k == 0:
+                        cached.append(nlp)   # tree-owned: CACHED, ref 0
+                    for _ in range(k - 1):   # one ref per aliasing table
+                        plane.aqua.retain([nlp])
+                if cached:
+                    plane.aqua.free_to_cache(cached)
+            for rid, rws in ps["pages"].items():
+                plane.pages[int(rid)] = [[lp_map[int(lp)] for lp in row]
+                                         for row in rws]
+            maps[name] = lp_map
+
+        def build(d: Dict, parent: _RadixNode) -> _RadixNode:
+            node = _RadixNode(
+                blocks=[tuple(int(t) for t in b) for b in d["blocks"]],
+                pages=[{n: np.asarray([maps[n][int(x)] for x in lps],
+                                      np.int64)
+                        for n, lps in pd.items()} for pd in d["pages"]],
+                parent=parent)
+            node.last_use = int(d["last_use"])
+            for cd in d["children"]:
+                c = build(cd, node)
+                node.children[c.blocks[0]] = c
+            return node
+
+        for entry in snap["tree"]:
+            root = _RadixNode()
+            for cd in entry["children"]:
+                c = build(cd, root)
+                root.children[c.blocks[0]] = c
+            self._roots[entry["seed"]] = root
+        for node in self._iter_nodes():
+            for bi, pd in enumerate(node.pages):
+                for n, lps in pd.items():
+                    for lp in lps:
+                        self._lp_node[(n, int(lp))] = (node, bi)
+        self._req_blocks = {int(r): [tuple(int(t) for t in b) for b in bl]
+                            for r, bl in snap["req_blocks"].items()}
+        self._req_seed = dict(snap["req_seed"])
+        self._req_registered = {int(r): int(v)
+                                for r, v in snap["req_registered"].items()}
+        self._clock = int(snap["clock"])
+        for k in self._SNAP_COUNTERS:
+            setattr(self, k, snap["counters"][k])
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``: how a snapshot names a
+    plane's payload type."""
+    return str(dtype).rsplit(".", 1)[-1]

@@ -5,6 +5,12 @@ so it runs on a card's machine as it is:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q -m cuda
 
+Also the request lifecycle on the card, on a bf16 smoke qwen engine: a
+snapshot holds its payload on the host as raw 16-bit words, and restore ->
+snapshot gives the same words; ``drain`` parks through the gather kernel
+and leaves no pin and only scratch LOCAL; a restored engine finishes with
+the uninterrupted engine's tokens.
+
 Tolerances: attention 3e-5 in float32, 3e-2 in bfloat16 (the plain version
 rounds the probabilities to bfloat16 before the value product); the page
 writer (``write_kv_rows`` and its ``append_kv`` form), gather and scatter
@@ -959,3 +965,86 @@ def test_cuda_flash_bf16_kernels_do_not_spill(hd):
     for name, info in fa_ops.tc_kernel_info(hd).items():
         assert info["local_bytes"] == 0, (name, info)
         assert 0 < info["smem_bytes"] <= 232448, (name, info)
+
+
+# -- the request lifecycle on the card: snapshot, restore, drain -----------
+def _bf16_engine(dev, **kw):
+    """A bf16 smoke qwen engine on the card, CFS parking on HOST, four
+    seeded 10-token requests of 6 new tokens, stepped 3 times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.aqua_tensor import HOST
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServingEngine
+    cfg = dataclasses.replace(smoke_config(get_config("qwen1.5-0.5b")),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    eng = ServingEngine(cfg, model, max_running=2, max_seq=64,
+                        scheduler="cfs", slice_tokens=4, offload_tier=HOST,
+                        prefetch=False, device=dev, **kw)
+    rng = np.random.default_rng(6)
+    for _ in range(4):
+        eng.submit(list(map(int, 1 + rng.integers(0, cfg.vocab_size - 1,
+                                                  10))), 6)
+    for _ in range(3):
+        eng.step()
+    return cfg, model, eng
+
+
+@pytest.mark.cuda
+def test_cuda_snapshot_round_trip_bit_identical_in_raw_words():
+    """A snapshot's bf16 payload sits on the host as raw 16-bit words; a
+    restore on the card and a second snapshot give the same words page for
+    page (by position in each request's tables)."""
+    from repro_torch.serving.engine import ServingEngine
+    dev = _cuda()
+    cfg, model, eng = _bf16_engine(dev)
+    snap = eng.snapshot()
+    a = snap["kv"]["planes"]["kv"]
+    assert a["dtype"] == "bfloat16" and isinstance(a["data"], np.ndarray)
+    assert a["data"].dtype == np.int16 and (a["data"] != 0).any()
+    restored = ServingEngine.restore(cfg, model, snap, device=dev)
+    b = restored.snapshot()["kv"]["planes"]["kv"]
+    pos_a = {lp: i for i, lp in enumerate(a["lps"])}
+    pos_b = {lp: i for i, lp in enumerate(b["lps"])}
+    assert set(a["pages"]) == set(b["pages"])
+    for rid, rows in a["pages"].items():
+        for row_a, row_b in zip(rows, b["pages"][rid]):
+            assert len(row_a) == len(row_b)
+            for la, lb in zip(row_a, row_b):
+                np.testing.assert_array_equal(a["data"][pos_a[la]],
+                                              b["data"][pos_b[lb]])
+
+
+@pytest.mark.cuda
+def test_cuda_drain_unpins_everything_through_the_gather_kernel():
+    from repro_torch.core.aqua_tensor import LOCAL
+    dev = _cuda()
+    _, _, eng = _bf16_engine(dev)
+    assert eng.running
+    build.reset_launch_counts()
+    n = eng.drain()
+    torch.cuda.synchronize()
+    assert n >= 1 and build.launch_counts().get("gather_pages", 0) >= 1
+    assert not eng.running and not eng.kv._active
+    assert all(r.slot is None for r in eng.waiting)
+    for plane in eng.kv.planes.values():
+        local = plane.aqua.page_table[:, 0] == LOCAL
+        assert int(local.sum()) == 1 and local[plane.scratch_lp]
+
+
+@pytest.mark.cuda
+def test_cuda_restored_engine_finishes_with_the_uninterrupted_tokens():
+    from repro_torch.serving.engine import ServingEngine
+    dev = _cuda()
+    cfg, model, eng = _bf16_engine(dev)
+    snap = eng.snapshot()
+    eng.run(500)
+    restored = ServingEngine.restore(cfg, model, snap, device=dev)
+    restored.run(500)
+    want = {r.rid: r.generated for r in eng.finished}
+    got = {r.rid: r.generated for r in restored.finished}
+    assert got == want and all(len(t) == 6 for t in got.values())

@@ -7,8 +7,7 @@ family (qwen1.5-0.5b, one ``kv`` token plane) and RWKV-6 (rwkv6-3b, the
 preemption/restore counts and TransferMeter bytes and messages must be
 identical. Also: the engine's entry points refuse to run on a
 missing GPU by default, and knobs of the reference that the port has not
-ported yet (admission, the watchdog, the mesh, ``paged_impl``) are refused,
-not ignored."""
+ported (the mesh, ``paged_impl``) are refused, not ignored."""
 import jax
 import numpy as np
 import pytest
@@ -117,9 +116,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         build()
 
 
-@pytest.mark.parametrize("knob", [
-    dict(admission=True), dict(watchdog_steps=3), dict(mesh=object()),
-    dict(paged_impl="ref")])
+@pytest.mark.parametrize("knob", [dict(mesh=object()),
+                                  dict(paged_impl="ref")])
 def test_engine_refuses_unported_knobs(knob):
     cfg = t_smoke_config(t_get_config(ARCH))
     model = tlm.LM(cfg, torch.device("cpu"))

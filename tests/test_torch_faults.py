@@ -16,7 +16,9 @@ faults at rate 0.3. Greedy tokens, the fault metrics and the meter
 (bytes, messages, retries and its clock) must be equal, and the tokens
 equal to the fault-free run's. (The engines' step clocks differ by the
 compute pricing of the port's trimmed perf model, so only the meter's
-clock is compared across packages.)
+clock is compared across packages.) A ``cancel`` and an
+``engine_crash`` event in one schedule tear down the same request and
+crash at the same step on both engines.
 """
 import jax
 import jax.numpy as jnp
@@ -591,14 +593,29 @@ def test_engine_transient_leg_faults_priced_not_fatal(fault_runs):
     assert got["meter"]["messages_fabric"] == base["meter"]["messages_fabric"]
 
 
-@pytest.mark.parametrize("kind", ["cancel", "engine_crash"])
-def test_engine_refuses_lifecycle_fault_events(models, kind):
-    """Events of the request lifecycle (not ported yet) raise, never pass
-    silently."""
+def test_engine_lifecycle_fault_events_match_reference(models):
+    """One schedule holding a ``cancel`` and an ``engine_crash`` event on
+    both engines: the same request torn down at the same step, the same
+    crash step, the same tokens for the rest and the same meter."""
     prompts = _engine_prompts(models[0].vocab_size)
-    fi = t_faults.FaultInjector(events=[t_faults.FaultEvent(
-        kind=kind, rid=0, at_step=1)])
-    eng = _build("port", models, prompts, faults=fi)
-    eng.step()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        eng.step()
+    out = {}
+    for side, mod, err in (("reference", j_faults, j_errs.EngineCrashError),
+                           ("port", t_faults, errs.EngineCrashError)):
+        fi = mod.FaultInjector(seed=0, events=[
+            mod.FaultEvent(kind="cancel", rid=1, at_step=2),
+            mod.FaultEvent(kind="engine_crash", at_step=5)])
+        eng = _build(side, models, prompts, faults=fi)
+        with pytest.raises(err, match="step 5"):
+            eng.run(500)
+        r1 = next(r for r in eng.finished if r.rid == 1)
+        assert r1.terminal == "cancelled" and r1.cancel_reason == "fault"
+        assert r1.finish_step == 2
+        out[side] = {"crash_step": eng.metrics.steps,
+                     "cancelled": eng.metrics.cancelled,
+                     "tokens": [list(r.generated) for r in sorted(
+                         eng.running + eng.waiting + eng.finished,
+                         key=lambda r: r.rid)],
+                     "meter": {k: getattr(eng.pager.meter, k)
+                               for k in METER_KEYS}}
+    assert out["port"] == out["reference"]
+    assert out["port"]["crash_step"] == 5 and out["port"]["cancelled"] == 1

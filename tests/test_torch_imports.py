@@ -1,8 +1,10 @@
 """Guards on the PyTorch port: it imports neither JAX nor anything of the
 JAX package (even modules of it that hold no JAX, such as the coordinator,
 the control loop and the fault injector, of which it keeps its own copies),
-and the source guards the CI applies to ``src/`` hold for it too, the
-engine's one on per-request calls included. No file of the port names
+and the source guards the CI applies to ``src/`` hold for it too, with
+port twins of the ones pinned to reference files: the engine makes no
+per-request call, the admission controller raises no builtin exception,
+and each lifecycle mutation occurs once in the engine. No file of the port names
 ``scaled_dot_product_attention`` or ``torch.compile``; ``chip_smoke.py``
 may name the former only inside the one function that times it as the
 flash kernels' yardstick (``LIBRARY_FN``, found with ``ast``)."""
@@ -46,7 +48,8 @@ def test_port_files_exist():
                  "configs/rwkv6_3b.py",
                  "core/errors.py", "core/perfmodel.py", "core/aqua_tensor.py",
                  "core/coordinator.py", "core/control_loop.py",
-                 "core/faults.py",
+                 "core/faults.py", "core/workload.py",
+                 "serving/admission.py",
                  "kernels/kv_gather/ops.py", "kernels/kv_gather/ref.py",
                  "kernels/paged_attention/ops.py",
                  "kernels/paged_attention/ref.py",
@@ -96,6 +99,29 @@ def test_engine_calls_no_per_request_entry_point():
     for i, line in enumerate(path.read_text().splitlines(), 1):
         assert not re.search(r"prefill_chunk_paged|decode_step_paged",
                              line), f"{path}:{i}: {line}"
+
+
+def test_admission_raises_no_builtin_exception():
+    """Twin of the reference's CI guard on ``serving/admission.py``: it
+    raises only typed ``AquaError`` subclasses (``AdmissionError``)."""
+    path = PORT / "serving" / "admission.py"
+    pattern = (r"raise (ValueError|TypeError|KeyError|RuntimeError|"
+               r"AssertionError|NotImplementedError)")
+    text = path.read_text()
+    assert "raise AdmissionError" in text
+    for i, line in enumerate(text.splitlines(), 1):
+        assert not re.search(pattern, line), f"{path}:{i}: {line}"
+
+
+@pytest.mark.parametrize("mutation", [
+    "self._free_slots.append(", "self.kv.release(", "self.finished.append(",
+    "self._free_slots.pop("])
+def test_engine_lifecycle_mutations_occur_once(mutation):
+    """Twin of the reference's CI lifecycle guard: batch-slot, page-release
+    and finished-list mutations stay inside the lifecycle helpers, so
+    finish, cancel, deadlines, drain and recovery share one teardown."""
+    text = (PORT / "serving" / "engine.py").read_text()
+    assert text.count(mutation) == 1, mutation
 
 
 def test_chip_smoke_times_the_library_attention_in_one_function():
