@@ -144,6 +144,49 @@ page each per layer:
    restore moves exactly one request's whole state (21,299,200 bytes), and
    ``wkv6`` launched on the path.
 
+Then deepseek-v2-lite-16b at its published width (27 layers, d 2048, 16
+heads, MLA rank 512 + rope 64, 64 routed experts top-6 + 2 shared of
+1408, vocab 102400, bf16; random seeded weights): every layer MLA, whose
+context is the ``mla`` token plane of (16, 576) bf16 pages (18,432 B),
+then the dropless MoE; neither has a Pallas kernel in the reference, so
+the path's kernels are rows 6-7, which park and restore its pages:
+
+14. mla rows — the gather's plan, registers, local memory and ring at the
+   ``mla`` leg (1,350 pages: a 16 KiB chunk and a 2,048 B tail a row);
+   gather and scatter bit-exact against their plain versions at 1 row, 7
+   rows (fewer work items than the grid), 3 x the grid + 5 and 1,350
+   rows, ids outside the pool included; the leg's device times (the
+   gather cold, as in phase 3) beside ``index_select`` / ``index_copy_``
+   and the bound (bytes over 3.35 TB/s), under ``deepseek_mla`` in the
+   two kernels' records.
+15. model — ``lm.init_params`` from a seeded CUDA generator: the
+   reference's ``param_count()`` must be 16,210,309,120 (the model holds
+   that plus its kv_norm and final_norm scales); memory allocated.
+16. deepseek layer step — phase 4's packed step, bf16 against float32 a
+   layer at a time (a float32 copy of the whole model does not fit beside
+   it): per layer, on the bf16 path's input, MLA and the MoE each within
+   ``LAYER_REL_LIMIT`` per real token of a float32 copy of the layer, each
+   control beyond (MLA: the furthest decode lane's newest page swapped for
+   scratch; MoE: routing to top-5); the share of real tokens whose top-6
+   experts differ between the bf16 and float32 streams (printed, not
+   asserted); the bf16 layers' logits equal ``api.serve_step_paged``'s bit
+   for bit on the real rows, and nearer the float32 step's than the
+   control's.
+17. deepseek per-request — phase 5's prompts through the per-request entry
+   points (no kernel launches there) beside the FCFS engine: walls and
+   agreeing greedy tokens.
+18. deepseek engine — phase 6 at full width: every request finishes,
+   preemptions and restores one fabric message each, gather and scatter
+   launched, the meter's bytes a whole number of token rows (27 x 1,152
+   B: it counts live bytes, a tail page at its fill); its profile runs
+   the MoE inside a ``record_function`` range and gives the MoE's share of
+   the launch calls, the host syncs (one per MoE layer) and the MoE's
+   device span.
+19. deepseek round trip — a 300-token prompt in two chunks and 8 decode
+   steps, parked on a same-card REMOTE lease and restored after each:
+   every logits row bit-identical to the unparked run, one message per
+   leg through the gather and scatter.
+
 Then qwen1.5-0.5b's training path at its published width (bf16 params,
 float32 AdamW master and moments):
 
@@ -187,6 +230,7 @@ of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -274,6 +318,14 @@ def bound_ms(nbytes: float, flops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def release(torch):
+    """Free a family's tensors before the next family's phases: engines
+    and runtimes hold reference cycles, so their pools wait for the cycle
+    collector (~25 GiB after the rwkv phases otherwise)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_device(torch):
@@ -723,16 +775,27 @@ def gather_leg_shapes(torch, qcfg, rcfg):
                        rcfg.n_layers, 0)}
 
 
-def gather_leg_inputs(torch, qcfg, rcfg, dev):
-    """Per leg shape: (leg, pool, id sets, bytes a call moves). The ids
-    come in disjoint sets, enough that more than ``ROTATION_BYTES`` move
-    between two uses of one set and of its staging buffer when they are
-    taken in turn (the L2 holds 50 MB; the engine finds a parked request's
-    pages cold)."""
+def mla_leg_shape(dcfg):
+    """Rows 6-7 at deepseek-v2-lite-16b's ``mla`` leg: one request's park
+    of ~800 tokens (50 pages of 16 tokens a layer, 27 layers) of 18,432 B
+    pages, (16, 576) bf16 — a 16 KiB chunk and a 2,048 B tail a row on the
+    bulk route. In ``gather_leg_shapes``' form."""
+    from repro_torch.layers.mla import latent_dim
+    return {"deepseek_mla": ((16, latent_dim(dcfg)),
+                             dcfg.torch_compute_dtype(), dcfg.n_layers * 50,
+                             0)}
+
+
+def gather_leg_inputs(torch, qcfg, rcfg, dev, shapes=None):
+    """Per leg shape (``shapes``, default ``gather_leg_shapes``): (leg,
+    pool, id sets, bytes a call moves). The ids come in disjoint sets,
+    enough that more than ``ROTATION_BYTES`` move between two uses of one
+    set and of its staging buffer when they are taken in turn (the L2
+    holds 50 MB; the engine finds a parked request's pages cold)."""
     import math
     g = torch.Generator(device=dev).manual_seed(3)
-    for leg, (page, dtype, n, P) in gather_leg_shapes(torch, qcfg,
-                                                      rcfg).items():
+    shapes = shapes or gather_leg_shapes(torch, qcfg, rcfg)
+    for leg, (page, dtype, n, P) in shapes.items():
         row = math.prod(page) * dtype.itemsize
         call_bytes = 2 * n * row + 4 * n
         sets = math.ceil(ROTATION_BYTES / call_bytes) + 1
@@ -743,14 +806,14 @@ def gather_leg_inputs(torch, qcfg, rcfg, dev):
                call_bytes)
 
 
-def gather_legs(torch, np, kv_ops, kv_ref, qcfg, rcfg, dev):
+def gather_legs(torch, np, kv_ops, kv_ref, qcfg, rcfg, dev, shapes=None):
     """Row 6 at each leg shape, cold (``gather_leg_inputs``): on every id
     set bit-exact against the plain version; then device times over the
     sets in turn (plain, kernel, kernel, plain) and ``REPEATS`` rounds
     beside ``index_select``."""
     legs = {}
-    for leg, pool, id_sets, call_bytes in gather_leg_inputs(torch, qcfg,
-                                                            rcfg, dev):
+    for leg, pool, id_sets, call_bytes in gather_leg_inputs(
+            torch, qcfg, rcfg, dev, shapes):
         for ids in id_sets:
             if not torch.equal(kv_ops.gather_pages(pool, ids),
                                kv_ref.gather_pages_ref(pool, ids)):
@@ -779,13 +842,13 @@ def gather_legs(torch, np, kv_ops, kv_ref, qcfg, rcfg, dev):
     return legs
 
 
-def print_gather_resources(torch, kv_ops, qcfg, rcfg):
+def print_gather_resources(torch, kv_ops, qcfg, rcfg, shapes=None):
     """The bulk-copy gather's plan, registers, local memory and ring at each
     leg shape; it must use no local memory and fit the card's opt-in shared
     memory per block."""
     import math
-    for leg, (page, dtype, n, _) in gather_leg_shapes(torch, qcfg,
-                                                      rcfg).items():
+    shapes = shapes or gather_leg_shapes(torch, qcfg, rcfg)
+    for leg, (page, dtype, n, _) in shapes.items():
         row = math.prod(page) * dtype.itemsize
         plan = kv_ops.gather_plan(n, row, 16, kv_ops.sm_count(0))
         info = kv_ops.gather_kernel_info(plan)
@@ -1410,13 +1473,16 @@ def profile_engine_steps(torch, eng):
                 else "decode_only")
         if kind in out:
             continue
+        # a record_function range shows on the device timeline too: it is
+        # no kernel
         device = [(e.name, e.time_range.start, e.time_range.end)
                   for e in prof.events()
                   if e.device_type == DeviceType.CUDA
-                  and e.time_range.elapsed_us() > 0]
+                  and e.time_range.elapsed_us() > 0
+                  and e.name != MOE_RANGE]
         if not device:
             out[kind] = {"step_wall_ms": wall_us / 1e3,
-                         "device": "not measured"}
+                         "device": "not measured", **host_calls(prof)}
             continue
         summary = device_time_summary(device, wall_us)
         out[kind] = {
@@ -1427,7 +1493,40 @@ def profile_engine_steps(torch, eng):
             "device_busy_ms": summary["device_busy_ms"],
             "idle_share": summary["idle_share"],
             "by_kind_ms": summary["by_kind_ms"],
-            "top5_ms": summary["top10_ms"][:5]}
+            "top5_ms": summary["top10_ms"][:5],
+            **host_calls(prof)}
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and e.name == MOE_RANGE]
+        if spans:
+            # the MoE range on the device timeline: from each MoE call's
+            # first kernel to its last
+            out[kind]["moe_device_span_ms"] = sum(spans) / 1e3
+    return out
+
+
+HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+MOE_RANGE = "moe"                   # the MoE's record_function range
+
+
+def host_calls(prof):
+    """From a profiled step's CPU events: kernel launches and host syncs
+    (runtime calls), and, where the step ran inside ``record_function``
+    ranges named ``"moe"``, how many of each fell inside them."""
+    from torch.autograd import DeviceType
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    moe = [(e.time_range.start, e.time_range.end) for e in cpu
+           if e.name == MOE_RANGE]
+    launches = [e for e in cpu if "LaunchKernel" in e.name]
+    syncs = [e for e in cpu if e.name in HOST_SYNCS]
+    out = {"launch_calls": len(launches), "host_syncs": len(syncs)}
+    if moe:
+        def inside(evs):
+            return sum(1 for e in evs if any(a <= e.time_range.start <= b
+                                             for a, b in moe))
+        out.update(moe_calls=len(moe), moe_launch_calls=inside(launches),
+                   moe_launch_share=inside(launches) / max(len(launches), 1),
+                   moe_host_syncs=inside(syncs))
     return out
 
 
@@ -1435,11 +1534,13 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
     """``ServingEngine`` (CFS, a same-card REMOTE donor lease) serves 12
     seeded requests at full width. Every request finishes, CFS preempts and
     restores, each park/restore is one fabric message, a family whose
-    context is all state planes moves exactly its whole state per leg, and
-    every kernel in ``need`` launched (counts reset just before the run).
-    With ``profile``, a second run of the same requests profiles one chunk
-    step and one decode-only step (``profile_engine_steps``). Returns
-    (launch counts, each request's generated tokens)."""
+    context is all state planes moves exactly its whole state per leg, a
+    family with one token plane whole token rows of every layer, and every
+    kernel in ``need`` launched (counts reset just before the run). With
+    ``profile``, a second run of the same requests profiles one chunk step
+    and one decode-only step (``profile_engine_steps``; an MoE layer's
+    feed-forward runs inside a ``record_function("moe")`` range there).
+    Returns (launch counts, each request's generated tokens)."""
     from repro_torch.kernels import build
 
     eng, kv, reqs = make_engine(np, cfg, model, dev)
@@ -1500,6 +1601,19 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
             raise AssertionError(
                 f"engine: bytes_fabric {meter.bytes_fabric} != "
                 f"({m.preemptions} + {m.restores}) x {state:.0f}")
+    planes = list(kv.planes.values())
+    if len(planes) == 1 and planes[0].kind == "tokens":
+        # the meter counts a leg's live bytes (a tail page at its fill):
+        # whole tokens of every layer, each of token_bytes
+        row = planes[0].n_layers * planes[0].token_bytes
+        print(f"engine: {cfg.name} {planes[0].name} pages of "
+              f"{planes[0].aqua.page_bytes} B; bytes_fabric "
+              f"{meter.bytes_fabric:.0f} = {meter.bytes_fabric / row:.2f} "
+              f"token rows of {row} B ({planes[0].n_layers} layers x "
+              f"{planes[0].token_bytes} B)")
+        if meter.bytes_fabric % row:
+            raise AssertionError(f"engine: bytes_fabric is no whole number "
+                                 f"of {row} B token rows")
     if not all(launches.get(k, 0) > 0 for k in need):
         raise AssertionError(f"engine: {cfg.name}'s run never launched some "
                              f"of {list(need)}")
@@ -1508,7 +1622,21 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
         del eng, kv, reqs
         torch.cuda.empty_cache()
         eng, _, _ = make_engine(np, cfg, model, dev)
-        print(f"engine profile: {json.dumps(profile_engine_steps(torch, eng))}")
+        from repro_torch.layers.moe import MoE
+        from repro_torch.models import lm
+        ffn = lm.ffn_apply
+
+        def ranged(p, c, h):
+            if not isinstance(p, MoE):
+                return ffn(p, c, h)
+            with torch.profiler.record_function(MOE_RANGE):
+                return ffn(p, c, h)
+        lm.ffn_apply = ranged
+        try:
+            prof = profile_engine_steps(torch, eng)
+        finally:
+            lm.ffn_apply = ffn
+        print(f"engine profile: {json.dumps(prof)}")
     return launches, tokens
 
 
@@ -2402,6 +2530,35 @@ def phase_rwkv_layer_step(torch, np, cfg, model, model32, dev):
             f"({max(dist['control'])}) beyond it")
 
 
+def fused_fcfs_run(torch, np, cfg, model, dev, prompts, label):
+    """``prompts`` [(tokens, split)] through the fused engine (FCFS, 16-token
+    pages, no preemption), ``DECODE_STEPS + 1`` tokens each, every step
+    timed to its end on the device. Returns (each prompt's tokens, step
+    walls in s, which steps held prompt chunks, launch counts)."""
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, model, max_running=4, max_seq=1024,
+                        scheduler="fcfs", step_tokens=256,
+                        offload_tier=REMOTE, kv_page_tokens=16,
+                        spec_chunk_ahead=False, device=dev)
+    reqs = [eng.submit(list(map(int, p)), DECODE_STEPS + 1)
+            for p, _ in prompts]
+    _sync(torch, dev)
+    build.reset_launch_counts()
+    step_s = []
+    while (eng.waiting or eng.running) and len(step_s) < 1000:
+        t = time.perf_counter()
+        eng.step()
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t)
+    if not all(len(r.generated) == DECODE_STEPS + 1 for r in reqs):
+        raise AssertionError(f"{label} fused: not every request finished")
+    mixed = np.asarray(eng.metrics.prefill_tokens_trace) > 0
+    return ([r.generated for r in reqs], np.asarray(step_s), mixed,
+            build.launch_counts())
+
+
 def phase_rwkv_per_request(torch, np, cfg, model, model32, dev):
     """rwkv6-3b through the per-request entry points at full width: the
     four prompts of phase 5, chunk by chunk through
@@ -2416,9 +2573,7 @@ def phase_rwkv_per_request(torch, np, cfg, model, model32, dev):
     asserted), with how far the float32 kernel path's prefill logits lie
     from the float32 plain path's (how much the model amplifies a rounding
     difference)."""
-    from repro_torch.core.aqua_tensor import REMOTE
     from repro_torch.kernels import build
-    from repro_torch.serving.engine import ServingEngine
     rng = np.random.default_rng(8)
     prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), split)
                for n, split in PROMPTS.items()]
@@ -2468,25 +2623,7 @@ def phase_rwkv_per_request(torch, np, cfg, model, model32, dev):
             f"({max(dist['control'])}) beyond it")
 
     def fused(c, mdl):
-        eng = ServingEngine(c, mdl, max_running=4, max_seq=1024,
-                            scheduler="fcfs", step_tokens=256,
-                            offload_tier=REMOTE, kv_page_tokens=16,
-                            spec_chunk_ahead=False, device=dev)
-        reqs = [eng.submit(list(map(int, p)), DECODE_STEPS + 1)
-                for p, _ in prompts]
-        _sync(torch, dev)
-        build.reset_launch_counts()
-        step_s = []
-        while (eng.waiting or eng.running) and len(step_s) < 1000:
-            t = time.perf_counter()
-            eng.step()
-            _sync(torch, dev)
-            step_s.append(time.perf_counter() - t)
-        if not all(len(r.generated) == DECODE_STEPS + 1 for r in reqs):
-            raise AssertionError("rwkv fused: not every request finished")
-        mixed = np.asarray(eng.metrics.prefill_tokens_trace) > 0
-        return ([r.generated for r in reqs], np.asarray(step_s), mixed,
-                build.launch_counts())
+        return fused_fcfs_run(torch, np, c, mdl, dev, prompts, "rwkv")
 
     def agreeing(a, b):
         return [sum(x == y for x, y in zip(p, q)) for p, q in zip(a, b)]
@@ -2516,6 +2653,400 @@ def phase_rwkv_per_request(torch, np, cfg, model, model32, dev):
 
 
 # -- qwen1.5-0.5b training: the flash attention kernels --------------------
+# -- deepseek-v2-lite-16b: MLA and the dropless MoE on the mla latent plane --
+def phase_mla_rows(torch, np, dcfg, report, dev):
+    """Rows 6-7 at the ``mla`` leg (module docstring, phase 14): the bulk
+    gather's plan and resources there; gather and scatter bit-exact
+    against their plain versions at 1 row, fewer work items than the grid,
+    a grid multiple plus a remainder and the 1,350-page leg, each with ids
+    outside the pool; the leg's times (gather cold, as ``gather_legs``;
+    scatter) beside ``index_select`` / ``index_copy_`` and the bound.
+    Adds a ``deepseek_mla`` record to both kernels' entries."""
+    import math
+    from repro_torch.kernels.kv_gather import ops as kv_ops
+    from repro_torch.kernels.kv_gather import ref as kv_ref
+    shapes = mla_leg_shape(dcfg)
+    ((page, dtype, n_leg, _),) = shapes.values()
+    row = math.prod(page) * dtype.itemsize
+    print_gather_resources(torch, kv_ops, None, None, shapes)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rng = np.random.default_rng(5)
+    P = 2 * n_leg + 1
+    pool = torch.randn((P,) + page, generator=g, device=dev).to(dtype)
+    grid = kv_ops.BLOCKS_PER_SM * kv_ops.sm_count(0)
+    plans = []
+    for n in (1, 7, 3 * grid + 5, n_leg):
+        ids = rng.choice(P, n, replace=False).astype(np.int32)
+        if n > 2:
+            ids[0], ids[n // 2] = -1, P              # outside the pool
+        ids = torch.as_tensor(ids).to(dev)
+        plan = kv_ops.gather_plan(n, row, 16, kv_ops.sm_count(0))
+        got = kv_ops.gather_pages(pool, ids)
+        new = torch.randn(got.shape, generator=g, device=dev).to(dtype)
+        scattered = kv_ops.scatter_pages(pool.clone(), new, ids)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+                and torch.equal(scattered, kv_ref.scatter_pages_ref(
+                    pool.clone(), new, ids))):
+            raise AssertionError(f"gather/scatter at {n} mla rows differ "
+                                 f"from their plain versions")
+        plans.append(f"{n} rows: {plan.route}, chunk {plan.chunk_bytes} B "
+                     f"(tail {row % plan.chunk_bytes} B), {plan.blocks} "
+                     f"blocks")
+    print(f"gather/scatter kernels at mla rows of {row} B ({page}, {dtype}):"
+          f" bit-exact against the plain versions, ids outside the pool "
+          f"included, at {'; '.join(plans)}")
+    if row % kv_ops.gather_plan(n_leg, row, 16,
+                                kv_ops.sm_count(0)).chunk_bytes == 0:
+        raise AssertionError("the mla leg's plan has no tail chunk")
+    del pool, got, new, scattered
+
+    gather = gather_legs(torch, np, kv_ops, kv_ref, None, None, dev,
+                         shapes)["deepseek_mla"]
+    staging_pool = torch.randn((P,) + page, generator=g, device=dev).to(dtype)
+    ids = torch.as_tensor(rng.choice(P, n_leg, replace=False).astype(
+        np.int32)).to(dev)
+    staging = kv_ops.gather_pages(staging_pool, ids)
+    remote = torch.zeros((2 * n_leg,) + page, device=dev, dtype=dtype)
+    dst = torch.as_tensor(rng.choice(2 * n_leg, n_leg, replace=False)
+                          .astype(np.int32)).to(dev)
+    dst64 = dst.long()
+    ms, plain_ms = interleaved(
+        lambda: kv_ref.scatter_pages_ref(remote, staging, dst),
+        lambda: kv_ops.scatter_pages(remote, staging, dst), 20)
+    vs_lib = against_library(
+        np, lambda: remote.index_copy_(0, dst64, staging),
+        lambda: kv_ops.scatter_pages(remote, staging, dst), 20)
+    b, by = bound_ms(2 * n_leg * row + 4 * n_leg)
+    scatter = dict(shape=f"deepseek_mla: {n_leg} pages of {row} B into "
+                         f"{2 * n_leg}, {dtype}",
+                   max_abs_err=0.0, tolerance=0.0, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b, bound_by=by,
+                   library_ms=vs_lib["library_median_ms"], vs_library=vs_lib)
+    for name, case in (("gather_pages", gather), ("scatter_pages", scatter)):
+        next(k for k in report if k["name"] == name)["deepseek_mla"] = case
+        print(f"kernel {name} {case['shape']}: kernel {case['ms']:.4f} ms "
+              f"plain {case['plain_ms']:.4f} ms bound "
+              f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}) library"
+              f" {case['library_ms']:.4f} ms; vs library, {REPEATS} "
+              f"interleaved repeats"
+              + (f" ({case['rotation']})" if "rotation" in case else "")
+              + ": " + json.dumps(case["vs_library"]))
+    del staging_pool, staging, remote
+
+
+def phase_deepseek_model(torch, dcfg):
+    """The full-width model from a seeded CUDA generator (phase 15): its
+    parameters against the reference's formula and the memory it holds."""
+    from repro_torch.models import lm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    model = lm.init_params(dcfg, gen, "cuda")
+    torch.cuda.synchronize()
+    span = time.perf_counter() - t
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    # the formula counts neither the MLA's kv_norm scales nor final_norm
+    norms = dcfg.n_layers * dcfg.mla.kv_lora_rank + dcfg.d_model
+    print(f"deepseek model: param_count() {dcfg.param_count():,} (the "
+          f"reference's formula); the model holds {n:,} = that + {norms:,} "
+          f"kv_norm and final_norm scales the formula leaves out, "
+          f"{nbytes / 2 ** 30:.2f} GiB; torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({before / 2 ** 30:.2f} GiB before); built in {span:.1f} s")
+    if dcfg.param_count() != 16_210_309_120 or n != dcfg.param_count() \
+            + norms:
+        raise AssertionError("deepseek model: wrong parameter count")
+    return model
+
+
+def rel_per_token(torch, got, want, real):
+    """The largest, over the ``real`` tokens, per-token distance of ``got``
+    to ``want`` relative to that token's largest entry of ``want``."""
+    scale = want.float().abs().amax(-1).clamp_min(1e-6)
+    d = (got.float() - want.float()).abs().amax(-1) / scale
+    return d[real].max().item()
+
+
+def expert_sets(torch, p, cfg, h):
+    from repro_torch.layers.moe import route
+    _, idx, _ = route(p, cfg, h.reshape(-1, h.shape[-1]))
+    return idx.sort(dim=-1).values
+
+
+def phase_deepseek_layer_step(torch, np, cfg, model, dev):
+    """One full-width packed step (``main_path_plan``) of deepseek, bf16
+    against float32 a layer at a time (phase 16; the whole model in
+    float32, ~65 GB, does not fit beside the bf16 one).
+
+    Per layer, on the bf16 path's layer input and pool: MLA
+    (``mla_mixed_paged``) through the layer as it is and through a float32
+    copy of it, within ``LAYER_REL_LIMIT`` per real token, a control (the
+    float32 copy with the furthest decode lane's newest page swapped for
+    scratch in its table) beyond it; the dropless MoE likewise on the same
+    normed input, its control routing to top-(k-1). On the two streams
+    each path carries (the bf16 step and a float32 step), the share of
+    real tokens whose top-k experts differ is printed, not asserted. Whole
+    step: the bf16 layers' logits must equal ``api.serve_step_paged``'s
+    bit for bit (so the layers compared are the served ones), and lie
+    nearer the float32 step's than the control's table gives."""
+    import dataclasses
+    from repro_torch.layers import mla as mla_mod
+    from repro_torch.layers.core import embed, rms_norm, unembed
+    from repro_torch.layers.moe import moe_apply
+    from repro_torch.models import api
+    rng = np.random.default_rng(1)
+    g = torch.Generator(device=dev).manual_seed(1)
+    page, max_seq = 16, 1024
+    read_pps = max_seq // page
+    pps_pad = read_pps + 256 // page + 1
+    q_starts, n_reals, n_dec, Tc = main_path_plan()
+    R, L = len(q_starts), cfg.n_layers
+    need = [-(-(int(s) + max(int(n), 1)) // page) if n else 0
+            for s, n in zip(q_starts, n_reals)]
+    P = 1 + L * sum(need)
+    dt = cfg.torch_compute_dtype()
+    lane = int(np.argmax(q_starts[:n_dec]))            # the control's lane
+    lost = int(q_starts[lane]) // page
+    pool = torch.randn((P, page, mla_mod.latent_dim(cfg)), generator=g,
+                       device=dev, dtype=dt)
+    bt = np.zeros((L, 1, R, pps_pad), np.int32)        # 0 = scratch
+    free = rng.permutation(np.arange(1, P)).astype(np.int32)
+    for l in range(L):
+        for r in range(R):
+            bt[l, 0, r, :need[r]], free = free[:need[r]], free[need[r]:]
+    tokens = rng.integers(0, cfg.vocab_size, (R, Tc)).astype(np.int32)
+    bt_ctrl = bt.copy()
+    bt_ctrl[:, 0, lane, lost] = 0         # the lane's newest page: scratch
+    tables = {False: torch.as_tensor(bt).to(dev),
+              True: torch.as_tensor(bt_ctrl).to(dev)}
+    real = torch.as_tensor(np.arange(Tc)[None] < n_reals[:, None]).to(dev)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    ctrl32 = cfg32.replace(moe=dataclasses.replace(
+        cfg.moe, top_k=cfg.moe.top_k - 1))
+    eps = cfg.rmsnorm_eps
+
+    def mix(p, c, h, pl, layer, control=False):
+        return mla_mod.mla_mixed_paged(p, c, h, pl, tables[control][layer, 0],
+                                       q_starts, n_reals, n_decode=n_dec,
+                                       read_pps=read_pps)
+
+    t = time.perf_counter()
+    x = embed(model.embed, cfg, torch.as_tensor(tokens).to(dev))
+    x32 = x.float()
+    pool_b, pool_32 = pool.clone(), pool.float()
+    rel = {k: [] for k in ("mla", "mla_control", "moe", "moe_control")}
+    differ = []
+    for layer, blk in enumerate(model.blocks):
+        blk32 = copy.deepcopy(blk).float()
+        h = rms_norm(blk.n1, x, eps)
+        out_b, _ = mix(blk.mix, cfg, h, pool_b, layer)
+        out_f, _ = mix(blk32.mix, cfg32, h.float(), pool_b.float(), layer)
+        out_c, _ = mix(blk32.mix, cfg32, h.float(), pool_b.float(), layer,
+                       control=True)
+        rel["mla"].append(rel_per_token(torch, out_b, out_f, real))
+        rel["mla_control"].append(rel_per_token(torch, out_c, out_f, real))
+        x = x + out_b
+        h2 = rms_norm(blk.n2, x, eps)
+        moe_b = moe_apply(blk.ffn, cfg, h2)[0]
+        moe_f = moe_apply(blk32.ffn, cfg32, h2.float())[0]
+        moe_c = moe_apply(blk32.ffn, ctrl32, h2.float())[0]
+        rel["moe"].append(rel_per_token(torch, moe_b, moe_f, real))
+        rel["moe_control"].append(rel_per_token(torch, moe_c, moe_f, real))
+        x = x + moe_b
+        # the float32 step, on its own stream and pool
+        x32 = x32 + mix(blk32.mix, cfg32, rms_norm(blk32.n1, x32, eps),
+                        pool_32, layer)[0]
+        h2_32 = rms_norm(blk32.n2, x32, eps)
+        sets = (expert_sets(torch, blk.ffn, cfg, h2)
+                != expert_sets(torch, blk32.ffn, cfg32, h2_32)).any(-1)
+        differ.append(sets.reshape(R, Tc)[real].float().mean().item())
+        x32 = x32 + moe_apply(blk32.ffn, cfg32, h2_32)[0]
+        del blk32, out_b, out_f, out_c, moe_b, moe_f, moe_c
+    last = torch.as_tensor(np.clip(n_reals - 1, 0, Tc - 1)).to(dev)
+    rows = torch.arange(R, device=dev)
+
+    def logits_of(mdl, c, xs):
+        xs = rms_norm(mdl.final_norm, xs, eps)
+        return unembed(mdl.embed, c, xs[rows, last]).float()
+    emb32 = copy.deepcopy(model.embed).float()
+    fin32 = copy.deepcopy(model.final_norm).float()
+    head32 = type("Head", (), {"embed": emb32, "final_norm": fin32})
+    outs = {"bf16 layers": logits_of(model, cfg, x),
+            "f32": logits_of(head32, cfg32, x32)}
+    del emb32, fin32, head32, x, x32, pool_32
+    span = time.perf_counter() - t
+    for name, table in (("served", bt), ("control", bt_ctrl)):
+        p = pool.clone()
+        lg, _ = api.serve_step_paged(model, cfg, tokens, {"mla": p},
+                                     {"mla": table}, q_starts, n_reals,
+                                     n_decode=n_dec, read_pps=read_pps)
+        outs[name] = lg.float()
+        del p
+    torch.cuda.synchronize()
+    keep = np.nonzero(n_reals > 0)[0]
+    # pad rows read the scratch page, whose duplicate writes land in no
+    # defined order: only the real rows are the step's answer
+    same = torch.equal(outs["served"][keep], outs["bf16 layers"][keep])
+    dist = {k: [round(v, 4) for v in
+                (outs[k] - outs["f32"]).abs().amax(-1)[keep].tolist()]
+            for k in ("served", "control")}
+    agree = (outs["served"][keep].argmax(-1)
+             == outs["f32"][keep].argmax(-1)).float().mean().item()
+    fmt = lambda v: ", ".join(f"{a:.3g}" for a in v)       # noqa: E731
+    print(f"deepseek layer step, per layer ({L} layers, R={R} Tc={Tc}), "
+          f"bf16 vs float32 max per-token relative diff: MLA "
+          f"{max(rel['mla']):.4g} (layers {fmt(rel['mla'])}), control "
+          f"(the lane at {int(q_starts[lane])} reading scratch for its "
+          f"newest page) least "
+          f"{min(rel['mla_control']):.4g}; MoE {max(rel['moe']):.4g} (layers "
+          f"{fmt(rel['moe'])}), control routing to top-{cfg.moe.top_k - 1} "
+          f"least {min(rel['moe_control']):.4g}; {span:.1f} s")
+    print(f"deepseek layer step, routing: share of real tokens whose top-"
+          f"{cfg.moe.top_k} experts differ between the bf16 and float32 "
+          f"steps, per layer: {fmt(differ)}; mean "
+          f"{float(np.mean(differ)):.4g}")
+    print(f"deepseek layer step, whole: the bf16 layers' logits of the "
+          f"{len(keep)} real rows equal api.serve_step_paged's bit for bit: "
+          f"{same}; |f32| max "
+          f"{outs['f32'][keep].abs().max().item():.3g}; per real row max abs"
+          f" diff to f32: {json.dumps(dist)}; argmax agreement with f32 "
+          f"{agree:.3f}")
+    for kind in ("mla", "moe"):
+        lk, lc = max(rel[kind]), min(rel[f"{kind}_control"])
+        if not lk <= LAYER_REL_LIMIT < lc:
+            raise AssertionError(
+                f"deepseek layer step: {kind} bf16 vs float32 {lk} must be "
+                f"within {LAYER_REL_LIMIT}, and its control ({lc}) beyond")
+    if not same:
+        raise AssertionError("deepseek layer step: the layers compared are "
+                             "not the served step's")
+    if tuple(outs["served"].shape) != (R, cfg.vocab_size) \
+            or not torch.isfinite(outs["served"]).all():
+        raise AssertionError("deepseek layer step: logits of the wrong "
+                             "shape or not finite")
+    if not max(dist["served"]) < max(dist["control"]):
+        raise AssertionError(
+            f"deepseek layer step: the served step's logits "
+            f"({max(dist['served'])} from float32) must lie nearer than the "
+            f"control's ({max(dist['control'])})")
+    return {"mla": max(rel["mla"]), "moe": max(rel["moe"]),
+            "routing_differs": float(np.mean(differ))}
+
+
+def phase_deepseek_per_request(torch, np, cfg, model, dev):
+    """Phase 5's prompts and decode steps through the per-request entry
+    points at full width (phase 17; MLA and the MoE launch no kernel
+    there: counts reset just before, printed), beside the same prompts
+    through the fused step (``ServingEngine``, FCFS): walls and agreeing
+    greedy tokens (reported, not asserted)."""
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(3)
+    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), split)
+               for n, split in PROMPTS.items()]
+    _sync(torch, dev)
+    build.reset_launch_counts()
+    run = per_request_run(torch, np, cfg, model, dev, prompts, "kernel",
+                          decode_steps=DECODE_STEPS)
+    launches = build.launch_counts()
+    print("deepseek per-request (api.prefill_chunk_paged / "
+          "api.decode_step_paged): "
+          + _walls(np, "prefill chunk wall", run["chunk_s"]) + "; "
+          + _walls(np, "decode step wall", run["step_s"])
+          + f"; kernel launches {json.dumps(launches, sort_keys=True)}")
+    if not all(len(t) == DECODE_STEPS + 1 and all(0 <= v < cfg.vocab_size
+                                                  for v in t)
+               for t in run["tokens"]) or not all(
+            torch.isfinite(lg).all() for lg in run["logits"]):
+        raise AssertionError("deepseek per-request: wrong greedy tokens or "
+                             "logits not finite")
+    del run["kv"]
+    tokens, step_s, mixed, _ = fused_fcfs_run(torch, np, cfg, model, dev,
+                                              prompts, "deepseek")
+    agree = [sum(a == b for a, b in zip(x, y))
+             for x, y in zip(tokens, run["tokens"])]
+    print(f"deepseek fused (ServingEngine FCFS, same prompts): "
+          f"{len(step_s)} steps; "
+          + _walls(np, "step wall with prompt chunks", step_s[mixed]) + "; "
+          + _walls(np, "decode-only step wall", step_s[~mixed])
+          + f"; greedy tokens agreeing with the per-request path per prompt"
+          f" {list(PROMPTS)}: {agree} of {DECODE_STEPS + 1} each")
+    return launches
+
+
+def roundtrip_run(torch, np, cfg, model, dev, prompt, chunks, steps, park):
+    """One prompt chunk by chunk through the per-request entry points, then
+    ``steps`` decode steps; with ``park``, the request parks on a REMOTE
+    lease and is restored after every chunk and step. Returns every
+    logits row and the runtime."""
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.models import api
+    from repro_torch.serving.kv_cache import PagedStateRuntime
+    from repro_torch.serving.scheduler import bucket_tokens
+    kv = PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=2,
+                           prefix_cache=False, device=dev)
+    kv.add_remote_lease("donor0", 1 << 28)
+    pad = kv.pps + 256 // kv.page_tokens + 1
+    logs, pos = [], 0
+    for c in chunks:
+        kv.ensure_capacity(0, pos + c)
+        tk = np.zeros((1, bucket_tokens(c)), np.int32)
+        tk[0, :c] = prompt[pos:pos + c]
+        lg, kv.pools = api.prefill_chunk_paged(
+            model, cfg, tk, kv.pools, kv.block_tables_prefill(0, pad_to=pad),
+            pos, c - 1, read_pps=kv.pps)
+        pos += c
+        if park:
+            kv.park(0, pos, prefer=REMOTE)
+            kv.restore(0)
+    logs.append(lg[0])
+    for t in range(steps):
+        ctx = len(prompt) + t + 1
+        kv.ensure_capacity(0, ctx)
+        lg, kv.pools = api.decode_step_paged(
+            model, cfg, kv.pools, kv.block_tables([0, None]),
+            [int(logs[-1].argmax()), 0], [ctx - 1, 0])
+        logs.append(lg[0])
+        if park:
+            kv.park(0, ctx, prefer=REMOTE)
+            kv.restore(0)
+    _sync(torch, dev)
+    return logs, kv
+
+
+def phase_deepseek_roundtrip(torch, np, cfg, model, dev):
+    """A park/restore round trip at full width (phase 19): a 300-token
+    prompt in two mid-page chunks and 8 decode steps, parked on a same-card
+    REMOTE lease and restored after every chunk and step, must give every
+    logits row bit for bit as the unparked run; gather and scatter must
+    launch, one fabric message per leg. Returns the parked run's launch
+    counts."""
+    from repro_torch.kernels import build
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 300)
+    base, _ = roundtrip_run(torch, np, cfg, model, dev, prompt, (120, 180),
+                            8, False)
+    build.reset_launch_counts()
+    parked, kv = roundtrip_run(torch, np, cfg, model, dev, prompt,
+                               (120, 180), 8, True)
+    launches = build.launch_counts()
+    same = all(torch.equal(a, b) for a, b in zip(base, parked))
+    m = kv.meter
+    print(f"deepseek round trip: {len(base)} logits rows (2 chunks, 8 "
+          f"steps) parked and restored after each: bit-identical to the "
+          f"unparked run: {same}; messages_fabric {m.messages_fabric}, "
+          f"bytes_fabric {m.bytes_fabric:.0f}; launches "
+          f"{json.dumps(launches, sort_keys=True)}")
+    if not same or m.messages_fabric != 2 * (2 + 8) or not all(
+            launches.get(k, 0) > 0 for k in ("gather_pages",
+                                             "scatter_pages")):
+        raise AssertionError("deepseek round trip: logits differ from the "
+                             "unparked run, or the legs are not one "
+                             "message each through the kernels")
+    return launches
+
+
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:76"
 # (B, Sq, Sk, H, K, hd, causal, window): the reference's test_kernels sweep
@@ -3069,7 +3600,7 @@ def main() -> int:
     print(f"admission and request lifecycle phase: "
           f"{time.perf_counter() - t_req:.1f} s")
     del model
-    torch.cuda.empty_cache()
+    release(torch)
     print(f"qwen1.5-0.5b phases done at {time.perf_counter() - t0:.1f} s")
 
     # -- rwkv6-3b: the wkv state and shift planes, the WKV kernel ---------
@@ -3087,8 +3618,38 @@ def main() -> int:
                                   need=("wkv6", "gather_pages",
                                         "scatter_pages"))
     del model
-    torch.cuda.empty_cache()
+    release(torch)
     print(f"rwkv6-3b phases done at {time.perf_counter() - t0:.1f} s")
+
+    # -- deepseek-v2-lite-16b: MLA and the MoE, the mla latent plane -------
+    dcfg = get_config("deepseek-v2-lite-16b")
+    spans = {}
+    t = time.perf_counter()
+    phase_mla_rows(torch, np, dcfg, report, dev)
+    spans["mla rows"] = time.perf_counter() - t
+    t = time.perf_counter()
+    model = phase_deepseek_model(torch, dcfg)
+    spans["model"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_deepseek_layer_step(torch, np, dcfg, model, dev)
+    torch.cuda.empty_cache()
+    spans["layer step"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ds_per_request = phase_deepseek_per_request(torch, np, dcfg, model, dev)
+    spans["per-request"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ds_engine, _ = phase_engine(torch, np, dcfg, model, dev,
+                                need=("gather_pages", "scatter_pages"),
+                                profile=True)
+    spans["engine"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ds_roundtrip = phase_deepseek_roundtrip(torch, np, dcfg, model, dev)
+    spans["round trip"] = time.perf_counter() - t
+    del model
+    release(torch)
+    print(f"deepseek-v2-lite-16b phase spans (s): "
+          f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
+          f"at {time.perf_counter() - t0:.1f} s")
 
     # -- qwen1.5-0.5b training: the flash attention kernels ----------------
     phase_flash_kernels(torch, report)
@@ -3101,11 +3662,15 @@ def main() -> int:
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
-    # path that runs it, phase 6c's admission and request lifecycle included
+    # path that runs it, phase 6c's admission and request lifecycle and the
+    # deepseek paths included
     paths = (("engine", launches), ("per-request", per_request),
              ("split-pool drive", split), ("rwkv engine", rwkv_engine),
              ("rwkv per-request", rwkv_per_request), ("train", train_run),
-             ("request lifecycle", request_lifecycle))
+             ("request lifecycle", request_lifecycle),
+             ("deepseek engine", ds_engine),
+             ("deepseek per-request", ds_per_request),
+             ("deepseek round trip", ds_roundtrip))
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -3115,6 +3680,10 @@ def main() -> int:
     missing = [k["name"] for k in report if k["launches"] == 0]
     if missing:
         raise AssertionError(f"no path launched {missing}")
+    if not all(ds_engine.get(k, 0) > 0 for k in ("gather_pages",
+                                                 "scatter_pages")):
+        raise AssertionError("the deepseek engine launched no gather or no "
+                             "scatter")
     print(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """Architecture configuration for the PyTorch port.
 
 The fields of ``repro/configs/base.py``'s :class:`ModelConfig` that the
-dense and RWKV-6 families read (the sub-configs of the MoE, MLA, hybrid and
-encoder-decoder families come with their slices), with
-:meth:`ModelConfig.dtype` returning a torch dtype. Only the architectures
-the port serves register here.
+dense, MoE (with DeepSeek's MLA) and RWKV-6 families read (the
+sub-configs of the hybrid and encoder-decoder families come with their
+slices), with :meth:`ModelConfig.dtype` returning a torch dtype. Only the
+architectures the port serves register here.
 """
 from __future__ import annotations
 
@@ -15,7 +15,30 @@ from typing import Optional
 import torch
 
 DENSE = "dense"          # decoder-only transformer (GQA/MQA)
+MOE = "moe"              # decoder-only transformer with MoE FFN
 SSM = "ssm"              # RWKV-6 (attention-free)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8                # routed experts
+    top_k: int = 2
+    n_shared_experts: int = 0         # always-on shared experts (DeepSeek style)
+    d_ff_expert: int = 0              # per-expert FFN width (0 = use d_ff)
+    capacity_factor: float = 1.25     # dispatch capacity factor
+    router_jitter: float = 0.0
+    moe_every: int = 1                # apply MoE every k-th layer
+    aux_loss_coef: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0              # 0 = direct q projection (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -49,6 +72,8 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     sliding_window: int = 0
     global_layer_every: int = 0
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     n_prefix_embeds: int = 0
     max_seq_len: int = 8192
@@ -59,24 +84,50 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        if self.moe is None:
+            return False
+        return (layer_idx % self.moe.moe_every) == (self.moe.moe_every - 1)
+
     def param_count(self) -> int:
-        """Analytic parameter count of a dense or RWKV-6 stack (the
-        reference's formula)."""
+        """Analytic parameter count of a dense, MoE/MLA or RWKV-6 stack
+        (the reference's formula)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         nh, nkv, L = self.n_heads, self.n_kv_heads, self.n_layers
-        if self.family == SSM:
-            s = self.ssm or SSMConfig()
-            # time-mix: r,k,v,g,w projections + output + decay/mix LoRAs;
-            # channel mix
-            per_layer = (5 * d * d + d * d + 2 * d * s.rwkv_lora_decay
-                         + 5 * 2 * d * s.rwkv_lora_mix
-                         + 2 * d * f + f * d)
-        else:
-            glu = 3 if self.activation in ("swiglu", "geglu") else 2
-            per_layer = (d * (nh * hd) + 2 * d * (nkv * hd) + (nh * hd) * d
-                         + glu * d * f + 2 * d)
-        return v * d * (1 if self.tie_embeddings else 2) + L * per_layer
+        glu = 3 if self.activation in ("swiglu", "geglu") else 2
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for i in range(L):
+            if self.family == SSM:
+                s = self.ssm or SSMConfig()
+                # time-mix: r,k,v,g,w projections + output + decay/mix
+                # LoRAs; channel mix
+                total += (5 * d * d + d * d + 2 * d * s.rwkv_lora_decay
+                          + 5 * 2 * d * s.rwkv_lora_mix
+                          + 2 * d * f + f * d)
+                continue
+            if self.mla is not None:
+                total += self._mla_layer_params()
+            else:
+                total += d * (nh * hd) + 2 * d * (nkv * hd) + (nh * hd) * d
+            if self.is_moe_layer(i):
+                m = self.moe
+                fe = m.d_ff_expert or f
+                total += d * m.n_experts                       # router
+                total += (m.n_experts + m.n_shared_experts) * glu * d * fe
+            else:
+                total += glu * d * f
+            total += 2 * d                                     # norms
+        return total
+
+    def _mla_layer_params(self) -> int:
+        d, m, nh = self.d_model, self.mla, self.n_heads
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        q = (d * nh * qd if m.q_lora_rank == 0
+             else d * m.q_lora_rank + m.q_lora_rank * nh * qd)
+        kv = d * (m.kv_lora_rank + m.qk_rope_head_dim)
+        kv += m.kv_lora_rank * nh * (m.qk_nope_head_dim + m.v_head_dim)
+        return q + kv + nh * m.v_head_dim * d
 
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
@@ -111,8 +162,8 @@ def get_config(name: str) -> ModelConfig:
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests — the reference's
     ``smoke_config`` for the families the port serves."""
-    if cfg.family not in (DENSE, SSM):
-        raise NotImplementedError(f"{cfg.name}: only dense and RWKV-6 "
+    if cfg.family not in (DENSE, MOE, SSM):
+        raise NotImplementedError(f"{cfg.name}: only dense, MoE and RWKV-6 "
                                   "smoke configs are ported")
     kw = dict(
         n_layers=min(cfg.n_layers, 4), d_model=128, n_heads=4,
@@ -120,6 +171,17 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         else 4,
         head_dim=32, d_ff=256, vocab_size=512, max_seq_len=128,
         param_dtype="float32", compute_dtype="float32")
+    if cfg.moe is not None:
+        # capacity_factor = n_experts makes capacity routing dropless
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=2,
+            n_shared_experts=min(cfg.moe.n_shared_experts, 1),
+            d_ff_expert=128 if cfg.moe.d_ff_expert else 0,
+            capacity_factor=4.0)
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=64, q_lora_rank=0,
+                              qk_nope_head_dim=32, qk_rope_head_dim=16,
+                              v_head_dim=32)
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, rwkv_head_dim=32,
                                         rwkv_lora_decay=16, rwkv_lora_mix=8)

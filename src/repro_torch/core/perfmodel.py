@@ -83,11 +83,26 @@ class ModelCost:
 
     @staticmethod
     def from_config(cfg) -> "ModelCost":
-        """Costs of a dense config (every layer is attention) or an RWKV-6
-        one (O(1) recurrent state, no per-token cache)."""
-        kvtok = (0.0 if cfg.family == "ssm" else
-                 2 * cfg.n_kv_heads * cfg.resolved_head_dim * cfg.n_layers * 2)
-        return ModelCost(float(cfg.param_count()), float(kvtok),
+        """Costs of a dense config (every layer is attention), an MoE/MLA
+        one (the latent cache per token; only the top-k routed experts are
+        active) or an RWKV-6 one (O(1) recurrent state, no per-token
+        cache)."""
+        if cfg.mla is not None:
+            kvtok = ((cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim)
+                     * cfg.n_layers * 2)
+        elif cfg.family == "ssm":
+            kvtok = 0.0
+        else:
+            kvtok = 2 * cfg.n_kv_heads * cfg.resolved_head_dim \
+                * cfg.n_layers * 2
+        n_active = cfg.param_count()
+        if cfg.moe is not None:
+            m = cfg.moe
+            fe = m.d_ff_expert or cfg.d_ff
+            glu = 3 if cfg.activation in ("swiglu", "geglu") else 2
+            n_active -= ((m.n_experts - m.top_k) * glu * cfg.d_model * fe
+                         * (cfg.n_layers // m.moe_every))
+        return ModelCost(float(n_active), float(kvtok),
                          n_layers=int(cfg.n_layers))
 
     def prefill_time(self, hw: HardwareProfile, n_tokens: int) -> float:

@@ -4,8 +4,9 @@ scheduling on a CUDA card (or, with ``--device cpu``, the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --smoke --scheduler cfs --offload fabric --requests 8 --device cpu
 
-``--arch`` is ``qwen1.5-0.5b`` (the ``kv`` token plane) or ``rwkv6-3b``
-(the ``wkv`` and ``shift`` state planes).
+``--arch`` is ``qwen1.5-0.5b`` (the ``kv`` token plane),
+``deepseek-v2-lite-16b`` (MLA and the MoE: the ``mla`` latent token plane)
+or ``rwkv6-3b`` (the ``wkv`` and ``shift`` state planes).
 """
 from __future__ import annotations
 

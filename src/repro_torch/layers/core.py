@@ -107,9 +107,10 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 d_ff: Optional[int] = None):
         super().__init__()
-        d, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype()
+        d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.dtype()
         self.up = Linear(d, f, dt, device, generator=generator)
         self.down = Linear(f, d, dt, device, std=1.0 / math.sqrt(f),
                            generator=generator)

@@ -1,0 +1,278 @@
+"""Multi-head latent attention (DeepSeek-V2) on the paged latent plane —
+``repro/layers/mla.py``'s paged functions.
+
+A page of the ``mla`` token plane holds, per token, the normalised rank-r
+latent and the shared roped key: ``(page, kv_lora + rope_dim)`` in the
+compute dtype (576 elements a token on V2). Prefill chunks attend
+non-absorbed (per-head K/V materialised from the latents); decode lanes
+attend absorbed (the query taken through ``wuk`` into latent space, the
+context back through ``wuv``). Pools are updated IN PLACE and returned,
+as in the attention layers. The reference computes all of it in ``jnp``
+(no Pallas kernel), so the products here are PyTorch's.
+
+Not ported: the non-paged ``mla_full`` / ``mla_decode`` / ``MLACache``
+and a low-rank query (``q_lora_rank > 0``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.layers.core import (Linear, RMSNorm, apply_rope, linear,
+                                     rms_norm)
+
+
+class MLA(nn.Module):
+    """``wq`` (d, H (nope + rope)), ``wdkv`` (d, kv_lora + rope),
+    ``kv_norm``, ``wuk`` (kv_lora, H nope), ``wuv`` (kv_lora, H v),
+    ``wo`` (H v, d)."""
+
+    def __init__(self, cfg: ModelConfig, device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        m = cfg.mla
+        if m.q_lora_rank:
+            raise NotImplementedError(f"{cfg.name}: a low-rank MLA query is "
+                                      "not ported")
+        d, H, dt = cfg.d_model, cfg.n_heads, cfg.dtype()
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        kw = dict(generator=generator)
+        self.wq = Linear(d, H * qd, dt, device, **kw)
+        self.wdkv = Linear(d, m.kv_lora_rank + m.qk_rope_head_dim, dt, device,
+                           **kw)
+        self.kv_norm = RMSNorm(m.kv_lora_rank, dt, device)
+        self.wuk = Linear(m.kv_lora_rank, H * m.qk_nope_head_dim, dt, device,
+                          **kw)
+        self.wuv = Linear(m.kv_lora_rank, H * m.v_head_dim, dt, device, **kw)
+        self.wo = Linear(H * m.v_head_dim, d, dt, device, **kw)
+
+
+def latent_dim(cfg: ModelConfig) -> int:
+    return cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+
+
+def _latents(p: MLA, cfg: ModelConfig, x, positions):
+    """x (B,T,d) -> normalised latents (B,T,kv_lora), roped keys
+    (B,T,rope)."""
+    r = cfg.mla.kv_lora_rank
+    c = linear(p.wdkv, x)
+    c_kv = rms_norm(p.kv_norm, c[..., :r], cfg.rmsnorm_eps)
+    k_rope = apply_rope(c[..., r:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _queries(p: MLA, cfg: ModelConfig, x, positions):
+    m = cfg.mla
+    B, T, _ = x.shape
+    q = linear(p.wq, x).reshape(B, T, cfg.n_heads,
+                                m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim
+                           + cfg.mla.qk_rope_head_dim)
+
+
+def window_rows(starts, Tc: int, page: int, pps_pad: int) -> np.ndarray:
+    """Host arithmetic of the reference's chunk write: row r's Tc latents
+    land from token row ``starts[r] % page`` of a window of ``pps_win``
+    pages that ``dynamic_slice`` takes from table entry ``starts[r] //
+    page``, clamped so the window fits the table. Returns (R, Tc) int64
+    flat indices ``table_entry * page + row_in_page``."""
+    starts = np.asarray(starts, np.int64).reshape(-1)
+    pps_win = Tc // page + (1 if Tc % page else 0) + 1
+    if pps_win > pps_pad:
+        raise ValueError(f"a {Tc}-token chunk needs a {pps_win}-page window; "
+                         f"the block table has {pps_pad}")
+    win = np.clip(starts // page, 0, pps_pad - pps_win)
+    j = (starts % page)[:, None] + np.arange(Tc)[None, :]
+    return (win[:, None] + j // page) * page + j % page
+
+
+def write_chunk_latent_pages(lat_pool, lat, block_table, rows):
+    """Chunked prefill writes latent pages in place, every row of the chunk
+    in one indexed write: ``lat`` (R, Tc, C) lands at the flat window
+    indices ``rows`` (R, Tc) (``window_rows``, as a tensor on the pool's
+    device) of each row's table ``block_table`` (R, pps_pad). All Tc
+    columns are written, padding included, as the reference's window
+    update does. A page named twice (scratch padding) takes one of its
+    writes."""
+    page = lat_pool.shape[1]
+    slots = torch.gather(block_table.long(), 1, rows // page)
+    lat_pool[slots, rows % page] = lat.to(lat_pool.dtype)
+    return lat_pool
+
+
+def _gather_latents(cfg: ModelConfig, lat_pool, block_table):
+    """(B, pps) slots -> latents (B, pps*page, kv_lora), roped keys
+    (B, pps*page, rope)."""
+    pages = lat_pool[block_table.long()]               # (B, pps, page, C)
+    allc = pages.reshape(pages.shape[0], -1, pages.shape[-1])
+    r = cfg.mla.kv_lora_rank
+    return allc[..., :r], allc[..., r:]
+
+
+def _chunk_attention(p: MLA, cfg: ModelConfig, x, lat_pool, block_table,
+                     positions):
+    """Non-absorbed causal attention of chunk rows x (R,Tc,d) at
+    ``positions`` (R,Tc) over the latents of ``block_table`` (R, pps)."""
+    m = cfg.mla
+    R, Tc, _ = x.shape
+    H = cfg.n_heads
+    c_all, r_all = _gather_latents(cfg, lat_pool, block_table)
+    S = c_all.shape[1]
+    k_nope = linear(p.wuk, c_all).reshape(R, S, H, m.qk_nope_head_dim)
+    v = linear(p.wuv, c_all).reshape(R, S, H, m.v_head_dim)
+    q_nope, q_rope = _queries(p, cfg, x, positions)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, r_all[:, :, None, :].expand(
+        R, S, H, m.qk_rope_head_dim)], dim=-1)
+    scores = torch.einsum("bthd,bshd->bhts", q, k) * _scale(cfg)
+    mask = (torch.arange(S, device=x.device)[None, None, :]
+            <= positions[:, :, None])[:, None]
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhts,bshd->bthd", probs, v)
+    return linear(p.wo, ctx.reshape(R, Tc, -1))
+
+
+def step_meta(q_starts, n_decode: int, Tc: int, page: int, pps_pad: int,
+              device) -> dict:
+    """Device copies of a call's MLA metadata, made once per step and
+    shared by every layer: the decode lanes' positions (n_decode, 1), the
+    chunk rows' token positions (R - n_decode, Tc) and their window write
+    indices (``window_rows``)."""
+    qs = np.asarray(q_starts, np.int64).reshape(-1)
+    meta = {}
+    if n_decode:
+        meta["decode_positions"] = torch.as_tensor(
+            qs[:n_decode, None]).to(device)
+    if len(qs) > n_decode:
+        starts = qs[n_decode:]
+        meta["chunk_positions"] = torch.as_tensor(
+            starts[:, None] + np.arange(Tc)[None, :]).to(device)
+        meta["rows"] = torch.as_tensor(
+            window_rows(starts, Tc, page, pps_pad)).to(device)
+    return meta
+
+
+def mla_prefill_chunk(p: MLA, cfg: ModelConfig, x, lat_pool, block_table,
+                      q_start: int, *, read_pps: Optional[int] = None,
+                      meta=None):
+    """Chunked prefill MLA for ONE request.
+
+    x: (1,Tc,d), one normed chunk at positions ``q_start + [0, Tc)``;
+    lat_pool: (P,page,C); block_table: (pps_pad,) int32 LOCAL slots of the
+    request's latent pages from position 0, scratch-padded, on the pool's
+    device; q_start: host int; ``meta`` optionally the ``step_meta`` of
+    the chunk (shared by every layer). The chunk's latents are written into
+    their page window first, then the chunk attends (non-absorbed, causal)
+    to every latent of the first ``read_pps`` pages. Returns
+    (out (1,Tc,d), pool).
+    """
+    B, Tc, _ = x.shape
+    if B != 1:
+        raise ValueError(f"chunked prefill is per-request, got {B} rows")
+    bt = block_table[None]
+    if meta is None:
+        meta = step_meta([q_start], 0, Tc, lat_pool.shape[1], bt.shape[1],
+                         x.device)
+    positions = meta["chunk_positions"]
+    c_kv, k_rope = _latents(p, cfg, x, positions)
+    write_chunk_latent_pages(lat_pool, torch.cat([c_kv, k_rope], dim=-1), bt,
+                             meta["rows"])
+    out = _chunk_attention(p, cfg, x, lat_pool, bt[:, :read_pps], positions)
+    return out, lat_pool
+
+
+def mla_decode_paged(p: MLA, cfg: ModelConfig, x, lat_pool, block_table,
+                     pos, *, meta=None):
+    """Absorbed single-token decode reading and writing the latent pool.
+
+    x: (B,1,d); lat_pool: (P,page,C); block_table: (B,pps) int32 LOCAL
+    slots on the pool's device (idle lanes on scratch); pos: (B,) host
+    positions; ``meta`` optionally their ``step_meta``. Each lane's new
+    latent goes into its tail page row in place, then the query, taken into latent space through ``wuk`` in the
+    compute dtype, attends to the gathered latents at positions <= pos.
+    Returns (out (B,1,d), pool).
+    """
+    m = cfg.mla
+    B = x.shape[0]
+    H, dt = cfg.n_heads, x.dtype
+    page = lat_pool.shape[1]
+    if meta is None:
+        meta = step_meta(pos, B, 1, page, block_table.shape[1], x.device)
+    positions = meta["decode_positions"]                 # (B,1)
+    c_new, r_new = _latents(p, cfg, x, positions)
+    pos_d = positions[:, 0]
+    slot = torch.gather(block_table.long(), 1, (pos_d // page)[:, None])[:, 0]
+    lat_pool[slot, pos_d % page] = torch.cat(
+        [c_new, r_new], dim=-1)[:, 0].to(lat_pool.dtype)
+
+    c_kv, k_rope = _gather_latents(cfg, lat_pool, block_table)   # (B,S,*)
+    S = c_kv.shape[1]
+    q_nope, q_rope = _queries(p, cfg, x, positions)
+    wuk = p.wuk.w.to(dt).reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_eff = torch.einsum("bthd,chd->bthc", q_nope, wuk)
+    scores = (torch.einsum("bthc,bsc->bhts", q_eff, c_kv)
+              + torch.einsum("bthd,bsd->bhts", q_rope, k_rope)) * _scale(cfg)
+    mask = (torch.arange(S, device=x.device)[None, :]
+            <= positions[:, :1])[:, None, None, :]
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    ctx_lat = torch.einsum("bhts,bsc->bthc", probs, c_kv)
+    wuv = p.wuv.w.to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    ctx = torch.einsum("bthc,chd->bthd", ctx_lat, wuv)
+    return linear(p.wo, ctx.reshape(B, 1, -1)), lat_pool
+
+
+def mla_mixed_paged(p: MLA, cfg: ModelConfig, x, lat_pool, block_table,
+                    q_starts, n_reals, *, n_decode: int,
+                    read_pps: Optional[int] = None, meta=None):
+    """Mixed-mode MLA of a packed engine step.
+
+    x: (R,Tc,d) packed rows — rows ``[:n_decode]`` decode lanes (one real
+    token at column 0, position ``q_starts[r]``), the rest chunk rows
+    (``n_reals[r]`` real tokens from ``q_starts[r]``; 0 marks a bucket-pad
+    row on scratch). lat_pool: (P,page,C); block_table: (R, pps_pad) on
+    the pool's device; q_starts / n_reals: (R,) host arrays; ``meta``
+    optionally the step's ``step_meta`` (shared by every layer).
+
+    Each mode keeps its per-request math: the decode lanes run
+    ``mla_decode_paged`` (absorbed; their tail columns are zero), then
+    every chunk row's window is written in one indexed write and the chunk
+    rows attend non-absorbed over the first ``read_pps`` pages. Returns
+    (out (R,Tc,d), pool).
+    """
+    R, Tc, _ = x.shape
+    qs = np.asarray(q_starts, np.int64).reshape(-1)
+    if meta is None:
+        meta = step_meta(qs, n_decode, Tc, lat_pool.shape[1],
+                         block_table.shape[1], x.device)
+    out_rows = []
+    if n_decode:
+        out_d, _ = mla_decode_paged(p, cfg, x[:n_decode, :1], lat_pool,
+                                    block_table[:n_decode, :read_pps],
+                                    qs[:n_decode], meta=meta)
+        if Tc > 1:
+            out_d = torch.cat([out_d, out_d.new_zeros(
+                (n_decode, Tc - 1, out_d.shape[-1]))], dim=1)
+        out_rows.append(out_d)
+    if R > n_decode:
+        xc, bt = x[n_decode:], block_table[n_decode:]
+        positions = meta["chunk_positions"]
+        c_kv, k_rope = _latents(p, cfg, xc, positions)
+        write_chunk_latent_pages(lat_pool, torch.cat([c_kv, k_rope], dim=-1),
+                                 bt, meta["rows"])
+        out_rows.append(_chunk_attention(p, cfg, xc, lat_pool,
+                                         bt[:, :read_pps], positions))
+    out = out_rows[0] if len(out_rows) == 1 else torch.cat(out_rows, dim=0)
+    return out, lat_pool

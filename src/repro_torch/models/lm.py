@@ -1,13 +1,16 @@
-"""Decoder LM for training and the paged serving runtime — the dense and
-RWKV-6 subset of ``repro/models/lm.py`` (training: the dense family).
+"""Decoder LM for training and the paged serving runtime — the dense,
+MoE/MLA and RWKV-6 subset of ``repro/models/lm.py`` (training: the dense
+family).
 
 The reference stacks layer groups for ``lax.scan``; here the model is an
 ``nn.Module`` whose ``blocks`` are one module per layer and the step is a
-Python loop over them (PyTorch runs eagerly). Both families the port serves
-have one sub-layer per group, so the reference's group g is this model's
-layer g. A layer's sequence mixer is attention (with an MLP after it) or
-RWKV-6 (time-mix and channel-mix, with their own residuals): see
-``mixer_kind``.
+Python loop over them (PyTorch runs eagerly). Every family the port serves
+has one sub-layer per group, so the reference's group g is this model's
+layer g, and a layer's kinds are those of sub-layer 0: its sequence mixer
+is attention, MLA (each followed by a feed-forward: the MLP, or the
+dropless MoE where ``ffn_kind`` says so) or RWKV-6 (time-mix and
+channel-mix, with their own residuals). See ``mixer_kind`` and
+``ffn_kind``.
 """
 from __future__ import annotations
 
@@ -18,24 +21,48 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, SSM, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, SSM, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.layers import attention as attn
+from repro_torch.layers import mla as mla_mod
 from repro_torch.layers import rwkv6 as rwkv
-from repro_torch.layers.core import (MLP, Embedding, RMSNorm, embed, mlp,
-                                     rms_norm, unembed)
+from repro_torch.layers.core import (MLP, Embedding, RMSNorm, check_impl,
+                                     embed, mlp, rms_norm, unembed)
+from repro_torch.layers.moe import MoE, moe_apply
 from repro_torch.models.losses import shifted_xent
 
 
 def mixer_kind(cfg: ModelConfig) -> str:
-    """Sequence mixer of every layer: ``"rwkv"`` or ``"attn"`` (both
-    families the port serves are homogeneous)."""
-    return "rwkv" if cfg.family == SSM else "attn"
+    """Sequence mixer of every layer: ``"rwkv"``, ``"mla"`` or
+    ``"attn"``."""
+    if cfg.family == SSM:
+        return "rwkv"
+    return "mla" if cfg.mla is not None else "attn"
+
+
+def ffn_kind(cfg: ModelConfig) -> Optional[str]:
+    """Feed-forward of every layer: ``"moe"``, ``"mlp"`` or None (the RWKV
+    channel-mix lives inside its block). The reference's rule for
+    sub-layer i, ``i % moe_every == moe_every - 1``, at the one position
+    i = 0 of a group here."""
+    if cfg.family == SSM:
+        return None
+    if cfg.moe is not None and cfg.moe.moe_every == 1:
+        return "moe"
+    return "mlp"
+
+
+def ffn_apply(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """A layer's feed-forward on the normed stream: the dropless MoE or the
+    dense MLP."""
+    if isinstance(p, MoE):
+        return moe_apply(p, cfg, h, dropless=True)[0]
+    return mlp(p, cfg, h)
 
 
 class Block(nn.Module):
-    """One pre-norm layer: ``n1``, ``mix`` (attention or RWKV), ``n2`` and,
-    after attention, ``ffn``."""
+    """One pre-norm layer: ``n1``, ``mix`` (attention, MLA or RWKV), ``n2``
+    and, after attention or MLA, ``ffn`` (MLP or MoE)."""
 
     def __init__(self, cfg: ModelConfig, device,
                  generator: Optional[torch.Generator] = None):
@@ -43,13 +70,16 @@ class Block(nn.Module):
         dt = cfg.dtype()
         self.n1 = RMSNorm(cfg.d_model, dt, device)
         self.n2 = RMSNorm(cfg.d_model, dt, device)
-        if mixer_kind(cfg) == "rwkv":
+        kind = mixer_kind(cfg)
+        if kind == "rwkv":
             # the channel-mix is the RWKV block's feed-forward
             self.mix = rwkv.RWKV(cfg, device, generator)
             self.ffn = None
-        else:
-            self.mix = attn.Attention(cfg, device, generator)
-            self.ffn = MLP(cfg, device, generator)
+            return
+        self.mix = (mla_mod.MLA(cfg, device, generator) if kind == "mla"
+                    else attn.Attention(cfg, device, generator))
+        self.ffn = (MoE(cfg, device, generator) if ffn_kind(cfg) == "moe"
+                    else MLP(cfg, device, generator))
 
 
 class LM(nn.Module):
@@ -84,13 +114,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """True for the families whose whole dynamic context the port keeps on
-    pages: dense full (unwindowed, uncapped) GQA/MQA attention, and RWKV-6
-    (its wkv and token-shift state)."""
+    pages: dense or MoE stacks of full (unwindowed, uncapped) GQA/MQA
+    attention or of MLA, and RWKV-6 (its wkv and token-shift state)."""
     if cfg.n_prefix_embeds or cfg.attn_logit_softcap > 0:
         return False
     if cfg.family == SSM:
         return cfg.ssm is not None
-    return (cfg.family == DENSE and cfg.sliding_window == 0
+    return (cfg.family in (DENSE, MOE) and cfg.sliding_window == 0
             and cfg.global_layer_every == 0)
 
 
@@ -99,11 +129,12 @@ def paged_layout(cfg: ModelConfig) -> dict:
 
     Two plane kinds: ``tokens`` grows with context, ``ceil(ctx/page)``
     pages per layer (``kv``: payload ``(2, n_kv, page, hd)``, attention
-    K/V); ``state`` is fixed-size recurrent state, ONE page per layer whose
-    payload is exactly the leaf (``wkv``: ``(H, hd, hd)`` float32;
-    ``shift``: ``(2, d_model)`` native, rows time-mix / channel-mix
-    shifts). Token planes are shareable across requests with a common
-    prompt prefix; state planes are not.
+    K/V; ``mla``: payload ``(page, kv_lora + rope_dim)``, the fused MLA
+    latent and roped key); ``state`` is fixed-size recurrent state, ONE
+    page per layer whose payload is exactly the leaf (``wkv``:
+    ``(H, hd, hd)`` float32; ``shift``: ``(2, d_model)`` native, rows
+    time-mix / channel-mix shifts). Token planes are shareable across
+    requests with a common prompt prefix; state planes are not.
 
     Returns ``{name: {"kind", "positions", "dtype", "shareable", ...}}``
     where token planes carry ``dims`` + ``token_bytes`` and state planes
@@ -112,7 +143,8 @@ def paged_layout(cfg: ModelConfig) -> dict:
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: not paged-servable by the port")
     native = cfg.torch_compute_dtype()
-    if mixer_kind(cfg) == "rwkv":
+    kind = mixer_kind(cfg)
+    if kind == "rwkv":
         rhd = cfg.ssm.rwkv_head_dim
         H = cfg.d_model // rhd
         return {"wkv": dict(kind="state", positions=[0],
@@ -120,8 +152,13 @@ def paged_layout(cfg: ModelConfig) -> dict:
                             shareable=False),
                 "shift": dict(kind="state", positions=[0], dtype=native,
                               shape=(2, cfg.d_model), shareable=False)}
-    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     itemsize = torch.empty((), dtype=native).element_size()
+    if kind == "mla":
+        C = mla_mod.latent_dim(cfg)
+        return {"mla": dict(kind="tokens", positions=[0], dtype=native,
+                            dims=(C,), token_bytes=C * itemsize,
+                            shareable=True)}
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     return {"kv": dict(kind="tokens", positions=[0], dtype=native,
                        dims=(K, hd), token_bytes=2 * K * hd * itemsize,
                        shareable=True)}
@@ -147,10 +184,11 @@ def _device_of(pools: dict) -> torch.device:
 
 
 def _layer(blk: Block, cfg: ModelConfig, x, attend):
-    """One pre-norm attention layer; ``attend(mix, h) -> out`` runs the
-    attention."""
+    """One pre-norm attention or MLA layer; ``attend(mix, h) -> out`` runs
+    the mixer. The feed-forward (MLP or dropless MoE) runs over every
+    token, pads included."""
     x = x + attend(blk.mix, rms_norm(blk.n1, x, cfg.rmsnorm_eps))
-    return x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
+    return x + ffn_apply(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
 
 
 def _tokens_on(tokens, device) -> torch.Tensor:
@@ -174,6 +212,9 @@ def forward(model: LM, cfg: ModelConfig, tokens, *, remat: bool = False,
     if mixer_kind(cfg) == "rwkv":
         raise NotImplementedError(f"{cfg.name}: RWKV-6 training is not "
                                   "ported (wkv6 has no backward kernel)")
+    if mixer_kind(cfg) == "mla" or ffn_kind(cfg) == "moe":
+        raise NotImplementedError(f"{cfg.name}: MLA / MoE training is not "
+                                  "ported (ROADMAP queue 1, item 8)")
     device = model.embed.tok.device
     tokens = _tokens_on(tokens, device)
     x = embed(model.embed, cfg, tokens)
@@ -219,7 +260,7 @@ def prefill_chunk_paged(model: LM, cfg: ModelConfig, tokens, pools,
                         block_tables, q_start: int, last_index: int, *,
                         read_pps: Optional[int] = None, impl: str = "kernel"):
     """Prefill ONE CHUNK of one request, writing its state straight into the
-    page pools — either family, one code path.
+    page pools — any family, one code path.
 
     tokens: (1, Tc) int — the chunk, bucket-padded (attention rows past the
     real length are attended causally like any other and overwritten by
@@ -230,9 +271,10 @@ def prefill_chunk_paged(model: LM, cfg: ModelConfig, tokens, pools,
     state planes ``(n_layers, 1)`` bare slots
     (``PagedStateRuntime.block_tables_prefill``); q_start: the chunk's
     absolute start position; last_index: the row whose logits the caller
-    wants. ``read_pps`` bounds the attention sweep.
+    wants. ``read_pps`` bounds the attention or MLA sweep.
     -> (logits (1, V) of ``last_index``, pools)
     """
+    check_impl(impl)
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: not paged-servable by the port")
     device = _device_of(pools)
@@ -247,6 +289,14 @@ def prefill_chunk_paged(model: LM, cfg: ModelConfig, tokens, pools,
             x = _rwkv_layer(blk, cfg, x, pools, bt["wkv"][layer],
                             bt["shift"][layer], impl=impl,
                             n_real=int(last_index) + 1)
+    elif mixer_kind(cfg) == "mla":
+        pool = pools["mla"]
+        meta = mla_mod.step_meta([q_start], 0, Tc, pool.shape[1],
+                                 bt["mla"].shape[-1], device)
+        for layer, blk in enumerate(model.blocks):
+            x = _layer(blk, cfg, x, lambda mix, h: mla_mod.mla_prefill_chunk(
+                mix, cfg, h, pool, bt["mla"][layer, 0], q_start,
+                read_pps=read_pps, meta=meta)[0])
     else:
         pool = pools["kv"]
         meta = attn.step_meta([q_start], [Tc], 0, Tc, device)
@@ -270,6 +320,7 @@ def decode_step_paged(model: LM, cfg: ModelConfig, pools, block_tables,
     (``PagedStateRuntime.block_tables``).
     -> (logits (B, V), pools)
     """
+    check_impl(impl)
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: not paged-servable by the port")
     device = _device_of(pools)
@@ -282,6 +333,13 @@ def decode_step_paged(model: LM, cfg: ModelConfig, pools, block_tables,
         for layer, blk in enumerate(model.blocks):
             x = _rwkv_layer(blk, cfg, x, pools, bt["wkv"][layer, 0],
                             bt["shift"][layer, 0], impl=impl)
+    elif mixer_kind(cfg) == "mla":
+        pool = pools["mla"]
+        meta = mla_mod.step_meta(pos, len(pos), 1, pool.shape[1],
+                                 bt["mla"].shape[-1], device)
+        for layer, blk in enumerate(model.blocks):
+            x = _layer(blk, cfg, x, lambda mix, h: mla_mod.mla_decode_paged(
+                mix, cfg, h, pool, bt["mla"][layer, 0], pos, meta=meta)[0])
     else:
         pool = pools["kv"]
         meta = attn.decode_meta(pos, device)
@@ -330,9 +388,12 @@ def serve_step_paged(model: LM, cfg: ModelConfig, tokens, pools,
     ``(n_layers, 1, R)`` int32 slots (the reference's (G, n_sub, R[, pps]));
     q_starts / n_reals: (R,) host integer arrays. ``impl``: ``"kernel"`` or
     ``"ref"``. Attention serves every row in one launch per layer; an RWKV
-    layer runs the decode and chunk regions as two WKV launches.
+    layer runs the decode and chunk regions as two WKV launches; an MLA
+    layer has no kernel (the reference's is ``jnp`` code), so ``impl``
+    selects nothing there; each MoE layer syncs with the host once.
     -> (logits (R, V) of each row's last real token, pools)
     """
+    check_impl(impl)
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: not paged-servable by the port")
     device = _device_of(pools)
@@ -348,6 +409,14 @@ def serve_step_paged(model: LM, cfg: ModelConfig, tokens, pools,
         for layer, blk in enumerate(model.blocks):
             x = rwkv_mixed_paged(blk, cfg, x, pools, bt["wkv"][layer, 0],
                             bt["shift"][layer, 0], nr_dev, n_decode, impl)
+    elif mixer_kind(cfg) == "mla":
+        pool = pools["mla"]
+        meta = mla_mod.step_meta(qs, n_decode, Tc, pool.shape[1],
+                                 bt["mla"].shape[-1], device)
+        for layer, blk in enumerate(model.blocks):
+            x = _layer(blk, cfg, x, lambda mix, h: mla_mod.mla_mixed_paged(
+                mix, cfg, h, pool, bt["mla"][layer, 0], qs, nr,
+                n_decode=n_decode, read_pps=read_pps, meta=meta)[0])
     else:
         pool = pools["kv"]
         meta = attn.step_meta(qs, nr, n_decode, Tc, device)

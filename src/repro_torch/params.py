@@ -4,8 +4,10 @@
 ``jax.tree.map(np.asarray, api.init_params(key, cfg))``), so the port needs no
 ``jax`` to read it, and returns the port's :class:`~repro_torch.models.lm.LM`.
 The leading layer-group axis of ``blocks`` is unstacked into one module per
-layer: ``blocks.sub0.{n1, n2, mix.*, ffn.*}`` for the dense family,
-``blocks.sub0.{n1, n2, mix.tm.*, mix.cm.*}`` for RWKV-6.
+layer: ``blocks.sub0.{n1, n2, mix.*, ffn.*}`` for the dense and MoE
+families (the mixer attention or MLA, the feed-forward an MLP or the MoE's
+router, experts and shared experts), ``blocks.sub0.{n1, n2, mix.tm.*,
+mix.cm.*}`` for RWKV-6.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.layers.moe import MoE
 from repro_torch.models.lm import LM, mixer_kind
 
 _TM_LINEARS = ("wr", "wk", "wv", "wg", "wo")
@@ -63,10 +66,25 @@ def from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
             _put_linears(blk.mix.cm, cm, ("wk", "wv", "wr"), l,
                          f"blocks.{l}.mix.cm")
             continue
-        _put_linears(blk.mix, sub["mix"], ("wq", "wk", "wv", "wo"), l,
-                     f"blocks.{l}")
-        _put_linears(blk.ffn, sub["ffn"],
+        if mixer_kind(cfg) == "mla":
+            _put_linears(blk.mix, sub["mix"],
+                         ("wq", "wdkv", "wuk", "wuv", "wo"), l, f"blocks.{l}")
+            _put(blk.mix.kv_norm.scale, sub["mix"]["kv_norm"]["scale"][l],
+                 f"blocks.{l}.mix.kv_norm")
+        else:
+            _put_linears(blk.mix, sub["mix"], ("wq", "wk", "wv", "wo"), l,
+                         f"blocks.{l}")
+        ffn, tree_ffn = blk.ffn, sub["ffn"]
+        if isinstance(ffn, MoE):
+            _put_linears(ffn, tree_ffn, ("router",), l, f"blocks.{l}.ffn")
+            for name in ("up", "down", "gate"):
+                if getattr(ffn, name) is not None:
+                    _put(getattr(ffn, name), tree_ffn[name][l],
+                         f"blocks.{l}.ffn.{name}")
+            if ffn.shared is None:
+                continue
+            ffn, tree_ffn = ffn.shared, tree_ffn["shared"]
+        _put_linears(ffn, tree_ffn,
                      [n for n in ("up", "down", "gate")
-                      if getattr(blk.ffn, n) is not None], l,
-                     f"blocks.{l}.ffn")
+                      if getattr(ffn, n) is not None], l, f"blocks.{l}.ffn")
     return model

@@ -4,11 +4,12 @@ token and state planes of the families the port serves.
 
 ``PagedStateRuntime`` is the serving engine's state manager. Each plane of
 ``lm.paged_layout`` is one tiered AquaTensor pool: a TOKEN plane (dense
-``kv``, payload ``(2, n_kv, page, hd)``) holds ``ceil(ctx/page)`` pages per
-layer; a STATE plane (RWKV-6 ``wkv`` ``(H, hd, hd)`` float32 and ``shift``
-``(2, d_model)``) holds ONE page per layer, zeroed when allocated (a
-reused slot holds its last occupant's state, and the zero page is the
-initial recurrent state). The fused step reads and writes the LOCAL pools
+``kv``, payload ``(2, n_kv, page, hd)``; MLA ``mla``, ``(page, kv_lora +
+rope_dim)``) holds ``ceil(ctx/page)`` pages per layer; a STATE plane
+(RWKV-6 ``wkv`` ``(H, hd, hd)`` float32 and ``shift`` ``(2, d_model)``)
+holds ONE page per layer, zeroed when allocated (a reused slot holds its
+last occupant's state, and the zero page is the initial recurrent state).
+The fused step reads and writes the LOCAL pools
 directly, so preemption is a page-table tier flip of all planes together:
 
     park    = offload(pages)      one coalesced message per (tier, donor)
@@ -161,8 +162,12 @@ class PagedStateRuntime:
             n_sub = len(spec["positions"])
             n_layers = self.G * n_sub
             if spec["kind"] == "tokens":
-                K, hd = spec["dims"]
-                page_shape = (2, K, page_tokens, hd)
+                if len(spec["dims"]) == 2:              # kv: K and V heads
+                    K, hd = spec["dims"]
+                    page_shape = (2, K, page_tokens, hd)
+                else:                                   # mla latent plane
+                    (C,) = spec["dims"]
+                    page_shape = (page_tokens, C)
                 # +1 is the scratch page
                 slots = (local_pages if local_pages is not None
                          else max_running * n_layers * self.pps + 1)

@@ -5,6 +5,13 @@ so it runs on a card's machine as it is:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q -m cuda
 
+Deepseek-v2-lite-16b's ``mla`` pages (16, 576) bf16 = 18,432 B through
+the gather and scatter (a 16 KiB chunk and a 2 KiB tail a row on the bulk
+route), bit-exact; and a bf16 smoke deepseek engine held against float32:
+every MLA and MoE call of its run against a float32 copy of the layer on
+the same input, within 2% per token, and its greedy tokens against the
+same weights served in float32 wherever the float32 top-2 margin decides.
+
 Also the request lifecycle on the card, on a bf16 smoke qwen engine: a
 snapshot holds its payload on the host as raw 16-bit words, and restore ->
 snapshot gives the same words; ``drain`` parks through the gather kernel
@@ -171,12 +178,13 @@ def _spy_plans(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_case", ["one", "below_grid", "above_grid"])
 @pytest.mark.parametrize("dtype", sorted(GATHER_DTYPES))
-@pytest.mark.parametrize("row_bytes", [16, 10240, 65536, 655360])
+@pytest.mark.parametrize("row_bytes", [16, 10240, 18432, 65536, 655360])
 def test_cuda_gather_bulk_copy_bit_exact(row_bytes, dtype, n_case,
                                          monkeypatch):
     """The bulk-copy gather at the port's row sizes (one 16-byte vector,
-    the shift, kv and wkv pages), for one row, fewer work items than the
-    grid and a multiple of the grid plus a remainder, duplicates included."""
+    the shift, mla, kv and wkv pages), for one row, fewer work items than
+    the grid and a multiple of the grid plus a remainder, duplicates
+    included."""
     dev = _cuda()
     sms = kv_ops.sm_count(dev.index or 0)
     n = {"one": 1, "below_grid": 7,
@@ -191,6 +199,45 @@ def test_cuda_gather_bulk_copy_bit_exact(row_bytes, dtype, n_case,
     assert [p.route for p in plans] == ["bulk"]
     assert build.launch_counts()["gather_pages"] == before + 1
     assert torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+
+
+MLA_PAGE = (16, 576)                    # deepseek's mla page: 18,432 B bf16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_case", ["one", "below_grid", "above_grid",
+                                    "engine_leg"])
+def test_cuda_gather_and_scatter_mla_rows_bit_exact(n_case, monkeypatch):
+    """Rows 6-7 at deepseek's mla pages, (16, 576) bf16 = 18,432 B: a 16
+    KiB chunk and a 2,048 B tail a row on the bulk route once the rows fill
+    the grid (one row and 7 rows are cut into 2 KiB chunks, no tail), ids
+    outside the pool included; gather and scatter bit-exact against their
+    plain versions."""
+    dev = _cuda()
+    sms = kv_ops.sm_count(dev.index or 0)
+    n = {"one": 1, "below_grid": 7,
+         "above_grid": 3 * kv_ops.BLOCKS_PER_SM * sms + 5,
+         "engine_leg": 1350}[n_case]
+    P = 2 * n + 3
+    g = torch.Generator(device=dev).manual_seed(n)
+    pool = torch.randn((P,) + MLA_PAGE, generator=g, device=dev).to(
+        torch.bfloat16)
+    rng = np.random.default_rng(n)
+    ids_np = rng.choice(P, n, replace=False).astype(np.int32)
+    if n > 2:
+        ids_np[0], ids_np[n // 2] = -1, P
+    ids = torch.from_numpy(ids_np).to(dev)
+    plans = _spy_plans(monkeypatch)
+    got = kv_ops.gather_pages(pool, ids)
+    torch.cuda.synchronize()
+    (plan,) = plans
+    assert plan.route == "bulk"
+    assert (18432 % plan.chunk_bytes == 2048) == (n >= 132)
+    assert torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+    new = torch.randn(got.shape, generator=g, device=dev).to(torch.bfloat16)
+    out = kv_ops.scatter_pages(pool.clone(), new, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kv_ref.scatter_pages_ref(pool.clone(), new, ids))
 
 
 @pytest.mark.cuda
@@ -287,7 +334,7 @@ def test_cuda_gather_bulk_copy_refuses_plans_it_cannot_run(row_bytes, plan,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,row_bytes", [(1200, 65536), (32, 655360),
-                                         (32, 10240)])
+                                         (32, 10240), (1350, 18432)])
 def test_cuda_gather_bulk_copy_resources(n, row_bytes):
     """At the engine's leg shapes: no local memory, and the ring within the
     card's opt-in shared memory per block."""
@@ -1048,3 +1095,141 @@ def test_cuda_restored_engine_finishes_with_the_uninterrupted_tokens():
     want = {r.rid: r.generated for r in eng.finished}
     got = {r.rid: r.generated for r in restored.finished}
     assert got == want and all(len(t) == 6 for t in got.values())
+
+
+# -- deepseek-v2-lite-16b on the card: MLA and the MoE, bf16 vs float32 ---
+DS_LAYER_REL = 2e-2     # bf16 vs float32 per token, relative (chip_smoke's)
+
+
+def _deepseek_engine(dev, dtype, model=None, per_layer=None):
+    """A smoke deepseek engine on the card (CFS, a REMOTE lease, no
+    speculative chunks): six seeded requests of 5 new tokens. Returns the
+    engine, the model, its requests and each produced token's logits row by
+    (rid, position), recorded from ``api.serve_step_paged`` and the rows'
+    rids. With a ``per_layer`` list, every MLA and MoE call of the run is
+    also made by a float32 copy of its layer on the same input (and a
+    float32 copy of the pool as it was), and the largest per-real-token
+    distance, relative to the token's largest float32 entry, is appended
+    as (kind, distance)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.layers import mla as mla_mod
+    from repro_torch.layers.moe import MoE
+    from repro_torch.models import api, lm
+    from repro_torch.serving.engine import ServingEngine
+    cfg = dataclasses.replace(smoke_config(get_config(
+        "deepseek-v2-lite-16b")), param_dtype=dtype, compute_dtype=dtype)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    if model is None:
+        model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), dev)
+    eng = ServingEngine(cfg, model, max_running=2, max_seq=64,
+                        scheduler="cfs", slice_tokens=3, step_tokens=16,
+                        offload_tier=REMOTE, spec_chunk_ahead=False,
+                        device=dev)
+    eng.pager.add_remote_lease("donor0", 1 << 24)
+    rng = np.random.default_rng(7)
+    reqs = [eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, n))), 5)
+            for n in (9, 21, 14, 30, 5, 17)]
+    rows, logits, f32, real = [], {}, {}, [None]
+    serve, tables = api.serve_step_paged, eng.kv.block_tables
+    mixed, ffn = mla_mod.mla_mixed_paged, lm.ffn_apply
+
+    def recorded_tables(lane_rids, *a, **kw):
+        rows[:] = list(lane_rids)
+        return tables(lane_rids, *a, **kw)
+
+    def recorded(*a, **kw):
+        out = serve(*a, **kw)
+        host = out[0].float().cpu()
+        for i, rid in enumerate(rows):
+            if rid is not None:
+                r = next(q for q in reqs if q.rid == rid)
+                logits[(rid, len(r.generated))] = host[i]
+        return out
+
+    def rel(got, want):
+        scale = want.abs().amax(-1).clamp_min(1e-6)
+        d = (got.float() - want).abs().amax(-1) / scale
+        return d[real[0]].max().item()
+
+    def mixed_checked(p, c, x, pool, bt, qs, nr, *, n_decode, read_pps=None,
+                      meta=None):
+        q = f32.setdefault(id(p), copy.deepcopy(p).float())
+        want, _ = mixed(q, cfg32, x.float(), pool.float(), bt, qs, nr,
+                        n_decode=n_decode, read_pps=read_pps, meta=meta)
+        got, pool = mixed(p, c, x, pool, bt, qs, nr, n_decode=n_decode,
+                          read_pps=read_pps, meta=meta)
+        n = np.where(np.arange(len(nr)) < n_decode, 1, np.asarray(nr))
+        real[0] = torch.as_tensor(np.arange(x.shape[1])[None] < n[:, None]
+                                  ).to(x.device)
+        per_layer.append(("mla", rel(got, want)))
+        return got, pool
+
+    def ffn_checked(p, c, h):
+        got = ffn(p, c, h)
+        if isinstance(p, MoE):
+            q = f32.setdefault(id(p), copy.deepcopy(p).float())
+            per_layer.append(("moe", rel(got, ffn(q, cfg32, h.float()))))
+        return got
+    api.serve_step_paged, eng.kv.block_tables = recorded, recorded_tables
+    if per_layer is not None:
+        mla_mod.mla_mixed_paged, lm.ffn_apply = mixed_checked, ffn_checked
+    try:
+        eng.run(500)
+    finally:
+        api.serve_step_paged = serve
+        mla_mod.mla_mixed_paged, lm.ffn_apply = mixed, ffn
+        del eng.kv.block_tables
+    return eng, model, reqs, logits
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_engine_bf16_matches_float32():
+    """The bf16 smoke deepseek engine on the card, held against float32
+    two ways. Per layer: every MLA and MoE call of the run against a
+    float32 copy of its layer on the same input, within 2% per real token
+    (the MoE's routing is float32 on both sides, so the same experts run).
+    Per token: against the same weights served in float32 (the schedule
+    depends on token counts, not values), each request followed while its
+    context is the float32 run's; wherever the float32 top-2 margin
+    exceeds twice the row's distance to the bf16 row, the greedy tokens
+    must be equal (elsewhere a routing near-tie may part them, and the
+    per-layer check stands). The bf16 run preempts through the gather and
+    scatter kernels."""
+    dev = _cuda()
+    build.reset_launch_counts()
+    per_layer = []
+    eng, model, reqs, lg16 = _deepseek_engine(dev, "bfloat16",
+                                              per_layer=per_layer)
+    launches = build.launch_counts()
+    assert eng.metrics.preemptions > 0
+    assert launches.get("gather_pages", 0) > 0
+    assert launches.get("scatter_pages", 0) > 0
+    n_layers = len(model.blocks)
+    for kind in ("mla", "moe"):
+        d = [v for k, v in per_layer if k == kind]
+        assert len(d) == eng.metrics.steps * n_layers, kind
+        assert max(d) <= DS_LAYER_REL, (kind, max(d))
+    _, _, reqs32, lg32 = _deepseek_engine(dev, "float32",
+                                          model=_float_copy(model))
+    held = 0
+    for r16, r32 in zip(reqs, reqs32):
+        assert len(r16.generated) == len(r32.generated) == 5
+        for pos, (a, b) in enumerate(zip(r16.generated, r32.generated)):
+            x16, x32 = lg16[(r16.rid, pos)], lg32[(r32.rid, pos)]
+            top2 = x32.topk(2).values
+            if (top2[0] - top2[1]).item() > 2 * (x16 - x32).abs().max():
+                assert a == b, (r16.rid, pos)
+                held += 1
+            elif a != b:
+                break
+    assert held >= 1
+
+
+def _float_copy(model):
+    import copy
+    return copy.deepcopy(model).float()

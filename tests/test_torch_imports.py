@@ -45,7 +45,8 @@ def _imports(path):
 def test_port_files_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for want in ("configs/base.py", "configs/qwen1_5_0_5b.py",
-                 "configs/rwkv6_3b.py",
+                 "configs/rwkv6_3b.py", "configs/deepseek_v2_lite_16b.py",
+                 "layers/moe.py", "layers/mla.py",
                  "core/errors.py", "core/perfmodel.py", "core/aqua_tensor.py",
                  "core/coordinator.py", "core/control_loop.py",
                  "core/faults.py", "core/workload.py",

@@ -4,8 +4,9 @@
 the chunk, the ring's stages and the grid from the shapes, the base
 addresses' alignment and the SM count; the CUDA kernel
 (``csrc/kv_gather.cu``, ``gather_bulk_kernel``) walks the plan's work items.
-Here the plan is checked at the engine's three leg shapes and at rows the
-bulk copy cannot take, and ``_model_gather`` replays the kernel's loop in
+Here the plan is checked at the engine's four leg shapes (deepseek's
+``mla`` rows of 18,432 B cut into a 16 KiB chunk and a 2 KiB tail) and at
+rows the bulk copy cannot take, and ``_model_gather`` replays the kernel's loop in
 Python (its item order, its id windows, its ring of stages with a load
 only into a stage whose store has read it): every byte of every staging
 row is written exactly once, and the rows equal ``gather_pages_ref`` and
@@ -32,6 +33,8 @@ H100_SMS = 132
     ("qwen kv", 1200, 65536, 16384, 2 * H100_SMS),
     ("rwkv wkv", 32, 655360, 16384, 2 * H100_SMS),
     ("rwkv shift", 32, 10240, 2560, 128),
+    # a 16 KiB chunk and a 2,048 B tail per 18,432 B row
+    ("deepseek mla", 1350, 18432, 16384, 2 * H100_SMS),
 ])
 def test_plan_at_the_engine_legs(leg, n, row_bytes, chunk, blocks):
     plan = kv_ops.gather_plan(n, row_bytes, 16, H100_SMS)
@@ -50,7 +53,8 @@ def test_plan_sends_unaligned_rows_to_the_vector_kernel(n, row_bytes,
 
 
 @pytest.mark.parametrize("n", [1, 5, 264, 2 * 264 + 7, 5000])
-@pytest.mark.parametrize("row_bytes", [16, 48, 2048, 10240, 65536, 655360])
+@pytest.mark.parametrize("row_bytes", [16, 48, 2048, 10240, 18432, 65536,
+                                       655360])
 def test_plan_is_well_formed(n, row_bytes):
     plan = kv_ops.gather_plan(n, row_bytes, 16, H100_SMS)
     assert plan.route == "bulk"
@@ -139,6 +143,8 @@ MODEL_CASES = {
     "few_rows": (8, (2, 2560), "bfloat16", 3, 132),
     "wkv_like": (6, (4, 32, 64), "float32", 4, 3),
     "int8_ragged_chunk": (9, (3, 16, 16, 31), "int8", 7, 2),
+    # deepseek's mla pages: 18,432 B rows, a 16 KiB chunk and a 2 KiB tail
+    "mla_tail_chunk": (24, (16, 576), "bfloat16", 13, 2),
 }
 
 
