@@ -187,6 +187,53 @@ the path's kernels are rows 6-7, which park and restore its pages:
    every logits row bit-identical to the unparked run, one message per
    leg through the gather and scatter.
 
+Then jamba-v0.1-52b at its published widths (d 4096, 32 heads on 8 KV
+heads of 128, d_ff 14336, 16 experts top-2 in every second layer, Mamba
+d_state 16, d_conv 4, expand 2, dt_rank 256, vocab 65536, bf16; random
+seeded weights), 16 of its 32 layers: two hybrid periods of 8 (attention
+at index 4, Mamba elsewhere), the deepest whole number of periods that
+fits one 80 GB card beside a float32 copy of one MoE layer. Its context
+is three planes: ``ssm`` (8192, 16) float32 and ``conv`` (3, 8192) bf16
+state pages, one per Mamba layer (14), beside the ``kv`` token plane of
+the 2 attention layers. The Mamba layer has no Pallas kernel in the
+reference (its scan is ``jnp``), so the path's kernels are rows 2-7:
+
+20. jamba kernels — rows 6-7 at one request's three legs (14 ssm pages of
+   524,288 B, 14 conv pages of 49,152 B, 100 kv pages of 65,536 B): the
+   gather's plans and resources, bit-exact at 1, 7, 3 x the grid + 5 and
+   the leg's rows, ids outside the pool included, the ssm and conv rows
+   also in the other of float32 and bf16; times beside ``index_select``
+   / ``index_copy_`` and the bound. Rows 4 and 5 at the main path's
+   packed step with 32 heads on 8 KV heads of 128 (``jamba`` records).
+21. model — ``lm.init_params`` from a seeded CUDA generator at 16 layers:
+   ``param_count()`` must be 26,053,361,664 (the model holds that plus
+   the Mamba layers' conv_b and dt_bias and final_norm); memory
+   allocated.
+22. jamba layer step — phase 16's packed step, bf16 against a float32
+   copy of each layer: Mamba, attention and MoE each within
+   ``LAYER_REL_LIMIT`` per real token, controls beyond (the furthest
+   decode lane's Mamba state zeroed; its newest kv page read as scratch;
+   top-1 routing); the share of real tokens whose top-2 experts differ
+   between the bf16 and float32 streams (printed); the bf16 layers'
+   logits equal ``api.serve_step_paged``'s bit for bit on the real rows
+   and lie nearer the float32 step's than a dropped-state control's.
+23. jamba per-request — phase 5's prompts through the per-request entry
+   points (rows 2, 3 and 5 launch): prefill logits against float32,
+   computed layer-major a float32 layer copy at a time
+   (``layer_major_run``), within twice the plain bf16 path's distance;
+   at the first decode step a control with every lane's ssm pages zeroed
+   beyond twice the plain path's; beside it the FCFS engine.
+24. jamba engine — phase 6 at full width: every request finishes, one
+   fabric message per leg across the three planes, bytes_fabric = legs x
+   8,028,160 B of state (14 ssm + 14 conv pages, moved whole) plus whole
+   8,192 B token rows (2 layers x 4,096 B, live bytes); rows 4-7 launch,
+   the page writer once per attention layer per step; its profile runs
+   the MoE inside a ``record_function("moe")`` range and each Mamba scan
+   inside a ``record_function("mamba_scan")`` range and gives each
+   range's share of the device time and of the launch calls.
+25. jamba round trip — phase 19's park/restore round trip over the three
+   planes, bit-identical to the unparked run.
+
 Then qwen1.5-0.5b's training path at its published width (bf16 params,
 float32 AdamW master and moments):
 
@@ -229,6 +276,7 @@ of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -1207,6 +1255,8 @@ def per_request_run(torch, np, cfg, model, dev, prompts, impl, *,
                                              pos, impl=impl)
         _sync(torch, dev)
         run["step_s"].append(time.perf_counter() - t)
+        if step == 0:
+            run["first_step_logits"] = lg.float()
         for rid, nxt in enumerate(lg.argmax(-1).tolist()):
             run["tokens"][rid].append(int(nxt))
     return run
@@ -1479,7 +1529,7 @@ def profile_engine_steps(torch, eng):
                   for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and e.time_range.elapsed_us() > 0
-                  and e.name != MOE_RANGE]
+                  and e.name not in RANGES]
         if not device:
             out[kind] = {"step_wall_ms": wall_us / 1e3,
                          "device": "not measured", **host_calls(prof)}
@@ -1495,38 +1545,87 @@ def profile_engine_steps(torch, eng):
             "by_kind_ms": summary["by_kind_ms"],
             "top5_ms": summary["top10_ms"][:5],
             **host_calls(prof)}
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and e.name == MOE_RANGE]
-        if spans:
-            # the MoE range on the device timeline: from each MoE call's
-            # first kernel to its last
-            out[kind]["moe_device_span_ms"] = sum(spans) / 1e3
+        for name in RANGES:
+            spans = [(e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and e.name == name]
+            if not spans:
+                continue
+            # the range on the device timeline: from each call's first
+            # kernel to its last; and the kernels' time that starts inside
+            inside = sum(b - a for _, a, b in device
+                         if any(lo <= a <= hi for lo, hi in spans)) / 1e3
+            out[kind][f"{name}_device_span_ms"] = sum(
+                b - a for a, b in spans) / 1e3
+            out[kind][f"{name}_device_ms"] = inside
+            out[kind][f"{name}_device_share"] = (
+                inside / summary["device_busy_ms"])
     return out
 
 
 HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 MOE_RANGE = "moe"                   # the MoE's record_function range
+SCAN_RANGE = "mamba_scan"           # the Mamba scan's record_function range
+RANGES = (MOE_RANGE, SCAN_RANGE)
+
+
+@contextlib.contextmanager
+def profile_ranges(torch):
+    """Within the block, each MoE feed-forward runs inside a
+    ``record_function("moe")`` range and each Mamba scan (the chunked scan
+    of ``mamba_forward`` and the step of ``mamba_decode``) inside a
+    ``record_function("mamba_scan")`` range."""
+    from repro_torch.layers import mamba as mamba_mod
+    from repro_torch.layers.moe import MoE
+    from repro_torch.models import lm
+
+    def ranged(name, fn, when=None):
+        def call(*args, **kw):
+            if when is not None and not when(*args):
+                return fn(*args, **kw)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return call
+    saved = [(lm, "ffn_apply", lm.ffn_apply),
+             (mamba_mod, "_chunked_ssm_scan", mamba_mod._chunked_ssm_scan),
+             (mamba_mod, "_ssm_step", mamba_mod._ssm_step)]
+    lm.ffn_apply = ranged(MOE_RANGE, lm.ffn_apply,
+                          lambda p, *a: isinstance(p, MoE))
+    mamba_mod._chunked_ssm_scan = ranged(SCAN_RANGE,
+                                         mamba_mod._chunked_ssm_scan)
+    mamba_mod._ssm_step = ranged(SCAN_RANGE, mamba_mod._ssm_step)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def host_calls(prof):
     """From a profiled step's CPU events: kernel launches and host syncs
-    (runtime calls), and, where the step ran inside ``record_function``
-    ranges named ``"moe"``, how many of each fell inside them."""
+    (runtime calls), and, for each of ``RANGES`` the step ran inside, how
+    many calls of the range and how many launches and syncs fell inside
+    them."""
     from torch.autograd import DeviceType
     cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    moe = [(e.time_range.start, e.time_range.end) for e in cpu
-           if e.name == MOE_RANGE]
     launches = [e for e in cpu if "LaunchKernel" in e.name]
     syncs = [e for e in cpu if e.name in HOST_SYNCS]
     out = {"launch_calls": len(launches), "host_syncs": len(syncs)}
-    if moe:
+    for name in RANGES:
+        spans = [(e.time_range.start, e.time_range.end) for e in cpu
+                 if e.name == name]
+        if not spans:
+            continue
+
         def inside(evs):
             return sum(1 for e in evs if any(a <= e.time_range.start <= b
-                                             for a, b in moe))
-        out.update(moe_calls=len(moe), moe_launch_calls=inside(launches),
-                   moe_launch_share=inside(launches) / max(len(launches), 1),
-                   moe_host_syncs=inside(syncs))
+                                             for a, b in spans))
+        out.update({f"{name}_calls": len(spans),
+                    f"{name}_launch_calls": inside(launches),
+                    f"{name}_launch_share": inside(launches)
+                    / max(len(launches), 1),
+                    f"{name}_host_syncs": inside(syncs)})
     return out
 
 
@@ -1592,28 +1691,25 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
         raise AssertionError(
             f"engine: {meter.messages_fabric} fabric messages != "
             f"{m.preemptions} preemptions + {m.restores} restores")
-    if all(p.kind == "state" for p in kv.planes.values()):
-        state = kv.footprint_bytes(0)
-        print(f"engine: {cfg.name} state per request {state:.0f} bytes; "
-              f"bytes_fabric / (preemptions + restores) = "
-              f"{meter.bytes_fabric / (m.preemptions + m.restores):.0f}")
-        if meter.bytes_fabric != (m.preemptions + m.restores) * state:
-            raise AssertionError(
-                f"engine: bytes_fabric {meter.bytes_fabric} != "
-                f"({m.preemptions} + {m.restores}) x {state:.0f}")
+    # the meter counts a leg's state pages whole and its token pages'
+    # live bytes (a tail page at its fill): whole tokens of every layer
     planes = list(kv.planes.values())
-    if len(planes) == 1 and planes[0].kind == "tokens":
-        # the meter counts a leg's live bytes (a tail page at its fill):
-        # whole tokens of every layer, each of token_bytes
-        row = planes[0].n_layers * planes[0].token_bytes
-        print(f"engine: {cfg.name} {planes[0].name} pages of "
-              f"{planes[0].aqua.page_bytes} B; bytes_fabric "
-              f"{meter.bytes_fabric:.0f} = {meter.bytes_fabric / row:.2f} "
-              f"token rows of {row} B ({planes[0].n_layers} layers x "
-              f"{planes[0].token_bytes} B)")
-        if meter.bytes_fabric % row:
-            raise AssertionError(f"engine: bytes_fabric is no whole number "
-                                 f"of {row} B token rows")
+    state = sum(p.n_layers * p.aqua.page_bytes for p in planes
+                if p.kind == "state")
+    row = sum(p.n_layers * p.token_bytes for p in planes
+              if p.kind == "tokens")
+    legs = m.preemptions + m.restores
+    tokens_moved = meter.bytes_fabric - legs * state
+    print(f"engine: {cfg.name} planes "
+          + ", ".join(f"{p.name} ({p.kind}, {p.n_layers} layers, pages of "
+                      f"{p.aqua.page_bytes} B)" for p in planes)
+          + f"; state per request {state} B, a token row {row} B; "
+          f"bytes_fabric {meter.bytes_fabric:.0f} = {legs} legs x {state} "
+          f"+ {tokens_moved / row if row else 0:.2f} token rows")
+    if tokens_moved < 0 or (tokens_moved % row if row else tokens_moved):
+        raise AssertionError(
+            f"engine: bytes_fabric {meter.bytes_fabric} is not {legs} legs "
+            f"x {state} B of state plus whole {row} B token rows")
     if not all(launches.get(k, 0) > 0 for k in need):
         raise AssertionError(f"engine: {cfg.name}'s run never launched some "
                              f"of {list(need)}")
@@ -1622,20 +1718,8 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
         del eng, kv, reqs
         torch.cuda.empty_cache()
         eng, _, _ = make_engine(np, cfg, model, dev)
-        from repro_torch.layers.moe import MoE
-        from repro_torch.models import lm
-        ffn = lm.ffn_apply
-
-        def ranged(p, c, h):
-            if not isinstance(p, MoE):
-                return ffn(p, c, h)
-            with torch.profiler.record_function(MOE_RANGE):
-                return ffn(p, c, h)
-        lm.ffn_apply = ranged
-        try:
+        with profile_ranges(torch):
             prof = profile_engine_steps(torch, eng)
-        finally:
-            lm.ffn_apply = ffn
         print(f"engine profile: {json.dumps(prof)}")
     return launches, tokens
 
@@ -2654,85 +2738,111 @@ def phase_rwkv_per_request(torch, np, cfg, model, model32, dev):
 
 # -- qwen1.5-0.5b training: the flash attention kernels --------------------
 # -- deepseek-v2-lite-16b: MLA and the dropless MoE on the mla latent plane --
-def phase_mla_rows(torch, np, dcfg, report, dev):
-    """Rows 6-7 at the ``mla`` leg (module docstring, phase 14): the bulk
-    gather's plan and resources there; gather and scatter bit-exact
-    against their plain versions at 1 row, fewer work items than the grid,
-    a grid multiple plus a remainder and the 1,350-page leg, each with ids
-    outside the pool; the leg's times (gather cold, as ``gather_legs``;
-    scatter) beside ``index_select`` / ``index_copy_`` and the bound.
-    Adds a ``deepseek_mla`` record to both kernels' entries."""
+def leg_rows(torch, np, shapes, report, dev, other_dtypes=()):
+    """Rows 6-7 at each leg of ``shapes`` (``gather_leg_shapes``' form):
+    the bulk gather's plan and resources there; gather and scatter
+    bit-exact against their plain versions at 1 row, 7 rows (fewer work
+    items than the grid), 3 x the grid + 5 and the leg's rows, each with
+    ids outside the pool, in the leg's dtype and in each of
+    ``other_dtypes`` at the same row bytes; the leg's times (gather cold,
+    as ``gather_legs``; scatter) beside ``index_select`` / ``index_copy_``
+    and the bound. Adds a record per leg to both kernels' entries."""
     import math
     from repro_torch.kernels.kv_gather import ops as kv_ops
     from repro_torch.kernels.kv_gather import ref as kv_ref
-    shapes = mla_leg_shape(dcfg)
-    ((page, dtype, n_leg, _),) = shapes.values()
-    row = math.prod(page) * dtype.itemsize
     print_gather_resources(torch, kv_ops, None, None, shapes)
     g = torch.Generator(device=dev).manual_seed(5)
     rng = np.random.default_rng(5)
-    P = 2 * n_leg + 1
-    pool = torch.randn((P,) + page, generator=g, device=dev).to(dtype)
     grid = kv_ops.BLOCKS_PER_SM * kv_ops.sm_count(0)
-    plans = []
-    for n in (1, 7, 3 * grid + 5, n_leg):
-        ids = rng.choice(P, n, replace=False).astype(np.int32)
-        if n > 2:
-            ids[0], ids[n // 2] = -1, P              # outside the pool
-        ids = torch.as_tensor(ids).to(dev)
-        plan = kv_ops.gather_plan(n, row, 16, kv_ops.sm_count(0))
-        got = kv_ops.gather_pages(pool, ids)
-        new = torch.randn(got.shape, generator=g, device=dev).to(dtype)
-        scattered = kv_ops.scatter_pages(pool.clone(), new, ids)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
-                and torch.equal(scattered, kv_ref.scatter_pages_ref(
-                    pool.clone(), new, ids))):
-            raise AssertionError(f"gather/scatter at {n} mla rows differ "
-                                 f"from their plain versions")
-        plans.append(f"{n} rows: {plan.route}, chunk {plan.chunk_bytes} B "
-                     f"(tail {row % plan.chunk_bytes} B), {plan.blocks} "
-                     f"blocks")
-    print(f"gather/scatter kernels at mla rows of {row} B ({page}, {dtype}):"
-          f" bit-exact against the plain versions, ids outside the pool "
-          f"included, at {'; '.join(plans)}")
+    for leg, (page, dtype, n_leg, _) in shapes.items():
+        row = math.prod(page) * dtype.itemsize
+        P = 2 * n_leg + 1
+        plans, forms = [], [(page, dtype)]
+        for other in other_dtypes:
+            if other != dtype:
+                last = page[-1] * dtype.itemsize // other.itemsize
+                forms.append((page[:-1] + (last,), other))
+        for n in (1, 7, 3 * grid + 5, n_leg):
+            Pn = max(P, n + 2)
+            ids = rng.choice(Pn, n, replace=False).astype(np.int32)
+            if n > 2:
+                ids[0], ids[n // 2] = -1, Pn            # outside the pool
+            ids = torch.as_tensor(ids).to(dev)
+            for shape, dt in forms:
+                pool = torch.randn((Pn,) + shape, generator=g,
+                                   device=dev).to(dt)
+                got = kv_ops.gather_pages(pool, ids)
+                new = torch.randn(got.shape, generator=g, device=dev).to(dt)
+                scattered = kv_ops.scatter_pages(pool.clone(), new, ids)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+                        and torch.equal(scattered, kv_ref.scatter_pages_ref(
+                            pool.clone(), new, ids))):
+                    raise AssertionError(
+                        f"gather/scatter at {n} {leg} rows ({dt}) differ "
+                        f"from their plain versions")
+                del pool, got, new, scattered
+            plan = kv_ops.gather_plan(n, row, 16, kv_ops.sm_count(0))
+            plans.append(f"{n} rows: {plan.route}, chunk {plan.chunk_bytes} "
+                         f"B (tail {row % plan.chunk_bytes} B), "
+                         f"{plan.blocks} blocks")
+        also = "".join(f", also as {shape} {dt}" for shape, dt in forms[1:])
+        print(f"gather/scatter kernels at {leg} rows of {row} B ({page}, "
+              f"{dtype}{also}): bit-exact against the plain versions, ids "
+              f"outside the pool included, at {'; '.join(plans)}")
+
+    gathers = gather_legs(torch, np, kv_ops, kv_ref, None, None, dev, shapes)
+    for leg, (page, dtype, n_leg, _) in shapes.items():
+        row = math.prod(page) * dtype.itemsize
+        P = 2 * n_leg + 1
+        staging_pool = torch.randn((P,) + page, generator=g,
+                                   device=dev).to(dtype)
+        ids = torch.as_tensor(rng.choice(P, n_leg, replace=False).astype(
+            np.int32)).to(dev)
+        staging = kv_ops.gather_pages(staging_pool, ids)
+        remote = torch.zeros((2 * n_leg,) + page, device=dev, dtype=dtype)
+        dst = torch.as_tensor(rng.choice(2 * n_leg, n_leg, replace=False)
+                              .astype(np.int32)).to(dev)
+        dst64 = dst.long()
+        ms, plain_ms = interleaved(
+            lambda: kv_ref.scatter_pages_ref(remote, staging, dst),
+            lambda: kv_ops.scatter_pages(remote, staging, dst), 20)
+        vs_lib = against_library(
+            np, lambda: remote.index_copy_(0, dst64, staging),
+            lambda: kv_ops.scatter_pages(remote, staging, dst), 20)
+        b, by = bound_ms(2 * n_leg * row + 4 * n_leg)
+        scatter = dict(shape=f"{leg}: {n_leg} pages of {row} B into "
+                             f"{2 * n_leg}, {dtype}",
+                       max_abs_err=0.0, tolerance=0.0, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                       library_ms=vs_lib["library_median_ms"],
+                       vs_library=vs_lib)
+        for name, case in (("gather_pages", gathers[leg]),
+                           ("scatter_pages", scatter)):
+            next(k for k in report if k["name"] == name)[leg] = case
+            print(f"kernel {name} {case['shape']}: kernel {case['ms']:.4f} "
+                  f"ms plain {case['plain_ms']:.4f} ms bound "
+                  f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}) "
+                  f"library {case['library_ms']:.4f} ms; vs library, "
+                  f"{REPEATS} interleaved repeats"
+                  + (f" ({case['rotation']})" if "rotation" in case else "")
+                  + ": " + json.dumps(case["vs_library"]))
+        del staging_pool, staging, remote
+
+
+def phase_mla_rows(torch, np, dcfg, report, dev):
+    """Rows 6-7 at the ``mla`` leg (module docstring, phase 14):
+    ``leg_rows`` there, whose plan must carry a tail chunk. Adds a
+    ``deepseek_mla`` record to both kernels' entries."""
+    import math
+    from repro_torch.kernels.kv_gather import ops as kv_ops
+    shapes = mla_leg_shape(dcfg)
+    ((page, dtype, n_leg, _),) = shapes.values()
+    row = math.prod(page) * dtype.itemsize
     if row % kv_ops.gather_plan(n_leg, row, 16,
                                 kv_ops.sm_count(0)).chunk_bytes == 0:
         raise AssertionError("the mla leg's plan has no tail chunk")
-    del pool, got, new, scattered
-
-    gather = gather_legs(torch, np, kv_ops, kv_ref, None, None, dev,
-                         shapes)["deepseek_mla"]
-    staging_pool = torch.randn((P,) + page, generator=g, device=dev).to(dtype)
-    ids = torch.as_tensor(rng.choice(P, n_leg, replace=False).astype(
-        np.int32)).to(dev)
-    staging = kv_ops.gather_pages(staging_pool, ids)
-    remote = torch.zeros((2 * n_leg,) + page, device=dev, dtype=dtype)
-    dst = torch.as_tensor(rng.choice(2 * n_leg, n_leg, replace=False)
-                          .astype(np.int32)).to(dev)
-    dst64 = dst.long()
-    ms, plain_ms = interleaved(
-        lambda: kv_ref.scatter_pages_ref(remote, staging, dst),
-        lambda: kv_ops.scatter_pages(remote, staging, dst), 20)
-    vs_lib = against_library(
-        np, lambda: remote.index_copy_(0, dst64, staging),
-        lambda: kv_ops.scatter_pages(remote, staging, dst), 20)
-    b, by = bound_ms(2 * n_leg * row + 4 * n_leg)
-    scatter = dict(shape=f"deepseek_mla: {n_leg} pages of {row} B into "
-                         f"{2 * n_leg}, {dtype}",
-                   max_abs_err=0.0, tolerance=0.0, ms=ms, plain_ms=plain_ms,
-                   bound_ms=b, bound_by=by,
-                   library_ms=vs_lib["library_median_ms"], vs_library=vs_lib)
-    for name, case in (("gather_pages", gather), ("scatter_pages", scatter)):
-        next(k for k in report if k["name"] == name)["deepseek_mla"] = case
-        print(f"kernel {name} {case['shape']}: kernel {case['ms']:.4f} ms "
-              f"plain {case['plain_ms']:.4f} ms bound "
-              f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}) library"
-              f" {case['library_ms']:.4f} ms; vs library, {REPEATS} "
-              f"interleaved repeats"
-              + (f" ({case['rotation']})" if "rotation" in case else "")
-              + ": " + json.dumps(case["vs_library"]))
-    del staging_pool, staging, remote
+    leg_rows(torch, np, shapes, report, dev)
 
 
 def phase_deepseek_model(torch, dcfg):
@@ -3016,13 +3126,13 @@ def roundtrip_run(torch, np, cfg, model, dev, prompt, chunks, steps, park):
     return logs, kv
 
 
-def phase_deepseek_roundtrip(torch, np, cfg, model, dev):
-    """A park/restore round trip at full width (phase 19): a 300-token
-    prompt in two mid-page chunks and 8 decode steps, parked on a same-card
-    REMOTE lease and restored after every chunk and step, must give every
-    logits row bit for bit as the unparked run; gather and scatter must
-    launch, one fabric message per leg. Returns the parked run's launch
-    counts."""
+def phase_roundtrip(torch, np, cfg, model, dev, label):
+    """A park/restore round trip at full width (phases 19 and 25): a
+    300-token prompt in two mid-page chunks and 8 decode steps, parked on
+    a same-card REMOTE lease and restored after every chunk and step, must
+    give every logits row bit for bit as the unparked run; gather and
+    scatter must launch, one fabric message per leg whatever the number of
+    planes. Returns the parked run's launch counts."""
     from repro_torch.kernels import build
     prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 300)
     base, _ = roundtrip_run(torch, np, cfg, model, dev, prompt, (120, 180),
@@ -3033,18 +3143,549 @@ def phase_deepseek_roundtrip(torch, np, cfg, model, dev):
     launches = build.launch_counts()
     same = all(torch.equal(a, b) for a, b in zip(base, parked))
     m = kv.meter
-    print(f"deepseek round trip: {len(base)} logits rows (2 chunks, 8 "
-          f"steps) parked and restored after each: bit-identical to the "
-          f"unparked run: {same}; messages_fabric {m.messages_fabric}, "
-          f"bytes_fabric {m.bytes_fabric:.0f}; launches "
+    print(f"{label} round trip: {len(base)} logits rows (2 chunks, 8 "
+          f"steps) parked and restored after each, planes "
+          f"{', '.join(kv.planes)}: bit-identical to the unparked run: "
+          f"{same}; messages_fabric {m.messages_fabric}, bytes_fabric "
+          f"{m.bytes_fabric:.0f}; launches "
           f"{json.dumps(launches, sort_keys=True)}")
     if not same or m.messages_fabric != 2 * (2 + 8) or not all(
             launches.get(k, 0) > 0 for k in ("gather_pages",
                                              "scatter_pages")):
-        raise AssertionError("deepseek round trip: logits differ from the "
-                             "unparked run, or the legs are not one "
-                             "message each through the kernels")
+        raise AssertionError(f"{label} round trip: logits differ from the "
+                             f"unparked run, or the legs are not one "
+                             f"message each through the kernels")
     return launches
+
+
+# -- jamba-v0.1-52b: Mamba and attention, the ssm/conv planes beside kv -----
+JAMBA_LAYERS = 16                   # two hybrid periods: the deepest whole
+#                                     number that fits one 80 GB card
+
+
+def jamba_leg_shapes(torch, jcfg):
+    """Rows 6-7 at one jamba request's three legs (``gather_leg_shapes``'
+    form): its ``ssm`` state, (d_inner, d_state) float32 = 524,288 B a
+    page, and ``conv`` state, (d_conv - 1, d_inner) bf16 = 49,152 B, a
+    page per Mamba layer (14 at 16 layers), and a park of ~800 tokens of
+    ``kv`` (50 pages of 16 tokens a layer, 2 attention layers, 65,536 B)."""
+    di = jcfg.ssm.mamba_expand * jcfg.d_model
+    n_attn = sum(jcfg.is_attention_layer(l) for l in range(jcfg.n_layers))
+    n_mamba = jcfg.n_layers - n_attn
+    native = jcfg.torch_compute_dtype()
+    return {"jamba_ssm": ((di, jcfg.ssm.mamba_d_state), torch.float32,
+                          n_mamba, 0),
+            "jamba_conv": ((jcfg.ssm.mamba_d_conv - 1, di), native, n_mamba,
+                           0),
+            "jamba_kv": ((2, jcfg.n_kv_heads, 16, jcfg.resolved_head_dim),
+                         native, n_attn * 50, 0)}
+
+
+def phase_jamba_kernels(torch, np, jcfg, report, dev):
+    """Rows 4-7 at jamba's shapes (phase 20): rows 6-7 at the three legs
+    (``leg_rows``; the ssm and conv rows also bit-exact in the other of
+    float32 and bf16); row 4, the mixed attention, at the main path's
+    packed step with 32 heads on 8 KV heads of 128 (``attention_case``);
+    row 5, the page writer, at that step (``step_writer_case``). Adds
+    ``jamba_*`` records to the kernels' entries."""
+    leg_rows(torch, np, jamba_leg_shapes(torch, jcfg), report, dev,
+             other_dtypes=(torch.float32, torch.bfloat16))
+    rng = np.random.default_rng(7)
+    g = torch.Generator(device=dev).manual_seed(7)
+    page, read_pps = 16, 1024 // 16
+    pool = torch.randn((2049, 2, jcfg.n_kv_heads, page,
+                        jcfg.resolved_head_dim), generator=g, device=dev,
+                       dtype=jcfg.torch_compute_dtype())
+    cases = {"paged_mixed_attention_pool": attention_case(
+                 torch, np, pool, rng, g, main_path_plan(), jcfg.n_heads,
+                 read_pps),
+             "append_kv": step_writer_case(torch, np, pool, rng, g,
+                                           read_pps)}
+    for name, case in cases.items():
+        next(k for k in report if k["name"] == name)["jamba"] = case
+        print(f"kernel {name} jamba {case['shape']} (hd "
+              f"{jcfg.resolved_head_dim}, {jcfg.n_heads} heads on "
+              f"{jcfg.n_kv_heads}): err {case['max_abs_err']:.3g} kernel "
+              f"{case['ms']:.4f} ms plain {case['plain_ms']:.4f} ms bound "
+              f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}) library "
+              f"{case['library_ms']}")
+    del pool
+
+
+def phase_jamba_model(torch, jcfg):
+    """The model at the published widths, ``JAMBA_LAYERS`` deep, from a
+    seeded CUDA generator (phase 21): the reference's ``param_count()``
+    and what the model holds (the formula leaves out the Mamba layers'
+    conv_b and dt_bias and final_norm)."""
+    from repro_torch.models import lm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model = lm.init_params(jcfg, torch.Generator(device="cuda").manual_seed(9),
+                           "cuda")
+    torch.cuda.synchronize()
+    span = time.perf_counter() - t
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    di = jcfg.ssm.mamba_expand * jcfg.d_model
+    n_mamba = sum(not jcfg.is_attention_layer(l)
+                  for l in range(jcfg.n_layers))
+    extra = n_mamba * 2 * di + jcfg.d_model
+    print(f"jamba model: {jcfg.n_layers} of the published 32 layers (two "
+          f"hybrid periods; 32 layers are 96.06 GiB in bf16), published "
+          f"widths; param_count() {jcfg.param_count():,} (the reference's "
+          f"formula); the model holds {n:,} = that + {extra:,} conv_b, "
+          f"dt_bias and final_norm entries the formula leaves out, "
+          f"{nbytes / 2 ** 30:.2f} GiB; torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({before / 2 ** 30:.2f} GiB before); built in {span:.1f} s")
+    if jcfg.param_count() != 26_053_361_664 or n != jcfg.param_count() \
+            + extra:
+        raise AssertionError("jamba model: wrong parameter count")
+    return model
+
+
+def jamba_step_inputs(torch, np, cfg, dev, plan, page, pps_pad):
+    """Pools and tables of a packed jamba step (``plan``): every live row
+    (decode lanes, chunk rows with real tokens) owns a random mid-stream
+    ssm and conv page per Mamba layer and its kv pages per attention layer,
+    every slot its own; pad rows point at scratch (slot 0). Returns
+    (pools, host tables, tokens)."""
+    from repro_torch.layers.mamba import _dims
+    rng = np.random.default_rng(11)
+    g = torch.Generator(device=dev).manual_seed(11)
+    from repro_torch.models import lm
+    q_starts, n_reals, n_dec, Tc = plan
+    R, G = len(q_starts), lm.n_groups(cfg)
+    live = np.nonzero((np.arange(R) < n_dec) | (n_reals > 0))[0]
+    need = [-(-(int(s) + max(int(n), 1)) // page) if r in live else 0
+            for r, (s, n) in enumerate(zip(q_starts, n_reals))]
+    n_sub = {k: len(v["positions"]) for k, v in lm.paged_layout(cfg).items()}
+    di, ds, dc, _ = _dims(cfg)
+    dt = cfg.torch_compute_dtype()
+    P_state = 1 + G * n_sub["ssm"] * len(live)
+    P_kv = 1 + G * sum(need)
+    pools = {"ssm": 0.1 * torch.randn((P_state, di, ds), generator=g,
+                                      device=dev),
+             "conv": torch.randn((P_state, dc - 1, di), generator=g,
+                                 device=dev).to(dt),
+             "kv": torch.randn((P_kv, 2, cfg.n_kv_heads, page,
+                                cfg.resolved_head_dim), generator=g,
+                               device=dev).to(dt)}
+    tables = {}
+    for name in ("ssm", "conv"):
+        bt = np.zeros((G, n_sub[name], R), np.int32)
+        bt[:, :, live] = (1 + rng.permutation(P_state - 1)).reshape(
+            G, n_sub[name], len(live))
+        tables[name] = bt
+    bt = np.zeros((G, 1, R, pps_pad), np.int32)
+    free = rng.permutation(np.arange(1, P_kv)).astype(np.int32)
+    for gi in range(G):
+        for r in range(R):
+            bt[gi, 0, r, :need[r]], free = free[:need[r]], free[need[r]:]
+    tables["kv"] = bt
+    tokens = rng.integers(0, cfg.vocab_size, (R, Tc)).astype(np.int32)
+    return pools, tables, tokens
+
+
+def phase_jamba_layer_step(torch, np, cfg, model, dev):
+    """One full-width packed step (``main_path_plan``) of jamba, bf16
+    against float32 a layer at a time (phase 22; the model in float32,
+    ~97 GB, does not fit).
+
+    Per layer, on the bf16 path's layer input and pools: the mixer (Mamba:
+    ``mamba_mixed_paged``; attention: ``attention_mixed_paged``) through
+    the layer as it is and through a float32 copy of it, within
+    ``LAYER_REL_LIMIT`` per real token, a control beyond (Mamba: the
+    furthest decode lane's ssm and conv pages zeroed, a dropped state;
+    attention: that lane's newest kv page swapped for scratch); the MoE
+    likewise on the same normed input, its control routing to top-1. On
+    the two streams each path carries (the bf16 step and a float32 step),
+    the share of real tokens whose top-2 experts differ is printed, not
+    asserted. Whole step: the bf16 layers' logits must equal
+    ``api.serve_step_paged``'s bit for bit on the real rows, and lie
+    nearer the float32 step's than a step whose furthest decode lane lost
+    its Mamba state."""
+    import dataclasses
+    from repro_torch.layers import attention as attn
+    from repro_torch.layers.core import embed, rms_norm, unembed
+    from repro_torch.layers.moe import MoE, moe_apply
+    from repro_torch.models import api, lm
+    page, max_seq = 16, 1024
+    read_pps = max_seq // page
+    pps_pad = read_pps + 256 // page + 1
+    plan = main_path_plan()
+    q_starts, n_reals, n_dec, Tc = plan
+    R = len(q_starts)
+    pools0, bt, tokens = jamba_step_inputs(torch, np, cfg, dev, plan, page,
+                                           pps_pad)
+    lane = int(np.argmax(q_starts[:n_dec]))            # the controls' lane
+    lost = int(q_starts[lane]) // page
+    bt_ctrl = {k: v.copy() for k, v in bt.items()}
+    bt_ctrl["kv"][:, 0, lane, lost] = 0       # the lane's newest page
+    tables = {False: {k: torch.as_tensor(v).to(dev) for k, v in bt.items()},
+              True: {k: torch.as_tensor(v).to(dev)
+                     for k, v in bt_ctrl.items()}}
+    dropped = {k: torch.as_tensor(bt[k][:, :, lane].reshape(-1)).long()
+               .to(dev) for k in ("ssm", "conv")}
+    real = torch.as_tensor(np.arange(Tc)[None] < n_reals[:, None]).to(dev)
+    nr_dev = torch.as_tensor(n_reals.astype(np.int64)).to(dev)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    ctrl32 = cfg32.replace(moe=dataclasses.replace(
+        cfg.moe, top_k=cfg.moe.top_k - 1))
+    eps = cfg.rmsnorm_eps
+
+    def f32(pools):
+        return {k: v.to(torch.float32, copy=True) for k, v in pools.items()}
+
+    # the served step's metadata: a chunk row writes only its own pages
+    meta = attn.step_meta(q_starts, n_reals, n_dec, Tc, dev,
+                          page=lm._own_pages_only(cfg, pools0))
+
+    def mix(kind, gi, j, p, c, h, pools, control=False):
+        t = tables[control and kind == "attn"]
+        if kind == "mamba":
+            return lm.mamba_mixed_paged(p, c, h, pools, t["ssm"][gi, j],
+                                        t["conv"][gi, j], nr_dev, n_dec)
+        return attn.attention_mixed_paged(
+            p, c, h, pools["kv"], t["kv"][gi, j], q_starts, n_reals,
+            n_decode=n_dec, read_pps=read_pps, meta=meta)[0]
+
+    t = time.perf_counter()
+    x = embed(model.embed, cfg, torch.as_tensor(tokens).to(dev))
+    x32 = x.float()
+    pools_b = {k: v.clone() for k, v in pools0.items()}
+    pools_32 = f32(pools0)
+    rel = {k: [] for k in ("mamba", "mamba_control", "attn", "attn_control",
+                           "moe", "moe_control")}
+    differ = []
+    for blk, (gi, j, kind) in zip(model.blocks, lm.sublayers(cfg)):
+        blk32 = copy.deepcopy(blk).float()
+        before = f32(pools_b)
+        h = rms_norm(blk.n1, x, eps)
+        out_b = mix(kind, gi, j, blk.mix, cfg, h, pools_b)
+        out_f = mix(kind, gi, j, blk32.mix, cfg32, h.float(), f32(before))
+        ctrl = f32(before)
+        if kind == "mamba":
+            for k in ("ssm", "conv"):
+                ctrl[k][dropped[k]] = 0.0
+        out_c = mix(kind, gi, j, blk32.mix, cfg32, h.float(), ctrl,
+                    control=True)
+        rel[kind].append(rel_per_token(torch, out_b, out_f, real))
+        rel[f"{kind}_control"].append(rel_per_token(torch, out_c, out_f,
+                                                    real))
+        x = x + out_b
+        h2 = rms_norm(blk.n2, x, eps)
+        ffn_b = lm.ffn_apply(blk.ffn, cfg, h2)
+        if isinstance(blk.ffn, MoE):
+            moe_f = moe_apply(blk32.ffn, cfg32, h2.float())[0]
+            moe_c = moe_apply(blk32.ffn, ctrl32, h2.float())[0]
+            rel["moe"].append(rel_per_token(torch, ffn_b, moe_f, real))
+            rel["moe_control"].append(rel_per_token(torch, moe_c, moe_f,
+                                                    real))
+        x = x + ffn_b
+        # the float32 step, on its own stream and pools
+        x32 = x32 + mix(kind, gi, j, blk32.mix, cfg32,
+                        rms_norm(blk32.n1, x32, eps), pools_32)
+        h2_32 = rms_norm(blk32.n2, x32, eps)
+        if isinstance(blk.ffn, MoE):
+            sets = (expert_sets(torch, blk.ffn, cfg, h2)
+                    != expert_sets(torch, blk32.ffn, cfg32, h2_32)).any(-1)
+            differ.append(sets.reshape(R, Tc)[real].float().mean().item())
+        x32 = x32 + lm.ffn_apply(blk32.ffn, cfg32, h2_32)
+        del blk32, before, ctrl, out_b, out_f, out_c
+    last = torch.as_tensor(np.clip(n_reals - 1, 0, Tc - 1)).to(dev)
+    rows = torch.arange(R, device=dev)
+
+    def logits_of(mdl, c, xs):
+        xs = rms_norm(mdl.final_norm, xs, eps)
+        return unembed(mdl.embed, c, xs[rows, last]).float()
+    emb32 = copy.deepcopy(model.embed).float()
+    fin32 = copy.deepcopy(model.final_norm).float()
+    head32 = type("Head", (), {"embed": emb32, "final_norm": fin32})
+    outs = {"bf16 layers": logits_of(model, cfg, x),
+            "f32": logits_of(head32, cfg32, x32)}
+    del emb32, fin32, head32, x, x32, pools_32, pools_b
+    span = time.perf_counter() - t
+    for name in ("served", "control"):
+        p = {k: v.clone() for k, v in pools0.items()}
+        if name == "control":
+            for k in ("ssm", "conv"):
+                p[k][dropped[k]] = 0
+        lg, _ = api.serve_step_paged(model, cfg, tokens, p, bt, q_starts,
+                                     n_reals, n_decode=n_dec,
+                                     read_pps=read_pps)
+        outs[name] = lg.float()
+        del p
+    _sync(torch, dev)
+    keep = np.nonzero(n_reals > 0)[0]
+    # pad rows write the scratch pages, whose duplicate writes land in no
+    # defined order: only the real rows are the step's answer
+    same = torch.equal(outs["served"][keep], outs["bf16 layers"][keep])
+    dist = {k: [round(v, 4) for v in
+                (outs[k] - outs["f32"]).abs().amax(-1)[keep].tolist()]
+            for k in ("served", "control")}
+    agree = (outs["served"][keep].argmax(-1)
+             == outs["f32"][keep].argmax(-1)).float().mean().item()
+    fmt = lambda v: ", ".join(f"{a:.3g}" for a in v)       # noqa: E731
+    print(f"jamba layer step, per layer ({cfg.n_layers} layers, R={R} "
+          f"Tc={Tc}), bf16 vs float32 max per-token relative diff: Mamba "
+          f"{max(rel['mamba']):.4g} (layers {fmt(rel['mamba'])}), control "
+          f"(the lane at {int(q_starts[lane])} with its ssm and conv pages "
+          f"zeroed) least {min(rel['mamba_control']):.4g}; attention "
+          f"{max(rel['attn']):.4g} (layers {fmt(rel['attn'])}), control "
+          f"(that lane reading scratch for its newest page) least "
+          f"{min(rel['attn_control']):.4g}; MoE {max(rel['moe']):.4g} "
+          f"(layers {fmt(rel['moe'])}), control routing to top-"
+          f"{cfg.moe.top_k - 1} least {min(rel['moe_control']):.4g}; "
+          f"{span:.1f} s")
+    print(f"jamba layer step, routing: share of real tokens whose top-"
+          f"{cfg.moe.top_k} experts differ between the bf16 and float32 "
+          f"steps, per MoE layer: {fmt(differ)}; mean "
+          f"{float(np.mean(differ)):.4g}")
+    print(f"jamba layer step, whole: the bf16 layers' logits of the "
+          f"{len(keep)} real rows equal api.serve_step_paged's bit for bit: "
+          f"{same}; |f32| max "
+          f"{outs['f32'][keep].abs().max().item():.3g}; per real row max abs"
+          f" diff to f32: {json.dumps(dist)} (control: the lane at "
+          f"{int(q_starts[lane])} with its Mamba state zeroed); argmax "
+          f"agreement with f32 {agree:.3f}")
+    for kind in ("mamba", "attn", "moe"):
+        lk, lc = max(rel[kind]), min(rel[f"{kind}_control"])
+        if not lk <= LAYER_REL_LIMIT < lc:
+            raise AssertionError(
+                f"jamba layer step: {kind} bf16 vs float32 {lk} must be "
+                f"within {LAYER_REL_LIMIT}, and its control ({lc}) beyond")
+    if not same:
+        raise AssertionError("jamba layer step: the layers compared are "
+                             "not the served step's")
+    if tuple(outs["served"].shape) != (R, cfg.vocab_size) \
+            or not torch.isfinite(outs["served"]).all():
+        raise AssertionError("jamba layer step: logits of the wrong shape "
+                             "or not finite")
+    if not max(dist["served"]) < max(dist["control"]):
+        raise AssertionError(
+            f"jamba layer step: the served step's logits "
+            f"({max(dist['served'])} from float32) must lie nearer than the "
+            f"control's ({max(dist['control'])})")
+    return {k: max(v) for k, v in rel.items()}
+
+
+def layer_major_run(torch, np, cfg, model, dev, prompts, first_tokens):
+    """The per-request path in float32 (the whole model in float32 does
+    not fit the card): each prompt of ``prompts`` [(tokens, split)] chunk
+    by chunk as ``per_request_run``, then one decode step of all prompts
+    as lanes, fed ``first_tokens``, computed layer-major: every chunk and
+    then the decode step through a float32 copy of layer 0, then of layer
+    1, and so on. A layer reads only its own pages and state and the
+    previous layer's output of the same tokens, and each prompt's chunks
+    keep their order, so the order of work changes nothing but the memory
+    it needs. Returns (each prompt's last-token prefill logits, the decode
+    step's logits (B, V))."""
+    from repro_torch.layers import attention as attn
+    from repro_torch.layers.core import embed, rms_norm, unembed
+    from repro_torch.models import lm
+    from repro_torch.serving.kv_cache import PagedStateRuntime
+    from repro_torch.serving.scheduler import bucket_tokens
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+
+    def cast(m):
+        return copy.deepcopy(m).float()
+
+    def emb(tk):
+        return embed(model.embed, cfg, torch.as_tensor(tk).to(dev)).float()
+    kv = PagedStateRuntime(c32, max_seq=1024, page_tokens=16, max_running=4,
+                           prefix_cache=False, device=dev)
+    pad = kv.pps + 256 // kv.page_tokens + 1
+    chunks = []
+    for rid, (prompt, split) in enumerate(prompts):
+        kv.ensure_capacity(rid, len(prompt) + 1)
+        bt = lm._device_tables("prefill", kv.block_tables_prefill(
+            rid, pad_to=pad), kv.pools)
+        pos = 0
+        for c in split:
+            tk = np.zeros((1, bucket_tokens(c)), np.int32)
+            tk[0, :c] = prompt[pos:pos + c]
+            chunks.append([rid, pos, c, emb(tk), bt])
+            pos += c
+    metas = [attn.step_meta([pos], [c], 0, x.shape[1], dev,
+                            page=lm._own_pages_only(c32, kv.pools))
+             for _, pos, c, x, _ in chunks]
+    lanes = list(range(len(prompts)))
+    dec_bt = lm._device_tables("decode", kv.block_tables(lanes), kv.pools)
+    dec_pos = np.asarray([len(p) for p, _ in prompts], np.int64)
+    x_dec = emb(np.asarray(first_tokens, np.int64).reshape(-1, 1))
+    for blk, (gi, j, kind) in zip(model.blocks, lm.sublayers(cfg)):
+        b = cast(blk)
+        for ch, meta in zip(chunks, metas):
+            _, pos, c, x, bt = ch
+            if kind == "mamba":
+                def attend(mix, h):
+                    return lm._mamba_mix(mix, c32, h, kv.pools,
+                                         bt["ssm"][gi, j:j + 1],
+                                         bt["conv"][gi, j:j + 1], n_real=c)
+            else:
+                def attend(mix, h):
+                    return attn.attention_prefill_chunk(
+                        mix, c32, h, kv.pools["kv"], bt["kv"][gi, j], pos,
+                        read_pps=kv.pps, impl="ref", meta=meta)[0]
+            ch[3] = lm._layer(b, c32, x, attend)
+        if kind == "mamba":
+            def attend(mix, h):
+                return lm._mamba_mix(mix, c32, h, kv.pools,
+                                     dec_bt["ssm"][gi, j],
+                                     dec_bt["conv"][gi, j], decode=True)
+        else:
+            def attend(mix, h):
+                return attn.attention_decode_paged(
+                    mix, c32, h, kv.pools["kv"], dec_bt["kv"][gi, j],
+                    dec_pos, impl="ref")[0]
+        x_dec = lm._layer(b, c32, x_dec, attend)
+        del b
+    final, head = cast(model.final_norm), cast(model.embed)
+
+    def logits(x):
+        return unembed(head, c32, rms_norm(final, x, cfg.rmsnorm_eps))
+    prefill = {}
+    for rid, _, c, x, _ in chunks:             # each prompt's last chunk
+        prefill[rid] = logits(x[:, c - 1])[0].float()
+    return [prefill[rid] for rid in lanes], logits(x_dec[:, 0]).float()
+
+
+def phase_jamba_per_request(torch, np, cfg, model, dev):
+    """Phase 5's prompts and decode steps through the per-request entry
+    points at full width (phase 23; counts reset just before, read after:
+    rows 2, 3 and 5 must launch). Against float32 (``layer_major_run``):
+    each prompt's last-token prefill logits no further than twice the
+    plain bf16 path's distance; the first decode step's logits of the
+    plain path with every lane's ssm pages zeroed just before it (a
+    dropped state) further than twice the plain path's. A drop between
+    prefill chunks is printed, not asserted: at random weights dt is
+    ~softplus(-4.6), so a state decays within a chunk of hundreds of
+    tokens. Beside it, the same prompts through the fused engine (FCFS):
+    walls and agreeing greedy tokens (reported, not asserted)."""
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(10)
+    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), split)
+               for n, split in PROMPTS.items()]
+    _sync(torch, dev)
+    build.reset_launch_counts()
+    run = per_request_run(torch, np, cfg, model, dev, prompts, "kernel",
+                          decode_steps=DECODE_STEPS)
+    launches = build.launch_counts()
+    print("jamba per-request (api.prefill_chunk_paged / "
+          "api.decode_step_paged): "
+          + _walls(np, "prefill chunk wall", run["chunk_s"]) + "; "
+          + _walls(np, "decode step wall", run["step_s"])
+          + f"; kernel launches {json.dumps(launches, sort_keys=True)}")
+    if not all(launches.get(k, 0) > 0 for k in (
+            "paged_prefill_attention_pool", "paged_attention_pool",
+            "append_kv")):
+        raise AssertionError("jamba per-request: rows 2, 3 and 5 must "
+                             "launch")
+    if not all(len(t) == DECODE_STEPS + 1 and all(0 <= v < cfg.vocab_size
+                                                  for v in t)
+               for t in run["tokens"]):
+        raise AssertionError("jamba per-request: wrong greedy tokens")
+    del run["kv"]
+
+    def drop(at):
+        def hook(kind, kv, tokens, tables, pos, n_real):
+            if kind == at and (kind == "decode" or pos > 0):
+                slots = torch.as_tensor(tables["ssm"].reshape(-1).astype(
+                    np.int64)).to(dev)
+                kv.pools["ssm"][slots] = 0.0
+        return hook
+    ref = per_request_run(torch, np, cfg, model, dev, prompts, "ref",
+                          decode_steps=1)
+    f32, f32_step = layer_major_run(torch, np, cfg, model, dev, prompts,
+                                    [t[0] for t in ref["tokens"]])
+    torch.cuda.empty_cache()
+    logits = {"kernel": run["logits"], "ref": ref["logits"],
+              "drop between chunks": per_request_run(
+                  torch, np, cfg, model, dev, prompts, "ref",
+                  hook=drop("prefill"))["logits"]}
+    dist = {k: [round((a - b).abs().max().item(), 4)
+                for a, b in zip(v, f32)] for k, v in logits.items()}
+    control = per_request_run(torch, np, cfg, model, dev, prompts, "ref",
+                              decode_steps=1, hook=drop("decode"))
+    step = {k: [round(v, 4) for v in (r["first_step_logits"] - f32_step)
+                .abs().amax(-1).tolist()]
+            for k, r in (("ref", ref), ("control", control))}
+    limit, step_limit = 2 * max(dist["ref"]), 2 * max(step["ref"])
+    print(f"jamba per-request, last-token prefill logits max abs diff to "
+          f"f32 (layer-major) per prompt {list(PROMPTS)}: "
+          f"{json.dumps(dist)}; limit {limit:.4g}; first decode step: "
+          f"{json.dumps(step)} (control: every lane's ssm pages zeroed "
+          f"before it); limit {step_limit:.4g}")
+    if not max(dist["kernel"]) <= limit:
+        raise AssertionError(
+            f"jamba per-request prefill: the kernel path's logits "
+            f"({max(dist['kernel'])} from float32) must be within twice the "
+            f"plain bf16 path's ({limit})")
+    if not step_limit < max(step["control"]):
+        raise AssertionError(
+            f"jamba per-request: the dropped-state control's first decode "
+            f"step ({max(step['control'])} from float32) must lie beyond "
+            f"twice the plain path's ({step_limit})")
+    tokens, step_s, mixed, _ = fused_fcfs_run(torch, np, cfg, model, dev,
+                                              prompts, "jamba")
+    agree = [sum(a == b for a, b in zip(x, y))
+             for x, y in zip(tokens, run["tokens"])]
+    print(f"jamba fused (ServingEngine FCFS, same prompts): "
+          f"{len(step_s)} steps; "
+          + _walls(np, "step wall with prompt chunks", step_s[mixed]) + "; "
+          + _walls(np, "decode-only step wall", step_s[~mixed])
+          + f"; greedy tokens agreeing with the per-request path per prompt"
+          f" {list(PROMPTS)}: {agree} of {DECODE_STEPS + 1} each")
+    return launches
+
+
+JAMBA_ROWS = ("paged_attention_pool", "paged_prefill_attention_pool",
+              "paged_mixed_attention_pool", "append_kv", "gather_pages",
+              "scatter_pages")                  # rows 2-7
+
+
+def jamba_phases(torch, np, report, dev, t0):
+    """jamba-v0.1-52b at its published widths, ``JAMBA_LAYERS`` deep
+    (phases 20-25). Returns {path: launch counts}."""
+    from repro_torch.configs import get_config
+    jcfg = get_config("jamba-v0.1-52b").replace(n_layers=JAMBA_LAYERS)
+    spans, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        spans[name] = time.perf_counter() - t
+        t = time.perf_counter()
+    phase_jamba_kernels(torch, np, jcfg, report, dev)
+    lap("rows 4-7")
+    model = phase_jamba_model(torch, jcfg)
+    lap("model")
+    phase_jamba_layer_step(torch, np, jcfg, model, dev)
+    torch.cuda.empty_cache()
+    lap("layer step")
+    paths = {"jamba per-request": phase_jamba_per_request(
+        torch, np, jcfg, model, dev)}
+    lap("per-request")
+    paths["jamba engine"], _ = phase_engine(
+        torch, np, jcfg, model, dev, need=JAMBA_ROWS[2:], profile=True)
+    engine = paths["jamba engine"]
+    if engine["append_kv"] != engine["paged_mixed_attention_pool"]:
+        raise AssertionError(
+            f"jamba engine: {engine['append_kv']} page-writer launches, not "
+            f"one per attention layer per step "
+            f"({engine['paged_mixed_attention_pool']} mixed attention "
+            f"launches)")
+    lap("engine")
+    paths["jamba round trip"] = phase_roundtrip(torch, np, jcfg, model, dev,
+                                                "jamba")
+    lap("round trip")
+    del model
+    release(torch)
+    print(f"jamba-v0.1-52b phase spans (s): "
+          f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
+          f"at {time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
@@ -3643,13 +4284,16 @@ def main() -> int:
                                 profile=True)
     spans["engine"] = time.perf_counter() - t
     t = time.perf_counter()
-    ds_roundtrip = phase_deepseek_roundtrip(torch, np, dcfg, model, dev)
+    ds_roundtrip = phase_roundtrip(torch, np, dcfg, model, dev, "deepseek")
     spans["round trip"] = time.perf_counter() - t
     del model
     release(torch)
     print(f"deepseek-v2-lite-16b phase spans (s): "
           f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
           f"at {time.perf_counter() - t0:.1f} s")
+
+    # -- jamba-v0.1-52b: Mamba and attention, ssm/conv planes beside kv ---
+    jamba = jamba_phases(torch, np, report, dev, t0)
 
     # -- qwen1.5-0.5b training: the flash attention kernels ----------------
     phase_flash_kernels(torch, report)
@@ -3663,14 +4307,14 @@ def main() -> int:
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
     # path that runs it, phase 6c's admission and request lifecycle and the
-    # deepseek paths included
+    # deepseek and jamba paths included
     paths = (("engine", launches), ("per-request", per_request),
              ("split-pool drive", split), ("rwkv engine", rwkv_engine),
              ("rwkv per-request", rwkv_per_request), ("train", train_run),
              ("request lifecycle", request_lifecycle),
              ("deepseek engine", ds_engine),
              ("deepseek per-request", ds_per_request),
-             ("deepseek round trip", ds_roundtrip))
+             ("deepseek round trip", ds_roundtrip)) + tuple(jamba.items())
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -3684,6 +4328,10 @@ def main() -> int:
                                                  "scatter_pages")):
         raise AssertionError("the deepseek engine launched no gather or no "
                              "scatter")
+    no_jamba = [k["name"] for k in report if k["name"] in JAMBA_ROWS
+                and not any(p in k["launches_by_path"] for p in jamba)]
+    if no_jamba:
+        raise AssertionError(f"no jamba path launched {no_jamba}")
     print(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

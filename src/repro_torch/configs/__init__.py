@@ -1,7 +1,8 @@
 """Per-architecture configs the port serves (one module per arch)."""
 import importlib
 
-_ARCH_MODULES = ["qwen1_5_0_5b", "rwkv6_3b", "deepseek_v2_lite_16b"]
+_ARCH_MODULES = ["qwen1_5_0_5b", "rwkv6_3b", "deepseek_v2_lite_16b",
+                 "jamba_v0_1_52b"]
 
 
 def load_all():
@@ -10,5 +11,5 @@ def load_all():
 
 
 from repro_torch.configs.base import (  # noqa: E402,F401
-    DENSE, MOE, SSM, MLAConfig, ModelConfig, MoEConfig, SSMConfig, get_config,
-    smoke_config)
+    DENSE, HYBRID, MOE, SSM, HybridConfig, MLAConfig, ModelConfig, MoEConfig,
+    SSMConfig, get_config, smoke_config)

@@ -1,9 +1,9 @@
 """Architecture configuration for the PyTorch port.
 
 The fields of ``repro/configs/base.py``'s :class:`ModelConfig` that the
-dense, MoE (with DeepSeek's MLA) and RWKV-6 families read (the
-sub-configs of the hybrid and encoder-decoder families come with their
-slices), with :meth:`ModelConfig.dtype` returning a torch dtype. Only the
+dense, MoE (with DeepSeek's MLA), RWKV-6 and hybrid (Jamba: Mamba and
+attention) families read (the encoder-decoder sub-config comes with its
+slice), with :meth:`ModelConfig.dtype` returning a torch dtype. Only the
 architectures the port serves register here.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 DENSE = "dense"          # decoder-only transformer (GQA/MQA)
 MOE = "moe"              # decoder-only transformer with MoE FFN
 SSM = "ssm"              # RWKV-6 (attention-free)
+HYBRID = "hybrid"        # Jamba: Mamba + attention interleave, MoE
 
 
 @dataclass(frozen=True)
@@ -27,7 +28,7 @@ class MoEConfig:
     d_ff_expert: int = 0              # per-expert FFN width (0 = use d_ff)
     capacity_factor: float = 1.25     # dispatch capacity factor
     router_jitter: float = 0.0
-    moe_every: int = 1                # apply MoE every k-th layer
+    moe_every: int = 1                # apply MoE every k-th layer (Jamba: 2)
     aux_loss_coef: float = 0.01
 
 
@@ -43,11 +44,23 @@ class MLAConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """RWKV-6 knobs (the reference's Mamba fields come with the hybrid
-    slice)."""
+    """RWKV-6 / Mamba specific knobs."""
+    # RWKV-6
     rwkv_head_dim: int = 64
     rwkv_lora_decay: int = 64         # rank of the data-dependent decay LoRA
     rwkv_lora_mix: int = 32           # rank of the token-shift interpolation LoRA
+    # Mamba (Jamba)
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_dt_rank: int = 0            # 0 = d_model // 16
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Jamba interleave: every `period` layers, `attn_index` is attention."""
+    period: int = 8
+    attn_index: int = 4
 
 
 @dataclass(frozen=True)
@@ -75,6 +88,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     n_prefix_embeds: int = 0
     max_seq_len: int = 8192
     param_dtype: str = "bfloat16"
@@ -84,14 +98,21 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def is_attention_layer(self, layer_idx: int) -> bool:
+        if self.family == SSM:
+            return False
+        if self.family == HYBRID:
+            return layer_idx % self.hybrid.period == self.hybrid.attn_index
+        return True
+
     def is_moe_layer(self, layer_idx: int) -> bool:
         if self.moe is None:
             return False
         return (layer_idx % self.moe.moe_every) == (self.moe.moe_every - 1)
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense, MoE/MLA or RWKV-6 stack
-        (the reference's formula)."""
+        """Analytic parameter count of a dense, MoE/MLA, RWKV-6 or hybrid
+        stack (the reference's formula)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         nh, nkv, L = self.n_heads, self.n_kv_heads, self.n_layers
@@ -106,7 +127,9 @@ class ModelConfig:
                           + 5 * 2 * d * s.rwkv_lora_mix
                           + 2 * d * f + f * d)
                 continue
-            if self.mla is not None:
+            if self.family == HYBRID and not self.is_attention_layer(i):
+                total += self._mamba_layer_params()
+            elif self.mla is not None:
                 total += self._mla_layer_params()
             else:
                 total += d * (nh * hd) + 2 * d * (nkv * hd) + (nh * hd) * d
@@ -119,6 +142,16 @@ class ModelConfig:
                 total += glu * d * f
             total += 2 * d                                     # norms
         return total
+
+    def _mamba_layer_params(self) -> int:
+        # in_proj, conv_w, x_proj, dt_proj, A_log, D, out_proj (the
+        # formula leaves out conv_b and dt_bias)
+        d, s = self.d_model, self.ssm or SSMConfig()
+        di = s.mamba_expand * d
+        dtr = s.mamba_dt_rank or d // 16
+        return (d * 2 * di + di * s.mamba_d_conv
+                + di * (dtr + 2 * s.mamba_d_state) + dtr * di
+                + di * s.mamba_d_state + di + di * d)
 
     def _mla_layer_params(self) -> int:
         d, m, nh = self.d_model, self.mla, self.n_heads
@@ -162,15 +195,17 @@ def get_config(name: str) -> ModelConfig:
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests — the reference's
     ``smoke_config`` for the families the port serves."""
-    if cfg.family not in (DENSE, MOE, SSM):
-        raise NotImplementedError(f"{cfg.name}: only dense, MoE and RWKV-6 "
-                                  "smoke configs are ported")
+    if cfg.family not in (DENSE, MOE, SSM, HYBRID):
+        raise NotImplementedError(f"{cfg.name}: only dense, MoE, RWKV-6 and "
+                                  "hybrid smoke configs are ported")
     kw = dict(
         n_layers=min(cfg.n_layers, 4), d_model=128, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads
         else 4,
         head_dim=32, d_ff=256, vocab_size=512, max_seq_len=128,
         param_dtype="float32", compute_dtype="float32")
+    if cfg.family == HYBRID:
+        kw["n_layers"] = 8   # one full interleave period
     if cfg.moe is not None:
         # capacity_factor = n_experts makes capacity routing dropless
         kw["moe"] = dataclasses.replace(
@@ -183,6 +218,7 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
                               qk_nope_head_dim=32, qk_rope_head_dim=16,
                               v_head_dim=32)
     if cfg.ssm is not None:
-        kw["ssm"] = dataclasses.replace(cfg.ssm, rwkv_head_dim=32,
-                                        rwkv_lora_decay=16, rwkv_lora_mix=8)
+        kw["ssm"] = dataclasses.replace(
+            cfg.ssm, rwkv_head_dim=32, rwkv_lora_decay=16, rwkv_lora_mix=8,
+            mamba_d_state=8, mamba_dt_rank=8)
     return cfg.replace(**kw)

@@ -83,18 +83,19 @@ class ModelCost:
 
     @staticmethod
     def from_config(cfg) -> "ModelCost":
-        """Costs of a dense config (every layer is attention), an MoE/MLA
-        one (the latent cache per token; only the top-k routed experts are
-        active) or an RWKV-6 one (O(1) recurrent state, no per-token
-        cache)."""
+        """Costs of a dense config (every layer is attention), a hybrid
+        one (K/V of its attention layers only), an MoE/MLA one (the latent
+        cache per token; only the top-k routed experts are active) or an
+        RWKV-6 one (O(1) recurrent state, no per-token cache)."""
         if cfg.mla is not None:
             kvtok = ((cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim)
                      * cfg.n_layers * 2)
         elif cfg.family == "ssm":
             kvtok = 0.0
         else:
-            kvtok = 2 * cfg.n_kv_heads * cfg.resolved_head_dim \
-                * cfg.n_layers * 2
+            n_attn = sum(1 for i in range(cfg.n_layers)
+                         if cfg.is_attention_layer(i))
+            kvtok = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * n_attn * 2
         n_active = cfg.param_count()
         if cfg.moe is not None:
             m = cfg.moe

@@ -296,7 +296,9 @@ int launch_bulk(const void* pool, void* staging, const int* ids, long long n,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long cpr = (row_bytes + chunk - 1) / chunk;
   const size_t smem = static_cast<size_t>(chunk) * stages;
-  if (smem > 48 * 1024) {
+  // the ring and the static barriers share the block's 48 KiB default: a
+  // ring of exactly 48 KiB (8 KiB x 6) needs the opt-in too
+  if (smem + kMaxStages * sizeof(uint64_t) > 48 * 1024) {
     if (int e = static_cast<int>(cudaFuncSetAttribute(
             gather_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem))))

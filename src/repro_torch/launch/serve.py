@@ -5,8 +5,10 @@ scheduling on a CUDA card (or, with ``--device cpu``, the CPU).
         --smoke --scheduler cfs --offload fabric --requests 8 --device cpu
 
 ``--arch`` is ``qwen1.5-0.5b`` (the ``kv`` token plane),
-``deepseek-v2-lite-16b`` (MLA and the MoE: the ``mla`` latent token plane)
-or ``rwkv6-3b`` (the ``wkv`` and ``shift`` state planes).
+``deepseek-v2-lite-16b`` (MLA and the MoE: the ``mla`` latent token plane),
+``rwkv6-3b`` (the ``wkv`` and ``shift`` state planes) or ``jamba-v0.1-52b``
+(Mamba and attention: the ``ssm`` and ``conv`` state planes beside the
+``kv`` token plane).
 """
 from __future__ import annotations
 

@@ -198,18 +198,27 @@ def attention_mixed_paged(p: Attention, cfg: ModelConfig, x, kv_pool,
     return out, kv_pool
 
 
-def step_meta(q_starts, n_reals, n_decode: int, Tc: int, device) -> dict:
+def step_meta(q_starts, n_reals, n_decode: int, Tc: int, device,
+              page: Optional[int] = None) -> dict:
     """Device copies of a packed step's per-row metadata (int32) and the
     token positions, made once per step and shared by every layer.
     ``n_write``, the tokens each row writes into its pages: 1 for a decode
     lane (an idle one writes scratch), Tc for a chunk row with real tokens
     (its padding too, as the reference's page window does), 0 for a
-    bucket-pad row."""
+    bucket-pad row.
+
+    With ``page``, a chunk row writes only the tokens that land in its own
+    pages, the ceil((q_start + n_real) / page) pages from position 0 that
+    the runtime gives it; past them its table holds the scratch padding,
+    which then keeps what it held (``lm._own_pages_only`` says when)."""
     qs_np = np.asarray(q_starts, np.int32).reshape(-1)
     nr_np = np.asarray(n_reals, np.int32).reshape(-1)
     R = qs_np.shape[0]
     is_dec_np = np.arange(R) < n_decode
     n_write = np.where(is_dec_np, 1, np.where(nr_np > 0, Tc, 0))
+    if page:
+        own = -(-(qs_np.astype(np.int64) + nr_np) // page) * page - qs_np
+        n_write = np.where(is_dec_np, n_write, np.minimum(n_write, own))
     qs = torch.as_tensor(qs_np).to(device)
     nr = torch.as_tensor(nr_np).to(device)
     is_dec = torch.as_tensor(is_dec_np.astype(np.int32)).to(device)

@@ -1,29 +1,31 @@
 """Decoder LM for training and the paged serving runtime — the dense,
-MoE/MLA and RWKV-6 subset of ``repro/models/lm.py`` (training: the dense
-family).
+MoE/MLA, RWKV-6 and hybrid (Jamba) subset of ``repro/models/lm.py``
+(training: the dense family).
 
 The reference stacks layer groups for ``lax.scan``; here the model is an
 ``nn.Module`` whose ``blocks`` are one module per layer and the step is a
-Python loop over them (PyTorch runs eagerly). Every family the port serves
-has one sub-layer per group, so the reference's group g is this model's
-layer g, and a layer's kinds are those of sub-layer 0: its sequence mixer
-is attention, MLA (each followed by a feed-forward: the MLP, or the
-dropless MoE where ``ffn_kind`` says so) or RWKV-6 (time-mix and
-channel-mix, with their own residuals). See ``mixer_kind`` and
-``ffn_kind``.
+Python loop over them (PyTorch runs eagerly). Layer l is sub-layer
+i = l % group_size of the reference's group g = l // group_size: one
+sub-layer per group for the homogeneous families, eight for jamba
+(attention at index 4, Mamba elsewhere, the MoE on odd indices). A
+sub-layer's kinds depend only on i: its sequence mixer is attention, MLA,
+Mamba (each followed by a feed-forward: the MLP, or the dropless MoE
+where ``ffn_kind`` says so) or RWKV-6 (time-mix and channel-mix, with
+their own residuals). See ``mixer_kind`` and ``ffn_kind``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, MOE, SSM, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.layers import attention as attn
+from repro_torch.layers import mamba as mamba_mod
 from repro_torch.layers import mla as mla_mod
 from repro_torch.layers import rwkv6 as rwkv
 from repro_torch.layers.core import (MLP, Embedding, RMSNorm, check_impl,
@@ -32,24 +34,53 @@ from repro_torch.layers.moe import MoE, moe_apply
 from repro_torch.models.losses import shifted_xent
 
 
-def mixer_kind(cfg: ModelConfig) -> str:
-    """Sequence mixer of every layer: ``"rwkv"``, ``"mla"`` or
-    ``"attn"``."""
+def group_size(cfg: ModelConfig) -> int:
+    """Sub-layers per layer group: the hybrid's period, else 1."""
+    return cfg.hybrid.period if cfg.family == HYBRID else 1
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    gs = group_size(cfg)
+    if cfg.n_layers % gs:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is no whole "
+                         f"number of groups of {gs}")
+    return cfg.n_layers // gs
+
+
+def mixer_kind(cfg: ModelConfig, i: int = 0) -> str:
+    """Sequence mixer of sub-layer i (the position within its group):
+    ``"rwkv"``, ``"mamba"``, ``"mla"`` or ``"attn"``."""
     if cfg.family == SSM:
         return "rwkv"
+    if cfg.family == HYBRID:
+        return "attn" if i == cfg.hybrid.attn_index else "mamba"
     return "mla" if cfg.mla is not None else "attn"
 
 
-def ffn_kind(cfg: ModelConfig) -> Optional[str]:
-    """Feed-forward of every layer: ``"moe"``, ``"mlp"`` or None (the RWKV
-    channel-mix lives inside its block). The reference's rule for
-    sub-layer i, ``i % moe_every == moe_every - 1``, at the one position
-    i = 0 of a group here."""
+def ffn_kind(cfg: ModelConfig, i: int = 0) -> Optional[str]:
+    """Feed-forward of sub-layer i: ``"moe"`` where
+    ``i % moe_every == moe_every - 1``, else ``"mlp"``; None for RWKV-6
+    (the channel-mix lives inside its block)."""
     if cfg.family == SSM:
         return None
-    if cfg.moe is not None and cfg.moe.moe_every == 1:
+    if cfg.moe is not None and (i % cfg.moe.moe_every
+                                == cfg.moe.moe_every - 1):
         return "moe"
     return "mlp"
+
+
+def sublayers(cfg: ModelConfig) -> List[Tuple[int, int, str]]:
+    """(g, j, kind) of every layer in order: its group g, its mixer kind,
+    and j, its index among the sub-layers of that kind in the group (the
+    reference's per-plane ``idx`` counter): block tables are indexed
+    ``[g, j]``."""
+    gs, out = group_size(cfg), []
+    for layer in range(cfg.n_layers):
+        g, i = divmod(layer, gs)
+        kind = mixer_kind(cfg, i)
+        j = sum(1 for k in range(i) if mixer_kind(cfg, k) == kind)
+        out.append((g, j, kind))
+    return out
 
 
 def ffn_apply(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -61,24 +92,26 @@ def ffn_apply(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One pre-norm layer: ``n1``, ``mix`` (attention, MLA or RWKV), ``n2``
-    and, after attention or MLA, ``ffn`` (MLP or MoE)."""
+    """One pre-norm layer, sub-layer ``i`` of its group: ``n1``, ``mix``
+    (attention, MLA, Mamba or RWKV), ``n2`` and, after attention, MLA or
+    Mamba, ``ffn`` (MLP or MoE)."""
 
     def __init__(self, cfg: ModelConfig, device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, i: int = 0):
         super().__init__()
         dt = cfg.dtype()
         self.n1 = RMSNorm(cfg.d_model, dt, device)
         self.n2 = RMSNorm(cfg.d_model, dt, device)
-        kind = mixer_kind(cfg)
+        kind = mixer_kind(cfg, i)
         if kind == "rwkv":
             # the channel-mix is the RWKV block's feed-forward
             self.mix = rwkv.RWKV(cfg, device, generator)
             self.ffn = None
             return
-        self.mix = (mla_mod.MLA(cfg, device, generator) if kind == "mla"
-                    else attn.Attention(cfg, device, generator))
-        self.ffn = (MoE(cfg, device, generator) if ffn_kind(cfg) == "moe"
+        mixer = {"mla": mla_mod.MLA, "mamba": mamba_mod.Mamba}.get(
+            kind, attn.Attention)
+        self.mix = mixer(cfg, device, generator)
+        self.ffn = (MoE(cfg, device, generator) if ffn_kind(cfg, i) == "moe"
                     else MLP(cfg, device, generator))
 
 
@@ -93,8 +126,9 @@ class LM(nn.Module):
         if not supports_paged(cfg):
             raise ValueError(f"{cfg.name}: not paged-servable by the port")
         self.embed = Embedding(cfg, device, generator)
-        self.blocks = nn.ModuleList(Block(cfg, device, generator)
-                                    for _ in range(cfg.n_layers))
+        gs = group_size(cfg)
+        self.blocks = nn.ModuleList(Block(cfg, device, generator, l % gs)
+                                    for l in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.dtype(), device)
 
 
@@ -102,7 +136,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> LM:
     """Random weights with the reference's keys, shapes and init scales
     (trunc-normal, 1/sqrt(d_in) linears, 0.02 embeddings and LoRAs, zero
-    biases, norm scales and token-shift mixes, RWKV decay base -6), drawn
+    biases, norm scales and token-shift mixes, RWKV decay base -6, Mamba
+    conv 0.5, dt bias -4.6, A = 1..d_state, D = 1), drawn
     from ``generator`` on ``device`` (CUDA unless the caller asks for the
     CPU)."""
     device = resolve_device(device)
@@ -115,23 +150,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def supports_paged(cfg: ModelConfig) -> bool:
     """True for the families whose whole dynamic context the port keeps on
     pages: dense or MoE stacks of full (unwindowed, uncapped) GQA/MQA
-    attention or of MLA, and RWKV-6 (its wkv and token-shift state)."""
+    attention or of MLA, RWKV-6 (its wkv and token-shift state) and the
+    hybrid (Mamba ssm and conv state beside attention K/V)."""
     if cfg.n_prefix_embeds or cfg.attn_logit_softcap > 0:
         return False
     if cfg.family == SSM:
         return cfg.ssm is not None
-    return (cfg.family in (DENSE, MOE) and cfg.sliding_window == 0
+    if cfg.family == HYBRID and (cfg.hybrid is None or cfg.ssm is None):
+        return False
+    return (cfg.family in (DENSE, MOE, HYBRID) and cfg.sliding_window == 0
             and cfg.global_layer_every == 0)
 
 
 def paged_layout(cfg: ModelConfig) -> dict:
     """Map every dynamic-context leaf of the family onto a page PLANE.
 
-    Two plane kinds: ``tokens`` grows with context, ``ceil(ctx/page)``
-    pages per layer (``kv``: payload ``(2, n_kv, page, hd)``, attention
-    K/V; ``mla``: payload ``(page, kv_lora + rope_dim)``, the fused MLA
-    latent and roped key); ``state`` is fixed-size recurrent state, ONE
-    page per layer whose payload is exactly the leaf (``wkv``:
+    Every sub-layer position of a group contributes its state leaves to the
+    planes below, in group order (so jamba's planes are ``ssm``, ``conv``,
+    then ``kv``). Two plane kinds: ``tokens`` grows with context,
+    ``ceil(ctx/page)`` pages per layer (``kv``: payload ``(2, n_kv, page,
+    hd)``, attention K/V; ``mla``: payload ``(page, kv_lora + rope_dim)``,
+    the fused MLA latent and roped key); ``state`` is fixed-size recurrent
+    state, ONE page per layer whose payload is exactly the leaf (``ssm``:
+    ``(di, ds)`` float32; ``conv``: ``(d_conv-1, di)`` native; ``wkv``:
     ``(H, hd, hd)`` float32; ``shift``: ``(2, d_model)`` native, rows
     time-mix / channel-mix shifts). Token planes are shareable across
     requests with a common prompt prefix; state planes are not.
@@ -143,25 +184,37 @@ def paged_layout(cfg: ModelConfig) -> dict:
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: not paged-servable by the port")
     native = cfg.torch_compute_dtype()
-    kind = mixer_kind(cfg)
-    if kind == "rwkv":
-        rhd = cfg.ssm.rwkv_head_dim
-        H = cfg.d_model // rhd
-        return {"wkv": dict(kind="state", positions=[0],
-                            dtype=torch.float32, shape=(H, rhd, rhd),
-                            shareable=False),
-                "shift": dict(kind="state", positions=[0], dtype=native,
-                              shape=(2, cfg.d_model), shareable=False)}
     itemsize = torch.empty((), dtype=native).element_size()
-    if kind == "mla":
-        C = mla_mod.latent_dim(cfg)
-        return {"mla": dict(kind="tokens", positions=[0], dtype=native,
-                            dims=(C,), token_bytes=C * itemsize,
-                            shareable=True)}
-    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    return {"kv": dict(kind="tokens", positions=[0], dtype=native,
-                       dims=(K, hd), token_bytes=2 * K * hd * itemsize,
-                       shareable=True)}
+    planes: dict = {}
+
+    def add(name, i, **kw):
+        planes.setdefault(name, dict(positions=[], **kw))["positions"].append(
+            i)
+
+    for i in range(group_size(cfg)):
+        kind = mixer_kind(cfg, i)
+        if kind == "attn":
+            K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+            add("kv", i, kind="tokens", dtype=native, dims=(K, hd),
+                token_bytes=2 * K * hd * itemsize, shareable=True)
+        elif kind == "mla":
+            C = mla_mod.latent_dim(cfg)
+            add("mla", i, kind="tokens", dtype=native, dims=(C,),
+                token_bytes=C * itemsize, shareable=True)
+        elif kind == "mamba":
+            di, ds, dc, _ = mamba_mod._dims(cfg)
+            add("ssm", i, kind="state", dtype=torch.float32, shape=(di, ds),
+                shareable=False)
+            add("conv", i, kind="state", dtype=native, shape=(dc - 1, di),
+                shareable=False)
+        else:
+            rhd = cfg.ssm.rwkv_head_dim
+            H = cfg.d_model // rhd
+            add("wkv", i, kind="state", dtype=torch.float32,
+                shape=(H, rhd, rhd), shareable=False)
+            add("shift", i, kind="state", dtype=native,
+                shape=(2, cfg.d_model), shareable=False)
+    return planes
 
 
 def _device_tables(name: str, block_tables: dict, pools: dict) -> dict:
@@ -209,6 +262,9 @@ def forward(model: LM, cfg: ModelConfig, tokens, *, remat: bool = False,
     move to the model's device. ``remat`` recomputes each layer in the
     backward (``torch.utils.checkpoint``, the counterpart of
     ``jax.checkpoint`` of the group body)."""
+    if cfg.family == HYBRID:
+        raise NotImplementedError(f"{cfg.name}: hybrid (Mamba) training is "
+                                  "not ported (ROADMAP queue 1, item 8)")
     if mixer_kind(cfg) == "rwkv":
         raise NotImplementedError(f"{cfg.name}: RWKV-6 training is not "
                                   "ported (wkv6 has no backward kernel)")
@@ -256,6 +312,63 @@ def _rwkv_layer(blk: Block, cfg: ModelConfig, x, pools: dict, ws, ss, *,
     return x
 
 
+def _mamba_mix(p, cfg: ModelConfig, h, pools: dict, ss, cs, *,
+               n_real=None, decode: bool = False):
+    """One Mamba mixer against the state pools: the lanes' ssm and conv
+    pages at slots ``ss`` / ``cs`` (B,) are read, carried through
+    ``mamba_forward`` (or ``mamba_decode``) and written back in place.
+    Returns the mixer's output (B,T,d). Lanes sharing a slot (idle lanes on
+    scratch) write it in an undefined order."""
+    st = mamba_mod.MambaState(pools["ssm"][ss.long()],
+                              pools["conv"][cs.long()])
+    if decode:
+        out, nst = mamba_mod.mamba_decode(p, cfg, h, st)
+    else:
+        out, nst = mamba_mod.mamba_forward(p, cfg, h, st, n_real=n_real)
+    pools["ssm"][ss.long()] = nst.ssm
+    pools["conv"][cs.long()] = nst.conv.to(pools["conv"].dtype)
+    return out
+
+
+def mamba_mixed_paged(p, cfg: ModelConfig, h, pools, ss, cs, nr,
+                      n_decode: int):
+    """A Mamba mixer of a packed step, run as two row regions (the
+    reference's ``_group_fwd_mixed``): the decode lanes' single tokens
+    through ``mamba_decode``, their output padded with zeros to Tc, then
+    the chunk rows through ``mamba_forward`` with their per-row
+    ``n_real``."""
+    R, Tc, d = h.shape
+    parts = []
+    if n_decode:
+        h_dec = _mamba_mix(p, cfg, h[:n_decode, :1], pools, ss[:n_decode],
+                           cs[:n_decode], decode=True)
+        if Tc > 1:
+            h_dec = torch.cat([h_dec, h_dec.new_zeros((n_decode, Tc - 1, d))],
+                              dim=1)
+        parts.append(h_dec)
+    if R > n_decode:
+        parts.append(_mamba_mix(p, cfg, h[n_decode:], pools, ss[n_decode:],
+                                cs[n_decode:], n_real=nr[n_decode:]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def _kinds(cfg: ModelConfig) -> set:
+    return {kind for _, _, kind in sublayers(cfg)}
+
+
+def _own_pages_only(cfg: ModelConfig, pools: dict) -> Optional[int]:
+    """The page size when a chunk row's K/V must go only into the pages
+    its tokens reach (``attn.step_meta``), else None: the row's padding
+    goes where its table says, as in the reference. A family with a MoE
+    takes the page size. On the card several rows' padding would land on
+    the scratch page in no defined order; pad tokens read it, and a MoE
+    layer's per-expert GEMMs, whose tiling follows the row counts that
+    pad tokens' routing sets, would carry those values into real rows, so
+    a step would not repeat bit for bit. A dense layer keeps each token's
+    row to itself."""
+    return pools["kv"].shape[3] if cfg.moe is not None else None
+
+
 def prefill_chunk_paged(model: LM, cfg: ModelConfig, tokens, pools,
                         block_tables, q_start: int, last_index: int, *,
                         read_pps: Optional[int] = None, impl: str = "kernel"):
@@ -267,8 +380,8 @@ def prefill_chunk_paged(model: LM, cfg: ModelConfig, tokens, pools,
     later chunks or decode; for the recurrent planes ``n_real = last_index
     + 1`` makes the padding an identity transition); pools: {plane: LOCAL
     pool}, updated in place; block_tables: token planes
-    ``(n_layers, 1, pps_pad)`` int32 slots from position 0, scratch-padded,
-    state planes ``(n_layers, 1)`` bare slots
+    ``(G, n_sub, pps_pad)`` int32 slots from position 0, scratch-padded,
+    state planes ``(G, n_sub)`` bare slots
     (``PagedStateRuntime.block_tables_prefill``); q_start: the chunk's
     absolute start position; last_index: the row whose logits the caller
     wants. ``read_pps`` bounds the attention or MLA sweep.
@@ -283,27 +396,32 @@ def prefill_chunk_paged(model: LM, cfg: ModelConfig, tokens, pools,
     if tokens.shape[0] != 1:
         raise ValueError("chunked prefill is per-request")
     Tc = tokens.shape[1]
+    n_real = int(last_index) + 1
+    kinds = _kinds(cfg)
+    a_meta = (attn.step_meta([q_start], [n_real], 0, Tc, device,
+                             page=_own_pages_only(cfg, pools))
+              if "attn" in kinds else None)
+    m_meta = (mla_mod.step_meta([q_start], 0, Tc, pools["mla"].shape[1],
+                                bt["mla"].shape[-1], device)
+              if "mla" in kinds else None)
     x = embed(model.embed, cfg, tokens)
-    if mixer_kind(cfg) == "rwkv":
-        for layer, blk in enumerate(model.blocks):
-            x = _rwkv_layer(blk, cfg, x, pools, bt["wkv"][layer],
-                            bt["shift"][layer], impl=impl,
-                            n_real=int(last_index) + 1)
-    elif mixer_kind(cfg) == "mla":
-        pool = pools["mla"]
-        meta = mla_mod.step_meta([q_start], 0, Tc, pool.shape[1],
-                                 bt["mla"].shape[-1], device)
-        for layer, blk in enumerate(model.blocks):
+    for blk, (g, j, kind) in zip(model.blocks, sublayers(cfg)):
+        if kind == "rwkv":
+            x = _rwkv_layer(blk, cfg, x, pools, bt["wkv"][g, j:j + 1],
+                            bt["shift"][g, j:j + 1], impl=impl,
+                            n_real=n_real)
+        elif kind == "mamba":
+            x = _layer(blk, cfg, x, lambda mix, h: _mamba_mix(
+                mix, cfg, h, pools, bt["ssm"][g, j:j + 1],
+                bt["conv"][g, j:j + 1], n_real=n_real))
+        elif kind == "mla":
             x = _layer(blk, cfg, x, lambda mix, h: mla_mod.mla_prefill_chunk(
-                mix, cfg, h, pool, bt["mla"][layer, 0], q_start,
-                read_pps=read_pps, meta=meta)[0])
-    else:
-        pool = pools["kv"]
-        meta = attn.step_meta([q_start], [Tc], 0, Tc, device)
-        for layer, blk in enumerate(model.blocks):
+                mix, cfg, h, pools["mla"], bt["mla"][g, j], q_start,
+                read_pps=read_pps, meta=m_meta)[0])
+        else:
             x = _layer(blk, cfg, x, lambda mix, h: attn.attention_prefill_chunk(
-                mix, cfg, h, pool, bt["kv"][layer, 0], q_start,
-                read_pps=read_pps, impl=impl, meta=meta)[0])
+                mix, cfg, h, pools["kv"], bt["kv"][g, j], q_start,
+                read_pps=read_pps, impl=impl, meta=a_meta)[0])
     x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
     logits = unembed(model.embed, cfg, x[:, int(last_index)])
     return logits, pools
@@ -315,8 +433,8 @@ def decode_step_paged(model: LM, cfg: ModelConfig, pools, block_tables,
 
     tokens / pos: (B,) host ints — each lane's next token and its position
     (idle lanes: token 0 at position 0 on scratch); pools: {plane: pool}
-    updated in place; block_tables: token planes ``(n_layers, 1, B, pps)``,
-    state planes ``(n_layers, 1, B)`` int32 LOCAL slots
+    updated in place; block_tables: token planes ``(G, n_sub, B, pps)``,
+    state planes ``(G, n_sub, B)`` int32 LOCAL slots
     (``PagedStateRuntime.block_tables``).
     -> (logits (B, V), pools)
     """
@@ -327,32 +445,34 @@ def decode_step_paged(model: LM, cfg: ModelConfig, pools, block_tables,
     bt = _device_tables("decode_step_paged", block_tables, pools)
     pos = np.asarray(pos, np.int64).reshape(-1)
     tokens = torch.as_tensor(np.asarray(tokens).reshape(-1, 1)).to(device)
-
+    kinds = _kinds(cfg)
+    a_meta = attn.decode_meta(pos, device) if "attn" in kinds else None
+    m_meta = (mla_mod.step_meta(pos, len(pos), 1, pools["mla"].shape[1],
+                                bt["mla"].shape[-1], device)
+              if "mla" in kinds else None)
     x = embed(model.embed, cfg, tokens)
-    if mixer_kind(cfg) == "rwkv":
-        for layer, blk in enumerate(model.blocks):
-            x = _rwkv_layer(blk, cfg, x, pools, bt["wkv"][layer, 0],
-                            bt["shift"][layer, 0], impl=impl)
-    elif mixer_kind(cfg) == "mla":
-        pool = pools["mla"]
-        meta = mla_mod.step_meta(pos, len(pos), 1, pool.shape[1],
-                                 bt["mla"].shape[-1], device)
-        for layer, blk in enumerate(model.blocks):
+    for blk, (g, j, kind) in zip(model.blocks, sublayers(cfg)):
+        if kind == "rwkv":
+            x = _rwkv_layer(blk, cfg, x, pools, bt["wkv"][g, j],
+                            bt["shift"][g, j], impl=impl)
+        elif kind == "mamba":
+            x = _layer(blk, cfg, x, lambda mix, h: _mamba_mix(
+                mix, cfg, h, pools, bt["ssm"][g, j], bt["conv"][g, j],
+                decode=True))
+        elif kind == "mla":
             x = _layer(blk, cfg, x, lambda mix, h: mla_mod.mla_decode_paged(
-                mix, cfg, h, pool, bt["mla"][layer, 0], pos, meta=meta)[0])
-    else:
-        pool = pools["kv"]
-        meta = attn.decode_meta(pos, device)
-        for layer, blk in enumerate(model.blocks):
+                mix, cfg, h, pools["mla"], bt["mla"][g, j], pos,
+                meta=m_meta)[0])
+        else:
             x = _layer(blk, cfg, x, lambda mix, h: attn.attention_decode_paged(
-                mix, cfg, h, pool, bt["kv"][layer, 0], pos, impl=impl,
-                meta=meta)[0])
+                mix, cfg, h, pools["kv"], bt["kv"][g, j], pos, impl=impl,
+                meta=a_meta)[0])
     x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
     return unembed(model.embed, cfg, x[:, 0]), pools
 
 
 def rwkv_mixed_paged(blk: Block, cfg: ModelConfig, x, pools, ws, ss, nr,
-                n_decode: int, impl: str):
+                     n_decode: int, impl: str):
     """An RWKV sub-layer of a packed step, run as two row regions (the
     reference's ``_group_fwd_mixed``): the decode lanes' single tokens as a
     batched one-token step, then the chunk rows with their per-row
@@ -384,13 +504,15 @@ def serve_step_paged(model: LM, cfg: ModelConfig, tokens, pools,
     scratch page); rows ``[n_decode:]`` are prefill chunk rows with
     ``n_reals[r]`` prompt tokens from ``q_starts[r]`` (``n_real == 0``: a
     pad row on scratch). pools: {plane: LOCAL pool}, updated in place;
-    block_tables: token planes ``(n_layers, 1, R, pps_pad)``, state planes
-    ``(n_layers, 1, R)`` int32 slots (the reference's (G, n_sub, R[, pps]));
-    q_starts / n_reals: (R,) host integer arrays. ``impl``: ``"kernel"`` or
-    ``"ref"``. Attention serves every row in one launch per layer; an RWKV
-    layer runs the decode and chunk regions as two WKV launches; an MLA
-    layer has no kernel (the reference's is ``jnp`` code), so ``impl``
-    selects nothing there; each MoE layer syncs with the host once.
+    block_tables: token planes ``(G, n_sub, R, pps_pad)``, state planes
+    ``(G, n_sub, R)`` int32 slots, table ``[g, j]`` the j-th sub-layer of
+    that plane in group g; q_starts / n_reals: (R,) host integer arrays.
+    ``impl``: ``"kernel"`` or ``"ref"``. Attention serves every row in one
+    launch per layer; an RWKV layer runs the decode and chunk regions as
+    two WKV launches; MLA and Mamba layers have no kernel (the reference's
+    are ``jnp`` code), so ``impl`` selects nothing there: a Mamba layer
+    runs its decode lanes through ``mamba_decode`` and its chunk rows
+    through ``mamba_forward``; each MoE layer syncs with the host once.
     -> (logits (R, V) of each row's last real token, pools)
     """
     check_impl(impl)
@@ -402,29 +524,33 @@ def serve_step_paged(model: LM, cfg: ModelConfig, tokens, pools,
     R, Tc = tokens.shape
     qs = np.asarray(q_starts, np.int64).reshape(-1)
     nr = np.asarray(n_reals, np.int64).reshape(-1)
-
+    kinds = _kinds(cfg)
+    nr_dev = (torch.as_tensor(nr).to(device)
+              if kinds & {"rwkv", "mamba"} else None)
+    a_meta = (attn.step_meta(qs, nr, n_decode, Tc, device,
+                             page=_own_pages_only(cfg, pools))
+              if "attn" in kinds else None)
+    m_meta = (mla_mod.step_meta(qs, n_decode, Tc, pools["mla"].shape[1],
+                                bt["mla"].shape[-1], device)
+              if "mla" in kinds else None)
     x = embed(model.embed, cfg, tokens)
-    if mixer_kind(cfg) == "rwkv":
-        nr_dev = torch.as_tensor(nr).to(device)
-        for layer, blk in enumerate(model.blocks):
-            x = rwkv_mixed_paged(blk, cfg, x, pools, bt["wkv"][layer, 0],
-                            bt["shift"][layer, 0], nr_dev, n_decode, impl)
-    elif mixer_kind(cfg) == "mla":
-        pool = pools["mla"]
-        meta = mla_mod.step_meta(qs, n_decode, Tc, pool.shape[1],
-                                 bt["mla"].shape[-1], device)
-        for layer, blk in enumerate(model.blocks):
+    for blk, (g, j, kind) in zip(model.blocks, sublayers(cfg)):
+        if kind == "rwkv":
+            x = rwkv_mixed_paged(blk, cfg, x, pools, bt["wkv"][g, j],
+                                 bt["shift"][g, j], nr_dev, n_decode, impl)
+        elif kind == "mamba":
+            x = _layer(blk, cfg, x, lambda mix, h: mamba_mixed_paged(
+                mix, cfg, h, pools, bt["ssm"][g, j], bt["conv"][g, j],
+                nr_dev, n_decode))
+        elif kind == "mla":
             x = _layer(blk, cfg, x, lambda mix, h: mla_mod.mla_mixed_paged(
-                mix, cfg, h, pool, bt["mla"][layer, 0], qs, nr,
-                n_decode=n_decode, read_pps=read_pps, meta=meta)[0])
-    else:
-        pool = pools["kv"]
-        meta = attn.step_meta(qs, nr, n_decode, Tc, device)
-        for layer, blk in enumerate(model.blocks):
+                mix, cfg, h, pools["mla"], bt["mla"][g, j], qs, nr,
+                n_decode=n_decode, read_pps=read_pps, meta=m_meta)[0])
+        else:
             x = _layer(blk, cfg, x, lambda mix, h: attn.attention_mixed_paged(
-                mix, cfg, h, pool, bt["kv"][layer, 0], qs, nr,
+                mix, cfg, h, pools["kv"], bt["kv"][g, j], qs, nr,
                 n_decode=n_decode, read_pps=read_pps, impl=impl,
-                meta=meta)[0])
+                meta=a_meta)[0])
     x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
     last_idx = torch.as_tensor(np.clip(nr - 1, 0, Tc - 1)).to(device)
     last = x[torch.arange(R, device=device), last_idx]

@@ -4,10 +4,11 @@
 ``jax.tree.map(np.asarray, api.init_params(key, cfg))``), so the port needs no
 ``jax`` to read it, and returns the port's :class:`~repro_torch.models.lm.LM`.
 The leading layer-group axis of ``blocks`` is unstacked into one module per
-layer: ``blocks.sub0.{n1, n2, mix.*, ffn.*}`` for the dense and MoE
-families (the mixer attention or MLA, the feed-forward an MLP or the MoE's
-router, experts and shared experts), ``blocks.sub0.{n1, n2, mix.tm.*,
-mix.cm.*}`` for RWKV-6.
+layer: ``blocks.sub{i}`` at group g is layer g x group_size + i, with
+``{n1, n2, mix.*, ffn.*}`` for the dense, MoE and hybrid families (the
+mixer attention, MLA or Mamba, the feed-forward an MLP or the MoE's
+router, experts and shared experts) and ``{n1, n2, mix.tm.*, mix.cm.*}``
+for RWKV-6.
 """
 from __future__ import annotations
 
@@ -17,11 +18,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.layers.moe import MoE
-from repro_torch.models.lm import LM, mixer_kind
+from repro_torch.models.lm import LM, group_size, mixer_kind
 
 _TM_LINEARS = ("wr", "wk", "wv", "wg", "wo")
 _TM_RAW = ("mu_x", "maa", "mix_w1", "mix_w2", "w0", "decay_w1", "decay_w2",
            "u", "ln_x")
+_MAMBA_LINEARS = ("in_proj", "x_proj", "dt_proj", "out_proj")
+_MAMBA_RAW = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
 
 
 def _put(param: torch.nn.Parameter, value, name: str):
@@ -32,12 +35,12 @@ def _put(param: torch.nn.Parameter, value, name: str):
         param.copy_(torch.from_numpy(np.array(arr, np.float32)))
 
 
-def _put_linears(module, tree: dict, names, l: int, prefix: str):
+def _put_linears(module, tree: dict, names, g: int, prefix: str):
     for name in names:
         lin = getattr(module, name)
-        _put(lin.w, tree[name]["w"][l], f"{prefix}.{name}.w")
+        _put(lin.w, tree[name]["w"][g], f"{prefix}.{name}.w")
         if lin.b is not None:
-            _put(lin.b, tree[name]["b"][l], f"{prefix}.{name}.b")
+            _put(lin.b, tree[name]["b"][g], f"{prefix}.{name}.b")
 
 
 def from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
@@ -50,41 +53,51 @@ def from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
         _put(model.embed.head, tree["embed"]["head"], "embed.head")
     _put(model.final_norm.scale, tree["final_norm"]["scale"],
          "final_norm.scale")
-    sub = tree["blocks"]["sub0"]
+    gs = group_size(cfg)
     for l, blk in enumerate(model.blocks):
-        _put(blk.n1.scale, sub["n1"]["scale"][l], f"blocks.{l}.n1")
-        _put(blk.n2.scale, sub["n2"]["scale"][l], f"blocks.{l}.n2")
-        if mixer_kind(cfg) == "rwkv":
+        g, i = divmod(l, gs)
+        sub = tree["blocks"][f"sub{i}"]
+        _put(blk.n1.scale, sub["n1"]["scale"][g], f"blocks.{l}.n1")
+        _put(blk.n2.scale, sub["n2"]["scale"][g], f"blocks.{l}.n2")
+        kind = mixer_kind(cfg, i)
+        if kind == "rwkv":
             tm, cm = sub["mix"]["tm"], sub["mix"]["cm"]
             for name in _TM_RAW:
-                _put(getattr(blk.mix.tm, name), tm[name][l],
+                _put(getattr(blk.mix.tm, name), tm[name][g],
                      f"blocks.{l}.mix.tm.{name}")
-            _put_linears(blk.mix.tm, tm, _TM_LINEARS, l, f"blocks.{l}.mix.tm")
+            _put_linears(blk.mix.tm, tm, _TM_LINEARS, g, f"blocks.{l}.mix.tm")
             for name in ("mu_k", "mu_r"):
-                _put(getattr(blk.mix.cm, name), cm[name][l],
+                _put(getattr(blk.mix.cm, name), cm[name][g],
                      f"blocks.{l}.mix.cm.{name}")
-            _put_linears(blk.mix.cm, cm, ("wk", "wv", "wr"), l,
+            _put_linears(blk.mix.cm, cm, ("wk", "wv", "wr"), g,
                          f"blocks.{l}.mix.cm")
             continue
-        if mixer_kind(cfg) == "mla":
+        if kind == "mamba":
+            # A_log and D stay float32: the module holds them so
+            for name in _MAMBA_RAW:
+                _put(getattr(blk.mix, name), sub["mix"][name][g],
+                     f"blocks.{l}.mix.{name}")
+            _put_linears(blk.mix, sub["mix"], _MAMBA_LINEARS, g,
+                         f"blocks.{l}.mix")
+        elif kind == "mla":
             _put_linears(blk.mix, sub["mix"],
-                         ("wq", "wdkv", "wuk", "wuv", "wo"), l, f"blocks.{l}")
-            _put(blk.mix.kv_norm.scale, sub["mix"]["kv_norm"]["scale"][l],
+                         ("wq", "wdkv", "wuk", "wuv", "wo"), g, f"blocks.{l}")
+            _put(blk.mix.kv_norm.scale, sub["mix"]["kv_norm"]["scale"][g],
                  f"blocks.{l}.mix.kv_norm")
         else:
-            _put_linears(blk.mix, sub["mix"], ("wq", "wk", "wv", "wo"), l,
+            _put_linears(blk.mix, sub["mix"], ("wq", "wk", "wv", "wo"), g,
                          f"blocks.{l}")
         ffn, tree_ffn = blk.ffn, sub["ffn"]
         if isinstance(ffn, MoE):
-            _put_linears(ffn, tree_ffn, ("router",), l, f"blocks.{l}.ffn")
+            _put_linears(ffn, tree_ffn, ("router",), g, f"blocks.{l}.ffn")
             for name in ("up", "down", "gate"):
                 if getattr(ffn, name) is not None:
-                    _put(getattr(ffn, name), tree_ffn[name][l],
+                    _put(getattr(ffn, name), tree_ffn[name][g],
                          f"blocks.{l}.ffn.{name}")
             if ffn.shared is None:
                 continue
             ffn, tree_ffn = ffn.shared, tree_ffn["shared"]
         _put_linears(ffn, tree_ffn,
                      [n for n in ("up", "down", "gate")
-                      if getattr(ffn, n) is not None], l, f"blocks.{l}.ffn")
+                      if getattr(ffn, n) is not None], g, f"blocks.{l}.ffn")
     return model

@@ -6,10 +6,13 @@ token and state planes of the families the port serves.
 ``lm.paged_layout`` is one tiered AquaTensor pool: a TOKEN plane (dense
 ``kv``, payload ``(2, n_kv, page, hd)``; MLA ``mla``, ``(page, kv_lora +
 rope_dim)``) holds ``ceil(ctx/page)`` pages per layer; a STATE plane
-(RWKV-6 ``wkv`` ``(H, hd, hd)`` float32 and ``shift`` ``(2, d_model)``)
+(RWKV-6 ``wkv`` ``(H, hd, hd)`` float32 and ``shift`` ``(2, d_model)``;
+Mamba ``ssm`` ``(di, ds)`` float32 and ``conv`` ``(d_conv-1, di)``)
 holds ONE page per layer, zeroed when allocated (a reused slot holds its
 last occupant's state, and the zero page is the initial recurrent state).
-The fused step reads and writes the LOCAL pools
+A plane spans G layer groups of ``n_sub`` sub-layers
+each (jamba: 2 x 7 ``ssm``/``conv`` pages and 2 x 1 ``kv`` rows at 16
+layers). The fused step reads and writes the LOCAL pools
 directly, so preemption is a page-table tier flip of all planes together:
 
     park    = offload(pages)      one coalesced message per (tier, donor)
@@ -133,7 +136,7 @@ class PagedStateRuntime:
         layout = lm.paged_layout(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.G = cfg.n_layers
+        self.G = lm.n_groups(cfg)
         self.page_tokens = page_tokens
         self.max_seq = max_seq
         self.pps = math.ceil(max_seq / page_tokens)

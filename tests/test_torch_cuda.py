@@ -1097,31 +1097,39 @@ def test_cuda_restored_engine_finishes_with_the_uninterrupted_tokens():
     assert got == want and all(len(t) == 6 for t in got.values())
 
 
-# -- deepseek-v2-lite-16b on the card: MLA and the MoE, bf16 vs float32 ---
+# -- deepseek-v2-lite-16b and jamba-v0.1-52b on the card: MLA, Mamba and
+# the MoE, bf16 vs float32 -------------------------------------------------
 DS_LAYER_REL = 2e-2     # bf16 vs float32 per token, relative (chip_smoke's)
 
 
-def _deepseek_engine(dev, dtype, model=None, per_layer=None):
-    """A smoke deepseek engine on the card (CFS, a REMOTE lease, no
+def _float_pools(pools):
+    if isinstance(pools, dict):
+        return {k: v.to(torch.float32, copy=True) for k, v in pools.items()}
+    return pools.to(torch.float32, copy=True)
+
+
+def _smoke_engine(dev, arch, dtype, model=None, per_layer=None):
+    """A smoke engine of ``arch`` on the card (CFS, a REMOTE lease, no
     speculative chunks): six seeded requests of 5 new tokens. Returns the
     engine, the model, its requests and each produced token's logits row by
     (rid, position), recorded from ``api.serve_step_paged`` and the rows'
-    rids. With a ``per_layer`` list, every MLA and MoE call of the run is
-    also made by a float32 copy of its layer on the same input (and a
-    float32 copy of the pool as it was), and the largest per-real-token
-    distance, relative to the token's largest float32 entry, is appended
-    as (kind, distance)."""
+    rids. With a ``per_layer`` list, every mixer call of the run (MLA,
+    attention, Mamba) and every MoE call is also made by a float32 copy of
+    its layer on the same input (and float32 copies of the pools as they
+    were), and the largest per-real-token distance, relative to the
+    token's largest float32 entry, is appended as (kind, distance)."""
     import copy
     import dataclasses
 
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.layers import attention as attn
     from repro_torch.layers import mla as mla_mod
     from repro_torch.layers.moe import MoE
     from repro_torch.models import api, lm
     from repro_torch.serving.engine import ServingEngine
-    cfg = dataclasses.replace(smoke_config(get_config(
-        "deepseek-v2-lite-16b")), param_dtype=dtype, compute_dtype=dtype)
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              param_dtype=dtype, compute_dtype=dtype)
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     if model is None:
         model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -1134,9 +1142,14 @@ def _deepseek_engine(dev, dtype, model=None, per_layer=None):
     rng = np.random.default_rng(7)
     reqs = [eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, n))), 5)
             for n in (9, 21, 14, 30, 5, 17)]
-    rows, logits, f32, real = [], {}, {}, [None]
+    rows, logits, f32 = [], {}, {}
     serve, tables = api.serve_step_paged, eng.kv.block_tables
-    mixed, ffn = mla_mod.mla_mixed_paged, lm.ffn_apply
+    mixers = [(mla_mod, "mla_mixed_paged", "mla"),
+              (attn, "attention_mixed_paged", "attn"),
+              (lm, "mamba_mixed_paged", "mamba")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in mixers]
+    saved.append((lm, "ffn_apply", lm.ffn_apply))
+    ffn, real = lm.ffn_apply, [None]
 
     def recorded_tables(lane_rids, *a, **kw):
         rows[:] = list(lane_rids)
@@ -1156,18 +1169,25 @@ def _deepseek_engine(dev, dtype, model=None, per_layer=None):
         d = (got.float() - want).abs().amax(-1) / scale
         return d[real[0]].max().item()
 
-    def mixed_checked(p, c, x, pool, bt, qs, nr, *, n_decode, read_pps=None,
-                      meta=None):
-        q = f32.setdefault(id(p), copy.deepcopy(p).float())
-        want, _ = mixed(q, cfg32, x.float(), pool.float(), bt, qs, nr,
-                        n_decode=n_decode, read_pps=read_pps, meta=meta)
-        got, pool = mixed(p, c, x, pool, bt, qs, nr, n_decode=n_decode,
-                          read_pps=read_pps, meta=meta)
-        n = np.where(np.arange(len(nr)) < n_decode, 1, np.asarray(nr))
-        real[0] = torch.as_tensor(np.arange(x.shape[1])[None] < n[:, None]
-                                  ).to(x.device)
-        per_layer.append(("mla", rel(got, want)))
-        return got, pool
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    def checked(kind, mixer):
+        def call(p, c, x, pools, *rest, **kw):
+            # (bt, q_starts, n_reals) or (ssm, conv, n_reals, n_decode)
+            nr = rest[2]
+            nr = np.asarray(nr.cpu() if torch.is_tensor(nr) else nr)
+            n_decode = kw["n_decode"] if "n_decode" in kw else rest[3]
+            q = f32.setdefault(id(p), copy.deepcopy(p).float())
+            want = first(mixer(q, cfg32, x.float(), _float_pools(pools),
+                               *rest, **kw))
+            out = mixer(p, c, x, pools, *rest, **kw)
+            n = np.where(np.arange(len(nr)) < n_decode, 1, nr)
+            real[0] = torch.as_tensor(np.arange(x.shape[1])[None]
+                                      < n[:, None]).to(x.device)
+            per_layer.append((kind, rel(first(out), want)))
+            return out
+        return call
 
     def ffn_checked(p, c, h):
         got = ffn(p, c, h)
@@ -1177,14 +1197,50 @@ def _deepseek_engine(dev, dtype, model=None, per_layer=None):
         return got
     api.serve_step_paged, eng.kv.block_tables = recorded, recorded_tables
     if per_layer is not None:
-        mla_mod.mla_mixed_paged, lm.ffn_apply = mixed_checked, ffn_checked
+        for (mod, name, kind), (_, _, fn) in zip(mixers, saved):
+            setattr(mod, name, checked(kind, fn))
+        lm.ffn_apply = ffn_checked
     try:
         eng.run(500)
     finally:
         api.serve_step_paged = serve
-        mla_mod.mla_mixed_paged, lm.ffn_apply = mixed, ffn
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
         del eng.kv.block_tables
     return eng, model, reqs, logits
+
+
+def _engine_matches_float32(arch, kinds):
+    """The bf16 smoke engine of ``arch`` on the card, held against float32
+    two ways (see the tests below); returns the per-layer distances."""
+    dev = _cuda()
+    build.reset_launch_counts()
+    per_layer = []
+    eng, model, reqs, lg16 = _smoke_engine(dev, arch, "bfloat16",
+                                           per_layer=per_layer)
+    launches = build.launch_counts()
+    assert eng.metrics.preemptions > 0
+    assert launches.get("gather_pages", 0) > 0
+    assert launches.get("scatter_pages", 0) > 0
+    for kind, per_step in kinds.items():
+        d = [v for k, v in per_layer if k == kind]
+        assert len(d) == eng.metrics.steps * per_step, kind
+        assert max(d) <= DS_LAYER_REL, (kind, max(d))
+    _, _, reqs32, lg32 = _smoke_engine(dev, arch, "float32",
+                                       model=_float_copy(model))
+    held = 0
+    for r16, r32 in zip(reqs, reqs32):
+        assert len(r16.generated) == len(r32.generated) == 5
+        for pos, (a, b) in enumerate(zip(r16.generated, r32.generated)):
+            x16, x32 = lg16[(r16.rid, pos)], lg32[(r32.rid, pos)]
+            top2 = x32.topk(2).values
+            if (top2[0] - top2[1]).item() > 2 * (x16 - x32).abs().max():
+                assert a == b, (r16.rid, pos)
+                held += 1
+            elif a != b:
+                break
+    assert held >= 1
+    return launches
 
 
 @pytest.mark.cuda
@@ -1200,36 +1256,178 @@ def test_cuda_deepseek_engine_bf16_matches_float32():
     must be equal (elsewhere a routing near-tie may part them, and the
     per-layer check stands). The bf16 run preempts through the gather and
     scatter kernels."""
-    dev = _cuda()
-    build.reset_launch_counts()
-    per_layer = []
-    eng, model, reqs, lg16 = _deepseek_engine(dev, "bfloat16",
-                                              per_layer=per_layer)
-    launches = build.launch_counts()
-    assert eng.metrics.preemptions > 0
-    assert launches.get("gather_pages", 0) > 0
-    assert launches.get("scatter_pages", 0) > 0
-    n_layers = len(model.blocks)
-    for kind in ("mla", "moe"):
-        d = [v for k, v in per_layer if k == kind]
-        assert len(d) == eng.metrics.steps * n_layers, kind
-        assert max(d) <= DS_LAYER_REL, (kind, max(d))
-    _, _, reqs32, lg32 = _deepseek_engine(dev, "float32",
-                                          model=_float_copy(model))
-    held = 0
-    for r16, r32 in zip(reqs, reqs32):
-        assert len(r16.generated) == len(r32.generated) == 5
-        for pos, (a, b) in enumerate(zip(r16.generated, r32.generated)):
-            x16, x32 = lg16[(r16.rid, pos)], lg32[(r32.rid, pos)]
-            top2 = x32.topk(2).values
-            if (top2[0] - top2[1]).item() > 2 * (x16 - x32).abs().max():
-                assert a == b, (r16.rid, pos)
-                held += 1
-            elif a != b:
-                break
-    assert held >= 1
+    _engine_matches_float32("deepseek-v2-lite-16b", {"mla": 4, "moe": 4})
+
+
+@pytest.mark.cuda
+def test_cuda_jamba_engine_bf16_matches_float32():
+    """The bf16 smoke jamba engine (8 layers: 7 Mamba, 1 attention, the
+    MoE in 4) on the card, held against float32 as the deepseek engine
+    above: every Mamba, attention and MoE call of the run against a
+    float32 copy of its layer within 2% per real token, greedy tokens
+    where the float32 margin decides. Its parks move the ssm, conv and kv
+    pages through the gather and scatter kernels; the attention layer
+    runs rows 4 and 5 at every step."""
+    launches = _engine_matches_float32("jamba-v0.1-52b",
+                                       {"mamba": 7, "attn": 1, "moe": 4})
+    assert launches["append_kv"] == launches["paged_mixed_attention_pool"] \
+        > 0
 
 
 def _float_copy(model):
     import copy
     return copy.deepcopy(model).float()
+
+
+# -- jamba-v0.1-52b: the ssm and conv rows, the Mamba layer -----------------
+HYBRID_ROWS = {"ssm": 524288, "conv": 49152}    # (8192, 16) f32, (3, 8192) bf16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_case", ["one", "below_grid", "above_grid",
+                                    "engine_leg"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("leg", sorted(HYBRID_ROWS))
+def test_cuda_gather_and_scatter_hybrid_rows_bit_exact(leg, dtype, n_case):
+    """Rows 6-7 at jamba's state rows: the ssm page (524,288 B, 32 chunks
+    of 16 KiB) and the conv page (49,152 B, 3 chunks), in float32 and
+    bf16, at one row, fewer work items than the grid, a grid multiple plus
+    a remainder and one request's leg (14 Mamba layers at 16 layers), ids
+    outside the pool included; gather and scatter bit-exact against their
+    plain versions."""
+    dev = _cuda()
+    sms = kv_ops.sm_count(dev.index or 0)
+    n = {"one": 1, "below_grid": 7,
+         "above_grid": 3 * kv_ops.BLOCKS_PER_SM * sms + 5,
+         "engine_leg": 14}[n_case]
+    P = 2 * n + 3
+    pool = _gather_pool(dev, dtype, HYBRID_ROWS[leg], P, seed=n)
+    rng = np.random.default_rng(n)
+    ids_np = rng.choice(P, n, replace=False).astype(np.int32)
+    if n > 2:
+        ids_np[0], ids_np[n // 2] = -1, P
+    ids = torch.from_numpy(ids_np).to(dev)
+    got = kv_ops.gather_pages(pool, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+    new = torch.randn(got.shape, device=dev).to(pool.dtype)
+    out = kv_ops.scatter_pages(pool.clone(), new, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kv_ref.scatter_pages_ref(pool.clone(), new, ids))
+
+
+def _mamba_layer(dev, dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.layers.mamba import Mamba
+    cfg = dataclasses.replace(smoke_config(get_config("jamba-v0.1-52b")),
+                              param_dtype=dtype, compute_dtype=dtype)
+    return cfg, Mamba(cfg, dev, torch.Generator(device=dev).manual_seed(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["forward", "decode"])
+def test_cuda_mamba_matches_float32(fn):
+    """``mamba_forward`` (a bucket-padded chunk of 256 rows: two scan
+    chunks, per-lane ``n_real``) and ``mamba_decode`` on the card: in
+    float32 within 1e-4 of the same function on the CPU, and in bf16
+    within 2% per token (relative to the token's largest float32 entry)
+    of a float32 copy of the layer, its states within 2e-2."""
+    import copy
+
+    from repro_torch.layers import mamba as mamba_mod
+    dev = _cuda()
+    cfg32, mix32 = _mamba_layer(dev, "float32")
+    cfg16 = cfg32.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    mix16 = copy.deepcopy(mix32).to(torch.bfloat16)
+    mix16.A_log.data, mix16.D.data = mix32.A_log.data, mix32.D.data
+    di, ds, dc, _ = mamba_mod._dims(cfg32)
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, T = (3, 256) if fn == "forward" else (4, 1)
+    x = torch.randn((B, T, cfg32.d_model), generator=g, device=dev)
+    st = mamba_mod.MambaState(
+        0.5 * torch.randn((B, di, ds), generator=g, device=dev),
+        torch.randn((B, dc - 1, di), generator=g, device=dev))
+    n_real = np.asarray([256, 131, 0]) if fn == "forward" else None
+
+    def run(mix, cfg, x, st, device):
+        mix = copy.deepcopy(mix).to(device)
+        st = mamba_mod.MambaState(*(t.to(device) for t in st))
+        if fn == "forward":
+            return mamba_mod.mamba_forward(mix, cfg, x.to(device), st,
+                                           n_real=n_real)
+        return mamba_mod.mamba_decode(mix, cfg, x.to(device), st)
+    out, new = run(mix32, cfg32, x, st, dev)
+    cpu_out, cpu_new = run(mix32, cfg32, x, st, torch.device("cpu"))
+    torch.cuda.synchronize()
+    for a, b in ((out, cpu_out), (new.ssm, cpu_new.ssm),
+                 (new.conv, cpu_new.conv)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    st16 = mamba_mod.MambaState(st.ssm, st.conv.to(torch.bfloat16))
+    out16, new16 = run(mix16, cfg16, x.to(torch.bfloat16), st16, dev)
+    torch.cuda.synchronize()
+    assert out16.dtype == torch.bfloat16 and new16.ssm.dtype == torch.float32
+    scale = out.abs().amax(-1).clamp_min(1e-6)
+    rel = ((out16.float() - out).abs().amax(-1) / scale)
+    if fn == "forward":
+        rel = rel[torch.as_tensor(np.arange(T)[None] < n_real[:, None],
+                                  device=dev)]
+    assert rel.max().item() <= DS_LAYER_REL
+    np.testing.assert_allclose(new16.ssm.cpu().numpy(),
+                               new.ssm.cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_jamba_packed_step_is_deterministic():
+    """A bf16 smoke jamba packed step whose chunk rows' padding reaches
+    past their pages (into the table's scratch padding), run twice on the
+    card: the logits and every pool bit-identical. The padding is not
+    written, so the scratch page that pad rows read holds the same values
+    each run, and the MoE's per-expert row counts are the same."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import api, lm
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_config("jamba-v0.1-52b")),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                           dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.default_rng(2)
+    page, R, Tc, n_dec = 8, 6, 32, 2
+    q_starts = np.asarray([40, 17, 3, 0, 0, 0], np.int32)
+    n_reals = np.asarray([1, 1, 20, 9, 0, 0], np.int32)
+    need = [-(-(q + max(n, 1)) // page) if n else 0
+            for q, n in zip(q_starts, n_reals)]
+    pps = 8
+    kv_bt = np.zeros((1, 1, R, pps), np.int32)
+    free = list(1 + rng.permutation(sum(need)))
+    for r in range(R):
+        kv_bt[0, 0, r, :need[r]], free = free[:need[r]], free[need[r]:]
+    st = np.zeros((1, 7, R), np.int32)
+    st[0, :, :4] = (1 + rng.permutation(28)).reshape(7, 4)
+    di = cfg.ssm.mamba_expand * cfg.d_model
+    pools0 = {"ssm": 0.1 * torch.randn((29, di, cfg.ssm.mamba_d_state),
+                                       generator=g, device=dev),
+              "conv": torch.randn((29, cfg.ssm.mamba_d_conv - 1, di),
+                                  generator=g, device=dev).to(torch.bfloat16),
+              "kv": torch.randn((1 + sum(need), 2, cfg.n_kv_heads, page,
+                                 cfg.resolved_head_dim), generator=g,
+                                device=dev).to(torch.bfloat16)}
+    bt = {"ssm": st, "conv": st.copy(), "kv": kv_bt}
+    tokens = rng.integers(0, cfg.vocab_size, (R, Tc)).astype(np.int32)
+    runs = []
+    for _ in range(2):
+        pools = {k: v.clone() for k, v in pools0.items()}
+        lg, pools = api.serve_step_paged(model, cfg, tokens, pools, bt,
+                                         q_starts, n_reals, n_decode=n_dec,
+                                         read_pps=pps)
+        torch.cuda.synchronize()
+        runs.append((lg, pools))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for name in pools0:
+        assert torch.equal(runs[0][1][name], runs[1][1][name]), name

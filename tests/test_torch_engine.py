@@ -3,8 +3,10 @@ weights, the same 8 seeded requests, CFS with preemption and a REMOTE donor
 lease, each engine priced on its own package's A100 profile (the chunk
 budget depends on the profile through ``piggyback_tokens``), for the dense
 family (qwen1.5-0.5b, one ``kv`` token plane), RWKV-6 (rwkv6-3b, the
-``wkv`` and ``shift`` state planes) and MLA with the MoE
-(deepseek-v2-lite-16b, the ``mla`` latent token plane). Greedy token streams,
+``wkv`` and ``shift`` state planes), MLA with the MoE
+(deepseek-v2-lite-16b, the ``mla`` latent token plane) and the hybrid
+(jamba-v0.1-52b, the ``ssm`` and ``conv`` state planes beside the ``kv``
+token plane). Greedy token streams,
 preemption/restore counts and TransferMeter bytes and messages must be
 identical. Also: the engine's entry points refuse to run on a
 missing GPU by default, and knobs of the reference that the port has not
@@ -59,7 +61,8 @@ def _serve(eng):
 
 
 @pytest.fixture(scope="module", params=[ARCH, "rwkv6-3b",
-                                        "deepseek-v2-lite-16b"])
+                                        "deepseek-v2-lite-16b",
+                                        "jamba-v0.1-52b"])
 def served(request):
     arch = request.param
     cfg = smoke_config(get_config(arch))

@@ -4,8 +4,9 @@
 the chunk, the ring's stages and the grid from the shapes, the base
 addresses' alignment and the SM count; the CUDA kernel
 (``csrc/kv_gather.cu``, ``gather_bulk_kernel``) walks the plan's work items.
-Here the plan is checked at the engine's four leg shapes (deepseek's
-``mla`` rows of 18,432 B cut into a 16 KiB chunk and a 2 KiB tail) and at
+Here the plan is checked at the engine's leg shapes (deepseek's ``mla``
+rows of 18,432 B cut into a 16 KiB chunk and a 2 KiB tail; jamba's
+524,288 B ``ssm`` and 49,152 B ``conv`` rows) and at
 rows the bulk copy cannot take, and ``_model_gather`` replays the kernel's loop in
 Python (its item order, its id windows, its ring of stages with a load
 only into a stage whose store has read it): every byte of every staging
@@ -35,6 +36,13 @@ H100_SMS = 132
     ("rwkv shift", 32, 10240, 2560, 128),
     # a 16 KiB chunk and a 2,048 B tail per 18,432 B row
     ("deepseek mla", 1350, 18432, 16384, 2 * H100_SMS),
+    # jamba at 16 layers: 14 ssm and conv pages, 100 kv pages of a park
+    ("jamba ssm", 14, 524288, 16384, 2 * H100_SMS),
+    ("jamba conv", 14, 49152, 2048, 2 * H100_SMS),
+    ("jamba kv", 100, 65536, 16384, 2 * H100_SMS),
+    # a ring of exactly 48 KiB (8 KiB x 6): with the kernel's static
+    # barriers past the 48 KiB default, so the launch opts in
+    ("jamba ssm, 7 rows", 7, 524288, 8192, 2 * H100_SMS),
 ])
 def test_plan_at_the_engine_legs(leg, n, row_bytes, chunk, blocks):
     plan = kv_ops.gather_plan(n, row_bytes, 16, H100_SMS)
