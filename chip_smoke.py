@@ -234,6 +234,69 @@ reference (its scan is ``jnp``), so the path's kernels are rows 2-7:
 25. jamba round trip — phase 19's park/restore round trip over the three
    planes, bit-identical to the unparked run.
 
+Then internvl2-1b at its published width (24 layers, d 896, 14 heads on
+2 KV heads of 64, d_ff 4864, vocab 151655, tied, bf16; random seeded
+weights), a VLM whose prompts open with 256 prefix embedding rows (the
+stub frontend's image, seeded per request), served on the ``kv`` plane
+(12,288 B a token), the port's first odd GQA group (G 7):
+
+26. internvl2 kernels — rows 1-5 at 14 heads on 2 of 64
+   (``attention_rows``): the bf16 paged kernels' resources, row 4 at the
+   main path's step and decode-only step, rows 1-3 with split == pool
+   and mixed == per-request bit for bit, row 5 in both forms beside
+   ``index_put_``; rows 6-7 at the ``kv`` leg of 1,200 x 8,192 B
+   (``leg_rows``). ``internvl2`` / ``internvl2_kv`` records.
+27. model — ``lm.init_params`` from a seeded CUDA generator:
+   ``param_count()`` 493,752,448, the module 896 more (final_norm).
+28. layer step — phase 4's packed step with each chunk row's seeded
+   prefix block at its positions below 256 (``lm.embed_rows``), per layer
+   kernel vs plain, whole step vs float32.
+29. chunked prefix — 256 prefix rows + 44 tokens in one chunk and in
+   three (the prefix split over all three): last-token logits within 2%
+   (norm-relative), a zero-prefix control beyond.
+30. engine — phase 6 with a prefix per request (text prompts shorter by
+   256); bytes_fabric whole 12,288 B token rows.
+31. round trip and snapshot — phase 19's round trip with a prefix,
+   bit-identical; phase 6's requests snapshotted after 12 steps (prefix
+   blocks as raw bf16 words), restored into a fresh runtime: every
+   in-flight request finishes; tokens made at steps packed alike in both
+   runs have logits within 2%, and a request decoding at the snapshot
+   gives the original's tokens at least up to its first token made at a
+   step packed otherwise (``packed_alike_agreement``; past that, bf16
+   rounding of other GEMM tilings may part the streams at a near-tie).
+
+32. LoRA adapter cache (``serving/lora.py``) at qwen1.5-0.5b's width —
+   rows 6-7 at the adapter page (24 x 131,072 B); 8 rank-16 adapters
+   (3,145,728 B each) parked beside a 100-page same-card REMOTE lease and
+   ``capacity_local`` 2: pages read back equal to the raveled leaves bit
+   for bit; a hit meters nothing, a miss its adapter's bytes as one
+   message per tier its pages lie on, misses served from both the donor
+   and the host; the cold fetch's gather from the donor timed beside
+   ``index_select`` and its bound (``lora_fetch`` record); ``apply_lora``
+   with B = 0 gives the unmerged logits bit for bit, B != 0 moves them.
+
+Then gemma-7b at its published width (28 layers, d 3072, 16 heads of 256
+on 16 KV heads, GeGLU d_ff 24576, vocab 256000, tied, embeddings scaled
+by sqrt(d), bf16; random seeded weights): rows 1-5 at head_dim 256, a
+``kv`` token row of 458,752 B:
+
+33. gemma kernels — ``attention_rows`` at 16 heads of 256 (the kernels'
+   resources must show no local memory) and rows 6-7 at the ``kv`` leg
+   of 1,400 x 262,144 B. ``gemma`` / ``gemma_kv`` records.
+34. model — 8,537,677,824 by the formula (15.90 GiB), the module 3,072
+   more.
+35. layer step — phase 4's packed step, per layer kernel vs plain and
+   the kernel's attention within 2% per token of a float32 copy of the
+   layer (controls beyond both); the whole step's logits against the
+   plain path's printed (the float32 model does not fit beside the bf16
+   one).
+36. gemma per-request — phase 5 without the whole-prefill float32
+   yardstick: per-layer checks, the split-pool drive (row 1 at hd 256),
+   the FCFS engine beside it.
+37. gemma engine — phase 6 on a 4 GiB lease (every parked request's
+   pages, 2.9 GB), profiled; bytes_fabric whole 458,752 B token rows.
+38. gemma round trip — bit-identical.
+
 Then qwen1.5-0.5b's training path at its published width (bf16 params,
 float32 AdamW master and moments):
 
@@ -486,11 +549,11 @@ def attention_bound(np, bt_np, q_pos_rows, H, hd, page, page_bytes,
                     * len(q_pos_rows), 4.0 * pairs * hd)
 
 
-def per_request_kernels(torch, np, pool, rng, g, H, read_pps, report):
+def per_request_kernels(torch, np, pool, rng, g, H, read_pps):
     """The per-request kernels at the engine's shapes, each against its
     plain version and timed; decode over the split halves against decode
     over the pool, and both per-request kernels against one mixed launch,
-    bit for bit."""
+    bit for bit. Returns {kernel: record}."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
     dev = pool.device
@@ -528,12 +591,12 @@ def per_request_kernels(torch, np, pool, rng, g, H, read_pps, report):
             max_abs_err=err, tolerance=3e-2, ms=ms, plain_ms=plain_ms,
             bound_ms=b, bound_by=by, library_ms=None)
         chunk[q_start] = (args, out)
-    report.append(dict(
+    records = {"paged_prefill_attention_pool": dict(
         name="paged_prefill_attention_pool", route="cuda", source=KERNEL_SRC,
         replaces=f"{TPU_SRC}:245",
         **{**cases[512], "max_abs_err": max(c["max_abs_err"]
                                             for c in cases.values())},
-        mid_page=cases[200]))
+        mid_page=cases[200])}
 
     # -- decode: 4 lanes at 700/431/255/40, lengths pos + 1, over the pool
     # and over its split halves read in place
@@ -552,22 +615,22 @@ def per_request_kernels(torch, np, pool, rng, g, H, read_pps, report):
     ms, plain_ms = interleaved(
         lambda: pa_ref.paged_attention_pool_ref(q, pool, bt, lengths),
         lambda: pa_ops.paged_attention_pool(q, pool, bt, lengths), 10)
-    report.append(dict(
+    records["paged_attention_pool"] = dict(
         name="paged_attention_pool", route="cuda", source=KERNEL_SRC,
         replaces=f"{TPU_SRC}:157", shape=shape, max_abs_err=err,
         tolerance=3e-2, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-        library_ms=None))
+        library_ms=None)
     dec_split = pa_ops.paged_attention(q, k_half, v_half, bt, lengths)
     err = check("paged_attention", dec_split,
                 pa_ref.paged_attention_ref(q, k_half, v_half, bt, lengths))
     ms, plain_ms = interleaved(
         lambda: pa_ref.paged_attention_ref(q, k_half, v_half, bt, lengths),
         lambda: pa_ops.paged_attention(q, k_half, v_half, bt, lengths), 10)
-    report.append(dict(
+    records["paged_attention"] = dict(
         name="paged_attention", route="cuda", source=KERNEL_SRC,
         replaces=f"{TPU_SRC}:454", shape=shape + " (split K/V views)",
         max_abs_err=err, tolerance=3e-2, ms=ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=by, library_ms=None))
+        bound_ms=b, bound_by=by, library_ms=None)
 
     # -- bit for bit: split == pool; one mixed launch of the 4 lanes and
     # the 256-token chunk from 512 == the per-request kernels' rows
@@ -591,6 +654,7 @@ def per_request_kernels(torch, np, pool, rng, g, H, read_pps, report):
     if not all(same):
         raise AssertionError("a mixed launch's rows differ from the "
                              "per-request kernels' on the same q and pool")
+    return records
 
 
 REPEATS = 5                         # rounds of a kernel against its library call
@@ -943,7 +1007,8 @@ def phase_kernels(torch, np, cfg, report):
         **{**mixed, "max_abs_err": max(mixed["max_abs_err"],
                                        decode["max_abs_err"])},
         decode_only=decode))
-    per_request_kernels(torch, np, pool, rng, g, H, read_pps, report)
+    report.extend(per_request_kernels(torch, np, pool, rng, g, H,
+                                      read_pps).values())
 
     # -- row 5, the page writer: the decode form (4 lanes through
     # append_kv) and the packed step's form (write_kv_rows at the main
@@ -1023,7 +1088,8 @@ def phase_kernels(torch, np, cfg, report):
     del pool, remote, staging
 
 
-def per_layer_attention(torch, cfg, model, x, pool, attend, real, keep):
+def per_layer_attention(torch, cfg, model, x, pool, attend, real, keep,
+                        layer_f32=False):
     """Run the layers from input ``x`` on a copy of ``pool``; at each layer,
     on the same input and pool, the attention through the kernels, through
     the plain versions and through the plain versions' control
@@ -1032,20 +1098,35 @@ def per_layer_attention(torch, cfg, model, x, pool, attend, real, keep):
     per-token distance to the plain output over the ``real`` tokens,
     relative to that token's largest output, for the kernel and for the
     control, and whether the pages written by the kernel and plain paths
-    are equal over the ``keep`` slots."""
+    are equal over the ``keep`` slots. With ``layer_f32`` also each one's
+    distance to a float32 copy of the layer's attention run by the plain
+    versions on the same input and pool in float32 (``kernel_f32``,
+    ``control_f32``)."""
     from repro_torch.layers.core import mlp, rms_norm
     p_ref = pool.clone()
     rel = {"kernel": [], "control": []}
+    if layer_f32:
+        rel.update(kernel_f32=[], control_f32=[])
     pages_equal = True
     for layer, blk in enumerate(model.blocks):
         h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
         out_k, p_k = attend(blk.mix, h, p_ref.clone(), layer, "kernel", False)
         out_c, _ = attend(blk.mix, h, p_ref.clone(), layer, "ref", True)
+        outs = [("kernel", out_k), ("control", out_c)]
+        if layer_f32:
+            out_32, _ = attend(copy.deepcopy(blk.mix).float(), h.float(),
+                               p_ref.float(), layer, "ref", False)
         out_r, p_ref = attend(blk.mix, h, p_ref, layer, "ref", False)
         scale = out_r.float().abs().amax(-1).clamp_min(1e-6)
-        for name, o in (("kernel", out_k), ("control", out_c)):
+        for name, o in outs:
             d = (o.float() - out_r.float()).abs().amax(-1) / scale
             rel[name].append(d[real].max().item())
+        if layer_f32:
+            scale = out_32.abs().amax(-1).clamp_min(1e-6)
+            for name, o in outs:
+                d = (o.float() - out_32).abs().amax(-1) / scale
+                rel[f"{name}_f32"].append(d[real].max().item())
+            del out_32
         pages_equal &= torch.equal(p_k[keep], p_ref[keep])
         del p_k
         x = x + out_r
@@ -1053,7 +1134,8 @@ def per_layer_attention(torch, cfg, model, x, pool, attend, real, keep):
     return rel, pages_equal
 
 
-def phase_layer_step(torch, np, cfg, model, dev):
+def phase_layer_step(torch, np, cfg, model, dev, prefix=False,
+                     whole_f32=True):
     """One full-width packed step, checked two ways.
 
     Per layer: on the same layer input and the same pool, the layer's
@@ -1067,10 +1149,19 @@ def phase_layer_step(torch, np, cfg, model, dev):
     Whole step: the logits of the kernel path, the plain bf16 path and the
     control are each compared with the same step in float32; the kernel
     path must be no further than twice the plain bf16 path, and the control
-    further."""
+    further.
+
+    ``prefix`` (a VLM): the chunk rows take seeded prefix embedding rows at
+    their positions below ``n_prefix_embeds`` (``lm.embed_rows``), every
+    path the same block. Without ``whole_f32`` (a model whose float32 copy
+    does not fit beside it) the float32 yardstick is per layer instead: the
+    attention through the kernels within ``LAYER_REL_LIMIT`` per real token
+    of a float32 copy of the layer on the same input and pool, the control
+    beyond; the whole step's logits against the plain path's are printed
+    (the control drops one of 44 pages of one lane, below the rounding
+    that 28 bf16 layers carry into logits of up to ~20)."""
     from repro_torch.layers import attention as attn
-    from repro_torch.layers.core import embed
-    from repro_torch.models import api
+    from repro_torch.models import api, lm
     rng = np.random.default_rng(1)
     g = torch.Generator(device=dev).manual_seed(1)
     page, max_seq = 16, 1024
@@ -1098,36 +1189,60 @@ def phase_layer_step(torch, np, cfg, model, dev):
     # the scratch page, whose content depends on the order of duplicate
     # writes)
     compared = torch.as_tensor(np.arange(Tc)[None] < n_reals[:, None]).to(dev)
-    x = embed(model.embed, cfg, torch.as_tensor(tokens).to(dev))
+    pre = None
+    if prefix:
+        # every chunk row its own seeded image, the decode rows none
+        pre = 0.02 * torch.randn((R, cfg.n_prefix_embeds, cfg.d_model),
+                                 generator=g, device=dev)
+        pre[:n_dec] = 0.0
+        pre = pre.to(cfg.torch_compute_dtype())
+    x = lm.embed_rows(model, cfg, torch.as_tensor(tokens).to(dev), q_starts,
+                      pre)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
 
     def attend(mix, h, p, layer, impl, control):
+        c = cfg32 if h.dtype == torch.float32 else cfg
         return attn.attention_mixed_paged(
-            mix, cfg, h, p, bt_dev[layer, 0], q_starts, n_reals,
+            mix, c, h, p, bt_dev[layer, 0], q_starts, n_reals,
             n_decode=n_dec, read_pps=short_pps if control else read_pps,
             impl=impl, meta=meta)
     rel, pages_equal = per_layer_attention(torch, cfg, model, x, pool,
-                                           attend, compared, slice(1, None))
+                                           attend, compared, slice(1, None),
+                                           layer_f32=not whole_f32)
     lk, lc = max(rel["kernel"]), min(rel["control"])
-    print(f"layer step, per layer ({L} layers, R={R} Tc={Tc}): attention "
+    print(f"layer step, per layer ({L} layers, R={R} Tc={Tc}"
+          f"{', prefix rows' if prefix else ''}): attention "
           f"output max per-row relative diff to plain: kernel {lk:.4g} "
           f"(layers {', '.join(f'{v:.3g}' for v in rel['kernel'])}); "
           f"control reading {short_pps} of {read_pps} pages, least "
           f"{lc:.4g} (layers {', '.join(f'{v:.3g}' for v in rel['control'])})"
           f"; written pages equal: {pages_equal}")
+    if not whole_f32:
+        k32, c32 = max(rel["kernel_f32"]), min(rel["control_f32"])
+        print(f"layer step, per layer against a float32 copy of the layer's "
+              f"attention: kernel {k32:.4g} (layers "
+              f"{', '.join(f'{v:.3g}' for v in rel['kernel_f32'])}); "
+              f"control least {c32:.4g}")
+        if not k32 <= LAYER_REL_LIMIT < c32:
+            raise AssertionError(
+                f"layer step: kernel vs the float32 layer {k32} must be "
+                f"within {LAYER_REL_LIMIT}, and the control ({c32}) beyond")
 
     # -- whole step against float32 ----------------------------------------
-    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     runs = {"ref": (model, cfg, "ref", read_pps),
             "kernel": (model, cfg, "kernel", read_pps),
-            "control": (model, cfg, "ref", short_pps),
-            "f32": (copy.deepcopy(model).float(), cfg32, "ref", read_pps)}
+            "control": (model, cfg, "ref", short_pps)}
+    if whole_f32:
+        runs["f32"] = (copy.deepcopy(model).float(), cfg32, "ref", read_pps)
     real = np.nonzero(n_reals > 0)[0]
     outs = {}
     for name, (mdl, c, impl, pps) in runs.items():
         p = pool.clone().to(c.torch_compute_dtype())
         logits, _ = api.serve_step_paged(
             mdl, c, tokens, {"kv": p}, {"kv": bt}, q_starts, n_reals,
-            n_decode=n_dec, read_pps=pps, impl=impl)
+            n_decode=n_dec, read_pps=pps, impl=impl,
+            prefix_embeds=(None if pre is None
+                           else pre.to(c.torch_compute_dtype())))
         if dev.type == "cuda":
             torch.cuda.synchronize()
         outs[name] = logits.float()
@@ -1145,7 +1260,8 @@ def phase_layer_step(torch, np, cfg, model, dev):
         old_pool = pool.clone()
         old_logits, _ = api.serve_step_paged(
             model, cfg, tokens, {"kv": old_pool}, {"kv": bt}, q_starts,
-            n_reals, n_decode=n_dec, read_pps=read_pps, impl="kernel")
+            n_reals, n_decode=n_dec, read_pps=read_pps, impl="kernel",
+            prefix_embeds=pre)
         if dev.type == "cuda":
             torch.cuda.synchronize()
     finally:
@@ -1165,16 +1281,18 @@ def phase_layer_step(torch, np, cfg, model, dev):
         raise AssertionError("layer step: logits of the wrong shape or "
                              "not finite")
 
+    base = "f32" if whole_f32 else "ref"
+
     def rows(name):
-        d = (outs[name] - outs["f32"]).abs().amax(-1)[real]
+        d = (outs[name] - outs[base]).abs().amax(-1)[real]
         return [round(v, 4) for v in d.tolist()]
-    dist = {name: rows(name) for name in ("kernel", "ref", "control")}
+    dist = {name: rows(name) for name in outs if name != base}
     agree = (outs["kernel"][real].argmax(-1)
-             == outs["f32"][real].argmax(-1)).float().mean().item()
-    print(f"layer step, whole: logits |f32| max "
-          f"{outs['f32'][real].abs().max().item():.3g}; per real row max abs "
-          f"diff to f32: {json.dumps(dist)}; argmax agreement of the kernel "
-          f"path with f32 {agree:.3f}")
+             == outs[base][real].argmax(-1)).float().mean().item()
+    print(f"layer step, whole: logits |{base}| max "
+          f"{outs[base][real].abs().max().item():.3g}; per real row max abs "
+          f"diff to {base}: {json.dumps(dist)}; argmax agreement of the "
+          f"kernel path with {base} {agree:.3f}")
     if not pages_equal:
         raise AssertionError("layer step: pages written by the kernel path "
                              "differ from the plain path's")
@@ -1183,6 +1301,8 @@ def phase_layer_step(torch, np, cfg, model, dev):
             f"layer step: kernel vs plain {lk} must be within "
             f"{LAYER_REL_LIMIT}, and the one-page-short control ({lc}) "
             f"beyond it")
+    if not whole_f32:
+        return
     limit = 2 * max(dist["ref"])
     if not max(dist["kernel"]) <= limit < max(dist["control"]):
         raise AssertionError(
@@ -1330,15 +1450,15 @@ def _walls(np, label, secs):
             f"{np.percentile(x, 99):.2f} mean {x.mean():.2f} ms")
 
 
-def phase_per_request(torch, np, cfg, model, dev):
+def phase_per_request(torch, np, cfg, model, dev, whole_f32=True):
     """The per-request serving path at full width (module docstring, phase
-    5). Returns {kernel: launches} of its run and of the split-pool
+    5). Without ``whole_f32`` (a model whose float32 copy does not fit
+    beside it) the whole prefills are not held against float32; the
+    per-layer checks, the split-pool drive and the fused engine beside it
+    stay. Returns {kernel: launches} of its run and of the split-pool
     drive."""
-    from repro_torch.core.aqua_tensor import REMOTE
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.kv_cache import PagedStateRuntime
     rng = np.random.default_rng(3)
     prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), split)
                for n, split in PROMPTS.items()]
@@ -1396,6 +1516,10 @@ def phase_per_request(torch, np, cfg, model, dev):
                         n_real)
     run_ref = per_request_run(torch, np, cfg, model, dev, prompts, "ref",
                               decode_steps=1, hook=hook)
+    if not whole_f32:
+        del run_ref
+        return phase_fused_beside(torch, np, cfg, model, dev, prompts,
+                                  run["tokens"], launches, split_launches)
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     model32 = copy.deepcopy(model).float()
     logits = {"kernel": run["logits"], "ref": run_ref["logits"]}
@@ -1418,8 +1542,18 @@ def phase_per_request(torch, np, cfg, model, dev):
             f"({max(dist['kernel'])} from float32) must be within twice the "
             f"plain bf16 path's ({limit}), and the one-page-short control "
             f"({max(dist['control'])}) beyond it")
+    return phase_fused_beside(torch, np, cfg, model, dev, prompts,
+                              run["tokens"], launches, split_launches)
 
-    # -- the same prompts through the fused step, side by side -------------
+
+def phase_fused_beside(torch, np, cfg, model, dev, prompts, tokens,
+                       launches, split_launches):
+    """Phase 5's prompts through the fused step (an FCFS engine), its walls
+    and launches beside the per-request run's greedy ``tokens``."""
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_cache import PagedStateRuntime
     kv = PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=4,
                            prefix_cache=False, device=dev)
     eng = ServingEngine(cfg, model, max_running=4, max_seq=1024,
@@ -1445,13 +1579,16 @@ def phase_per_request(torch, np, cfg, model, dev):
           + _walls(np, "decode-only step wall", step_s[~mixed]))
     print(f"fused: kernel launches {json.dumps(fused, sort_keys=True)}")
     agree = [sum(a == b for a, b in zip(r.generated, t))
-             for r, t in zip(reqs, run["tokens"])]
+             for r, t in zip(reqs, tokens)]
     print(f"greedy tokens, per-request vs fused, agreeing per prompt "
           f"{list(PROMPTS)}: {agree} of {DECODE_STEPS + 1} each "
           f"({sum(agree)} of {len(agree) * (DECODE_STEPS + 1)})")
     if not all(len(r.generated) == DECODE_STEPS + 1 for r in reqs):
         raise AssertionError("fused: not every request finished")
     return launches, split_launches
+
+
+LEASE_BYTES = 2 * 1024 ** 3          # phase 6's same-card donor lease
 
 
 def make_runtime(cfg, dev, host_pages):
@@ -1465,16 +1602,21 @@ def make_runtime(cfg, dev, host_pages):
 
 
 def make_engine(np, cfg, model, dev, *, host_pages=1024, coordinator=None,
-                want_remote_bytes=0.0, **engine_kw):
+                want_remote_bytes=0.0, lease_bytes=LEASE_BYTES, **engine_kw):
     """The 12-request CFS engine of phase 6 (a same-card REMOTE donor
-    lease of 2 GiB, seeded prompts of 128-768 tokens, 32 new tokens each).
+    lease of ``lease_bytes``, 2 GiB by default, seeded prompts of 128-768
+    tokens, 32 new tokens each).
     With a ``coordinator`` the lease is the coordinator's grant of
     ``want_remote_bytes`` instead, polled for reclaims every step;
     ``engine_kw`` (faults, audit, admission, ...) go to the engine.
+    A VLM's requests each carry a seeded prefix block (std 0.02, the token
+    embeddings' scale) ahead of a text prompt shorter by its rows, so every
+    request fits the 1,024-token context.
     Returns (engine, runtime, requests)."""
     from repro_torch.core.aqua_tensor import REMOTE
     from repro_torch.serving.engine import ServingEngine
     n_req, new_tokens = 12, 32
+    P = cfg.n_prefix_embeds
     kv = make_runtime(cfg, dev, host_pages)
     eng = ServingEngine(cfg, model, max_running=4, max_seq=1024,
                         scheduler="cfs", slice_tokens=8, step_tokens=256,
@@ -1483,14 +1625,20 @@ def make_engine(np, cfg, model, dev, *, host_pages=1024, coordinator=None,
                         want_remote_bytes=want_remote_bytes, respond_every=1,
                         device=dev, **engine_kw)
     if coordinator is None:
-        eng.pager.add_remote_lease("donor0", 2 * 1024 ** 3)
+        eng.pager.add_remote_lease("donor0", lease_bytes)
     rng = np.random.default_rng(2)
     reqs = []
     for i in range(n_req):
         n = int(rng.integers(128, 769))
+        pre = None
+        if P:
+            n = max(n - P, 16)
+            pre = 0.02 * np.random.default_rng(100 + i).standard_normal(
+                (P, cfg.d_model)).astype(np.float32)
         reqs.append(eng.submit(list(map(int, rng.integers(0, cfg.vocab_size,
                                                           n))),
-                               new_tokens, arrival=0.01 * i))
+                               new_tokens, arrival=0.01 * i,
+                               prefix_embeds=pre))
     return eng, kv, reqs
 
 
@@ -1629,7 +1777,8 @@ def host_calls(prof):
     return out
 
 
-def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
+def phase_engine(torch, np, cfg, model, dev, need=(), profile=False,
+                 lease_bytes=LEASE_BYTES):
     """``ServingEngine`` (CFS, a same-card REMOTE donor lease) serves 12
     seeded requests at full width. Every request finishes, CFS preempts and
     restores, each park/restore is one fabric message, a family whose
@@ -1639,10 +1788,12 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
     ``profile``, a second run of the same requests profiles one chunk step
     and one decode-only step (``profile_engine_steps``; an MoE layer's
     feed-forward runs inside a ``record_function("moe")`` range there).
+    ``lease_bytes``: the donor lease, room for every parked request's
+    pages, so each leg is one fabric message.
     Returns (launch counts, each request's generated tokens)."""
     from repro_torch.kernels import build
 
-    eng, kv, reqs = make_engine(np, cfg, model, dev)
+    eng, kv, reqs = make_engine(np, cfg, model, dev, lease_bytes=lease_bytes)
     n_req, new_tokens = len(reqs), reqs[0].max_new_tokens
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1660,7 +1811,7 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
     launches = build.launch_counts()
     meter = eng.pager.meter
     gen = sum(len(r.generated) for r in reqs)
-    prompt = sum(len(r.prompt_tokens) for r in reqs)
+    prompt = sum(r.prompt_positions for r in reqs)
     print(f"engine: {n_req} requests, {prompt} prompt + {gen} generated "
           f"tokens in {m.steps} steps, {wall:.3f} s wall, "
           f"{(prompt + gen) / wall:.1f} tokens/s, {gen / wall:.1f} "
@@ -1717,7 +1868,8 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
     if profile:
         del eng, kv, reqs
         torch.cuda.empty_cache()
-        eng, _, _ = make_engine(np, cfg, model, dev)
+        eng, _, _ = make_engine(np, cfg, model, dev,
+                                lease_bytes=lease_bytes)
         with profile_ranges(torch):
             prof = profile_engine_steps(torch, eng)
         print(f"engine profile: {json.dumps(prof)}")
@@ -1725,7 +1877,6 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False):
 
 
 # -- the lease lifecycle: coordinator reclaim, lease shrink, donor loss -----
-LEASE_BYTES = 2 * 1024 ** 3
 # the host tier takes every page a reclaim or a shrink parks there: at most
 # 8 parked requests x 24 layers x 50 pages (800 tokens / 16) = 9,600 pages
 LIFECYCLE_HOST_PAGES = 10240
@@ -3086,11 +3237,14 @@ def phase_deepseek_per_request(torch, np, cfg, model, dev):
     return launches
 
 
-def roundtrip_run(torch, np, cfg, model, dev, prompt, chunks, steps, park):
+def roundtrip_run(torch, np, cfg, model, dev, prompt, chunks, steps, park,
+                  prefix=None):
     """One prompt chunk by chunk through the per-request entry points, then
     ``steps`` decode steps; with ``park``, the request parks on a REMOTE
-    lease and is restored after every chunk and step. Returns every
-    logits row and the runtime."""
+    lease and is restored after every chunk and step. ``prefix`` (a VLM's
+    (1, P, d) block on the device) fills the prompt's first P positions,
+    whose token ids are dummies. Returns every logits row and the
+    runtime."""
     from repro_torch.core.aqua_tensor import REMOTE
     from repro_torch.models import api
     from repro_torch.serving.kv_cache import PagedStateRuntime
@@ -3106,7 +3260,7 @@ def roundtrip_run(torch, np, cfg, model, dev, prompt, chunks, steps, park):
         tk[0, :c] = prompt[pos:pos + c]
         lg, kv.pools = api.prefill_chunk_paged(
             model, cfg, tk, kv.pools, kv.block_tables_prefill(0, pad_to=pad),
-            pos, c - 1, read_pps=kv.pps)
+            pos, c - 1, prefix_embeds=prefix, read_pps=kv.pps)
         pos += c
         if park:
             kv.park(0, pos, prefer=REMOTE)
@@ -3132,14 +3286,19 @@ def phase_roundtrip(torch, np, cfg, model, dev, label):
     a same-card REMOTE lease and restored after every chunk and step, must
     give every logits row bit for bit as the unparked run; gather and
     scatter must launch, one fabric message per leg whatever the number of
-    planes. Returns the parked run's launch counts."""
+    planes. A VLM's prompt opens with a seeded prefix block (its first
+    ``n_prefix_embeds`` positions). Returns the parked run's launch
+    counts."""
     from repro_torch.kernels import build
     prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 300)
+    prefix = vlm_prefix(torch, cfg, dev, 6)
+    if prefix is not None:
+        prompt[:cfg.n_prefix_embeds] = 0
     base, _ = roundtrip_run(torch, np, cfg, model, dev, prompt, (120, 180),
-                            8, False)
+                            8, False, prefix)
     build.reset_launch_counts()
     parked, kv = roundtrip_run(torch, np, cfg, model, dev, prompt,
-                               (120, 180), 8, True)
+                               (120, 180), 8, True, prefix)
     launches = build.launch_counts()
     same = all(torch.equal(a, b) for a, b in zip(base, parked))
     m = kv.meter
@@ -3683,6 +3842,478 @@ def jamba_phases(torch, np, report, dev, t0):
     del model
     release(torch)
     print(f"jamba-v0.1-52b phase spans (s): "
+          f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
+          f"at {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# -- internvl2-1b, the LoRA adapter cache, gemma-7b ---------------------------
+def vlm_prefix(torch, cfg, dev, seed):
+    """A VLM's seeded (1, P, d) prefix block on the device in the compute
+    dtype (std 0.02, the token embeddings' scale); None for a text
+    model."""
+    if not cfg.n_prefix_embeds:
+        return None
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (0.02 * torch.randn((1, cfg.n_prefix_embeds, cfg.d_model),
+                               generator=g, device=dev)).to(
+        cfg.torch_compute_dtype())
+
+
+def kv_leg_shape(cfg, leg):
+    """Rows 6-7 at a model's ``kv`` leg (``gather_leg_shapes``' form): a
+    park of ~800 tokens, 50 pages of 16 tokens a layer, (2, K, 16, hd)
+    pages in the compute dtype."""
+    return {leg: ((2, cfg.n_kv_heads, 16, cfg.resolved_head_dim),
+                  cfg.torch_compute_dtype(), cfg.n_layers * 50, 0)}
+
+
+def attention_rows(torch, np, cfg, report, label):
+    """Rows 1-5 at a model's attention shapes (bf16, 16-token pages, 64
+    pages a request, the engine's LOCAL pool): the bf16 paged kernels and
+    the page writer at its head dim use no local memory; row 4 at the
+    main path's packed step and at the decode-only step
+    (``attention_case``), rows 1-3 with split == pool and mixed ==
+    per-request bit for bit (``per_request_kernels``), row 5 in the step
+    form and the decode form (``step_writer_case``, ``append_case``, each
+    beside ``index_put_``). Adds a ``label`` record to each kernel's
+    entry."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    K, H, hd = cfg.n_kv_heads, cfg.n_heads, cfg.resolved_head_dim
+    info = pa_ops.tc_kernel_info(hd)
+    writer = pa_ops.writer_kernel_info(hd)
+    print(f"{label}: bf16 paged attention kernels at hd {hd}, {H} heads on "
+          f"{K} (G {H // K}): " + "; ".join(
+              f"{n} {r['registers']} registers, local {r['local_bytes']} B, "
+              f"shared {r['smem_bytes']} B" for n, r in info.items())
+          + "; page writer " + "; ".join(
+              f"{dt} {r['registers']} registers, local {r['local_bytes']} B"
+              for dt, r in writer.items()))
+    if any(r["local_bytes"] for r in list(info.values())
+           + list(writer.values())):
+        raise AssertionError(f"{label}: a paged kernel at hd {hd} uses "
+                             "local memory")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    g = torch.Generator(device=dev).manual_seed(17)
+    page = 16
+    read_pps = 1024 // page
+    P = 4 * cfg.n_layers * read_pps + 1          # the engine's LOCAL pool
+    pool = torch.randn((P, 2, K, page, hd), generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    q_starts, _, n_dec, _ = main_path_plan()
+    cases = {"paged_mixed_attention_pool": dict(
+        attention_case(torch, np, pool, rng, g, main_path_plan(), H,
+                       read_pps),
+        decode_only=attention_case(torch, np, pool, rng, g,
+                                   decode_only_plan(), H, read_pps))}
+    cases.update(per_request_kernels(torch, np, pool, rng, g, H, read_pps))
+    cases["append_kv"] = dict(
+        step_writer_case(torch, np, pool, rng, g, read_pps),
+        decode_only=append_case(torch, np, pool, rng, g, q_starts[:n_dec],
+                                read_pps))
+    for name, case in cases.items():
+        rec = {k: v for k, v in case.items()
+               if k not in ("name", "route", "source", "replaces")}
+        next(k for k in report if k["name"] == name)[label] = rec
+        for sub in [rec] + [rec[k] for k in ("decode_only", "mid_page")
+                            if k in rec]:
+            print(f"kernel {name} {label} {sub['shape']} (hd {hd}, {H} "
+                  f"heads on {K}): err {sub['max_abs_err']:.3g} kernel "
+                  f"{sub['ms']:.4f} ms plain {sub['plain_ms']:.4f} ms bound "
+                  f"{sub['bound_ms'] * 1e3:.3f} us ({sub['bound_by']}) "
+                  f"library {sub['library_ms']}")
+    del pool
+
+
+def phase_dense_model(torch, cfg, seed, want):
+    """A dense (or VLM) model at its published width from a seeded CUDA
+    generator: the reference's ``param_count()`` must be ``want`` and the
+    module holds that plus its final norm's ``d_model`` scales."""
+    from repro_torch.models import lm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name} model: published widths ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}); param_count() {cfg.param_count():,} (the "
+          f"reference's formula); the module holds {n:,} (+ {cfg.d_model} "
+          f"final_norm scales), {nbytes / 2 ** 30:.2f} GiB; "
+          f"torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB; built in "
+          f"{time.perf_counter() - t:.1f} s")
+    if cfg.param_count() != want or n != want + cfg.d_model:
+        raise AssertionError(f"{cfg.name} model: wrong parameter count")
+    return model
+
+
+def phase_chunked_prefix(torch, np, cfg, model, dev):
+    """A VLM prompt of 300 positions (the prefix's 256 rows, 44 text
+    tokens) through the per-request entry points in one chunk and in
+    chunks of 100 (the prefix over three chunks): the last token's logits
+    within ``LAYER_REL_LIMIT`` of each other relative to the one-chunk
+    logits' norm (the bf16 GEMMs tile the two chunk shapes differently);
+    a control with a zero prefix beyond it."""
+    P = cfg.n_prefix_embeds
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, P + 44)
+    prompt[:P] = 0
+    prefix = vlm_prefix(torch, cfg, dev, 8)
+    c = (P + 44) // 3
+    chunks = (c, c, P + 44 - 2 * c)
+    one, _ = roundtrip_run(torch, np, cfg, model, dev, prompt, (P + 44,), 0,
+                           False, prefix)
+    logs = {"split": roundtrip_run(torch, np, cfg, model, dev, prompt,
+                                   chunks, 0, False, prefix)[0][-1],
+            "control": roundtrip_run(torch, np, cfg, model, dev, prompt,
+                                     chunks, 0, False,
+                                     torch.zeros_like(prefix))[0][-1]}
+    want = one[-1].float()
+    rel = {k: float((v.float() - want).norm() / want.norm())
+           for k, v in logs.items()}
+    same = torch.equal(logs["split"], one[-1])
+    print(f"{cfg.name} chunked prefix: a {P}-row prefix + 44 tokens in "
+          f"chunks of {'/'.join(map(str, chunks))} against one chunk: "
+          f"last-token "
+          f"logits norm-relative diff {rel['split']:.4g} (bit-identical "
+          f"{same}); control with a zero prefix {rel['control']:.4g}; limit "
+          f"{LAYER_REL_LIMIT}")
+    if not (torch.isfinite(want).all() and rel["split"] <= LAYER_REL_LIMIT
+            < rel["control"]):
+        raise AssertionError(f"{cfg.name} chunked prefix: the split prefix "
+                             f"must give the one-chunk logits within "
+                             f"{LAYER_REL_LIMIT}, the zero prefix not")
+
+
+def packed_alike_agreement(inflight, at_snapshot, runs):
+    """The restored run against the original for every request in flight
+    at the snapshot. A token made at steps of one packed (R, Tc) shape in
+    both runs has logits within ``LAYER_REL_LIMIT`` of the original's
+    (norm-relative), up to the first token where the streams part (past
+    it the two are fed other tokens). A request that was decoding at the
+    snapshot (its
+    prompt's K/V all in the snapshot) must give the original's tokens up
+    to its first token made at steps packed differently: until then its
+    every K/V row and logits row comes from the same arithmetic. After
+    that the two streams may part at a near-tie (random weights; the bf16
+    GEMMs tile other shapes differently), reported. Returns a record."""
+    (orig, made, shapes, logits), (rest, made2, shapes2, logits2) = runs
+    rec = dict(requests=len(inflight), equal=0, tokens=0, agree=0,
+               same_shape=0, bit_identical=0, same_rel=0.0, parted=[])
+    for rid in inflight:
+        a, b = orig[rid], rest[rid]
+        rec["tokens"] += len(a)
+        rec["agree"] += sum(x == y for x, y in zip(a, b))
+        rec["equal"] += int(a == b)
+        alike = [shapes[made[rid][p]] == shapes2[made2[rid][p]]
+                 for p in range(at_snapshot[rid], len(a))]
+        part = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        last = len(a) - 1 if part is None else part
+        for p in range(at_snapshot[rid], last + 1):
+            if not alike[p - at_snapshot[rid]]:
+                continue
+            l1, l2 = logits[(rid, p)], logits2[(rid, p)]
+            rel = float((l1 - l2).norm() / l1.norm())
+            rec["same_shape"] += 1
+            rec["bit_identical"] += int(bool((l1 == l2).all()))
+            rec["same_rel"] = max(rec["same_rel"], rel)
+            if rel > LAYER_REL_LIMIT:
+                raise AssertionError(
+                    f"restore: rid {rid} position {p}: logits {rel:.4f} "
+                    f"apart at steps packed alike (limit {LAYER_REL_LIMIT})")
+        if part is None:
+            continue
+        first_other = at_snapshot[rid] + next(
+            (i for i, ok in enumerate(alike) if not ok), len(alike))
+        rec["parted"].append(dict(rid=rid, position=part,
+                                  first_other_shape=first_other))
+        if at_snapshot[rid] > 0 and part < first_other:
+            raise AssertionError(
+                f"restore: rid {rid} parts at position {part} before any "
+                f"of its tokens was made at steps packed differently")
+    return rec
+
+
+def phase_vlm_snapshot(torch, np, cfg, model, dev):
+    """Phase 6's VLM requests snapshotted mid-stream (after 12 steps): the
+    snapshot holds each in-flight request's prefix block on the host as
+    raw bf16 words; the original runs to its end, the snapshot is restored
+    into a fresh runtime and run to its end. Every request in flight at
+    the snapshot finishes, with the original's tokens wherever the two
+    runs packed its steps alike (``packed_alike_agreement``)."""
+    from repro_torch.serving.engine import ServingEngine
+    eng, _, reqs = make_engine(np, cfg, model, dev,
+                               host_pages=REQUEST_HOST_PAGES)
+    made, shapes = {}, {}
+    drive(eng, made, shapes, max_steps=12)
+    snap = eng.snapshot()
+    live = snap["running"] + snap["waiting"]
+    at_snapshot = {d["rid"]: len(d["generated"]) for d in live}
+    inflight = sorted(at_snapshot)
+    if not live or not all(isinstance(d["prefix_embeds"], np.ndarray)
+                           and d["prefix_embeds"].dtype == np.int16
+                           for d in live):
+        raise AssertionError(f"{cfg.name} snapshot: in-flight requests' "
+                             "prefix blocks are not raw bf16 words")
+    logits: dict = {}
+    drive(eng, made, shapes, logits)
+    original = {r.rid: list(r.generated) for r in eng.finished}
+    del eng, reqs
+    release(torch)
+    eng2 = ServingEngine.restore(cfg, model, snap, device=dev,
+                                 kv=make_runtime(cfg, dev,
+                                                 REQUEST_HOST_PAGES))
+    made2, shapes2, logits2 = {}, {}, {}
+    drive(eng2, made2, shapes2, logits2)
+    restored = {r.rid: list(r.generated) for r in eng2.finished}
+    if not all(len(restored.get(rid, ())) == len(original[rid])
+               for rid in inflight):
+        raise AssertionError(f"{cfg.name} snapshot: the restored run did "
+                             "not finish every request in flight")
+    rec = packed_alike_agreement(inflight, at_snapshot, (
+        (original, made, shapes, logits), (restored, made2, shapes2,
+                                           logits2)))
+    print(f"{cfg.name} snapshot at step {snap['metrics']['steps']}: "
+          f"{len(inflight)} requests in flight with their prefix blocks; "
+          f"restore agreement {json.dumps(rec)}")
+    del eng2
+    release(torch)
+
+
+INTERNVL2_ROWS = ("paged_mixed_attention_pool", "append_kv", "gather_pages",
+                  "scatter_pages")              # rows 4-7, the fused path
+
+
+def internvl2_phases(torch, np, report, dev, t0):
+    """internvl2-1b at its published width (phases 26-31). Returns {path:
+    launch counts}."""
+    from repro_torch.configs import get_config
+    icfg = get_config("internvl2-1b")
+    spans, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        spans[name] = time.perf_counter() - t
+        t = time.perf_counter()
+    attention_rows(torch, np, icfg, report, "internvl2")
+    leg_rows(torch, np, kv_leg_shape(icfg, "internvl2_kv"), report, dev)
+    lap("rows 1-7")
+    model = phase_dense_model(torch, icfg, 12, 493_752_448)
+    phase_layer_step(torch, np, icfg, model, dev, prefix=True)
+    phase_chunked_prefix(torch, np, icfg, model, dev)
+    lap("model, layer step, chunked prefix")
+    paths = {}
+    paths["internvl2-1b engine"], _ = phase_engine(
+        torch, np, icfg, model, dev, need=INTERNVL2_ROWS)
+    lap("engine")
+    paths["internvl2-1b round trip"] = phase_roundtrip(
+        torch, np, icfg, model, dev, "internvl2-1b")
+    phase_vlm_snapshot(torch, np, icfg, model, dev)
+    lap("round trip, snapshot")
+    del model
+    release(torch)
+    print(f"internvl2-1b phase spans (s): "
+          f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
+          f"at {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+LORA_ADAPTERS = 8
+LORA_RANK = 16
+LORA_FETCHES = (0, 0, 4, 6, 4, 1, 7, 0)    # misses, hits, re-fetches
+
+
+def phase_lora(torch, np, report, dev):
+    """The AQUA adapter cache at qwen1.5-0.5b's width (phase 32): rows 6-7
+    at the adapter page (``leg_rows``); 8 rank-16 adapters (3,145,728 B,
+    24 pages of 65,536 bf16 each) parked in a cache of ``capacity_local``
+    2 beside a same-card REMOTE lease of 100 pages, smaller than them all,
+    so the first four sit on the donor, the fifth on both tiers and the
+    rest on HOST. Every adapter's pages read back equal its raveled leaves
+    bit for bit; along ``LORA_FETCHES`` a hit meters nothing and a miss
+    meters its adapter's bytes (no tail here) as one message per tier its
+    pages lie on, with misses served from both tiers. The cold fetch's
+    gather from the donor is timed beside its plain version,
+    ``index_select`` and its bound. ``apply_lora`` with B = 0 gives the
+    unmerged model's logits bit for bit, an adapter with B != 0 moves
+    them, and the model is left unchanged. Returns the launches of the
+    puts and fetches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aqua_tensor import HOST, REMOTE, TIER_NAMES
+    from repro_torch.kernels import build
+    from repro_torch.kernels.kv_gather import ops as kv_ops
+    from repro_torch.kernels.kv_gather import ref as kv_ref
+    from repro_torch.models import lm
+    from repro_torch.serving import lora
+    qcfg = get_config("qwen1.5-0.5b")
+    leg_rows(torch, np, {"lora": ((65536,), qcfg.dtype(), 24, 0)}, report,
+             dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    adapters = []
+    for i in range(LORA_ADAPTERS):
+        ad = lora.init_adapter(g, qcfg, rank=LORA_RANK)
+        if i:                               # all but adapter 0: B != 0
+            for k in ("q_b", "v_b"):
+                ad[k] = (0.02 * torch.randn(ad[k].shape, generator=g,
+                                            device=dev)).to(qcfg.dtype())
+        adapters.append(ad)
+    nbytes = lora.adapter_bytes(adapters[0])
+    cache = lora.AdapterCache(capacity_local=2, page_elems=65536,
+                              dtype=qcfg.dtype(), device=dev)
+    page_bytes = cache.aqua.page_bytes
+    n_pages = -(-nbytes // page_bytes)
+    cache.aqua.add_remote_lease("donor0", 4 * n_pages + 4)
+    meter = cache.aqua.meter
+
+    def snap():
+        return (meter.bytes_fabric + meter.bytes_host,
+                meter.messages_fabric + meter.messages_host)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    for aid, ad in enumerate(adapters):
+        cache.put(aid, ad)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t
+    tiers = {aid: sorted({TIER_NAMES[int(x)] for x in cache.aqua.page_table[
+        cache.pages_of(aid), 0]}) for aid in range(LORA_ADAPTERS)}
+    same = all(torch.equal(cache.aqua.read(cache.pages_of(aid)),
+                           cache.blob(ad)) for aid, ad in enumerate(adapters))
+    print(f"lora: {LORA_ADAPTERS} rank-{LORA_RANK} adapters of {nbytes} B "
+          f"({n_pages} pages of {page_bytes} B) parked in {put_s * 1e3:.1f} "
+          f"ms; tiers {json.dumps(tiers)}; metered {snap()[0]:.0f} B in "
+          f"{snap()[1]} messages; pages read back equal the raveled leaves "
+          f"bit for bit: {same}")
+    if not same or nbytes != 3_145_728 or snap()[0] != (
+            LORA_ADAPTERS * n_pages * page_bytes):
+        raise AssertionError("lora: the parked pages differ from the "
+                             "adapters' leaves or the puts' bytes are off")
+    log, cold = [], set()
+    for aid in LORA_FETCHES:
+        before, hit = snap(), aid in cache.hits_resident
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = cache.fetch(aid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        db, dm = snap()[0] - before[0], snap()[1] - before[1]
+        log.append(dict(aid=aid, hit=hit, bytes=db, messages=dm,
+                        tiers=tiers[aid], wall_ms=round(wall * 1e3, 3)))
+        ok = got is adapters[aid] and (
+            (db, dm) == (0, 0) if hit else
+            nbytes <= db <= nbytes + page_bytes and dm == len(tiers[aid]))
+        if not ok:
+            raise AssertionError(f"lora: fetch of adapter {aid} metered "
+                                 f"{db} B in {dm} messages (hit {hit})")
+        if not hit:
+            cold.update(tiers[aid])
+    launches = build.launch_counts()
+    print(f"lora: fetches {json.dumps(log)}; resident "
+          f"{cache.hits_resident}; cold fetches from {sorted(cold)}; "
+          f"launches {json.dumps(launches, sort_keys=True)}")
+    if not {TIER_NAMES[REMOTE], TIER_NAMES[HOST]} <= cold:
+        raise AssertionError("lora: cold fetches did not come from both the "
+                             "donor and the host")
+
+    # -- the cold fetch's gather from the donor, timed ---------------------
+    slots = cache.aqua.page_table[cache.pages_of(0), 1]
+    pool = cache.aqua.remote_pools["donor0"]
+    ids = torch.as_tensor(slots.astype(np.int32)).to(dev)
+    ids64 = ids.long()
+    if not torch.equal(kv_ops.gather_pages(pool, ids),
+                       kv_ref.gather_pages_ref(pool, ids)):
+        raise AssertionError("lora: the fetch's gather differs from its "
+                             "plain version")
+    ms, plain_ms = interleaved(lambda: kv_ref.gather_pages_ref(pool, ids),
+                               lambda: kv_ops.gather_pages(pool, ids), 50)
+    lib = against_library(np, lambda: torch.index_select(pool, 0, ids64),
+                          lambda: kv_ops.gather_pages(pool, ids), 50)
+    b, by = bound_ms(2 * n_pages * page_bytes + 4 * n_pages)
+    rec = dict(shape=f"lora fetch: {n_pages} pages of {page_bytes} B from "
+                     f"the donor's {pool.shape[0]}", max_abs_err=0.0,
+               tolerance=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, library_ms=lib["library_median_ms"],
+               vs_library=lib)
+    next(k for k in report if k["name"] == "gather_pages")["lora_fetch"] = rec
+    print(f"kernel gather_pages {rec['shape']}: kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms bound {b * 1e3:.3f} us ({by}) library "
+          f"{rec['library_ms']:.4f} ms; vs library: {json.dumps(lib)}")
+    del cache, pool
+
+    # -- apply_lora: identity at B = 0, moved at B != 0 --------------------
+    model = lm.init_params(qcfg, torch.Generator(device=dev).manual_seed(14),
+                           dev)
+    toks = torch.as_tensor(np.random.default_rng(14).integers(
+        0, qcfg.vocab_size, (1, 128))).to(dev)
+    wq0 = model.blocks[0].mix.wq.w.clone()
+
+    def logits(m):
+        out = lm.forward(m, qcfg, toks, impl="ref")[0].float()
+        torch.cuda.synchronize()
+        return out
+    base = logits(model)
+    ident = torch.equal(logits(lora.apply_lora(model, qcfg, adapters[0])),
+                        base)
+    moved = (logits(lora.apply_lora(model, qcfg, adapters[1]))
+             - base).abs().max().item()
+    kept = torch.equal(model.blocks[0].mix.wq.w, wq0)
+    print(f"lora: apply_lora at full width (128 tokens): B = 0 gives the "
+          f"unmerged logits bit for bit: {ident}; adapter 1 (B != 0) moves "
+          f"them by up to {moved:.4g}; the model left unchanged: {kept}")
+    if not (ident and moved > 1e-3 and kept):
+        raise AssertionError("lora: the merge is not the identity at B = 0, "
+                             "moves nothing at B != 0, or changed the model")
+    del model
+    release(torch)
+    return launches
+
+
+GEMMA_ROWS = ("paged_attention", "paged_attention_pool",
+              "paged_prefill_attention_pool", "paged_mixed_attention_pool",
+              "append_kv", "gather_pages", "scatter_pages")   # rows 1-7
+
+
+def gemma_phases(torch, np, report, dev, t0):
+    """gemma-7b at its published width (phases 33-38). Returns {path:
+    launch counts}."""
+    from repro_torch.configs import get_config
+    gcfg = get_config("gemma-7b")
+    spans, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        spans[name] = time.perf_counter() - t
+        t = time.perf_counter()
+    attention_rows(torch, np, gcfg, report, "gemma")
+    leg_rows(torch, np, kv_leg_shape(gcfg, "gemma_kv"), report, dev)
+    lap("rows 1-7")
+    model = phase_dense_model(torch, gcfg, 15, 8_537_677_824)
+    lap("model")
+    phase_layer_step(torch, np, gcfg, model, dev, whole_f32=False)
+    torch.cuda.empty_cache()
+    lap("layer step")
+    paths = {}
+    (paths["gemma-7b per-request"],
+     paths["gemma-7b split-pool drive"]) = phase_per_request(
+        torch, np, gcfg, model, dev, whole_f32=False)
+    lap("per-request")
+    # a lease that holds every parked request, 8 x 28 layers x 50 pages of
+    # 262,144 B (2.9 GB; 2 GiB would spill legs to the host)
+    paths["gemma-7b engine"], _ = phase_engine(
+        torch, np, gcfg, model, dev, need=INTERNVL2_ROWS, profile=True,
+        lease_bytes=4 * 1024 ** 3)
+    lap("engine")
+    paths["gemma-7b round trip"] = phase_roundtrip(torch, np, gcfg, model,
+                                                   dev, "gemma-7b")
+    lap("round trip")
+    del model
+    release(torch)
+    print(f"gemma-7b phase spans (s): "
           f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
           f"at {time.perf_counter() - t0:.1f} s")
     return paths
@@ -4295,6 +4926,15 @@ def main() -> int:
     # -- jamba-v0.1-52b: Mamba and attention, ssm/conv planes beside kv ---
     jamba = jamba_phases(torch, np, report, dev, t0)
 
+    # -- internvl2-1b: prefix embeddings, G 7; the LoRA adapter cache;
+    # gemma-7b: rows 1-5 at head_dim 256 -----------------------------------
+    internvl2 = internvl2_phases(torch, np, report, dev, t0)
+    t = time.perf_counter()
+    lora_launches = phase_lora(torch, np, report, dev)
+    print(f"lora phase: {time.perf_counter() - t:.1f} s; done at "
+          f"{time.perf_counter() - t0:.1f} s")
+    gemma = gemma_phases(torch, np, report, dev, t0)
+
     # -- qwen1.5-0.5b training: the flash attention kernels ----------------
     phase_flash_kernels(torch, report)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -4307,14 +4947,16 @@ def main() -> int:
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
     # path that runs it, phase 6c's admission and request lifecycle and the
-    # deepseek and jamba paths included
+    # deepseek, jamba, internvl2-1b, LoRA and gemma-7b paths included
     paths = (("engine", launches), ("per-request", per_request),
              ("split-pool drive", split), ("rwkv engine", rwkv_engine),
              ("rwkv per-request", rwkv_per_request), ("train", train_run),
              ("request lifecycle", request_lifecycle),
              ("deepseek engine", ds_engine),
              ("deepseek per-request", ds_per_request),
-             ("deepseek round trip", ds_roundtrip)) + tuple(jamba.items())
+             ("deepseek round trip", ds_roundtrip)) + tuple(jamba.items()) \
+        + tuple(internvl2.items()) + (("lora cache", lora_launches),) \
+        + tuple(gemma.items())
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -4332,6 +4974,17 @@ def main() -> int:
                 and not any(p in k["launches_by_path"] for p in jamba)]
     if no_jamba:
         raise AssertionError(f"no jamba path launched {no_jamba}")
+    for label, rows in (("internvl2-1b engine", INTERNVL2_ROWS),
+                        ("gemma-7b engine", INTERNVL2_ROWS),
+                        ("lora cache", ("gather_pages", "scatter_pages"))):
+        paths_of = dict(paths)
+        if not all(paths_of[label].get(k, 0) > 0 for k in rows):
+            raise AssertionError(f"the {label} path launched none of some "
+                                 f"of {list(rows)}")
+    no_gemma = [k["name"] for k in report if k["name"] in GEMMA_ROWS
+                and not any(p in k["launches_by_path"] for p in gemma)]
+    if no_gemma:
+        raise AssertionError(f"no gemma-7b path launched {no_gemma}")
     print(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

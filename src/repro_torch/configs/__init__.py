@@ -2,7 +2,7 @@
 import importlib
 
 _ARCH_MODULES = ["qwen1_5_0_5b", "rwkv6_3b", "deepseek_v2_lite_16b",
-                 "jamba_v0_1_52b"]
+                 "jamba_v0_1_52b", "internvl2_1b", "gemma_7b", "minicpm_2b"]
 
 
 def load_all():
@@ -11,5 +11,5 @@ def load_all():
 
 
 from repro_torch.configs.base import (  # noqa: E402,F401
-    DENSE, HYBRID, MOE, SSM, HybridConfig, MLAConfig, ModelConfig, MoEConfig,
-    SSMConfig, get_config, smoke_config)
+    DENSE, HYBRID, MOE, SSM, VLM, HybridConfig, MLAConfig, ModelConfig,
+    MoEConfig, SSMConfig, get_config, smoke_config)

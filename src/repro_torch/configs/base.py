@@ -1,8 +1,9 @@
 """Architecture configuration for the PyTorch port.
 
 The fields of ``repro/configs/base.py``'s :class:`ModelConfig` that the
-dense, MoE (with DeepSeek's MLA), RWKV-6 and hybrid (Jamba: Mamba and
-attention) families read (the encoder-decoder sub-config comes with its
+dense, MoE (with DeepSeek's MLA), VLM (a dense backbone behind a stub
+patch-embedding frontend), RWKV-6 and hybrid (Jamba: Mamba and attention)
+families read (the encoder-decoder sub-config comes with its
 slice), with :meth:`ModelConfig.dtype` returning a torch dtype. Only the
 architectures the port serves register here.
 """
@@ -18,6 +19,7 @@ DENSE = "dense"          # decoder-only transformer (GQA/MQA)
 MOE = "moe"              # decoder-only transformer with MoE FFN
 SSM = "ssm"              # RWKV-6 (attention-free)
 HYBRID = "hybrid"        # Jamba: Mamba + attention interleave, MoE
+VLM = "vlm"              # LM backbone + stub patch-embedding frontend
 
 
 @dataclass(frozen=True)
@@ -195,9 +197,10 @@ def get_config(name: str) -> ModelConfig:
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests — the reference's
     ``smoke_config`` for the families the port serves."""
-    if cfg.family not in (DENSE, MOE, SSM, HYBRID):
-        raise NotImplementedError(f"{cfg.name}: only dense, MoE, RWKV-6 and "
-                                  "hybrid smoke configs are ported")
+    if cfg.family not in (DENSE, MOE, VLM, SSM, HYBRID):
+        raise NotImplementedError(f"{cfg.name}: only dense, MoE, VLM, "
+                                  "RWKV-6 and hybrid smoke configs are "
+                                  "ported")
     kw = dict(
         n_layers=min(cfg.n_layers, 4), d_model=128, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads
@@ -221,4 +224,6 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, rwkv_head_dim=32, rwkv_lora_decay=16, rwkv_lora_mix=8,
             mamba_d_state=8, mamba_dt_rank=8)
+    if cfg.n_prefix_embeds:
+        kw["n_prefix_embeds"] = 8
     return cfg.replace(**kw)

@@ -48,7 +48,7 @@
 //    t G + g, 16 a warp) of one (row, kv head) and runs on
 //    mma.sync.m16n8k16 (bf16 in, float32 accumulate) with the tensor-core
 //    helpers of tc_common.cuh shared with flash_attention.cu: key tiles of
-//    BK keys (64; 32 at hd 128) gathered page by page through the block
+//    BK keys (64; 32 at hd 128 and 256) gathered page by page through the block
 //    table (key j of the tile at page (k0 + j) / page, row (k0 + j) % page,
 //    any page size) by cp.async into XOR-swizzled tiles, a two-stage ring;
 //    keys past the table and out-of-pool slots are zero-filled. S = Q K^T,
@@ -71,7 +71,8 @@
 //  round-to-nearest intrinsic under -fmad=false. So the mixed kernel's
 //  decode lanes equal the decode kernels' rows and its chunk rows equal
 //  the prefill kernel's, and split equals pool, bit for bit. bf16 takes hd
-//  32, 64 and 128 (rows of a power-of-two count of 16-byte chunks); every
+//  32, 64, 128 and 256 (rows of a power-of-two count of 16-byte chunks;
+//  gemma-7b serves at 256, 16 heads of 256 on a d_model of 3,072); every
 //  operand is read in 16-byte pieces, so it starts on a 16-byte boundary.
 //  No launch synchronises with the host or allocates.
 //
@@ -131,7 +132,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kMaxHd = 128;
+constexpr int kMaxHd = 256;
 constexpr int kHdRegs = kMaxHd / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -274,9 +275,13 @@ size_t attention_smem(int page, int hd) {
                           + static_cast<size_t>(page) * hd);
 }
 
+// Opt the kernel in to `smem` bytes of dynamic shared memory. Every
+// non-zero size opts in, so a kernel whose static shared memory would push
+// static + dynamic past the default 48 KiB is covered too (these kernels
+// declare none).
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
+  if (smem == 0) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
@@ -540,7 +545,9 @@ template <int HD>
 struct Dec {
   static constexpr int CH = HD / 8;
   static constexpr int KPL = 32 / CH;
-  static constexpr int NS = HD == 128 ? 4 : 16 / KPL;
+  // at hd 128 and 256 a step keeps 4 loads of K and of V in flight (8 and
+  // 4 keys): 16 loads of 16 bytes a lane, as at hd 32 and 64, would spill
+  static constexpr int NS = HD >= 128 ? 4 : 16 / KPL;
   static constexpr int KS = KPL * NS;
 };
 
@@ -728,9 +735,12 @@ __device__ __forceinline__ void decode_token(
   }
 }
 
+// A chunk tile's keys: 64, or 32 at hd 128 and 256, the flash forward's
+// tiles (flash_attention.cu, Cfg), which keep acc[HD / 8][4] (128 floats a
+// thread at hd 256) and the score fragments in registers without spilling
 template <int HD>
 struct Chunk {
-  static constexpr int BK = HD == 128 ? 32 : 64;   // keys of a tile
+  static constexpr int BK = HD >= 128 ? 32 : 64;   // keys of a tile
   static constexpr size_t kSmem =
       static_cast<size_t>(kTileRows + 4 * BK) * HD * 2;   // Q, K and V rings
 };
@@ -1064,6 +1074,7 @@ int by_hd(int hd, F&& f) {
     case 32: return f(std::integral_constant<int, 32>());
     case 64: return f(std::integral_constant<int, 64>());
     case 128: return f(std::integral_constant<int, 128>());
+    case 256: return f(std::integral_constant<int, 256>());
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,8 +21,9 @@ from repro_torch.kernels.paged_attention.ref import (
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims of the bf16 kernels (rows of a power-of-two count of 16-byte
-# chunks); float32 takes any multiple of 32 up to 128
-BF16_HEAD_DIMS = (32, 64, 128)
+# chunks); float32 takes any multiple of 32 up to 256
+BF16_HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = 256
 TC_KERNELS = ("mixed", "prefill", "decode_pool", "decode_split")
 
 
@@ -66,9 +67,9 @@ def _heads(name, q, H, K, hd, pool_dtype):
     if H % K:
         raise ValueError(f"{name}: {H} query heads are not a multiple of "
                          f"{K} kv heads")
-    if hd % 32 or hd > 128:
+    if hd % 32 or hd > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {hd} must be a multiple of 32, "
-                         "at most 128")
+                         f"at most {MAX_HEAD_DIM}")
     if q.dtype != pool_dtype or q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: q and pool must share float32 or "
                          f"bfloat16, got {q.dtype} and {pool_dtype}")

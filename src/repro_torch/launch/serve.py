@@ -4,11 +4,13 @@ scheduling on a CUDA card (or, with ``--device cpu``, the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --smoke --scheduler cfs --offload fabric --requests 8 --device cpu
 
-``--arch`` is ``qwen1.5-0.5b`` (the ``kv`` token plane),
-``deepseek-v2-lite-16b`` (MLA and the MoE: the ``mla`` latent token plane),
-``rwkv6-3b`` (the ``wkv`` and ``shift`` state planes) or ``jamba-v0.1-52b``
-(Mamba and attention: the ``ssm`` and ``conv`` state planes beside the
-``kv`` token plane).
+``--arch`` is ``qwen1.5-0.5b``, ``minicpm-2b`` or ``gemma-7b`` (the ``kv``
+token plane; gemma's heads are 256 wide), ``internvl2-1b`` (the ``kv``
+plane; each request opens with a seeded random block of prefix
+embeddings, the stub frontend's image), ``deepseek-v2-lite-16b`` (MLA and
+the MoE: the ``mla`` latent token plane), ``rwkv6-3b`` (the ``wkv`` and
+``shift`` state planes) or ``jamba-v0.1-52b`` (Mamba and attention: the
+``ssm`` and ``conv`` state planes beside the ``kv`` token plane).
 """
 from __future__ import annotations
 
@@ -46,7 +48,8 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device)
     eng = ServingEngine(cfg, params, max_running=args.max_running,
-                        max_seq=96, scheduler=args.scheduler,
+                        max_seq=96 + cfg.n_prefix_embeds,
+                        scheduler=args.scheduler,
                         slice_tokens=args.slice_tokens,
                         offload_tier=REMOTE if args.offload == "fabric"
                         else HOST, device=device)
@@ -55,8 +58,11 @@ def main(argv=None):
           f"(planes: {', '.join(eng.kv.planes)})")
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
+        prefix = (rng.standard_normal((cfg.n_prefix_embeds, cfg.d_model))
+                  .astype(np.float32) if cfg.n_prefix_embeds else None)
         eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 8))),
-                   args.max_new_tokens, arrival=0.1 * i)
+                   args.max_new_tokens, arrival=0.1 * i,
+                   prefix_embeds=prefix)
     m = eng.run(2000)
     print(f"served {len(eng.finished)} requests in {m.steps} engine steps "
           f"({m.sim_time:.2f} simulated s)")

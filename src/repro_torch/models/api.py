@@ -33,13 +33,15 @@ def paged_layout(cfg: ModelConfig) -> dict:
 
 
 def prefill_chunk_paged(model, cfg: ModelConfig, tokens, pools, block_tables,
-                        q_start: int, last_index: int, *, read_pps=None,
-                        impl: str = "kernel"):
-    """One bucket-padded prompt chunk of one request -> (logits (1,V) of
-    ``last_index``, pools)."""
+                        q_start: int, last_index: int, *, prefix_embeds=None,
+                        read_pps=None, impl: str = "kernel"):
+    """One bucket-padded prompt chunk of one request (a VLM's prefix rows
+    from ``prefix_embeds`` (1, P, d)) -> (logits (1,V) of ``last_index``,
+    pools)."""
     return lm.prefill_chunk_paged(model, cfg, tokens, pools, block_tables,
-                                  q_start, last_index, read_pps=read_pps,
-                                  impl=impl)
+                                  q_start, last_index,
+                                  prefix_embeds=prefix_embeds,
+                                  read_pps=read_pps, impl=impl)
 
 
 def decode_step_paged(model, cfg: ModelConfig, pools, block_tables, tokens,
@@ -50,10 +52,12 @@ def decode_step_paged(model, cfg: ModelConfig, pools, block_tables, tokens,
 
 
 def serve_step_paged(model, cfg: ModelConfig, tokens, pools, block_tables,
-                     q_starts, n_reals, *, n_decode: int, read_pps=None,
-                     impl: str = "kernel"):
+                     q_starts, n_reals, *, n_decode: int, prefix_embeds=None,
+                     read_pps=None, impl: str = "kernel"):
     """One fused engine step: every decode lane and every request's prompt
-    chunk packed into a (R, Tc) row batch -> (logits (R, V), pools)."""
+    chunk packed into a (R, Tc) row batch, a VLM's prefix rows from
+    ``prefix_embeds`` (R, P, d) -> (logits (R, V), pools)."""
     return lm.serve_step_paged(model, cfg, tokens, pools, block_tables,
                                q_starts, n_reals, n_decode=n_decode,
+                               prefix_embeds=prefix_embeds,
                                read_pps=read_pps, impl=impl)

@@ -1,5 +1,6 @@
 """Decoder LM for training and the paged serving runtime — the dense,
-MoE/MLA, RWKV-6 and hybrid (Jamba) subset of ``repro/models/lm.py``
+MoE/MLA, VLM (a dense backbone whose prompts open with prefix embedding
+rows), RWKV-6 and hybrid (Jamba) subset of ``repro/models/lm.py``
 (training: the dense family).
 
 The reference stacks layer groups for ``lax.scan``; here the model is an
@@ -22,7 +23,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, ModelConfig
+from repro_torch.configs.base import (DENSE, HYBRID, MOE, SSM, VLM,
+                                      ModelConfig)
 from repro_torch.core.device import resolve_device
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mamba as mamba_mod
@@ -149,17 +151,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """True for the families whose whole dynamic context the port keeps on
-    pages: dense or MoE stacks of full (unwindowed, uncapped) GQA/MQA
+    pages: dense, MoE or VLM stacks of full (unwindowed, uncapped) GQA/MQA
     attention or of MLA, RWKV-6 (its wkv and token-shift state) and the
-    hybrid (Mamba ssm and conv state beside attention K/V)."""
-    if cfg.n_prefix_embeds or cfg.attn_logit_softcap > 0:
+    hybrid (Mamba ssm and conv state beside attention K/V). A VLM's prefix
+    embedding rows are prompt positions like any other: their K/V lands
+    on the ``kv`` plane."""
+    if cfg.attn_logit_softcap > 0:
         return False
     if cfg.family == SSM:
         return cfg.ssm is not None
     if cfg.family == HYBRID and (cfg.hybrid is None or cfg.ssm is None):
         return False
-    return (cfg.family in (DENSE, MOE, HYBRID) and cfg.sliding_window == 0
-            and cfg.global_layer_every == 0)
+    return (cfg.family in (DENSE, MOE, VLM, HYBRID)
+            and cfg.sliding_window == 0 and cfg.global_layer_every == 0)
 
 
 def paged_layout(cfg: ModelConfig) -> dict:
@@ -242,6 +246,36 @@ def _layer(blk: Block, cfg: ModelConfig, x, attend):
     token, pads included."""
     x = x + attend(blk.mix, rms_norm(blk.n1, x, cfg.rmsnorm_eps))
     return x + ffn_apply(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
+
+
+def embed_rows(model: LM, cfg: ModelConfig, tokens: torch.Tensor, q_starts,
+               prefix_embeds=None) -> torch.Tensor:
+    """The residual stream's first rows: the token embeddings of tokens
+    (R, Tc), except that a row's token at absolute position
+    ``q_starts[r] + t < P`` takes row ``q_starts[r] + t`` of its prefix
+    block ``prefix_embeds[r]`` (R, P, d) instead (cast to the compute
+    dtype), as the reference's ``prefill_chunk_paged`` /
+    ``serve_step_paged`` do. The prefix blocks stay on the device; the
+    positions are host integers, and a step none of whose tokens lies below
+    P reads no prefix at all."""
+    x = embed(model.embed, cfg, tokens)
+    if prefix_embeds is None:
+        return x
+    R, Tc = tokens.shape
+    P = prefix_embeds.shape[1]
+    rows = (np.asarray(q_starts, np.int64).reshape(-1, 1)
+            + np.arange(Tc, dtype=np.int64)[None, :])
+    under = rows < P
+    if not under.any():
+        return x
+    if tuple(prefix_embeds.shape) != (R, P, cfg.d_model):
+        raise ValueError(f"prefix_embeds {tuple(prefix_embeds.shape)} is not "
+                         f"({R}, P, {cfg.d_model})")
+    idx = torch.as_tensor(np.clip(rows, 0, P - 1)).to(x.device)
+    pre = torch.gather(prefix_embeds.to(x.device), 1,
+                       idx[:, :, None].expand(R, Tc, cfg.d_model))
+    return torch.where(torch.as_tensor(under).to(x.device)[:, :, None],
+                       pre.to(x.dtype), x)
 
 
 def _tokens_on(tokens, device) -> torch.Tensor:
@@ -371,7 +405,8 @@ def _own_pages_only(cfg: ModelConfig, pools: dict) -> Optional[int]:
 
 def prefill_chunk_paged(model: LM, cfg: ModelConfig, tokens, pools,
                         block_tables, q_start: int, last_index: int, *,
-                        read_pps: Optional[int] = None, impl: str = "kernel"):
+                        prefix_embeds=None, read_pps: Optional[int] = None,
+                        impl: str = "kernel"):
     """Prefill ONE CHUNK of one request, writing its state straight into the
     page pools — any family, one code path.
 
@@ -384,7 +419,10 @@ def prefill_chunk_paged(model: LM, cfg: ModelConfig, tokens, pools,
     state planes ``(G, n_sub)`` bare slots
     (``PagedStateRuntime.block_tables_prefill``); q_start: the chunk's
     absolute start position; last_index: the row whose logits the caller
-    wants. ``read_pps`` bounds the attention or MLA sweep.
+    wants. ``read_pps`` bounds the attention or MLA sweep. prefix_embeds:
+    (1, P, d) VLM prefix rows on the device — the chunk's rows at absolute
+    positions < P take them instead of the token embedding
+    (``embed_rows``).
     -> (logits (1, V) of ``last_index``, pools)
     """
     check_impl(impl)
@@ -404,7 +442,7 @@ def prefill_chunk_paged(model: LM, cfg: ModelConfig, tokens, pools,
     m_meta = (mla_mod.step_meta([q_start], 0, Tc, pools["mla"].shape[1],
                                 bt["mla"].shape[-1], device)
               if "mla" in kinds else None)
-    x = embed(model.embed, cfg, tokens)
+    x = embed_rows(model, cfg, tokens, [q_start], prefix_embeds)
     for blk, (g, j, kind) in zip(model.blocks, sublayers(cfg)):
         if kind == "rwkv":
             x = _rwkv_layer(blk, cfg, x, pools, bt["wkv"][g, j:j + 1],
@@ -494,7 +532,8 @@ def rwkv_mixed_paged(blk: Block, cfg: ModelConfig, x, pools, ws, ss, nr,
 
 def serve_step_paged(model: LM, cfg: ModelConfig, tokens, pools,
                      block_tables, q_starts, n_reals, *, n_decode: int,
-                     read_pps: Optional[int] = None, impl: str = "kernel"):
+                     prefix_embeds=None, read_pps: Optional[int] = None,
+                     impl: str = "kernel"):
     """ONE fused engine step: every scheduled decode token and every
     request's prompt chunk in a single call.
 
@@ -507,6 +546,9 @@ def serve_step_paged(model: LM, cfg: ModelConfig, tokens, pools,
     block_tables: token planes ``(G, n_sub, R, pps_pad)``, state planes
     ``(G, n_sub, R)`` int32 slots, table ``[g, j]`` the j-th sub-layer of
     that plane in group g; q_starts / n_reals: (R,) host integer arrays.
+    prefix_embeds: (R, P, d) VLM prefix rows on the device (zeros for rows
+    of no VLM request), or None: a row's tokens at absolute positions < P
+    take their prefix row instead of the token embedding (``embed_rows``).
     ``impl``: ``"kernel"`` or ``"ref"``. Attention serves every row in one
     launch per layer; an RWKV layer runs the decode and chunk regions as
     two WKV launches; MLA and Mamba layers have no kernel (the reference's
@@ -533,7 +575,7 @@ def serve_step_paged(model: LM, cfg: ModelConfig, tokens, pools,
     m_meta = (mla_mod.step_meta(qs, n_decode, Tc, pools["mla"].shape[1],
                                 bt["mla"].shape[-1], device)
               if "mla" in kinds else None)
-    x = embed(model.embed, cfg, tokens)
+    x = embed_rows(model, cfg, tokens, qs, prefix_embeds)
     for blk, (g, j, kind) in zip(model.blocks, sublayers(cfg)):
         if kind == "rwkv":
             x = rwkv_mixed_paged(blk, cfg, x, pools, bt["wkv"][g, j],

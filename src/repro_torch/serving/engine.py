@@ -32,6 +32,11 @@ the whole serving state to host memory and ``ServingEngine.restore``
 rebuilds an engine from it (an ``engine_crash`` fault event raises
 ``EngineCrashError`` for the harness to restore from its last snapshot).
 
+A VLM request's ``prefix_embeds`` (its stub frontend's patch embeddings)
+occupy the prompt's first ``n_prefix`` positions: the fused step routes
+them in place of the token embedding on the device, and VLM requests
+take no part in prefix sharing (the image is not in the prompt's hash).
+
 Not ported yet, and refused by the constructor's signature: the mesh tier
 domain (``mesh``) and the ``paged_impl`` switch (the port dispatches its
 kernels by the tensors' device); clock calibration is absent.
@@ -120,6 +125,28 @@ class EngineMetrics:
             return float("nan")
         i = min(int(q * n), n - 1)
         return float(xs[i]) if i < len(xs) else float("inf")
+
+
+# a prefix block's host form by compute dtype: bf16 as raw 16-bit words
+_PREFIX_WORDS = {torch.float32: np.dtype(np.float32),
+                 torch.bfloat16: np.dtype(np.int16)}
+
+
+def _prefix_to_host(pe: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    if pe is None:
+        return None
+    pe = pe.detach().cpu()
+    if pe.dtype == torch.bfloat16:
+        pe = pe.view(torch.int16)
+    return pe.numpy()
+
+
+def _prefix_to_device(arr: np.ndarray, dtype: torch.dtype,
+                      device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)
+    return t.to(device)
 
 
 class ServingEngine:
@@ -222,6 +249,11 @@ class ServingEngine:
         self.step_tokens = step_tokens
         self.prefetch = prefetch
         self.spec_chunk_ahead = spec_chunk_ahead
+        # a VLM step's rows of no VLM request read this zero block
+        self._zero_prefix = (
+            torch.zeros((1, cfg.n_prefix_embeds, cfg.d_model),
+                        dtype=cfg.torch_compute_dtype(), device=self.device)
+            if cfg.n_prefix_embeds else None)
 
         self.kv = kv or PagedStateRuntime(
             cfg, max_seq=max_seq, page_tokens=kv_page_tokens,
@@ -375,7 +407,7 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def submit(self, prompt_tokens: Sequence[int], max_new_tokens: int,
                arrival: float = 0.0, lora_id: Optional[int] = None,
-               deadline_s: Optional[float] = None,
+               prefix_embeds=None, deadline_s: Optional[float] = None,
                ttft_deadline_s: Optional[float] = None) -> ReqState:
         """Queue a request for generation; with prefix sharing on, its
         longest page-aligned prompt prefix already on pages is adopted and
@@ -386,6 +418,12 @@ class ServingEngine:
             max_new_tokens: tokens to generate before the request retires.
             arrival: arrival time on the simulated clock.
             lora_id: prefix-index partition key.
+            prefix_embeds: for a VLM config (``cfg.n_prefix_embeds > 0``)
+                the (n_prefix, d) / (1, n_prefix, d) patch-embedding block
+                (numpy or a tensor) occupying the prompt's first positions;
+                omitted, zeros (the stub frontend's null image). It is kept
+                on the serving device in the compute dtype. VLM requests
+                never share prefixes.
             deadline_s: end-to-end deadline in simulated seconds after
                 ``arrival``; past it the step's deadline sweep cancels the
                 request (terminal state ``"expired"``) and reclaims its
@@ -396,13 +434,31 @@ class ServingEngine:
 
         Returns:
             The queued :class:`ReqState`.
+
+        Raises:
+            ValueError: ``prefix_embeds`` passed to a config that takes no
+                prefix, or of the wrong size.
         """
+        if self.cfg.n_prefix_embeds:
+            P, d = self.cfg.n_prefix_embeds, self.cfg.d_model
+            pre = (self._zero_prefix if prefix_embeds is None
+                   else torch.as_tensor(prefix_embeds))
+            if pre.numel() != P * d:
+                raise ValueError(f"{self.cfg.name}: prefix_embeds of "
+                                 f"{tuple(pre.shape)}, not ({P}, {d})")
+            prefix_embeds = pre.reshape(1, P, d).to(
+                self.device, self.cfg.torch_compute_dtype())
+        elif prefix_embeds is not None:
+            raise ValueError(f"{self.cfg.name} takes no prefix embeds")
         r = ReqState(self._next_rid, arrival, list(map(int, prompt_tokens)),
                      max_new_tokens, lora_id=lora_id, deadline_s=deadline_s,
                      ttft_deadline_s=ttft_deadline_s)
         self._next_rid += 1
         self.metrics.submitted += 1
-        if self.kv.sharing:
+        if prefix_embeds is not None:
+            r.n_prefix = self.cfg.n_prefix_embeds
+            r.prefix_embeds = prefix_embeds
+        if self.kv.sharing and not r.n_prefix:
             shared = self.kv.adopt_prefix(r.rid, r.prompt_tokens,
                                           seed=lora_id)
             if shared:
@@ -454,6 +510,7 @@ class ServingEngine:
         self._free_slot(r)
         self._release_pages(r)
         r.parked = None
+        r.prefix_embeds = None           # don't pin VLM embeds forever
         r.terminal = terminal
         r.cancel_reason = reason
         r.finish_step = self.metrics.steps
@@ -481,7 +538,7 @@ class ServingEngine:
                  None)
         if r is None:
             return False
-        if self.kv.sharing:
+        if self.kv.sharing and not r.n_prefix:
             self.kv.register_prefix(r.rid, r.prefill_pos)
         if r in self.running:
             self.running.remove(r)
@@ -599,7 +656,7 @@ class ServingEngine:
         r.prefill_pos = 0
         r.generated = []
         r.shared_tokens = 0
-        if self.kv.sharing:
+        if self.kv.sharing and not r.n_prefix:
             shared = self.kv.adopt_prefix(r.rid, r.prompt_tokens,
                                           seed=r.lora_id)
             if shared:
@@ -885,6 +942,7 @@ class ServingEngine:
         q_starts = np.zeros((R,), np.int32)
         n_reals = np.zeros((R,), np.int32)
         row_rids: List[Optional[int]] = [None] * R
+        prefix_rows: List = [self._zero_prefix] * R
         if live:
             n_reals[:n_dec] = 1              # idle lanes: token 0 at pos 0
             ctx_mean = float(np.mean([r.ctx_len for r in live]))
@@ -918,21 +976,34 @@ class ServingEngine:
                 self.kv.ensure_capacity(r.rid, start + n)
             self.kv.make_writable(r.rid, start, start + n)
             row_rids[row] = r.rid
-            tokens[row, :n] = np.asarray(r.prompt_tokens[start:start + n],
-                                         np.int32)
+            # a VLM request's first positions are its prefix rows: their
+            # token ids are dummies (0) and prefix_embeds fills them
+            idx = np.arange(n) + start - r.n_prefix
+            text = idx >= 0
+            tokens[row, :n][text] = np.asarray(r.prompt_tokens,
+                                               np.int32)[idx[text]]
             q_starts[row] = start
             n_reals[row] = n
+            if r.n_prefix:
+                prefix_rows[row] = r.prefix_embeds
+        pre = None
+        if self.cfg.n_prefix_embeds and any(
+                r.n_prefix and r.prefill_pos < r.n_prefix
+                for r, _ in rows_chunk):
+            pre = torch.cat(prefix_rows, dim=0)
         bt = self.kv.block_tables(row_rids, pad_to=self._pps_pad)
         logits, self.kv.pools = api.serve_step_paged(
             self.params, self.cfg, tokens, self.kv.pools, bt, q_starts,
-            n_reals, n_decode=n_dec, read_pps=self.kv.pps)
+            n_reals, n_decode=n_dec, prefix_embeds=pre,
+            read_pps=self.kv.pps)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
 
         compute = 0.0
         ptoks = 0
         for j, (r, n) in enumerate(rows_chunk):
             r.prefill_pos += n
-            self.kv.register_prefix(r.rid, r.prefill_pos)
+            if not r.n_prefix:
+                self.kv.register_prefix(r.rid, r.prefill_pos)
             if r.prefilled:
                 r.generated.append(int(nxt[n_dec + j]))
             m.prefills += 1
@@ -981,7 +1052,9 @@ class ServingEngine:
 
         It carries the constructor knobs that size an equal engine, every
         request (waiting, running and finished: prompts, generated tokens,
-        prefill positions, deadlines, terminal stamps), the runtime's page
+        prefill positions, deadlines, terminal stamps, a VLM request's
+        prefix embeddings as host numpy: float32 as float32, bf16 as its
+        raw 16-bit words, int16, as the page payloads), the runtime's page
         state (:meth:`PagedStateRuntime.snapshot_state`: block tables, page
         payloads as host numpy, the radix tree), the admitted set, the CFS
         slice phase, the drain gate and the metrics. It holds no device
@@ -1001,7 +1074,7 @@ class ServingEngine:
                     "generated": list(r.generated),
                     "prefill_pos": r.prefill_pos,
                     "n_prefix": r.n_prefix,
-                    "prefix_embeds": None,     # the port serves no VLM
+                    "prefix_embeds": _prefix_to_host(r.prefix_embeds),
                     "shared_tokens": r.shared_tokens,
                     "ttft_step": r.ttft_step,
                     "finish_step": r.finish_step,
@@ -1050,7 +1123,20 @@ class ServingEngine:
         invariant to how the run is cut into steps (greedy argmax, exact
         park/restore round trips). Audit a restored engine with a new
         :class:`InvariantAuditor`.
+
+        Raises:
+            ValueError: a request's prefix embeddings are not held in the
+                config's compute dtype (checked for every request before
+                anything is built or written).
         """
+        want = cfg.torch_compute_dtype()
+        for d in (snapshot["running"] + snapshot["waiting"]
+                  + snapshot["finished"]):
+            pe = d["prefix_embeds"]
+            if pe is not None and _PREFIX_WORDS.get(want) != pe.dtype:
+                raise ValueError(
+                    f"{cfg.name}: request {d['rid']}'s prefix_embeds are "
+                    f"{pe.dtype}, the engine computes in {want}")
         knobs = dict(snapshot["config"])
         knobs.update(overrides)
         eng = cls(cfg, params, faults=faults, coordinator=coordinator,
@@ -1065,6 +1151,9 @@ class ServingEngine:
             r.generated = list(d["generated"])
             r.prefill_pos = d["prefill_pos"]
             r.n_prefix = d["n_prefix"]
+            if d["prefix_embeds"] is not None:
+                r.prefix_embeds = _prefix_to_device(d["prefix_embeds"], want,
+                                                    eng.device)
             r.shared_tokens = d["shared_tokens"]
             r.ttft_step = d["ttft_step"]
             r.finish_step = d["finish_step"]

@@ -371,7 +371,7 @@ def _writer_case(dev, td, hd, page, seed=12, K=2, T=256):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("page", [8, 16, 40])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_cuda_write_kv_rows_matches_plain_bitwise(hd, page, dtype):
     dev = _cuda()
     pool, k, v, bt, qs, nw = _writer_case(dev, DTYPES[dtype], hd, page)
@@ -385,7 +385,7 @@ def test_cuda_write_kv_rows_matches_plain_bitwise(hd, page, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_cuda_write_kv_rows_kernel_has_no_local_memory(hd):
     _cuda()
     for dtype, info in pa_ops.writer_kernel_info(hd).items():
@@ -468,6 +468,10 @@ DECODE_CASES = {
     "hd128_g2_page40": ((3, 8, 4, 128, 30, 40, 12), [470, 7, 0]),
     "g4_long_short": ((2, 16, 4, 64, 100, 16, 64), [1000, 5]),
     "g1_page16_long": ((2, 4, 4, 64, 80, 16, 64), [700, 40]),
+    # gemma-7b's head dim (MHA of 256) and internvl2-1b's odd group (G 7:
+    # a pass of 4 heads, then one of 3)
+    "hd256_mha": ((3, 4, 4, 256, 40, 16, 24), [330, 9, 0]),
+    "g7_hd64": ((3, 14, 2, 64, 60, 16, 40), [600, 5, 0]),
 }
 # (B, Tc, H, K, hd, P, page, pps, starts): mid-page chunk starts
 PREFILL_CASES = {
@@ -478,6 +482,10 @@ PREFILL_CASES = {
     "hd128_g2_page40": (1, 70, 8, 4, 128, 10, 40, 4, [33]),
     "g4_page16": (2, 20, 16, 4, 64, 40, 16, 8, [0, 77]),
     "tc256_midpage": (1, 256, 16, 16, 64, 80, 16, 64, [200]),
+    # hd 256 (32-key tiles, 128 accumulators a thread) and G 7 (a 64-row
+    # tile ends inside a token's group of 7 heads)
+    "hd256_midpage": (2, 70, 4, 4, 256, 30, 16, 8, [37, 0]),
+    "g7_hd64_midpage": (2, 40, 14, 2, 64, 30, 16, 8, [0, 45]),
 }
 
 
@@ -550,7 +558,7 @@ def test_cuda_split_pools_equal_fused_pool_bitwise(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8])
 def test_cuda_per_request_kernels_equal_mixed_rows_bitwise(G, dtype):
     """One mixed launch of 3 decode lanes and 2 chunk rows (one from a
     mid-page start): each decode lane equals the decode kernel's row and
@@ -585,7 +593,8 @@ def test_cuda_per_request_kernels_equal_mixed_rows_bitwise(G, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd,page,G,Tc", [(32, 8, 8, 12), (128, 40, 2, 70),
-                                          (64, 16, 1, 256)])
+                                          (64, 16, 1, 256), (256, 16, 1, 70),
+                                          (64, 16, 7, 40)])
 def test_cuda_mixed_rows_equal_per_request_rows_across_shapes(hd, page, G,
                                                               Tc, dtype):
     """The same bit-identities at other head dims, page sizes, groups and
@@ -627,7 +636,8 @@ def test_cuda_mixed_rows_equal_per_request_rows_across_shapes(hd, page, G,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["hd32_g8_page8", "hd128_g2_page40",
-                                  "g4_long_short", "g1_page16_long"])
+                                  "g4_long_short", "g1_page16_long",
+                                  "hd256_mha", "g7_hd64"])
 def test_cuda_decode_cut_equals_sweep_bitwise(case, dtype):
     """A lane long enough that every warp gets pages and one so short that
     most warps see no live key: the row stops at its last page, and pages
@@ -661,7 +671,7 @@ def test_cuda_decode_cut_equals_sweep_bitwise(case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_cuda_paged_bf16_kernels_do_not_spill(hd):
     """No local memory (spills or stack) in the bf16 paged-attention
     kernels, and their shared memory within the 227 KB a block may use."""
@@ -1302,6 +1312,46 @@ def test_cuda_gather_and_scatter_hybrid_rows_bit_exact(leg, dtype, n_case):
          "engine_leg": 14}[n_case]
     P = 2 * n + 3
     pool = _gather_pool(dev, dtype, HYBRID_ROWS[leg], P, seed=n)
+    rng = np.random.default_rng(n)
+    ids_np = rng.choice(P, n, replace=False).astype(np.int32)
+    if n > 2:
+        ids_np[0], ids_np[n // 2] = -1, P
+    ids = torch.from_numpy(ids_np).to(dev)
+    got = kv_ops.gather_pages(pool, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+    new = torch.randn(got.shape, device=dev).to(pool.dtype)
+    out = kv_ops.scatter_pages(pool.clone(), new, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kv_ref.scatter_pages_ref(pool.clone(), new, ids))
+
+
+# -- internvl2-1b's kv page, a LoRA adapter page, gemma-7b's kv page -------
+# (kv: 2 x 2 heads x 16 tokens x 64 bf16; 65,536 bf16; 2 x 16 x 16 x 256
+# bf16) and one leg of each: a park of 800 tokens over 24 and 28 layers,
+# one rank-16 qwen1.5-0.5b adapter
+PAGE_ROWS = {"internvl2_kv": (8192, 1200), "lora": (131072, 24),
+             "gemma_kv": (262144, 1400)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_case", ["one", "below_grid", "above_grid",
+                                    "engine_leg"])
+@pytest.mark.parametrize("leg", sorted(PAGE_ROWS))
+def test_cuda_gather_and_scatter_page_rows_bit_exact(leg, n_case):
+    """Rows 6-7 at the internvl2 kv row (8,192 B), the LoRA adapter page
+    (131,072 B) and the gemma kv row (262,144 B), bf16, at one row, fewer
+    work items than the grid, a grid multiple plus a remainder and one
+    leg, ids outside the pool included; gather and scatter bit-exact
+    against their plain versions."""
+    dev = _cuda()
+    sms = kv_ops.sm_count(dev.index or 0)
+    row_bytes, leg_rows = PAGE_ROWS[leg]
+    n = {"one": 1, "below_grid": 7,
+         "above_grid": 3 * kv_ops.BLOCKS_PER_SM * sms + 5,
+         "engine_leg": leg_rows}[n_case]
+    P = 2 * n + 3
+    pool = _gather_pool(dev, "bfloat16", row_bytes, P, seed=n)
     rng = np.random.default_rng(n)
     ids_np = rng.choice(P, n, replace=False).astype(np.int32)
     if n > 2:

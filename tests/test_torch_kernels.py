@@ -80,6 +80,10 @@ MIXED_CASES = {
     # engine packs it when no prompt chunk is scheduled
     "decode_only": (4, 4, 1, 4, 4, 64, 30, 16, 6, [77, 5, 40, 0],
                     [1, 1, 1, 1], [1, 1, 1, 1]),
+    # gemma-7b's head dim 256, and internvl2-1b's odd group G = 7
+    "hd256": (5, 3, 8, 2, 2, 256, 10, 16, 3, [20, 13, 0], [1, 8, 0],
+              [1, 0, 0]),
+    "g7": (6, 3, 8, 14, 2, 64, 10, 16, 3, [20, 5, 0], [1, 8, 0], [1, 0, 0]),
 }
 
 
@@ -106,6 +110,8 @@ DECODE_CASES = {
     "mha": ((1, 8, 8, 128, 8, 8, 8), [1]),
     "mqa": ((4, 8, 1, 64, 64, 32, 4), [1, 100, 128, 0]),
     "edges": ((3, 4, 2, 32, 12, 8, 5), [0, 1, 40]),
+    "hd256": ((2, 4, 4, 256, 10, 16, 3), [40, 0]),
+    "g7": ((2, 14, 2, 64, 10, 16, 3), [33, 1]),
 }
 
 
@@ -160,6 +166,8 @@ def test_decode_attention_plain_matches_reference_kernel(case, layout,
 PREFILL_CASES = {
     "ref_plan": (2, 6, 4, 2, 32, 16, 8, 4, [3, 10]),
     "mha_midpage": (2, 16, 4, 4, 64, 12, 16, 3, [0, 21]),
+    "hd256": (1, 8, 2, 2, 256, 8, 16, 3, [13]),
+    "g7": (1, 9, 14, 2, 64, 8, 16, 3, [5]),
 }
 
 
@@ -242,7 +250,19 @@ def test_write_kv_rows_plain_matches_reference_writers(case, dtype):
     the reference's ``append_kv`` over the decode lanes then
     ``write_chunk_pages`` per chunk row == the port's own old pair, at every
     page but scratch."""
-    x = _writer_inputs(case)
+    _check_writer(case, dtype, hd=32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["chunk_from_mid_page",
+                                  "window_reaches_scratch_tail"])
+def test_write_kv_rows_plain_matches_reference_writers_hd256(case, dtype):
+    """The same at gemma-7b's head dim 256."""
+    _check_writer(case, dtype, hd=256)
+
+
+def _check_writer(case, dtype, hd):
+    x = _writer_inputs(case, hd=hd)
     page, T, n_dec, bt = x["page"], x["T"], x["n_dec"], x["bt"]
     jp, tp = _both(x["pool"], dtype)
     (jk, tk), (jv, tv) = _both(x["k"], dtype), _both(x["v"], dtype)
