@@ -297,6 +297,72 @@ by sqrt(d), bf16; random seeded weights): rows 1-5 at head_dim 256, a
    pages, 2.9 GB), profiled; bytes_fabric whole 458,752 B token rows.
 38. gemma round trip — bit-identical.
 
+Then dbrx-132b at its published widths (d 6144, 48 heads on 8 KV heads of
+128: G 6, 16 experts of 10752 top 4 and no shared expert, vocab 100352,
+bf16; random seeded weights), 8 of its 40 layers (``DBRX_LAYERS``: 50.86
+GiB, room for a float32 copy of one MoE layer):
+
+39. dbrx kernels — ``attention_rows`` at 48 heads on 8 of 128.
+40. model — 27,305,803,776 by the formula, the module 6,144 more.
+41. dbrx layer step — phase 22's packed step (``phase_moe_layer_step``):
+   attention and the MoE per layer within 2% per real token of a float32
+   copy of the layer, controls beyond (the furthest lane's newest page
+   read as scratch; top-3 routing); the share of tokens whose top-4
+   experts differ printed; the bf16 layers' logits equal the served
+   step's bit for bit, nearer float32 than a step whose furthest lane
+   reads scratch for its newest page in every layer.
+42. dbrx per-request — phase 36's path (per-layer checks, the split-pool
+   drive at G 6, the FCFS engine beside it).
+43. dbrx engine — phase 6, profiled with the ``moe`` range.
+44. dbrx round trip — bit-identical.
+
+Then the paper's own models at their published widths, full depth (the
+reference's ``configs/aqua_paper.py``: RoPE, RMSNorm, 16-token ``kv``
+pages of bf16; random seeded weights). aqua-llama2-13b (40 layers, d
+5120, 40 heads on 40 of 128, SwiGLU 13824, vocab 32000; 24.24 GiB,
+327,680 B a layer's page):
+
+45. llama2 kernels — ``attention_rows`` at 40 heads on 40 (G 1), rows
+   6-7 at the ``kv`` leg of 2,000 x 327,680 B.
+46. model — 13,015,859,200, the module 5,120 more.
+47. layer step — phase 35's (``whole_f32=False``): the attention and the
+   MLP per layer within 2% of a float32 copy of each (the MLP's control
+   drops its last sixteenth of hidden units).
+48. per-request — phase 36's path; its split-pool drive launches row 1
+   at hd 128.
+49. engine — phase 6 on a 6 GiB lease (8 parked x 40 layers x 50 pages x
+   327,680 B = 5.24 GB).
+50. round trip — bit-identical.
+
+aqua-codellama-34b (48 layers, d 8192, 64 heads on 8 of 128: G 8,
+SwiGLU 22016, vocab 32016, rope theta 1e6; 62.85 GiB, whose reads bound
+a decode-only step at 20.1 ms):
+
+51. codellama kernels — ``attention_rows`` at 64 heads on 8.
+52. model — 33,744,224,256, the module 8,192 more.
+53. layer step — as phase 47.
+54. engine — phase 6, profiled; its decode-only step's wall, device time
+   and idle share printed beside the time its weight reads take.
+55. round trip — bit-identical.
+
+aqua-opt-30b (48 layers, d 7168, 56 heads on 56 of 128, a non-gated
+tanh-gelu MLP of 28672, vocab 50272; 56.47 GiB, 458,752 B a layer's
+page):
+
+56. opt kernels — rows 6-7 at the ``kv`` leg of 2,400 x 458,752 B, then
+   ``attention_rows`` at 56 heads on 56 over a 12,289-page pool (the
+   engine's LOCAL pool, 5.64 GB, 2.82e9 elements: table entries past
+   element 2^31).
+57. model — 30,316,396,544, the module 7,168 more.
+58. layer step — as phase 47, the gelu MLP against its float32 copy.
+59. engine — phase 6 on a 9 GiB lease (8.81 GB parked) beside the
+   5.64 GB LOCAL pool.
+60. round trip — bit-identical (a 512 MiB lease: the request's 440 MB).
+
+61. minicpm-2b — its count (2,724,878,592) and phase 6's engine run.
+
+Each of these models prints its phase spans and each span's peak memory.
+
 Then qwen1.5-0.5b's training path at its published width (bf16 params,
 float32 AdamW master and moments):
 
@@ -437,6 +503,41 @@ def release(torch):
     collector (~25 GiB after the rwkv phases otherwise)."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def model_laps(torch, label, t0):
+    """A model's phase spans: ``lap(name)`` closes the running phase (its
+    wall and ``torch.cuda.max_memory_allocated`` since the last lap; an
+    engine phase resets the peak just before its run), ``done()`` prints
+    them."""
+    spans, t = {}, [time.perf_counter()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def lap(name):
+        torch.cuda.synchronize()
+        spans[name] = {"s": round(time.perf_counter() - t[0], 1),
+                       "peak_gib": round(torch.cuda.max_memory_allocated()
+                                         / 2 ** 30, 2)}
+        torch.cuda.reset_peak_memory_stats()
+        t[0] = time.perf_counter()
+
+    def done():
+        print(f"{label} phase spans (s) and peak memory (GiB): "
+              f"{json.dumps(spans)}; done at {time.perf_counter() - t0:.1f} "
+              f"s")
+    return lap, done
+
+
+def one_writer_a_layer(label, launches):
+    """The fused step launches the page writer once per attention layer per
+    step: as many row-5 launches as row-4 launches."""
+    if launches["append_kv"] != launches["paged_mixed_attention_pool"]:
+        raise AssertionError(
+            f"{label}: {launches['append_kv']} page-writer launches, not one "
+            f"per attention layer per step "
+            f"({launches['paged_mixed_attention_pool']} mixed attention "
+            f"launches)")
 
 
 def phase_device(torch):
@@ -1101,21 +1202,28 @@ def per_layer_attention(torch, cfg, model, x, pool, attend, real, keep,
     are equal over the ``keep`` slots. With ``layer_f32`` also each one's
     distance to a float32 copy of the layer's attention run by the plain
     versions on the same input and pool in float32 (``kernel_f32``,
-    ``control_f32``)."""
-    from repro_torch.layers.core import mlp, rms_norm
+    ``control_f32``), and, for a dense MLP, the layer's MLP on its normed
+    input against a float32 copy of it (``mlp_f32``), a control beyond
+    (``mlp_control_f32``: the float32 copy without its last sixteenth of
+    hidden units, as a product that lost its last tile of the
+    reduction)."""
+    from repro_torch.layers.core import MLP, mlp, rms_norm
+    from repro_torch.models import lm
     p_ref = pool.clone()
     rel = {"kernel": [], "control": []}
     if layer_f32:
-        rel.update(kernel_f32=[], control_f32=[])
+        rel.update(kernel_f32=[], control_f32=[], mlp_f32=[],
+                   mlp_control_f32=[])
     pages_equal = True
     for layer, blk in enumerate(model.blocks):
         h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
         out_k, p_k = attend(blk.mix, h, p_ref.clone(), layer, "kernel", False)
-        out_c, _ = attend(blk.mix, h, p_ref.clone(), layer, "ref", True)
+        # [0]: each copy of the pool is dropped as soon as its call returns
+        out_c = attend(blk.mix, h, p_ref.clone(), layer, "ref", True)[0]
         outs = [("kernel", out_k), ("control", out_c)]
         if layer_f32:
-            out_32, _ = attend(copy.deepcopy(blk.mix).float(), h.float(),
-                               p_ref.float(), layer, "ref", False)
+            out_32 = attend(copy.deepcopy(blk.mix).float(), h.float(),
+                            p_ref.float(), layer, "ref", False)[0]
         out_r, p_ref = attend(blk.mix, h, p_ref, layer, "ref", False)
         scale = out_r.float().abs().amax(-1).clamp_min(1e-6)
         for name, o in outs:
@@ -1130,7 +1238,22 @@ def per_layer_attention(torch, cfg, model, x, pool, attend, real, keep,
         pages_equal &= torch.equal(p_k[keep], p_ref[keep])
         del p_k
         x = x + out_r
-        x = x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
+        h2 = rms_norm(blk.n2, x, cfg.rmsnorm_eps)
+        ffn_out = lm.ffn_apply(blk.ffn, cfg, h2)
+        if layer_f32 and isinstance(blk.ffn, MLP):
+            ffn32 = copy.deepcopy(blk.ffn).float()
+            want = mlp(ffn32, cfg, h2.float())
+            cut = ffn32.up.w.shape[1] * 15 // 16
+            for lin, dim in ((ffn32.up, 1), (ffn32.gate, 1),
+                             (ffn32.down, 0)):
+                if lin is not None:
+                    lin.w.data = lin.w.data.narrow(dim, 0, cut)
+            ctrl = mlp(ffn32, cfg, h2.float())
+            for name, o in (("mlp_f32", ffn_out),
+                            ("mlp_control_f32", ctrl)):
+                rel[name].append(rel_per_token(torch, o, want, real))
+            del ffn32, want, ctrl
+        x = x + ffn_out
     return rel, pages_equal
 
 
@@ -1219,14 +1342,23 @@ def phase_layer_step(torch, np, cfg, model, dev, prefix=False,
           f"; written pages equal: {pages_equal}")
     if not whole_f32:
         k32, c32 = max(rel["kernel_f32"]), min(rel["control_f32"])
+        m32, mc32 = max(rel["mlp_f32"]), min(rel["mlp_control_f32"])
         print(f"layer step, per layer against a float32 copy of the layer's "
               f"attention: kernel {k32:.4g} (layers "
               f"{', '.join(f'{v:.3g}' for v in rel['kernel_f32'])}); "
-              f"control least {c32:.4g}")
+              f"control least {c32:.4g}; the layer's {cfg.activation} MLP "
+              f"against a float32 copy of it: {m32:.4g} (layers "
+              f"{', '.join(f'{v:.3g}' for v in rel['mlp_f32'])}); control "
+              f"(the last sixteenth of its hidden units dropped) least "
+              f"{mc32:.4g}")
         if not k32 <= LAYER_REL_LIMIT < c32:
             raise AssertionError(
                 f"layer step: kernel vs the float32 layer {k32} must be "
                 f"within {LAYER_REL_LIMIT}, and the control ({c32}) beyond")
+        if not m32 <= LAYER_REL_LIMIT < mc32:
+            raise AssertionError(
+                f"layer step: the MLP vs its float32 copy {m32} must be "
+                f"within {LAYER_REL_LIMIT}, and the control ({mc32}) beyond")
 
     # -- whole step against float32 ----------------------------------------
     runs = {"ref": (model, cfg, "ref", read_pps),
@@ -1318,6 +1450,8 @@ def phase_layer_step(torch, np, cfg, model, dev, prefix=False,
 PROMPTS = {700: (200, 256, 244), 431: (120, 256, 55), 255: (255,),
            40: (24, 16)}
 DECODE_STEPS = 32
+PER_REQUEST_ROWS = ("paged_prefill_attention_pool", "paged_attention_pool",
+                    "append_kv")                # rows 3, 2, 5
 
 
 def _sync(torch, dev):
@@ -1473,10 +1607,9 @@ def phase_per_request(torch, np, cfg, model, dev, whole_f32=True):
           + _walls(np, "prefill chunk wall", run["chunk_s"]) + "; "
           + _walls(np, "decode step wall", run["step_s"]))
     print(f"per-request: kernel launches {json.dumps(launches, sort_keys=True)}")
-    need = ("paged_prefill_attention_pool", "paged_attention_pool",
-            "append_kv")
-    if not all(launches.get(k, 0) > 0 for k in need):
-        raise AssertionError(f"per-request run never launched some of {need}")
+    if not all(launches.get(k, 0) > 0 for k in PER_REQUEST_ROWS):
+        raise AssertionError(f"per-request run never launched some of "
+                             f"{PER_REQUEST_ROWS}")
     if not all(len(t) == DECODE_STEPS + 1 and all(0 <= v < cfg.vocab_size
                                                   for v in t)
                for t in run["tokens"]):
@@ -1873,6 +2006,19 @@ def phase_engine(torch, np, cfg, model, dev, need=(), profile=False,
         with profile_ranges(torch):
             prof = profile_engine_steps(torch, eng)
         print(f"engine profile: {json.dumps(prof)}")
+        dec = prof.get("decode_only", {})
+        if cfg.moe is None and "idle_share" in dec:
+            # every weight but an untied model's token embeddings, of
+            # which a step reads a row a token
+            read = sum(p.numel() * p.element_size()
+                       for n, p in model.named_parameters()
+                       if n != "embed.tok" or model.embed.head is None)
+            print(f"engine: {cfg.name} decode-only step: wall "
+                  f"{dec['step_wall_ms']:.2f} ms, device busy "
+                  f"{dec['device_busy_ms']:.2f} ms, idle share "
+                  f"{dec['idle_share']:.4f}; the weights it reads, {read:,} "
+                  f"B, take {read / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 "
+                  f"TB/s")
     return launches, tokens
 
 
@@ -3238,20 +3384,20 @@ def phase_deepseek_per_request(torch, np, cfg, model, dev):
 
 
 def roundtrip_run(torch, np, cfg, model, dev, prompt, chunks, steps, park,
-                  prefix=None):
+                  prefix=None, lease_bytes=1 << 28):
     """One prompt chunk by chunk through the per-request entry points, then
     ``steps`` decode steps; with ``park``, the request parks on a REMOTE
-    lease and is restored after every chunk and step. ``prefix`` (a VLM's
-    (1, P, d) block on the device) fills the prompt's first P positions,
-    whose token ids are dummies. Returns every logits row and the
-    runtime."""
+    lease of ``lease_bytes`` and is restored after every chunk and step.
+    ``prefix`` (a VLM's (1, P, d) block on the device) fills the prompt's
+    first P positions, whose token ids are dummies. Returns every logits
+    row and the runtime."""
     from repro_torch.core.aqua_tensor import REMOTE
     from repro_torch.models import api
     from repro_torch.serving.kv_cache import PagedStateRuntime
     from repro_torch.serving.scheduler import bucket_tokens
     kv = PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=2,
                            prefix_cache=False, device=dev)
-    kv.add_remote_lease("donor0", 1 << 28)
+    kv.add_remote_lease("donor0", lease_bytes)
     pad = kv.pps + 256 // kv.page_tokens + 1
     logs, pos = [], 0
     for c in chunks:
@@ -3280,15 +3426,15 @@ def roundtrip_run(torch, np, cfg, model, dev, prompt, chunks, steps, park,
     return logs, kv
 
 
-def phase_roundtrip(torch, np, cfg, model, dev, label):
+def phase_roundtrip(torch, np, cfg, model, dev, label, lease_bytes=1 << 28):
     """A park/restore round trip at full width (phases 19 and 25): a
     300-token prompt in two mid-page chunks and 8 decode steps, parked on
-    a same-card REMOTE lease and restored after every chunk and step, must
-    give every logits row bit for bit as the unparked run; gather and
-    scatter must launch, one fabric message per leg whatever the number of
-    planes. A VLM's prompt opens with a seeded prefix block (its first
-    ``n_prefix_embeds`` positions). Returns the parked run's launch
-    counts."""
+    a same-card REMOTE lease (``lease_bytes``, room for the request's
+    pages) and restored after every chunk and step, must give every logits
+    row bit for bit as the unparked run; gather and scatter must launch,
+    one fabric message per leg whatever the number of planes. A VLM's
+    prompt opens with a seeded prefix block (its first ``n_prefix_embeds``
+    positions). Returns the parked run's launch counts."""
     from repro_torch.kernels import build
     prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 300)
     prefix = vlm_prefix(torch, cfg, dev, 6)
@@ -3298,7 +3444,7 @@ def phase_roundtrip(torch, np, cfg, model, dev, label):
                             8, False, prefix)
     build.reset_launch_counts()
     parked, kv = roundtrip_run(torch, np, cfg, model, dev, prompt,
-                               (120, 180), 8, True, prefix)
+                               (120, 180), 8, True, prefix, lease_bytes)
     launches = build.launch_counts()
     same = all(torch.equal(a, b) for a, b in zip(base, parked))
     m = kv.meter
@@ -3404,13 +3550,13 @@ def phase_jamba_model(torch, jcfg):
     return model
 
 
-def jamba_step_inputs(torch, np, cfg, dev, plan, page, pps_pad):
-    """Pools and tables of a packed jamba step (``plan``): every live row
-    (decode lanes, chunk rows with real tokens) owns a random mid-stream
-    ssm and conv page per Mamba layer and its kv pages per attention layer,
-    every slot its own; pad rows point at scratch (slot 0). Returns
-    (pools, host tables, tokens)."""
-    from repro_torch.layers.mamba import _dims
+def moe_step_inputs(torch, np, cfg, dev, plan, page, pps_pad):
+    """Pools and tables of a packed step (``plan``) of a family with a MoE
+    on the ``kv`` plane and, for jamba, the ``ssm`` and ``conv`` state
+    planes: every live row (decode lanes, chunk rows with real tokens) owns
+    a random mid-stream ssm and conv page per Mamba layer and its kv pages
+    per attention layer, every slot its own; pad rows point at scratch
+    (slot 0). Returns (pools, host tables, tokens)."""
     rng = np.random.default_rng(11)
     g = torch.Generator(device=dev).manual_seed(11)
     from repro_torch.models import lm
@@ -3420,19 +3566,21 @@ def jamba_step_inputs(torch, np, cfg, dev, plan, page, pps_pad):
     need = [-(-(int(s) + max(int(n), 1)) // page) if r in live else 0
             for r, (s, n) in enumerate(zip(q_starts, n_reals))]
     n_sub = {k: len(v["positions"]) for k, v in lm.paged_layout(cfg).items()}
-    di, ds, dc, _ = _dims(cfg)
     dt = cfg.torch_compute_dtype()
-    P_state = 1 + G * n_sub["ssm"] * len(live)
     P_kv = 1 + G * sum(need)
-    pools = {"ssm": 0.1 * torch.randn((P_state, di, ds), generator=g,
-                                      device=dev),
-             "conv": torch.randn((P_state, dc - 1, di), generator=g,
-                                 device=dev).to(dt),
-             "kv": torch.randn((P_kv, 2, cfg.n_kv_heads, page,
-                                cfg.resolved_head_dim), generator=g,
-                               device=dev).to(dt)}
-    tables = {}
-    for name in ("ssm", "conv"):
+    pools, tables = {}, {}
+    if "ssm" in n_sub:
+        from repro_torch.layers.mamba import _dims
+        di, ds, dc, _ = _dims(cfg)
+        P_state = 1 + G * n_sub["ssm"] * len(live)
+        pools["ssm"] = 0.1 * torch.randn((P_state, di, ds), generator=g,
+                                         device=dev)
+        pools["conv"] = torch.randn((P_state, dc - 1, di), generator=g,
+                                    device=dev).to(dt)
+    pools["kv"] = torch.randn((P_kv, 2, cfg.n_kv_heads, page,
+                               cfg.resolved_head_dim), generator=g,
+                              device=dev).to(dt)
+    for name in ("ssm", "conv") if "ssm" in n_sub else ():
         bt = np.zeros((G, n_sub[name], R), np.int32)
         bt[:, :, live] = (1 + rng.permutation(P_state - 1)).reshape(
             G, n_sub[name], len(live))
@@ -3447,10 +3595,10 @@ def jamba_step_inputs(torch, np, cfg, dev, plan, page, pps_pad):
     return pools, tables, tokens
 
 
-def phase_jamba_layer_step(torch, np, cfg, model, dev):
-    """One full-width packed step (``main_path_plan``) of jamba, bf16
-    against float32 a layer at a time (phase 22; the model in float32,
-    ~97 GB, does not fit).
+def phase_moe_layer_step(torch, np, cfg, model, dev, label):
+    """One full-width packed step (``main_path_plan``) of a family with a
+    MoE (jamba, dbrx), bf16 against float32 a layer at a time (phases 22
+    and 40; neither model fits the card in float32).
 
     Per layer, on the bf16 path's layer input and pools: the mixer (Mamba:
     ``mamba_mixed_paged``; attention: ``attention_mixed_paged``) through
@@ -3458,13 +3606,14 @@ def phase_jamba_layer_step(torch, np, cfg, model, dev):
     ``LAYER_REL_LIMIT`` per real token, a control beyond (Mamba: the
     furthest decode lane's ssm and conv pages zeroed, a dropped state;
     attention: that lane's newest kv page swapped for scratch); the MoE
-    likewise on the same normed input, its control routing to top-1. On
-    the two streams each path carries (the bf16 step and a float32 step),
-    the share of real tokens whose top-2 experts differ is printed, not
-    asserted. Whole step: the bf16 layers' logits must equal
+    likewise on the same normed input, its control routing to top-(k-1).
+    On the two streams each path carries (the bf16 step and a float32
+    step), the share of real tokens whose top-k experts differ is printed,
+    not asserted. Whole step: the bf16 layers' logits must equal
     ``api.serve_step_paged``'s bit for bit on the real rows, and lie
-    nearer the float32 step's than a step whose furthest decode lane lost
-    its Mamba state."""
+    nearer the float32 step's than a control step's: the furthest decode
+    lane's Mamba state lost (jamba) or its newest kv page read as scratch
+    in every layer (a family of attention alone)."""
     import dataclasses
     from repro_torch.layers import attention as attn
     from repro_torch.layers.core import embed, rms_norm, unembed
@@ -3476,8 +3625,9 @@ def phase_jamba_layer_step(torch, np, cfg, model, dev):
     plan = main_path_plan()
     q_starts, n_reals, n_dec, Tc = plan
     R = len(q_starts)
-    pools0, bt, tokens = jamba_step_inputs(torch, np, cfg, dev, plan, page,
-                                           pps_pad)
+    pools0, bt, tokens = moe_step_inputs(torch, np, cfg, dev, plan, page,
+                                         pps_pad)
+    states = [k for k in ("ssm", "conv") if k in bt]
     lane = int(np.argmax(q_starts[:n_dec]))            # the controls' lane
     lost = int(q_starts[lane]) // page
     bt_ctrl = {k: v.copy() for k, v in bt.items()}
@@ -3486,7 +3636,7 @@ def phase_jamba_layer_step(torch, np, cfg, model, dev):
               True: {k: torch.as_tensor(v).to(dev)
                      for k, v in bt_ctrl.items()}}
     dropped = {k: torch.as_tensor(bt[k][:, :, lane].reshape(-1)).long()
-               .to(dev) for k in ("ssm", "conv")}
+               .to(dev) for k in states}
     real = torch.as_tensor(np.arange(Tc)[None] < n_reals[:, None]).to(dev)
     nr_dev = torch.as_tensor(n_reals.astype(np.int64)).to(dev)
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
@@ -3515,8 +3665,8 @@ def phase_jamba_layer_step(torch, np, cfg, model, dev):
     x32 = x.float()
     pools_b = {k: v.clone() for k, v in pools0.items()}
     pools_32 = f32(pools0)
-    rel = {k: [] for k in ("mamba", "mamba_control", "attn", "attn_control",
-                           "moe", "moe_control")}
+    kinds = sorted({kind for _, _, kind in lm.sublayers(cfg)}) + ["moe"]
+    rel = {k: [] for kind in kinds for k in (kind, f"{kind}_control")}
     differ = []
     for blk, (gi, j, kind) in zip(model.blocks, lm.sublayers(cfg)):
         blk32 = copy.deepcopy(blk).float()
@@ -3526,7 +3676,7 @@ def phase_jamba_layer_step(torch, np, cfg, model, dev):
         out_f = mix(kind, gi, j, blk32.mix, cfg32, h.float(), f32(before))
         ctrl = f32(before)
         if kind == "mamba":
-            for k in ("ssm", "conv"):
+            for k in states:
                 ctrl[k][dropped[k]] = 0.0
         out_c = mix(kind, gi, j, blk32.mix, cfg32, h.float(), ctrl,
                     control=True)
@@ -3542,6 +3692,7 @@ def phase_jamba_layer_step(torch, np, cfg, model, dev):
             rel["moe"].append(rel_per_token(torch, ffn_b, moe_f, real))
             rel["moe_control"].append(rel_per_token(torch, moe_c, moe_f,
                                                     real))
+            del moe_f, moe_c
         x = x + ffn_b
         # the float32 step, on its own stream and pools
         x32 = x32 + mix(kind, gi, j, blk32.mix, cfg32,
@@ -3568,10 +3719,13 @@ def phase_jamba_layer_step(torch, np, cfg, model, dev):
     span = time.perf_counter() - t
     for name in ("served", "control"):
         p = {k: v.clone() for k, v in pools0.items()}
-        if name == "control":
-            for k in ("ssm", "conv"):
+        table = bt
+        if name == "control" and states:
+            for k in states:
                 p[k][dropped[k]] = 0
-        lg, _ = api.serve_step_paged(model, cfg, tokens, p, bt, q_starts,
+        elif name == "control":
+            table = bt_ctrl
+        lg, _ = api.serve_step_paged(model, cfg, tokens, p, table, q_starts,
                                      n_reals, n_decode=n_dec,
                                      read_pps=read_pps)
         outs[name] = lg.float()
@@ -3587,44 +3741,47 @@ def phase_jamba_layer_step(torch, np, cfg, model, dev):
     agree = (outs["served"][keep].argmax(-1)
              == outs["f32"][keep].argmax(-1)).float().mean().item()
     fmt = lambda v: ", ".join(f"{a:.3g}" for a in v)       # noqa: E731
-    print(f"jamba layer step, per layer ({cfg.n_layers} layers, R={R} "
-          f"Tc={Tc}), bf16 vs float32 max per-token relative diff: Mamba "
-          f"{max(rel['mamba']):.4g} (layers {fmt(rel['mamba'])}), control "
-          f"(the lane at {int(q_starts[lane])} with its ssm and conv pages "
-          f"zeroed) least {min(rel['mamba_control']):.4g}; attention "
-          f"{max(rel['attn']):.4g} (layers {fmt(rel['attn'])}), control "
-          f"(that lane reading scratch for its newest page) least "
-          f"{min(rel['attn_control']):.4g}; MoE {max(rel['moe']):.4g} "
-          f"(layers {fmt(rel['moe'])}), control routing to top-"
-          f"{cfg.moe.top_k - 1} least {min(rel['moe_control']):.4g}; "
-          f"{span:.1f} s")
-    print(f"jamba layer step, routing: share of real tokens whose top-"
+    names = {"mamba": ("Mamba", "with its ssm and conv pages zeroed"),
+             "attn": ("attention", "reading scratch for its newest page"),
+             "moe": ("MoE", f"routing to top-{cfg.moe.top_k - 1}")}
+    print(f"{label} layer step, per layer ({cfg.n_layers} layers, R={R} "
+          f"Tc={Tc}), bf16 vs float32 max per-token relative diff: "
+          + "; ".join(f"{names[k][0]} {max(rel[k]):.4g} (layers "
+                      f"{fmt(rel[k])}), control "
+                      + (f"{names[k][1]}" if k == "moe" else
+                         f"(the lane at {int(q_starts[lane])} "
+                         f"{names[k][1]})")
+                      + f" least {min(rel[f'{k}_control']):.4g}"
+                      for k in kinds) + f"; {span:.1f} s")
+    print(f"{label} layer step, routing: share of real tokens whose top-"
           f"{cfg.moe.top_k} experts differ between the bf16 and float32 "
           f"steps, per MoE layer: {fmt(differ)}; mean "
           f"{float(np.mean(differ)):.4g}")
-    print(f"jamba layer step, whole: the bf16 layers' logits of the "
+    ctrl_what = ("with its Mamba state zeroed" if states
+                 else "reading scratch for its newest page in every layer")
+    print(f"{label} layer step, whole: the bf16 layers' logits of the "
           f"{len(keep)} real rows equal api.serve_step_paged's bit for bit: "
           f"{same}; |f32| max "
           f"{outs['f32'][keep].abs().max().item():.3g}; per real row max abs"
           f" diff to f32: {json.dumps(dist)} (control: the lane at "
-          f"{int(q_starts[lane])} with its Mamba state zeroed); argmax "
-          f"agreement with f32 {agree:.3f}")
-    for kind in ("mamba", "attn", "moe"):
+          f"{int(q_starts[lane])} {ctrl_what}); argmax agreement with f32 "
+          f"{agree:.3f}")
+    for kind in kinds:
         lk, lc = max(rel[kind]), min(rel[f"{kind}_control"])
         if not lk <= LAYER_REL_LIMIT < lc:
             raise AssertionError(
-                f"jamba layer step: {kind} bf16 vs float32 {lk} must be "
+                f"{label} layer step: {kind} bf16 vs float32 {lk} must be "
                 f"within {LAYER_REL_LIMIT}, and its control ({lc}) beyond")
     if not same:
-        raise AssertionError("jamba layer step: the layers compared are "
+        raise AssertionError(f"{label} layer step: the layers compared are "
                              "not the served step's")
     if tuple(outs["served"].shape) != (R, cfg.vocab_size) \
             or not torch.isfinite(outs["served"]).all():
-        raise AssertionError("jamba layer step: logits of the wrong shape "
-                             "or not finite")
+        raise AssertionError(f"{label} layer step: logits of the wrong "
+                             "shape or not finite")
     if not max(dist["served"]) < max(dist["control"]):
         raise AssertionError(
-            f"jamba layer step: the served step's logits "
+            f"{label} layer step: the served step's logits "
             f"({max(dist['served'])} from float32) must lie nearer than the "
             f"control's ({max(dist['control'])})")
     return {k: max(v) for k, v in rel.items()}
@@ -3810,17 +3967,12 @@ def jamba_phases(torch, np, report, dev, t0):
     (phases 20-25). Returns {path: launch counts}."""
     from repro_torch.configs import get_config
     jcfg = get_config("jamba-v0.1-52b").replace(n_layers=JAMBA_LAYERS)
-    spans, t = {}, time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        spans[name] = time.perf_counter() - t
-        t = time.perf_counter()
+    lap, done = model_laps(torch, "jamba-v0.1-52b", t0)
     phase_jamba_kernels(torch, np, jcfg, report, dev)
     lap("rows 4-7")
     model = phase_jamba_model(torch, jcfg)
     lap("model")
-    phase_jamba_layer_step(torch, np, jcfg, model, dev)
+    phase_moe_layer_step(torch, np, jcfg, model, dev, "jamba")
     torch.cuda.empty_cache()
     lap("layer step")
     paths = {"jamba per-request": phase_jamba_per_request(
@@ -3828,22 +3980,14 @@ def jamba_phases(torch, np, report, dev, t0):
     lap("per-request")
     paths["jamba engine"], _ = phase_engine(
         torch, np, jcfg, model, dev, need=JAMBA_ROWS[2:], profile=True)
-    engine = paths["jamba engine"]
-    if engine["append_kv"] != engine["paged_mixed_attention_pool"]:
-        raise AssertionError(
-            f"jamba engine: {engine['append_kv']} page-writer launches, not "
-            f"one per attention layer per step "
-            f"({engine['paged_mixed_attention_pool']} mixed attention "
-            f"launches)")
+    one_writer_a_layer("jamba engine", paths["jamba engine"])
     lap("engine")
     paths["jamba round trip"] = phase_roundtrip(torch, np, jcfg, model, dev,
                                                 "jamba")
     lap("round trip")
     del model
     release(torch)
-    print(f"jamba-v0.1-52b phase spans (s): "
-          f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
-          f"at {time.perf_counter() - t0:.1f} s")
+    done()
     return paths
 
 
@@ -3927,9 +4071,10 @@ def attention_rows(torch, np, cfg, report, label):
 
 
 def phase_dense_model(torch, cfg, seed, want):
-    """A dense (or VLM) model at its published width from a seeded CUDA
-    generator: the reference's ``param_count()`` must be ``want`` and the
-    module holds that plus its final norm's ``d_model`` scales."""
+    """A dense, VLM or MoE (without MLA) model at its published widths
+    from a seeded CUDA generator: the reference's ``param_count()`` must
+    be ``want`` and the module holds that plus its final norm's
+    ``d_model`` scales."""
     from repro_torch.models import lm
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -4085,8 +4230,8 @@ def phase_vlm_snapshot(torch, np, cfg, model, dev):
     release(torch)
 
 
-INTERNVL2_ROWS = ("paged_mixed_attention_pool", "append_kv", "gather_pages",
-                  "scatter_pages")              # rows 4-7, the fused path
+ENGINE_ROWS = ("paged_mixed_attention_pool", "append_kv", "gather_pages",
+               "scatter_pages")                 # rows 4-7, the fused path
 
 
 def internvl2_phases(torch, np, report, dev, t0):
@@ -4094,12 +4239,7 @@ def internvl2_phases(torch, np, report, dev, t0):
     launch counts}."""
     from repro_torch.configs import get_config
     icfg = get_config("internvl2-1b")
-    spans, t = {}, time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        spans[name] = time.perf_counter() - t
-        t = time.perf_counter()
+    lap, done = model_laps(torch, "internvl2-1b", t0)
     attention_rows(torch, np, icfg, report, "internvl2")
     leg_rows(torch, np, kv_leg_shape(icfg, "internvl2_kv"), report, dev)
     lap("rows 1-7")
@@ -4109,7 +4249,7 @@ def internvl2_phases(torch, np, report, dev, t0):
     lap("model, layer step, chunked prefix")
     paths = {}
     paths["internvl2-1b engine"], _ = phase_engine(
-        torch, np, icfg, model, dev, need=INTERNVL2_ROWS)
+        torch, np, icfg, model, dev, need=ENGINE_ROWS)
     lap("engine")
     paths["internvl2-1b round trip"] = phase_roundtrip(
         torch, np, icfg, model, dev, "internvl2-1b")
@@ -4117,9 +4257,7 @@ def internvl2_phases(torch, np, report, dev, t0):
     lap("round trip, snapshot")
     del model
     release(torch)
-    print(f"internvl2-1b phase spans (s): "
-          f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
-          f"at {time.perf_counter() - t0:.1f} s")
+    done()
     return paths
 
 
@@ -4283,12 +4421,7 @@ def gemma_phases(torch, np, report, dev, t0):
     launch counts}."""
     from repro_torch.configs import get_config
     gcfg = get_config("gemma-7b")
-    spans, t = {}, time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        spans[name] = time.perf_counter() - t
-        t = time.perf_counter()
+    lap, done = model_laps(torch, "gemma-7b", t0)
     attention_rows(torch, np, gcfg, report, "gemma")
     leg_rows(torch, np, kv_leg_shape(gcfg, "gemma_kv"), report, dev)
     lap("rows 1-7")
@@ -4305,7 +4438,7 @@ def gemma_phases(torch, np, report, dev, t0):
     # a lease that holds every parked request, 8 x 28 layers x 50 pages of
     # 262,144 B (2.9 GB; 2 GiB would spill legs to the host)
     paths["gemma-7b engine"], _ = phase_engine(
-        torch, np, gcfg, model, dev, need=INTERNVL2_ROWS, profile=True,
+        torch, np, gcfg, model, dev, need=ENGINE_ROWS, profile=True,
         lease_bytes=4 * 1024 ** 3)
     lap("engine")
     paths["gemma-7b round trip"] = phase_roundtrip(torch, np, gcfg, model,
@@ -4313,10 +4446,173 @@ def gemma_phases(torch, np, report, dev, t0):
     lap("round trip")
     del model
     release(torch)
-    print(f"gemma-7b phase spans (s): "
-          f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
-          f"at {time.perf_counter() - t0:.1f} s")
+    done()
     return paths
+
+
+# -- the paper's models (aqua-llama2-13b, aqua-codellama-34b, aqua-opt-30b),
+# dbrx-132b, minicpm-2b ------------------------------------------------------
+DBRX_LAYERS = 8                     # 50.86 GiB, room beside a float32 copy
+#                                     of one MoE layer (~12.1 GiB); 10 layers
+#                                     are 63.0 GiB of weights alone
+
+
+def dbrx_phases(torch, np, report, dev, t0):
+    """dbrx-132b at its published widths, ``DBRX_LAYERS`` of 40 layers
+    (phases 39-44). Returns {path: launch counts}."""
+    from repro_torch.configs import get_config
+    full = get_config("dbrx-132b")
+    cfg = full.replace(n_layers=DBRX_LAYERS)
+    lap, done = model_laps(torch, "dbrx-132b", t0)
+    attention_rows(torch, np, cfg, report, "dbrx")
+    lap("rows 1-5")
+    print(f"dbrx-132b: {DBRX_LAYERS} of the published {full.n_layers} "
+          f"layers ({full.param_count():,} parameters, "
+          f"{full.param_count() * 2 / 2 ** 30:.2f} GiB in bf16 whole)")
+    model = phase_dense_model(torch, cfg, 16, 27_305_803_776)
+    lap("model")
+    phase_moe_layer_step(torch, np, cfg, model, dev, "dbrx")
+    torch.cuda.empty_cache()
+    lap("layer step")
+    paths = {}
+    (paths["dbrx-132b per-request"],
+     paths["dbrx-132b split-pool drive"]) = phase_per_request(
+        torch, np, cfg, model, dev, whole_f32=False)
+    release(torch)
+    lap("per-request")
+    paths["dbrx-132b engine"], _ = phase_engine(
+        torch, np, cfg, model, dev, need=ENGINE_ROWS, profile=True)
+    one_writer_a_layer("dbrx-132b engine", paths["dbrx-132b engine"])
+    release(torch)          # the engines' pools wait for the collector
+    lap("engine")
+    paths["dbrx-132b round trip"] = phase_roundtrip(torch, np, cfg, model,
+                                                    dev, "dbrx-132b")
+    lap("round trip")
+    del model
+    release(torch)
+    done()
+    return paths
+
+
+def llama2_phases(torch, np, report, dev, t0):
+    """aqua-llama2-13b at its published width (phases 45-50). Returns
+    {path: launch counts}."""
+    from repro_torch.configs import get_config
+    cfg = get_config("aqua-llama2-13b")
+    lap, done = model_laps(torch, cfg.name, t0)
+    attention_rows(torch, np, cfg, report, "llama2")
+    leg_rows(torch, np, kv_leg_shape(cfg, "llama2_kv"), report, dev)
+    lap("rows 1-7")
+    model = phase_dense_model(torch, cfg, 17, 13_015_859_200)
+    lap("model")
+    phase_layer_step(torch, np, cfg, model, dev, whole_f32=False)
+    torch.cuda.empty_cache()
+    lap("layer step")
+    paths = {}
+    (paths["aqua-llama2-13b per-request"],
+     paths["aqua-llama2-13b split-pool drive"]) = phase_per_request(
+        torch, np, cfg, model, dev, whole_f32=False)
+    release(torch)
+    lap("per-request")
+    # every parked request's pages: 8 x 40 layers x 50 pages of 327,680 B
+    # (5.24 GB)
+    paths["aqua-llama2-13b engine"], _ = phase_engine(
+        torch, np, cfg, model, dev, need=ENGINE_ROWS,
+        lease_bytes=6 * 1024 ** 3)
+    one_writer_a_layer("aqua-llama2-13b engine",
+                       paths["aqua-llama2-13b engine"])
+    release(torch)          # the engines' pools wait for the collector
+    lap("engine")
+    paths["aqua-llama2-13b round trip"] = phase_roundtrip(
+        torch, np, cfg, model, dev, cfg.name)
+    lap("round trip")
+    del model
+    release(torch)
+    done()
+    return paths
+
+
+def codellama_phases(torch, np, report, dev, t0):
+    """aqua-codellama-34b at its published width (phases 51-55): 62.85 GiB
+    of weights, whose reads bound a decode-only step at 20.1 ms. Returns
+    {path: launch counts}."""
+    from repro_torch.configs import get_config
+    cfg = get_config("aqua-codellama-34b")
+    lap, done = model_laps(torch, cfg.name, t0)
+    attention_rows(torch, np, cfg, report, "codellama")
+    lap("rows 1-5")
+    model = phase_dense_model(torch, cfg, 18, 33_744_224_256)
+    lap("model")
+    phase_layer_step(torch, np, cfg, model, dev, whole_f32=False)
+    torch.cuda.empty_cache()
+    lap("layer step")
+    paths = {}
+    paths["aqua-codellama-34b engine"], _ = phase_engine(
+        torch, np, cfg, model, dev, need=ENGINE_ROWS, profile=True)
+    one_writer_a_layer("aqua-codellama-34b engine",
+                       paths["aqua-codellama-34b engine"])
+    release(torch)          # the engines' pools wait for the collector
+    lap("engine")
+    paths["aqua-codellama-34b round trip"] = phase_roundtrip(
+        torch, np, cfg, model, dev, cfg.name)
+    lap("round trip")
+    del model
+    release(torch)
+    done()
+    return paths
+
+
+def opt_phases(torch, np, report, dev, t0):
+    """aqua-opt-30b at its published width (phases 56-60): the non-gated
+    gelu MLP, 458,752 B kv pages and a LOCAL pool of 12,289 of them, past
+    2^31 bf16 elements. Returns {path: launch counts}."""
+    from repro_torch.configs import get_config
+    cfg = get_config("aqua-opt-30b")
+    lap, done = model_laps(torch, cfg.name, t0)
+    leg_rows(torch, np, kv_leg_shape(cfg, "opt_kv"), report, dev)
+    # rows 1-5 over the engine's LOCAL pool, 5.64 GB: table entries drawn
+    # from every slot, a quarter of them past element 2^31 (slot 9,363 on)
+    attention_rows(torch, np, cfg, report, "opt")
+    lap("rows 1-7")
+    model = phase_dense_model(torch, cfg, 19, 30_316_396_544)
+    lap("model")
+    phase_layer_step(torch, np, cfg, model, dev, whole_f32=False)
+    torch.cuda.empty_cache()
+    lap("layer step")
+    paths = {}
+    # every parked request's pages: 8 x 48 layers x 50 pages of 458,752 B
+    # (8.81 GB)
+    paths["aqua-opt-30b engine"], _ = phase_engine(
+        torch, np, cfg, model, dev, need=ENGINE_ROWS,
+        lease_bytes=9 * 1024 ** 3)
+    one_writer_a_layer("aqua-opt-30b engine", paths["aqua-opt-30b engine"])
+    release(torch)          # the engines' pools wait for the collector
+    lap("engine")
+    # the request's 20 pages x 48 layers (440 MB)
+    paths["aqua-opt-30b round trip"] = phase_roundtrip(
+        torch, np, cfg, model, dev, cfg.name, lease_bytes=1 << 29)
+    lap("round trip")
+    del model
+    release(torch)
+    done()
+    return paths
+
+
+def minicpm_phase(torch, np, dev, t0):
+    """minicpm-2b at its published width (phase 61): its count and phase
+    6's engine run. Returns {path: launch counts}."""
+    from repro_torch.configs import get_config
+    cfg = get_config("minicpm-2b")
+    lap, done = model_laps(torch, cfg.name, t0)
+    model = phase_dense_model(torch, cfg, 20, 2_724_878_592)
+    launches, _ = phase_engine(torch, np, cfg, model, dev, need=ENGINE_ROWS)
+    one_writer_a_layer("minicpm-2b engine", launches)
+    release(torch)
+    lap("model, engine")
+    del model
+    release(torch)
+    done()
+    return {"minicpm-2b engine": launches}
 
 
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
@@ -4855,14 +5151,8 @@ def main() -> int:
     phase_layer_step(torch, np, cfg, model, dev)
     per_request, split = phase_per_request(torch, np, cfg, model, dev)
     launches, base_tokens = phase_engine(
-        torch, np, cfg, model, dev, need=("paged_mixed_attention_pool",
-                                          "append_kv", "gather_pages",
-                                          "scatter_pages"), profile=True)
-    if launches["append_kv"] != launches["paged_mixed_attention_pool"]:
-        raise AssertionError(
-            f"engine: {launches['append_kv']} page-writer launches, not one "
-            f"per layer per step ({launches['paged_mixed_attention_pool']} "
-            f"mixed attention launches)")
+        torch, np, cfg, model, dev, need=ENGINE_ROWS, profile=True)
+    one_writer_a_layer("engine", launches)
     t_lease = time.perf_counter()
     phase_lease_lifecycle(torch, np, cfg, model, dev, card)
     print(f"lease lifecycle phase: {time.perf_counter() - t_lease:.1f} s")
@@ -4895,33 +5185,25 @@ def main() -> int:
 
     # -- deepseek-v2-lite-16b: MLA and the MoE, the mla latent plane -------
     dcfg = get_config("deepseek-v2-lite-16b")
-    spans = {}
-    t = time.perf_counter()
+    lap, done = model_laps(torch, "deepseek-v2-lite-16b", t0)
     phase_mla_rows(torch, np, dcfg, report, dev)
-    spans["mla rows"] = time.perf_counter() - t
-    t = time.perf_counter()
+    lap("mla rows")
     model = phase_deepseek_model(torch, dcfg)
-    spans["model"] = time.perf_counter() - t
-    t = time.perf_counter()
+    lap("model")
     phase_deepseek_layer_step(torch, np, dcfg, model, dev)
     torch.cuda.empty_cache()
-    spans["layer step"] = time.perf_counter() - t
-    t = time.perf_counter()
+    lap("layer step")
     ds_per_request = phase_deepseek_per_request(torch, np, dcfg, model, dev)
-    spans["per-request"] = time.perf_counter() - t
-    t = time.perf_counter()
+    lap("per-request")
     ds_engine, _ = phase_engine(torch, np, dcfg, model, dev,
                                 need=("gather_pages", "scatter_pages"),
                                 profile=True)
-    spans["engine"] = time.perf_counter() - t
-    t = time.perf_counter()
+    lap("engine")
     ds_roundtrip = phase_roundtrip(torch, np, dcfg, model, dev, "deepseek")
-    spans["round trip"] = time.perf_counter() - t
+    lap("round trip")
     del model
     release(torch)
-    print(f"deepseek-v2-lite-16b phase spans (s): "
-          f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; done "
-          f"at {time.perf_counter() - t0:.1f} s")
+    done()
 
     # -- jamba-v0.1-52b: Mamba and attention, ssm/conv planes beside kv ---
     jamba = jamba_phases(torch, np, report, dev, t0)
@@ -4935,6 +5217,14 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     gemma = gemma_phases(torch, np, report, dev, t0)
 
+    # -- dbrx-132b at 8 of 40 layers (rows 1-5 at G 6); the paper's
+    # aqua-llama2-13b, aqua-codellama-34b and aqua-opt-30b; minicpm-2b ----
+    new_models = {}
+    for phases in (dbrx_phases, llama2_phases, codellama_phases,
+                   opt_phases):
+        new_models.update(phases(torch, np, report, dev, t0))
+    new_models.update(minicpm_phase(torch, np, dev, t0))
+
     # -- qwen1.5-0.5b training: the flash attention kernels ----------------
     phase_flash_kernels(torch, report)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -4947,7 +5237,8 @@ def main() -> int:
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
     # path that runs it, phase 6c's admission and request lifecycle and the
-    # deepseek, jamba, internvl2-1b, LoRA and gemma-7b paths included
+    # deepseek, jamba, internvl2-1b, LoRA, gemma-7b, dbrx-132b, the
+    # paper's models' and minicpm-2b's paths included
     paths = (("engine", launches), ("per-request", per_request),
              ("split-pool drive", split), ("rwkv engine", rwkv_engine),
              ("rwkv per-request", rwkv_per_request), ("train", train_run),
@@ -4956,7 +5247,7 @@ def main() -> int:
              ("deepseek per-request", ds_per_request),
              ("deepseek round trip", ds_roundtrip)) + tuple(jamba.items()) \
         + tuple(internvl2.items()) + (("lora cache", lora_launches),) \
-        + tuple(gemma.items())
+        + tuple(gemma.items()) + tuple(new_models.items())
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -4974,9 +5265,15 @@ def main() -> int:
                 and not any(p in k["launches_by_path"] for p in jamba)]
     if no_jamba:
         raise AssertionError(f"no jamba path launched {no_jamba}")
-    for label, rows in (("internvl2-1b engine", INTERNVL2_ROWS),
-                        ("gemma-7b engine", INTERNVL2_ROWS),
-                        ("lora cache", ("gather_pages", "scatter_pages"))):
+    rows_of = (("lora cache", ("gather_pages", "scatter_pages")),
+               ("dbrx-132b per-request", PER_REQUEST_ROWS),
+               ("aqua-llama2-13b per-request", PER_REQUEST_ROWS),
+               ("aqua-llama2-13b split-pool drive", ("paged_attention",))) \
+        + tuple((label, ENGINE_ROWS) for label in (
+            "internvl2-1b engine", "gemma-7b engine", "dbrx-132b engine",
+            "aqua-llama2-13b engine", "aqua-codellama-34b engine",
+            "aqua-opt-30b engine", "minicpm-2b engine"))
+    for label, rows in rows_of:
         paths_of = dict(paths)
         if not all(paths_of[label].get(k, 0) > 0 for k in rows):
             raise AssertionError(f"the {label} path launched none of some "
@@ -4985,6 +5282,11 @@ def main() -> int:
                 and not any(p in k["launches_by_path"] for p in gemma)]
     if no_gemma:
         raise AssertionError(f"no gemma-7b path launched {no_gemma}")
+    no_new = [k["name"] for k in report if k["name"] in GEMMA_ROWS
+              and not any(p in k["launches_by_path"] for p in new_models)]
+    if no_new:
+        raise AssertionError(f"no path of dbrx-132b, the paper's models or "
+                             f"minicpm-2b launched {no_new}")
     print(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

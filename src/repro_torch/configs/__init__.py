@@ -2,7 +2,8 @@
 import importlib
 
 _ARCH_MODULES = ["qwen1_5_0_5b", "rwkv6_3b", "deepseek_v2_lite_16b",
-                 "jamba_v0_1_52b", "internvl2_1b", "gemma_7b", "minicpm_2b"]
+                 "jamba_v0_1_52b", "internvl2_1b", "gemma_7b", "minicpm_2b",
+                 "dbrx_132b", "aqua_paper"]
 
 
 def load_all():

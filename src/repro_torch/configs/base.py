@@ -209,6 +209,8 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         param_dtype="float32", compute_dtype="float32")
     if cfg.family == HYBRID:
         kw["n_layers"] = 8   # one full interleave period
+    if cfg.sliding_window and not cfg.global_layer_every:
+        kw["sliding_window"] = 16
     if cfg.moe is not None:
         # capacity_factor = n_experts makes capacity routing dropless
         kw["moe"] = dataclasses.replace(

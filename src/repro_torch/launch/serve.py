@@ -4,8 +4,11 @@ scheduling on a CUDA card (or, with ``--device cpu``, the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --smoke --scheduler cfs --offload fabric --requests 8 --device cpu
 
-``--arch`` is ``qwen1.5-0.5b``, ``minicpm-2b`` or ``gemma-7b`` (the ``kv``
-token plane; gemma's heads are 256 wide), ``internvl2-1b`` (the ``kv``
+``--arch`` is ``qwen1.5-0.5b``, ``minicpm-2b``, ``gemma-7b`` (heads 256
+wide), the paper's ``aqua-llama2-13b``, ``aqua-codellama-34b`` or
+``aqua-opt-30b`` (a non-gated gelu MLP), or ``dbrx-132b`` (16 experts, top
+4) (the ``kv`` token plane; ``aqua-mistral-7b``'s sliding window has none,
+and the port refuses it), ``internvl2-1b`` (the ``kv``
 plane; each request opens with a seeded random block of prefix
 embeddings, the stub frontend's image), ``deepseek-v2-lite-16b`` (MLA and
 the MoE: the ``mla`` latent token plane), ``rwkv6-3b`` (the ``wkv`` and

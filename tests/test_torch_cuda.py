@@ -100,6 +100,10 @@ MIXED_CASES = {
     # the engine's chunk length from a mid-page start, beside a long lane
     "tc256_midpage": (9, 3, 256, 4, 4, 64, 70, 16, 40, [600, 200, 0],
                       [1, 256, 0], [1, 0, 0]),
+    # dbrx-132b's G 6 at hd 128: 40 tokens x 6 heads, a 64-row tile ends
+    # inside a token's group
+    "g6_hd128": (10, 3, 40, 12, 2, 128, 40, 16, 8, [120, 37, 0],
+                 [1, 40, 11], [1, 0, 0]),
 }
 
 
@@ -385,6 +389,21 @@ def test_cuda_write_kv_rows_matches_plain_bitwise(hd, page, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [8, 40, 56])
+def test_cuda_write_kv_rows_matches_plain_bitwise_at_model_heads(K, dtype):
+    """The writer at hd 128 and 16-token pages with the KV heads of dbrx
+    and codellama-34b (8), llama2-13b (40) and opt-30b (56)."""
+    dev = _cuda()
+    pool, k, v, bt, qs, nw = _writer_case(dev, DTYPES[dtype], 128, 16, K=K)
+    want = pa_ref.write_kv_rows_ref(pool.clone(), k, v, bt, qs, nw)
+    got = pa_ops.write_kv_rows(pool.clone(), k, v, bt, qs, nw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not torch.equal(got, pool)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_cuda_write_kv_rows_kernel_has_no_local_memory(hd):
     _cuda()
@@ -472,6 +491,11 @@ DECODE_CASES = {
     # a pass of 4 heads, then one of 3)
     "hd256_mha": ((3, 4, 4, 256, 40, 16, 24), [330, 9, 0]),
     "g7_hd64": ((3, 14, 2, 64, 60, 16, 40), [600, 5, 0]),
+    # the paper's models and dbrx at hd 128: dbrx's 48 heads on 8 (G 6),
+    # codellama-34b's 64 on 8 (G 8), llama2-13b's 40 on 40 (G 1)
+    "g6_hd128": ((3, 48, 8, 128, 60, 16, 40), [600, 5, 0]),
+    "g8_hd128_h64": ((2, 64, 8, 128, 60, 16, 40), [600, 7]),
+    "g1_hd128_h40": ((2, 40, 40, 128, 30, 16, 24), [350, 3]),
 }
 # (B, Tc, H, K, hd, P, page, pps, starts): mid-page chunk starts
 PREFILL_CASES = {
@@ -486,6 +510,11 @@ PREFILL_CASES = {
     # tile ends inside a token's group of 7 heads)
     "hd256_midpage": (2, 70, 4, 4, 256, 30, 16, 8, [37, 0]),
     "g7_hd64_midpage": (2, 40, 14, 2, 64, 30, 16, 8, [0, 45]),
+    # G 6 (a 64-row tile ends inside a token's group of 6 heads), G 8 and
+    # G 1 at 40 heads, all at hd 128
+    "g6_hd128_midpage": (2, 40, 12, 2, 128, 30, 16, 8, [0, 45]),
+    "g8_hd128_midpage": (1, 30, 16, 2, 128, 20, 16, 6, [37]),
+    "g1_hd128_h40_midpage": (1, 33, 40, 40, 128, 20, 16, 6, [21]),
 }
 
 
@@ -558,7 +587,7 @@ def test_cuda_split_pools_equal_fused_pool_bitwise(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 6, 7, 8])
 def test_cuda_per_request_kernels_equal_mixed_rows_bitwise(G, dtype):
     """One mixed launch of 3 decode lanes and 2 chunk rows (one from a
     mid-page start): each decode lane equals the decode kernel's row and
@@ -594,7 +623,8 @@ def test_cuda_per_request_kernels_equal_mixed_rows_bitwise(G, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd,page,G,Tc", [(32, 8, 8, 12), (128, 40, 2, 70),
                                           (64, 16, 1, 256), (256, 16, 1, 70),
-                                          (64, 16, 7, 40)])
+                                          (64, 16, 7, 40), (128, 16, 6, 70),
+                                          (128, 16, 8, 40)])
 def test_cuda_mixed_rows_equal_per_request_rows_across_shapes(hd, page, G,
                                                               Tc, dtype):
     """The same bit-identities at other head dims, page sizes, groups and
@@ -637,7 +667,8 @@ def test_cuda_mixed_rows_equal_per_request_rows_across_shapes(hd, page, G,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["hd32_g8_page8", "hd128_g2_page40",
                                   "g4_long_short", "g1_page16_long",
-                                  "hd256_mha", "g7_hd64"])
+                                  "hd256_mha", "g7_hd64", "g6_hd128",
+                                  "g8_hd128_h64", "g1_hd128_h40"])
 def test_cuda_decode_cut_equals_sweep_bitwise(case, dtype):
     """A lane long enough that every warp gets pages and one so short that
     most warps see no live key: the row stops at its last page, and pages
@@ -1284,6 +1315,19 @@ def test_cuda_jamba_engine_bf16_matches_float32():
         > 0
 
 
+@pytest.mark.cuda
+def test_cuda_dbrx_engine_bf16_matches_float32():
+    """The bf16 smoke dbrx engine (4 layers: attention at G 2 and the MoE,
+    4 experts top 2, no shared expert) on the card, held against float32
+    as the deepseek engine above: every attention and MoE call of the run
+    against a float32 copy of its layer within 2% per real token, greedy
+    tokens where the float32 margin decides; rows 4 and 5 once per layer
+    per step, parks through the gather and scatter kernels."""
+    launches = _engine_matches_float32("dbrx-132b", {"attn": 4, "moe": 4})
+    assert launches["append_kv"] == launches["paged_mixed_attention_pool"] \
+        > 0
+
+
 def _float_copy(model):
     import copy
     return copy.deepcopy(model).float()
@@ -1331,7 +1375,10 @@ def test_cuda_gather_and_scatter_hybrid_rows_bit_exact(leg, dtype, n_case):
 # bf16) and one leg of each: a park of 800 tokens over 24 and 28 layers,
 # one rank-16 qwen1.5-0.5b adapter
 PAGE_ROWS = {"internvl2_kv": (8192, 1200), "lora": (131072, 24),
-             "gemma_kv": (262144, 1400)}
+             "gemma_kv": (262144, 1400),
+             # llama2-13b's and opt-30b's kv rows (2 x 40 and 56 heads x 16
+             # x 128 bf16), a park of 800 tokens over 40 and 48 layers
+             "llama2_kv": (327680, 2000), "opt_kv": (458752, 2400)}
 
 
 @pytest.mark.cuda
@@ -1340,7 +1387,8 @@ PAGE_ROWS = {"internvl2_kv": (8192, 1200), "lora": (131072, 24),
 @pytest.mark.parametrize("leg", sorted(PAGE_ROWS))
 def test_cuda_gather_and_scatter_page_rows_bit_exact(leg, n_case):
     """Rows 6-7 at the internvl2 kv row (8,192 B), the LoRA adapter page
-    (131,072 B) and the gemma kv row (262,144 B), bf16, at one row, fewer
+    (131,072 B), the gemma kv row (262,144 B) and the llama2-13b and
+    opt-30b kv rows (327,680 B and 458,752 B), bf16, at one row, fewer
     work items than the grid, a grid multiple plus a remainder and one
     leg, ids outside the pool included; gather and scatter bit-exact
     against their plain versions."""
@@ -1364,6 +1412,77 @@ def test_cuda_gather_and_scatter_page_rows_bit_exact(leg, n_case):
     out = kv_ops.scatter_pages(pool.clone(), new, ids)
     torch.cuda.synchronize()
     assert torch.equal(out, kv_ref.scatter_pages_ref(pool.clone(), new, ids))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_reach_the_last_page_of_a_pool_past_2_31_elements():
+    """opt-30b's LOCAL pool: 12,289 pages of (2, 56 heads, 16, 128) bf16,
+    2.82e9 elements (5.64 GB), so a page offset past slot 9,362 overflows
+    32 bits. Row 4 (a decode lane and a chunk row whose tables end on the
+    pool's last pages), rows 1-3 on the same rows (bit for bit against
+    the mixed launch), row 5 writing into the last page and rows 6-7
+    gathering and scattering it, each against its plain version."""
+    dev = _cuda()
+    P, K, page, hd, H = 12289, 56, 16, 128, 56
+    g = torch.Generator(device=dev).manual_seed(21)
+    pool = torch.randn((P, 2, K, page, hd), generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    assert pool.numel() > 2 ** 31
+    last = [P - 1 - i for i in range(16)]              # all past 2^31
+    # (2, 8): the decode lane's eighth page, where it writes, is the
+    # pool's last
+    bt = torch.tensor([last[0::2][::-1], last[1::2]], dtype=torch.int32,
+                      device=dev)
+    starts = torch.tensor([120, 37], dtype=torch.int32, device=dev)
+    n_reals = torch.tensor([1, 40], dtype=torch.int32, device=dev)
+    is_dec = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    q = torch.randn((2, 40, H, hd), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    mixed = pa_ops.paged_mixed_attention_pool(q, pool, bt, starts, n_reals,
+                                              is_dec)
+    want = pa_ref.paged_mixed_attention_pool_ref(q, pool, bt, starts,
+                                                 n_reals, is_dec)
+    dec = pa_ops.paged_attention_pool(q[:1, 0].contiguous(), pool, bt[:1],
+                                      starts[:1] + 1)
+    split = pa_ops.paged_attention(q[:1, 0].contiguous(), *_split(pool),
+                                   bt[:1], starts[:1] + 1)
+    chunk = pa_ops.paged_prefill_attention_pool(q[1:].contiguous(), pool,
+                                                bt[1:].contiguous(),
+                                                starts[1:].contiguous())
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(mixed.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=3e-2)
+    assert torch.equal(mixed[:1, 0], dec) and torch.equal(split, dec)
+    assert torch.equal(mixed[1:], chunk)
+    # row 5: the lane's token at 120 into the pool's last page, the chunk
+    # row's 40 tokens from 37 into its pages 2-4
+    k, v = (torch.randn((2, 40, K, hd), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    touched = torch.tensor(last, device=dev).long()
+    before = pool[touched].clone()
+    want = pa_ref.write_kv_rows_ref(before.clone(), k, v, _local(bt, last),
+                                    starts, n_reals)
+    pa_ops.write_kv_rows(pool, k, v, bt, starts, n_reals)
+    torch.cuda.synchronize()
+    assert torch.equal(pool[touched], want)
+    assert not torch.equal(pool[touched], before)
+    # rows 6-7 at the last pages and one below 2^31
+    ids = torch.tensor([P - 1, 0, P - 2, 9362, 9363], dtype=torch.int32,
+                       device=dev)
+    got = kv_ops.gather_pages(pool, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kv_ref.gather_pages_ref(pool, ids))
+    new = torch.randn(got.shape, generator=g, device=dev).to(pool.dtype)
+    kv_ops.scatter_pages(pool, new, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(pool[ids.long()], new)
+
+
+def _local(bt, slots):
+    """``bt``'s entries renumbered as indices into ``slots``."""
+    index = {s: i for i, s in enumerate(slots)}
+    return torch.tensor([[index[int(x)] for x in row] for row in bt.tolist()],
+                        dtype=torch.int32, device=bt.device)
 
 
 def _mamba_layer(dev, dtype):

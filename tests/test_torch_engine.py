@@ -62,7 +62,8 @@ def _serve(eng):
 
 @pytest.fixture(scope="module", params=[ARCH, "rwkv6-3b",
                                         "deepseek-v2-lite-16b",
-                                        "jamba-v0.1-52b"])
+                                        "jamba-v0.1-52b", "dbrx-132b",
+                                        "aqua-opt-30b"])
 def served(request):
     arch = request.param
     cfg = smoke_config(get_config(arch))

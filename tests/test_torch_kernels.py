@@ -84,6 +84,9 @@ MIXED_CASES = {
     "hd256": (5, 3, 8, 2, 2, 256, 10, 16, 3, [20, 13, 0], [1, 8, 0],
               [1, 0, 0]),
     "g7": (6, 3, 8, 14, 2, 64, 10, 16, 3, [20, 5, 0], [1, 8, 0], [1, 0, 0]),
+    # dbrx-132b's group G = 6 at head dim 128
+    "g6": (10, 3, 8, 12, 2, 128, 10, 16, 3, [20, 5, 0], [1, 8, 0],
+           [1, 0, 0]),
 }
 
 
@@ -112,6 +115,7 @@ DECODE_CASES = {
     "edges": ((3, 4, 2, 32, 12, 8, 5), [0, 1, 40]),
     "hd256": ((2, 4, 4, 256, 10, 16, 3), [40, 0]),
     "g7": ((2, 14, 2, 64, 10, 16, 3), [33, 1]),
+    "g6": ((2, 12, 2, 128, 10, 16, 3), [33, 1]),
 }
 
 
@@ -168,6 +172,7 @@ PREFILL_CASES = {
     "mha_midpage": (2, 16, 4, 4, 64, 12, 16, 3, [0, 21]),
     "hd256": (1, 8, 2, 2, 256, 8, 16, 3, [13]),
     "g7": (1, 9, 14, 2, 64, 8, 16, 3, [5]),
+    "g6": (1, 11, 12, 2, 128, 8, 16, 3, [5]),
 }
 
 
@@ -261,8 +266,16 @@ def test_write_kv_rows_plain_matches_reference_writers_hd256(case, dtype):
     _check_writer(case, dtype, hd=256)
 
 
-def _check_writer(case, dtype, hd):
-    x = _writer_inputs(case, hd=hd)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["chunk_from_mid_page",
+                                  "window_reaches_scratch_tail"])
+def test_write_kv_rows_plain_matches_reference_writers_k8_hd128(case, dtype):
+    """The same at dbrx-132b's and codellama-34b's 8 KV heads of 128."""
+    _check_writer(case, dtype, hd=128, K=8)
+
+
+def _check_writer(case, dtype, hd, K=2):
+    x = _writer_inputs(case, hd=hd, K=K)
     page, T, n_dec, bt = x["page"], x["T"], x["n_dec"], x["bt"]
     jp, tp = _both(x["pool"], dtype)
     (jk, tk), (jv, tv) = _both(x["k"], dtype), _both(x["v"], dtype)

@@ -112,7 +112,18 @@ def test_cache_hit_decode_bit_identical_to_cold_prefill(qwen):
     """Serving a prompt off revived cached pages gives logits bit-identical
     to a cold prefill on a sharing-off runtime, prefill and 3 decode
     steps."""
-    cfg, model = qwen
+    _check_cache_hit(*qwen)
+
+
+def test_cache_hit_decode_bit_identical_to_cold_prefill_dbrx():
+    """The same for the MoE family without a shared expert (the
+    reference's dbrx-132b case)."""
+    cfg = smoke_config(get_config("dbrx-132b"))
+    _check_cache_hit(cfg, lm.init_params(cfg, torch.Generator().manual_seed(
+        0), "cpu"))
+
+
+def _check_cache_hit(cfg, model):
     prefix = _prompt(cfg, 12, 16)
     prompt = prefix + _prompt(cfg, 13, 5)
     kv0 = _runtime(cfg, prefix_sharing=False)
