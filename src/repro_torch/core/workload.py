@@ -31,7 +31,7 @@ import numpy as np
 class Request:
     """One request of a generated stream: the reference's
     ``repro/core/simulator.py`` record, defined here because the port has
-    no simulator yet; the port's simulator (ROADMAP queue 1 item 9) will
+    no simulator yet; the port's simulator (ROADMAP queue 1 item 4) will
     import it from this module.
 
     ``prefix_group`` requests alias the pages of their common

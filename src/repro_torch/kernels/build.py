@@ -57,6 +57,8 @@ _SIGNATURES = {
                                    _I, _I, _L, ctypes.c_float, _I, _P],
     "aqua_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "aqua_wkv6_info": [_I, _I, _P],
+    "aqua_wkv6_bwd": [_P] * 15 + [_I] * 5 + [_P],
+    "aqua_wkv6_bwd_info": [_I, _I, _P],
     "aqua_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _L, _L, _L, ctypes.c_float, _I, _P],
     "aqua_flash_attention_fwd": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _I,

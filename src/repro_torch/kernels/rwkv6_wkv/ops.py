@@ -1,8 +1,12 @@
-"""Public wrapper of the chunked RWKV-6 WKV recurrence.
+"""Public wrapper of the chunked RWKV-6 WKV recurrence and its backward.
 
 Dispatch goes by the tensors' device: CPU tensors take ``wkv6_plain`` (the
-reference layer's dispatch between the chunked form and the scan); CUDA
-tensors launch the kernel of ``csrc/wkv6.cu`` (and raise if they cannot).
+reference layer's dispatch between the chunked form and the scan) and
+``wkv6_backward_plain``; CUDA tensors launch the kernels of
+``csrc/wkv6.cu`` and ``csrc/wkv6_bwd.cu`` (and raise if they cannot).
+``wkv6`` goes through the ``WKV6`` autograd op when a gradient is wanted,
+and straight to the forward otherwise (the serving path, under
+``no_grad``).
 """
 from __future__ import annotations
 
@@ -11,9 +15,23 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rwkv6_wkv.ref import wkv6_plain
+from repro_torch.kernels.rwkv6_wkv.ref import (WKV_CHUNK, wkv6_backward_plain,
+                                               wkv6_plain)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel_info(export: str, label: str, hd: int) -> dict:
+    out = (ctypes.c_int * 4)()
+    info = {}
+    for dtype, code in _DTYPE_CODES.items():
+        name = f"{label}<{str(dtype).split('.')[-1]}>"
+        build.check(f"{label} info {name}",
+                    getattr(build.lib(), export)(code, hd,
+                                                 ctypes.addressof(out)))
+        info[name] = dict(registers=out[0], local_bytes=out[1],
+                          smem_bytes=out[2], blocks_per_sm=out[3])
+    return info
 
 
 def wkv6_kernel_info(hd: int) -> dict:
@@ -21,26 +39,17 @@ def wkv6_kernel_info(hd: int) -> dict:
     resident blocks per SM of the kernel at head dim ``hd``, per compute
     dtype, as the loaded library reports them. Builds the library on first
     use."""
-    out = (ctypes.c_int * 4)()
-    info = {}
-    for dtype, code in _DTYPE_CODES.items():
-        name = f"wkv6<{str(dtype).split('.')[-1]}>"
-        build.check(f"wkv6 info {name}",
-                    build.lib().aqua_wkv6_info(code, hd,
-                                               ctypes.addressof(out)))
-        info[name] = dict(registers=out[0], local_bytes=out[1],
-                          smem_bytes=out[2], blocks_per_sm=out[3])
-    return info
+    return _kernel_info("aqua_wkv6_info", "wkv6", hd)
 
 
-def wkv6(r, k, v, w, u, state):
-    """r, k, v: (B,T,H,hd) of one compute dtype (float32 or bfloat16); w:
-    (B,T,H,hd) float32 log-decay <= 0; u: (H,hd) float32; state:
-    (B,H,hd,hd) float32. Any T >= 1 (the last chunk may be short).
-    -> (y (B,T,H,hd) in r's dtype, state' (B,H,hd,hd) float32)"""
-    if r.device.type == "cpu":
-        return wkv6_plain(r, k, v, w, u, state)
-    name = "wkv6"
+def wkv6_bwd_kernel_info(hd: int) -> dict:
+    """The same for the backward kernel."""
+    return _kernel_info("aqua_wkv6_bwd_info", "wkv6_bwd", hd)
+
+
+def _check(name, r, k, v, w, u, state):
+    """The kernels' contract on the forward's operands; raises on what they
+    do not take."""
     B, T, H, hd = r.shape
     if T < 1:
         raise ValueError(f"{name}: needs at least one token")
@@ -63,6 +72,14 @@ def wkv6(r, k, v, w, u, state):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {what} {tuple(t.shape)} != "
                              f"{tuple(shape)}")
+
+
+def _forward(r, k, v, w, u, state):
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, state)
+    name = "wkv6"
+    B, T, H, hd = r.shape
+    _check(name, r, k, v, w, u, state)
     build.require_cuda(name, r, k, v, w, u, state)
     for t, what in ((r, "r"), (k, "k"), (v, "v"), (w, "w"),
                     (state, "state")):
@@ -79,3 +96,75 @@ def wkv6(r, k, v, w, u, state):
     build.check(name, rc)
     build.LAUNCHES[name] += 1
     return y, s_out
+
+
+def wkv6_bwd(r, k, v, w, u, state, dy, dstate_out):
+    """The backward of ``wkv6``: the forward's operands, dy (B,T,H,hd) in
+    r's dtype and dstate_out (B,H,hd,hd) float32 (the gradient of the final
+    state; None is zero) -> (dr, dk, dv in r's dtype, dw (B,T,H,hd), du
+    (H,hd), dstate (B,H,hd,hd), float32). The CUDA kernel writes du per
+    sequence; the sum over B is taken here."""
+    if r.device.type == "cpu":
+        return wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out)
+    name = "wkv6_bwd"
+    B, T, H, hd = r.shape
+    _check(name, r, k, v, w, u, state)
+    if dstate_out is None:
+        dstate_out = torch.zeros_like(state)
+    if dy.dtype != r.dtype or tuple(dy.shape) != tuple(r.shape):
+        raise ValueError(f"{name}: dy {dy.dtype} {tuple(dy.shape)} must "
+                         f"match r {r.dtype} {tuple(r.shape)}")
+    if dstate_out.dtype != torch.float32 \
+            or tuple(dstate_out.shape) != tuple(state.shape):
+        raise ValueError(f"{name}: dstate_out {dstate_out.dtype} "
+                         f"{tuple(dstate_out.shape)} must be float32 "
+                         f"{tuple(state.shape)}")
+    build.require_cuda(name, r, k, v, w, u, state, dy, dstate_out)
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    dstate = torch.empty_like(state)
+    nt = -(-T // WKV_CHUNK)
+    scratch = torch.empty((B, H, nt, hd, hd), dtype=torch.float32,
+                          device=r.device)
+    rc = build.lib().aqua_wkv6_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), state.data_ptr(), dy.data_ptr(),
+        dstate_out.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dw.data_ptr(), du_part.data_ptr(), dstate.data_ptr(),
+        scratch.data_ptr(), B, T, H, hd, _DTYPE_CODES[r.dtype],
+        build.stream_of(r))
+    build.check(name, rc)
+    build.LAUNCHES[name] += 1
+    return dr, dk, dv, dw, du_part.sum(0), dstate
+
+
+class WKV6(torch.autograd.Function):
+    """``wkv6`` with its backward: the forward kernel (or its plain version
+    on the CPU), then ``wkv6_bwd`` from the saved operands. Neither y nor
+    the per-chunk states are kept: the backward recomputes the states."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _forward(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        return wkv6_bwd(r, k, v, w, u, state, dy.to(r.dtype).contiguous(),
+                        dstate.to(state.dtype).contiguous())
+
+
+def wkv6(r, k, v, w, u, state):
+    """r, k, v: (B,T,H,hd) of one compute dtype (float32 or bfloat16); w:
+    (B,T,H,hd) float32 log-decay <= 0; u: (H,hd) float32; state:
+    (B,H,hd,hd) float32. Any T >= 1 (the last chunk may be short).
+    -> (y (B,T,H,hd) in r's dtype, state' (B,H,hd,hd) float32)
+
+    Under autograd (grad enabled and an input requiring it) the call is the
+    ``WKV6`` op, whose backward is ``wkv6_bwd``."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        return WKV6.apply(r, k, v, w, u, state)
+    return _forward(r, k, v, w, u, state)

@@ -17,12 +17,20 @@ import torch
 WKV_CHUNK = 32
 
 
+def _acc_dtype(*tensors) -> torch.dtype:
+    """float32, or float64 when an input is float64 (``gradcheck``)."""
+    return (torch.float64 if any(t.dtype == torch.float64 for t in tensors)
+            else torch.float32)
+
+
 def wkv6_ref(r, k, v, w, u, state):
     """r,k,v,w: (B,T,H,hd); u: (H,hd); state: (B,H,hd,hd) -> (y in r's
-    dtype, state' float32). Sequential over T, in float32."""
-    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
-    uf = u.float()[None, :, :, None]
-    S = state.float()
+    dtype, state' float32). Sequential over T, in float32 (float64 when
+    an input is float64)."""
+    acc = _acc_dtype(r, k, v, w, u, state)
+    rf, kf, vf, wf = (a.to(acc) for a in (r, k, v, w))
+    uf = u.to(acc)[None, :, :, None]
+    S = state.to(acc)
     ys = []
     for t in range(r.shape[1]):
         kv = torch.einsum("bhi,bhj->bhij", kf[:, t], vf[:, t])
@@ -46,13 +54,15 @@ def wkv6_chunked(r, k, v, w, u, state, chunk: int = WKV_CHUNK):
         return wkv6_ref(r, k, v, w, u, state)
     nt = T // chunk
 
+    acc = _acc_dtype(r, k, v, w, u, state)
+
     def fold(x):
-        return (x.float().permute(0, 2, 1, 3)
+        return (x.to(acc).permute(0, 2, 1, 3)
                 .reshape(B * H, nt, chunk, hd))
 
     rf, kf, vf, wf = fold(r), fold(k), fold(v), fold(w)
-    uf = u.float()[None].expand(B, H, hd).reshape(B * H, 1, hd)
-    S = state.float().reshape(B * H, hd, hd)
+    uf = u.to(acc)[None].expand(B, H, hd).reshape(B * H, 1, hd)
+    S = state.to(acc).reshape(B * H, hd, hd)
     ti = torch.arange(chunk, device=r.device)
     lower = (ti[None, :] < ti[:, None])[None, :, :, None]    # tau < t
     ys = []
@@ -85,3 +95,109 @@ def wkv6_plain(r, k, v, w, u, state):
     if T >= 2 * WKV_CHUNK and T % WKV_CHUNK == 0:
         return wkv6_chunked(r, k, v, w, u, state)
     return wkv6_ref(r, k, v, w, u, state)
+
+
+def _chunk_logdecay(w):
+    """(BH, c, hd) log-decays of one chunk -> (lw, lw_prev): the inclusive
+    cumsum and the same shifted by one token (0 at the chunk's first), so
+    lw_prev[t] = lw[t - 1] exactly and every difference below is <= 0."""
+    lw = torch.cumsum(w, dim=1)
+    return lw, torch.cat([torch.zeros_like(lw[:, :1]), lw[:, :-1]], dim=1)
+
+
+def wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out):
+    """The backward of the WKV recurrence, written out per chunk of
+    ``WKV_CHUNK`` tokens (the last may be short), in float32 (float64 when
+    an input is float64): the oracle of the CUDA backward kernel, whose
+    order of operations it fixes.
+
+    r, k, v, dy: (B,T,H,hd); w: (B,T,H,hd) log-decay <= 0; u: (H,hd);
+    state: (B,H,hd,hd) the state before token 0; dstate_out: (B,H,hd,hd)
+    the gradient of the final state, or None (zero).
+    -> (dr, dk, dv in r's dtype, dw float32 (B,T,H,hd), du float32 (H,hd)
+    summed over B and T, dstate float32 (B,H,hd,hd)).
+
+    One forward sweep recomputes each chunk's entry state S; the chunks are
+    then walked in reverse carrying dS (the gradient of the chunk's exit
+    state). Per chunk, with lw the inclusive cumsum of w, lw_prev[t] =
+    lw[t - 1], a_t = e^{lw_prev_t}, D[t,tau] = e^{lw_prev_t - lw_tau}
+    (tau < t), b_tau = e^{lw_last - lw_tau} (every exponent <= 0) and
+    A[t,tau] = sum_i r_t k_tau D[t,tau] (A[t,t] = sum_i r_t u k_t):
+
+        dv_tau = sum_{t>=tau} A[t,tau] dy_t + (k_tau b_tau)^T dS
+        dr_t   = a_t (S dy_t) + sum_{tau<t} D k_tau (v_tau.dy_t)
+                 + u k_t (v_t.dy_t)
+        dk_tau = sum_{t>tau} D r_t (v_tau.dy_t) + u r_tau (v_tau.dy_tau)
+                 + b_tau (dS v_tau)
+        du    += sum_t r_t k_t (v_t.dy_t)
+        dw_s   = sum_{t>s} X_t - sum_{t>=s} YA_t + sum_{t<s} YS_t + Z
+        dS    <- sum_t (r_t a_t) dy_t^T + e^{lw_last} dS
+
+    with X_t = r_t (dr_t without its u term), YA_tau = k_tau (the pairwise
+    sum of dk_tau), YS_tau = k_tau b_tau (dS v_tau) and Z = e^{lw_last}
+    rowsum(S * dS): the derivatives through lw_prev, lw and lw_last,
+    gathered onto each w_s."""
+    B, T, H, hd = r.shape
+    acc = _acc_dtype(r, k, v, w, u, state, dy)
+    C = WKV_CHUNK
+
+    def fold(x):
+        return x.to(acc).permute(0, 2, 1, 3).reshape(B * H, T, hd)
+
+    rf, kf, vf, wf, dyf = fold(r), fold(k), fold(v), fold(w), fold(dy)
+    uf = u.to(acc)[None].expand(B, H, hd).reshape(B * H, 1, hd)
+    S = state.to(acc).reshape(B * H, hd, hd)
+    bounds = [(t0, min(T, t0 + C)) for t0 in range(0, T, C)]
+    entry = []
+    for t0, t1 in bounds:
+        entry.append(S)
+        lw, _ = _chunk_logdecay(wf[:, t0:t1])
+        kb = kf[:, t0:t1] * torch.exp(lw[:, -1:] - lw)
+        S = (torch.exp(lw[:, -1])[..., None] * S
+             + torch.einsum("bti,btj->bij", kb, vf[:, t0:t1]))
+    dS = (torch.zeros_like(S) if dstate_out is None
+          else dstate_out.to(acc).reshape(B * H, hd, hd))
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf[:, 0])
+    for (t0, t1), S in zip(reversed(bounds), reversed(entry)):
+        rc, kc, vc, dyc = (a[:, t0:t1] for a in (rf, kf, vf, dyf))
+        c = t1 - t0
+        lw, lw_prev = _chunk_logdecay(wf[:, t0:t1])
+        last = lw[:, -1]
+        a = torch.exp(lw_prev)
+        b = torch.exp(last[:, None] - lw)
+        ti = torch.arange(c, device=r.device)
+        lower = (ti[None, :] < ti[:, None])[None, :, :, None]     # tau < t
+        D = torch.exp((lw_prev[:, :, None] - lw[:, None]).masked_fill(
+            ~lower, float("-inf")))                          # (BH,t,tau,hd)
+        vdy = torch.einsum("bti,bsi->bts", dyc, vc)     # [t,tau] v_tau.dy_t
+        vdy_diag = torch.diagonal(vdy, dim1=1, dim2=2)[..., None]
+        Sdy = torch.einsum("bij,btj->bti", S, dyc)
+        dSv = torch.einsum("bij,btj->bti", dS, vc)
+        Dv = D * vdy[..., None]
+        X = rc * (a * Sdy + torch.sum(Dv * kc[:, None], dim=2))
+        ya = torch.sum(Dv * rc[:, :, None], dim=1)      # pairwise part of dk
+        YA, YS = kc * ya, kc * b * dSv
+        dr[:, t0:t1] = a * Sdy + torch.sum(Dv * kc[:, None], dim=2) \
+            + uf * kc * vdy_diag
+        dk[:, t0:t1] = ya + uf * rc * vdy_diag + b * dSv
+        A = torch.sum(rc[:, :, None] * kc[:, None] * D, dim=-1) \
+            + torch.diag_embed(torch.sum(rc * uf * kc, dim=-1))
+        dv[:, t0:t1] = (torch.einsum("bts,btj->bsj", A, dyc)
+                        + torch.einsum("bsi,bij->bsj", kc * b, dS))
+        du = du + torch.sum(rc * kc * vdy_diag, dim=1)
+        Z = torch.exp(last) * torch.sum(S * dS, dim=-1)
+        after = X.flip(1).cumsum(1).flip(1) - X          # sum_{t>s} X_t
+        from_s = YA.flip(1).cumsum(1).flip(1)            # sum_{t>=s} YA_t
+        before = YS.cumsum(1) - YS                       # sum_{t<s} YS_t
+        dw[:, t0:t1] = after - from_s + before + Z[:, None]
+        dS = (torch.einsum("bti,btj->bij", rc * a, dyc)
+              + torch.exp(last)[..., None] * dS)
+
+    def unfold(x, dtype):
+        return x.reshape(B, H, T, hd).permute(0, 2, 1, 3).to(dtype)
+
+    out_f = torch.float64 if acc == torch.float64 else torch.float32
+    return (unfold(dr, r.dtype), unfold(dk, k.dtype), unfold(dv, v.dtype),
+            unfold(dw, out_f), du.reshape(B, H, hd).sum(0).to(out_f),
+            dS.reshape(B, H, hd, hd).to(out_f))

@@ -35,7 +35,8 @@ class Attention(nn.Module):
         super().__init__()
         if cfg.use_qk_norm or cfg.attn_logit_softcap > 0:
             raise NotImplementedError(f"{cfg.name}: qk-norm / logit softcap "
-                                      "attention is not ported")
+                                      "attention is not ported (ROADMAP "
+                                      "queue 1, item 3.3)")
         d, hd, dt = cfg.d_model, cfg.resolved_head_dim, cfg.dtype()
         kw = dict(generator=generator)
         self.wq = Linear(d, cfg.n_heads * hd, dt, device, bias=cfg.qkv_bias,

@@ -8,10 +8,11 @@ non-absorbed (per-head K/V materialised from the latents); decode lanes
 attend absorbed (the query taken through ``wuk`` into latent space, the
 context back through ``wuv``). Pools are updated IN PLACE and returned,
 as in the attention layers. The reference computes all of it in ``jnp``
-(no Pallas kernel), so the products here are PyTorch's.
+(no Pallas kernel), so the products here are PyTorch's. Training takes
+``mla_full``, the non-absorbed full-sequence causal form.
 
-Not ported: the non-paged ``mla_full`` / ``mla_decode`` / ``MLACache``
-and a low-rank query (``q_lora_rank > 0``).
+Not ported: the non-paged ``mla_decode`` / ``MLACache`` and a low-rank
+query (``q_lora_rank > 0``).
 """
 from __future__ import annotations
 
@@ -79,6 +80,33 @@ def _queries(p: MLA, cfg: ModelConfig, x, positions):
 def _scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim
                            + cfg.mla.qk_rope_head_dim)
+
+
+def mla_full(p: MLA, cfg: ModelConfig, x):
+    """Non-absorbed full-sequence causal MLA (training) — the reference's
+    ``mla_full``: per-head K/V from the latents, the scores in the compute
+    dtype then float32 under the causal mask, the probabilities cast back
+    to the compute dtype. x (B,T,d) at positions [0, T) -> (B,T,d). Its q.k
+    width (nope + rope, 192 on V2) and v width (128) differ, which the
+    flash kernels do not take: the products are PyTorch's."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    positions = torch.arange(T, device=x.device)[None, :]
+    c_kv, k_rope = _latents(p, cfg, x, positions)
+    q_nope, q_rope = _queries(p, cfg, x, positions)
+    k_nope = linear(p.wuk, c_kv).reshape(B, T, H, m.qk_nope_head_dim)
+    v = linear(p.wuv, c_kv).reshape(B, T, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, T, H, m.qk_rope_head_dim)], dim=-1)
+    scores = torch.einsum("bthd,bshd->bhts", q, k) * _scale(cfg)
+    ti = torch.arange(T, device=x.device)
+    mask = (ti[None, :] <= ti[:, None])[None, None]
+    scores = scores.float().masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhts,bshd->bthd", probs, v)
+    return linear(p.wo, ctx.reshape(B, T, -1))
 
 
 def window_rows(starts, Tc: int, page: int, pps_pad: int) -> np.ndarray:

@@ -1,17 +1,22 @@
 """Token-choice top-k MoE with DeepSeek's shared experts —
-``repro/layers/moe.py`` for the paged serving path (dropless routing).
+``repro/layers/moe.py`` for the paged serving path (dropless routing) and
+training (capacity dispatch).
 
-The reference's dropless dispatch sets the capacity to the token count and
+Dropless (serving): the reference sets the capacity to the token count and
 runs every expert over an (E, N, d) buffer that is almost all zeros. Here
 the same function is computed grouped by expert: the N x K assignments are
 sorted by expert and each expert that received any runs its rows through
 its FFN, one GEMM per projection. The per-expert counts reach the host
 once per MoE layer (they size the loop): one host sync per layer.
+
+Capacity dispatch (training, ``dropless=False``): the reference's GShard
+dispatch, each expert taking at most C = ``moe_capacity`` assignments in
+token-major order, its experts run as batched (E, C, d) products; C is
+known before the call, so it needs no host sync.
+
 Routing, the gate's rounding to the compute dtype and the sum over the K
 assignments in the compute dtype follow the reference's rounding points.
-
-Not ported: capacity dispatch (``dropless=False``: training and the
-non-paged prefill) and expert parallelism (``shard_axes``).
+Not ported: expert parallelism (``shard_axes``).
 """
 from __future__ import annotations
 
@@ -105,19 +110,74 @@ def _routed_experts(p: MoE, cfg: ModelConfig, xt, gate_vals, expert_idx):
     return (y_asn * w[:, None]).reshape(N, K, -1).sum(dim=1)
 
 
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Assignments an expert takes under capacity dispatch: ceil(N K
+    capacity_factor / E), at least 8 and rounded up to a multiple of 8 (the
+    reference's rounding, kept for its TPU lanes)."""
+    m = cfg.moe
+    c = int(math.ceil(n_tokens * m.top_k * m.capacity_factor / m.n_experts))
+    return max(8, -(-c // 8) * 8)
+
+
+def capacity_slots(expert_idx: torch.Tensor, n_experts: int, C: int):
+    """Each (token, k) assignment's slot in its expert, by a cumsum over
+    the (N K, E) one-hot in token-major order, and whether it is kept
+    (slot < C). expert_idx: (N, K) -> (pos (N K,) int64, keep (N K,)
+    bool), on the device."""
+    flat = expert_idx.reshape(-1)
+    # (E, N K): the scan runs along the contiguous dim
+    onehot = torch.zeros((n_experts, flat.shape[0]), dtype=torch.int32,
+                         device=flat.device).scatter_(0, flat[None], 1)
+    before = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    pos = torch.gather(before, 0, flat[None])[0].long()
+    return pos, pos < C
+
+
+def _dispatch_ffn(p: MoE, cfg: ModelConfig, xt, gate_vals, expert_idx,
+                  C: int):
+    """The reference's capacity dispatch, expert FFN and combine: the kept
+    assignments are scattered into an (E C + 1, d) buffer (the last row
+    takes the dropped ones, as zeros), every expert runs its C rows as
+    batched products (E, C, d) x (E, d, f), and each assignment's row is
+    gathered back and weighted by gate x keep in the compute dtype."""
+    N, d = xt.shape
+    K = expert_idx.shape[1]
+    E = cfg.moe.n_experts
+    dt = xt.dtype
+    pos, keep = capacity_slots(expert_idx, E, C)
+    dest = torch.where(keep, expert_idx.reshape(-1) * C + pos,
+                       torch.full_like(pos, E * C))
+    xr = xt[:, None].expand(N, K, d).reshape(N * K, d)
+    buf = xt.new_zeros((E * C + 1, d)).index_add(
+        0, dest, torch.where(keep[:, None], xr, torch.zeros_like(xr)))
+    xd = buf[:E * C].reshape(E, C, d)
+    up = torch.bmm(xd, p.up.to(dt))
+    h = (_act(cfg.activation, torch.bmm(xd, p.gate.to(dt))) * up
+         if p.gate is not None else _act(cfg.activation, up))
+    y_flat = torch.bmm(h, p.down.to(dt)).reshape(E * C, d)
+    y_asn = torch.where(keep[:, None],
+                        torch.index_select(y_flat, 0,
+                                           dest.clamp(max=E * C - 1)),
+                        torch.zeros_like(xr))
+    w = (gate_vals.reshape(N * K) * keep).to(dt)
+    return (y_asn * w[:, None]).reshape(N, K, d).sum(dim=1)
+
+
 def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
               dropless: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, d) -> (out (B, T, d), aux loss f32). Dropless: every
-    token's K assignments are kept, so a token's output does not depend on
-    the other tokens of the call (pads included)."""
-    if not dropless:
-        raise NotImplementedError(
-            "moe_apply: capacity dispatch (dropless=False) is not ported "
-            "(ROADMAP queue 1, item 8)")
+    """x: (B, T, d) -> (out (B, T, d), aux loss f32). Dropless (serving):
+    every token's K assignments are kept, so a token's output does not
+    depend on the other tokens of the call (pads included). Otherwise
+    (training) capacity dispatch at C = ``moe_capacity(cfg, B T)``:
+    assignments past an expert's C-th, in token-major order, are dropped."""
     B, T, d = x.shape
     xt = x.reshape(B * T, d)
     gate_vals, expert_idx, aux = route(p, cfg, xt)
-    y = _routed_experts(p, cfg, xt, gate_vals, expert_idx)
+    if dropless:
+        y = _routed_experts(p, cfg, xt, gate_vals, expert_idx)
+    else:
+        y = _dispatch_ffn(p, cfg, xt, gate_vals, expert_idx,
+                          moe_capacity(cfg, B * T))
     if p.shared is not None:
         y = y + mlp(p.shared, cfg, xt)
     return y.reshape(B, T, d), aux.float()

@@ -12,15 +12,18 @@ def init_params(cfg: ModelConfig, generator, device=None):
     return lm.init_params(cfg, generator, device)
 
 
-def forward(model, cfg: ModelConfig, tokens, *, remat: bool = False,
-            impl: str = "kernel"):
-    """tokens (B,T) -> (logits (B,T,V), aux)."""
-    return lm.forward(model, cfg, tokens, remat=remat, impl=impl)
+def forward(model, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+            remat: bool = False, impl: str = "kernel"):
+    """tokens (B,T) (a VLM's ``prefix_embeds`` (B,P,d) before them) ->
+    (logits (B,P+T,V), aux)."""
+    return lm.forward(model, cfg, tokens, prefix_embeds=prefix_embeds,
+                      remat=remat, impl=impl)
 
 
 def loss_fn(model, cfg: ModelConfig, batch: dict, *, remat: bool = False,
             impl: str = "kernel"):
-    """Next-token cross-entropy of ``batch["tokens"]``."""
+    """Next-token cross-entropy of ``batch["tokens"]`` (after
+    ``batch["prefix_embeds"]``, when present), plus the MoE aux term."""
     return lm.loss_fn(model, cfg, batch, remat=remat, impl=impl)
 
 

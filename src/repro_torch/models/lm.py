@@ -1,7 +1,7 @@
 """Decoder LM for training and the paged serving runtime — the dense,
 MoE/MLA, VLM (a dense backbone whose prompts open with prefix embedding
-rows), RWKV-6 and hybrid (Jamba) subset of ``repro/models/lm.py``
-(training: the dense family).
+rows), RWKV-6 and hybrid (Jamba) subset of ``repro/models/lm.py``, for
+training and serving.
 
 The reference stacks layer groups for ``lax.scan``; here the model is an
 ``nn.Module`` whose ``blocks`` are one module per layer and the step is a
@@ -284,48 +284,85 @@ def _tokens_on(tokens, device) -> torch.Tensor:
     return tokens.to(device)
 
 
-def _train_layer(blk: Block, cfg: ModelConfig, x, impl: str):
-    return _layer(blk, cfg, x, lambda mix, h: attn.attention_full(
-        mix, cfg, h, impl=impl))
+def _train_group(blocks, cfg: ModelConfig, x, impl: str):
+    """One layer group of the training forward (the reference's
+    ``_group_train``): each sub-layer by its kinds, RWKV-6 and Mamba from a
+    zero state, attention through ``attention_full`` (the flash op for
+    ``impl="kernel"``), MLA through ``mla_full``, then the MLP or the MoE
+    with capacity dispatch. -> (x, the group's summed MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    B = x.shape[0]
+    for i, blk in enumerate(blocks):
+        kind = mixer_kind(cfg, i)
+        if kind == "rwkv":
+            st = rwkv.init_rwkv_state(cfg, B, x.dtype, x.device)
+            x, _ = rwkv.rwkv_block(blk.mix, cfg, x, st,
+                                   {"n1": blk.n1, "n2": blk.n2}, impl=impl)
+            continue
+        h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
+        if kind == "mamba":
+            st = mamba_mod.init_mamba_state(cfg, B, x.dtype, x.device)
+            h, _ = mamba_mod.mamba_forward(blk.mix, cfg, h, st)
+        elif kind == "mla":
+            h = mla_mod.mla_full(blk.mix, cfg, h)
+        else:
+            h = attn.attention_full(blk.mix, cfg, h, impl=impl)
+        x = x + h
+        h = rms_norm(blk.n2, x, cfg.rmsnorm_eps)
+        if isinstance(blk.ffn, MoE):
+            h, a = moe_apply(blk.ffn, cfg, h, dropless=False)
+            aux = aux + a
+        else:
+            h = mlp(blk.ffn, cfg, h)
+        x = x + h
+    return x, aux
 
 
-def forward(model: LM, cfg: ModelConfig, tokens, *, remat: bool = False,
-            impl: str = "kernel"):
-    """Training forward of the dense family (the reference's ``forward`` and
-    ``_group_train``): tokens (B,T) -> (logits (B,T,V), aux 0.0). Tokens
-    move to the model's device. ``remat`` recomputes each layer in the
+def forward(model: LM, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+            remat: bool = False, impl: str = "kernel"):
+    """Training forward (the reference's ``forward`` and ``_group_train``):
+    tokens (B,T), and for a VLM ``prefix_embeds`` (B,P,d) put before them
+    in the compute dtype -> (logits (B,P+T,V), the MoE aux loss summed over
+    layers, float32). Both move to the model's device. ``remat``
+    recomputes each layer group (one layer; a hybrid's period) in the
     backward (``torch.utils.checkpoint``, the counterpart of
     ``jax.checkpoint`` of the group body)."""
-    if cfg.family == HYBRID:
-        raise NotImplementedError(f"{cfg.name}: hybrid (Mamba) training is "
-                                  "not ported (ROADMAP queue 1, item 8)")
-    if mixer_kind(cfg) == "rwkv":
-        raise NotImplementedError(f"{cfg.name}: RWKV-6 training is not "
-                                  "ported (wkv6 has no backward kernel)")
-    if mixer_kind(cfg) == "mla" or ffn_kind(cfg) == "moe":
-        raise NotImplementedError(f"{cfg.name}: MLA / MoE training is not "
-                                  "ported (ROADMAP queue 1, item 8)")
     device = model.embed.tok.device
     tokens = _tokens_on(tokens, device)
     x = embed(model.embed, cfg, tokens)
-    for blk in model.blocks:
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(device=device, dtype=x.dtype), x],
+                      dim=1)
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    gs = group_size(cfg)
+    for g in range(n_groups(cfg)):
+        blocks = model.blocks[g * gs:(g + 1) * gs]
         if remat:
-            x = checkpoint(_train_layer, blk, cfg, x, impl,
-                           use_reentrant=False)
+            x, a = checkpoint(_train_group, blocks, cfg, x, impl,
+                              use_reentrant=False)
         else:
-            x = _train_layer(blk, cfg, x, impl)
+            x, a = _train_group(blocks, cfg, x, impl)
+        aux = aux + a
     x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
-    logits = unembed(model.embed, cfg, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=device)
+    return unembed(model.embed, cfg, x), aux
 
 
 def loss_fn(model: LM, cfg: ModelConfig, batch: dict, *,
             remat: bool = False, impl: str = "kernel"):
-    """Next-token cross-entropy of ``batch["tokens"]`` (B,T) -> float32
-    scalar (the dense family has no auxiliary loss)."""
+    """Next-token cross-entropy of ``batch["tokens"]`` (B,T) over the text
+    positions (after ``batch["prefix_embeds"]``, when present), plus
+    ``aux_loss_coef x aux / max(n_layers // moe_every, 1)`` for a MoE
+    family -> float32 scalar."""
     tokens = _tokens_on(batch["tokens"], model.embed.tok.device)
-    logits, _ = forward(model, cfg, tokens, remat=remat, impl=impl)
-    return shifted_xent(logits, tokens)
+    logits, aux = forward(model, cfg, tokens,
+                          prefix_embeds=batch.get("prefix_embeds"),
+                          remat=remat, impl=impl)
+    P = logits.shape[1] - tokens.shape[1]
+    loss = shifted_xent(logits[:, P:], tokens)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_coef * aux / max(
+            cfg.n_layers // cfg.moe.moe_every, 1)
+    return loss
 
 
 def _rwkv_layer(blk: Block, cfg: ModelConfig, x, pools: dict, ws, ss, *,

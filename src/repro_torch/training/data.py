@@ -4,8 +4,9 @@ Seeded, shardable, restart-reproducible: batch ``i`` is a pure function of
 (seed, step, shard), so checkpoint-restart resumes the exact stream with no
 stored iterator state. The token stream is a Zipfian-ish mixture with local
 n-gram structure so losses decrease during a run. The numpy draws are the
-reference's, call for call, so the tokens are bit-identical to it; batches
-are CPU tensors (the model moves them to its device).
+reference's, call for call, so the tokens (and a VLM's prefix
+embeddings) are bit-identical to it; batches are CPU tensors (the model
+moves them to its device).
 """
 from __future__ import annotations
 
@@ -42,17 +43,31 @@ def synthetic_tokens(rng: np.random.Generator, shape, vocab: int) -> np.ndarray:
     return out.astype(np.int32)
 
 
+def _as_compute(x: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """float64 draws in the compute dtype, rounded as ``jnp.asarray(x,
+    dtype)`` rounds them: to float32 first, then to the compute dtype."""
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
 def make_batch(cfg: DataConfig, mcfg: ModelConfig, step: int) -> Dict:
-    """{"tokens": (batch / n_shards, seq_len) int32 CPU tensor}. The port's
-    models take no prefix embeddings (``n_prefix_embeds == 0``) and no
-    encoder input."""
-    if mcfg.n_prefix_embeds:
-        raise NotImplementedError(f"{mcfg.name}: prefix embeddings are not "
-                                  "ported")
+    """{"tokens": (batch / n_shards, seq_len - n_prefix_embeds) int32 CPU
+    tensor}, and for a VLM {"prefix_embeds": (batch / n_shards,
+    n_prefix_embeds, d_model)}, 0.02 x standard normal drawn after the
+    tokens, in the compute dtype. The port has no encoder-decoder config,
+    so no encoder input."""
     rng = _batch_rng(cfg, step)
     b = cfg.batch // cfg.n_shards
-    return {"tokens": torch.from_numpy(
-        synthetic_tokens(rng, (b, cfg.seq_len), mcfg.vocab_size))}
+    t_text = cfg.seq_len - mcfg.n_prefix_embeds
+    if t_text < 1:
+        raise ValueError(f"{mcfg.name}: seq_len {cfg.seq_len} leaves no text "
+                         f"after {mcfg.n_prefix_embeds} prefix positions")
+    batch = {"tokens": torch.from_numpy(
+        synthetic_tokens(rng, (b, t_text), mcfg.vocab_size))}
+    if mcfg.n_prefix_embeds:
+        batch["prefix_embeds"] = _as_compute(
+            rng.standard_normal((b, mcfg.n_prefix_embeds, mcfg.d_model))
+            * 0.02, mcfg.torch_compute_dtype())
+    return batch
 
 
 def data_stream(cfg: DataConfig, mcfg: ModelConfig,

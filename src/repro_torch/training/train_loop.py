@@ -28,7 +28,7 @@ class TrainConfig:
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
     keep: int = 3
-    impl: str = "kernel"        # attention: the flash op, or "ref" (plain)
+    impl: str = "kernel"        # flash and WKV ops, or "ref" (plain twins)
 
 
 def trainable_params(model) -> Dict[str, torch.Tensor]:
@@ -44,7 +44,9 @@ def make_train_step(mcfg: ModelConfig, ocfg: AdamWConfig, tcfg: TrainConfig):
     """Returns train_step(model, opt_state, batch) -> (model, opt, stats).
     With micro_batches > 1 the batch's leading dim is split and gradients
     are accumulated in float32, one micro-batch's graph alive at a time.
-    The model's parameters and the optimizer state are updated in place."""
+    The batch's tensors (tokens, a VLM's prefix embeddings) move to the
+    model's device first. The model's parameters and the optimizer state
+    are updated in place."""
 
     def grads_of(model, params, mb):
         loss = api.loss_fn(model, mcfg, mb, remat=tcfg.remat, impl=tcfg.impl)
@@ -53,6 +55,8 @@ def make_train_step(mcfg: ModelConfig, ocfg: AdamWConfig, tcfg: TrainConfig):
 
     def train_step(model, opt_state: AdamWState, batch):
         params = trainable_params(model)
+        device = next(iter(params.values())).device
+        batch = {k: v.to(device) for k, v in batch.items()}
         n = tcfg.micro_batches
         if n > 1:
             mbs = [{k: v.reshape(n, -1, *v.shape[1:])[i]

@@ -44,7 +44,11 @@ The bf16 kernels are also swept over every head dim and G in {1, 2, 8} at
 sizes that are no multiple of a tile (their lse within 1e-5 absolute: the
 kernel sums the scores in another order, and at a row that sees few keys
 lse = m + log l nearly cancels), and both passes are bit-identical from
-call to call.
+call to call. The WKV backward kernel (``csrc/wkv6_bwd.cu``) against
+``wkv6_backward_plain`` at the training shape (float32 at the forward's
+state limits, bf16 within 2e-2 of the plain norm) and a float32 sweep,
+bit-identical from call to call, its autograd op against autograd of the
+scan, its refusals and its resources.
 """
 import numpy as np
 import pytest
@@ -857,6 +861,130 @@ def test_cuda_wkv6_resources(hd):
         assert info["local_bytes"] == 0, (name, info)
         assert 0 < info["smem_bytes"] <= 76800, (name, info)
         assert info["blocks_per_sm"] >= 3, (name, info)
+
+
+# (B, T, H, hd, wmax) of the WKV backward: the training shape of rwkv6-3b
+# (batch 4 x 2048, 40 heads of 64) at weak and strong decay, a short last
+# chunk (T 2047), and a float32 sweep of B, T, H and decays over the
+# chunk's edges and head dim 32
+WKV_BWD_CASES = {
+    "train_weak": (4, 2048, 40, 64, 0.1),
+    "train_strong": (4, 2048, 40, 64, 5.0),
+    "train_short_tail": (4, 2047, 40, 64, 5.0),
+    "one_token": (3, 1, 2, 32, 1.0),
+    "edge_31": (2, 31, 3, 64, 5.0),
+    "edge_33": (1, 33, 5, 32, 0.5),
+    "ragged": (2, 70, 3, 64, 1.0),
+    "two_chunks": (5, 64, 4, 32, 8.0),
+}
+
+
+def _wkv_bwd_case(case, dev, td, seed=11):
+    B, T, H, hd, wmax = WKV_BWD_CASES[case]
+    rng = np.random.default_rng(seed)
+    args = list(_wkv_case_of(B, T, H, hd, wmax, rng, dev, td))
+    dy = torch.from_numpy(rng.standard_normal((B, T, H, hd))).to(dev, td)
+    ds = torch.from_numpy(rng.standard_normal((B, H, hd, hd))).to(
+        dev, torch.float32)
+    return args + [dy, ds]
+
+
+def _wkv_case_of(B, T, H, hd, wmax, rng, dev, td):
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, hd))).to(
+        dev, td) for _ in range(3))
+    w = -torch.from_numpy(rng.uniform(1e-3, wmax, (B, T, H, hd))).to(
+        dev, torch.float32)
+    u = torch.from_numpy(rng.standard_normal((H, hd))).to(dev, torch.float32)
+    s0 = torch.from_numpy(rng.standard_normal((B, H, hd, hd)) * 0.1).to(
+        dev, torch.float32)
+    return r, k, v, w, u, s0
+
+
+def _rel_norm(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    (c, "float32") for c in sorted(WKV_BWD_CASES)] + [
+    (c, "bfloat16") for c in sorted(WKV_BWD_CASES) if c.startswith("train")])
+def test_cuda_wkv6_bwd_matches_plain(case, dtype):
+    """The backward kernel against ``wkv6_backward_plain`` on the same
+    inputs: float32 at the forward's state limits (rtol 1e-3, atol 5e-4),
+    bf16 (at the training shapes) within 2e-2 of the plain norm (the flash
+    backward's limit); two launches counted and bit-identical."""
+    dev = _cuda()
+    args = _wkv_bwd_case(case, dev, DTYPES[dtype])
+    before = build.launch_counts().get("wkv6_bwd", 0)
+    got = wkv_ops.wkv6_bwd(*args)
+    again = wkv_ops.wkv6_bwd(*args)
+    want = wkv_ref.wkv6_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["wkv6_bwd"] == before + 2
+    for name, g, a, w in zip(("dr", "dk", "dv", "dw", "du", "dstate"), got,
+                             again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), name
+        assert torch.isfinite(g).all(), name
+        if dtype == "float32":
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=1e-3, atol=5e-4, err_msg=name)
+        else:
+            assert _rel_norm(g, w) <= 2e-2, (name, _rel_norm(g, w))
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_autograd_op_matches_plain_autograd():
+    """``wkv6`` under autograd on CUDA tensors (the forward kernel, then
+    the backward kernel) against autograd through the plain chunked form,
+    float32, at the forward's limits."""
+    dev = _cuda()
+    args = _wkv_bwd_case("ragged", dev, torch.float32)
+    grads = []
+    for fwd in (wkv_ops.wkv6, wkv_ref.wkv6_ref):
+        leaves = [a.clone().requires_grad_() for a in args[:6]]
+        y, s = fwd(*leaves)
+        grads.append(torch.autograd.grad(
+            (y * args[6]).sum() + (s * args[7]).sum(), leaves))
+    for g, w in zip(*grads):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-3, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_bwd_rejects_what_it_does_not_take():
+    dev = _cuda()
+    r, k, v, w, u, s0, dy, ds = _wkv_bwd_case("edge_31", dev,
+                                              torch.bfloat16)
+    with pytest.raises(ValueError, match="dy"):
+        wkv_ops.wkv6_bwd(r, k, v, w, u, s0, dy.float(), ds)
+    with pytest.raises(ValueError, match="dstate_out"):
+        wkv_ops.wkv6_bwd(r, k, v, w, u, s0, dy, ds.bfloat16())
+    with pytest.raises(ValueError, match="float32"):
+        wkv_ops.wkv6_bwd(r, k, v, w.bfloat16(), u, s0, dy, ds)
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv_ops.wkv6_bwd(*(a[..., :48].contiguous() for a in (r, k, v, w)),
+                         u[:, :48].contiguous(),
+                         s0[..., :48, :48].contiguous(),
+                         dy[..., :48].contiguous(),
+                         ds[..., :48, :48].contiguous())
+    strided = torch.cat([dy, dy], dim=-1)[..., :dy.shape[-1]]
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_ops.wkv6_bwd(r, k, v, w, u, s0, strided, ds)
+    with pytest.raises(ValueError, match="device|tensors on"):
+        wkv_ops.wkv6_bwd(r, k, v, w, u, s0, dy, ds.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64])
+def test_cuda_wkv6_bwd_resources(hd):
+    """No local memory (spills or stack) and at least two resident blocks
+    per SM, so the training shape's 160 (b, h) blocks run in one wave."""
+    _cuda()
+    for name, info in wkv_ops.wkv6_bwd_kernel_info(hd).items():
+        assert info["local_bytes"] == 0, (name, info)
+        assert info["blocks_per_sm"] >= 2, (name, info)
 
 
 @pytest.mark.cuda

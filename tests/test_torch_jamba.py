@@ -189,9 +189,16 @@ def test_init_params_keys_shapes_dtypes_and_scales(models):
 
 
 def test_hybrid_training_is_not_ported(models):
-    _, _, tcfg, model = models
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlm.forward(model, tcfg, np.zeros((1, 8), np.int32))
+    """The hybrid's training forward (refused before the port trained it):
+    Mamba from a zero state, attention, the capacity-dispatch MoE; logits
+    and the summed aux loss equal the reference's ``forward``."""
+    cfg, params, tcfg, model = models
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    want, want_aux = jlm.forward(params, cfg, jnp.asarray(toks))
+    got, aux = tlm.forward(model, tcfg, toks)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * abs(float(want_aux))
 
 
 # ---------------------------------------------------------------------------

@@ -457,7 +457,8 @@ def test_every_csrc_kernel_notes_what_it_replaces():
     sources = sorted(csrc.glob("*.cu"))
     assert [s.name for s in sources] == ["flash_attention.cu",
                                          "kv_gather.cu",
-                                         "paged_attention.cu", "wkv6.cu"]
+                                         "paged_attention.cu", "wkv6.cu",
+                                         "wkv6_bwd.cu"]
     for s in sources:
         text = s.read_text()
         assert "Replaces" in text or "replaces" in text

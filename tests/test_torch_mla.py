@@ -23,6 +23,8 @@ whose winner neither framework defines and no read sees unmasked.
   width (computed from the configs, no model built), the port's own
   ``init_params`` keys, shapes and scales.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -352,6 +354,18 @@ def test_init_params_keys_shapes_and_scales_match_reference(models):
 
 
 def test_training_is_refused(models):
-    _, _, tcfg, model = models
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tlm.forward(model, tcfg, np.zeros((1, 8), np.int32))
+    """What training still refuses: a low-rank MLA query. The MLA / MoE
+    training forward itself (``mla_full``, capacity dispatch) equals the
+    reference's ``forward``: logits and the summed aux loss."""
+    cfg, params, tcfg, model = models
+    with pytest.raises(NotImplementedError, match="low-rank"):
+        tmla.MLA(tcfg.replace(mla=dataclasses.replace(tcfg.mla,
+                                                      q_lora_rank=32)),
+                 torch.device("cpu"))
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    want, want_aux = jlm.forward(params, cfg, jnp.asarray(toks))
+    got, aux = tlm.forward(model, tcfg, toks)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-5)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * abs(float(want_aux))

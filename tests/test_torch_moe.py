@@ -20,7 +20,10 @@ reference over an (E, N, d) buffer: the same function.
   padding gives; an all-zero row would tie every expert), one expert
   taking every token (its router column raised), an expert taking none
   (its column lowered), and shared experts on and off.
-- ``dropless=False`` (capacity dispatch) raises.
+- ``dropless=False`` (capacity dispatch, training) at the smoke config's
+  capacity factor (no drop): the reference's ``moe_apply(dropless=False)``
+  at the float32 limits; drops are held to the reference in
+  ``test_torch_train_families.py``.
 """
 import dataclasses
 
@@ -176,10 +179,16 @@ def test_pad_rows_do_not_change_real_rows(moe_pair):
 
 
 def test_capacity_dispatch_is_refused(moe_pair):
-    cfg, tcfg, _, model = moe_pair[True]
-    x = torch.from_numpy(_tokens(cfg, 0))
-    with pytest.raises(NotImplementedError, match="dropless=False"):
-        tmoe.moe_apply(model, tcfg, x, dropless=False)
+    """Capacity dispatch (refused before the port trained MoE families)
+    against the reference's, output and aux loss."""
+    cfg, tcfg, tree, model = moe_pair[True]
+    x = _tokens(cfg, 0)
+    want, want_aux = jmoe.moe_apply(jax.tree.map(jnp.asarray, tree), cfg,
+                                    jnp.asarray(x), dropless=False)
+    got, aux = tmoe.moe_apply(model, tcfg, torch.from_numpy(x),
+                              dropless=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
 
 
 def test_expert_weights_keep_the_reference_names_and_scales(moe_pair):

@@ -121,16 +121,19 @@ def test_loss_and_grads_match_reference(ref, impl):
         assert _rel(g.numpy(), _jax_leaf(ref["grads"], name)) <= 1e-4, name
 
 
-def test_forward_logits_shape_and_rwkv_training_raises(ref):
+def test_forward_logits_shape_and_windowed_config_refused(ref):
+    """The dense forward's logits and zero aux; a config with sliding-window
+    layers (aqua-mistral-7b) stays refused at ``init_params`` (ROADMAP
+    queue 1, item 3.3). The other families train:
+    ``test_torch_train_families.py``."""
     model = _model(ref)
     tokens = make_batch(DataConfig(**DCFG), ref["tcfg"], 0)["tokens"]
     logits, aux = tlm.forward(model, ref["tcfg"], tokens)
     assert logits.shape == (2, 32, ref["tcfg"].vocab_size)
     assert float(aux) == 0.0
-    rcfg = t_smoke_config(t_get_config("rwkv6-3b"))
-    rmodel = tlm.init_params(rcfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="wkv6"):
-        tapi.loss_fn(rmodel, rcfg, {"tokens": tokens})
+    mcfg = t_smoke_config(t_get_config("aqua-mistral-7b"))
+    with pytest.raises(ValueError, match="not paged-servable"):
+        tlm.init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
