@@ -409,11 +409,15 @@ phase spans and peaks):
    1e-3 / atol 5e-4 in float32 and within 2e-2 of the plain norm (per
    chunk of 32 tokens for the token-shaped gradients) in bf16; a control,
    the plain backward with the middle chunk's dS' dropped, beyond both;
-   two launches bit-identical. Device times at the training shape in bf16
-   (plain, kernel, kernel, plain) beside the plain backward, autograd
+   two launches bit-identical; each of its three passes alone against its
+   plain twin (states and state gradients at the float32 limits, the
+   chunk pass at the limits above). Device times at the training shape in
+   bf16 (plain, kernel, kernel, plain) beside the plain backward, autograd
    through ``wkv6_chunked`` and the bound (bytes over 3.35 TB/s, float32
-   operations over 67 TFLOP/s, exponentials over the SFUs); registers,
-   local and shared memory and blocks per SM at hd 32 and 64.
+   operations over 67 TFLOP/s, one exponential a causal pair and key dim
+   over the SFUs), and each pass's device time by kernel name over 20
+   profiled calls; registers, local and shared memory and blocks per SM of
+   each pass at hd 32 and 64.
 63. rwkv6-3b train step — full width and depth (3,832,545,280
    parameters), batch 1 x 2048, remat: phase 12's check of the loss and
    every gradient through ``impl="kernel"`` (the WKV forward and backward
@@ -4682,6 +4686,7 @@ FLASH_BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
 GRAD_REL_LIMIT = 5e-2
 LOSS_ABS_LIMIT = 2e-2
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 4, 2048
+TRAIN_RUNS: dict = {}               # label -> the last run's step summary
 
 
 def flash_control(torch, q, k, v, causal, window):
@@ -5073,6 +5078,9 @@ def phase_train_run(torch, np, cfg, dev, steps=TRAIN_STEPS,
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{label} run losses {losses}: must be finite "
                              "and fall")
+    TRAIN_RUNS[label] = dict(p50_ms=p50 * 1e3, tokens_per_s=tokens / p50,
+                             peak_gib=peak, launches_per_step={
+                                 k: v / steps for k, v in launches.items()})
     if cuda:
         profile_train_step(torch, cfg, dcfg, ocfg, tcfg, out, steps, label,
                            ranges)
@@ -5207,7 +5215,9 @@ def wkv_bwd_bound(B, T, H, hd, io_bytes):
     special-function units' rate. Per chunk of c tokens with p = c (c - 1)
     / 2 causal pairs: the entry state's recomputation, v.dy and A over the
     pairs, S dy, dS v and Z, dr and dk over the pairs, dv, dS and the dw
-    scan. Returns (ms, bound_by, parts)."""
+    scan; one exponential a causal pair and key dim (the least: A, dr and
+    dk share it). The scratch a kernel keeps between passes is not
+    counted. Returns (ms, bound_by, parts)."""
     nbytes = B * T * H * hd * (7 * io_bytes + 8) + 3 * B * H * hd * hd * 4 \
         + 2 * H * hd * 4
     flops = exps = 0
@@ -5222,7 +5232,7 @@ def wkv_bwd_bound(B, T, H, hd, io_bytes):
                   + 2 * (p + c) * hd + 2 * c * hd * hd + c * hd   # dv
                   + 2 * c * hd * hd + hd * hd + c * hd      # dS
                   + 5 * c * hd)                             # dw
-        exps += 3 * p * hd + 4 * c * hd + 2 * hd
+        exps += p * hd + 4 * c * hd + 2 * hd
     flops, exps = flops * B * H, exps * B * H
     parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "f32": flops / F32_FLOPS * 1e3, "exp": exps / SFU_PER_S * 1e3}
@@ -5275,6 +5285,56 @@ def wkv_bwd_control(torch, wkv_ref, args, want):
             + [want[4], part[5]])
 
 
+def wkv_bwd_pass_ratios(torch, wkv_ops, wkv_ref, args, dname):
+    """Each pass of the backward alone against its plain twin on ``args``
+    (the chunk pass from the twins' states and state gradients): {pass:
+    error/limit}, the state passes at the float32 limits (their arithmetic
+    is float32 in either dtype), the chunk pass by ``wkv_bwd_ratio``."""
+    r, k, v, w, u, s0, dy, ds = args
+    states = wkv_ref.wkv6_bwd_states_plain(k, v, w, s0).contiguous()
+    dstates, dstate = wkv_ref.wkv6_bwd_dstates_plain(r, w, dy, ds)
+    dstates = dstates.contiguous()
+    lim = WKV_BWD_LIMITS["float32"]
+    out = {"states": limit_ratio(wkv_ops.wkv6_bwd_states(*args), states,
+                                 *lim)}
+    got = wkv_ops.wkv6_bwd_dstates(*args)
+    out["dstates"] = max(limit_ratio(a, b, *lim)
+                         for a, b in zip(got, (dstates, dstate)))
+    part = wkv_ref.wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states, dstates)
+    out["chunk"] = wkv_bwd_ratio(
+        torch, wkv_ops.wkv6_bwd_chunk(r, k, v, w, u, s0, dy, states,
+                                      dstates),
+        list(part[:4]) + [part[4].sum((0, 2))], dname)
+    return out
+
+
+def wkv_bwd_pass_ms(torch, wkv_ops, args, calls=20):
+    """Device ms of each pass's kernel per ``wkv6_bwd`` call, by kernel
+    name, from ``calls`` calls under one profiler session (after a warm-up
+    call): each kernel's summed time over its own number of events, so an
+    event the trace drops at the window's edge costs no pass its number.
+    None where the trace holds no event of some pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    wkv_ops.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            wkv_ops.wkv6_bwd(*args)
+        torch.cuda.synchronize()
+    us = {name: [] for name in wkv_ops.BWD_PASSES}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in us:
+            if f"{name}_kernel" in e.name:
+                us[name].append(e.time_range.elapsed_us())
+    if not all(us.values()):
+        return None
+    return {name: sum(v) / len(v) / 1e3 for name, v in us.items()}
+
+
 def phase_wkv_bwd_kernel(torch, np, cfg, report):
     """The WKV backward kernel against ``wkv6_backward_plain`` on the card
     (module docstring, phase 62)."""
@@ -5292,8 +5352,12 @@ def phase_wkv_bwd_kernel(torch, np, cfg, report):
     for name, (B, T) in WKV_TRAIN_SHAPES.items():
         for dname, dt in dtypes.items():
             ratios, controls, errs, same = [], [], [], True
+            passes = {}
             for wmax in WKV_DECAYS:
                 args = wkv_bwd_inputs(torch, g, B, T, H, hd, wmax, dt, dev)
+                for n, x in wkv_bwd_pass_ratios(torch, wkv_ops, wkv_ref,
+                                                args, dname).items():
+                    passes[n] = max(passes.get(n, 0.0), x)
                 got = wkv_ops.wkv6_bwd(*args)
                 again = wkv_ops.wkv6_bwd(*args)
                 want = wkv_ref.wkv6_backward_plain(*args)
@@ -5311,18 +5375,22 @@ def phase_wkv_bwd_kernel(torch, np, cfg, report):
             cases[f"{name} {dname}"] = dict(
                 shape=f"B={B} T={T} H={H} hd={hd} {dname} r/k/v/dy",
                 limit_ratio=max(ratios), control_ratio=min(controls),
-                max_abs_err=max(errs), bit_identical=same)
+                max_abs_err=max(errs), bit_identical=same,
+                pass_limit_ratios=passes)
             print(f"kernel wkv6_bwd B={B} T={T} H={H} hd={hd} {dname}: "
                   f"error/limit {max(ratios):.3g} (decays up to "
                   f"{max(WKV_DECAYS)}; limit {WKV_BWD_LIMITS[dname]}); "
                   f"control (one chunk's dS' dropped) {min(controls):.3g}; "
                   f"max abs err {max(errs):.3g}; two launches bit-identical "
-                  f"{same}")
-            if not (max(ratios) <= 1.0 < min(controls) and same):
+                  f"{same}; each pass against its twin, error/limit "
+                  + ", ".join(f"{n} {x:.3g}" for n, x in passes.items()))
+            if not (max(ratios) <= 1.0 < min(controls) and same
+                    and max(passes.values()) <= 1.0):
                 raise AssertionError(
                     f"wkv6_bwd {name} {dname}: error/limit {max(ratios)} "
                     f"must be <= 1, the control's {min(controls)} above "
-                    f"it, two launches equal ({same})")
+                    f"it, two launches equal ({same}), each pass within "
+                    f"its limit ({passes})")
     # times at the training shape, bf16, strong decay: plain, kernel,
     # kernel, plain (the plain backward and autograd through the chunked
     # form issue thousands of launches a call: host-paced event timing)
@@ -5341,13 +5409,16 @@ def phase_wkv_bwd_kernel(torch, np, cfg, report):
         return torch.autograd.grad([y, s], leaves, [args[6], args[7]])
     fwd_ms = ms_timer(lambda: wkv_ref.wkv6_chunked(*args[:6]), 2)
     fb_ms = ms_timer(autograd_chunked, 2)
+    pass_ms = wkv_bwd_pass_ms(torch, wkv_ops, args)
     b, by, parts = wkv_bwd_bound(B, T, H, hd, 2)
     print(f"kernel wkv6_bwd B={B} T={T} H={H} hd={hd} bf16: kernel "
           f"{ms:.4f} ms, plain backward {plain_ms:.4f} ms, autograd through "
           f"wkv6_chunked {fb_ms:.4f} ms forward + backward ({fwd_ms:.4f} "
           f"forward alone); bound {b:.4f} ms ({by}: bytes "
           f"{parts['bytes']:.4f}, f32 {parts['f32']:.4f}, exp "
-          f"{parts['exp']:.4f} ms), {b / ms:.4f} of it")
+          f"{parts['exp']:.4f} ms), {b / ms:.4f} of it; per pass, mean of 20 "
+          f"profiled calls (ms): "
+          f"{json.dumps(pass_ms) if pass_ms else 'not measured'}")
     del args, leaves
     main = cases["train bfloat16"]
     report.append(dict(
@@ -5362,7 +5433,7 @@ def phase_wkv_bwd_kernel(torch, np, cfg, report):
         ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
         bound_parts_ms=parts, library_ms=None,
         autograd_chunked_ms=fb_ms, autograd_chunked_forward_ms=fwd_ms,
-        cases=cases))
+        pass_ms=pass_ms or "not measured", cases=cases))
 
 
 def grad_rel(gs, ref):

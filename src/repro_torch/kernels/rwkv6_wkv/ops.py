@@ -3,7 +3,10 @@
 Dispatch goes by the tensors' device: CPU tensors take ``wkv6_plain`` (the
 reference layer's dispatch between the chunked form and the scan) and
 ``wkv6_backward_plain``; CUDA tensors launch the kernels of
-``csrc/wkv6.cu`` and ``csrc/wkv6_bwd.cu`` (and raise if they cannot).
+``csrc/wkv6.cu`` and ``csrc/wkv6_bwd.cu`` (and raise if they cannot). The
+backward is three launches behind one call (``wkv6_bwd``); each pass also
+runs alone (``wkv6_bwd_states``, ``wkv6_bwd_dstates``, ``wkv6_bwd_chunk``)
+so it can be held against its plain twin.
 ``wkv6`` goes through the ``WKV6`` autograd op when a gradient is wanted,
 and straight to the forward otherwise (the serving path, under
 ``no_grad``).
@@ -16,21 +19,29 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6_wkv.ref import (WKV_CHUNK, wkv6_backward_plain,
+                                               wkv6_bwd_chunk_plain,
+                                               wkv6_bwd_dstates_plain,
+                                               wkv6_bwd_states_plain,
                                                wkv6_plain)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _kernel_info(export: str, label: str, hd: int) -> dict:
-    out = (ctypes.c_int * 4)()
+BWD_PASSES = ("wkv6_bwd_states", "wkv6_bwd_dstates", "wkv6_bwd_chunk")
+
+
+def _kernel_info(export: str, labels, hd: int) -> dict:
+    out = (ctypes.c_int * (4 * len(labels)))()
     info = {}
     for dtype, code in _DTYPE_CODES.items():
-        name = f"{label}<{str(dtype).split('.')[-1]}>"
-        build.check(f"{label} info {name}",
+        dname = str(dtype).split('.')[-1]
+        build.check(f"{export} {dname}",
                     getattr(build.lib(), export)(code, hd,
                                                  ctypes.addressof(out)))
-        info[name] = dict(registers=out[0], local_bytes=out[1],
-                          smem_bytes=out[2], blocks_per_sm=out[3])
+        for n, label in enumerate(labels):
+            info[f"{label}<{dname}>"] = dict(
+                registers=out[4 * n], local_bytes=out[4 * n + 1],
+                smem_bytes=out[4 * n + 2], blocks_per_sm=out[4 * n + 3])
     return info
 
 
@@ -39,12 +50,13 @@ def wkv6_kernel_info(hd: int) -> dict:
     resident blocks per SM of the kernel at head dim ``hd``, per compute
     dtype, as the loaded library reports them. Builds the library on first
     use."""
-    return _kernel_info("aqua_wkv6_info", "wkv6", hd)
+    return _kernel_info("aqua_wkv6_info", ("wkv6",), hd)
 
 
 def wkv6_bwd_kernel_info(hd: int) -> dict:
-    """The same for the backward kernel."""
-    return _kernel_info("aqua_wkv6_bwd_info", "wkv6_bwd", hd)
+    """The same for the backward's three kernels, one per pass
+    (``BWD_PASSES``)."""
+    return _kernel_info("aqua_wkv6_bwd_info", BWD_PASSES, hd)
 
 
 def _check(name, r, k, v, w, u, state):
@@ -98,16 +110,9 @@ def _forward(r, k, v, w, u, state):
     return y, s_out
 
 
-def wkv6_bwd(r, k, v, w, u, state, dy, dstate_out):
-    """The backward of ``wkv6``: the forward's operands, dy (B,T,H,hd) in
-    r's dtype and dstate_out (B,H,hd,hd) float32 (the gradient of the final
-    state; None is zero) -> (dr, dk, dv in r's dtype, dw (B,T,H,hd), du
-    (H,hd), dstate (B,H,hd,hd), float32). The CUDA kernel writes du per
-    sequence; the sum over B is taken here."""
-    if r.device.type == "cpu":
-        return wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out)
-    name = "wkv6_bwd"
-    B, T, H, hd = r.shape
+def _bwd_check(name, r, k, v, w, u, state, dy, dstate_out):
+    """The backward kernels' contract; returns dstate_out (zeros for
+    None)."""
     _check(name, r, k, v, w, u, state)
     if dstate_out is None:
         dstate_out = torch.zeros_like(state)
@@ -120,23 +125,115 @@ def wkv6_bwd(r, k, v, w, u, state, dy, dstate_out):
                          f"{tuple(dstate_out.shape)} must be float32 "
                          f"{tuple(state.shape)}")
     build.require_cuda(name, r, k, v, w, u, state, dy, dstate_out)
-    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
-    dw = torch.empty_like(w)
-    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
-    dstate = torch.empty_like(state)
-    nt = -(-T // WKV_CHUNK)
-    scratch = torch.empty((B, H, nt, hd, hd), dtype=torch.float32,
-                          device=r.device)
+    for t, what in ((r, "r"), (k, "k"), (v, "v"), (w, "w"), (dy, "dy"),
+                    (state, "state"), (dstate_out, "dstate_out")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must start on a 16-byte "
+                             f"boundary (data_ptr {t.data_ptr()})")
+    return dstate_out
+
+
+def _bwd_launch(name, passes, r, k, v, w, u, state, dy, dstate_out, bufs):
+    """One ``aqua_wkv6_bwd`` call running the passes of bit mask
+    ``passes`` (1 states, 2 dstates, 4 chunk) on the buffers ``bufs`` (dr,
+    dk, dv, dw, du_part, dstate, states, dstates; None where unused)."""
+    B, T, H, hd = r.shape
+    ptrs = [0 if t is None else t.data_ptr() for t in bufs]
     rc = build.lib().aqua_wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), state.data_ptr(), dy.data_ptr(),
-        dstate_out.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dw.data_ptr(), du_part.data_ptr(), dstate.data_ptr(),
-        scratch.data_ptr(), B, T, H, hd, _DTYPE_CODES[r.dtype],
-        build.stream_of(r))
+        dstate_out.data_ptr(), *ptrs, B, T, H, hd, _DTYPE_CODES[r.dtype],
+        passes, build.stream_of(r))
     build.check(name, rc)
+
+
+def _scratch(r):
+    """One float32 (B, H, ceil(T / 32), hd, hd) tensor: a state per
+    chunk."""
+    B, T, H, hd = r.shape
+    return torch.empty((B, H, -(-T // WKV_CHUNK), hd, hd),
+                       dtype=torch.float32, device=r.device)
+
+
+def wkv6_bwd(r, k, v, w, u, state, dy, dstate_out):
+    """The backward of ``wkv6``: the forward's operands, dy (B,T,H,hd) in
+    r's dtype and dstate_out (B,H,hd,hd) float32 (the gradient of the final
+    state; None is zero) -> (dr, dk, dv in r's dtype, dw (B,T,H,hd), du
+    (H,hd), dstate (B,H,hd,hd), float32). On CUDA tensors one call runs the
+    three passes (each chunk's entry state, each chunk's exit-state
+    gradient, every gradient of each chunk); the kernel writes du per
+    (sequence, chunk), and the sum over both is taken here, in a fixed
+    order."""
+    if r.device.type == "cpu":
+        return wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out)
+    name = "wkv6_bwd"
+    dstate_out = _bwd_check(name, r, k, v, w, u, state, dy, dstate_out)
+    B, T, H, hd = r.shape
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du_part = torch.empty((B, H, -(-T // WKV_CHUNK), hd),
+                          dtype=torch.float32, device=r.device)
+    dstate = torch.empty_like(state)
+    _bwd_launch(name, 7, r, k, v, w, u, state, dy, dstate_out,
+                (dr, dk, dv, dw, du_part, dstate, _scratch(r), _scratch(r)))
     build.LAUNCHES[name] += 1
-    return dr, dk, dv, dw, du_part.sum(0), dstate
+    return dr, dk, dv, dw, du_part.sum((0, 2)), dstate
+
+
+def wkv6_bwd_states(r, k, v, w, u, state, dy, dstate_out):
+    """Pass 1 alone (``wkv6_bwd``'s operands): each chunk's entry state,
+    (B,H,nt,hd,hd) float32. CPU tensors take ``wkv6_bwd_states_plain``."""
+    if r.device.type == "cpu":
+        return wkv6_bwd_states_plain(k, v, w, state)
+    name = "wkv6_bwd_states"
+    dstate_out = _bwd_check(name, r, k, v, w, u, state, dy, dstate_out)
+    states = _scratch(r)
+    _bwd_launch(name, 1, r, k, v, w, u, state, dy, dstate_out,
+                (None,) * 6 + (states, None))
+    build.LAUNCHES[name] += 1
+    return states
+
+
+def wkv6_bwd_dstates(r, k, v, w, u, state, dy, dstate_out):
+    """Pass 2 alone: (each chunk's exit-state gradient (B,H,nt,hd,hd), the
+    initial state's (B,H,hd,hd)), float32. CPU tensors take
+    ``wkv6_bwd_dstates_plain``."""
+    if r.device.type == "cpu":
+        return wkv6_bwd_dstates_plain(r, w, dy, dstate_out)
+    name = "wkv6_bwd_dstates"
+    dstate_out = _bwd_check(name, r, k, v, w, u, state, dy, dstate_out)
+    dstates, dstate = _scratch(r), torch.empty_like(state)
+    _bwd_launch(name, 2, r, k, v, w, u, state, dy, dstate_out,
+                (None,) * 5 + (dstate, None, dstates))
+    build.LAUNCHES[name] += 1
+    return dstates, dstate
+
+
+def wkv6_bwd_chunk(r, k, v, w, u, state, dy, states, dstates):
+    """Pass 3 alone, from the chunks' entry states and exit-state gradients
+    (B,H,nt,hd,hd) float32: (dr, dk, dv in r's dtype, dw (B,T,H,hd), du
+    (H,hd) float32). CPU tensors take ``wkv6_bwd_chunk_plain``."""
+    if r.device.type == "cpu":
+        dr, dk, dv, dw, du_part = wkv6_bwd_chunk_plain(
+            r, k, v, w, u, dy, states, dstates)
+        return dr, dk, dv, dw, du_part.sum((0, 2))
+    name = "wkv6_bwd_chunk"
+    _bwd_check(name, r, k, v, w, u, state, dy, None)
+    want = tuple(_scratch(r).shape)
+    for t, what in ((states, "states"), (dstates, "dstates")):
+        if t.dtype != torch.float32 or tuple(t.shape) != want \
+                or t.device != r.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous float32 "
+                             f"{want} on {r.device}")
+    B, T, H, hd = r.shape
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du_part = torch.empty((B, H, want[2], hd), dtype=torch.float32,
+                          device=r.device)
+    _bwd_launch(name, 4, r, k, v, w, u, state, dy, torch.zeros_like(state),
+                (dr, dk, dv, dw, du_part, None, states, dstates))
+    build.LAUNCHES[name] += 1
+    return dr, dk, dv, dw, du_part.sum((0, 2))
 
 
 class WKV6(torch.autograd.Function):
@@ -152,8 +249,13 @@ class WKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dstate):
         r, k, v, w, u, state = ctx.saved_tensors
-        return wkv6_bwd(r, k, v, w, u, state, dy.to(r.dtype).contiguous(),
-                        dstate.to(state.dtype).contiguous())
+
+        def operand(g, dtype):
+            # the kernels read whole rows in 16-byte pieces
+            g = g.to(dtype).contiguous()
+            return g.clone() if g.data_ptr() % 16 else g
+        return wkv6_bwd(r, k, v, w, u, state, operand(dy, r.dtype),
+                        operand(dstate, state.dtype))
 
 
 def wkv6(r, k, v, w, u, state):

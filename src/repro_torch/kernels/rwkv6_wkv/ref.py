@@ -105,24 +105,75 @@ def _chunk_logdecay(w):
     return lw, torch.cat([torch.zeros_like(lw[:, :1]), lw[:, :-1]], dim=1)
 
 
-def wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out):
-    """The backward of the WKV recurrence, written out per chunk of
-    ``WKV_CHUNK`` tokens (the last may be short), in float32 (float64 when
-    an input is float64): the oracle of the CUDA backward kernel, whose
-    order of operations it fixes.
+def _fold_bh(x, acc):
+    """(B,T,H,hd) -> (B*H, T, hd) in ``acc``."""
+    B, T, H, hd = x.shape
+    return x.to(acc).permute(0, 2, 1, 3).reshape(B * H, T, hd)
 
-    r, k, v, dy: (B,T,H,hd); w: (B,T,H,hd) log-decay <= 0; u: (H,hd);
-    state: (B,H,hd,hd) the state before token 0; dstate_out: (B,H,hd,hd)
-    the gradient of the final state, or None (zero).
-    -> (dr, dk, dv in r's dtype, dw float32 (B,T,H,hd), du float32 (H,hd)
-    summed over B and T, dstate float32 (B,H,hd,hd)).
 
-    One forward sweep recomputes each chunk's entry state S; the chunks are
-    then walked in reverse carrying dS (the gradient of the chunk's exit
-    state). Per chunk, with lw the inclusive cumsum of w, lw_prev[t] =
-    lw[t - 1], a_t = e^{lw_prev_t}, D[t,tau] = e^{lw_prev_t - lw_tau}
-    (tau < t), b_tau = e^{lw_last - lw_tau} (every exponent <= 0) and
-    A[t,tau] = sum_i r_t k_tau D[t,tau] (A[t,t] = sum_i r_t u k_t):
+def _chunk_bounds(T):
+    return [(t0, min(T, t0 + WKV_CHUNK)) for t0 in range(0, T, WKV_CHUNK)]
+
+
+def wkv6_bwd_states_plain(k, v, w, state):
+    """Pass 1 of the backward: the entry state of each chunk of
+    ``WKV_CHUNK`` tokens (the last may be short), recomputed from the
+    initial state. k, v: (B,T,H,hd); w: (B,T,H,hd) float32; state:
+    (B,H,hd,hd) -> (B,H,nt,hd,hd) float32 (float64 when an input is)."""
+    B, T, H, hd = k.shape
+    acc = _acc_dtype(k, v, w, state)
+    kf, vf, wf = _fold_bh(k, acc), _fold_bh(v, acc), _fold_bh(w, acc)
+    S = state.to(acc).reshape(B * H, hd, hd)
+    entry = []
+    for t0, t1 in _chunk_bounds(T):
+        entry.append(S)
+        lw, _ = _chunk_logdecay(wf[:, t0:t1])
+        kb = kf[:, t0:t1] * torch.exp(lw[:, -1:] - lw)
+        S = (torch.exp(lw[:, -1])[..., None] * S
+             + torch.einsum("bti,btj->bij", kb, vf[:, t0:t1]))
+    return torch.stack(entry, 1).reshape(B, H, len(entry), hd, hd)
+
+
+def wkv6_bwd_dstates_plain(r, w, dy, dstate_out):
+    """Pass 2: the chunks in reverse, carrying dS. r, dy: (B,T,H,hd); w:
+    (B,T,H,hd) float32; dstate_out: (B,H,hd,hd) the gradient of the final
+    state, or None (zero) -> (dstates (B,H,nt,hd,hd), the gradient of each
+    chunk's exit state; dstate (B,H,hd,hd), that of the initial state),
+    float32 (float64 when an input is). Per chunk, a_t = e^{lw_prev_t}:
+
+        dS <- sum_t (r_t a_t) dy_t^T + e^{lw_last} dS
+    """
+    B, T, H, hd = r.shape
+    acc = _acc_dtype(r, w, dy, *(() if dstate_out is None else
+                                 (dstate_out,)))
+    rf, wf, dyf = _fold_bh(r, acc), _fold_bh(w, acc), _fold_bh(dy, acc)
+    dS = (torch.zeros((B * H, hd, hd), dtype=acc, device=r.device)
+          if dstate_out is None
+          else dstate_out.to(acc).reshape(B * H, hd, hd))
+    bounds = _chunk_bounds(T)
+    exits = [None] * len(bounds)
+    for c in reversed(range(len(bounds))):
+        t0, t1 = bounds[c]
+        exits[c] = dS
+        lw, lw_prev = _chunk_logdecay(wf[:, t0:t1])
+        dS = (torch.einsum("bti,btj->bij", rf[:, t0:t1] * torch.exp(lw_prev),
+                           dyf[:, t0:t1])
+              + torch.exp(lw[:, -1])[..., None] * dS)
+    return (torch.stack(exits, 1).reshape(B, H, len(bounds), hd, hd),
+            dS.reshape(B, H, hd, hd))
+
+
+def wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states, dstates):
+    """Pass 3: every gradient of each chunk from its entry state S
+    (``states``, pass 1) and its exit-state gradient dS (``dstates``, pass
+    2); the chunks are independent. -> (dr, dk, dv in r's dtype, dw
+    (B,T,H,hd) and du_part (B,H,nt,hd), each chunk's share of du, float32;
+    float64 when an input is).
+
+    Per chunk, with lw the inclusive cumsum of w, lw_prev[t] = lw[t - 1],
+    a_t = e^{lw_prev_t}, D[t,tau] = e^{lw_prev_t - lw_tau} (tau < t), b_tau
+    = e^{lw_last - lw_tau} (every exponent <= 0) and A[t,tau] = sum_i r_t
+    k_tau D[t,tau] (A[t,t] = sum_i r_t u k_t):
 
         dv_tau = sum_{t>=tau} A[t,tau] dy_t + (k_tau b_tau)^T dS
         dr_t   = a_t (S dy_t) + sum_{tau<t} D k_tau (v_tau.dy_t)
@@ -131,42 +182,29 @@ def wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out):
                  + b_tau (dS v_tau)
         du    += sum_t r_t k_t (v_t.dy_t)
         dw_s   = sum_{t>s} X_t - sum_{t>=s} YA_t + sum_{t<s} YS_t + Z
-        dS    <- sum_t (r_t a_t) dy_t^T + e^{lw_last} dS
 
     with X_t = r_t (dr_t without its u term), YA_tau = k_tau (the pairwise
     sum of dk_tau), YS_tau = k_tau b_tau (dS v_tau) and Z = e^{lw_last}
     rowsum(S * dS): the derivatives through lw_prev, lw and lw_last,
     gathered onto each w_s."""
     B, T, H, hd = r.shape
-    acc = _acc_dtype(r, k, v, w, u, state, dy)
-    C = WKV_CHUNK
-
-    def fold(x):
-        return x.to(acc).permute(0, 2, 1, 3).reshape(B * H, T, hd)
-
-    rf, kf, vf, wf, dyf = fold(r), fold(k), fold(v), fold(w), fold(dy)
+    acc = _acc_dtype(r, k, v, w, u, dy, states, dstates)
+    rf, kf, vf, wf, dyf = (_fold_bh(a, acc) for a in (r, k, v, w, dy))
     uf = u.to(acc)[None].expand(B, H, hd).reshape(B * H, 1, hd)
-    S = state.to(acc).reshape(B * H, hd, hd)
-    bounds = [(t0, min(T, t0 + C)) for t0 in range(0, T, C)]
-    entry = []
-    for t0, t1 in bounds:
-        entry.append(S)
-        lw, _ = _chunk_logdecay(wf[:, t0:t1])
-        kb = kf[:, t0:t1] * torch.exp(lw[:, -1:] - lw)
-        S = (torch.exp(lw[:, -1])[..., None] * S
-             + torch.einsum("bti,btj->bij", kb, vf[:, t0:t1]))
-    dS = (torch.zeros_like(S) if dstate_out is None
-          else dstate_out.to(acc).reshape(B * H, hd, hd))
+    nt = states.shape[2]
+    Sc = states.to(acc).reshape(B * H, nt, hd, hd)
+    dSc = dstates.to(acc).reshape(B * H, nt, hd, hd)
     dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
-    du = torch.zeros_like(uf[:, 0])
-    for (t0, t1), S in zip(reversed(bounds), reversed(entry)):
+    du = []
+    for c, (t0, t1) in enumerate(_chunk_bounds(T)):
+        S, dS = Sc[:, c], dSc[:, c]
         rc, kc, vc, dyc = (a[:, t0:t1] for a in (rf, kf, vf, dyf))
-        c = t1 - t0
+        n = t1 - t0
         lw, lw_prev = _chunk_logdecay(wf[:, t0:t1])
         last = lw[:, -1]
         a = torch.exp(lw_prev)
         b = torch.exp(last[:, None] - lw)
-        ti = torch.arange(c, device=r.device)
+        ti = torch.arange(n, device=r.device)
         lower = (ti[None, :] < ti[:, None])[None, :, :, None]     # tau < t
         D = torch.exp((lw_prev[:, :, None] - lw[:, None]).masked_fill(
             ~lower, float("-inf")))                          # (BH,t,tau,hd)
@@ -185,19 +223,38 @@ def wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out):
             + torch.diag_embed(torch.sum(rc * uf * kc, dim=-1))
         dv[:, t0:t1] = (torch.einsum("bts,btj->bsj", A, dyc)
                         + torch.einsum("bsi,bij->bsj", kc * b, dS))
-        du = du + torch.sum(rc * kc * vdy_diag, dim=1)
+        du.append(torch.sum(rc * kc * vdy_diag, dim=1))
         Z = torch.exp(last) * torch.sum(S * dS, dim=-1)
         after = X.flip(1).cumsum(1).flip(1) - X          # sum_{t>s} X_t
         from_s = YA.flip(1).cumsum(1).flip(1)            # sum_{t>=s} YA_t
         before = YS.cumsum(1) - YS                       # sum_{t<s} YS_t
         dw[:, t0:t1] = after - from_s + before + Z[:, None]
-        dS = (torch.einsum("bti,btj->bij", rc * a, dyc)
-              + torch.exp(last)[..., None] * dS)
 
     def unfold(x, dtype):
         return x.reshape(B, H, T, hd).permute(0, 2, 1, 3).to(dtype)
 
     out_f = torch.float64 if acc == torch.float64 else torch.float32
     return (unfold(dr, r.dtype), unfold(dk, k.dtype), unfold(dv, v.dtype),
-            unfold(dw, out_f), du.reshape(B, H, hd).sum(0).to(out_f),
-            dS.reshape(B, H, hd, hd).to(out_f))
+            unfold(dw, out_f),
+            torch.stack(du, 1).reshape(B, H, nt, hd).to(out_f))
+
+
+def wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out):
+    """The backward of the WKV recurrence in float32 (float64 when an input
+    is float64): the composition of the three passes the CUDA backward
+    kernel runs, ``wkv6_bwd_states_plain``, ``wkv6_bwd_dstates_plain`` and
+    ``wkv6_bwd_chunk_plain``, whose order of operations they fix.
+
+    r, k, v, dy: (B,T,H,hd); w: (B,T,H,hd) log-decay <= 0; u: (H,hd);
+    state: (B,H,hd,hd) the state before token 0; dstate_out: (B,H,hd,hd)
+    the gradient of the final state, or None (zero).
+    -> (dr, dk, dv in r's dtype, dw float32 (B,T,H,hd), du float32 (H,hd)
+    summed over B and the chunks, dstate float32 (B,H,hd,hd))."""
+    states = wkv6_bwd_states_plain(k, v, w, state)
+    dstates, dstate = wkv6_bwd_dstates_plain(r, w, dy, dstate_out)
+    acc = _acc_dtype(r, k, v, w, u, state, dy)
+    dr, dk, dv, dw, du_part = wkv6_bwd_chunk_plain(
+        r, k, v, w, u, dy, states.to(acc), dstates.to(acc))
+    out_f = torch.float64 if acc == torch.float64 else torch.float32
+    return (dr, dk, dv, dw.to(out_f), du_part.sum((0, 2)).to(out_f),
+            dstate.to(out_f))

@@ -48,7 +48,9 @@ call to call. The WKV backward kernel (``csrc/wkv6_bwd.cu``) against
 ``wkv6_backward_plain`` at the training shape (float32 at the forward's
 state limits, bf16 within 2e-2 of the plain norm) and a float32 sweep,
 bit-identical from call to call, its autograd op against autograd of the
-scan, its refusals and its resources.
+scan, its refusals and its resources; and each of its three passes alone
+against its plain twin (the state passes at the float32 limits in both
+dtypes, their arithmetic being float32).
 """
 import numpy as np
 import pytest
@@ -976,15 +978,90 @@ def test_cuda_wkv6_bwd_rejects_what_it_does_not_take():
         wkv_ops.wkv6_bwd(r, k, v, w, u, s0, dy, ds.cpu())
 
 
+# resident blocks per SM each backward pass is designed for (at least): the
+# state passes' 320 blocks of the training shape in one wave (3 an SM),
+# the chunk pass two blocks of 256 threads (~108 KB of shared memory at hd
+# 64)
+WKV_BWD_BLOCKS = {"wkv6_bwd_states": 3, "wkv6_bwd_dstates": 3,
+                  "wkv6_bwd_chunk": 2}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 64])
 def test_cuda_wkv6_bwd_resources(hd):
-    """No local memory (spills or stack) and at least two resident blocks
-    per SM, so the training shape's 160 (b, h) blocks run in one wave."""
+    """Every pass of the backward: no local memory (spills or stack),
+    shared memory within the card's opt-in limit per block, and at least
+    its design's resident blocks per SM (printed)."""
     _cuda()
-    for name, info in wkv_ops.wkv6_bwd_kernel_info(hd).items():
+    optin = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", 232448)
+    infos = wkv_ops.wkv6_bwd_kernel_info(hd)
+    assert len(infos) == 2 * len(wkv_ops.BWD_PASSES)
+    for name, info in infos.items():
+        print(f"hd {hd} {name}: {info}")
         assert info["local_bytes"] == 0, (name, info)
-        assert info["blocks_per_sm"] >= 2, (name, info)
+        assert 0 < info["smem_bytes"] <= optin, (name, info)
+        assert info["blocks_per_sm"] >= WKV_BWD_BLOCKS[name.split("<")[0]], \
+            (name, info)
+
+
+def _wkv_pass_case(T, hd, dtype, dev, seed=13):
+    B, H = (2, 3) if T < 2047 else (1, 4)
+    rng = np.random.default_rng(seed + T + hd)
+    td = DTYPES[dtype]
+    args = list(_wkv_case_of(B, T, H, hd, 5.0, rng, dev, td))
+    dy = torch.from_numpy(rng.standard_normal((B, T, H, hd))).to(dev, td)
+    ds = torch.from_numpy(rng.standard_normal((B, H, hd, hd))).to(
+        dev, torch.float32)
+    return args + [dy, ds]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", [31, 32, 33, 63, 2047])
+@pytest.mark.parametrize("which", ["states", "dstates", "chunk"])
+def test_cuda_wkv6_bwd_pass_matches_twin(which, T, hd, dtype):
+    """Each pass of the backward alone against its plain twin on the same
+    inputs (the chunk pass from the twins' states and state gradients, so
+    a fault shows in the pass where it lies): the two state passes at the
+    forward's state limits (rtol 1e-3, atol 5e-4; their arithmetic is
+    float32 whatever r's dtype), the chunk pass's float32 gradients there
+    too and its bf16 ones within 2e-2 of the plain norm; two launches
+    counted and bit-identical."""
+    dev = _cuda()
+    args = _wkv_pass_case(T, hd, dtype, dev)
+    r, k, v, w, u, s0, dy, ds = args
+    if which == "states":
+        run = lambda: (wkv_ops.wkv6_bwd_states(*args),)            # noqa
+        want = (wkv_ref.wkv6_bwd_states_plain(k, v, w, s0),)
+    elif which == "dstates":
+        run = lambda: wkv_ops.wkv6_bwd_dstates(*args)              # noqa
+        want = wkv_ref.wkv6_bwd_dstates_plain(r, w, dy, ds)
+    else:
+        states = wkv_ref.wkv6_bwd_states_plain(k, v, w, s0).contiguous()
+        dstates = wkv_ref.wkv6_bwd_dstates_plain(r, w, dy, ds)[0] \
+            .contiguous()
+        run = lambda: wkv_ops.wkv6_bwd_chunk(                      # noqa
+            r, k, v, w, u, s0, dy, states, dstates)
+        part = wkv_ref.wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states,
+                                            dstates)
+        want = part[:4] + (part[4].sum((0, 2)),)
+    name = f"wkv6_bwd_{which}"
+    before = build.launch_counts().get(name, 0)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert build.launch_counts()[name] == before + 2
+    for n, (g, a, w_) in enumerate(zip(got, again, want)):
+        assert g.dtype == w_.dtype and g.shape == w_.shape, n
+        assert torch.equal(g, a), n
+        assert torch.isfinite(g).all(), n
+        if which != "chunk" or dtype == "float32":
+            np.testing.assert_allclose(g.float().cpu().numpy(),
+                                       w_.float().cpu().numpy(), rtol=1e-3,
+                                       atol=5e-4, err_msg=f"{which} {n}")
+        else:
+            assert _rel_norm(g, w_) <= 2e-2, (n, _rel_norm(g, w_))
 
 
 @pytest.mark.cuda

@@ -21,6 +21,14 @@ on the card, against:
   forward, backward equal to the plain backward, ``gradcheck`` in float64
   at a tiny shape (across a chunk boundary), and ``wkv6`` taking the op
   only when a gradient is wanted.
+- The plain twins of the kernel's three passes, at T in {64, 70, 1} and
+  head dims 32 and 64, weak and strong decays, in float32 at 1e-5: pass
+  1's entry state of each chunk against the state ``wkv6_ref`` reaches
+  after the tokens before it; pass 2's exit-state gradient of each chunk
+  against autograd's gradient of the state entering the next chunk (the
+  scan split at that boundary, the state a leaf), and its initial-state
+  gradient against autograd's; and the three composed (and the CPU pass
+  wrappers of ``ops``) equal to ``wkv6_backward_plain`` bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -31,12 +39,16 @@ import torch
 from repro.layers import rwkv6 as jrwkv
 from repro_torch.kernels.rwkv6_wkv import ops
 from repro_torch.kernels.rwkv6_wkv.ref import (wkv6_backward_plain,
+                                               wkv6_bwd_chunk_plain,
+                                               wkv6_bwd_dstates_plain,
+                                               wkv6_bwd_states_plain,
                                                wkv6_chunked, wkv6_plain,
                                                wkv6_ref)
 
 B, H = 2, 3
 PORT_REL, JAX_REL = 1e-5, 1e-4
 SHAPES = [(64, 64), (96, 32), (70, 64), (1, 32)]
+PASS_SHAPES = [(T, hd) for T in (64, 70, 1) for hd in (32, 64)]
 NAMES = ("dr", "dk", "dv", "dw", "du", "dstate")
 
 
@@ -139,3 +151,67 @@ def test_autograd_op_gradcheck_float64():
     leaves = [t.requires_grad_() for t in leaves]
     assert torch.autograd.gradcheck(ops.WKV6.apply, leaves, eps=1e-6,
                                     atol=1e-5, rtol=1e-4)
+
+
+def _torch_inputs(T, hd, wmax, seed):
+    return [torch.from_numpy(a) for a in _inputs(T, hd, wmax, seed)]
+
+
+@pytest.mark.parametrize("wmax", [1.0, 8.0])
+@pytest.mark.parametrize("T,hd", PASS_SHAPES)
+def test_states_twin_is_the_scans_state_at_each_chunk(T, hd, wmax):
+    r, k, v, w, u, s0, _, _ = _torch_inputs(T, hd, wmax, seed=4)
+    got = wkv6_bwd_states_plain(k, v, w, s0)
+    assert got.shape == (B, H, -(-T // 32), hd, hd)
+    for c, t0 in enumerate(range(0, T, 32)):
+        want = s0 if t0 == 0 else wkv6_ref(r[:, :t0], k[:, :t0], v[:, :t0],
+                                          w[:, :t0], u, s0)[1]
+        assert _rel(got[:, :, c], want) <= PORT_REL, (c, _rel(got[:, :, c],
+                                                              want))
+
+
+@pytest.mark.parametrize("wmax", [1.0, 8.0])
+@pytest.mark.parametrize("T,hd", PASS_SHAPES)
+def test_dstates_twin_is_autograds_gradient_at_each_boundary(T, hd, wmax):
+    r, k, v, w, u, s0, dy, ds = _torch_inputs(T, hd, wmax, seed=5)
+    got, dstate = wkv6_bwd_dstates_plain(r, w, dy, ds)
+    assert got.shape == (B, H, -(-T // 32), hd, hd)
+    for c, t0 in enumerate(range(0, T, 32)):
+        t1 = min(T, t0 + 32)
+        if t1 == T:                     # the last chunk's exit: the output
+            want = ds
+        else:
+            with torch.no_grad():
+                mid = wkv6_ref(r[:, :t1], k[:, :t1], v[:, :t1], w[:, :t1],
+                               u, s0)[1]
+            leaf = mid.clone().requires_grad_()
+            y, s = wkv6_ref(r[:, t1:], k[:, t1:], v[:, t1:], w[:, t1:], u,
+                            leaf)
+            want, = torch.autograd.grad(
+                (y * dy[:, t1:]).sum() + (s * ds).sum(), [leaf])
+        assert _rel(got[:, :, c], want) <= PORT_REL, (c, _rel(got[:, :, c],
+                                                              want))
+    leaf = s0.clone().requires_grad_()
+    y, s = wkv6_ref(r, k, v, w, u, leaf)
+    want, = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), [leaf])
+    assert _rel(dstate, want) <= PORT_REL
+
+
+@pytest.mark.parametrize("T,hd", PASS_SHAPES)
+def test_passes_compose_to_the_plain_backward(T, hd):
+    args = _torch_inputs(T, hd, 1.0, seed=6)
+    r, k, v, w, u, s0, dy, ds = args
+    states = wkv6_bwd_states_plain(k, v, w, s0)
+    dstates, dstate = wkv6_bwd_dstates_plain(r, w, dy, ds)
+    dr, dk, dv, dw, du_part = wkv6_bwd_chunk_plain(r, k, v, w, u, dy,
+                                                   states, dstates)
+    assert du_part.shape == (B, H, -(-T // 32), hd)
+    want = wkv6_backward_plain(*args)
+    got = (dr, dk, dv, dw, du_part.sum((0, 2)), dstate)
+    wrapped = ops.wkv6_bwd_chunk(r, k, v, w, u, s0, dy,
+                                 ops.wkv6_bwd_states(*args),
+                                 ops.wkv6_bwd_dstates(*args)[0]) \
+        + (ops.wkv6_bwd_dstates(*args)[1],)
+    for name, g, c, w_ in zip(NAMES, got, wrapped, want):
+        assert torch.equal(g, w_), name
+        assert torch.equal(c, w_), name
