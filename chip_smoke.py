@@ -444,6 +444,44 @@ phase spans and peaks):
 67. internvl2-1b train run — phase 13 for 5 steps at 4 x 2048 (256 prefix
    rows and 1,792 tokens a row), full depth (493,752,448 parameters).
 
+Then the dense KV-cache path (``api.init_decode_state``, ``api.prefill``,
+``api.decode_step``), which serves the windowed configs that have no page
+plane (``dense KV-cache path`` prints the phase spans and peaks):
+
+68. row 9 at the path's prefill shapes, bf16 — gemma3-12b's local layers
+   (B 2, T 3,000, 16 heads on 8 of 256, window 1,024), its global layers
+   (window 0) and aqua-mistral-7b's (B 1, T 4,608, 32 heads on 8 of 128,
+   window 4,096): the flash forward against its plain version within
+   3e-2, the diagonal-masked control beyond, two launches bit-identical,
+   device times (plain, kernel, kernel, plain) beside the library
+   attention under the same window as an explicit mask and the bound (4
+   FLOP a causal pair in the window, head dim and query head over 989
+   TFLOP/s); under ``dense_cache`` in the ``flash_attention`` entry.
+69. gemma3-12b at full width and depth (48 layers, 5 local to 1 global,
+   qk-norm; 11,765,391,360 by the formula, the module 3,840 + 24,576
+   norm scales more): the cache for B 2, seq 4,096 (local layers 1,024
+   slots, global 4,096: 1,207,959,552 B against 3,221,225,472 B for a
+   full cache); then two seeded 3,000-token prompts (past the window, so
+   the rings roll) and one decode step driven layer by layer
+   (``dense_layer_check``): every layer's attention and MLP, prefilling
+   and decoding, within 2% per token of a float32 copy of the layer fed
+   the same input and cache, a control (layer 0's copy with no window)
+   beyond, every local ring's slot j holding the K of the last position
+   p with p mod 1,024 = j, exactly; then the main path, ``api.prefill``
+   and 64 ``api.decode_step``s (launch counts reset before each, read
+   after: 48 flash launches a prefill), its logits equal to the layer
+   check's bit for bit; prefill wall, decode-step p50/p99, peak memory;
+   one more decode step and a prefill profiled.
+70. aqua-mistral-7b at full width and depth: phase 69 at B 1, seq 8,192,
+   a 4,608-token prompt (536,870,912 B of cache against 1,073,741,824
+   B; 32 flash launches a prefill).
+71. the reference's gate (``test_arch_smoke.py:52``) in float32 at full
+   width: gemma3-12b at 6 of 48 layers (one group) and mistral at 4 of
+   32, a prompt past the window (1,100 / 4,200 tokens) then 16 / 8
+   decode steps, each step's logits within 1e-4 of the row's norm of the
+   training forward's at the same position (the two orders of one
+   float32 computation); a control decoding at pos + 1 beyond.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -4120,11 +4158,12 @@ def attention_rows(torch, np, cfg, report, label):
     del pool
 
 
-def phase_dense_model(torch, cfg, seed, want):
+def phase_dense_model(torch, cfg, seed, want, extra=0):
     """A dense, VLM or MoE (without MLA) model at its published widths
     from a seeded CUDA generator: the reference's ``param_count()`` must
     be ``want`` and the module holds that plus its final norm's
-    ``d_model`` scales."""
+    ``d_model`` scales and ``extra`` more (gemma3's qk-norm scales, which
+    the formula leaves out too)."""
     from repro_torch.models import lm
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -4138,11 +4177,11 @@ def phase_dense_model(torch, cfg, seed, want):
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}); param_count() {cfg.param_count():,} (the "
           f"reference's formula); the module holds {n:,} (+ {cfg.d_model} "
-          f"final_norm scales), {nbytes / 2 ** 30:.2f} GiB; "
+          f"final_norm scales, + {extra} more), {nbytes / 2 ** 30:.2f} GiB; "
           f"torch.cuda.memory_allocated "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB; built in "
           f"{time.perf_counter() - t:.1f} s")
-    if cfg.param_count() != want or n != want + cfg.d_model:
+    if cfg.param_count() != want or n != want + cfg.d_model + extra:
         raise AssertionError(f"{cfg.name} model: wrong parameter count")
     return model
 
@@ -4727,19 +4766,31 @@ def flash_work(shape, itemsize):
             10 * B * H * hd * pairs, 4 * qb + 4 * kb + 2 * lse)
 
 
-def library_attention_ms(torch, q, k, v, do, iters):
-    """The yardstick: ``scaled_dot_product_attention`` (is_causal, so
-    Sq == Sk) on the same inputs, forward alone and forward + backward,
-    device ms per call. Timed here only; the port never calls it."""
+def library_attention_ms(torch, q, k, v, do, iters, window=0):
+    """The yardstick: ``scaled_dot_product_attention`` (causal, so
+    Sq == Sk; a window as an explicit boolean mask; fewer KV heads than
+    query heads through ``enable_gqa``) on the same inputs, forward alone
+    and, given ``do``, forward + backward (else None), device ms per call.
+    Timed here only; the port never calls it."""
     from torch.nn import functional as F
-    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(is_causal=True)
+    if window > 0:
+        kw = dict(attn_mask=attention_mask(q.shape[1], k.shape[1], True,
+                                           window, q.device))
+    if q.shape[2] != k.shape[2]:
+        kw["enable_gqa"] = True
 
     def fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    if do is None:
+        return device_ms(fwd, iters), None
+    dot = do.transpose(1, 2)
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
 
     def fwd_bwd():
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        out = F.scaled_dot_product_attention(*leaves, **kw)
         return torch.autograd.grad(out, leaves, dot)
     return device_ms(fwd, iters), device_ms(fwd_bwd, iters)
 
@@ -5889,6 +5940,365 @@ def phase_jamba_train_layers(torch, np, dev):
     return launches["attention"]
 
 
+# -- the dense KV-cache path: gemma3-12b and aqua-mistral-7b (phases 68-71)
+# (B, Sq, Sk, H, K, hd, causal, window): row 9 at the prefill shapes of
+# phases 69-70, gemma3's local and global layers and mistral's
+DENSE_FLASH = {"gemma3-12b local": (2, 3000, 3000, 16, 8, 256, True, 1024),
+               "gemma3-12b global": (2, 3000, 3000, 16, 8, 256, True, 0),
+               "aqua-mistral-7b": (1, 4608, 4608, 32, 8, 128, True, 4096)}
+# arch -> (seed, param_count(), batch, seq, prompt, decode steps, the
+# cache's bytes, a cache of seq slots on every layer); prompts past the
+# window, so the local rings roll
+DENSE_RUNS = {"gemma3-12b": (69, 11_765_391_360, 2, 4096, 3000, 64,
+                             1_207_959_552, 3_221_225_472),
+              "aqua-mistral-7b": (70, 7_241_728_000, 1, 8192, 4608, 64,
+                                  536_870_912, 1_073_741_824)}
+# phase 71 in float32: the layers of one gemma3 group (5 local, 1 global)
+# and 4 of mistral's, a prompt past the window, then decode steps
+GATE_RUNS = {"gemma3-12b": (6, 1100, 16), "aqua-mistral-7b": (4, 4200, 8)}
+# decode vs forward logits in float32, distance over the row's norm: the
+# two orders of one float32 computation (the flash kernel over the prompt,
+# the einsum over the ring) differ by ~1e-6 at these widths
+GATE_REL = 1e-4
+
+
+def phase_dense_flash(torch, report):
+    """Row 9 at the dense cache path's prefill shapes, bf16 (phase 68):
+    against its plain version within FLASH_TOL with the diagonal-masked
+    control beyond, two launches bit-identical, device times (plain,
+    kernel, kernel, plain) beside the library attention under the same
+    mask and the bound. Adds ``dense_cache`` records to the
+    ``flash_attention`` entry."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    g = torch.Generator(device="cuda").manual_seed(68)
+    tol = FLASH_TOL["bfloat16"]
+    recs = {}
+    for label, shape in DENSE_FLASH.items():
+        causal, window = shape[6], shape[7]
+        kw = dict(causal=causal, window=window)
+        q, k, v = flash_inputs(torch, g, shape, torch.bfloat16)[:3]
+        o = fa_ops.flash_attention_fwd(q, k, v, **kw)[0]
+        same = torch.equal(o, fa_ops.flash_attention_fwd(q, k, v, **kw)[0])
+        want = fa_ref.flash_attention_ref(q, k, v, **kw)
+        err = (o.float() - want.float()).abs().max().item()
+        del o
+        ctrl = flash_control(torch, q, k, v, causal, window)
+        c_err = (ctrl.float() - want.float()).abs().max().item()
+        del want, ctrl
+        if not (same and err <= tol < c_err):
+            raise AssertionError(f"flash attention at {label} {shape}: "
+                                 f"error {err} (control {c_err}, limit "
+                                 f"{tol}), bit-identical {same}")
+        ms, plain = interleaved(
+            lambda: fa_ref.flash_attention_ref(q, k, v, **kw),
+            lambda: fa_ops.flash_attention_fwd(q, k, v, **kw), 10,
+            plain_iters=3)
+        lib = library_attention_ms(torch, q, k, v, None, 10,
+                                   window=window)[0]
+        flop, nbytes, _, _ = flash_work(shape, 2)
+        bound, by = bound_ms(nbytes, flop)
+        pairs = flop // (4 * shape[0] * shape[3] * shape[5])
+        name = (f"B={shape[0]} T={shape[1]} H={shape[3]} K={shape[4]} "
+                f"hd={shape[5]} window={window} bfloat16")
+        recs[label] = dict(shape=name, max_abs_err=err, control=c_err,
+                           tolerance=tol, bit_identical=same, ms=ms,
+                           plain_ms=plain, bound_ms=bound, bound_by=by,
+                           library_ms=lib, causal_pairs=pairs * shape[0])
+        print(f"flash {label} {name}: err {err:.3g} (limit {tol}, control "
+              f"{c_err:.3g}), two launches bit-identical {same}; kernel "
+              f"{ms:.4f} ms plain {plain:.4f} bound {bound:.4f} ({by}; "
+              f"{pairs * shape[0]:,} causal pairs in the window) library "
+              f"{lib:.4f}; {flop / (ms * 1e9):.1f} TFLOP/s")
+        del q, k, v
+    next(k for k in report if k["name"] == "flash_attention")[
+        "dense_cache"] = recs
+
+
+def cache_bytes(cache):
+    return sum(t.numel() * t.element_size() for c in cache.values()
+               for t in c)
+
+
+def ring_positions(T, slots):
+    """The position each of a ring's slots holds after a T-token prefill:
+    the last p < T with p % slots == j."""
+    return [T - 1 - ((T - 1 - j) % slots) for j in range(slots)]
+
+
+def profile_call(torch, fn):
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA
+    activities): -> (its result, {its wall, the device kernels launched,
+    device busy ms, idle share, device ms by kind, top-5 kernels}), the
+    device numbers "not measured" where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    device = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.time_range.elapsed_us() > 0]
+    if not device:
+        return out, {"wall_ms": wall_us / 1e3, "device": "not measured"}
+    summary = device_time_summary(device, wall_us)
+    return out, {
+        "wall_ms": summary["step_wall_ms"],
+        "kernels": sum(1 for name, _, _ in device
+                       if not name.startswith(("Memcpy", "Memset"))),
+        "device_busy_ms": summary["device_busy_ms"],
+        "idle_share": summary["idle_share"],
+        "by_kind_ms": summary["by_kind_ms"],
+        "top5_ms": summary["top10_ms"][:5]}
+
+
+def dense_layer_check(torch, cfg, model, dev, tokens, check_token, seq):
+    """The main path's prefill of ``tokens`` (B,T) and one decode step of
+    ``check_token`` (B,) at position T, driven layer by layer with the
+    functions ``lm.prefill`` and ``lm.decode_step`` call, on a cache of
+    its own: at each layer, on the same input (and, decoding, the same
+    cache in float32), the attention and the MLP against a float32 copy of
+    the layer, per token relative to the copy's largest output; each local
+    ring holds the K/V of the positions ``ring_positions`` names, exactly.
+    Controls: layer 0's float32 copy attending with no window on the
+    prefill (beyond LAYER_REL_LIMIT on a local layer). Returns (the
+    prefill's last logits, the decode step's, {check: per-layer list},
+    the control)."""
+    from repro_torch.layers import attention as attn
+    from repro_torch.layers.core import embed, mlp, rms_norm, unembed
+    from repro_torch.models import api, lm
+    B, T = tokens.shape
+    eps = cfg.rmsnorm_eps
+    gs = lm.group_size(cfg)
+    cache = api.init_decode_state(cfg, B, seq, device=dev)
+    pos = torch.full((B,), T, dtype=torch.long, device=dev)
+    x = embed(model.embed, cfg, tokens)
+    xd = embed(model.embed, cfg, check_token[:, None])
+    rel = {"prefill attention": [], "prefill mlp": [],
+           "decode attention": [], "decode mlp": []}
+    control, rings = None, 0
+    for layer, blk in enumerate(model.blocks):
+        g, i = divmod(layer, gs)
+        w = lm.layer_window(cfg, i)
+        c = lm._at(cache[f"sub{i}"], g)
+        mix32 = copy.deepcopy(blk.mix).float()
+        ffn32 = copy.deepcopy(blk.ffn).float()
+        h = rms_norm(blk.n1, x, eps)
+        out, (k, v) = attn.attention_full(blk.mix, cfg, h, window=w,
+                                          return_kv=True)
+        attn.fill_kv_cache(c, k, v, w)
+        want = attn.attention_full(mix32, cfg, h.float(), window=w)
+        rel["prefill attention"].append(rel_per_token(torch, out, want, ...))
+        if w and T > c.k.shape[1]:
+            held = ring_positions(T, c.k.shape[1])
+            if layer == 0:
+                k = attn.attention_full(blk.mix, cfg, h, window=w,
+                                        return_kv=True)[1][0]
+                control = rel_per_token(torch, out, attn.attention_full(
+                    mix32, cfg, h.float(), window=0), ...)
+            if not torch.equal(c.k, k[:, held]):
+                raise AssertionError(f"{cfg.name} layer {layer}: a ring slot "
+                                     "does not hold its position's K")
+            rings += 1
+        del k, v, want
+        x = x + out
+        h = rms_norm(blk.n2, x, eps)
+        f = mlp(blk.ffn, cfg, h)
+        rel["prefill mlp"].append(rel_per_token(torch, f, mlp(
+            ffn32, cfg, h.float()), ...))
+        x = x + f
+        c32 = attn.KVCache(c.k.float(), c.v.float())
+        h = rms_norm(blk.n1, xd, eps)
+        out = attn.attention_decode(blk.mix, cfg, h, c, pos, window=w)[0]
+        want = attn.attention_decode(mix32, cfg, h.float(), c32, pos,
+                                     window=w)[0]
+        rel["decode attention"].append(rel_per_token(torch, out, want, ...))
+        xd = xd + out
+        h = rms_norm(blk.n2, xd, eps)
+        f = mlp(blk.ffn, cfg, h)
+        rel["decode mlp"].append(rel_per_token(torch, f, mlp(
+            ffn32, cfg, h.float()), ...))
+        xd = xd + f
+        del mix32, ffn32, c32, out, want, f, h
+    x = rms_norm(model.final_norm, x, eps)
+    prefill_logits = unembed(model.embed, cfg, x[:, -1])
+    xd = rms_norm(model.final_norm, xd, eps)
+    decode_logits = unembed(model.embed, cfg, xd[:, 0])
+    print(f"{cfg.name} layer check: {rings} local rings hold positions "
+          f"T - 1 - ((T - 1 - j) mod slots) exactly (T {T})")
+    return prefill_logits, decode_logits, rel, control
+
+
+def phase_dense_run(torch, np, cfg, model, dev, run):
+    """Phases 69-70 on a built model: the cache from
+    ``api.init_decode_state`` (each sub-layer's slots, its bytes against
+    ``run``'s and a full cache's), ``dense_layer_check``, then the main
+    path: ``api.prefill`` of seeded prompts past the window and
+    ``api.decode_step`` for ``run``'s steps (greedy after a seeded first
+    token), launch counts reset just before each and read just after. The
+    prefill's logits and the first step's equal the layer check's bit for
+    bit. Returns {path: launch counts}."""
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    _, _, B, seq, T, steps, want_bytes, full_bytes = run
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    cache = api.init_decode_state(cfg, B, seq, device=dev)
+    slots = {sub: c.k.shape[2] for sub, c in cache.items()}
+    nbytes = cache_bytes(cache)
+    itemsize = cache["sub0"].k.element_size()
+    full = 2 * cfg.n_layers * B * seq * K * hd * itemsize
+    print(f"{cfg.name} cache: B {B}, seq {seq}, slots by sub-layer {slots}; "
+          f"{nbytes:,} B against {full:,} B for {seq} slots on every layer")
+    if (nbytes, full) != (want_bytes, full_bytes):
+        raise AssertionError(f"{cfg.name} cache: {nbytes} / {full} B, not "
+                             f"{want_bytes} / {full_bytes}")
+    g = torch.Generator(device=dev).manual_seed(seq + T)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                           device=dev)
+    first = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev)
+    t = time.perf_counter()
+    lp, ld, rel, control = dense_layer_check(torch, cfg, model, dev, tokens,
+                                             first, seq)
+    worst = {name: max(v) for name, v in rel.items()}
+    print(f"{cfg.name} layer check ({time.perf_counter() - t:.1f} s): worst "
+          f"per-token distance to the float32 copies {json.dumps(worst)} "
+          f"(limit {LAYER_REL_LIMIT}); control (layer 0, no window) "
+          f"{control:.4g}")
+    if max(worst.values()) > LAYER_REL_LIMIT or not control > \
+            LAYER_REL_LIMIT:
+        raise AssertionError(f"{cfg.name} layer check: {worst}, control "
+                             f"{control}")
+    paths = {}
+    _sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    logits, cache = api.prefill(model, cfg, tokens, cache)
+    _sync(torch, dev)
+    prefill_s = time.perf_counter() - t
+    paths[f"{cfg.name} prefill"] = build.launch_counts()
+    build.reset_launch_counts()
+    walls, tok, step_logits = [], first, None
+    for s in range(steps):
+        t = time.perf_counter()
+        out, cache = api.decode_step(model, cfg, cache, tok,
+                                     np.full(B, T + s))
+        _sync(torch, dev)
+        walls.append(time.perf_counter() - t)
+        if s == 0:
+            step_logits = out
+        tok = out.argmax(-1)
+    paths[f"{cfg.name} decode"] = build.launch_counts()
+    finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(out).all())
+    same = torch.equal(logits, lp) and torch.equal(step_logits, ld)
+    flash = paths[f"{cfg.name} prefill"].get("flash_attention", 0)
+    print(f"{cfg.name} main path: prefill of {B} x {T} tokens "
+          f"{prefill_s * 1e3:.1f} ms ({B * T / prefill_s:,.0f} tokens/s), "
+          f"{flash} flash_attention launches; {steps} decode steps p50 "
+          f"{np.percentile(walls, 50) * 1e3:.2f} ms p99 "
+          f"{np.percentile(walls, 99) * 1e3:.2f} ms ("
+          f"{B * steps / sum(walls):,.1f} tokens/s), launches "
+          f"{paths[f'{cfg.name} decode']}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; logits "
+          f"finite {finite}, equal to the layer check's {same}")
+    if not (finite and same and flash == cfg.n_layers):
+        raise AssertionError(f"{cfg.name} main path: finite {finite}, equal "
+                             f"to the layer check {same}, {flash} flash "
+                             f"launches for {cfg.n_layers} layers")
+    # one more decode step and a prefill into a fresh cache, profiled
+    # (not counted): where the device time goes, and how idle it is
+    _, dec_prof = profile_call(torch, lambda: api.decode_step(
+        model, cfg, cache, tok, np.full(B, T + steps)))
+    fresh = api.init_decode_state(cfg, B, seq, device=dev)
+    _, pre_prof = profile_call(torch, lambda: api.prefill(model, cfg, tokens,
+                                                          fresh))
+    del fresh
+    print(f"{cfg.name} profiled decode step: {json.dumps(dec_prof)}")
+    print(f"{cfg.name} profiled prefill: {json.dumps(pre_prof)}")
+    return paths
+
+
+def phase_dense_gate(torch, np, cfg, dev, prompt, steps, seed):
+    """Phase 71, the reference's gate (``test_arch_smoke.py:52``) on the
+    card: ``cfg`` (full width, cut in depth, float32) with seeded weights;
+    a prompt past the window prefilled, then ``steps`` decode steps, each
+    step's logits (and the prefill's) against the training forward's at
+    the same position within GATE_REL of the row's norm; a control
+    decoding its first step at pos + 1 beyond. Returns the forward's and
+    the prefill's launch counts."""
+    from repro_torch.kernels import build
+    from repro_torch.models import api, lm
+    model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    T = prompt + steps
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, T), generator=g,
+                           device=dev)
+    build.reset_launch_counts()
+    with torch.no_grad():
+        full = api.forward(model, cfg, tokens)[0][0]
+    cache = api.init_decode_state(cfg, 1, T, device=dev)
+    lg, cache = api.prefill(model, cfg, tokens[:, :prompt], cache)
+    counts = build.launch_counts()
+
+    def rel(got, p):
+        return ((got[0] - full[p]).norm() / full[p].norm()).item()
+    errs = [rel(lg, prompt - 1)]
+    ctrl_cache = {k: type(c)(*(t.clone() for t in c))
+                  for k, c in cache.items()}
+    ctrl = rel(api.decode_step(model, cfg, ctrl_cache, tokens[:, prompt],
+                               prompt + 1)[0], prompt)
+    del ctrl_cache
+    for p in range(prompt, T):
+        lg, cache = api.decode_step(model, cfg, cache, tokens[:, p], p)
+        errs.append(rel(lg, p))
+    slots = {sub: c.k.shape[2] for sub, c in cache.items()}
+    print(f"{cfg.name} float32 gate ({cfg.n_layers} layers, slots "
+          f"{slots}): prefill of {prompt} then {steps} decode steps, worst "
+          f"distance to the forward {max(errs):.3g} of the row's norm "
+          f"(limit {GATE_REL}); control at pos + 1 {ctrl:.3g}")
+    if not max(errs) <= GATE_REL < ctrl:
+        raise AssertionError(f"{cfg.name} float32 gate: {errs}, control "
+                             f"{ctrl}")
+    del model, cache, full
+    return counts
+
+
+def dense_cache_phases(torch, np, report, dev, t0):
+    """Phases 68-71 (``dense KV-cache path`` prints their spans). Returns
+    {path: launch counts}."""
+    from repro_torch.configs import get_config
+    lap, done = model_laps(torch, "dense KV-cache path", t0)
+    phase_dense_flash(torch, report)
+    lap("row 9 at the prefill shapes")
+    paths = {}
+    for arch, run in DENSE_RUNS.items():
+        cfg = get_config(arch)
+        extra = 2 * cfg.n_layers * cfg.resolved_head_dim \
+            if cfg.use_qk_norm else 0
+        model = phase_dense_model(torch, cfg, run[0], run[1], extra)
+        lap(f"{arch} model")
+        paths.update(phase_dense_run(torch, np, cfg, model, dev, run))
+        lap(f"{arch} check, prefill and decode")
+        del model
+        release(torch)
+    for arch, (layers, prompt, steps) in GATE_RUNS.items():
+        cfg = get_config(arch).replace(n_layers=layers,
+                                       param_dtype="float32",
+                                       compute_dtype="float32")
+        paths[f"{arch} float32 gate"] = phase_dense_gate(
+            torch, np, cfg, dev, prompt, steps, 71)
+        release(torch)
+        lap(f"{arch} float32 gate")
+    done()
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6038,13 +6448,21 @@ def main() -> int:
     lap("internvl2-1b train run")
     done()
     print(f"training families phases: {time.perf_counter() - t_fam:.1f} s")
+
+    # -- the dense KV-cache path: row 9 at its prefill shapes, gemma3-12b
+    # and aqua-mistral-7b at full width and depth, the float32 gate --------
+    t_dense = time.perf_counter()
+    dense = dense_cache_phases(torch, np, report, dev, t0)
+    print(f"dense KV-cache path phases: {time.perf_counter() - t_dense:.1f} "
+          f"s")
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
     # path that runs it, phase 6c's admission and request lifecycle and the
     # deepseek, jamba, internvl2-1b, LoRA, gemma-7b, dbrx-132b, the
-    # paper's models', minicpm-2b's and the training families' paths
-    # included (the WKV backward's first is the rwkv6-3b train run)
+    # paper's models', minicpm-2b's, the training families' and the dense
+    # KV-cache path's included (the WKV backward's first is the rwkv6-3b
+    # train run)
     paths = (("engine", launches), ("per-request", per_request),
              ("split-pool drive", split), ("rwkv engine", rwkv_engine),
              ("rwkv per-request", rwkv_per_request), ("train", train_run),
@@ -6056,7 +6474,7 @@ def main() -> int:
         + tuple(gemma.items()) + tuple(new_models.items()) \
         + (("rwkv train", rwkv_train), ("rwkv train step", rwkv_step),
            ("deepseek train", ds_train), ("jamba layer train", jamba_train),
-           ("internvl2 train", ivl_train))
+           ("internvl2 train", ivl_train)) + tuple(dense.items())
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -6098,7 +6516,9 @@ def main() -> int:
                              f"minicpm-2b launched {no_new}")
     trained = (("rwkv train", ("wkv6", "wkv6_bwd")),
                ("jamba layer train", ("flash_attention_bwd",)),
-               ("internvl2 train", ("flash_attention_bwd",)))
+               ("internvl2 train", ("flash_attention_bwd",)),
+               ("gemma3-12b prefill", ("flash_attention",)),
+               ("aqua-mistral-7b prefill", ("flash_attention",)))
     for label, rows in trained:
         if not all(dict(paths)[label].get(k, 0) > 0 for k in rows):
             raise AssertionError(f"the {label} path launched none of some "

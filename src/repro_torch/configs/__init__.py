@@ -3,7 +3,7 @@ import importlib
 
 _ARCH_MODULES = ["qwen1_5_0_5b", "rwkv6_3b", "deepseek_v2_lite_16b",
                  "jamba_v0_1_52b", "internvl2_1b", "gemma_7b", "minicpm_2b",
-                 "dbrx_132b", "aqua_paper"]
+                 "dbrx_132b", "aqua_paper", "gemma3_12b"]
 
 
 def load_all():

@@ -107,6 +107,12 @@ class ModelConfig:
             return layer_idx % self.hybrid.period == self.hybrid.attn_index
         return True
 
+    def is_global_attn_layer(self, layer_idx: int) -> bool:
+        """gemma3-style 5 local : 1 global interleave."""
+        if self.global_layer_every <= 0:
+            return self.sliding_window == 0
+        return (layer_idx + 1) % self.global_layer_every == 0
+
     def is_moe_layer(self, layer_idx: int) -> bool:
         if self.moe is None:
             return False
@@ -209,6 +215,9 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         param_dtype="float32", compute_dtype="float32")
     if cfg.family == HYBRID:
         kw["n_layers"] = 8   # one full interleave period
+    if cfg.global_layer_every:
+        kw["n_layers"] = min(cfg.n_layers, 6)
+        kw["sliding_window"] = 16
     if cfg.sliding_window and not cfg.global_layer_every:
         kw["sliding_window"] = 16
     if cfg.moe is not None:

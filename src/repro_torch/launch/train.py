@@ -7,10 +7,11 @@
 ``--arch`` takes every config the port registers that trains on one
 device: qwen1.5-0.5b, rwkv6-3b, deepseek-v2-lite-16b, jamba-v0.1-52b,
 dbrx-132b, internvl2-1b (its batches carry seeded prefix embeddings,
-``--seq`` counting them), gemma-7b, minicpm-2b and the paper's
-aqua-llama2-13b, aqua-codellama-34b and aqua-opt-30b; aqua-mistral-7b
-(sliding-window layers) is refused by ``lm.init_params``. Without
-``--smoke`` it trains the published width. Attention and the RWKV-6 WKV
+``--seq`` counting them), gemma-7b, minicpm-2b, the paper's
+aqua-llama2-13b, aqua-codellama-34b, aqua-opt-30b and aqua-mistral-7b,
+and gemma3-12b (the last two with sliding-window layers, through the
+flash op's window; held against the reference on the CPU, not yet run on
+a card). Without ``--smoke`` it trains the published width. Attention and the RWKV-6 WKV
 recurrence run through their autograd ops (``--impl kernel``: the CUDA
 kernels on a card, their plain versions on the CPU) or their plain
 versions under autograd (``--impl ref``); MLA, Mamba and the MoE are

@@ -1,19 +1,25 @@
 """GQA attention — ``repro/layers/attention.py`` for the dense family:
-full-sequence training attention (``attention_full``) and, against the
-paged KV pool, the fused serving step's mixed attention and the
-per-request chunked-prefill and decode attention.
+full-sequence attention (``attention_full``: training, and the dense
+KV-cache prefill with ``return_kv``), the dense cache's one-token decode
+(``attention_decode``) and, against the paged KV pool, the fused serving
+step's mixed attention and the per-request chunked-prefill and decode
+attention. Grouped KV heads, RoPE, qk-norm (gemma3) and sliding windows;
+a windowed layer's dense cache is a ring of ``min(window, seq)`` slots.
 
-``impl='kernel'`` routes to ``kernels/flash_attention`` (training) and
-``kernels/paged_attention`` (serving): the CUDA kernels on a CUDA device,
-their plain versions on the CPU; ``impl='ref'`` calls the plain versions
-directly (the reference's ``'pallas'`` / ``'xla'``), under autograd for
-training. Pools are updated IN PLACE (the reference returns new arrays;
-here the mutated pool is returned for the same call shape). The dense
-KV-cache prefill (``return_kv``) is not ported.
+``impl='kernel'`` routes to ``kernels/flash_attention`` (training and
+prefill) and ``kernels/paged_attention`` (serving): the CUDA kernels on a
+CUDA device, their plain versions on the CPU; ``impl='ref'`` calls the
+plain versions directly (the reference's ``'pallas'`` / ``'xla'``), under
+autograd for training. The dense cache's decode is the reference's einsum
+``_sdpa`` over the ring (no Pallas kernel there either). Pools and dense
+caches are updated IN PLACE (the reference returns new arrays; here the
+mutated pool or cache is returned for the same call shape). A logit
+softcap is not ported: no config has one.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,17 +32,28 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
     append_kv_ref, paged_attention_pool_ref, paged_mixed_attention_pool_ref,
     paged_prefill_attention_pool_ref, write_kv_rows_ref)
-from repro_torch.layers.core import Linear, apply_rope, check_impl, linear
+from repro_torch.layers.core import (Linear, _param, apply_rope, check_impl,
+                                     linear, qk_head_norm, select_update)
+
+
+class KVCache(NamedTuple):
+    """A layer's dense KV cache. ``k``/``v``: (B, S_slots, n_kv, hd). Full
+    attention layers hold S_slots = seq; windowed layers min(window, seq),
+    a ring indexed by ``pos % S_slots``."""
+    k: torch.Tensor
+    v: torch.Tensor
 
 
 class Attention(nn.Module):
+    """``wq``, ``wk``, ``wv``, ``wo``; with qk-norm also ``q_norm`` and
+    ``k_norm`` (hd,) scales (``1 + w``, zeros at init)."""
+
     def __init__(self, cfg: ModelConfig, device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.use_qk_norm or cfg.attn_logit_softcap > 0:
-            raise NotImplementedError(f"{cfg.name}: qk-norm / logit softcap "
-                                      "attention is not ported (ROADMAP "
-                                      "queue 1, item 3.3)")
+        if cfg.attn_logit_softcap > 0:
+            raise NotImplementedError(f"{cfg.name}: an attention logit "
+                                      "softcap is not ported")
         d, hd, dt = cfg.d_model, cfg.resolved_head_dim, cfg.dtype()
         kw = dict(generator=generator)
         self.wq = Linear(d, cfg.n_heads * hd, dt, device, bias=cfg.qkv_bias,
@@ -46,6 +63,10 @@ class Attention(nn.Module):
         self.wv = Linear(d, cfg.n_kv_heads * hd, dt, device,
                          bias=cfg.qkv_bias, **kw)
         self.wo = Linear(cfg.n_heads * hd, d, dt, device, **kw)
+        self.q_norm = self.k_norm = None
+        if cfg.use_qk_norm:
+            self.q_norm = _param(torch.zeros(hd, dtype=dt, device=device))
+            self.k_norm = _param(torch.zeros(hd, dtype=dt, device=device))
 
 
 def _project_qkv(p: Attention, cfg: ModelConfig, x, positions):
@@ -54,19 +75,48 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x, positions):
     q = linear(p.wq, x).reshape(B, T, cfg.n_heads, hd)
     k = linear(p.wk, x).reshape(B, T, cfg.n_kv_heads, hd)
     v = linear(p.wv, x).reshape(B, T, cfg.n_kv_heads, hd)
+    if p.q_norm is not None:
+        q = qk_head_norm(p.q_norm, q, cfg.rmsnorm_eps)
+        k = qk_head_norm(p.k_norm, k, cfg.rmsnorm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
+    """Grouped scaled-dot-product attention (the reference's ``_sdpa``):
+    the scores in the compute dtype, then float32 under ``mask`` (-1e30
+    where masked), the probabilities cast back before the value product.
+    q: (B,T,H,hd) k/v: (B,S,K,hd) mask: broadcastable to (B,1,1,T,S)."""
+    B, T, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, T, K, H // K, hd)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k) * (1.0 / math.sqrt(hd))
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return ctx.reshape(B, T, H, hd)
+
+
+def _causal_mask(q_pos, k_pos, window: int) -> torch.Tensor:
+    """q_pos: (...,T) k_pos: (...,S) -> bool (...,1,1,T,S) mask."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window > 0:
+        m &= (q_pos[..., :, None] - k_pos[..., None, :]) < window
+    m &= k_pos[..., None, :] >= 0
+    return m[..., None, None, :, :]
+
+
 def attention_full(p: Attention, cfg: ModelConfig, x, *, window: int = 0,
-                   pos_offset: int = 0, impl: str = "kernel"):
-    """Training full-sequence causal attention: x (B,T,d) at positions
-    ``pos_offset + [0, T)`` -> (B,T,d). The reference's einsum ``_sdpa``
-    under ``_causal_mask`` is exactly flash attention with ``Sq == Sk`` when
-    there is no logit softcap, so ``impl='kernel'`` runs the flash op
-    (forward and backward kernels on CUDA) and ``impl='ref'`` its plain
-    version under autograd."""
+                   pos_offset: int = 0, return_kv: bool = False,
+                   impl: str = "kernel"):
+    """Full-sequence causal attention (training and the dense cache's
+    prefill): x (B,T,d) at positions ``pos_offset + [0, T)`` -> (B,T,d),
+    and with ``return_kv`` also the roped k and the v (B,T,K,hd) it
+    attended to. The reference's einsum ``_sdpa`` under ``_causal_mask`` is
+    exactly flash attention with ``Sq == Sk`` when there is no logit
+    softcap, so ``impl='kernel'`` runs the flash op (forward and backward
+    kernels on CUDA) and ``impl='ref'`` its plain version under autograd."""
     check_impl(impl)
     B, T, _ = x.shape
     positions = pos_offset + torch.arange(T, device=x.device)[None, :]
@@ -74,7 +124,62 @@ def attention_full(p: Attention, cfg: ModelConfig, x, *, window: int = 0,
     attend = fa_ops.flash_attention if impl == "kernel" else \
         flash_attention_ref
     ctx = attend(q, k, v, causal=True, window=window)
-    return linear(p.wo, ctx.reshape(B, T, -1))
+    out = linear(p.wo, ctx.reshape(B, T, -1))
+    return (out, (k, v)) if return_kv else out
+
+
+def make_kv_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0,
+                  dtype=None, device=None) -> KVCache:
+    """A zeroed cache of ``min(window, seq)`` slots for a windowed layer,
+    ``seq`` otherwise."""
+    slots = min(window, seq) if window > 0 else seq
+    dt = dtype or cfg.torch_compute_dtype()
+    shape = (batch, slots, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device))
+
+
+def fill_kv_cache(cache: KVCache, k, v, window: int = 0) -> KVCache:
+    """Write prefill K/V (B,T,K,hd) into slots [0, T) of ``cache`` in
+    place. A windowed layer whose T exceeds its slots keeps the last
+    ``slots`` rows, rolled by ``(T - slots) % slots`` so that slot j holds
+    the position p with ``p % slots == j``."""
+    T, slots = k.shape[1], cache.k.shape[1]
+    if window > 0 and T > slots:
+        roll = (T - slots) % slots
+        cache.k.copy_(torch.roll(k[:, T - slots:], roll, dims=1))
+        cache.v.copy_(torch.roll(v[:, T - slots:], roll, dims=1))
+        return cache
+    if T > slots:
+        raise ValueError(f"a {T}-token prefill does not fit {slots} slots")
+    cache.k[:, :T] = k.to(cache.k.dtype)
+    cache.v[:, :T] = v.to(cache.v.dtype)
+    return cache
+
+
+def attention_decode(p: Attention, cfg: ModelConfig, x, cache: KVCache, pos,
+                     *, window: int = 0) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode against a dense cache. x: (B,1,d); pos: (B,) int
+    positions of the new tokens, on x's device. The new K/V goes into slot
+    ``pos % slots`` of a ring (a windowed layer's cache of at most
+    ``window`` slots), slot ``pos`` otherwise, in place; then every lane
+    attends over all slots, a ring's slot j standing for position
+    ``p - ((p - j) mod slots)``, under the causal (and window) mask.
+    Returns (out (B,1,d), cache)."""
+    B = x.shape[0]
+    positions = pos.reshape(-1, 1).expand(B, 1)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    slots = cache.k.shape[1]
+    is_ring = 0 < window and slots <= window
+    p_ = positions[:, :1]
+    slot = p_[:, 0] % slots if is_ring else p_[:, 0]
+    select_update(cache.k, k_new[:, 0], slot)
+    select_update(cache.v, v_new[:, 0], slot)
+    j = torch.arange(slots, device=x.device)[None, :]
+    k_pos = p_ - torch.remainder(p_ - j, slots) if is_ring \
+        else j.expand(B, slots)
+    ctx = _sdpa(cfg, q, cache.k, cache.v, _causal_mask(p_, k_pos, window))
+    return linear(p.wo, ctx.reshape(B, 1, -1)), cache
 
 
 def attention_prefill_chunk(p: Attention, cfg: ModelConfig, x, kv_pool,

@@ -53,6 +53,27 @@ def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * (1.0 + p.scale.float())).to(dt)
 
 
+def qk_head_norm(scale: torch.Tensor, x: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the head_dim of (..., H, hd) tensors (gemma3's
+    qk-norm): float32, then times ``1 + scale``, cast back."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def select_update(buf: torch.Tensor, new: torch.Tensor,
+                  slot: torch.Tensor) -> torch.Tensor:
+    """Write ``new[b]`` into ``buf[b, slot[b]]`` IN PLACE and return
+    ``buf``: one indexed write of B rows (the reference's one-hot select
+    copies the whole buffer to stay off XLA's bf16 scatter)."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf[rows, slot.long()] = new.to(buf.dtype)
+    return buf
+
+
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim

@@ -1,5 +1,5 @@
-"""Multi-head latent attention (DeepSeek-V2) on the paged latent plane —
-``repro/layers/mla.py``'s paged functions.
+"""Multi-head latent attention (DeepSeek-V2) — ``repro/layers/mla.py``:
+the paged latent plane's functions and the dense latent cache's.
 
 A page of the ``mla`` token plane holds, per token, the normalised rank-r
 latent and the shared roped key: ``(page, kv_lora + rope_dim)`` in the
@@ -8,16 +8,17 @@ non-absorbed (per-head K/V materialised from the latents); decode lanes
 attend absorbed (the query taken through ``wuk`` into latent space, the
 context back through ``wuv``). Pools are updated IN PLACE and returned,
 as in the attention layers. The reference computes all of it in ``jnp``
-(no Pallas kernel), so the products here are PyTorch's. Training takes
-``mla_full``, the non-absorbed full-sequence causal form.
+(no Pallas kernel), so the products here are PyTorch's. Training and the
+dense cache's prefill take ``mla_full``, the non-absorbed full-sequence
+causal form; the dense cache (``MLACache``: the latents and roped keys
+of positions [0, seq)) decodes absorbed (``mla_decode``), in place.
 
-Not ported: the non-paged ``mla_decode`` / ``MLACache`` and a low-rank
-query (``q_lora_rank > 0``).
+Not ported: a low-rank query (``q_lora_rank > 0``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +26,12 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.core import (Linear, RMSNorm, apply_rope, linear,
-                                     rms_norm)
+                                     rms_norm, select_update)
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # (B, S, kv_lora)   normalised latent
+    k_rope: torch.Tensor  # (B, S, rope_dim)  shared roped key
 
 
 class MLA(nn.Module):
@@ -82,13 +88,15 @@ def _scale(cfg: ModelConfig) -> float:
                            + cfg.mla.qk_rope_head_dim)
 
 
-def mla_full(p: MLA, cfg: ModelConfig, x):
-    """Non-absorbed full-sequence causal MLA (training) — the reference's
-    ``mla_full``: per-head K/V from the latents, the scores in the compute
-    dtype then float32 under the causal mask, the probabilities cast back
-    to the compute dtype. x (B,T,d) at positions [0, T) -> (B,T,d). Its q.k
-    width (nope + rope, 192 on V2) and v width (128) differ, which the
-    flash kernels do not take: the products are PyTorch's."""
+def mla_full(p: MLA, cfg: ModelConfig, x, *, return_cache: bool = False):
+    """Non-absorbed full-sequence causal MLA (training, prefill) — the
+    reference's ``mla_full``: per-head K/V from the latents, the scores in
+    the compute dtype then float32 under the causal mask, the
+    probabilities cast back to the compute dtype. x (B,T,d) at positions
+    [0, T) -> (B,T,d), and with ``return_cache`` also the latents and
+    roped keys ((B,T,kv_lora), (B,T,rope)). Its q.k width (nope + rope,
+    192 on V2) and v width (128) differ, which the flash kernels do not
+    take: the products are PyTorch's."""
     m = cfg.mla
     B, T, _ = x.shape
     H = cfg.n_heads
@@ -106,7 +114,64 @@ def mla_full(p: MLA, cfg: ModelConfig, x):
     scores = scores.float().masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhts,bshd->bthd", probs, v)
-    return linear(p.wo, ctx.reshape(B, T, -1))
+    out = linear(p.wo, ctx.reshape(B, T, -1))
+    return (out, (c_kv, k_rope)) if return_cache else out
+
+
+def make_mla_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
+                   device=None) -> MLACache:
+    m = cfg.mla
+    dt = dtype or cfg.torch_compute_dtype()
+    return MLACache(
+        torch.zeros((batch, seq, m.kv_lora_rank), dtype=dt, device=device),
+        torch.zeros((batch, seq, m.qk_rope_head_dim), dtype=dt,
+                    device=device))
+
+
+def fill_mla_cache(cache: MLACache, c_kv, k_rope) -> MLACache:
+    """Write prefill latents (B,T,*) into positions [0, T), in place."""
+    T = c_kv.shape[1]
+    cache.c_kv[:, :T] = c_kv.to(cache.c_kv.dtype)
+    cache.k_rope[:, :T] = k_rope.to(cache.k_rope.dtype)
+    return cache
+
+
+def _absorbed(p: MLA, cfg: ModelConfig, x, positions, c_kv, k_rope):
+    """Absorbed attention of single tokens x (B,1,d) at ``positions``
+    (B,1) over latents (B,S,kv_lora) and roped keys (B,S,rope) of
+    positions [0, S): the query taken into latent space through ``wuk`` in
+    the compute dtype, keys at positions <= pos, the context back through
+    ``wuv``. -> (B,1,d)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H, dt = cfg.n_heads, x.dtype
+    S = c_kv.shape[1]
+    q_nope, q_rope = _queries(p, cfg, x, positions)
+    wuk = p.wuk.w.to(dt).reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_eff = torch.einsum("bthd,chd->bthc", q_nope, wuk)
+    scores = (torch.einsum("bthc,bsc->bhts", q_eff, c_kv)
+              + torch.einsum("bthd,bsd->bhts", q_rope, k_rope)) * _scale(cfg)
+    mask = (torch.arange(S, device=x.device)[None, :]
+            <= positions[:, :1])[:, None, None, :]
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    ctx_lat = torch.einsum("bhts,bsc->bthc", probs, c_kv)
+    wuv = p.wuv.w.to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    ctx = torch.einsum("bthc,chd->bthd", ctx_lat, wuv)
+    return linear(p.wo, ctx.reshape(B, 1, -1))
+
+
+def mla_decode(p: MLA, cfg: ModelConfig, x, cache: MLACache, pos
+               ) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed single-token decode over the dense latent cache. x:
+    (B,1,d); pos: (B,) int positions on x's device. The new latent and
+    roped key go into row ``pos`` in place, then the lane attends to
+    positions <= pos. Returns (out (B,1,d), cache)."""
+    positions = pos.reshape(-1, 1).expand(x.shape[0], 1)
+    c_new, r_new = _latents(p, cfg, x, positions)
+    select_update(cache.c_kv, c_new[:, 0], positions[:, 0])
+    select_update(cache.k_rope, r_new[:, 0], positions[:, 0])
+    return _absorbed(p, cfg, x, positions, cache.c_kv, cache.k_rope), cache
 
 
 def window_rows(starts, Tc: int, page: int, pps_pad: int) -> np.ndarray:
@@ -228,13 +293,11 @@ def mla_decode_paged(p: MLA, cfg: ModelConfig, x, lat_pool, block_table,
     x: (B,1,d); lat_pool: (P,page,C); block_table: (B,pps) int32 LOCAL
     slots on the pool's device (idle lanes on scratch); pos: (B,) host
     positions; ``meta`` optionally their ``step_meta``. Each lane's new
-    latent goes into its tail page row in place, then the query, taken into latent space through ``wuk`` in the
-    compute dtype, attends to the gathered latents at positions <= pos.
+    latent goes into its tail page row in place, then the lane attends
+    absorbed (``_absorbed``) to the gathered latents at positions <= pos.
     Returns (out (B,1,d), pool).
     """
-    m = cfg.mla
     B = x.shape[0]
-    H, dt = cfg.n_heads, x.dtype
     page = lat_pool.shape[1]
     if meta is None:
         meta = step_meta(pos, B, 1, page, block_table.shape[1], x.device)
@@ -246,20 +309,7 @@ def mla_decode_paged(p: MLA, cfg: ModelConfig, x, lat_pool, block_table,
         [c_new, r_new], dim=-1)[:, 0].to(lat_pool.dtype)
 
     c_kv, k_rope = _gather_latents(cfg, lat_pool, block_table)   # (B,S,*)
-    S = c_kv.shape[1]
-    q_nope, q_rope = _queries(p, cfg, x, positions)
-    wuk = p.wuk.w.to(dt).reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
-    q_eff = torch.einsum("bthd,chd->bthc", q_nope, wuk)
-    scores = (torch.einsum("bthc,bsc->bhts", q_eff, c_kv)
-              + torch.einsum("bthd,bsd->bhts", q_rope, k_rope)) * _scale(cfg)
-    mask = (torch.arange(S, device=x.device)[None, :]
-            <= positions[:, :1])[:, None, None, :]
-    scores = torch.where(mask, scores.float(), -1e30)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    ctx_lat = torch.einsum("bhts,bsc->bthc", probs, c_kv)
-    wuv = p.wuv.w.to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
-    ctx = torch.einsum("bthc,chd->bthd", ctx_lat, wuv)
-    return linear(p.wo, ctx.reshape(B, 1, -1)), lat_pool
+    return _absorbed(p, cfg, x, positions, c_kv, k_rope), lat_pool
 
 
 def mla_mixed_paged(p: MLA, cfg: ModelConfig, x, lat_pool, block_table,

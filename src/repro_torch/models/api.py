@@ -1,5 +1,6 @@
 """Uniform model API (the part of ``repro/models/api.py`` the port runs):
-the training loss and forward, and for the paged serving runtime the fused
+the training loss and forward, the dense KV-cache path (``init_decode_state``,
+``prefill``, ``decode_step``), and for the paged serving runtime the fused
 engine step and the per-request chunked prefill and decode it is held
 against."""
 from __future__ import annotations
@@ -25,6 +26,29 @@ def loss_fn(model, cfg: ModelConfig, batch: dict, *, remat: bool = False,
     """Next-token cross-entropy of ``batch["tokens"]`` (after
     ``batch["prefix_embeds"]``, when present), plus the MoE aux term."""
     return lm.loss_fn(model, cfg, batch, remat=remat, impl=impl)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq: int, dtype=None,
+                      device=None) -> dict:
+    """The stacked dense cache ``{"sub{i}": per-kind cache}``; windowed
+    layers hold rings of ``min(window, seq)`` slots. CUDA unless the
+    caller passes another device."""
+    return lm.init_decode_state(cfg, batch, seq, dtype, device)
+
+
+def prefill(model, cfg: ModelConfig, tokens, cache, *, prefix_embeds=None,
+            impl: str = "kernel"):
+    """tokens (B,T) + an empty cache -> (last-token logits (B,V), the
+    filled cache)."""
+    return lm.prefill(model, cfg, tokens, cache,
+                      prefix_embeds=prefix_embeds, impl=impl)
+
+
+def decode_step(model, cfg: ModelConfig, cache, tokens, pos, *,
+                impl: str = "kernel"):
+    """One token for every sequence. tokens (B,), pos (B,) -> (logits
+    (B,V), the cache)."""
+    return lm.decode_step(model, cfg, cache, tokens, pos, impl=impl)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:

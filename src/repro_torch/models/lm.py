@@ -1,18 +1,21 @@
-"""Decoder LM for training and the paged serving runtime — the dense,
-MoE/MLA, VLM (a dense backbone whose prompts open with prefix embedding
-rows), RWKV-6 and hybrid (Jamba) subset of ``repro/models/lm.py``, for
-training and serving.
+"""Decoder LM — the dense, MoE/MLA, VLM (a dense backbone whose prompts
+open with prefix embedding rows), RWKV-6 and hybrid (Jamba) subset of
+``repro/models/lm.py``: training, the paged serving runtime, and the dense
+KV-cache path (``init_decode_state``, ``prefill``, ``decode_step``) that
+also serves the windowed configs, which have no page plane.
 
 The reference stacks layer groups for ``lax.scan``; here the model is an
 ``nn.Module`` whose ``blocks`` are one module per layer and the step is a
 Python loop over them (PyTorch runs eagerly). Layer l is sub-layer
 i = l % group_size of the reference's group g = l // group_size: one
-sub-layer per group for the homogeneous families, eight for jamba
-(attention at index 4, Mamba elsewhere, the MoE on odd indices). A
-sub-layer's kinds depend only on i: its sequence mixer is attention, MLA,
-Mamba (each followed by a feed-forward: the MLP, or the dropless MoE
-where ``ffn_kind`` says so) or RWKV-6 (time-mix and channel-mix, with
-their own residuals). See ``mixer_kind`` and ``ffn_kind``.
+sub-layer per group for the homogeneous families, six for gemma3 (five
+local windowed layers, then a global one), eight for jamba (attention at
+index 4, Mamba elsewhere, the MoE on odd indices). A sub-layer's kinds
+depend only on i: its sequence mixer is attention (``"attn"``, or
+``"attn_local"`` under a sliding window), MLA, Mamba (each followed by a
+feed-forward: the MLP, or the MoE where ``ffn_kind`` says so) or RWKV-6
+(time-mix and channel-mix, with their own residuals). See ``mixer_kind``
+and ``ffn_kind``.
 """
 from __future__ import annotations
 
@@ -37,8 +40,13 @@ from repro_torch.models.losses import shifted_xent
 
 
 def group_size(cfg: ModelConfig) -> int:
-    """Sub-layers per layer group: the hybrid's period, else 1."""
-    return cfg.hybrid.period if cfg.family == HYBRID else 1
+    """Sub-layers per layer group: the hybrid's period, gemma3's
+    ``global_layer_every``, else 1."""
+    if cfg.family == HYBRID:
+        return cfg.hybrid.period
+    if cfg.global_layer_every > 0:
+        return cfg.global_layer_every
+    return 1
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -51,12 +59,18 @@ def n_groups(cfg: ModelConfig) -> int:
 
 def mixer_kind(cfg: ModelConfig, i: int = 0) -> str:
     """Sequence mixer of sub-layer i (the position within its group):
-    ``"rwkv"``, ``"mamba"``, ``"mla"`` or ``"attn"``."""
+    ``"rwkv"``, ``"mamba"``, ``"mla"``, ``"attn"`` or ``"attn_local"``
+    (attention under the sliding window)."""
     if cfg.family == SSM:
         return "rwkv"
     if cfg.family == HYBRID:
         return "attn" if i == cfg.hybrid.attn_index else "mamba"
-    return "mla" if cfg.mla is not None else "attn"
+    if cfg.mla is not None:
+        return "mla"
+    if cfg.global_layer_every > 0:
+        return ("attn" if (i + 1) % cfg.global_layer_every == 0
+                else "attn_local")
+    return "attn_local" if cfg.sliding_window > 0 else "attn"
 
 
 def ffn_kind(cfg: ModelConfig, i: int = 0) -> Optional[str]:
@@ -69,6 +83,12 @@ def ffn_kind(cfg: ModelConfig, i: int = 0) -> Optional[str]:
                                 == cfg.moe.moe_every - 1):
         return "moe"
     return "mlp"
+
+
+def layer_window(cfg: ModelConfig, i: int) -> int:
+    """Sub-layer i's attention window: the config's for ``"attn_local"``,
+    else 0 (none)."""
+    return cfg.sliding_window if mixer_kind(cfg, i) == "attn_local" else 0
 
 
 def sublayers(cfg: ModelConfig) -> List[Tuple[int, int, str]]:
@@ -120,13 +140,19 @@ class Block(nn.Module):
 class LM(nn.Module):
     """Weights of a decoder LM under the reference's names: ``embed.tok``
     (and ``embed.head`` when untied), ``blocks[l].{n1, mix, n2, ffn}``,
-    ``final_norm``."""
+    ``final_norm``. Any config of the ported families builds; the paged
+    entry points and the engine refuse those that are not paged-servable
+    (``supports_paged``)."""
 
     def __init__(self, cfg: ModelConfig, device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not supports_paged(cfg):
-            raise ValueError(f"{cfg.name}: not paged-servable by the port")
+        if cfg.family not in (DENSE, MOE, VLM, SSM, HYBRID):
+            raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
+                                      "is not ported")
+        if cfg.attn_logit_softcap > 0:
+            raise NotImplementedError(f"{cfg.name}: an attention logit "
+                                      "softcap is not ported")
         self.embed = Embedding(cfg, device, generator)
         gs = group_size(cfg)
         self.blocks = nn.ModuleList(Block(cfg, device, generator, l % gs)
@@ -287,9 +313,10 @@ def _tokens_on(tokens, device) -> torch.Tensor:
 def _train_group(blocks, cfg: ModelConfig, x, impl: str):
     """One layer group of the training forward (the reference's
     ``_group_train``): each sub-layer by its kinds, RWKV-6 and Mamba from a
-    zero state, attention through ``attention_full`` (the flash op for
-    ``impl="kernel"``), MLA through ``mla_full``, then the MLP or the MoE
-    with capacity dispatch. -> (x, the group's summed MoE aux loss)."""
+    zero state, attention through ``attention_full`` under the sub-layer's
+    window (the flash op for ``impl="kernel"``), MLA through ``mla_full``,
+    then the MLP or the MoE with capacity dispatch. -> (x, the group's
+    summed MoE aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     B = x.shape[0]
     for i, blk in enumerate(blocks):
@@ -306,7 +333,8 @@ def _train_group(blocks, cfg: ModelConfig, x, impl: str):
         elif kind == "mla":
             h = mla_mod.mla_full(blk.mix, cfg, h)
         else:
-            h = attn.attention_full(blk.mix, cfg, h, impl=impl)
+            h = attn.attention_full(blk.mix, cfg, h,
+                                    window=layer_window(cfg, i), impl=impl)
         x = x + h
         h = rms_norm(blk.n2, x, cfg.rmsnorm_eps)
         if isinstance(blk.ffn, MoE):
@@ -363,6 +391,163 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: dict, *,
         loss = loss + cfg.moe.aux_loss_coef * aux / max(
             cfg.n_layers // cfg.moe.moe_every, 1)
     return loss
+
+
+def _sublayer_cache(cfg: ModelConfig, i: int, batch: int, seq: int, dtype,
+                    device):
+    kind = mixer_kind(cfg, i)
+    if kind == "rwkv":
+        return rwkv.init_rwkv_state(cfg, batch, dtype, device)
+    if kind == "mamba":
+        return mamba_mod.init_mamba_state(cfg, batch, dtype, device)
+    if kind == "mla":
+        return mla_mod.make_mla_cache(cfg, batch, seq, dtype, device)
+    return attn.make_kv_cache(cfg, batch, seq, layer_window(cfg, i), dtype,
+                              device)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq: int, dtype=None,
+                      device=None) -> dict:
+    """The dense decode cache in the reference's layout: ``{"sub{i}":
+    cache}`` per sub-layer position i of a group, each leaf stacked over
+    the groups (leading axis G). Attention: ``KVCache`` (G, B, slots, K,
+    hd), ``seq`` slots, ``min(window, seq)`` for a windowed layer's ring;
+    MLA: ``MLACache`` (G, B, seq, *); RWKV-6: ``RWKVState`` (wkv float32);
+    Mamba: ``MambaState`` (ssm float32). Zeros in ``dtype`` (the compute
+    dtype by default) on ``device`` (CUDA unless the caller passes
+    another; raises when CUDA is absent)."""
+    device = resolve_device(device)
+    dt = dtype or cfg.torch_compute_dtype()
+    G = n_groups(cfg)
+    state = {}
+    for i in range(group_size(cfg)):
+        shapes = _sublayer_cache(cfg, i, batch, seq, dt, "meta")
+        state[f"sub{i}"] = type(shapes)(*(
+            torch.zeros((G,) + t.shape, dtype=t.dtype, device=device)
+            for t in shapes))
+    return state
+
+
+def _at(cache, g: int):
+    """Group g's views of a stacked per-kind cache."""
+    return type(cache)(*(t[g] for t in cache))
+
+
+def _store(view, new):
+    """Write a layer's new cache into its group views, where the layer did
+    not write them in place."""
+    for dst, src in zip(view, new):
+        if src is not dst:
+            dst.copy_(src)
+
+
+def _group_prefill(blocks, cfg: ModelConfig, x, cache: dict, g: int,
+                   impl: str):
+    """One layer group over the whole prompt (the reference's
+    ``_group_prefill``), filling group g of ``cache`` in place: attention
+    through ``attention_full(return_kv=True)`` under the sub-layer's
+    window (the flash op for ``impl="kernel"``) then ``fill_kv_cache``,
+    MLA through ``mla_full(return_cache=True)``, RWKV-6 and Mamba from the
+    cache's state, then the MLP or the MoE with capacity dispatch."""
+    for i, blk in enumerate(blocks):
+        kind = mixer_kind(cfg, i)
+        c = _at(cache[f"sub{i}"], g)
+        if kind == "rwkv":
+            x, nc = rwkv.rwkv_block(blk.mix, cfg, x, c,
+                                    {"n1": blk.n1, "n2": blk.n2}, impl=impl)
+            _store(c, nc)
+            continue
+        h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
+        if kind == "mamba":
+            h, nc = mamba_mod.mamba_forward(blk.mix, cfg, h, c)
+        elif kind == "mla":
+            h, (c_kv, k_rope) = mla_mod.mla_full(blk.mix, cfg, h,
+                                                 return_cache=True)
+            nc = mla_mod.fill_mla_cache(c, c_kv, k_rope)
+        else:
+            w = layer_window(cfg, i)
+            h, (k, v) = attn.attention_full(blk.mix, cfg, h, window=w,
+                                            return_kv=True, impl=impl)
+            nc = attn.fill_kv_cache(c, k, v, w)
+        _store(c, nc)
+        x = x + h
+        h = rms_norm(blk.n2, x, cfg.rmsnorm_eps)
+        if isinstance(blk.ffn, MoE):
+            h = moe_apply(blk.ffn, cfg, h, dropless=False)[0]
+        else:
+            h = mlp(blk.ffn, cfg, h)
+        x = x + h
+    return x
+
+
+@torch.no_grad()
+def prefill(model: LM, cfg: ModelConfig, tokens, cache: dict, *,
+            prefix_embeds=None, impl: str = "kernel"):
+    """tokens (B,T) (a VLM's ``prefix_embeds`` (B,P,d) before them, at
+    positions [0, P)) and an empty cache from ``init_decode_state`` ->
+    (the last position's logits (B,V), the cache, filled in place). Every
+    family, windowed attention included."""
+    check_impl(impl)
+    device = model.embed.tok.device
+    x = embed(model.embed, cfg, _tokens_on(tokens, device))
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(device=device, dtype=x.dtype), x],
+                      dim=1)
+    gs = group_size(cfg)
+    for g in range(n_groups(cfg)):
+        x = _group_prefill(model.blocks[g * gs:(g + 1) * gs], cfg, x, cache,
+                           g, impl)
+    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
+    return unembed(model.embed, cfg, x[:, -1]), cache
+
+
+def _group_decode(blocks, cfg: ModelConfig, x, cache: dict, g: int, pos,
+                  impl: str):
+    """One layer group for one token a lane (the reference's
+    ``_group_decode``), updating group g of ``cache`` in place: attention
+    through ``attention_decode`` (a ring for a windowed layer), MLA through
+    the absorbed ``mla_decode``, RWKV-6 (the WKV op for
+    ``impl="kernel"``) and Mamba one step from the cache's state, then the
+    MLP or the dropless MoE."""
+    for i, blk in enumerate(blocks):
+        kind = mixer_kind(cfg, i)
+        c = _at(cache[f"sub{i}"], g)
+        if kind == "rwkv":
+            x, nc = rwkv.rwkv_block(blk.mix, cfg, x, c,
+                                    {"n1": blk.n1, "n2": blk.n2}, impl=impl)
+            _store(c, nc)
+            continue
+        h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
+        if kind == "mamba":
+            h, nc = mamba_mod.mamba_decode(blk.mix, cfg, h, c)
+        elif kind == "mla":
+            h, nc = mla_mod.mla_decode(blk.mix, cfg, h, c, pos)
+        else:
+            h, nc = attn.attention_decode(blk.mix, cfg, h, c, pos,
+                                          window=layer_window(cfg, i))
+        _store(c, nc)
+        x = x + h
+        x = x + ffn_apply(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
+    return x
+
+
+@torch.no_grad()
+def decode_step(model: LM, cfg: ModelConfig, cache: dict, tokens, pos, *,
+                impl: str = "kernel"):
+    """One token for every sequence: tokens (B,), pos (B,) (host ints or
+    tensors; a scalar pos is every lane's) -> (logits (B,V), the cache,
+    updated in place)."""
+    check_impl(impl)
+    device = model.embed.tok.device
+    tokens = _tokens_on(tokens, device).reshape(-1, 1)
+    pos = _tokens_on(pos, device).reshape(-1).long()
+    x = embed(model.embed, cfg, tokens)
+    gs = group_size(cfg)
+    for g in range(n_groups(cfg)):
+        x = _group_decode(model.blocks[g * gs:(g + 1) * gs], cfg, x, cache,
+                          g, pos, impl)
+    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
+    return unembed(model.embed, cfg, x[:, 0]), cache
 
 
 def _rwkv_layer(blk: Block, cfg: ModelConfig, x, pools: dict, ws, ss, *,

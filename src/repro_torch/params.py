@@ -4,9 +4,10 @@
 ``jax.tree.map(np.asarray, api.init_params(key, cfg))``), so the port needs no
 ``jax`` to read it, and returns the port's :class:`~repro_torch.models.lm.LM`.
 The leading layer-group axis of ``blocks`` is unstacked into one module per
-layer: ``blocks.sub{i}`` at group g is layer g x group_size + i, with
-``{n1, n2, mix.*, ffn.*}`` for the dense, MoE and hybrid families (the
-mixer attention, MLA or Mamba, the feed-forward an MLP or the MoE's
+layer: ``blocks.sub{i}`` at group g is layer g x group_size + i (gemma3:
+six sub-layers a group), with ``{n1, n2, mix.*, ffn.*}`` for the dense,
+MoE and hybrid families (the mixer attention, with qk-norm its ``q_norm``
+and ``k_norm``, MLA or Mamba, the feed-forward an MLP or the MoE's
 router, experts and shared experts) and ``{n1, n2, mix.tm.*, mix.cm.*}``
 for RWKV-6.
 """
@@ -87,6 +88,10 @@ def from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
         else:
             _put_linears(blk.mix, sub["mix"], ("wq", "wk", "wv", "wo"), g,
                          f"blocks.{l}")
+            if blk.mix.q_norm is not None:
+                for name in ("q_norm", "k_norm"):
+                    _put(getattr(blk.mix, name), sub["mix"][name][g],
+                         f"blocks.{l}.mix.{name}")
         ffn, tree_ffn = blk.ffn, sub["ffn"]
         if isinstance(ffn, MoE):
             _put_linears(ffn, tree_ffn, ("router",), g, f"blocks.{l}.ffn")

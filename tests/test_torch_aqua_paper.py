@@ -9,8 +9,8 @@ at rtol 1e-4 / atol 1e-5: the training forward's logits and the fused step
 ``serve_step_paged`` (logits; every page a live row owns; the rest
 untouched). aqua-opt-30b's MLP is the non-gated tanh-gelu one (no ``gate``
 leaf). aqua-mistral-7b's sliding window has no page plane: ``supports_paged``
-is false in both packages and both engines refuse it. The serve CLI for
-each name.
+is false in both packages and both engines refuse it; its model builds and
+its forward equals the reference's. The serve CLI for each name.
 """
 import dataclasses
 
@@ -146,7 +146,9 @@ def test_serve_step_paged_matches_reference(models):
 
 def test_mistral_is_refused_by_both_engines():
     """aqua-mistral-7b's 4,096-token window (16 in the smoke config) has
-    no page plane: neither package serves it."""
+    no page plane: neither package's engine serves it. Its model builds
+    and its training forward equals the reference's (the dense KV-cache
+    path serves it: ``test_torch_kv_cache_path.py``)."""
     arch = "aqua-mistral-7b"
     cfg, tcfg = smoke_config(get_config(arch)), t_smoke_config(
         t_get_config(arch))
@@ -163,7 +165,14 @@ def test_mistral_is_refused_by_both_engines():
         TEngine(tcfg, model, hw=T_A100, max_running=2, max_seq=64,
                 device="cpu")
     with pytest.raises(ValueError, match="not paged-servable"):
-        tlm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+        tlm.paged_layout(tcfg)
+    mistral = from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    want, _ = japi.model_module(cfg).forward(params, cfg, jnp.asarray(toks))
+    with torch.no_grad():
+        got, _ = tlm.forward(mistral, tcfg, toks)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("arch", sorted(COUNTS))

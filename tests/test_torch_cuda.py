@@ -1805,3 +1805,92 @@ def test_cuda_jamba_packed_step_is_deterministic():
     assert torch.equal(runs[0][0], runs[1][0])
     for name in pools0:
         assert torch.equal(runs[0][1][name], runs[1][1][name]), name
+
+
+# the dense KV-cache path: every family's smoke config, and row 9 at the
+# prefill shapes of gemma3-12b's local and global layers and of
+# aqua-mistral-7b's, at lengths that are no multiple of a tile
+DENSE_CACHE_ARCHS = ("qwen1.5-0.5b", "gemma3-12b", "aqua-mistral-7b",
+                     "rwkv6-3b", "deepseek-v2-lite-16b", "jamba-v0.1-52b",
+                     "internvl2-1b", "dbrx-132b")
+DENSE_FLASH_CASES = {"gemma3_local": (1, 1300, 16, 8, 256, 1024),
+                     "gemma3_global": (1, 1300, 16, 8, 256, 0),
+                     "mistral": (1, 4150, 32, 8, 128, 4096)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", DENSE_CACHE_ARCHS)
+def test_cuda_dense_cache_path_matches_cpu(arch):
+    """``api.prefill`` of 20 tokens (a VLM's 8 prefix rows before them)
+    then 4 ``api.decode_step``s at the float32 smoke config, on the card
+    and on the CPU from the same weights: logits and every cache leaf
+    within 1e-4. On the card the prefill runs the flash kernel once per
+    attention layer, and rwkv6-3b the WKV kernel once per layer a call,
+    from the cache's state."""
+    import copy
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import api, lm
+    dev = _cuda()
+    cfg = smoke_config(get_config(arch))
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    B, T, S, TP = 2, 24, 32, 20
+    toks = rng.integers(0, cfg.vocab_size, (B, T))
+    P = cfg.n_prefix_embeds
+    pre = (torch.from_numpy((0.02 * rng.standard_normal(
+        (B, P, cfg.d_model))).astype(np.float32)) if P else None)
+
+    def run(m, device):
+        cache = api.init_decode_state(cfg, B, S, torch.float32,
+                                      device=device)
+        lg, cache = api.prefill(m, cfg, toks[:, :TP], cache,
+                                prefix_embeds=pre)
+        out = [lg]
+        for i in range(TP, T):
+            lg, cache = api.decode_step(m, cfg, cache, toks[:, i],
+                                        np.full(B, P + i))
+            out.append(lg)
+        return out, cache
+    before = build.launch_counts()
+    got, cache = run(copy.deepcopy(model).to(dev), dev)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    want, cpu_cache = run(model, torch.device("cpu"))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    for sub, c in cache.items():
+        for g, w in zip(c, cpu_cache[sub]):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=sub)
+    n_attn = sum(lm.mixer_kind(cfg, l % lm.group_size(cfg))
+                 in ("attn", "attn_local") for l in range(cfg.n_layers))
+    launched = {k: after.get(k, 0) - before.get(k, 0)
+                for k in ("flash_attention", "wkv6")}
+    n_wkv = cfg.n_layers * (1 + T - TP) if cfg.family == "ssm" else 0
+    assert launched == {"flash_attention": n_attn, "wkv6": n_wkv}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DENSE_FLASH_CASES))
+def test_cuda_flash_at_dense_cache_shapes(case, dtype):
+    """The flash forward at hd 256 under a window of 1,024 (and none) and
+    at hd 128 under 4,096, GQA, T ragged: within the attention tolerance
+    of the plain version, its lse within 1e-5, two calls bit-identical."""
+    dev = _cuda()
+    B, T, H, K, hd, window = DENSE_FLASH_CASES[case]
+    rng = np.random.default_rng(hd + window)
+    q, k, v = [torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev, DTYPES[dtype])
+        for s in ((B, T, H, hd), (B, T, K, hd), (B, T, K, hd))]
+    kw = dict(causal=True, window=window)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    o2, lse2 = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    ro, rlse = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (o.float() - ro.float()).abs().max().item() <= FLASH_TOL[dtype]
+    np.testing.assert_allclose(lse.cpu().numpy(), rlse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)

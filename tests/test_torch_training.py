@@ -123,17 +123,28 @@ def test_loss_and_grads_match_reference(ref, impl):
 
 def test_forward_logits_shape_and_windowed_config_refused(ref):
     """The dense forward's logits and zero aux; a config with sliding-window
-    layers (aqua-mistral-7b) stays refused at ``init_params`` (ROADMAP
-    queue 1, item 3.3). The other families train:
+    layers (aqua-mistral-7b, window 16 in its smoke config) now builds and
+    its forward over 2 x 32 tokens equals the reference's (it is refused
+    only by the paged entry points and the engines:
+    ``test_torch_aqua_paper.py``). The other families train:
     ``test_torch_train_families.py``."""
     model = _model(ref)
     tokens = make_batch(DataConfig(**DCFG), ref["tcfg"], 0)["tokens"]
     logits, aux = tlm.forward(model, ref["tcfg"], tokens)
     assert logits.shape == (2, 32, ref["tcfg"].vocab_size)
     assert float(aux) == 0.0
-    mcfg = t_smoke_config(t_get_config("aqua-mistral-7b"))
-    with pytest.raises(ValueError, match="not paged-servable"):
-        tlm.init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
+    mcfg = smoke_config(get_config("aqua-mistral-7b"))
+    tmcfg = t_smoke_config(t_get_config("aqua-mistral-7b"))
+    assert tmcfg.sliding_window == 16 and not tlm.supports_paged(tmcfg)
+    params = japi.init_params(jax.random.PRNGKey(0), mcfg)
+    want, _ = japi.model_module(mcfg).forward(params, mcfg,
+                                              jnp.asarray(tokens.numpy()))
+    wmodel = from_jax(jax.tree.map(np.asarray, params), tmcfg, device="cpu")
+    with torch.no_grad():
+        got, aux = tlm.forward(wmodel, tmcfg, tokens)
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
