@@ -482,6 +482,39 @@ plane (``dense KV-cache path`` prints the phase spans and peaks):
    training forward's at the same position (the two orders of one
    float32 computation); a control decoding at pos + 1 beyond.
 
+Then the link terms, the paper's figures and AQUA-PLACER (``link legs,
+paper sim, placer`` prints the phase spans and peaks):
+
+72. link legs — an ``AquaTensor`` with aqua-llama2-13b's kv pages
+   (327,680 B) whose LOCAL pool, same-card REMOTE slab and pinned host
+   pool each hold 2,048 pages (671 MB). At 1, 2, 4, ..., 2,048 pages the
+   runtime's own moves (``offload(prefer=HOST)`` / ``ensure_local``: row 6
+   and the host copy, the host copy and row 7; ``offload(prefer=REMOTE)``
+   / ``ensure_local``: rows 6 and 7), each timed wall to wall with
+   ``torch.cuda.synchronize()`` on both sides, median of 5 after a warm
+   round trip; every round trip bit-identical, every move metered as its
+   pages' bytes in one message through one gather and/or one scatter.
+   Beside each size a pinned ``copy_`` of the same bytes each way and the
+   slab's HBM bound (2 x bytes / 3.35 TB/s). ``fit_link_model`` fits the
+   host samples of both directions (``calibrate_profile(H100_SXM,
+   host_samples=...)``) and the slab samples, printed as a same-card
+   slab, not NVLink.
+73. paper sim — ``ServingSimulator`` under ``A100_NVLINK``, ``H100_SXM``
+   and phase 72's calibrated profile: aqua-codellama-34b on 80 Poisson
+   requests (Fig. 9 / 1b: vllm over host, cfs over the fabric and over
+   host; TTFT p50/p90, RCT p50 and their ratios) and aqua-opt-30b's
+   decode throughput at 8,000 tokens (Fig. 7, fabric over host). The
+   reference's gates asserted on ``A100_NVLINK``; every run finishes.
+74. placer serve — ``place`` (bnb) of two LLM consumers and two
+   producers on 2 servers of 2 GPUs, its pairs on a
+   ``Coordinator(strict_pairing=True)``, the paired producer's spare
+   memory offered by a ``BatchInformer``; aqua-llama2-13b at full width
+   and depth on a 4 GiB grant (CFS, REMOTE offload, ``audit=True``)
+   serves 6 requests through rows 1-7; the producer reclaims at the first
+   step with pages on its lease: the reclaim completes, no REMOTE page is
+   left, every request finishes, an audit every step and one at the end
+   clean.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -490,6 +523,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -1818,10 +1852,11 @@ def make_runtime(cfg, dev, host_pages):
 
 
 def make_engine(np, cfg, model, dev, *, host_pages=1024, coordinator=None,
-                want_remote_bytes=0.0, lease_bytes=LEASE_BYTES, **engine_kw):
+                want_remote_bytes=0.0, lease_bytes=LEASE_BYTES, n_req=12,
+                **engine_kw):
     """The 12-request CFS engine of phase 6 (a same-card REMOTE donor
     lease of ``lease_bytes``, 2 GiB by default, seeded prompts of 128-768
-    tokens, 32 new tokens each).
+    tokens, 32 new tokens each; ``n_req`` takes the first of them).
     With a ``coordinator`` the lease is the coordinator's grant of
     ``want_remote_bytes`` instead, polled for reclaims every step;
     ``engine_kw`` (faults, audit, admission, ...) go to the engine.
@@ -1831,7 +1866,7 @@ def make_engine(np, cfg, model, dev, *, host_pages=1024, coordinator=None,
     Returns (engine, runtime, requests)."""
     from repro_torch.core.aqua_tensor import REMOTE
     from repro_torch.serving.engine import ServingEngine
-    n_req, new_tokens = 12, 32
+    new_tokens = 32
     P = cfg.n_prefix_embeds
     kv = make_runtime(cfg, dev, host_pages)
     eng = ServingEngine(cfg, model, max_running=4, max_seq=1024,
@@ -6299,6 +6334,410 @@ def dense_cache_phases(torch, np, report, dev, t0):
     return paths
 
 
+# -- the link legs, the paper's figures on the simulator, the placer -------
+LINK_PAGES = 2048                   # each pool: 671,088,640 B of kv pages
+LINK_SIZES = tuple(2 ** k for k in range(12))    # 1 .. 2,048 pages
+LINK_REPEATS = 5                    # timed round trips a size after a warm one
+LINK_LEGS = {"host out": (("gather_pages", 1), ("scatter_pages", 0)),
+             "host in": (("gather_pages", 0), ("scatter_pages", 1)),
+             "slab out": (("gather_pages", 1), ("scatter_pages", 1)),
+             "slab in": (("gather_pages", 1), ("scatter_pages", 1))}
+SLAB_LINK = "same-card slab, not NVLink"
+
+
+def wall_s(torch, fn):
+    """One call of ``fn`` wall to wall, ``torch.cuda.synchronize()`` on both
+    sides: a tier move is host work and device work."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def link_move(torch, aq, leg, lps):
+    """One timed tier move of ``lps`` through the runtime's own moves,
+    with its meter and launch-count deltas: ``host out`` offloads to HOST,
+    ``slab out`` to the REMOTE slab, ``* in`` is ``ensure_local``."""
+    from repro_torch.core.aqua_tensor import HOST, REMOTE
+    from repro_torch.kernels import build
+    meter = aq.meter
+    keys = ("bytes_fabric", "bytes_host", "messages_fabric", "messages_host")
+    before = [getattr(meter, k) for k in keys]
+    c0 = build.launch_counts()
+    if leg.endswith("out"):
+        prefer = HOST if leg.startswith("host") else REMOTE
+        secs = wall_s(torch, lambda: aq.offload(lps, prefer=prefer))
+    else:
+        secs = wall_s(torch, lambda: aq.ensure_local(lps))
+    c1 = build.launch_counts()
+    launched = {k: c1.get(k, 0) - c0.get(k, 0)
+                for k in ("gather_pages", "scatter_pages")}
+    return secs, {k: getattr(meter, k) - b
+                  for k, b in zip(keys, before)}, launched
+
+
+def check_link_move(leg, n, page_bytes, moved, launched):
+    """The bookkeeping of one move: its bytes are ``n`` whole pages on the
+    leg's link, in one message, through one gather and/or one scatter."""
+    link = "host" if leg.startswith("host") else "fabric"
+    other = "fabric" if link == "host" else "host"
+    want = {f"bytes_{link}": float(n * page_bytes), f"messages_{link}": 1,
+            f"bytes_{other}": 0.0, f"messages_{other}": 0}
+    if moved != want:
+        raise AssertionError(f"link legs: {leg} of {n} pages metered "
+                             f"{moved}, not {want}")
+    if launched != dict(LINK_LEGS[leg]):
+        raise AssertionError(f"link legs: {leg} of {n} pages launched "
+                             f"{launched}, not {dict(LINK_LEGS[leg])}")
+
+
+def phase_link_legs(torch, np, dev, card):
+    """Phase 72: the HOST leg and the same-card REMOTE slab leg measured
+    through ``AquaTensor``'s own moves at aqua-llama2-13b's kv pages
+    (2, 40, 16, 128) bf16 = 327,680 B, on a runtime whose LOCAL pool,
+    REMOTE slab and pinned host pool each hold 2,048 pages. At each of 1,
+    2, 4, ..., 2,048 pages: one warm round trip, then ``LINK_REPEATS``
+    timed ones (median), each move wall to wall; every round trip
+    bit-identical and each move metered as its pages' bytes in one
+    message. Beside them a pinned ``copy_`` of the same bytes each way
+    (the PCIe ceiling) and, for the slab, the HBM bound 2 x bytes / 3.35
+    TB/s. The pooled host samples (both directions) are fitted with
+    ``fit_link_model`` into ``calibrate_profile(H100_SXM, host_samples=)``;
+    the slab samples are fitted too and reported as a same-card slab, not
+    NVLink (never fed to the profile's fabric).
+    Returns (the calibrated profile, launch counts, a record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aqua_tensor import AquaTensor, TransferMeter
+    from repro_torch.core.perfmodel import (H100_SXM, calibrate_profile,
+                                            fit_link_model)
+    from repro_torch.kernels import build
+    cfg = get_config("aqua-llama2-13b")
+    shape = (2, cfg.n_kv_heads, 16, cfg.resolved_head_dim)
+    dtype = cfg.torch_compute_dtype()
+    aq = AquaTensor(n_logical=LINK_PAGES, page_shape=shape,
+                    local_slots=LINK_PAGES, host_slots=LINK_PAGES,
+                    dtype=dtype, meter=TransferMeter(hw=H100_SXM),
+                    device=dev, name="kv")
+    aq.add_remote_lease("slab0", LINK_PAGES)
+    page_bytes = aq.page_bytes
+    if page_bytes != 327_680 or \
+            aq.host_pool.is_pinned() != (dev.type == "cuda"):
+        raise AssertionError(f"link legs: pages of {page_bytes} B, pinned "
+                             f"host pool {aq.host_pool.is_pinned()}")
+    lps = aq.allocate(LINK_PAGES)
+    g = torch.Generator(device=dev).manual_seed(72)
+    data = torch.randn((LINK_PAGES,) + shape, generator=g, device=dev,
+                       dtype=torch.float32).to(dtype)
+    aq.write_local(lps, data)
+    dev_buf = torch.empty_like(data)
+    pinned = torch.empty(data.shape, dtype=dtype,
+                         pin_memory=dev.type == "cuda")
+    launches = {"gather_pages": 0, "scatter_pages": 0}
+    build.reset_launch_counts()
+    rows, samples = [], {"host": [], "slab": []}
+    for n in LINK_SIZES:
+        sel = lps[:n]
+        nbytes = n * page_bytes
+        secs = {leg: [] for leg in LINK_LEGS}
+        for rep in range(LINK_REPEATS + 1):
+            for out, back in (("host out", "host in"),
+                              ("slab out", "slab in")):
+                for leg in (out, back):
+                    t, moved, launched = link_move(torch, aq, leg, sel)
+                    check_link_move(leg, n, page_bytes, moved, launched)
+                    for k in launches:
+                        launches[k] += launched[k]
+                    if rep:
+                        secs[leg].append(t)
+                if aq.tier_counts()["local"] != LINK_PAGES or not \
+                        torch.equal(aq.read(sel), data[:n]):
+                    raise AssertionError(f"link legs: {out}/{back} round "
+                                         f"trip of {n} pages not "
+                                         f"bit-identical")
+        ceil = {"d2h": [], "h2d": []}
+        for rep in range(LINK_REPEATS + 1):
+            d2h = wall_s(torch, lambda: pinned[:n].copy_(dev_buf[:n],
+                                                         non_blocking=True))
+            h2d = wall_s(torch, lambda: dev_buf[:n].copy_(pinned[:n],
+                                                          non_blocking=True))
+            if rep:
+                ceil["d2h"].append(d2h)
+                ceil["h2d"].append(h2d)
+        med = {leg: float(np.median(v)) for leg, v in secs.items()}
+        med.update({f"pinned {k}": float(np.median(v))
+                    for k, v in ceil.items()})
+        hbm_s = 2 * nbytes / HBM_BYTES_PER_S
+        for leg in ("host out", "host in"):
+            samples["host"].append((float(nbytes), med[leg]))
+        for leg in ("slab out", "slab in"):
+            samples["slab"].append((float(nbytes), med[leg]))
+        rows.append(dict(pages=n, bytes=nbytes, hbm_bound_s=hbm_s,
+                         **{k.replace(" ", "_") + "_s": v
+                            for k, v in med.items()}))
+        print(f"link legs: {n} pages, {nbytes} B; median of "
+              f"{LINK_REPEATS} (ms, GB/s): "
+              + "; ".join(f"{k} {1e3 * v:.4f} ({nbytes / v / 1e9:.3f})"
+                          for k, v in med.items())
+              + f"; slab HBM bound {1e3 * hbm_s:.4f} ms; on {card}")
+    host = fit_link_model(samples["host"], "pcie5-measured")
+    slab = fit_link_model(samples["slab"], SLAB_LINK)
+    if host is None or slab is None:
+        raise AssertionError(f"link legs: no fit (host {host}, slab {slab})")
+    calibrated = calibrate_profile(H100_SXM, host_samples=samples["host"])
+    if calibrated.host_link != host or calibrated.fabric != H100_SXM.fabric:
+        raise AssertionError(f"link legs: calibrated profile {calibrated} "
+                             f"is not H100_SXM with the host fit")
+    for leg, link in (("host", host), ("slab", slab)):
+        xs = np.asarray([x for x, _ in samples[leg]])
+        ys = np.asarray([y for _, y in samples[leg]])
+        err = np.abs(link.latency + xs / link.peak_bw - ys) / ys
+        print(f"link fit {leg}: {len(xs)} samples ({len(LINK_SIZES)} sizes "
+              f"x 2 directions) -> {link.name}: peak_bw "
+              f"{link.peak_bw:.6e} B/s, latency {link.latency:.6e} s; fit "
+              f"error median {np.median(err):.4f} max {err.max():.4f}; on "
+              f"{card}")
+    pinned_bw = max(rows[-1]["bytes"] / rows[-1][f"pinned_{d}_s"]
+                    for d in ("d2h", "h2d"))
+    print(f"link legs: the host leg's fitted bandwidth is "
+          f"{host.peak_bw / pinned_bw:.4f} of a pinned copy_ at "
+          f"{LINK_SIZES[-1]:,} pages "
+          f"({pinned_bw / 1e9:.3f} GB/s); H100_SXM's datasheet host link "
+          f"{H100_SXM.host_link.peak_bw / 1e9:.1f} GB/s, "
+          f"{H100_SXM.host_link.latency:.1e} s; the calibrated profile "
+          f"{calibrated.name}: host_link {calibrated.host_link}, fabric "
+          f"{calibrated.fabric.name} (datasheet, unchanged); launches "
+          f"{json.dumps(launches)}")
+    record = dict(card=card, page_bytes=page_bytes, rows=rows,
+                  host_fit=dataclasses.asdict(host),
+                  slab_fit=dataclasses.asdict(slab),
+                  calibrated=calibrated.name)
+    print(f"link legs record: {json.dumps(record)}")
+    del aq, data, dev_buf, pinned
+    release(torch)
+    return calibrated, launches, record
+
+
+def pctl(xs, q):
+    """Quantile by sorted-index clamp, as the reference's benchmarks."""
+    xs = sorted(xs)
+    return float(xs[min(int(q * len(xs)), len(xs) - 1)])
+
+
+def fig9_requests(np, seed, n=80, rate=5.0):
+    """``test_aqua_core.py``'s ``_mkreqs(5.0)``: 80 Poisson requests."""
+    from repro_torch.core.simulator import Request
+    rng = np.random.default_rng(seed)
+    arr = np.cumsum(rng.exponential(1.0 / rate, n))
+    return [Request(i, float(arr[i]), int(rng.integers(400, 1600)),
+                    int(rng.integers(150, 500))) for i in range(n)]
+
+
+def phase_paper_sim(np, profiles, card):
+    """Phase 73: the simulator at the paper's figures under each profile
+    (numpy on the host). Fig. 9 / 1b: aqua-codellama-34b on 80 Poisson
+    requests at 5 a second (seed 0), vllm over host against cfs over the
+    fabric and over host, and the Fig. 1b pair on seed 1; TTFT p50/p90 and
+    RCT p50 with their ratios. Fig. 7: aqua-opt-30b decoding at an
+    8,000-token context, fabric over host. Asserts what the reference
+    asserts on ``A100_NVLINK`` and that every run finishes every request.
+    Returns {profile: ratios}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import ModelCost
+    from repro_torch.core.simulator import (ServingSimulator,
+                                            long_prompt_tokens_per_s)
+    ccfg, ocfg = get_config("aqua-codellama-34b"), get_config("aqua-opt-30b")
+    cmc, omc = ModelCost.from_config(ccfg), ModelCost.from_config(ocfg)
+    cwb, owb = ccfg.param_count() * 2, ocfg.param_count() * 2
+    out = {}
+    for hw in profiles:
+        t = time.perf_counter()
+        res = {}
+        for seed, sched, tier in ((0, "vllm", "host"), (0, "cfs", "fabric"),
+                                  (0, "cfs", "host"), (1, "cfs", "host"),
+                                  (1, "cfs", "fabric")):
+            sim = ServingSimulator(hw, cmc, weight_bytes=cwb,
+                                   kv_capacity_bytes=80e9 - cwb - 2e9,
+                                   scheduler=sched, offload_tier=tier,
+                                   max_running=20)
+            r = sim.run(fig9_requests(np, seed))
+            if not all(q.finish is not None for q in r.requests):
+                raise AssertionError(f"paper sim {hw.name}: {sched}/{tier} "
+                                     f"seed {seed} left requests unfinished")
+            res[(seed, sched, tier)] = dict(
+                ttft_p50=pctl(r.ttfts(), 0.5), ttft_p90=pctl(r.ttfts(), 0.9),
+                rct_p50=pctl(r.rcts(), 0.5))
+        free = 80e9 - owb - 12e9
+        th = {tier: long_prompt_tokens_per_s(
+            hw, omc, ctx_tokens=8000, free_hbm_bytes=free,
+            weight_bytes=owb, tier=tier) for tier in ("host", "fabric")}
+        v, a, h = (res[(0, "vllm", "host")], res[(0, "cfs", "fabric")],
+                   res[(0, "cfs", "host")])
+        ratios = dict(
+            fig9_ttft_p50_vllm_over_cfs_fabric=v["ttft_p50"] / a["ttft_p50"],
+            fig9_ttft_p90_vllm_over_cfs_fabric=v["ttft_p90"] / a["ttft_p90"],
+            fig1b_rct_p50_cfs_host_over_fabric_seed0=h["rct_p50"]
+            / a["rct_p50"],
+            fig1b_rct_p50_cfs_host_over_fabric_seed1=(
+                res[(1, "cfs", "host")]["rct_p50"]
+                / res[(1, "cfs", "fabric")]["rct_p50"]),
+            fig7_fabric_over_host=th["fabric"] / th["host"])
+        out[hw.name] = dict(runs={f"seed{k[0]} {k[1]}/{k[2]}": x
+                                  for k, x in res.items()},
+                            fig7_tokens_per_s=th, ratios=ratios,
+                            host_link=dataclasses.asdict(hw.host_link),
+                            fabric=dataclasses.asdict(hw.fabric))
+        print(f"paper sim {hw.name} (host link {hw.host_link.peak_bw:.4e} "
+              f"B/s + {hw.host_link.latency:.3e} s, fabric "
+              f"{hw.fabric.peak_bw:.4e} B/s + {hw.fabric.latency:.3e} s): "
+              + "; ".join(f"{k} TTFT p50 {x['ttft_p50']:.4f} p90 "
+                          f"{x['ttft_p90']:.4f} RCT p50 {x['rct_p50']:.4f} s"
+                          for k, x in out[hw.name]["runs"].items())
+              + f"; Fig. 7 tokens/s host {th['host']:.4f} fabric "
+              f"{th['fabric']:.4f}; ratios {json.dumps(ratios)}; "
+              f"{time.perf_counter() - t:.2f} s on the host of {card}")
+        if hw.name == "a100-nvlink":
+            if not (a["ttft_p90"] < v["ttft_p90"] / 2.0
+                    and a["ttft_p50"] < v["ttft_p50"] / 1.8):
+                raise AssertionError("paper sim: Fig. 9's TTFT gate fails "
+                                     "on A100_NVLINK")
+            if not ratios["fig1b_rct_p50_cfs_host_over_fabric_seed1"] > 1.0:
+                raise AssertionError("paper sim: Fig. 1b's RCT gate fails "
+                                     "on A100_NVLINK")
+            if not 4.0 < ratios["fig7_fabric_over_host"] < 8.0:
+                raise AssertionError("paper sim: Fig. 7's 4-8x gate fails "
+                                     "on A100_NVLINK")
+    return out
+
+
+PLACER_MODELS = (("llm-llama2-13b", -25.0, "consumer"),
+                 ("img-sd", 30.0, "producer"),
+                 ("llm-mistral", -20.0, "consumer"),
+                 ("aud-gen", 25.0, "producer"))
+PLACER_REQUESTS = 6                 # 4 running, 2 parked between slices
+PLACER_LEASE = 4 * 1024 ** 3        # the engine's grant from its producer
+# after the reclaim every park lands on HOST; a slice boundary parks before
+# it restores: up to 4 requests x 40 layers x 50 pages (800 tokens / 16)
+PLACER_HOST_PAGES = 8192
+
+
+def phase_placer_serve(torch, np, dev, card):
+    """Phase 74, the twin of ``examples/serve_cfs.py`` at full width:
+    AQUA-PLACER (``solver="bnb"``) places an LLM consumer, an image
+    producer, a second LLM and an audio producer on 2 servers of 2 GPUs;
+    its pairs go to a ``Coordinator(strict_pairing=True)``; a
+    ``BatchInformer`` offers the paired producer's spare memory; a
+    ``ServingEngine`` for aqua-llama2-13b at full width and depth (CFS,
+    REMOTE offload, the coordinator's 4 GiB grant, ``audit=True``)
+    serves ``PLACER_REQUESTS`` seeded requests through rows 1-7; at the
+    first step that leaves pages on the lease the producer reclaims. The
+    reclaim must complete, no page stay on REMOTE, every request finish
+    and the auditor stay clean (an audit every step, one more at the end).
+    Returns {path: launch counts}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aqua_tensor import REMOTE
+    from repro_torch.core.control_loop import BatchInformer
+    from repro_torch.core.coordinator import Coordinator
+    from repro_torch.core.faults import InvariantAuditor
+    from repro_torch.core.placer import ModelSpec, place
+    from repro_torch.kernels import build
+    cfg = get_config("aqua-llama2-13b")
+    placement = place([ModelSpec(*m) for m in PLACER_MODELS], n_servers=2,
+                      gpus_per_server=2, gpu_mem=80.0, solver="bnb")
+    pairs = dict(placement.pairs)
+    consumer = PLACER_MODELS[0][0]
+    producer = pairs[consumer]
+    print(f"placer: servers {json.dumps(placement.servers())}, pairs "
+          f"{placement.pairs}, objective {placement.objective}, solver "
+          f"{placement.solver} in {1e3 * placement.solve_time:.3f} ms")
+    if len(placement.pairs) != 2 or any(
+            sorted(n.split("-")[0] for n in ms) not in (["img", "llm"],
+                                                        ["aud", "llm"])
+            for ms in placement.servers().values()):
+        raise AssertionError("placer: not one consumer beside one producer "
+                             "a server")
+    coord = Coordinator(strict_pairing=True)
+    coord.set_pairing(pairs)
+    BatchInformer(producer, coord, total_bytes=80e9,
+                  working_set_bytes=50e9).inform_stats()
+    model = phase_dense_model(torch, cfg, 17, 13_015_859_200)
+    eng, kv, reqs = make_engine(np, cfg, model, dev,
+                                host_pages=PLACER_HOST_PAGES,
+                                coordinator=coord,
+                                want_remote_bytes=PLACER_LEASE, audit=True,
+                                name=consumer, n_req=PLACER_REQUESTS)
+    print(f"placer: offers after the grant {json.dumps(coord.stats())}")
+    plane = kv.planes["kv"].aqua
+    if list(plane.remote_capacity) != [producer]:
+        raise AssertionError(f"placer: lease from "
+                             f"{list(plane.remote_capacity)}, not the "
+                             f"paired producer {producer}")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    reclaim_at = None
+    while (eng.waiting or eng.running) and eng.metrics.steps < 5000:
+        eng.step()
+        if reclaim_at is None and (plane.page_table[:, 0] == REMOTE).any():
+            reclaim_at = eng.metrics.steps
+            coord.request_reclaim(producer)
+    eng.run(0)                      # the final respond of ServingEngine.run
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = build.launch_counts()
+    m, meter = eng.metrics, kv.meter
+    tiers = kv.stats()["tiers"]
+    InvariantAuditor().audit(kv, engine=eng)
+    print(f"placer serve: {cfg.name} {len(reqs)} requests, {m.steps} steps, "
+          f"{wall:.3f} s wall; reclaim of {producer} requested at step "
+          f"{reclaim_at}, complete {coord.reclaim_status(producer)}; "
+          f"preemptions {m.preemptions} restores {m.restores}; fabric "
+          f"{meter.messages_fabric} messages {meter.bytes_fabric:.0f} B, "
+          f"host {meter.messages_host} messages {meter.bytes_host:.0f} B; "
+          f"tiers {json.dumps(tiers, sort_keys=True)}; audits "
+          f"{eng.auditor.audits}; launches "
+          f"{json.dumps(launches, sort_keys=True)}; on {card}")
+    if reclaim_at is None or not coord.reclaim_status(producer):
+        raise AssertionError("placer serve: the reclaim never completed")
+    if tiers["remote"] != 0 or plane.remote_pools:
+        raise AssertionError(f"placer serve: {tiers['remote']} pages left "
+                             f"on REMOTE")
+    if len(eng.finished) != len(reqs) or not all(
+            len(r.generated) == r.max_new_tokens
+            and all(0 <= x < cfg.vocab_size for x in r.generated)
+            for r in reqs):
+        raise AssertionError("placer serve: not every request finished "
+                             "with its tokens in the vocab")
+    if eng.auditor.audits != m.steps:
+        raise AssertionError(f"placer serve: {eng.auditor.audits} audits in "
+                             f"{m.steps} steps")
+    if not all(launches.get(k, 0) > 0 for k in ENGINE_ROWS):
+        raise AssertionError(f"placer serve: the run never launched some of "
+                             f"{list(ENGINE_ROWS)}")
+    one_writer_a_layer("placer serve", launches)
+    del eng, kv, reqs, model
+    release(torch)
+    return {"placer serve": launches}
+
+
+def link_and_policy_phases(torch, np, dev, card, t0):
+    """Phases 72-74: the link legs measured and fitted, the paper's
+    figures on the simulator under A100_NVLINK, H100_SXM and the
+    calibrated profile, and the placer -> coordinator -> engine -> reclaim
+    path at full width. Returns {path: launch counts}."""
+    from repro_torch.core.perfmodel import A100_NVLINK, H100_SXM
+    lap, done = model_laps(torch, "link legs, paper sim, placer", t0)
+    calibrated, link_launches, _ = phase_link_legs(torch, np, dev, card)
+    lap("link legs")
+    phase_paper_sim(np, (A100_NVLINK, H100_SXM, calibrated), card)
+    lap("paper sim")
+    paths = {"link legs": link_launches}
+    paths.update(phase_placer_serve(torch, np, dev, card))
+    lap("placer serve")
+    done()
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6455,14 +6894,21 @@ def main() -> int:
     dense = dense_cache_phases(torch, np, report, dev, t0)
     print(f"dense KV-cache path phases: {time.perf_counter() - t_dense:.1f} "
           f"s")
+
+    # -- the host and slab legs measured and fitted, the paper's figures on
+    # the simulator, AQUA-PLACER -> coordinator -> engine -> reclaim -------
+    t_link = time.perf_counter()
+    policy = link_and_policy_phases(torch, np, dev, card, t0)
+    print(f"link legs, paper sim and placer phases: "
+          f"{time.perf_counter() - t_link:.1f} s")
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
     # path that runs it, phase 6c's admission and request lifecycle and the
     # deepseek, jamba, internvl2-1b, LoRA, gemma-7b, dbrx-132b, the
     # paper's models', minicpm-2b's, the training families' and the dense
-    # KV-cache path's included (the WKV backward's first is the rwkv6-3b
-    # train run)
+    # KV-cache path's, the link legs' and the placer serve's included (the
+    # WKV backward's first is the rwkv6-3b train run)
     paths = (("engine", launches), ("per-request", per_request),
              ("split-pool drive", split), ("rwkv engine", rwkv_engine),
              ("rwkv per-request", rwkv_per_request), ("train", train_run),
@@ -6474,7 +6920,8 @@ def main() -> int:
         + tuple(gemma.items()) + tuple(new_models.items()) \
         + (("rwkv train", rwkv_train), ("rwkv train step", rwkv_step),
            ("deepseek train", ds_train), ("jamba layer train", jamba_train),
-           ("internvl2 train", ivl_train)) + tuple(dense.items())
+           ("internvl2 train", ivl_train)) + tuple(dense.items()) \
+        + tuple(policy.items())
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -6495,11 +6942,12 @@ def main() -> int:
     rows_of = (("lora cache", ("gather_pages", "scatter_pages")),
                ("dbrx-132b per-request", PER_REQUEST_ROWS),
                ("aqua-llama2-13b per-request", PER_REQUEST_ROWS),
-               ("aqua-llama2-13b split-pool drive", ("paged_attention",))) \
+               ("aqua-llama2-13b split-pool drive", ("paged_attention",)),
+               ("link legs", ("gather_pages", "scatter_pages"))) \
         + tuple((label, ENGINE_ROWS) for label in (
             "internvl2-1b engine", "gemma-7b engine", "dbrx-132b engine",
             "aqua-llama2-13b engine", "aqua-codellama-34b engine",
-            "aqua-opt-30b engine", "minicpm-2b engine"))
+            "aqua-opt-30b engine", "minicpm-2b engine", "placer serve"))
     for label, rows in rows_of:
         paths_of = dict(paths)
         if not all(paths_of[label].get(k, 0) > 0 for k in rows):

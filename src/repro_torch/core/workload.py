@@ -30,9 +30,9 @@ import numpy as np
 @dataclass
 class Request:
     """One request of a generated stream: the reference's
-    ``repro/core/simulator.py`` record, defined here because the port has
-    no simulator yet; the port's simulator (ROADMAP queue 1 item 4) will
-    import it from this module.
+    ``repro/core/simulator.py`` record. The port's simulator
+    (``core/simulator.py``) imports it from this module, so
+    ``simulator.Request`` is this class.
 
     ``prefix_group`` requests alias the pages of their common
     ``shared_prefix_len``-token prompt prefix. ``deadline_s`` /

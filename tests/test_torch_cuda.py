@@ -1894,3 +1894,68 @@ def test_cuda_flash_at_dense_cache_shapes(case, dtype):
     assert (o.float() - ro.float()).abs().max().item() <= FLASH_TOL[dtype]
     np.testing.assert_allclose(lse.cpu().numpy(), rlse.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_link_legs_fit():
+    """A 4-size version of ``chip_smoke.py``'s link legs: aqua-llama2-13b's
+    kv pages (327,680 B) moved LOCAL -> HOST -> LOCAL and LOCAL -> REMOTE
+    slab -> LOCAL through ``AquaTensor``'s own moves at 4, 16, 64 and 256
+    pages, each move timed wall to wall (median of 3), every round trip
+    bit-identical, each move metered as its pages' bytes in one message;
+    ``fit_link_model`` fits both legs' samples to positive terms and
+    ``calibrate_profile`` takes the host fit, leaving the fabric as it is."""
+    import time
+
+    from repro_torch.core.aqua_tensor import (HOST, REMOTE, AquaTensor,
+                                              TransferMeter)
+    from repro_torch.core.perfmodel import (H100_SXM, calibrate_profile,
+                                            fit_link_model)
+    dev = _cuda()
+    shape, n_pages = (2, 40, 16, 128), 256
+    aq = AquaTensor(n_logical=n_pages, page_shape=shape, local_slots=n_pages,
+                    host_slots=n_pages, dtype=torch.bfloat16,
+                    meter=TransferMeter(hw=H100_SXM), device=dev)
+    aq.add_remote_lease("slab0", n_pages)
+    assert aq.page_bytes == 327_680 and aq.host_pool.is_pinned()
+    lps = aq.allocate(n_pages)
+    data = torch.randn((n_pages,) + shape, device=dev).to(torch.bfloat16)
+    aq.write_local(lps, data)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    samples = {"host": [], "slab": []}
+    for n in (4, 16, 64, 256):
+        sel = lps[:n]
+        for leg, tier, link in (("host", HOST, "host"),
+                                ("slab", REMOTE, "fabric")):
+            secs = {"out": [], "in": []}
+            for rep in range(4):
+                b0 = getattr(aq.meter, f"bytes_{link}")
+                m0 = getattr(aq.meter, f"messages_{link}")
+                t_out = timed(lambda: aq.offload(sel, prefer=tier))
+                assert aq.tier_counts()[
+                    "host" if tier == HOST else "remote"] == n
+                t_in = timed(lambda: aq.ensure_local(sel))
+                assert getattr(aq.meter, f"bytes_{link}") - b0 == \
+                    2.0 * n * aq.page_bytes
+                assert getattr(aq.meter, f"messages_{link}") - m0 == 2
+                assert torch.equal(aq.read(sel), data[:n])
+                if rep:
+                    secs["out"].append(t_out)
+                    secs["in"].append(t_in)
+            for d in ("out", "in"):
+                samples[leg].append((float(n * aq.page_bytes),
+                                     float(np.median(secs[d]))))
+    host = fit_link_model(samples["host"], "pcie5-measured")
+    slab = fit_link_model(samples["slab"], "same-card slab, not NVLink")
+    for link in (host, slab):
+        assert link is not None and link.peak_bw > 0 and link.latency >= 0
+    cal = calibrate_profile(H100_SXM, host_samples=samples["host"])
+    assert cal.host_link == host and cal.fabric is H100_SXM.fabric
+    assert cal.name == "h100-sxm-datasheet-calibrated"

@@ -51,6 +51,7 @@ def test_port_files_exist():
                  "core/errors.py", "core/perfmodel.py", "core/aqua_tensor.py",
                  "core/coordinator.py", "core/control_loop.py",
                  "core/faults.py", "core/workload.py",
+                 "core/simulator.py", "core/placer.py",
                  "serving/admission.py",
                  "kernels/kv_gather/ops.py", "kernels/kv_gather/ref.py",
                  "kernels/paged_attention/ops.py",
@@ -77,6 +78,24 @@ def test_no_jax_or_reference_imports(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+@pytest.mark.parametrize("name", ["perfmodel", "simulator", "placer",
+                                  "workload"])
+def test_performance_model_is_numpy_only(name):
+    """The performance model, the simulator, the placer and the workload
+    generators run without torch: numpy, plus scipy inside the placer's
+    ``_solve_milp``."""
+    path = PORT / "core" / f"{name}.py"
+    tops = {mod.split(".")[0] for mod in _imports(path)}
+    assert tops <= {"__future__", "dataclasses", "typing", "math",
+                    "itertools", "time", "numpy", "scipy", "repro_torch"}, \
+        tops
+    if "scipy" in tops:
+        tree = ast.parse(path.read_text())
+        top_level = [n for n in tree.body
+                     if isinstance(n, (ast.Import, ast.ImportFrom))]
+        assert not any("scipy" in ast.dump(n) for n in top_level)
 
 
 @pytest.mark.parametrize("pattern", [
