@@ -515,6 +515,51 @@ paper sim, placer`` prints the phase spans and peaks):
    left, every request finishes, an audit every step and one at the end
    clean.
 
+Then whisper-tiny, the encoder-decoder family, and windowed training
+(``whisper and windowed training`` prints the phase spans and peaks):
+
+75. row 9 at whisper-tiny's shapes (6 heads on 6 of 64), float32 and
+   bf16: the encoder's bidirectional (4, 1,500), the cross-attention at
+   prefill (4 rows, then 1 row at decode, against 1,500 keys), the
+   decoder's causal (8, 448), and forward and backward at the training
+   shapes (8, 1,500) bidirectional, (8, 448) causal and (8, 448 -> 1,500)
+   cross: the forward within phase 11's limits of its plain version, the
+   backward's dq/dk/dv within its limits of the plain formula's norm, a
+   control (each query row's heaviest visible key dropped) beyond both;
+   device times (plain, kernel, kernel, plain) beside the library
+   attention on the same shape (``library_attention_ms``) and the bound (4
+   FLOP a visible pair, head dim and query head forward, 10 backward,
+   over 989 TFLOP/s); under ``whisper`` in the ``flash_attention`` and
+   ``flash_attention_bwd`` entries.
+76. whisper-tiny served at full width and depth, bf16, through
+   ``api.init_decode_state`` / ``prefill`` / ``decode_step``: B 4, seeded
+   frame embeddings (4, 1,500, 384), 4-token prompts decoded greedily to
+   448 positions (launch counts reset before the prefill and before the
+   decode, read after: 12 flash launches a prefill, 4 a decode step);
+   prefill ms (after a warm-up prefill), decode-step p50/p99, tokens/s,
+   peak memory, cache bytes, the last step profiled. Both engines (``ServingEngine``,
+   ``PagedStateRuntime``) raise ``ValueError``. The gate, a float32 copy:
+   each decode step's logits (teacher-forced to 448) and the prefill's
+   within phase 71's 1e-4 of the row's norm of the training forward's at
+   the same position; a control decoding with the cross cache zeroed
+   beyond.
+77. whisper-tiny train step at 8 x 448 decoder tokens over 1,500 frames:
+   phase 12's check (loss 2e-2, every gradient 5e-2 of its norm, kernel
+   against plain; the control masks the diagonal key of decoder layer 0's
+   self-attention); ``compress_tree`` of the step's gradients on the card
+   bit-equal to the same call on CPU copies, every error buffer within
+   1.01 x its scale; then phase 13's 10-step run (p50, tokens/s, peak
+   memory, row 9 forward and backward launches a step, one step
+   profiled).
+78. windowed training on the card, kernel against plain: gemma3-12b at
+   its width cut to one group (5 layers windowed at 1,024, 1 global) at
+   1 x 2,048, aqua-mistral-7b at its width cut to 2 layers at 1 x 4,608
+   (the window of 4,096 binds): in bf16 at phase 12's limits, then a
+   float32 copy at 1e-4 on the loss and 1e-3 on every gradient's norm,
+   a control (layer 0 attending with no window) beyond the float32
+   limits; 5 kernel train steps each (p50, peak memory); row 9's forward
+   and backward at each windowed shape checked and timed as in phase 75.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -4801,18 +4846,20 @@ def flash_work(shape, itemsize):
             10 * B * H * hd * pairs, 4 * qb + 4 * kb + 2 * lse)
 
 
-def library_attention_ms(torch, q, k, v, do, iters, window=0):
-    """The yardstick: ``scaled_dot_product_attention`` (causal, so
-    Sq == Sk; a window as an explicit boolean mask; fewer KV heads than
-    query heads through ``enable_gqa``) on the same inputs, forward alone
-    and, given ``do``, forward + backward (else None), device ms per call.
-    Timed here only; the port never calls it."""
+def library_attention_ms(torch, q, k, v, do, iters, window=0,
+                         causal=True):
+    """The yardstick: ``scaled_dot_product_attention`` (causal with
+    Sq == Sk, or bidirectional at any Sq, Sk; a window as an explicit
+    boolean mask; fewer KV heads than query heads through ``enable_gqa``)
+    on the same inputs, forward alone and, given ``do``, forward +
+    backward (else None), device ms per call. Timed here only; the port
+    never calls it."""
     from torch.nn import functional as F
     from repro_torch.kernels.flash_attention.ref import attention_mask
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    kw = dict(is_causal=True)
+    kw = dict(is_causal=causal)
     if window > 0:
-        kw = dict(attn_mask=attention_mask(q.shape[1], k.shape[1], True,
+        kw = dict(attn_mask=attention_mask(q.shape[1], k.shape[1], causal,
                                            window, q.device))
     if q.shape[2] != k.shape[2]:
         kw["enable_gqa"] = True
@@ -5713,6 +5760,8 @@ def train_model_flop(cfg, batch, seq):
     Mamba recurrences' own FLOP are not counted."""
     tokens = batch * seq
     active = cfg.param_count()
+    if cfg.encdec is not None:
+        return encdec_model_flop(cfg, batch, seq)
     if cfg.moe is not None:
         m = cfg.moe
         glu = 3 if cfg.activation in ("swiglu", "geglu") else 2
@@ -5735,6 +5784,37 @@ def train_model_flop(cfg, batch, seq):
                 ml.qk_nope_head_dim + ml.qk_rope_head_dim + ml.v_head_dim)
             attn += f + 2.5 * f
     return 6 * active * tokens + attn, active
+
+
+def encdec_flop_parts(cfg, batch, seq):
+    """An encoder-decoder train step's model FLOP in parts: 6 x the
+    encoder's parameters x its frames (``encoder``), 6 x the rest (the
+    reference's formula less the encoder's part) x the decoder tokens
+    (``decoder``), and the attention's FLOP forward and backward: the
+    encoder's bidirectional, the decoder's causal and the
+    cross-attention's (``attention``); with the parameter counts."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    H, K, E = cfg.n_heads, cfg.n_kv_heads, cfg.encdec.n_encoder_layers
+    Te = cfg.encdec.encoder_seq_len
+    glu = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    enc = E * (4 * d * H * hd + glu * d * f + 2 * d)
+    dec = cfg.param_count() - E * (4 * d * H * hd + 3 * d * f + 2 * d)
+    attn = 0
+    for n, sq, sk, causal in ((E, Te, Te, False), (cfg.n_layers, seq, seq,
+                                                   True),
+                              (cfg.n_layers, seq, Te, False)):
+        fw, _, bw, _ = flash_work((batch, sq, sk, H, K, hd, causal, 0), 2)
+        attn += n * (fw + bw)
+    return dict(encoder=6 * enc * batch * Te, decoder=6 * dec * batch * seq,
+                attention=attn, encoder_params=enc, decoder_params=dec)
+
+
+def encdec_model_flop(cfg, batch, seq):
+    """``train_model_flop`` of an encoder-decoder: the sum of
+    ``encdec_flop_parts``, and the parameters."""
+    p = encdec_flop_parts(cfg, batch, seq)
+    return (p["encoder"] + p["decoder"] + p["attention"],
+            p["encoder_params"] + p["decoder_params"])
 
 
 def moe_drop_shares(torch, cfg, model, batch):
@@ -6738,6 +6818,536 @@ def link_and_policy_phases(torch, np, dev, card, t0):
     return paths
 
 
+# -- whisper-tiny and windowed training (phases 75-78) ----------------------
+# label -> ((B, Sq, Sk, H, K, hd, causal, window), the backward too):
+# whisper-tiny's attention at its serving shapes (B 4: the encoder, the
+# cross-attention at prefill and at decode) and its training shapes (B 8,
+# 448 decoder tokens over 1,500 frames)
+WHISPER_FLASH = {
+    "encoder": ((4, 1500, 1500, 6, 6, 64, False, 0), False),
+    "cross prefill": ((4, 4, 1500, 6, 6, 64, False, 0), False),
+    "cross decode": ((4, 1, 1500, 6, 6, 64, False, 0), False),
+    "train encoder": ((8, 1500, 1500, 6, 6, 64, False, 0), True),
+    "train decoder": ((8, 448, 448, 6, 6, 64, True, 0), True),
+    "train cross": ((8, 448, 1500, 6, 6, 64, False, 0), True)}
+# the windowed train steps' attention (phase 78)
+WINDOWED_FLASH = {
+    "gemma3-12b local": ((1, 2048, 2048, 16, 8, 256, True, 1024), True),
+    "gemma3-12b global": ((1, 2048, 2048, 16, 8, 256, True, 0), True),
+    "aqua-mistral-7b": ((1, 4608, 4608, 32, 8, 128, True, 4096), True)}
+WHISPER_SERVE = (76, 4, 4, 448)     # seed, batch, prompt, positions
+WHISPER_TRAIN = (77, 8, 448)        # seed, batch, decoder tokens
+# arch -> (layers, tokens, seed): one gemma3 group (5 local, 1 global) at
+# 2,048 tokens, 2 of mistral's layers at 4,608, past its window of 4,096
+WINDOWED_TRAIN = {"gemma3-12b": (6, 2048, 78),
+                  "aqua-mistral-7b": (2, 4608, 79)}
+WINDOWED_STEPS = 5
+# the windowed steps' float32 gate, kernel against plain: the loss
+# (absolute) and every gradient (distance over the plain one's norm). Its
+# control drops layer 0's window, which at mistral's shape moves the
+# gradients by ~5e-3 of their norm (a d 512 proxy on the CPU): below phase
+# 12's bf16 limits, so the float32 gate is where a window is held
+F32_LOSS_LIMIT, F32_GRAD_LIMIT = 1e-4, 1e-3
+
+
+def heaviest_key_control(torch, q, k, v, causal, window):
+    """The plain version with each query row's heaviest visible key (its
+    largest score) masked as well: at 1,500 near-uniform keys the diagonal
+    key alone moves a row's output below the bf16 limit. Differentiable."""
+    from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                         attention_mask)
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
+    qg = q.float().reshape(B, Sq, K, H // K, hd)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) / hd ** 0.5
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s = s.scatter(-1, s.detach().argmax(-1, keepdim=True), NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bkgts,bskd->btkgd", probs, v).reshape(B, Sq, H, hd)
+
+
+def flash_shape_case(torch, g, label, shape, backward, recs):
+    """One shape of phases 75 and 78, in float32 and bf16: the forward
+    within FLASH_TOL of its plain version and, with ``backward``, dq / dk /
+    dv within FLASH_BWD_REL of the plain formula's norm, the heaviest-key
+    control beyond both; then, in bf16, device times (plain, kernel,
+    kernel, plain) beside the library attention and the bound. Adds the
+    records to ``recs["fwd"]`` / ``recs["bwd"]`` under ``label``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    B, Sq, Sk, H, K, hd, causal, window = shape
+    kw = dict(causal=causal, window=window)
+    name = (f"B={B} Sq={Sq} Sk={Sk} H={H} K={K} hd={hd} causal={causal} "
+            f"window={window}")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    errs = {}
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        q, k, v, do = flash_inputs(torch, g, shape, dt)
+        o = fa_ops.flash_attention_fwd(q, k, v, **kw)[0]
+        want = fa_ref.flash_attention_ref(q, k, v, **kw)
+        ctrl = heaviest_key_control(torch, q, k, v, causal, window)
+        e = dict(fwd=(o.float() - want.float()).abs().max().item(),
+                 fwd_control=(ctrl.float() - want.float()).abs().max()
+                 .item())
+        finite = bool(torch.isfinite(o).all())
+        ok = e["fwd"] <= FLASH_TOL[dname] < e["fwd_control"]
+        del o, want, ctrl
+        if backward:
+            ro, rlse = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+            got = fa_ops.flash_attention_bwd(q, k, v, ro, rlse, do, **kw)
+            ref = fa_ref.flash_attention_bwd_ref(q, k, v, ro, rlse, do, **kw)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            c_grads = torch.autograd.grad(heaviest_key_control(
+                torch, *leaves, causal, window), leaves, do)
+            e["bwd"] = max(rel(a, b) for a, b in zip(got, ref))
+            e["bwd_control"] = min(rel(a, b) for a, b in zip(c_grads, ref))
+            finite = finite and all(bool(torch.isfinite(t).all())
+                                    for t in got)
+            ok = ok and e["bwd"] <= FLASH_BWD_REL[dname] < e["bwd_control"]
+            del ro, rlse, got, ref, leaves, c_grads
+        errs[dname] = e
+        print(f"flash {label} {name} {dname}: "
+              + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
+              + f" (limits fwd {FLASH_TOL[dname]}, bwd "
+              f"{FLASH_BWD_REL[dname]}: the errors within, the controls "
+              f"beyond)")
+        if not (finite and ok):
+            raise AssertionError(f"flash attention {label} {name} {dname}:"
+                                 f" {e}, finite {finite}")
+    # q, k, v, do are the bf16 inputs from here on
+    f_flop, f_bytes, b_flop, b_bytes = flash_work(shape, 2)
+    ms_f, plain_f = interleaved(
+        lambda: fa_ref.flash_attention_ref(q, k, v, **kw),
+        lambda: fa_ops.flash_attention_fwd(q, k, v, **kw), 10, plain_iters=3)
+    lib_f, lib_fb = library_attention_ms(torch, q, k, v,
+                                         do if backward else None, 10,
+                                         window=window, causal=causal)
+    bf, byf = bound_ms(f_bytes, f_flop)
+    recs["fwd"][label] = dict(
+        shape=name, max_abs_err=errs["bfloat16"]["fwd"],
+        max_abs_err_float32=errs["float32"]["fwd"],
+        control=errs["bfloat16"]["fwd_control"],
+        tolerance=FLASH_TOL["bfloat16"], ms=ms_f, plain_ms=plain_f,
+        bound_ms=bf, bound_by=byf, library_ms=lib_f)
+    line = (f"flash {label} {name} bf16: forward kernel {ms_f:.4f} ms plain "
+            f"{plain_f:.4f} bound {bf:.4f} ({byf}) library {lib_f:.4f}; "
+            f"{f_flop / (ms_f * 1e9):.1f} TFLOP/s")
+    if backward:
+        o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+        ms_b, plain_b = interleaved(
+            lambda: fa_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+            lambda: fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw), 10,
+            plain_iters=3)
+        bb, byb = bound_ms(b_bytes, b_flop)
+        recs["bwd"][label] = dict(
+            shape=name, max_abs_err=errs["bfloat16"]["bwd"],
+            max_abs_err_float32=errs["float32"]["bwd"],
+            control=errs["bfloat16"]["bwd_control"],
+            error_kind="dq/dk/dv distance relative to the plain formula's "
+            "norm", tolerance=FLASH_BWD_REL["bfloat16"], ms=ms_b,
+            plain_ms=plain_b, bound_ms=bb, bound_by=byb,
+            library_ms=lib_fb - lib_f)
+        line += (f"; backward kernel {ms_b:.4f} ms plain {plain_b:.4f} "
+                 f"bound {bb:.4f} ({byb}) library fwd+bwd minus fwd "
+                 f"{lib_fb - lib_f:.4f}; {b_flop / (ms_b * 1e9):.1f} "
+                 f"TFLOP/s")
+        del o, lse
+    print(line)
+    del q, k, v, do
+
+
+def phase_flash_shapes(torch, report, shapes, key, seed):
+    """Row 9 at ``shapes`` (phase 75: whisper's; phase 78: the windowed
+    steps'), each through ``flash_shape_case``; the records go under
+    ``key`` in the ``flash_attention`` and ``flash_attention_bwd``
+    entries."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    recs = {"fwd": {}, "bwd": {}}
+    for label, (shape, backward) in shapes.items():
+        flash_shape_case(torch, g, label, shape, backward, recs)
+    for name, part in (("flash_attention", "fwd"),
+                       ("flash_attention_bwd", "bwd")):
+        next(k for k in report if k["name"] == name)[key] = recs[part]
+
+
+def refuses(what, make):
+    """``make()`` must raise ``ValueError``: the engines take no model
+    whose context has no page plane."""
+    try:
+        make()
+    except ValueError as e:
+        print(f"{what} refuses it: {e}")
+        return
+    raise AssertionError(f"{what} accepted a model it cannot page")
+
+
+def row_rel(torch, got, want):
+    """The largest, over the batch rows, distance of ``got`` (B, V) to
+    ``want`` over ``want``'s row norm."""
+    return ((got.float() - want.float()).norm(dim=-1)
+            / want.float().norm(dim=-1)).max().item()
+
+
+def phase_whisper_serve(torch, np, cfg, dev):
+    """Phase 76: whisper-tiny served at full width and depth through the
+    dense cache, its engines' refusals, and the float32 gate. Returns
+    {path: launch counts}."""
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_cache import PagedStateRuntime
+    seed, B, P, S = WHISPER_SERVE
+    Te, d = cfg.encdec.encoder_seq_len, cfg.d_model
+    model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"whisper-tiny model: {n:,} parameters (the reference's formula "
+          f"{cfg.param_count():,}: it counts three d x d_ff matrices an "
+          "encoder MLP and no final norm)")
+    refuses("ServingEngine", lambda: ServingEngine(cfg, model, device=dev))
+    refuses("PagedStateRuntime", lambda: PagedStateRuntime(
+        cfg, max_seq=S, device=dev))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    enc = (0.02 * torch.randn((B, Te, d), generator=g, device=dev)).to(
+        cfg.torch_compute_dtype())
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    cache = api.init_decode_state(cfg, B, S, device=dev)
+    nbytes = {k: sum(t.numel() * t.element_size() for t in c)
+              for k, c in cache.items()}
+    # a warm-up prefill into a cache of its own (not timed, not counted)
+    api.prefill(model, cfg, tokens[:, :P],
+                api.init_decode_state(cfg, B, S, device=dev), enc_embeds=enc)
+    paths = {}
+    _sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    logits, cache = api.prefill(model, cfg, tokens[:, :P], cache,
+                                enc_embeds=enc)
+    _sync(torch, dev)
+    prefill_s = time.perf_counter() - t
+    paths["whisper-tiny prefill"] = build.launch_counts()
+    build.reset_launch_counts()
+    tok, walls = logits.argmax(-1), []
+    for p in range(P, S - 1):
+        t = time.perf_counter()
+        out, cache = api.decode_step(model, cfg, cache, tok, p)
+        _sync(torch, dev)
+        walls.append(time.perf_counter() - t)
+        tok = out.argmax(-1)
+    paths["whisper-tiny decode"] = build.launch_counts()
+    # the last position, profiled (not counted)
+    (out, cache), prof = profile_call(torch, lambda: api.decode_step(
+        model, cfg, cache, tok, S - 1))
+    finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(out).all())
+    steps = len(walls)
+    flash_p = paths["whisper-tiny prefill"].get("flash_attention", 0)
+    flash_d = paths["whisper-tiny decode"].get("flash_attention", 0)
+    print(f"whisper-tiny cache: B {B}, {S} self slots, {Te} cross slots; "
+          f"{json.dumps(nbytes)} B")
+    print(f"whisper-tiny main path: prefill of {B} x {P} tokens over {Te} "
+          f"frames {prefill_s * 1e3:.2f} ms ({flash_p} flash launches); "
+          f"{steps} decode steps p50 {np.percentile(walls, 50) * 1e3:.2f} "
+          f"ms p99 {np.percentile(walls, 99) * 1e3:.2f} ms "
+          f"({B * steps / sum(walls):,.1f} tokens/s), launches "
+          f"{paths['whisper-tiny decode']}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; logits "
+          f"finite {finite}")
+    print(f"whisper-tiny profiled decode step (position {S - 1}): "
+          f"{json.dumps(prof)}")
+    n_attn = cfg.encdec.n_encoder_layers + 2 * cfg.n_layers
+    if not (finite and flash_p == n_attn
+            and flash_d == cfg.n_layers * steps):
+        raise AssertionError(f"whisper-tiny main path: finite {finite}, "
+                             f"{flash_p} / {flash_d} flash launches, want "
+                             f"{n_attn} / {cfg.n_layers * steps}")
+    del cache
+    paths["whisper-tiny float32 gate"] = phase_whisper_gate(
+        torch, cfg, model, dev, enc, tokens)
+    return paths
+
+
+def phase_whisper_gate(torch, cfg, model, dev, enc, tokens):
+    """Phase 76's gate on a float32 copy of the model: the prefill's last
+    logits and each teacher-forced decode step's against the training
+    forward's at the same position, within GATE_REL of the row's norm; a
+    control decoding the first step with the cross cache zeroed beyond.
+    Returns the prefill's and the steps' launch counts."""
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    m32 = copy.deepcopy(model).float()
+    enc32, (B, S), P = enc.float(), tokens.shape, WHISPER_SERVE[2]
+    with torch.no_grad():
+        full = api.forward(m32, cfg32, tokens, enc_embeds=enc32)[0]
+    build.reset_launch_counts()
+    cache = api.init_decode_state(cfg32, B, S, device=dev)
+    lg, cache = api.prefill(m32, cfg32, tokens[:, :P], cache,
+                            enc_embeds=enc32)
+    errs = [row_rel(torch, lg, full[:, P - 1])]
+    ctrl = {k: type(c)(*(t.clone() for t in c)) for k, c in cache.items()}
+    for t in ctrl["cross"]:
+        t.zero_()
+    control = row_rel(torch, api.decode_step(m32, cfg32, ctrl,
+                                             tokens[:, P], P)[0], full[:, P])
+    del ctrl
+    for p in range(P, S):
+        lg, cache = api.decode_step(m32, cfg32, cache, tokens[:, p], p)
+        errs.append(row_rel(torch, lg, full[:, p]))
+    counts = build.launch_counts()
+    print(f"whisper-tiny float32 gate: prefill of {P} then {S - P} decode "
+          f"steps, worst distance to the forward {max(errs):.3g} of the "
+          f"row's norm (limit {GATE_REL}); control (cross cache zeroed) "
+          f"{control:.3g}")
+    if not max(errs) <= GATE_REL < control:
+        raise AssertionError(f"whisper-tiny float32 gate: worst "
+                             f"{max(errs)}, control {control}")
+    del m32, cache, full
+    return counts
+
+
+def phase_whisper_train_step(torch, np, cfg, dev):
+    """Phase 77's check and compression: one train step through the
+    kernels and the plain versions, the control, and ``compress_tree`` of
+    the step's gradients on the card against CPU copies. Returns the
+    step's launches."""
+    from repro_torch.kernels import build
+    from repro_torch.layers import attention as attn
+    from repro_torch.layers.core import embed, linear, rms_norm, unembed
+    from repro_torch.models import api, encdec
+    from repro_torch.models.losses import shifted_xent
+    from repro_torch.training import compression
+    from repro_torch.training.data import DataConfig, make_batch
+    seed, B, T = WHISPER_TRAIN
+    model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    batch = {k: v.to(dev) for k, v in make_batch(
+        DataConfig(seed=0, batch=B, seq_len=T), cfg, 0).items()}
+    eps = cfg.rmsnorm_eps
+
+    def control_attention(mix, h):
+        pos = torch.arange(h.shape[1], device=h.device)[None, :]
+        q, k, v = attn._project_qkv(mix, cfg, h, pos)
+        ctx = flash_control(torch, q, k, v, True, 0)
+        return linear(mix.wo, ctx.reshape(h.shape[0], h.shape[1], -1))
+
+    def control_loss(m, b):
+        enc_out = encdec.encode(m, cfg, b["enc_embeds"], impl="ref")
+        x = embed(m.embed, cfg, b["tokens"])
+        for layer, blk in enumerate(m.dec_blocks):
+            ck, cv = encdec.cross_kv(blk.cross, cfg, enc_out)
+            h = rms_norm(blk.n1, x, eps)
+            x = x + (control_attention(blk.self, h) if layer == 0 else
+                     attn.attention_full(blk.self, cfg, h, impl="ref"))
+            x = encdec._cross_and_mlp(blk, cfg, x, ck, cv, "ref")
+        x = rms_norm(m.final_norm, x, eps)
+        return shifted_xent(unembed(m.embed, cfg, x), b["tokens"])
+
+    build.reset_launch_counts()
+    loss_k, g_k = train_step_grads(torch, model, batch, lambda m, b:
+                                   api.loss_fn(m, cfg, b, impl="kernel"))
+    _sync(torch, dev)
+    launches = build.launch_counts()
+    loss_r, g_r = train_step_grads(torch, model, batch, lambda m, b:
+                                   api.loss_fn(m, cfg, b, impl="ref"))
+    loss_c, g_c = train_step_grads(torch, model, batch, control_loss)
+    _sync(torch, dev)
+    print(f"whisper-tiny train step ({B} x {T} tokens over "
+          f"{cfg.encdec.encoder_seq_len} frames): launches "
+          f"{json.dumps(launches, sort_keys=True)}")
+    check_step_grads("whisper-tiny train step", loss_k, g_k, loss_r, g_r,
+                     loss_c, g_c)
+    del g_r, g_c
+    n_attn = cfg.encdec.n_encoder_layers + 2 * cfg.n_layers
+    if launches.get("flash_attention", 0) != n_attn or launches.get(
+            "flash_attention_bwd", 0) < n_attn:
+        raise AssertionError(f"whisper-tiny train step launches {launches}:"
+                             f" want {n_attn} forward, >= {n_attn} "
+                             "backward")
+    # int8 compression of the step's gradients: the card's bits and the
+    # CPU's, and error feedback within a scale
+    err = compression.init_error_buffers(g_k)
+    comps, errs = compression.compress_tree(g_k, err)
+    # one call a timing: its ~8 launches a gradient fill the launch queue
+    ms = device_ms(lambda: compression.compress_tree(g_k, err), 1)
+    g_cpu = {k: t.cpu() for k, t in g_k.items()}
+    comps_c, errs_c = compression.compress_tree(
+        g_cpu, compression.init_error_buffers(g_cpu))
+
+    def bits(t):
+        return t.contiguous().view(torch.int32).cpu()
+    same = all(torch.equal(comps[k].q.cpu(), comps_c[k].q)
+               and torch.equal(bits(comps[k].scale), bits(comps_c[k].scale))
+               and torch.equal(bits(errs[k]), bits(errs_c[k]))
+               for k in g_k)
+    ratio = max((errs[k].abs().max() / comps[k].scale).item() for k in g_k)
+    n = sum(t.numel() for t in g_k.values())
+    print(f"whisper-tiny compress_tree: {len(g_k)} gradients, {n:,} "
+          f"values -> {n:,} B of int8 payload ({4 * n:,} B in float32); "
+          f"card bit-equal to CPU {same}; worst |err| / scale {ratio:.4f} "
+          f"(limit 1.01); {ms:.4f} ms on the card")
+    if not (same and ratio <= 1.01):
+        raise AssertionError(f"whisper-tiny compress_tree: bit-equal "
+                             f"{same}, |err| / scale {ratio}")
+    del g_k, comps, errs, comps_c, errs_c, g_cpu, model
+    return launches
+
+
+def windowed_train_check(torch, cfg, model, batch, label, limits):
+    """Kernel against plain and the control (layer 0 attending with no
+    window) on one train step: the loss within ``limits[0]`` and every
+    gradient within ``limits[1]`` of the plain one's norm, the control's
+    worst beyond ``limits[1]``. Returns the kernel step's launches."""
+    from repro_torch.kernels import build
+    from repro_torch.layers import attention as attn
+    from repro_torch.layers.core import embed, rms_norm, unembed
+    from repro_torch.models import api, lm
+    from repro_torch.models.losses import shifted_xent
+    gs = lm.group_size(cfg)
+
+    def control_loss(m, b):
+        x = embed(m.embed, cfg, b["tokens"])
+        for layer, blk in enumerate(m.blocks):
+            w = 0 if layer == 0 else lm.layer_window(cfg, layer % gs)
+            x = lm._layer(blk, cfg, x, lambda mix, h: attn.attention_full(
+                mix, cfg, h, window=w, impl="ref"))
+        x = rms_norm(m.final_norm, x, cfg.rmsnorm_eps)
+        return shifted_xent(unembed(m.embed, cfg, x), b["tokens"])
+
+    build.reset_launch_counts()
+    loss_k, g_k = train_step_grads(torch, model, batch, lambda m, b:
+                                   api.loss_fn(m, cfg, b, impl="kernel"))
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    loss_r, g_r = train_step_grads(torch, model, batch, lambda m, b:
+                                   api.loss_fn(m, cfg, b, impl="ref"))
+    rel_k = grad_rel(g_k, g_r)
+    del g_k
+    loss_c, g_c = train_step_grads(torch, model, batch, control_loss)
+    rel_c = grad_rel(g_c, g_r)
+    del g_c, g_r
+    worst = sorted(rel_k.items(), key=lambda kv: -kv[1])[:3]
+    print(f"{label}: loss kernel {loss_k:.6f} plain {loss_r:.6f} (|d| "
+          f"{abs(loss_k - loss_r):.3g}, limit {limits[0]}) control "
+          f"{loss_c:.6f}; gradients kernel vs plain, worst "
+          f"{[(n, float(f'{r:.3g}')) for n, r in worst]} (limit "
+          f"{limits[1]}); control (layer 0, no window) worst "
+          f"{max(rel_c.values()):.4g} ({max(rel_c, key=rel_c.get)}); "
+          f"launches {json.dumps(launches, sort_keys=True)}")
+    return launches, (abs(loss_k - loss_r) <= limits[0]
+                      and max(rel_k.values()) <= limits[1]), \
+        max(rel_c.values())
+
+
+def phase_windowed_train(torch, np, dev):
+    """Phase 78's train steps: for each windowed arch at its width cut in
+    depth, the bf16 step kernel against plain at phase 12's limits, 5
+    timed kernel train steps, then the float32 gate with its control.
+    Returns {path: launch counts}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 make_train_step,
+                                                 trainable_params)
+    paths = {}
+    for arch, (layers, T, seed) in WINDOWED_TRAIN.items():
+        cfg = get_config(arch).replace(n_layers=layers)
+        batch = {k: v.to(dev) for k, v in make_batch(
+            DataConfig(seed=0, batch=1, seq_len=T), cfg, 0).items()}
+        windows = [lm.layer_window(cfg, i % lm.group_size(cfg))
+                   for i in range(layers)]
+        model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed), dev)
+        print(f"{arch} windowed train step: {layers} layers (windows "
+              f"{windows}), 1 x {T} tokens, "
+              f"{sum(p.numel() for p in model.parameters()):,} parameters")
+        launches, ok, ctrl = windowed_train_check(
+            torch, cfg, model, batch, f"{arch} bf16 train step",
+            (LOSS_ABS_LIMIT, GRAD_REL_LIMIT))
+        if not ok:
+            raise AssertionError(f"{arch} bf16 train step: kernel against "
+                                 "plain beyond phase 12's limits")
+        if launches.get("flash_attention", 0) != layers or launches.get(
+                "flash_attention_bwd", 0) < layers:
+            raise AssertionError(f"{arch} train step launches {launches}")
+        paths[f"{arch} windowed train step"] = launches
+        ocfg = AdamWConfig(lr=1e-5)
+        step = make_train_step(cfg, ocfg, TrainConfig(impl="kernel"))
+        opt = adamw_init(trainable_params(model), ocfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for _ in range(WINDOWED_STEPS):
+            t = time.perf_counter()
+            model, opt, stats = step(model, opt, batch)
+            losses.append(float(stats["loss"]))
+            walls.append(time.perf_counter() - t)
+        p50 = float(np.percentile(walls[1:], 50))
+        print(f"{arch} windowed train run: {WINDOWED_STEPS} kernel steps, "
+              f"losses {[round(x, 4) for x in losses]}, step p50 (steps "
+              f"2-{WINDOWED_STEPS}) {p50 * 1e3:.2f} ms, first "
+              f"{walls[0] * 1e3:.2f} ms, {T / p50:,.1f} tokens/s; peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{arch} windowed train run: {losses}")
+        del model, opt, step
+        release(torch)
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        m32 = lm.init_params(cfg32, torch.Generator(device=dev).manual_seed(
+            seed), dev)
+        launches, ok, ctrl = windowed_train_check(
+            torch, cfg32, m32, batch, f"{arch} float32 gate",
+            (F32_LOSS_LIMIT, F32_GRAD_LIMIT))
+        if not (ok and ctrl > F32_GRAD_LIMIT):
+            raise AssertionError(f"{arch} float32 gate: kernel within "
+                                 f"{ok}, control {ctrl} (limit "
+                                 f"{F32_GRAD_LIMIT})")
+        paths[f"{arch} windowed float32 gate"] = launches
+        del m32
+        release(torch)
+    return paths
+
+
+def whisper_and_windowed_phases(torch, np, report, dev, t0):
+    """Phases 75-78. Returns {path: launch counts}."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-tiny")
+    lap, done = model_laps(torch, "whisper and windowed training", t0)
+    phase_flash_shapes(torch, report, WHISPER_FLASH, "whisper", 75)
+    lap("row 9 at whisper's shapes")
+    paths = phase_whisper_serve(torch, np, cfg, dev)
+    release(torch)
+    lap("whisper-tiny served")
+    paths["whisper-tiny train step"] = phase_whisper_train_step(
+        torch, np, cfg, dev)
+    release(torch)
+    lap("whisper-tiny train step")
+    paths["whisper-tiny train"] = phase_train_run(
+        torch, np, cfg, dev, batch=WHISPER_TRAIN[1], seq=WHISPER_TRAIN[2],
+        label="whisper-tiny train", seed=WHISPER_TRAIN[0])
+    print(f"whisper-tiny train run: model FLOP per step by part (the line "
+          f"above folds the encoder's {cfg.encdec.encoder_seq_len} frames "
+          f"into its attention term): " + json.dumps(encdec_flop_parts(
+              cfg, WHISPER_TRAIN[1], WHISPER_TRAIN[2])))
+    release(torch)
+    lap("whisper-tiny train run")
+    phase_flash_shapes(torch, report, WINDOWED_FLASH, "windowed_train", 78)
+    lap("row 9 at the windowed training shapes")
+    paths.update(phase_windowed_train(torch, np, dev))
+    lap("windowed train steps")
+    done()
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6901,14 +7511,22 @@ def main() -> int:
     policy = link_and_policy_phases(torch, np, dev, card, t0)
     print(f"link legs, paper sim and placer phases: "
           f"{time.perf_counter() - t_link:.1f} s")
+
+    # -- whisper-tiny (the encoder-decoder) served and trained through row
+    # 9, and the windowed configs trained on the card --------------------
+    t_new = time.perf_counter()
+    whisper = whisper_and_windowed_phases(torch, np, report, dev, t0)
+    print(f"whisper and windowed training phases: "
+          f"{time.perf_counter() - t_new:.1f} s")
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
     # path that runs it, phase 6c's admission and request lifecycle and the
     # deepseek, jamba, internvl2-1b, LoRA, gemma-7b, dbrx-132b, the
     # paper's models', minicpm-2b's, the training families' and the dense
-    # KV-cache path's, the link legs' and the placer serve's included (the
-    # WKV backward's first is the rwkv6-3b train run)
+    # KV-cache path's, the link legs' and the placer serve's, whisper's and
+    # the windowed train steps' included (the WKV backward's first is the
+    # rwkv6-3b train run)
     paths = (("engine", launches), ("per-request", per_request),
              ("split-pool drive", split), ("rwkv engine", rwkv_engine),
              ("rwkv per-request", rwkv_per_request), ("train", train_run),
@@ -6921,7 +7539,7 @@ def main() -> int:
         + (("rwkv train", rwkv_train), ("rwkv train step", rwkv_step),
            ("deepseek train", ds_train), ("jamba layer train", jamba_train),
            ("internvl2 train", ivl_train)) + tuple(dense.items()) \
-        + tuple(policy.items())
+        + tuple(policy.items()) + tuple(whisper.items())
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -6966,7 +7584,15 @@ def main() -> int:
                ("jamba layer train", ("flash_attention_bwd",)),
                ("internvl2 train", ("flash_attention_bwd",)),
                ("gemma3-12b prefill", ("flash_attention",)),
-               ("aqua-mistral-7b prefill", ("flash_attention",)))
+               ("aqua-mistral-7b prefill", ("flash_attention",)),
+               ("whisper-tiny prefill", ("flash_attention",)),
+               ("whisper-tiny decode", ("flash_attention",)),
+               ("whisper-tiny train", ("flash_attention",
+                                       "flash_attention_bwd")),
+               ("gemma3-12b windowed train step", ("flash_attention",
+                                                   "flash_attention_bwd")),
+               ("aqua-mistral-7b windowed train step", (
+                   "flash_attention", "flash_attention_bwd")))
     for label, rows in trained:
         if not all(dict(paths)[label].get(k, 0) > 0 for k in rows):
             raise AssertionError(f"the {label} path launched none of some "

@@ -1,9 +1,9 @@
-"""Per-architecture configs the port serves (one module per arch)."""
+"""Per-architecture configs the port builds (one module per arch)."""
 import importlib
 
 _ARCH_MODULES = ["qwen1_5_0_5b", "rwkv6_3b", "deepseek_v2_lite_16b",
                  "jamba_v0_1_52b", "internvl2_1b", "gemma_7b", "minicpm_2b",
-                 "dbrx_132b", "aqua_paper", "gemma3_12b"]
+                 "dbrx_132b", "aqua_paper", "gemma3_12b", "whisper_tiny"]
 
 
 def load_all():
@@ -12,5 +12,5 @@ def load_all():
 
 
 from repro_torch.configs.base import (  # noqa: E402,F401
-    DENSE, HYBRID, MOE, SSM, VLM, HybridConfig, MLAConfig, ModelConfig,
-    MoEConfig, SSMConfig, get_config, smoke_config)
+    DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, EncDecConfig, HybridConfig,
+    MLAConfig, ModelConfig, MoEConfig, SSMConfig, get_config, smoke_config)

@@ -3,9 +3,10 @@
 The fields of ``repro/configs/base.py``'s :class:`ModelConfig` that the
 dense, MoE (with DeepSeek's MLA), VLM (a dense backbone behind a stub
 patch-embedding frontend), RWKV-6 and hybrid (Jamba: Mamba and attention)
-families read (the encoder-decoder sub-config comes with its
-slice), with :meth:`ModelConfig.dtype` returning a torch dtype. Only the
-architectures the port serves register here.
+families read, and the encoder-decoder family's (whisper: an encoder
+stack over stub frame embeddings, a decoder with cross-attention), with
+:meth:`ModelConfig.dtype` returning a torch dtype. Only the architectures
+the port builds register here.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ MOE = "moe"              # decoder-only transformer with MoE FFN
 SSM = "ssm"              # RWKV-6 (attention-free)
 HYBRID = "hybrid"        # Jamba: Mamba + attention interleave, MoE
 VLM = "vlm"              # LM backbone + stub patch-embedding frontend
+ENCDEC = "encdec"        # encoder-decoder (whisper), stub audio frontend
 
 
 @dataclass(frozen=True)
@@ -66,6 +68,13 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    n_encoder_layers: int = 4
+    encoder_seq_len: int = 1500      # whisper: 30 s of audio -> 1500 frames
+    max_decoder_len: int = 448       # whisper's decoder context
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -91,6 +100,7 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
     n_prefix_embeds: int = 0
     max_seq_len: int = 8192
     param_dtype: str = "bfloat16"
@@ -119,8 +129,8 @@ class ModelConfig:
         return (layer_idx % self.moe.moe_every) == (self.moe.moe_every - 1)
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense, MoE/MLA, RWKV-6 or hybrid
-        stack (the reference's formula)."""
+        """Analytic parameter count of a dense, MoE/MLA, RWKV-6, hybrid or
+        encoder-decoder stack (the reference's formula)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         nh, nkv, L = self.n_heads, self.n_kv_heads, self.n_layers
@@ -149,6 +159,13 @@ class ModelConfig:
             else:
                 total += glu * d * f
             total += 2 * d                                     # norms
+        if self.family == ENCDEC and self.encdec is not None:
+            # the encoder stack (the formula counts three d x d_ff
+            # matrices an MLP, gelu or not) and each decoder layer's
+            # cross-attention and its norm
+            total += self.encdec.n_encoder_layers * (
+                4 * d * (nh * hd) + 3 * d * f + 2 * d)
+            total += L * (4 * d * (nh * hd) + d)
         return total
 
     def _mamba_layer_params(self) -> int:
@@ -202,11 +219,7 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests — the reference's
-    ``smoke_config`` for the families the port serves."""
-    if cfg.family not in (DENSE, MOE, VLM, SSM, HYBRID):
-        raise NotImplementedError(f"{cfg.name}: only dense, MoE, VLM, "
-                                  "RWKV-6 and hybrid smoke configs are "
-                                  "ported")
+    ``smoke_config``."""
     kw = dict(
         n_layers=min(cfg.n_layers, 4), d_model=128, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads
@@ -235,6 +248,9 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, rwkv_head_dim=32, rwkv_lora_decay=16, rwkv_lora_mix=8,
             mamba_d_state=8, mamba_dt_rank=8)
+    if cfg.encdec is not None:
+        kw["encdec"] = EncDecConfig(n_encoder_layers=2, encoder_seq_len=32,
+                                    max_decoder_len=64)
     if cfg.n_prefix_embeds:
         kw["n_prefix_embeds"] = 8
     return cfg.replace(**kw)

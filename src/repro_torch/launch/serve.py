@@ -7,8 +7,9 @@ scheduling on a CUDA card (or, with ``--device cpu``, the CPU).
 ``--arch`` is ``qwen1.5-0.5b``, ``minicpm-2b``, ``gemma-7b`` (heads 256
 wide), the paper's ``aqua-llama2-13b``, ``aqua-codellama-34b`` or
 ``aqua-opt-30b`` (a non-gated gelu MLP), or ``dbrx-132b`` (16 experts, top
-4) (the ``kv`` token plane; ``aqua-mistral-7b``'s sliding window has none,
-and the port refuses it), ``internvl2-1b`` (the ``kv``
+4) (the ``kv`` token plane; ``aqua-mistral-7b``'s and ``gemma3-12b``'s
+sliding windows and ``whisper-tiny``'s cross K/V have none, and the engine
+refuses them: the dense KV-cache path serves them), ``internvl2-1b`` (the ``kv``
 plane; each request opens with a seeded random block of prefix
 embeddings, the stub frontend's image), ``deepseek-v2-lite-16b`` (MLA and
 the MoE: the ``mla`` latent token plane), ``rwkv6-3b`` (the ``wkv`` and
@@ -41,7 +42,7 @@ def main(argv=None):
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.aqua_tensor import HOST, REMOTE
     from repro_torch.core.device import resolve_device
-    from repro_torch.models import lm
+    from repro_torch.models import api
     from repro_torch.serving.engine import ServingEngine
 
     device = resolve_device(args.device)
@@ -49,7 +50,7 @@ def main(argv=None):
     if args.smoke:
         cfg = smoke_config(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = lm.init_params(cfg, gen, device)
+    params = api.init_params(cfg, gen, device)
     eng = ServingEngine(cfg, params, max_running=args.max_running,
                         max_seq=96 + cfg.n_prefix_embeds,
                         scheduler=args.scheduler,

@@ -9,9 +9,11 @@ device: qwen1.5-0.5b, rwkv6-3b, deepseek-v2-lite-16b, jamba-v0.1-52b,
 dbrx-132b, internvl2-1b (its batches carry seeded prefix embeddings,
 ``--seq`` counting them), gemma-7b, minicpm-2b, the paper's
 aqua-llama2-13b, aqua-codellama-34b, aqua-opt-30b and aqua-mistral-7b,
-and gemma3-12b (the last two with sliding-window layers, through the
-flash op's window; held against the reference on the CPU, not yet run on
-a card). Without ``--smoke`` it trains the published width. Attention and the RWKV-6 WKV
+gemma3-12b (the last two with sliding-window layers, through the flash
+op's window; on a card cut in depth at full width, ``chip_smoke.py``),
+and whisper-tiny (an encoder-decoder: its batches carry seeded frame
+embeddings for the encoder, ``--seq`` counting decoder tokens). Without
+``--smoke`` it trains the published width. Attention and the RWKV-6 WKV
 recurrence run through their autograd ops (``--impl kernel``: the CUDA
 kernels on a card, their plain versions on the CPU) or their plain
 versions under autograd (``--impl ref``); MLA, Mamba and the MoE are

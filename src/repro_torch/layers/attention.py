@@ -1,6 +1,8 @@
 """GQA attention — ``repro/layers/attention.py`` for the dense family:
 full-sequence attention (``attention_full``: training, and the dense
-KV-cache prefill with ``return_kv``), the dense cache's one-token decode
+KV-cache prefill with ``return_kv``), bidirectional attention
+(``attention_bidir``: the encoder-decoder's encoder self-attention and its
+cross-attention), the dense cache's one-token decode
 (``attention_decode``) and, against the paged KV pool, the fused serving
 step's mixed attention and the per-request chunked-prefill and decode
 attention. Grouped KV heads, RoPE, qk-norm (gemma3) and sliding windows;
@@ -126,6 +128,30 @@ def attention_full(p: Attention, cfg: ModelConfig, x, *, window: int = 0,
     ctx = attend(q, k, v, causal=True, window=window)
     out = linear(p.wo, ctx.reshape(B, T, -1))
     return (out, (k, v)) if return_kv else out
+
+
+def attention_bidir(p, cfg: ModelConfig, x, *, kv=None,
+                    impl: str = "kernel"):
+    """Bidirectional attention (no causal mask), x (B,T,d) -> (B,T,d).
+    With ``kv`` None, self-attention over x with RoPE at ``arange(T)``
+    (the reference's ``encdec._bidir_attention``); else cross-attention:
+    q = x @ wq, no RoPE, against ``kv`` = (k, v) (B,Sk,K,hd), the encoder
+    output's projections (``encdec._cross_attend``), at any Sk. The
+    reference's einsum ``_sdpa`` under an all-true mask is flash attention
+    with ``causal=False``: ``impl='kernel'`` runs the flash op (the CUDA
+    kernels on a card), ``impl='ref'`` its plain version."""
+    check_impl(impl)
+    B, T, _ = x.shape
+    if kv is None:
+        positions = torch.arange(T, device=x.device)[None, :]
+        q, k, v = _project_qkv(p, cfg, x, positions)
+    else:
+        q = linear(p.wq, x).reshape(B, T, cfg.n_heads, cfg.resolved_head_dim)
+        k, v = kv
+    attend = fa_ops.flash_attention if impl == "kernel" else \
+        flash_attention_ref
+    ctx = attend(q, k, v, causal=False)
+    return linear(p.wo, ctx.reshape(B, T, -1))
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0,

@@ -1,0 +1,257 @@
+"""Whisper-style encoder-decoder — ``repro/models/encdec.py``.
+
+The audio conv frontend is a stub, as in the reference: callers pass frame
+embeddings ``enc_embeds`` (B, T_enc, d_model). The encoder is a stack of
+pre-norm layers of bidirectional self-attention (RoPE at the frame index)
+and an MLP; each decoder layer is causal self-attention, cross-attention
+over the encoder output and an MLP. RMSNorm and RoPE stand in for
+LayerNorm and learned positions, as in the reference.
+
+Attention goes through the flash op: the encoder's at ``causal=False`` over
+T_enc frames, the decoder's self-attention causal (``attention_full``), the
+cross-attention at ``causal=False`` with Sq decoder rows against T_enc keys
+(``attention_bidir``); ``impl="kernel"`` runs the CUDA kernels on a card
+(their plain versions on the CPU), ``impl="ref"`` the plain versions under
+autograd. The dense cache's decode self-attention is the reference's
+einsum over the cache (``attention_decode``). The reference scans stacked
+layers; here each layer is a module and the stack a Python loop.
+
+The dense decode cache holds, per decoder layer, a self ``KVCache`` of
+``seq`` slots and a cross ``KVCache`` of T_enc slots, computed once at
+prefill (the reference's layout: ``{"self": KVCache, "cross": KVCache}``,
+each leaf stacked over the decoder layers). No page plane exists for it:
+the engines refuse the family (``api.supports_paged``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ENCDEC, ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.layers import attention as attn
+from repro_torch.layers.core import (MLP, Embedding, Linear, RMSNorm,
+                                     check_impl, embed, linear, mlp,
+                                     rms_norm, unembed)
+from repro_torch.models.lm import _at, _tokens_on
+from repro_torch.models.losses import shifted_xent
+
+
+class Cross(nn.Module):
+    """Cross-attention weights ``wq``, ``wk``, ``wv``, ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        d, hd, dt = cfg.d_model, cfg.resolved_head_dim, cfg.dtype()
+        kw = dict(generator=generator)
+        self.wq = Linear(d, cfg.n_heads * hd, dt, device, **kw)
+        self.wk = Linear(d, cfg.n_kv_heads * hd, dt, device, **kw)
+        self.wv = Linear(d, cfg.n_kv_heads * hd, dt, device, **kw)
+        self.wo = Linear(cfg.n_heads * hd, d, dt, device, **kw)
+
+
+class EncBlock(nn.Module):
+    """``n1``, ``attn`` (bidirectional), ``n2``, ``ffn``."""
+
+    def __init__(self, cfg: ModelConfig, device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dt = cfg.dtype()
+        self.n1 = RMSNorm(cfg.d_model, dt, device)
+        self.attn = attn.Attention(cfg, device, generator)
+        self.n2 = RMSNorm(cfg.d_model, dt, device)
+        self.ffn = MLP(cfg, device, generator)
+
+
+class DecBlock(nn.Module):
+    """``n1``, ``self`` (causal self-attention), ``n2``, ``cross``, ``n3``,
+    ``ffn``."""
+
+    def __init__(self, cfg: ModelConfig, device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dt = cfg.dtype()
+        self.n1 = RMSNorm(cfg.d_model, dt, device)
+        self.self = attn.Attention(cfg, device, generator)
+        self.n2 = RMSNorm(cfg.d_model, dt, device)
+        self.cross = Cross(cfg, device, generator)
+        self.n3 = RMSNorm(cfg.d_model, dt, device)
+        self.ffn = MLP(cfg, device, generator)
+
+
+class EncDec(nn.Module):
+    """Weights under the reference's names: ``embed.tok`` (and
+    ``embed.head`` when untied), ``enc_blocks[e]``, ``enc_norm``,
+    ``dec_blocks[l]``, ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != ENCDEC or cfg.encdec is None:
+            raise ValueError(f"{cfg.name}: not an encoder-decoder config")
+        dt = cfg.dtype()
+        self.embed = Embedding(cfg, device, generator)
+        self.enc_blocks = nn.ModuleList(
+            EncBlock(cfg, device, generator)
+            for _ in range(cfg.encdec.n_encoder_layers))
+        self.enc_norm = RMSNorm(cfg.d_model, dt, device)
+        self.dec_blocks = nn.ModuleList(DecBlock(cfg, device, generator)
+                                        for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, dt, device)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> EncDec:
+    """Random weights with the reference's keys, shapes and init scales
+    (trunc-normal, 1/sqrt(d_in) linears, 0.02 embeddings, zero norm
+    scales), drawn from ``generator`` on ``device`` (CUDA unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device}, weights on "
+                         f"{device}")
+    return EncDec(cfg, device, generator)
+
+
+def encode(model: EncDec, cfg: ModelConfig, enc_embeds, *,
+           impl: str = "kernel") -> torch.Tensor:
+    """enc_embeds (B,T_enc,d) -> the normed encoder output (B,T_enc,d) in
+    the compute dtype, on the model's device."""
+    device = model.embed.tok.device
+    x = enc_embeds.to(device=device, dtype=cfg.torch_compute_dtype())
+    eps = cfg.rmsnorm_eps
+    for blk in model.enc_blocks:
+        x = x + attn.attention_bidir(blk.attn, cfg, rms_norm(blk.n1, x, eps),
+                                     impl=impl)
+        x = x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, eps))
+    return rms_norm(model.enc_norm, x, eps)
+
+
+def cross_kv(p: Cross, cfg: ModelConfig, enc_out):
+    """The cross-attention's K/V (B,T_enc,K,hd) of the encoder output."""
+    B, Te, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = linear(p.wk, enc_out).reshape(B, Te, cfg.n_kv_heads, hd)
+    v = linear(p.wv, enc_out).reshape(B, Te, cfg.n_kv_heads, hd)
+    return k, v
+
+
+def _cross_and_mlp(blk: DecBlock, cfg: ModelConfig, x, ck, cv, impl: str):
+    eps = cfg.rmsnorm_eps
+    x = x + attn.attention_bidir(blk.cross, cfg, rms_norm(blk.n2, x, eps),
+                                 kv=(ck, cv), impl=impl)
+    return x + mlp(blk.ffn, cfg, rms_norm(blk.n3, x, eps))
+
+
+def _dec_train_layer(blk: DecBlock, cfg: ModelConfig, x, enc_out,
+                     impl: str):
+    """One decoder layer of the training forward (the reference's scan
+    body): causal self-attention, cross-attention over the encoder
+    output's K/V, the MLP."""
+    ck, cv = cross_kv(blk.cross, cfg, enc_out)
+    x = x + attn.attention_full(blk.self, cfg,
+                                rms_norm(blk.n1, x, cfg.rmsnorm_eps),
+                                impl=impl)
+    return _cross_and_mlp(blk, cfg, x, ck, cv, impl)
+
+
+def forward(model: EncDec, cfg: ModelConfig, tokens, enc_embeds, *,
+            remat: bool = False, impl: str = "kernel"):
+    """Training forward: decoder tokens (B,T) and ``enc_embeds``
+    (B,T_enc,d), both moved to the model's device -> (logits (B,T,V), a
+    zero float32 aux loss). ``remat`` recomputes each decoder layer in the
+    backward (``torch.utils.checkpoint``; the reference checkpoints the
+    decoder's scan body alone)."""
+    check_impl(impl)
+    device = model.embed.tok.device
+    enc_out = encode(model, cfg, enc_embeds, impl=impl)
+    x = embed(model.embed, cfg, _tokens_on(tokens, device))
+    for blk in model.dec_blocks:
+        if remat:
+            x = checkpoint(_dec_train_layer, blk, cfg, x, enc_out, impl,
+                           use_reentrant=False)
+        else:
+            x = _dec_train_layer(blk, cfg, x, enc_out, impl)
+    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
+    return (unembed(model.embed, cfg, x),
+            torch.zeros((), dtype=torch.float32, device=device))
+
+
+def loss_fn(model: EncDec, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False, impl: str = "kernel"):
+    """Next-token cross-entropy of ``batch["tokens"]`` given
+    ``batch["enc_embeds"]`` -> float32 scalar."""
+    tokens = _tokens_on(batch["tokens"], model.embed.tok.device)
+    logits, _ = forward(model, cfg, tokens, batch["enc_embeds"],
+                        remat=remat, impl=impl)
+    return shifted_xent(logits, tokens)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq: int, dtype=None,
+                      device=None) -> dict:
+    """``{"self": KVCache (L, B, seq, K, hd), "cross": KVCache (L, B,
+    T_enc, K, hd)}``, zeros in ``dtype`` (the compute dtype by default)
+    on ``device`` (CUDA unless the caller passes another; raises when
+    CUDA is absent)."""
+    device = resolve_device(device)
+    dt = dtype or cfg.torch_compute_dtype()
+    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def kv(slots):
+        shape = (L, batch, slots, K, hd)
+        return attn.KVCache(torch.zeros(shape, dtype=dt, device=device),
+                            torch.zeros(shape, dtype=dt, device=device))
+    return {"self": kv(seq), "cross": kv(cfg.encdec.encoder_seq_len)}
+
+
+@torch.no_grad()
+def prefill(model: EncDec, cfg: ModelConfig, tokens, cache: dict, *,
+            enc_embeds, impl: str = "kernel"):
+    """Decoder tokens (B,T), ``enc_embeds`` (B,T_enc,d) and an empty cache
+    from ``init_decode_state`` -> (the last position's logits (B,V), the
+    cache, filled in place): each layer's self K/V in slots [0, T), its
+    cross K/V of the encoder output in the cache's dtype."""
+    check_impl(impl)
+    device = model.embed.tok.device
+    enc_out = encode(model, cfg, enc_embeds, impl=impl)
+    x = embed(model.embed, cfg, _tokens_on(tokens, device))
+    for layer, blk in enumerate(model.dec_blocks):
+        ck, cv = cross_kv(blk.cross, cfg, enc_out)
+        h, (k, v) = attn.attention_full(
+            blk.self, cfg, rms_norm(blk.n1, x, cfg.rmsnorm_eps),
+            return_kv=True, impl=impl)
+        attn.fill_kv_cache(_at(cache["self"], layer), k, v)
+        cross = _at(cache["cross"], layer)
+        cross.k.copy_(ck)
+        cross.v.copy_(cv)
+        x = _cross_and_mlp(blk, cfg, x + h, ck, cv, impl)
+    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
+    return unembed(model.embed, cfg, x[:, -1]), cache
+
+
+@torch.no_grad()
+def decode_step(model: EncDec, cfg: ModelConfig, cache: dict, tokens, pos,
+                *, impl: str = "kernel"):
+    """One token for every sequence: tokens (B,), pos (B,) (host ints or
+    tensors; a scalar pos is every lane's) -> (logits (B,V), the cache,
+    its self K/V updated in place). The cross K/V is read back in the
+    compute dtype; each layer's cross-attention is one row a lane against
+    T_enc keys."""
+    check_impl(impl)
+    device = model.embed.tok.device
+    tokens = _tokens_on(tokens, device).reshape(-1, 1)
+    pos = _tokens_on(pos, device).reshape(-1).long()
+    x = embed(model.embed, cfg, tokens)
+    for layer, blk in enumerate(model.dec_blocks):
+        cross = _at(cache["cross"], layer)
+        h, _ = attn.attention_decode(
+            blk.self, cfg, rms_norm(blk.n1, x, cfg.rmsnorm_eps),
+            _at(cache["self"], layer), pos)
+        x = _cross_and_mlp(blk, cfg, x + h, cross.k.to(x.dtype),
+                           cross.v.to(x.dtype), impl)
+    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
+    return unembed(model.embed, cfg, x[:, 0]), cache

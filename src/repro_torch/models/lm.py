@@ -149,7 +149,8 @@ class LM(nn.Module):
         super().__init__()
         if cfg.family not in (DENSE, MOE, VLM, SSM, HYBRID):
             raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
-                                      "is not ported")
+                                      "is not a decoder-only LM (its model "
+                                      "is models/encdec.py)")
         if cfg.attn_logit_softcap > 0:
             raise NotImplementedError(f"{cfg.name}: an attention logit "
                                       "softcap is not ported")

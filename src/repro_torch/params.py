@@ -9,16 +9,20 @@ six sub-layers a group), with ``{n1, n2, mix.*, ffn.*}`` for the dense,
 MoE and hybrid families (the mixer attention, with qk-norm its ``q_norm``
 and ``k_norm``, MLA or Mamba, the feed-forward an MLP or the MoE's
 router, experts and shared experts) and ``{n1, n2, mix.tm.*, mix.cm.*}``
-for RWKV-6.
+for RWKV-6. An encoder-decoder tree's ``enc_blocks`` (E) and
+``dec_blocks`` (L) are unstacked the same way into
+``enc_blocks[e].{n1, attn.*, n2, ffn.*}`` and ``dec_blocks[l].{n1,
+self.*, n2, cross.{wq, wk, wv, wo}, n3, ffn.*}``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ENCDEC, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.layers.moe import MoE
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM, group_size, mixer_kind
 
 _TM_LINEARS = ("wr", "wk", "wv", "wg", "wo")
@@ -44,16 +48,48 @@ def _put_linears(module, tree: dict, names, g: int, prefix: str):
             _put(lin.b, tree[name]["b"][g], f"{prefix}.{name}.b")
 
 
-def from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
-    """Build the port's model from a reference param tree of numpy arrays,
-    on ``device`` (CUDA unless the caller passes another; raises when CUDA
-    is absent)."""
-    model = LM(cfg, resolve_device(device))
+def _put_mlp(ffn, tree: dict, g: int, prefix: str):
+    _put_linears(ffn, tree, [n for n in ("up", "down", "gate")
+                             if getattr(ffn, n) is not None], g, prefix)
+
+
+def _put_embed_and_norm(model, tree: dict):
     _put(model.embed.tok, tree["embed"]["tok"], "embed.tok")
     if model.embed.head is not None:
         _put(model.embed.head, tree["embed"]["head"], "embed.head")
     _put(model.final_norm.scale, tree["final_norm"]["scale"],
          "final_norm.scale")
+
+
+def _encdec_from_jax(tree: dict, cfg: ModelConfig, device) -> EncDec:
+    model = EncDec(cfg, device)
+    _put_embed_and_norm(model, tree)
+    _put(model.enc_norm.scale, tree["enc_norm"]["scale"], "enc_norm.scale")
+    for stack, norms, mixers in (("enc_blocks", ("n1", "n2"), ("attn",)),
+                                 ("dec_blocks", ("n1", "n2", "n3"),
+                                  ("self", "cross"))):
+        sub = tree[stack]
+        for l, blk in enumerate(getattr(model, stack)):
+            prefix = f"{stack}.{l}"
+            for n in norms:
+                _put(getattr(blk, n).scale, sub[n]["scale"][l],
+                     f"{prefix}.{n}")
+            for m in mixers:
+                _put_linears(getattr(blk, m), sub[m], ("wq", "wk", "wv", "wo"),
+                             l, f"{prefix}.{m}")
+            _put_mlp(blk.ffn, sub["ffn"], l, f"{prefix}.ffn")
+    return model
+
+
+def from_jax(tree: dict, cfg: ModelConfig, device=None):
+    """Build the port's model (``LM``, or ``EncDec`` for the
+    encoder-decoder family) from a reference param tree of numpy arrays,
+    on ``device`` (CUDA unless the caller passes another; raises when CUDA
+    is absent)."""
+    if cfg.family == ENCDEC:
+        return _encdec_from_jax(tree, cfg, resolve_device(device))
+    model = LM(cfg, resolve_device(device))
+    _put_embed_and_norm(model, tree)
     gs = group_size(cfg)
     for l, blk in enumerate(model.blocks):
         g, i = divmod(l, gs)
@@ -102,7 +138,5 @@ def from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
             if ffn.shared is None:
                 continue
             ffn, tree_ffn = ffn.shared, tree_ffn["shared"]
-        _put_linears(ffn, tree_ffn,
-                     [n for n in ("up", "down", "gate")
-                      if getattr(ffn, n) is not None], g, f"blocks.{l}.ffn")
+        _put_mlp(ffn, tree_ffn, g, f"blocks.{l}.ffn")
     return model

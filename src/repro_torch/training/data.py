@@ -5,7 +5,8 @@ Seeded, shardable, restart-reproducible: batch ``i`` is a pure function of
 stored iterator state. The token stream is a Zipfian-ish mixture with local
 n-gram structure so losses decrease during a run. The numpy draws are the
 reference's, call for call, so the tokens (and a VLM's prefix
-embeddings) are bit-identical to it; batches are CPU tensors (the model
+embeddings, an encoder-decoder's encoder embeddings) are bit-identical to
+it; batches are CPU tensors (the model
 moves them to its device).
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ENCDEC, ModelConfig
 
 
 @dataclass(frozen=True)
@@ -52,9 +53,10 @@ def _as_compute(x: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 def make_batch(cfg: DataConfig, mcfg: ModelConfig, step: int) -> Dict:
     """{"tokens": (batch / n_shards, seq_len - n_prefix_embeds) int32 CPU
     tensor}, and for a VLM {"prefix_embeds": (batch / n_shards,
-    n_prefix_embeds, d_model)}, 0.02 x standard normal drawn after the
-    tokens, in the compute dtype. The port has no encoder-decoder config,
-    so no encoder input."""
+    n_prefix_embeds, d_model)}, and for an encoder-decoder {"enc_embeds":
+    (batch / n_shards, encoder_seq_len, d_model)}, each 0.02 x standard
+    normal drawn after the tokens (and the prefix embeddings), in the
+    reference's order, in the compute dtype."""
     rng = _batch_rng(cfg, step)
     b = cfg.batch // cfg.n_shards
     t_text = cfg.seq_len - mcfg.n_prefix_embeds
@@ -67,6 +69,11 @@ def make_batch(cfg: DataConfig, mcfg: ModelConfig, step: int) -> Dict:
         batch["prefix_embeds"] = _as_compute(
             rng.standard_normal((b, mcfg.n_prefix_embeds, mcfg.d_model))
             * 0.02, mcfg.torch_compute_dtype())
+    if mcfg.family == ENCDEC:
+        batch["enc_embeds"] = _as_compute(
+            rng.standard_normal((b, mcfg.encdec.encoder_seq_len,
+                                 mcfg.d_model)) * 0.02,
+            mcfg.torch_compute_dtype())
     return batch
 
 

@@ -1959,3 +1959,177 @@ def test_cuda_link_legs_fit():
     cal = calibrate_profile(H100_SXM, host_samples=samples["host"])
     assert cal.host_link == host and cal.fabric is H100_SXM.fabric
     assert cal.name == "h100-sxm-datasheet-calibrated"
+
+
+# whisper-tiny (the encoder-decoder): row 9 at its shapes, bidirectional
+# over the 1,500 encoder frames and cross-attention of 1, 4 and a ragged
+# 70 decoder rows against them; its dense cache and training on the card
+# against the CPU; ``compress_tree`` on the card against the CPU; the
+# windowed configs' train steps on the card against the CPU
+WHISPER_FLASH_CASES = {"encoder": (1, 1500, 1500, 6, 6, 64, False, 0),
+                       "cross_decode": (3, 1, 1500, 6, 6, 64, False, 0),
+                       "cross_prefill": (2, 4, 1500, 6, 6, 64, False, 0),
+                       "cross_ragged": (2, 70, 1500, 6, 6, 64, False, 0),
+                       "decoder": (2, 448, 448, 6, 6, 64, True, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(WHISPER_FLASH_CASES))
+def test_cuda_flash_at_whisper_shapes(case, dtype):
+    """The flash forward within the attention tolerance of the plain
+    version (its lse within 1e-5) and the backward's dq / dk / dv within
+    the flash backward's limits of the plain formula's norm, at Sq = 1 and
+    at Sq and Sk that are no multiple of a tile; each twice,
+    bit-identical."""
+    dev = _cuda()
+    B, Sq, Sk, H, K, hd, causal, window = WHISPER_FLASH_CASES[case]
+    rng = np.random.default_rng(Sq + Sk)
+    q, k, v, do = [torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev, DTYPES[dtype])
+        for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd),
+                  (B, Sq, H, hd))]
+    kw = dict(causal=causal, window=window)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    o2, lse2 = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    ro, rlse = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+    got = fa_ops.flash_attention_bwd(q, k, v, ro, rlse, do, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, ro, rlse, do, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, ro, rlse, do, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (o.float() - ro.float()).abs().max().item() <= FLASH_TOL[dtype]
+    np.testing.assert_allclose(lse.cpu().numpy(), rlse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for name, g, g2, w in zip("qkv", got, again, want):
+        assert torch.equal(g, g2), name
+        assert _rel_norm(g, w) <= FLASH_BWD_REL[dtype], name
+
+
+def _whisper_smoke():
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import api
+    cfg = smoke_config(get_config("whisper-tiny"))
+    model = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    enc = torch.from_numpy((0.02 * rng.standard_normal(
+        (2, cfg.encdec.encoder_seq_len, cfg.d_model))).astype(np.float32))
+    return cfg, model, rng.integers(0, cfg.vocab_size, (2, 24)), enc
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_dense_cache_matches_cpu():
+    """``api.prefill`` of 20 tokens over 32 frames then 4
+    ``api.decode_step``s at the float32 smoke config, on the card and on
+    the CPU from the same weights: logits and every cache leaf within
+    1e-4. On the card the prefill runs the flash kernel once a layer's
+    attention (the encoder's, the decoder's self and cross) and each
+    decode step once a decoder layer (its cross-attention, one row)."""
+    import copy
+
+    from repro_torch.models import api
+    dev = _cuda()
+    cfg, model, toks, enc = _whisper_smoke()
+    B, TP, T = 2, 20, 24
+
+    def run(m, device):
+        cache = api.init_decode_state(cfg, B, 32, torch.float32,
+                                      device=device)
+        lg, cache = api.prefill(m, cfg, toks[:, :TP], cache,
+                                enc_embeds=enc)
+        out = [lg]
+        for i in range(TP, T):
+            lg, cache = api.decode_step(m, cfg, cache, toks[:, i],
+                                        np.full(B, i))
+            out.append(lg)
+        return out, cache
+    before = build.launch_counts()
+    got, cache = run(copy.deepcopy(model).to(dev), dev)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    want, cpu_cache = run(model, torch.device("cpu"))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    for sub, c in cache.items():
+        for g, w in zip(c, cpu_cache[sub]):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=sub)
+    n = after.get("flash_attention", 0) - before.get("flash_attention", 0)
+    assert n == cfg.encdec.n_encoder_layers + 2 * cfg.n_layers \
+        + (T - TP) * cfg.n_layers
+
+
+def _grads(loss_fn, model):
+    from repro_torch.training.train_loop import trainable_params
+    params = trainable_params(model)
+    loss = loss_fn(model)
+    return loss.item(), dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "gemma3-12b",
+                                  "aqua-mistral-7b"])
+def test_cuda_train_step_matches_cpu(arch):
+    """The float32 smoke config's loss (1e-5 relative) and every
+    gradient (1e-4 of its norm) through the flash kernels on the card
+    against the plain versions on the CPU, from the same weights and
+    batch (whisper: 2 x 24 tokens over 32 frames; the windowed configs: 2
+    x 40 tokens past their window of 16); forward and backward launched
+    once a layer's attention."""
+    import copy
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import api
+    from repro_torch.training.data import DataConfig, make_batch
+    dev = _cuda()
+    cfg = smoke_config(get_config(arch))
+    model = api.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    batch = make_batch(DataConfig(seed=3, batch=2, seq_len=24
+                                  if cfg.encdec else 40), cfg, 0)
+    card = copy.deepcopy(model).to(dev)
+    before = build.launch_counts()
+    loss_k, g_k = _grads(lambda m: api.loss_fn(m, cfg, {
+        k: v.to(dev) for k, v in batch.items()}), card)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    loss_c, g_c = _grads(lambda m: api.loss_fn(m, cfg, batch), model)
+    assert abs(loss_k - loss_c) <= 1e-5 * abs(loss_c)
+    for name, g in g_c.items():
+        assert _rel_norm(g_k[name].cpu(), g) <= 1e-4, name
+    n_attn = cfg.n_layers + (cfg.encdec.n_encoder_layers + cfg.n_layers
+                             if cfg.encdec else 0)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert after.get(name, 0) - before.get(name, 0) == n_attn, name
+
+
+@pytest.mark.cuda
+def test_cuda_compress_tree_bit_equal_to_cpu():
+    """``compress_tree`` of bf16 and float32 gradients on the card, with
+    a non-zero error buffer fed back once: payloads, scales and error
+    buffers equal to the CPU's bit for bit."""
+    from repro_torch.training import compression
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    grads = {f"g{i}": torch.from_numpy((rng.standard_normal(s) * 10.0 ** (
+        i - 3)).astype(np.float32)) for i, s in enumerate(
+        [(7,), (64, 33), (3, 128, 40), (1000,), (5, 5)])}
+    grads["g0"] = grads["g0"].bfloat16()
+
+    def run(device):
+        g = {k: t.to(device) for k, t in grads.items()}
+        err = compression.init_error_buffers(g)
+        out = []
+        for _ in range(2):
+            comps, err = compression.compress_tree(g, err)
+            out.append((comps, err))
+        return out
+
+    def bits(t):
+        return t.contiguous().view(torch.int32).cpu()
+    for (cg, eg), (cc, ec) in zip(run(dev), run(torch.device("cpu"))):
+        for k in grads:
+            assert torch.equal(cg[k].q.cpu(), cc[k].q), k
+            assert torch.equal(bits(cg[k].scale), bits(cc[k].scale)), k
+            assert torch.equal(bits(eg[k]), bits(ec[k])), k

@@ -46,7 +46,9 @@ def test_port_files_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for want in ("configs/base.py", "configs/qwen1_5_0_5b.py",
                  "configs/rwkv6_3b.py", "configs/deepseek_v2_lite_16b.py",
-                 "configs/gemma3_12b.py",
+                 "configs/gemma3_12b.py", "configs/whisper_tiny.py",
+                 "models/encdec.py", "training/compression.py",
+                 "training/elastic.py",
                  "layers/moe.py", "layers/mla.py",
                  "core/errors.py", "core/perfmodel.py", "core/aqua_tensor.py",
                  "core/coordinator.py", "core/control_loop.py",
