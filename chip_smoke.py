@@ -559,6 +559,30 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    a control (layer 0 attending with no window) beyond the float32
    limits; 5 kernel train steps each (p50, peak memory); row 9's forward
    and backward at each windowed shape checked and timed as in phase 75.
+79. the mesh tier legs: a ``MeshTierDomain`` over two distinct cards
+   where there are two, else ``[cuda:0, cuda:0]`` (one H100 is one
+   device: the "peer" is the same card, a leg a same-HBM ``copy_`` plus
+   rows 6 and 7, not NVLink; the phase prints which). Phase 72's
+   ``AquaTensor`` (aqua-llama2-13b kv pages, 327,680 B) with ``mesh=``
+   the domain beside phase 72's slab, 1-2,048 pages, alternating: every
+   round trip bit-identical, each move one leg on the wire, one fabric
+   message, one row 6 and one row 7 launch; median wall per move; the
+   domain's own leg samples fitted by ``calibrated_profile(H100_SXM)``.
+   Its launches are the ``mesh tier legs`` path.
+80. the engine over the domain: phase 74's aqua-llama2-13b serve at
+   full width and depth (6 requests, CFS, REMOTE, a 4 GiB lease,
+   ``audit=True``) without a mesh, over a domain on the datasheet clock
+   (the ``mesh engine`` path), and over a fresh domain on the clock
+   ``calibrate_clock()`` fitted to the second run's legs: greedy tokens
+   and every request's final pages (digested as it retires) equal, legs
+   on the wire equal to priced fabric messages; step p50s and the
+   simulated TTFT p50s (relative only) printed.
+81. ``compressed_psum`` over seeded gradients at every parameter shape
+   of qwen1.5-0.5b on an NCCL group of world size 1 (a ``HashStore``, no
+   socket), two rounds of error feedback, bit-equal to
+   ``decompress(compress())`` on the card and on CPU copies, ms a tree
+   and wire bytes; then ``reshard_for_mesh`` of its host-resident
+   parameters onto ``make_debug_mesh(1)``, bytes a device.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -1886,14 +1910,18 @@ def phase_fused_beside(torch, np, cfg, model, dev, prompts, tokens,
 LEASE_BYTES = 2 * 1024 ** 3          # phase 6's same-card donor lease
 
 
-def make_runtime(cfg, dev, host_pages):
+def make_runtime(cfg, dev, host_pages, mesh=None):
     """Phase 6's paged runtime: 16-token pages, 1,024-token contexts, four
     lanes; logical ids cover the LOCAL pool and every parked page (qwen: 24
-    layers x up to 50 pages x 12 requests, plus the pool itself)."""
+    layers x up to 50 pages x 12 requests, plus the pool itself). With
+    ``mesh`` its REMOTE slabs live on the domain's donor entries (the
+    keyword is passed only then, so ``scripts/engine_ab.py`` can drive a
+    checkout older than the domain)."""
     from repro_torch.serving.kv_cache import PagedStateRuntime
+    extra = {} if mesh is None else {"mesh": mesh}
     return PagedStateRuntime(cfg, max_seq=1024, page_tokens=16, max_running=4,
                              host_pages=host_pages, n_logical=32768,
-                             prefix_cache=False, device=dev)
+                             prefix_cache=False, device=dev, **extra)
 
 
 def make_engine(np, cfg, model, dev, *, host_pages=1024, coordinator=None,
@@ -1904,7 +1932,8 @@ def make_engine(np, cfg, model, dev, *, host_pages=1024, coordinator=None,
     tokens, 32 new tokens each; ``n_req`` takes the first of them).
     With a ``coordinator`` the lease is the coordinator's grant of
     ``want_remote_bytes`` instead, polled for reclaims every step;
-    ``engine_kw`` (faults, audit, admission, ...) go to the engine.
+    ``engine_kw`` (faults, audit, admission, ...) go to the engine; a
+    ``mesh`` goes to the runtime.
     A VLM's requests each carry a seeded prefix block (std 0.02, the token
     embeddings' scale) ahead of a text prompt shorter by its rows, so every
     request fits the 1,024-token context.
@@ -1913,7 +1942,7 @@ def make_engine(np, cfg, model, dev, *, host_pages=1024, coordinator=None,
     from repro_torch.serving.engine import ServingEngine
     new_tokens = 32
     P = cfg.n_prefix_embeds
-    kv = make_runtime(cfg, dev, host_pages)
+    kv = make_runtime(cfg, dev, host_pages, engine_kw.pop("mesh", None))
     eng = ServingEngine(cfg, model, max_running=4, max_seq=1024,
                         scheduler="cfs", slice_tokens=8, step_tokens=256,
                         offload_tier=REMOTE, kv=kv, spec_chunk_ahead=False,
@@ -7348,6 +7377,407 @@ def whisper_and_windowed_phases(torch, np, report, dev, t0):
     return paths
 
 
+# -- the scale-up domain (phases 79-81) ------------------------------------
+MESH_REPEATS = 5                    # timed round trips a size after a warm one
+MESH_ENGINE_REQUESTS = 6            # phase 74's serve: 4 running, 2 parked
+MESH_ENGINE_LEASE = 4 * 1024 ** 3   # phase 74's grant, leased directly here
+
+
+def mesh_devices(torch):
+    """The domain's entries: two distinct cards where there are two, else
+    ``[cuda:0, cuda:0]`` — one H100 is one device, so the "peer" is the
+    same card and a leg is a same-HBM copy plus rows 6 and 7, not
+    NVLink."""
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda:0"), torch.device(f"cuda:{1 if n >= 2 else 0}")]
+    peer = ("a second card" if n >= 2 else
+            "the same card (a same-HBM copy plus rows 6 and 7, not NVLink)")
+    print(f"mesh domain: serving {devs[0]}, donor entry {devs[1]}: the peer "
+          f"is {peer}")
+    return devs
+
+
+def mesh_move(torch, aq, dom, out, lps):
+    """One timed move through the domain: its wall, meter, leg-count and
+    launch-count deltas."""
+    from repro_torch.core.aqua_tensor import REMOTE
+    c0 = dom.collectives
+    if out:
+        t, moved, launched = link_move(torch, aq, "slab out", lps)
+    else:
+        t, moved, launched = link_move(torch, aq, "slab in", lps)
+    if dom.collectives - c0 != 1:
+        raise AssertionError(f"mesh legs: a move of {len(lps)} pages put "
+                             f"{dom.collectives - c0} legs on the wire")
+    if out and not (aq.page_table[lps, 0] == REMOTE).all():
+        raise AssertionError("mesh legs: pages not on the donor slab")
+    return t, moved, launched
+
+
+def phase_mesh_legs(torch, np, dev, card):
+    """Phase 79: phase 72's ``AquaTensor`` (aqua-llama2-13b kv pages, 2,048
+    a pool) with ``mesh=`` a ``MeshTierDomain`` over ``mesh_devices``, and
+    beside it phase 72's same-card slab (no mesh) holding the same pages.
+    At each of 1, 2, 4, ..., 2,048 pages: one warm round trip, then
+    ``MESH_REPEATS`` timed ones through each (median), the two alternating
+    in one loop; every round trip bit-identical, each move one leg on the
+    wire (``collectives``), one fabric message of its pages' bytes, one
+    gather (row 6) and one scatter (row 7). Then the domain's own leg
+    samples fitted: ``calibrated_profile(H100_SXM)``.
+    Returns (launch counts of the mesh moves, the domain: phase 80's
+    engine serves over it, its legs' samples at every size beside the
+    engine's own)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aqua_tensor import AquaTensor, TransferMeter
+    from repro_torch.core.perfmodel import H100_SXM
+    from repro_torch.distributed.mesh_tiers import MeshTierDomain
+    cfg = get_config("aqua-llama2-13b")
+    shape = (2, cfg.n_kv_heads, 16, cfg.resolved_head_dim)
+    dtype = cfg.torch_compute_dtype()
+    dom = MeshTierDomain(devices=mesh_devices(torch))
+    tensors = {}
+    for label, mesh in (("mesh", dom), ("slab", None)):
+        aq = AquaTensor(n_logical=LINK_PAGES, page_shape=shape,
+                        local_slots=LINK_PAGES, host_slots=1, dtype=dtype,
+                        meter=TransferMeter(hw=H100_SXM), device=dev,
+                        name="kv", mesh=mesh)
+        aq.add_remote_lease("donor0", LINK_PAGES)
+        tensors[label] = aq
+    page_bytes = tensors["mesh"].page_bytes
+    if page_bytes != 327_680 or tensors["mesh"].remote_pools[
+            "donor0"].shape[0] != LINK_PAGES + 1:
+        raise AssertionError(f"mesh legs: pages of {page_bytes} B")
+    g = torch.Generator(device=dev).manual_seed(79)
+    data = torch.randn((LINK_PAGES,) + shape, generator=g, device=dev,
+                       dtype=torch.float32).to(dtype)
+    lps = {k: aq.allocate(LINK_PAGES) for k, aq in tensors.items()}
+    for k, aq in tensors.items():
+        aq.write_local(lps[k], data)
+    launches = {"gather_pages": 0, "scatter_pages": 0}
+    rows = []
+    for n in LINK_SIZES:
+        secs = {f"{k} {d}": [] for k in tensors for d in ("out", "in")}
+        for rep in range(MESH_REPEATS + 1):
+            for k, aq in tensors.items():
+                sel = lps[k][:n]
+                for d in ("out", "in"):
+                    if k == "mesh":
+                        t, moved, launched = mesh_move(torch, aq, dom,
+                                                       d == "out", sel)
+                        for key in launches:
+                            launches[key] += launched[key]
+                    else:
+                        t, moved, launched = link_move(torch, aq,
+                                                       f"slab {d}", sel)
+                    check_link_move(f"slab {d}", n, page_bytes, moved,
+                                    launched)
+                    if rep:
+                        secs[f"{k} {d}"].append(t)
+                if not torch.equal(aq.read(sel), data[:n]):
+                    raise AssertionError(f"mesh legs: {k} round trip of {n} "
+                                         f"pages not bit-identical")
+        med = {leg: float(np.median(v)) for leg, v in secs.items()}
+        rows.append(dict(pages=n, bytes=n * page_bytes,
+                         **{k.replace(" ", "_") + "_s": v
+                            for k, v in med.items()}))
+        print(f"mesh legs: {n} pages, {n * page_bytes} B; median of "
+              f"{MESH_REPEATS} moves (ms): "
+              + "; ".join(f"{k} {1e3 * v:.4f}" for k, v in med.items())
+              + f"; mesh/slab out {med['mesh out'] / med['slab out']:.3f} "
+              f"in {med['mesh in'] / med['slab in']:.3f}; on {card}")
+    fitted = dom.calibrated_profile(H100_SXM)
+    samples = dom.samples["fabric"]
+    if fitted is H100_SXM:
+        raise AssertionError(f"mesh legs: {len(samples)} samples gave no fit")
+    xs = np.asarray([x for x, _ in samples])
+    ys = np.asarray([y for _, y in samples])
+    link = fitted.fabric
+    err = np.abs(link.latency + xs / link.peak_bw - ys) / ys
+    print(f"mesh legs: {dom.collectives} legs on the wire, "
+          f"{len(samples)} warm samples (the first of each bucket unsampled)"
+          f"; calibrated_profile(H100_SXM) -> {fitted.name}: fabric peak_bw "
+          f"{link.peak_bw:.6e} B/s, latency {link.latency:.6e} s (datasheet "
+          f"{H100_SXM.fabric.peak_bw:.6e} B/s, {H100_SXM.fabric.latency:.1e}"
+          f" s); fit error median {np.median(err):.4f} max {err.max():.4f}; "
+          f"launches {json.dumps(launches)}; on {card}")
+    print(f"mesh legs record: {json.dumps(dict(card=card, rows=rows))}")
+    del tensors, data
+    release(torch)
+    return launches, dom
+
+
+def request_page_digests(torch, kv, rid, weights):
+    """Per-page digests of a request's pages on every plane, read off the
+    LOCAL pool by plain indexing (no kernel launch, no leg): each page's
+    32-bit words times fixed odd weights, summed in int64 (wrapping)."""
+    from repro_torch.core.aqua_tensor import LOCAL
+    out = {}
+    for name, plane in kv.planes.items():
+        lps = [int(lp) for lp in plane.flat(rid)]
+        rows = plane.aqua.page_table[lps]
+        if not (rows[:, 0] == LOCAL).all():
+            raise AssertionError(f"mesh engine: request {rid}'s {name} "
+                                 f"pages are not resident at its end")
+        pages = plane.aqua.local_pool[torch.as_tensor(rows[:, 1],
+                                                      device=kv.device)]
+        words = pages.contiguous().view(len(lps), -1).view(torch.int32)
+        w = weights[: words.shape[1]]
+        out[name] = (words.long() * w).sum(dim=1).cpu()
+    return out
+
+
+def mesh_engine_run(torch, np, cfg, model, dev, mesh, hw, weights):
+    """Phase 74's serve of ``MESH_ENGINE_REQUESTS`` requests on a 4 GiB
+    lease (CFS, REMOTE offload, ``audit=True``), over ``mesh`` when given,
+    priced on ``hw``; each request's pages digested as it retires.
+    Returns (engine, runtime, requests, step seconds, launches, digests)."""
+    from repro_torch.kernels import build
+    eng, kv, reqs = make_engine(np, cfg, model, dev,
+                                host_pages=PLACER_HOST_PAGES,
+                                lease_bytes=MESH_ENGINE_LEASE, audit=True,
+                                n_req=MESH_ENGINE_REQUESTS, mesh=mesh, hw=hw)
+    kv.meter.hw = hw                # the runtime's meter prices the legs
+    digests = {}
+    plain_release = kv.release
+
+    def release_digested(rid):
+        digests[rid] = request_page_digests(torch, kv, rid, weights)
+        plain_release(rid)
+    kv.release = release_digested
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    step_s = []
+    while (eng.waiting or eng.running) and len(step_s) < 5000:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = build.launch_counts()
+    m = eng.metrics
+    if len(eng.finished) != len(reqs) or eng.auditor.audits != m.steps \
+            or not (m.preemptions > 0 and m.restores > 0):
+        raise AssertionError(f"mesh engine: {len(eng.finished)} of "
+                             f"{len(reqs)} finished, {eng.auditor.audits} "
+                             f"audits in {m.steps} steps, preemptions "
+                             f"{m.preemptions} restores {m.restores}")
+    return eng, kv, reqs, step_s, launches, digests
+
+
+def phase_mesh_engine(torch, np, dev, card, dom):
+    """Phase 80: phase 74's aqua-llama2-13b serve at full width and depth,
+    run three times: without a mesh, over phase 79's domain ``dom`` on the
+    H100_SXM datasheet clock, and over a fresh domain on the clock the
+    second run's ``calibrate_clock()`` fitted. The engine's own legs all
+    fall in one bucket (a parked request's ~1,700 pages: 2,048), and a
+    line needs two sizes, so the fit reads them beside phase 79's legs
+    over the same domain at 1-2,048 pages. The mesh runs' greedy tokens
+    and every request's final pages (digested as it retires) equal the
+    plain run's; each mesh run's legs on the wire equal its meter's fabric
+    messages; ``calibrate_clock()`` returns True and installs the fitted
+    link in ``eng.hw`` and the meter. Prints each run's step p50 and the
+    simulated TTFT p50 (read relative only). Returns {path: launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import H100_SXM
+    from repro_torch.distributed.mesh_tiers import MeshTierDomain
+    cfg = get_config("aqua-llama2-13b")
+    model = phase_dense_model(torch, cfg, 17, 13_015_859_200)
+    gw = torch.Generator(device="cpu").manual_seed(80)
+    page_words = 2 * cfg.n_kv_heads * 16 * cfg.resolved_head_dim * torch.empty(
+        (), dtype=cfg.torch_compute_dtype()).element_size() // 4
+    weights = (torch.randint(1, 2 ** 62, (page_words,), generator=gw)
+               | 1).to(dev)
+    runs, launches = {}, {}
+    calibrated = None
+    legs0, samples0 = dom.collectives, len(dom.samples["fabric"])
+    for label in ("no mesh", "mesh", "mesh calibrated"):
+        mesh = (None if label == "no mesh" else dom if label == "mesh"
+                else MeshTierDomain(devices=mesh_devices(torch)))
+        hw = calibrated if label == "mesh calibrated" else H100_SXM
+        eng, kv, reqs, step_s, counts, digests = mesh_engine_run(
+            torch, np, cfg, model, dev, mesh, hw, weights)
+        m, meter = eng.metrics, kv.meter
+        runs[label] = dict(
+            tokens=[list(r.generated) for r in reqs], digests=digests,
+            step_p50_ms=1e3 * float(np.percentile(step_s, 50)),
+            ttft_p50_s=m.ttft_quantile(0.5), steps=m.steps)
+        print(f"mesh engine: {label}: {len(reqs)} requests, {m.steps} steps, "
+              f"step p50 {runs[label]['step_p50_ms']:.3f} ms, p99 "
+              f"{1e3 * float(np.percentile(step_s, 99)):.3f} ms; simulated "
+              f"TTFT p50 {runs[label]['ttft_p50_s']:.6f} s on {eng.hw.name}; "
+              f"preemptions {m.preemptions} restores {m.restores}; fabric "
+              f"{meter.messages_fabric} messages {meter.bytes_fabric:.0f} B"
+              + (f"; legs on the wire {mesh.collectives - legs0}, warm "
+                 f"samples {len(mesh.samples['fabric']) - samples0}"
+                 if mesh is dom else
+                 f"; legs on the wire {mesh.collectives}, warm samples "
+                 f"{len(mesh.samples['fabric'])}" if mesh else "")
+              + f"; launches {json.dumps(counts, sort_keys=True)}; on {card}")
+        if mesh is not None:
+            legs = mesh.collectives - (legs0 if mesh is dom else 0)
+            if legs != meter.messages_fabric:
+                raise AssertionError(f"mesh engine: {legs} legs "
+                                     f"!= {meter.messages_fabric} priced "
+                                     f"fabric messages")
+            if not all(counts.get(k, 0) > 0 for k in ENGINE_ROWS):
+                raise AssertionError(f"mesh engine: the run never launched "
+                                     f"some of {list(ENGINE_ROWS)}")
+            base = runs["no mesh"]
+            if runs[label]["tokens"] != base["tokens"]:
+                raise AssertionError(f"mesh engine: {label} tokens differ "
+                                     f"from the run without a mesh")
+            for rid, per_plane in base["digests"].items():
+                got = runs[label]["digests"].get(rid)
+                if got is None or any(not torch.equal(got[k], v)
+                                      for k, v in per_plane.items()):
+                    raise AssertionError(f"mesh engine: request {rid}'s "
+                                         f"final pages differ ({label})")
+        if label == "mesh":
+            launches["mesh engine"] = counts
+            if not eng.calibrate_clock():
+                raise AssertionError("mesh engine: calibrate_clock() gave "
+                                     "no fit")
+            calibrated = eng.hw
+            sizes = sorted({int(b) for b, _ in
+                            dom.samples["fabric"][samples0:]})
+            print(f"mesh engine: the fit read {len(dom.samples['fabric'])} "
+                  f"samples: {samples0} of phase 79's legs, "
+                  f"{len(dom.samples['fabric']) - samples0} of this run's "
+                  f"(sizes {sizes} B)")
+            if not (calibrated.name == f"{H100_SXM.name}-calibrated"
+                    and kv.meter.hw is calibrated
+                    and calibrated.fabric != H100_SXM.fabric):
+                raise AssertionError("mesh engine: the fitted link is not "
+                                     "installed in eng.hw and the meter")
+            print(f"mesh engine: calibrate_clock() True -> {calibrated.name}"
+                  f": fabric peak_bw {calibrated.fabric.peak_bw:.6e} B/s, "
+                  f"latency {calibrated.fabric.latency:.6e} s (datasheet "
+                  f"{H100_SXM.fabric.peak_bw:.6e} B/s, "
+                  f"{H100_SXM.fabric.latency:.1e} s); installed in eng.hw "
+                  f"and the meter")
+        del eng, kv, reqs, mesh
+        release(torch)
+    ratio = runs["mesh calibrated"]["ttft_p50_s"] / runs["mesh"]["ttft_p50_s"]
+    print(f"mesh engine: step p50 ms no mesh "
+          f"{runs['no mesh']['step_p50_ms']:.3f}, mesh "
+          f"{runs['mesh']['step_p50_ms']:.3f}, mesh calibrated "
+          f"{runs['mesh calibrated']['step_p50_ms']:.3f}; simulated TTFT p50 "
+          f"s datasheet {runs['mesh']['ttft_p50_s']:.6f} -> calibrated "
+          f"{runs['mesh calibrated']['ttft_p50_s']:.6f} (ratio "
+          f"{ratio:.4f}); tokens and final pages equal in all three runs; "
+          f"on {card}")
+    del model
+    release(torch)
+    return launches
+
+
+def phase_grad_allreduce(torch, np, dev, card):
+    """Phase 81: ``compressed_psum`` over seeded float32 gradients at every
+    parameter shape of qwen1.5-0.5b (full width), on an NCCL group of
+    world size 1 built from a ``HashStore`` (no socket), for two rounds of
+    error feedback: every mean and error buffer bit-equal to
+    ``decompress(compress(g, err))`` on the card and to the same call on
+    CPU copies. Prints ms a tree (CUDA events, the second round) and the
+    bytes an all-reduce moves. Then ``reshard_for_mesh`` of the model's
+    host-resident parameters onto ``make_debug_mesh(1)``, bytes a device
+    and every leaf equal to its host copy."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.training import compression
+    from repro_torch.training.elastic import reshard_for_mesh
+    cfg = get_config("qwen1.5-0.5b")
+    host_model = lm.LM(cfg, torch.device("cpu"))
+    shapes = {n: tuple(p.shape) for n, p in host_model.named_parameters()}
+    n_el = sum(int(np.prod(s)) for s in shapes.values())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    g = torch.Generator(device=dev).manual_seed(81)
+    grads = {n: torch.randn(s, generator=g, device=dev) * 1e-3
+             for n, s in shapes.items()}
+    errs = {n: torch.zeros(s, device=dev) for n, s in shapes.items()}
+    errs_cpu = {n: torch.zeros(s) for n, s in shapes.items()}
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+    ms = []
+    for rnd in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = {n: compression.compressed_psum(grads[n], errs[n])
+               for n in shapes}
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        for n in shapes:
+            comp, want_err = compression.compress(grads[n], errs[n])
+            comp_c, errs_cpu[n] = compression.compress(grads[n].cpu(),
+                                                       errs_cpu[n])
+            mean, new_err = out[n]
+            if not (torch.equal(bits(mean),
+                                bits(compression.decompress(comp)))
+                    and torch.equal(bits(new_err), bits(want_err))
+                    and torch.equal(bits(mean).cpu(), bits(
+                        compression.decompress(comp_c)))
+                    and torch.equal(bits(new_err).cpu(),
+                                    bits(errs_cpu[n]))):
+                raise AssertionError(f"grad all-reduce: {n} round {rnd} is "
+                                     f"not bit-equal to compress/decompress")
+            errs[n] = new_err
+    dist.destroy_process_group()
+    print(f"grad all-reduce: qwen1.5-0.5b, {len(shapes)} tensors, {n_el:,} "
+          f"elements; compressed_psum a tree {ms[1]:.3f} ms (first round "
+          f"{ms[0]:.3f} ms, NCCL world size 1); an all-reduce moves the "
+          f"int32 sum, {4 * n_el:,} B, as a float32 one would ({4 * n_el:,} "
+          f"B); the int8 payload is {n_el:,} B; bit-equal to "
+          f"decompress(compress()) on the card and on CPU copies; on {card}")
+    del grads, errs, errs_cpu, out
+    mesh = make_debug_mesh(1)
+    rules = ShardingRules(mesh, cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    placed = reshard_for_mesh(host_model, mesh, rules.param_spec)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    per_dev = {}
+    for n, p in host_model.named_parameters():
+        leaf = placed[n]
+        if leaf.device != mesh.devices.flat[0] or not torch.equal(
+                leaf.cpu(), p.detach()):
+            raise AssertionError(f"reshard: {n} not placed on the card")
+        per_dev[str(leaf.device)] = per_dev.get(str(leaf.device), 0) + \
+            leaf.numel() * leaf.element_size()
+    sharded = sum(1 for n in shapes
+                  if any(e is not None for e in rules.param_spec(
+                      n, host_model.get_parameter(n))))
+    print(f"reshard: qwen1.5-0.5b's {len(shapes)} host-resident parameters "
+          f"onto make_debug_mesh(1) in {secs:.3f} s; bytes a device "
+          f"{json.dumps(per_dev)}; {sharded} leaves carry a spec over a "
+          f"size-1 axis; on {card}")
+    del placed, host_model
+    release(torch)
+
+
+def mesh_phases(torch, np, dev, card, t0):
+    """Phases 79-81: the mesh tier legs, the engine over the domain with
+    its clock calibrated, and the int8 gradient all-reduce with the
+    placement of a restored model. Returns {path: launch counts}."""
+    lap, done = model_laps(torch, "mesh legs, mesh engine, grad all-reduce",
+                           t0)
+    leg_launches, dom = phase_mesh_legs(torch, np, dev, card)
+    lap("mesh tier legs")
+    paths = {"mesh tier legs": leg_launches}
+    paths.update(phase_mesh_engine(torch, np, dev, card, dom))
+    del dom
+    lap("mesh engine")
+    phase_grad_allreduce(torch, np, dev, card)
+    lap("grad all-reduce")
+    done()
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -7518,6 +7948,12 @@ def main() -> int:
     whisper = whisper_and_windowed_phases(torch, np, report, dev, t0)
     print(f"whisper and windowed training phases: "
           f"{time.perf_counter() - t_new:.1f} s")
+
+    # -- the scale-up domain: the mesh tier legs, the engine over the domain
+    # with calibrate_clock, the int8 gradient all-reduce and reshard ------
+    t_mesh = time.perf_counter()
+    mesh = mesh_phases(torch, np, dev, card, t0)
+    print(f"mesh phases: {time.perf_counter() - t_mesh:.1f} s")
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
@@ -7539,7 +7975,8 @@ def main() -> int:
         + (("rwkv train", rwkv_train), ("rwkv train step", rwkv_step),
            ("deepseek train", ds_train), ("jamba layer train", jamba_train),
            ("internvl2 train", ivl_train)) + tuple(dense.items()) \
-        + tuple(policy.items()) + tuple(whisper.items())
+        + tuple(policy.items()) + tuple(whisper.items()) \
+        + tuple(mesh.items())
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -7561,7 +7998,9 @@ def main() -> int:
                ("dbrx-132b per-request", PER_REQUEST_ROWS),
                ("aqua-llama2-13b per-request", PER_REQUEST_ROWS),
                ("aqua-llama2-13b split-pool drive", ("paged_attention",)),
-               ("link legs", ("gather_pages", "scatter_pages"))) \
+               ("link legs", ("gather_pages", "scatter_pages")),
+               ("mesh tier legs", ("gather_pages", "scatter_pages")),
+               ("mesh engine", ("gather_pages", "scatter_pages"))) \
         + tuple((label, ENGINE_ROWS) for label in (
             "internvl2-1b engine", "gemma-7b engine", "dbrx-132b engine",
             "aqua-llama2-13b engine", "aqua-codellama-34b engine",

@@ -12,11 +12,13 @@ A logical paged tensor whose pages physically live in one of three tiers:
 The bookkeeping is the reference's (``repro/core/aqua_tensor.py``) and stays
 in numpy under the same attribute names: ``page_table``, ``page_refs``,
 ``page_fill``, the free lists and the CACHED state (refcount 0, slot kept).
-The LOCAL and REMOTE pools are tensors on the serving device — a donor lease
-is a slab on that device, as in the reference's single-device backend — and
-every tier move is a gather into staging plus a scatter, through
-``kernels/kv_gather``. Every movement is metered by ``TransferMeter`` and
-priced by ``core/perfmodel.py``.
+The LOCAL pool is a tensor on the serving device. A donor lease is a slab
+on that device, as in the reference's single-device backend, or, with a
+``mesh`` (``distributed/mesh_tiers.MeshTierDomain``), a slab on the donor's
+own device, each remote leg one copy across the fabric. Every tier move is
+a gather into staging plus a scatter, through ``kernels/kv_gather``. Every
+movement is metered by ``TransferMeter`` and priced by
+``core/perfmodel.py``.
 
 Donors are mortal (``core/faults.py``): an attached ``FaultInjector`` is
 consulted before every transfer leg (transient failures retry with priced
@@ -133,9 +135,13 @@ class AquaTensor:
                  local_slots: int, host_slots: int,
                  dtype: torch.dtype = torch.bfloat16,
                  meter: Optional[TransferMeter] = None, name: str = "kv",
-                 device=None, faults=None):
+                 device=None, mesh=None, faults=None):
         self.name = name
         self.device = resolve_device(device)
+        # an optional MeshTierDomain: REMOTE pools become slabs on donor
+        # devices and remote legs become one copy each (None: slabs on the
+        # serving device)
+        self.mesh = mesh
         # optional core/faults.FaultInjector, consulted before every
         # transfer leg and at lease boundaries
         self.faults = faults
@@ -199,8 +205,13 @@ class AquaTensor:
             raise LeaseRevokedError(
                 f"{self.name}: donor {donor} is permanently lost and cannot "
                 "offer a lease", donor=donor)
-        self.remote_pools[donor] = torch.zeros(
-            (slots,) + self.page_shape, dtype=self.dtype, device=self.device)
+        if self.mesh is not None:
+            self.remote_pools[donor] = self.mesh.alloc_pool(
+                donor, slots, self.page_shape, self.dtype)
+        else:
+            self.remote_pools[donor] = torch.zeros(
+                (slots,) + self.page_shape, dtype=self.dtype,
+                device=self.device)
         self._remote_free[donor] = list(range(slots))[::-1]
         self.remote_capacity[donor] = int(slots)
         if donor not in self._donors:
@@ -449,16 +460,25 @@ class AquaTensor:
 
     def _remote_gather(self, donor: str, slots) -> torch.Tensor:
         """Pull ``slots`` out of a donor pool as one contiguous staging
-        batch."""
+        batch on the serving device. Mesh backend: one copy donor ->
+        serving device, after the leg guard (a failed attempt never
+        reaches the wire)."""
         pool = self._live_pool(donor, "gather from")
         self._leg_guard(REMOTE, donor, len(slots))
+        if self.mesh is not None:
+            return self.mesh.pull(pool, donor, slots)
         return kv_ops.gather_pages(pool, self._ids(slots))
 
     def _remote_scatter(self, donor: str, slots, data: torch.Tensor):
-        """Push a contiguous staging batch into a donor pool at ``slots``."""
+        """Push a contiguous staging batch into a donor pool at ``slots``.
+        Mesh backend: one copy serving device -> donor."""
         pool = self._live_pool(donor, "scatter to")
         self._leg_guard(REMOTE, donor, len(slots))
-        kv_ops.scatter_pages(pool, data.to(self.dtype), self._ids(slots))
+        if self.mesh is not None:
+            self.mesh.push(pool, donor, slots, data.to(self.dtype))
+        else:
+            kv_ops.scatter_pages(pool, data.to(self.dtype),
+                                 self._ids(slots))
 
     def _host_gather(self, slots) -> torch.Tensor:
         rows = self.host_pool[torch.as_tensor(np.asarray(slots, np.int64))]

@@ -1,7 +1,6 @@
 """Fault injection + invariant auditing for the tiered serving runtime —
 the reference's ``repro/core/faults.py`` kept as the port's own copy
-(numpy only), less the mesh collective check: the port has no mesh tier
-domain yet.
+(numpy only).
 
 Donors are MORTAL. Production scale-up domains lose transfer legs
 transiently (a congested fabric hop), lose donors permanently (the
@@ -183,10 +182,14 @@ class InvariantAuditor:
     """Consistency oracle over the paged runtime (+ optionally the engine).
 
     ``check`` returns a list of human-readable violations (empty = clean);
-    ``audit`` raises :class:`InvariantViolation` carrying all of them.
+    ``audit`` raises :class:`InvariantViolation` carrying all of them. The
+    mesh leg check is STATEFUL (deltas since the previous audit of the same
+    runtime), so construct one auditor per engine/test.
     """
 
     def __init__(self):
+        self._last_collectives: Optional[int] = None
+        self._last_messages: Optional[float] = None
         self.audits = 0
 
     # ------------------------------------------------------------------
@@ -214,8 +217,11 @@ class InvariantAuditor:
              block, page-aligned edges, parent links intact), every node
              page is allocated, each page appears in exactly one block,
              and the reverse map agrees in both directions.
-        With ``engine``: batch slots partition and the scheduler budget does not
-        exceed what the tiers can physically hold.
+        Runtime-wide: mesh legs vs priced fabric messages move in lockstep
+        (every priced message is backed by >= 1 leg on the wire; retries
+        are priced but never put one there). With ``engine``: batch slots
+        partition and the scheduler budget does not exceed what the tiers
+        can physically hold.
         """
         from repro_torch.core.aqua_tensor import (HOST, LOCAL, LOST, REMOTE,
                                                   TIER_NAMES)
@@ -359,6 +365,19 @@ class InvariantAuditor:
             if k not in seen_pages:
                 bad.append(f"reverse map entry {k} -> unreachable radix "
                            "node")
+
+        # -- mesh legs vs priced fabric messages ---------------------------
+        mesh = getattr(runtime, "mesh", None)
+        if mesh is not None:
+            c, m = mesh.collectives, runtime.meter.messages_fabric
+            if self._last_collectives is not None:
+                dc = c - self._last_collectives
+                dm = m - self._last_messages
+                if dm > dc:
+                    bad.append(f"meter priced {dm} fabric messages but only "
+                               f"{dc} collectives went on the wire (retries must "
+                               "never count as messages)")
+            self._last_collectives, self._last_messages = c, m
 
         # -- engine bookkeeping -------------------------------------------
         if engine is not None:

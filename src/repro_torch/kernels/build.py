@@ -13,9 +13,12 @@ machine without ``nvcc``.
 ``LAUNCHES`` counts kernel launches by name. A wrapper adds one exactly
 where it launches its kernel, so a run can show that its path went through
 the kernels (``reset_launch_counts`` before it, ``launch_counts`` after).
+Every wrapper launches under ``on_device`` of its operands, so a kernel on
+a tensor of another card than the current one runs on that card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -157,6 +160,20 @@ def lib() -> ctypes.CDLL:
 def stream_of(t: torch.Tensor) -> int:
     """Raw handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_ALREADY_CURRENT = contextlib.nullcontext()
+
+
+def on_device(t: torch.Tensor):
+    """Make ``t``'s device current for a launch: a kernel launches on the
+    host thread's current device, whichever device's stream it is handed
+    (a donor slab on ``cuda:1`` is gathered while ``cuda:0`` serves). The
+    device is switched only when it differs, so a launch on the current
+    device pays one query and no switch."""
+    if t.device.index == torch.cuda.current_device():
+        return _ALREADY_CURRENT
+    return torch.cuda.device(t.device)
 
 
 def check(name: str, rc: int) -> None:

@@ -69,10 +69,11 @@ def _forward_kernel(q, k, v, causal, window, scale):
     Sk, K = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    rc = build.lib().aqua_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, Sq, Sk, H, K, hd, int(causal), window, scale,
-        _DTYPE_CODES[q.dtype], build.stream_of(q))
+    with build.on_device(q):
+        rc = build.lib().aqua_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, Sq, Sk, H, K, hd, int(causal), window, scale,
+            _DTYPE_CODES[q.dtype], build.stream_of(q))
     build.check(name, rc)
     build.LAUNCHES[name] += 1
     return o, lse
@@ -93,11 +94,12 @@ def _backward_kernel(q, k, v, o, lse, do, causal, window, scale):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    rc = build.lib().aqua_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), D.data_ptr(), B, Sq, Sk, H, K, hd, int(causal), window,
-        scale, _DTYPE_CODES[q.dtype], build.stream_of(q))
+    with build.on_device(q):
+        rc = build.lib().aqua_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), D.data_ptr(), B, Sq, Sk, H, K, hd, int(causal),
+            window, scale, _DTYPE_CODES[q.dtype], build.stream_of(q))
     build.check(name, rc)
     build.LAUNCHES[name] += 1
     return dq, dk, dv

@@ -99,10 +99,11 @@ def _gather_into(pool, page_ids, out):
     plan = gather_plan(n, row_bytes,
                        math.gcd(16, pool.data_ptr(), out.data_ptr()),
                        sm_count(pool.device.index or 0))
-    rc = build.lib().aqua_gather_pages(
-        pool.data_ptr(), page_ids.data_ptr(), out.data_ptr(), n, row_bytes,
-        pool.shape[0], ROUTES[plan.route], plan.chunk_bytes, plan.stages,
-        plan.blocks, build.stream_of(pool))
+    with build.on_device(pool):
+        rc = build.lib().aqua_gather_pages(
+            pool.data_ptr(), page_ids.data_ptr(), out.data_ptr(), n, row_bytes,
+            pool.shape[0], ROUTES[plan.route], plan.chunk_bytes, plan.stages,
+            plan.blocks, build.stream_of(pool))
     build.check("gather_pages", rc)
     build.LAUNCHES["gather_pages"] += 1
     return out
@@ -136,9 +137,10 @@ def scatter_pages(pool: torch.Tensor, staging: torch.Tensor,
     if n == 0:
         return pool
     lib = build.lib()
-    rc = lib.aqua_scatter_pages(pool.data_ptr(), staging.data_ptr(),
-                                page_ids.data_ptr(), n, _row_bytes(pool),
-                                pool.shape[0], build.stream_of(pool))
+    with build.on_device(pool):
+        rc = lib.aqua_scatter_pages(pool.data_ptr(), staging.data_ptr(),
+                                    page_ids.data_ptr(), n, _row_bytes(pool),
+                                    pool.shape[0], build.stream_of(pool))
     build.check("scatter_pages", rc)
     build.LAUNCHES["scatter_pages"] += 1
     return pool

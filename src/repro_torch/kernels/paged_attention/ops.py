@@ -120,11 +120,12 @@ def paged_prefill_attention_pool(q, kv_pool, block_tables, q_starts, *,
     _table(name, q, block_tables, B)
     build.require_aligned16(name, q, kv_pool)
     out = torch.empty_like(q)
-    rc = build.lib().aqua_prefill_attention_pool(
-        q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
-        q_starts.data_ptr(), out.data_ptr(), B, Tc, H, K, page, hd,
-        block_tables.shape[1], block_tables.stride(0), P, _scale(scale, hd),
-        _DTYPE_CODES[q.dtype], build.stream_of(q))
+    with build.on_device(q):
+        rc = build.lib().aqua_prefill_attention_pool(
+            q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
+            q_starts.data_ptr(), out.data_ptr(), B, Tc, H, K, page, hd,
+            block_tables.shape[1], block_tables.stride(0), P,
+            _scale(scale, hd), _DTYPE_CODES[q.dtype], build.stream_of(q))
     build.check(name, rc)
     build.LAUNCHES[name] += 1
     return out
@@ -154,11 +155,12 @@ def paged_attention_pool(q, kv_pool, block_tables, lengths, *,
     _table(name, q, block_tables, B)
     build.require_aligned16(name, q, kv_pool)
     out = torch.empty_like(q)
-    rc = build.lib().aqua_decode_attention_pool(
-        q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, H, K, page, hd,
-        block_tables.shape[1], block_tables.stride(0), P, _scale(scale, hd),
-        _DTYPE_CODES[q.dtype], build.stream_of(q))
+    with build.on_device(q):
+        rc = build.lib().aqua_decode_attention_pool(
+            q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, H, K, page, hd,
+            block_tables.shape[1], block_tables.stride(0), P,
+            _scale(scale, hd), _DTYPE_CODES[q.dtype], build.stream_of(q))
     build.check(name, rc)
     build.LAUNCHES[name] += 1
     return out
@@ -203,12 +205,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         raise ValueError(f"{name}: bfloat16 pools need strides that are "
                          "multiples of 8 elements (16-byte pages)")
     out = torch.empty_like(q)
-    rc = build.lib().aqua_paged_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, K,
-        page, hd, block_tables.shape[1], block_tables.stride(0),
-        k_pages.stride(0), k_pages.stride(1), P, _scale(scale, hd),
-        _DTYPE_CODES[q.dtype], build.stream_of(q))
+    with build.on_device(q):
+        rc = build.lib().aqua_paged_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
+            H, K, page, hd, block_tables.shape[1], block_tables.stride(0),
+            k_pages.stride(0), k_pages.stride(1), P, _scale(scale, hd),
+            _DTYPE_CODES[q.dtype], build.stream_of(q))
     build.check(name, rc)
     build.LAUNCHES[name] += 1
     return out
@@ -241,12 +244,13 @@ def paged_mixed_attention_pool(q, kv_pool, block_tables, q_starts, n_reals,
     _table(name, q, block_tables, R)
     build.require_aligned16(name, q, kv_pool)
     out = torch.empty_like(q)
-    rc = build.lib().aqua_mixed_attention(
-        q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
-        q_starts.data_ptr(), n_reals.data_ptr(), is_decode.data_ptr(),
-        out.data_ptr(), R, Tc, H, K, page, hd, block_tables.shape[1],
-        block_tables.stride(0), P, _scale(scale, hd), _DTYPE_CODES[q.dtype],
-        build.stream_of(q))
+    with build.on_device(q):
+        rc = build.lib().aqua_mixed_attention(
+            q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
+            q_starts.data_ptr(), n_reals.data_ptr(), is_decode.data_ptr(),
+            out.data_ptr(), R, Tc, H, K, page, hd, block_tables.shape[1],
+            block_tables.stride(0), P, _scale(scale, hd),
+            _DTYPE_CODES[q.dtype], build.stream_of(q))
     build.check(name, rc)
     build.LAUNCHES[name] += 1
     return out
@@ -278,12 +282,13 @@ def _write_rows(name, kv_pool, k_new, v_new, table, starts, n_write):
     build.require_aligned16(name, kv_pool, k_new, v_new)
     if R == 0 or T == 0 or table.shape[1] == 0:
         return kv_pool
-    rc = build.lib().aqua_write_kv_rows(
-        kv_pool.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        table.data_ptr(), starts.data_ptr(),
-        None if n_write is None else n_write.data_ptr(), R, T, K, page, hd,
-        table.shape[1], table.stride(0), P, kv_pool.element_size(),
-        build.stream_of(kv_pool))
+    with build.on_device(kv_pool):
+        rc = build.lib().aqua_write_kv_rows(
+            kv_pool.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            table.data_ptr(), starts.data_ptr(),
+            None if n_write is None else n_write.data_ptr(), R, T, K, page, hd,
+            table.shape[1], table.stride(0), P, kv_pool.element_size(),
+            build.stream_of(kv_pool))
     build.check(name, rc)
     # row 5 of the kernel table: one count for both entry points
     build.LAUNCHES["append_kv"] += 1

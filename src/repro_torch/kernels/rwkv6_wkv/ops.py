@@ -101,10 +101,11 @@ def _forward(r, k, v, w, u, state):
     y = torch.empty_like(r)
     s_out = torch.empty_like(state)
     lib = build.lib()
-    rc = lib.aqua_wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       w.data_ptr(), u.data_ptr(), state.data_ptr(),
-                       y.data_ptr(), s_out.data_ptr(), B, T, H, hd,
-                       _DTYPE_CODES[r.dtype], build.stream_of(r))
+    with build.on_device(r):
+        rc = lib.aqua_wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           w.data_ptr(), u.data_ptr(), state.data_ptr(),
+                           y.data_ptr(), s_out.data_ptr(), B, T, H, hd,
+                           _DTYPE_CODES[r.dtype], build.stream_of(r))
     build.check(name, rc)
     build.LAUNCHES[name] += 1
     return y, s_out
@@ -139,11 +140,12 @@ def _bwd_launch(name, passes, r, k, v, w, u, state, dy, dstate_out, bufs):
     dk, dv, dw, du_part, dstate, states, dstates; None where unused)."""
     B, T, H, hd = r.shape
     ptrs = [0 if t is None else t.data_ptr() for t in bufs]
-    rc = build.lib().aqua_wkv6_bwd(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u.data_ptr(), state.data_ptr(), dy.data_ptr(),
-        dstate_out.data_ptr(), *ptrs, B, T, H, hd, _DTYPE_CODES[r.dtype],
-        passes, build.stream_of(r))
+    with build.on_device(r):
+        rc = build.lib().aqua_wkv6_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), state.data_ptr(), dy.data_ptr(),
+            dstate_out.data_ptr(), *ptrs, B, T, H, hd, _DTYPE_CODES[r.dtype],
+            passes, build.stream_of(r))
     build.check(name, rc)
 
 

@@ -37,9 +37,13 @@ occupy the prompt's first ``n_prefix`` positions: the fused step routes
 them in place of the token embedding on the device, and VLM requests
 take no part in prefix sharing (the image is not in the prompt's hash).
 
-Not ported yet, and refused by the constructor's signature: the mesh tier
-domain (``mesh``) and the ``paged_impl`` switch (the port dispatches its
-kernels by the tensors' device); clock calibration is absent.
+The scale-up domain: with ``mesh`` (a ``distributed/mesh_tiers.
+MeshTierDomain`` serving from ``device``) REMOTE parks land in slabs on
+donor devices, each leg one copy, and ``calibrate_clock`` refits the
+analytic clock's fabric link to the legs' measured times.
+
+Not ported, and refused by the constructor's signature: the ``paged_impl``
+switch (the port dispatches its kernels by the tensors' device).
 """
 from __future__ import annotations
 
@@ -165,7 +169,7 @@ class ServingEngine:
                  coordinator: Optional[Coordinator] = None,
                  name: str = "llm0", hw: HardwareProfile = H100_SXM,
                  want_remote_bytes: float = 0.0, respond_every: int = 4,
-                 faults=None, audit: bool = False,
+                 mesh=None, faults=None, audit: bool = False,
                  admission: bool = False, admission_headroom: float = 0.9,
                  prefill_admit_limit: Optional[int] = 4,
                  slo_ttft_s: Optional[float] = None,
@@ -203,9 +207,15 @@ class ServingEngine:
                 steps.
             name: engine id in coordinator bookkeeping and errors.
             hw: hardware profile pricing the simulated clock.
+            mesh: an optional ``MeshTierDomain`` serving from ``device``:
+                REMOTE parks become copies to slabs on donor devices, and
+                :meth:`calibrate_clock` can refit ``hw``'s fabric link to
+                the measured legs. Ignored when ``kv`` is given (the
+                runtime's own mesh wins).
             faults: a ``core/faults.FaultInjector``, attached to every
-                plane; its scheduled events (lease shrink, donor loss,
-                cancel, engine crash) apply at the top of each step.
+                plane and the mesh; its scheduled events (lease shrink,
+                donor loss, cancel, engine crash) apply at the top of each
+                step.
             audit: run ``InvariantAuditor`` after every step.
             admission: gate the waiting queue with the SLO-aware
                 :class:`AdmissionController`: a request enters the
@@ -259,7 +269,7 @@ class ServingEngine:
             cfg, max_seq=max_seq, page_tokens=kv_page_tokens,
             local_pages=kv_local_pages, host_pages=kv_host_pages,
             max_running=max_running, prefix_sharing=prefix_sharing,
-            prefix_cache=prefix_cache, device=self.device)
+            prefix_cache=prefix_cache, device=self.device, mesh=mesh)
         if self.kv.device != self.device:
             raise ValueError(f"runtime on {self.kv.device}, engine on "
                              f"{self.device}")
@@ -711,6 +721,25 @@ class ServingEngine:
         return self.pager.meter.sim_time - t_before
 
     # ------------------------------------------------------------------
+    def calibrate_clock(self, *, min_samples: int = 4) -> bool:
+        """Refit the analytic clock against MEASURED mesh legs: fit the
+        latency + bandwidth link model to the domain's warm-leg samples
+        (``MeshTierDomain.calibrated_profile``) and install the calibrated
+        profile in ``self.hw`` and the runtime's ``TransferMeter``, so every
+        later priced flip uses the measured fabric link. Returns True when
+        the clock changed (False without a mesh or with too few samples to
+        fit)."""
+        dom = getattr(self.kv, "mesh", None)
+        if dom is None:
+            return False
+        hw2 = dom.calibrated_profile(self.hw, min_samples=min_samples)
+        if hw2 is self.hw:
+            return False
+        self.hw = hw2
+        self.pager.meter.hw = hw2
+        return True
+
+    # ------------------------------------------------------------------
     def step(self):
         """Run ONE engine step: poll coordinator reclaims every
         ``respond_every`` steps, apply due fault events and shed expired
@@ -1104,16 +1133,18 @@ class ServingEngine:
 
     @classmethod
     def restore(cls, cfg: ModelConfig, params, snapshot: Dict, *,
-                faults=None, coordinator: Optional[Coordinator] = None,
+                mesh=None, faults=None,
+                coordinator: Optional[Coordinator] = None,
                 audit: bool = False, hw: HardwareProfile = H100_SXM,
                 device=None, **overrides) -> "ServingEngine":
         """Rebuild a serving engine from a :meth:`snapshot` dict.
 
         A fresh engine is built on ``device`` (CUDA unless the caller passes
-        another; raises when CUDA is absent) from the snapshot's knobs, with
-        ``overrides`` winning: pass ``kv=<a fresh PagedStateRuntime>`` where
-        the default geometry cannot hold the snapshot (a snapshot carries no
-        ``n_logical``, and every page lands on HOST first). The runtime's
+        another; raises when CUDA is absent; over ``mesh`` when given) from
+        the snapshot's knobs, with ``overrides`` winning: pass ``kv=<a
+        fresh PagedStateRuntime>`` where the default geometry cannot hold
+        the snapshot (a snapshot carries no ``n_logical``, and every page
+        lands on HOST first). The runtime's
         page state is rebuilt payload for payload
         (:meth:`PagedStateRuntime.restore_state`) and every surviving
         request re-queues, former runners first, parked exactly when it
@@ -1139,8 +1170,9 @@ class ServingEngine:
                     f"{pe.dtype}, the engine computes in {want}")
         knobs = dict(snapshot["config"])
         knobs.update(overrides)
-        eng = cls(cfg, params, faults=faults, coordinator=coordinator,
-                  audit=audit, hw=hw, device=device, **knobs)
+        eng = cls(cfg, params, mesh=mesh, faults=faults,
+                  coordinator=coordinator, audit=audit, hw=hw, device=device,
+                  **knobs)
         eng.kv.restore_state(snapshot["kv"])
 
         def req(d: Dict) -> ReqState:

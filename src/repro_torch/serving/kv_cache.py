@@ -112,7 +112,7 @@ class PagedStateRuntime:
                  host_pages: int = 8192, n_logical: int = 16384,
                  max_running: int = 4, meter: Optional[TransferMeter] = None,
                  prefix_sharing: bool = True, prefix_cache: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         """Build one AquaTensor pool per page plane of ``cfg``.
 
         Args:
@@ -132,6 +132,10 @@ class PagedStateRuntime:
             prefix_cache: retain tree-indexed pages past refcount 0.
             device: serving device of the LOCAL/REMOTE pools (CUDA unless
                 the caller passes another).
+            mesh: an optional ``MeshTierDomain`` serving from ``device``:
+                every plane's REMOTE pools become slabs on donor devices
+                and its remote legs one copy each; ``None`` keeps the
+                slabs on the serving device.
         """
         layout = lm.paged_layout(cfg)
         self.device = resolve_device(device)
@@ -142,6 +146,7 @@ class PagedStateRuntime:
         self.pps = math.ceil(max_seq / page_tokens)
         self.meter = meter or TransferMeter()
         self.faults = None
+        self.mesh = mesh
         self.planes: Dict[str, _Plane] = {}
         self.sharing = bool(prefix_sharing) and all(
             spec.get("shareable", False) for spec in layout.values())
@@ -180,7 +185,8 @@ class PagedStateRuntime:
             aqua = AquaTensor(n_logical=n_logical, page_shape=page_shape,
                               local_slots=slots, host_slots=host_pages,
                               dtype=spec["dtype"], meter=self.meter,
-                              name=f"{cfg.name}/{name}", device=self.device)
+                              name=f"{cfg.name}/{name}", device=self.device,
+                              mesh=mesh)
             plane = _Plane(name, spec["kind"], aqua, n_layers, n_sub,
                            token_bytes=spec.get("token_bytes", 0))
             # pinned LOCAL dummy page: idle lanes and block-table padding
@@ -815,10 +821,13 @@ class PagedStateRuntime:
     # -- fault plumbing (lease shrink, donor loss) --------------------------
     def attach_faults(self, faults) -> None:
         """Share one ``core/faults.FaultInjector`` with every plane's
-        tensor (transfer-leg retries, lost-donor guards)."""
+        tensor (transfer-leg retries, lost-donor guards) and the mesh
+        domain (lease-boundary guards on its legs)."""
         self.faults = faults
         for plane in self.planes.values():
             plane.aqua.faults = faults
+        if self.mesh is not None:
+            self.mesh.attach_faults(faults)
 
     def shrink_lease(self, donor: str, frac: float) -> int:
         """The donor reclaims ``frac`` of its slots in every plane, now.

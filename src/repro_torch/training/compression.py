@@ -9,9 +9,12 @@ on the gradient's device, float32 throughout: the scale is
 scale)`` (half to even, as ``jnp.round``) clamped to [-127, 127], each op
 rounded once as the reference's are (true divisions, no reciprocal), so
 a call gives the reference's bits and a CUDA call the CPU's. Trees are nested dicts, lists or tuples of
-tensors, such as the train step's ``{name: gradient}``. The distributed
-hook, ``compressed_psum`` (an int8 all-reduce under one shared scale), is
-not ported.
+tensors, such as the train step's ``{name: gradient}``.
+
+``compressed_psum`` is the distributed hook, on ``torch.distributed`` (the
+reference's runs inside ``shard_map``): the workers agree on one scale (a
+scalar MAX all-reduce), quantize against it, and SUM the payload in int32
+(no overflow for <= 2^23 workers) with a float32 count of workers.
 """
 from __future__ import annotations
 
@@ -69,3 +72,27 @@ def compress_tree(grads, err_tree):
     comps = _tree_map(one, grads, err_tree)
     it = iter(errs)
     return comps, _tree_map(lambda _: next(it), grads)
+
+
+def compressed_psum(g: torch.Tensor, err: torch.Tensor, group=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 all-reduce mean with error feedback over ``group`` (the default
+    process group when None) -> (the mean of the workers' dequantized
+    payloads, this worker's new error buffer).
+
+    Integer payloads from different workers can only be summed under one
+    scale, so the workers first agree on the largest local scale, quantize
+    against it, then sum the payload in int32. Error feedback absorbs the
+    coarser shared-scale quantization on workers with small gradients."""
+    import torch.distributed as dist
+    x = g.float() + err
+    scale = torch.clamp_min(x.abs().max(), 1e-12) / torch.full(
+        (), 127.0, device=x.device)
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    new_err = x - q.float() * scale
+    qsum = q.to(torch.int32)
+    dist.all_reduce(qsum, op=dist.ReduceOp.SUM, group=group)
+    n = torch.ones((), dtype=torch.float32, device=x.device)
+    dist.all_reduce(n, op=dist.ReduceOp.SUM, group=group)
+    return qsum.float() * scale / n, new_err

@@ -2133,3 +2133,100 @@ def test_cuda_compress_tree_bit_equal_to_cpu():
             assert torch.equal(cg[k].q.cpu(), cc[k].q), k
             assert torch.equal(bits(cg[k].scale), bits(cc[k].scale)), k
             assert torch.equal(bits(eg[k]), bits(ec[k])), k
+
+
+# -- the scale-up domain on the card: a domain over [cuda:0, cuda:0] (the
+# "peer" is the same card, each leg a same-memory copy plus rows 6 and 7),
+# the int8 all-reduce on NCCL at world size 1, and a gather on a second
+# card launched while the first is current -------------------------------
+@pytest.mark.cuda
+def test_cuda_mesh_domain_round_trip_one_leg_a_move():
+    """An ``AquaTensor`` over ``MeshTierDomain([cuda:0, cuda:0])``: offload
+    to the donor slab and back, bit-exact, each move one leg, one meter
+    message and one scatter (push) or gather (pull) on the donor side."""
+    from repro_torch.core.aqua_tensor import (LOCAL, REMOTE, AquaTensor,
+                                              TransferMeter)
+    from repro_torch.distributed.mesh_tiers import MeshTierDomain
+    dev = _cuda()
+    dom = MeshTierDomain(devices=[dev, dev])
+    for dtype in (torch.float32, torch.bfloat16):
+        a = AquaTensor(n_logical=64, page_shape=(2, 4, 16, 32),
+                       local_slots=32, host_slots=8, dtype=dtype,
+                       meter=TransferMeter(), device=dev, mesh=dom)
+        a.add_remote_lease("d0", 32)
+        assert a.remote_pools["d0"].shape[0] == 33
+        lps = a.allocate(13)
+        payload = torch.randn((13,) + a.page_shape, device=dev).to(dtype)
+        a.write_local(lps, payload)
+        for move, tier in ((lambda: a.offload(lps, prefer=REMOTE), REMOTE),
+                           (lambda: a.ensure_local(lps), LOCAL)):
+            c0, m0 = dom.collectives, a.meter.messages_fabric
+            build.reset_launch_counts()
+            move()
+            torch.cuda.synchronize()
+            counts = build.launch_counts()
+            assert (a.page_table[lps, 0] == tier).all()
+            assert dom.collectives - c0 == 1
+            assert a.meter.messages_fabric - m0 == 1
+            # push: the LOCAL gather + the donor scatter; pull: the donor
+            # gather + the LOCAL scatter
+            assert counts.get("gather_pages", 0) == 1
+            assert counts.get("scatter_pages", 0) == 1
+            assert torch.equal(a.read(lps), payload)
+    assert len(dom.samples["fabric"]) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_psum_nccl_world_one():
+    """``compressed_psum`` on an NCCL group of world size 1 built from a
+    ``HashStore`` (no socket): the mean and error buffer equal
+    ``decompress(compress(g, err))`` on the card, and the CPU's, bit for
+    bit, through two rounds of error feedback."""
+    import torch.distributed as dist
+    from repro_torch.training import compression
+    dev = _cuda()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        rng = np.random.default_rng(81)
+        for shape in ((7,), (64, 33), (3, 128, 40)):
+            g = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32))
+            err_k = torch.zeros(shape, device=dev)
+            err_c = torch.zeros(shape)
+            for _ in range(2):
+                mean, err_k2 = compression.compressed_psum(g.to(dev), err_k)
+                comp, want_err = compression.compress(g.to(dev), err_k)
+                comp_c, err_c = compression.compress(g, err_c)
+                want = compression.decompress(comp)
+                assert torch.equal(mean.cpu().view(torch.int32),
+                                   want.cpu().view(torch.int32))
+                assert torch.equal(err_k2.cpu().view(torch.int32),
+                                   want_err.cpu().view(torch.int32))
+                assert torch.equal(mean.cpu().view(torch.int32),
+                                   compression.decompress(comp_c).view(
+                                       torch.int32))
+                assert torch.equal(err_k2.cpu().view(torch.int32),
+                                   err_c.view(torch.int32))
+                err_k = err_k2
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_gather_on_second_card_while_first_is_current():
+    """The device guard: a gather and a scatter on ``cuda:1`` tensors,
+    called while ``cuda:0`` is current, launch on ``cuda:1`` and give the
+    plain version's rows."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.kernels.kv_gather import ops as kv_ops
+    d1 = torch.device("cuda:1")
+    pool = torch.randn((64, 4, 128), device=d1)
+    ids = torch.tensor([5, 0, 63, 17], dtype=torch.int32, device=d1)
+    with torch.cuda.device(0):
+        got = kv_ops.gather_pages(pool, ids)
+        kv_ops.scatter_pages(pool, got * 2, ids)
+    torch.cuda.synchronize(d1)
+    assert got.device == d1
+    assert torch.equal(got.cpu(), pool.cpu()[ids.long().cpu()] / 2)

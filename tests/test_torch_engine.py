@@ -9,8 +9,9 @@ family (qwen1.5-0.5b, one ``kv`` token plane), RWKV-6 (rwkv6-3b, the
 token plane). Greedy token streams,
 preemption/restore counts and TransferMeter bytes and messages must be
 identical. Also: the engine's entry points refuse to run on a
-missing GPU by default, and knobs of the reference that the port has not
-ported (the mesh, ``paged_impl``) are refused, not ignored."""
+missing GPU by default, the knob of the reference that the port has not
+ported (``paged_impl``) is refused, not ignored, and the engine serves over
+a mesh tier domain with the tokens it gives without one."""
 import jax
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from repro_torch.configs import smoke_config as t_smoke_config
 from repro_torch.core.aqua_tensor import REMOTE as T_REMOTE
 from repro_torch.core.aqua_tensor import AquaTensor as TAquaTensor
 from repro_torch.core.perfmodel import A100_NVLINK as T_A100
+from repro_torch.distributed.mesh_tiers import MeshTierDomain as TDomain
 from repro_torch.models import lm as tlm
 from repro_torch.params import from_jax
 from repro_torch.serving.engine import ServingEngine as TEngine
@@ -122,13 +124,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         build()
 
 
-@pytest.mark.parametrize("knob", [dict(mesh=object()),
-                                  dict(paged_impl="ref")])
+@pytest.mark.parametrize("knob", [dict(paged_impl="ref")])
 def test_engine_refuses_unported_knobs(knob):
     cfg = t_smoke_config(t_get_config(ARCH))
     model = tlm.LM(cfg, torch.device("cpu"))
     with pytest.raises(TypeError):
         TEngine(cfg, model, device="cpu", **knob)
+
+
+def test_engine_serves_over_a_mesh_domain():
+    """``mesh=`` a four-entry CPU ``MeshTierDomain``: the engine's REMOTE
+    parks go through the domain's legs, one a priced fabric message, and
+    the tokens and meter equal the run without a mesh."""
+    cfg = t_smoke_config(t_get_config(ARCH))
+    model = tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for label, mesh in (("slab", None),
+                        ("mesh", TDomain(devices=["cpu"] * 4))):
+        eng = TEngine(cfg, model, device="cpu", offload_tier=T_REMOTE,
+                      mesh=mesh, audit=True, spec_chunk_ahead=False,
+                      **KNOBS)
+        eng.pager.add_remote_lease("d0", LEASE)
+        out[label] = _serve(eng)
+        if mesh is not None:
+            assert eng.kv.mesh is mesh
+            assert mesh.collectives == out[label]["messages_fabric"] > 0
+            assert eng.auditor.audits == eng.metrics.steps
+    assert out["mesh"] == out["slab"]
 
 
 def test_engine_fcfs_serves_everything_without_preemption():
