@@ -571,18 +571,34 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    Its launches are the ``mesh tier legs`` path.
 80. the engine over the domain: phase 74's aqua-llama2-13b serve at
    full width and depth (6 requests, CFS, REMOTE, a 4 GiB lease,
-   ``audit=True``) without a mesh, over a domain on the datasheet clock
-   (the ``mesh engine`` path), and over a fresh domain on the clock
-   ``calibrate_clock()`` fitted to the second run's legs: greedy tokens
-   and every request's final pages (digested as it retires) equal, legs
-   on the wire equal to priced fabric messages; step p50s and the
-   simulated TTFT p50s (relative only) printed.
+   ``audit=True``) without a mesh and over a domain on the datasheet
+   clock (the ``mesh engine`` path), then ``calibrate_clock()`` fitted to
+   that run's legs: greedy tokens and every request's final pages
+   (digested as it retires) equal, legs on the wire equal to priced
+   fabric messages; step p50s and the simulated TTFT p50s (relative only)
+   printed.
 81. ``compressed_psum`` over seeded gradients at every parameter shape
    of qwen1.5-0.5b on an NCCL group of world size 1 (a ``HashStore``, no
    socket), two rounds of error feedback, bit-equal to
    ``decompress(compress())`` on the card and on CPU copies, ms a tree
    and wire bytes; then ``reshard_for_mesh`` of its host-resident
    parameters onto ``make_debug_mesh(1)``, bytes a device.
+82. the roofline against the card: four cells of the dry run
+   (``launch/dryrun.py``) at a batch one card holds — qwen1.5-0.5b
+   ``train_4k`` at B 4 (row 9 forward and backward), ``prefill_32k`` at
+   B 1 (row 9), ``decode_32k`` at B 8, rwkv6-3b ``long_500k`` at B 1 (row
+   8's decode) — each traced on the ``meta`` device, then built on the
+   card (random seeded weights, ``api.instantiate``'s tokens, a zeroed
+   cache) and run 2 + 5 times, the 5 timed by CUDA events. Per cell: the
+   p50, the trace's ``t_compute`` and ``t_memory`` (``analysis/
+   roofline.py`` on ``H100_SXM``), the achieved share of 989 TFLOP/s and
+   of 3.35 TB/s, and the trace's argument + temp bytes beside
+   ``torch.cuda.max_memory_allocated``. It fails when the larger roofline
+   term exceeds 1.05 x the p50 (a bound above the time means a wrong
+   count) or when a kernel's launches differ from the trace's entries x
+   7. Then ``dryrun.main`` on the ``h100`` mesh for the qwen1.5-0.5b and
+   rwkv6-3b rows (the whole dry run takes longer than 120 s on a CPU) and
+   ``report.summarize`` of them.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -2843,17 +2859,15 @@ def wkv_bound(B, T, H, hd, io_bytes):
     the compute dtype, w and the state in and out in float32, u) over the
     memory rate, against the chunked algorithm's float32 operations over
     67 TFLOP/s and its exponentials (the causal pairs of each chunk) over
-    the special-function units' rate. Returns (ms, bound_by, parts)."""
-    nbytes = B * T * H * hd * (4 * io_bytes + 4) + 2 * B * H * hd * hd * 4 \
-        + H * hd * 4
-    flops = exps = 0
-    for t0 in range(0, T, 32):
-        c = min(32, T - t0)
-        pairs = c * (c - 1) // 2
-        flops += (7 * c * hd + 4 * pairs * hd + 4 * c * hd * hd
-                  + 2 * (pairs + c) * hd + hd * hd)
-        exps += 2 * c * hd + pairs * hd + hd
-    flops, exps = flops * B * H, exps * B * H
+    the special-function units' rate (``rwkv6_wkv/ops.py:work``). Returns
+    (ms, bound_by, parts)."""
+    return wkv_parts(B, T, H, hd, io_bytes, backward=False)
+
+
+def wkv_parts(B, T, H, hd, io_bytes, *, backward):
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    flops, exps, nbytes = wkv_ops.work(B, T, H, hd, io_bytes,
+                                       backward=backward)
     parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "f32": flops / F32_FLOPS * 1e3, "exp": exps / SFU_PER_S * 1e3}
     ms = max(parts.values())
@@ -4863,16 +4877,15 @@ def flash_inputs(torch, g, shape, dtype):
 
 def flash_work(shape, itemsize):
     """(forward FLOP, forward bytes, backward FLOP, backward bytes) the
-    call must do and move: 2 products forward and 5 backward of 2 FLOP per
-    visible (query, key) pair and head dim per query head; q, k, v (and o,
-    dO) read once, o (dq, dk, dv) written once, lse and D in float32."""
-    from repro_torch.kernels.flash_attention.ref import attention_mask
+    call must do and move (``flash_attention/ops.py:cost``): 2 products
+    forward and 5 backward of 2 FLOP per visible (query, key) pair and
+    head dim per query head; q, k, v (and o, dO) read once, o (dq, dk, dv)
+    written once, lse and D in float32."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     B, Sq, Sk, H, K, hd, causal, window = shape
-    pairs = int(attention_mask(Sq, Sk, causal, window, "cpu").sum())
-    qb, kb = B * Sq * H * hd * itemsize, B * Sk * K * hd * itemsize
-    lse = B * H * Sq * 4
-    return (4 * B * H * hd * pairs, 2 * qb + 2 * kb + lse,
-            10 * B * H * hd * pairs, 4 * qb + 4 * kb + 2 * lse)
+    kw = dict(causal=causal, window=window, itemsize=itemsize)
+    return (*fa_ops.cost(B, Sq, Sk, H, K, hd, **kw),
+            *fa_ops.cost(B, Sq, Sk, H, K, hd, backward=True, **kw))
 
 
 def library_attention_ms(torch, q, k, v, do, iters, window=0,
@@ -5373,33 +5386,11 @@ def wkv_bwd_bound(B, T, H, hd, io_bytes):
     v, dy read and dr, dk, dv written in the compute dtype; w read and dw
     written, the state and dstate_out read and dstate written, u read and
     du written, in float32) over the memory rate, against the algorithm's
-    float32 operations over 67 TFLOP/s and its exponentials over the
-    special-function units' rate. Per chunk of c tokens with p = c (c - 1)
-    / 2 causal pairs: the entry state's recomputation, v.dy and A over the
-    pairs, S dy, dS v and Z, dr and dk over the pairs, dv, dS and the dw
-    scan; one exponential a causal pair and key dim (the least: A, dr and
-    dk share it). The scratch a kernel keeps between passes is not
-    counted. Returns (ms, bound_by, parts)."""
-    nbytes = B * T * H * hd * (7 * io_bytes + 8) + 3 * B * H * hd * hd * 4 \
-        + 2 * H * hd * 4
-    flops = exps = 0
-    for t0 in range(0, T, 32):
-        c = min(32, T - t0)
-        p = c * (c - 1) // 2
-        flops += (2 * c * hd * hd + hd * hd + 4 * c * hd      # entry state
-                  + 2 * (p + c) * hd                        # v . dy
-                  + 4 * p * hd + 3 * c * hd                 # A
-                  + 4 * c * hd * hd + 2 * hd * hd           # S dy, dS v, Z
-                  + 8 * p * hd + 12 * c * hd                # dr, dk
-                  + 2 * (p + c) * hd + 2 * c * hd * hd + c * hd   # dv
-                  + 2 * c * hd * hd + hd * hd + c * hd      # dS
-                  + 5 * c * hd)                             # dw
-        exps += p * hd + 4 * c * hd + 2 * hd
-    flops, exps = flops * B * H, exps * B * H
-    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "f32": flops / F32_FLOPS * 1e3, "exp": exps / SFU_PER_S * 1e3}
-    ms = max(parts.values())
-    return ms, "bytes" if parts["bytes"] >= ms else "operations", parts
+    float32 operations over 67 TFLOP/s and its exponentials (one a causal
+    pair and key dim) over the special-function units' rate
+    (``rwkv6_wkv/ops.py:work``). The scratch a kernel keeps between
+    passes is not counted. Returns (ms, bound_by, parts)."""
+    return wkv_parts(B, T, H, hd, io_bytes, backward=True)
 
 
 def wkv_bwd_inputs(torch, g, B, T, H, hd, wmax, dtype, dev):
@@ -7565,20 +7556,19 @@ def mesh_engine_run(torch, np, cfg, model, dev, mesh, hw, weights):
 
 def phase_mesh_engine(torch, np, dev, card, dom):
     """Phase 80: phase 74's aqua-llama2-13b serve at full width and depth,
-    run three times: without a mesh, over phase 79's domain ``dom`` on the
-    H100_SXM datasheet clock, and over a fresh domain on the clock the
-    second run's ``calibrate_clock()`` fitted. The engine's own legs all
-    fall in one bucket (a parked request's ~1,700 pages: 2,048), and a
-    line needs two sizes, so the fit reads them beside phase 79's legs
-    over the same domain at 1-2,048 pages. The mesh runs' greedy tokens
-    and every request's final pages (digested as it retires) equal the
-    plain run's; each mesh run's legs on the wire equal its meter's fabric
-    messages; ``calibrate_clock()`` returns True and installs the fitted
-    link in ``eng.hw`` and the meter. Prints each run's step p50 and the
-    simulated TTFT p50 (read relative only). Returns {path: launches}."""
+    run twice: without a mesh, and over phase 79's domain ``dom`` on the
+    H100_SXM datasheet clock, after which ``calibrate_clock()`` fits the
+    domain's link. The engine's own legs all fall in one bucket (a parked
+    request's ~1,700 pages: 2,048), and a line needs two sizes, so the fit
+    reads them beside phase 79's legs over the same domain at 1-2,048
+    pages. The mesh run's greedy tokens and every request's final pages
+    (digested as it retires) equal the plain run's; its legs on the wire
+    equal its meter's fabric messages; ``calibrate_clock()`` returns True
+    and installs the fitted link in ``eng.hw`` and the meter. Prints each
+    run's step p50 and the simulated TTFT p50 (read relative only).
+    Returns {path: launches}."""
     from repro_torch.configs import get_config
     from repro_torch.core.perfmodel import H100_SXM
-    from repro_torch.distributed.mesh_tiers import MeshTierDomain
     cfg = get_config("aqua-llama2-13b")
     model = phase_dense_model(torch, cfg, 17, 13_015_859_200)
     gw = torch.Generator(device="cpu").manual_seed(80)
@@ -7587,14 +7577,11 @@ def phase_mesh_engine(torch, np, dev, card, dom):
     weights = (torch.randint(1, 2 ** 62, (page_words,), generator=gw)
                | 1).to(dev)
     runs, launches = {}, {}
-    calibrated = None
     legs0, samples0 = dom.collectives, len(dom.samples["fabric"])
-    for label in ("no mesh", "mesh", "mesh calibrated"):
-        mesh = (None if label == "no mesh" else dom if label == "mesh"
-                else MeshTierDomain(devices=mesh_devices(torch)))
-        hw = calibrated if label == "mesh calibrated" else H100_SXM
+    for label in ("no mesh", "mesh"):
+        mesh = dom if label == "mesh" else None
         eng, kv, reqs, step_s, counts, digests = mesh_engine_run(
-            torch, np, cfg, model, dev, mesh, hw, weights)
+            torch, np, cfg, model, dev, mesh, H100_SXM, weights)
         m, meter = eng.metrics, kv.meter
         runs[label] = dict(
             tokens=[list(r.generated) for r in reqs], digests=digests,
@@ -7608,12 +7595,10 @@ def phase_mesh_engine(torch, np, dev, card, dom):
               f"{meter.messages_fabric} messages {meter.bytes_fabric:.0f} B"
               + (f"; legs on the wire {mesh.collectives - legs0}, warm "
                  f"samples {len(mesh.samples['fabric']) - samples0}"
-                 if mesh is dom else
-                 f"; legs on the wire {mesh.collectives}, warm samples "
-                 f"{len(mesh.samples['fabric'])}" if mesh else "")
+                 if mesh else "")
               + f"; launches {json.dumps(counts, sort_keys=True)}; on {card}")
         if mesh is not None:
-            legs = mesh.collectives - (legs0 if mesh is dom else 0)
+            legs = mesh.collectives - legs0
             if legs != meter.messages_fabric:
                 raise AssertionError(f"mesh engine: {legs} legs "
                                      f"!= {meter.messages_fabric} priced "
@@ -7656,15 +7641,12 @@ def phase_mesh_engine(torch, np, dev, card, dom):
                   f"and the meter")
         del eng, kv, reqs, mesh
         release(torch)
-    ratio = runs["mesh calibrated"]["ttft_p50_s"] / runs["mesh"]["ttft_p50_s"]
     print(f"mesh engine: step p50 ms no mesh "
           f"{runs['no mesh']['step_p50_ms']:.3f}, mesh "
-          f"{runs['mesh']['step_p50_ms']:.3f}, mesh calibrated "
-          f"{runs['mesh calibrated']['step_p50_ms']:.3f}; simulated TTFT p50 "
-          f"s datasheet {runs['mesh']['ttft_p50_s']:.6f} -> calibrated "
-          f"{runs['mesh calibrated']['ttft_p50_s']:.6f} (ratio "
-          f"{ratio:.4f}); tokens and final pages equal in all three runs; "
-          f"on {card}")
+          f"{runs['mesh']['step_p50_ms']:.3f}; simulated TTFT p50 s "
+          f"{runs['no mesh']['ttft_p50_s']:.6f} / "
+          f"{runs['mesh']['ttft_p50_s']:.6f}; tokens and final pages equal "
+          f"in both runs; on {card}")
     del model
     release(torch)
     return launches
@@ -7775,6 +7757,155 @@ def mesh_phases(torch, np, dev, card, t0):
     phase_grad_allreduce(torch, np, dev, card)
     lap("grad all-reduce")
     done()
+    return paths
+
+
+ROOFLINE_CELLS = (("qwen1.5-0.5b", "train_4k", 4),
+                  ("qwen1.5-0.5b", "prefill_32k", 1),
+                  ("qwen1.5-0.5b", "decode_32k", 8),
+                  ("rwkv6-3b", "long_500k", 1))
+ROOFLINE_WARMUP, ROOFLINE_RUNS = 2, 5
+ROOFLINE_SLACK = 1.05               # a bound above 1.05 x p50: a wrong count
+DRYRUN_ROWS = ("qwen1.5-0.5b", "rwkv6-3b")   # the whole dry run: > 120 s
+
+
+def roofline_args(cfg, shape, B, args, model, seed, dev):
+    """The cell's step arguments on the card, in ``build_cell``'s order:
+    ``model`` for the meta model, AdamW's state from ``adamw_init``
+    (train), a zeroed cache from ``init_decode_state`` (serving), every
+    other input from ``api.instantiate`` (the reference's draws), on
+    ``dev``."""
+    from repro_torch.models import api
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import trainable_params
+    if shape.kind == "train":
+        return (model, adamw_init(trainable_params(model),
+                                  AdamWConfig(lr=3e-4)),
+                api.instantiate(args[2], seed, dev))
+    cache = api.init_decode_state(cfg, B, shape.seq_len, device=dev)
+    if shape.kind == "prefill":
+        return (model, api.instantiate(args[1], seed, dev), cache,
+                api.instantiate(args[3], seed + 1, dev))
+    return (model, cache, api.instantiate(args[2], seed, dev),
+            api.instantiate(args[3], seed + 1, dev))
+
+
+def roofline_cell(torch, np, arch, shape_name, B, model, card):
+    """One cell of phase 82: traced on meta at batch ``B``, then run on the
+    card with ``model`` 2 + 5 times. Fails when the larger roofline term
+    exceeds ``ROOFLINE_SLACK`` x the p50 or a kernel's launches differ
+    from the trace's entries x 7. Returns (the cell's row, its launch
+    counts)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import SHAPES_BY_NAME, ShapeConfig, get_config
+    from repro_torch.core.perfmodel import H100_SXM
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_placeholder_mesh
+    cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
+    t0 = time.perf_counter()
+    fn, args, mem = dryrun.build_cell(arch, shape_name,
+                                      make_placeholder_mesh("h100"),
+                                      batch_override=B)
+    trace = dryrun.trace_cell(fn, args)
+    cost, temp = trace.cost(), trace.peak_bytes
+    calls = roofline.kernel_calls(trace.records.values())
+    t_trace = time.perf_counter() - t0
+    real = roofline_args(cfg, shape, B, args, model, 82, "cuda")
+    del args, trace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    for _ in range(ROOFLINE_WARMUP):
+        fn(*real)
+    ms = []
+    for _ in range(ROOFLINE_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*real)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del real
+    release(torch)
+    runs = ROOFLINE_WARMUP + ROOFLINE_RUNS
+    p50_s = float(np.percentile(ms, 50)) / 1e3
+    rl = roofline.roofline_from_cost(
+        cost, model_flops_per_device=roofline.model_flops(
+            cfg, ShapeConfig(shape.name, shape.seq_len, B, shape.kind)),
+        hw=H100_SXM)
+    row = dict(arch=arch, shape=shape_name, batch=B, p50_ms=p50_s * 1e3,
+               ms=ms, t_compute_ms=rl.t_compute * 1e3,
+               t_memory_ms=rl.t_memory * 1e3, bottleneck=rl.bottleneck,
+               flop_share=cost.flops / p50_s / H100_SXM.flops_peak,
+               hbm_share=cost.bytes / p50_s / H100_SXM.hbm_bw,
+               flops=cost.flops, bytes=cost.bytes,
+               model_flops=rl.model_flops,
+               args_gib=mem["argument_size_in_bytes"] / 2 ** 30,
+               temp_gib=temp / 2 ** 30, peak_gib=peak / 2 ** 30,
+               kernel_entries=dict(calls), launches=launches,
+               trace_s=t_trace)
+    print(f"roofline: {arch} {shape_name} B {B}: p50 {row['p50_ms']:.3f} "
+          f"ms (runs {[round(x, 3) for x in ms]} ms after {ROOFLINE_WARMUP} "
+          f"warm-up); t_compute {row['t_compute_ms']:.4f} ms, t_memory "
+          f"{row['t_memory_ms']:.4f} ms, bottleneck {rl.bottleneck}; "
+          f"achieved {row['flop_share']:.4f} of 989 TFLOP/s, "
+          f"{row['hbm_share']:.4f} of 3.35 TB/s; trace FLOP "
+          f"{cost.flops:.6e} (model FLOP {rl.model_flops:.6e}), bytes "
+          f"{cost.bytes:.6e}; args + temp {row['args_gib']:.2f} + "
+          f"{row['temp_gib']:.2f} GiB, max_memory_allocated "
+          f"{row['peak_gib']:.2f} GiB; kernel entries {dict(calls)} x "
+          f"{runs} runs, launches {launches}; traced in {t_trace:.1f} s; on "
+          f"{card}")
+    bound_s = max(rl.t_compute, rl.t_memory)
+    if bound_s > ROOFLINE_SLACK * p50_s:
+        raise AssertionError(f"roofline: {arch} {shape_name}: the bound "
+                             f"{bound_s * 1e3:.4f} ms exceeds "
+                             f"{ROOFLINE_SLACK} x the p50 "
+                             f"{p50_s * 1e3:.4f} ms: the count is wrong")
+    want = {k: v * runs for k, v in calls.items()}
+    if launches != want:
+        raise AssertionError(f"roofline: {arch} {shape_name}: launches "
+                             f"{launches} != the trace's kernel entries x "
+                             f"{runs} {want}")
+    return row, launches
+
+
+def phase_roofline(torch, np, dev, card):
+    """Phase 82: ``ROOFLINE_CELLS`` traced and run (``roofline_cell``),
+    then the dry run's ``DRYRUN_ROWS`` on the ``h100`` mesh into a
+    temporary directory and ``report.summarize`` of them. Returns {path:
+    launches}."""
+    import tempfile
+    from repro_torch.analysis import report
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    paths, rows, model, built = {}, [], None, None
+    for arch, shape_name, B in ROOFLINE_CELLS:
+        if built != arch:
+            del model
+            release(torch)
+            gen = torch.Generator(device="cuda").manual_seed(82)
+            model, built = lm.init_params(get_config(arch), gen, dev), arch
+        row, launches = roofline_cell(torch, np, arch, shape_name, B, model,
+                                      card)
+        rows.append(row)
+        paths[f"roofline {arch} {shape_name}"] = launches
+    del model
+    release(torch)
+    print("roofline cells: " + json.dumps(
+        [{k: v for k, v in r.items() if k != "ms"} for r in rows]))
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        for arch in DRYRUN_ROWS:
+            dryrun.main(["--mesh", "h100", "--arch", arch, "--out", out])
+        print(report.summarize(out))
+    print(f"dry run of the {list(DRYRUN_ROWS)} rows on the h100 mesh: "
+          f"{time.perf_counter() - t:.1f} s (host)")
     return paths
 
 
@@ -7954,6 +8085,13 @@ def main() -> int:
     t_mesh = time.perf_counter()
     mesh = mesh_phases(torch, np, dev, card, t0)
     print(f"mesh phases: {time.perf_counter() - t_mesh:.1f} s")
+
+    # -- the roofline against the card: dry-run cells traced on meta and
+    # run on the card; the dry run's qwen1.5-0.5b and rwkv6-3b rows ------
+    t_roof = time.perf_counter()
+    roofline_paths = phase_roofline(torch, np, dev, card)
+    print(f"roofline phase: {time.perf_counter() - t_roof:.1f} s; done at "
+          f"{time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
@@ -7976,7 +8114,7 @@ def main() -> int:
            ("deepseek train", ds_train), ("jamba layer train", jamba_train),
            ("internvl2 train", ivl_train)) + tuple(dense.items()) \
         + tuple(policy.items()) + tuple(whisper.items()) \
-        + tuple(mesh.items())
+        + tuple(mesh.items()) + tuple(roofline_paths.items())
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -8031,7 +8169,11 @@ def main() -> int:
                ("gemma3-12b windowed train step", ("flash_attention",
                                                    "flash_attention_bwd")),
                ("aqua-mistral-7b windowed train step", (
-                   "flash_attention", "flash_attention_bwd")))
+                   "flash_attention", "flash_attention_bwd")),
+               ("roofline qwen1.5-0.5b train_4k", ("flash_attention",
+                                                   "flash_attention_bwd")),
+               ("roofline qwen1.5-0.5b prefill_32k", ("flash_attention",)),
+               ("roofline rwkv6-3b long_500k", ("wkv6",)))
     for label, rows in trained:
         if not all(dict(paths)[label].get(k, 0) > 0 for k in rows):
             raise AssertionError(f"the {label} path launched none of some "

@@ -12,5 +12,8 @@ def load_all():
 
 
 from repro_torch.configs.base import (  # noqa: E402,F401
-    DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, EncDecConfig, HybridConfig,
-    MLAConfig, ModelConfig, MoEConfig, SSMConfig, get_config, smoke_config)
+    ALL_SHAPES, DECODE_32K, DENSE, ENCDEC, HYBRID, LONG_500K,
+    LONG_CONTEXT_OK, MOE, PREFILL_32K, SHAPES_BY_NAME, SSM, TRAIN_4K, VLM,
+    EncDecConfig, HybridConfig, MLAConfig, ModelConfig, MoEConfig,
+    ShapeConfig, SSMConfig, get_config, list_archs, shape_applicable,
+    smoke_config)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -198,6 +198,37 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (assigned) — the reference's production cells
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+# archs that may run long_500k (sub-quadratic decode; see DESIGN.md skip list)
+LONG_CONTEXT_OK = ("rwkv6-3b", "jamba-v0.1-52b", "gemma3-12b")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a given (arch, shape) cell is runnable; else reason."""
+    if shape.name == "long_500k" and cfg.name not in LONG_CONTEXT_OK:
+        return False, "pure full-attention arch: 500k KV decode is quadratic-cost/OOM (DESIGN.md skip list)"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 _REGISTRY = {}
@@ -215,6 +246,12 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs():
+    from repro_torch import configs as _c
+    _c.load_all()
+    return sorted(_REGISTRY)
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:

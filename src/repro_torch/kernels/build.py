@@ -15,6 +15,11 @@ where it launches its kernel, so a run can show that its path went through
 the kernels (``reset_launch_counts`` before it, ``launch_counts`` after).
 Every wrapper launches under ``on_device`` of its operands, so a kernel on
 a tensor of another card than the current one runs on that card.
+
+A wrapper handed ``meta`` tensors (the dry run traces a step on the meta
+device) launches nothing and counts nothing: it returns ``meta`` outputs
+of the kernel's shapes and passes one entry, with the kernel's cost, to
+``meta_call``'s sinks.
 """
 from __future__ import annotations
 
@@ -72,6 +77,10 @@ _SIGNATURES = {
     "aqua_paged_attention_tc_info": [_I, _I, _P],
 }
 
+# callables taking each kernel entry made on the meta device; a recorder
+# tracing a step (analysis/roofline.py) adds its own while it runs
+META_SINKS: list = []
+
 _lib: Optional[ctypes.CDLL] = None
 build_log: str = ""
 
@@ -82,6 +91,24 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+def _sig(t: torch.Tensor) -> list:
+    return [list(t.shape), str(t.dtype).removeprefix("torch.")]
+
+
+def meta_call(name: str, inputs, outputs, flops: float, nbytes: float):
+    """A kernel called on ``meta`` tensors (no data, so no launch and no
+    count in ``LAUNCHES``): one entry (the kernel's name, its operands' and
+    outputs' shapes and dtypes, its ``flops`` and ``nbytes`` as its
+    ``cost`` counts them) to every sink in ``META_SINKS``. Returns
+    ``outputs``."""
+    entry = {"kernel": name, "ins": [_sig(t) for t in inputs],
+             "outs": [_sig(t) for t in outputs], "flops": float(flops),
+             "bytes": float(nbytes)}
+    for sink in META_SINKS:
+        sink(entry)
+    return outputs
 
 
 def _nvcc() -> str:

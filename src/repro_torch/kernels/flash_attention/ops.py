@@ -8,6 +8,8 @@ CUDA tensors launch the kernels of ``csrc/flash_attention.cu`` (the forward,
 and in the backward its dQ and dK/dV kernels) and raise if they cannot:
 bfloat16 the tensor-core kernels (16-byte aligned operands: they are copied
 in 16-byte pieces), float32 the CUDA-core ones.
+Meta tensors (the dry run's trace) take neither: they get meta outputs and
+one ``build.meta_call`` entry with ``cost``.
 The TPU kernel's ``block_q`` / ``block_k`` arguments are its tiling for the
 TPU and are not part of this signature: the CUDA kernels pick their own
 tiles by head dim.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -58,6 +61,39 @@ def tc_kernel_info(hd: int) -> dict:
         info[name] = dict(registers=out[0], local_bytes=out[1],
                           smem_bytes=out[2])
     return info
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """How many (query, key) pairs ``ref.attention_mask`` keeps: queries
+    right-aligned against the keys, keys up to the query's position when
+    causal, and fewer than ``window`` positions back when ``window > 0``."""
+    q = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Sq,
+                                                                    np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, K: int, hd: int, *,
+         causal: bool = True, window: int = 0, itemsize: int = 2,
+         backward: bool = False):
+    """(FLOP, bytes) one call must do and move: 2 products forward and 5
+    backward of 2 FLOP per visible (query, key) pair and head dim per
+    query head; q, k, v (and o, dO) read once, o (dq, dk, dv) written
+    once, lse and D in float32. The least time is the larger of the two
+    over the peak FLOP/s and the memory rate."""
+    pairs = visible_pairs(Sq, Sk, causal, window)
+    qb, kb = B * Sq * H * hd * itemsize, B * Sk * K * hd * itemsize
+    lse = B * H * Sq * 4
+    if backward:
+        return 10 * B * H * hd * pairs, 4 * qb + 4 * kb + 2 * lse
+    return 4 * B * H * hd * pairs, 2 * qb + 2 * kb + lse
+
+
+def _meta_cost(q, k, causal, window, backward):
+    B, Sq, H, hd = q.shape
+    return cost(B, Sq, k.shape[1], H, k.shape[2], hd, causal=causal,
+                window=window, itemsize=q.element_size(), backward=backward)
 
 
 def _forward_kernel(q, k, v, causal, window, scale):
@@ -112,6 +148,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
+    if q.device.type == "meta":
+        _check("flash_attention", q, k, v)
+        B, Sq, H, _ = q.shape
+        out = (torch.empty_like(q),
+               torch.empty((B, H, Sq), dtype=torch.float32, device="meta"))
+        return build.meta_call("flash_attention", (q, k, v), out,
+                               *_meta_cost(q, k, causal, window, False))
     return _forward_kernel(q, k, v, causal, window, scale)
 
 
@@ -123,6 +166,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, scale=scale)
+    if q.device.type == "meta":
+        _check("flash_attention_bwd", q, k, v)
+        out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        return build.meta_call("flash_attention_bwd", (q, k, v, o, lse, do),
+                               out, *_meta_cost(q, k, causal, window, True))
     return _backward_kernel(q, k, v, o, lse, do, causal, window, scale)
 
 

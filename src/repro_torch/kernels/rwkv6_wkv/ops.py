@@ -9,7 +9,9 @@ runs alone (``wkv6_bwd_states``, ``wkv6_bwd_dstates``, ``wkv6_bwd_chunk``)
 so it can be held against its plain twin.
 ``wkv6`` goes through the ``WKV6`` autograd op when a gradient is wanted,
 and straight to the forward otherwise (the serving path, under
-``no_grad``).
+``no_grad``). Meta tensors (the dry run's trace) of ``wkv6`` and
+``wkv6_bwd`` launch nothing: they get meta outputs and one
+``build.meta_call`` entry with ``cost``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.perfmodel import H100_SXM
 from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6_wkv.ref import (WKV_CHUNK, wkv6_backward_plain,
                                                wkv6_bwd_chunk_plain,
@@ -28,6 +31,63 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 BWD_PASSES = ("wkv6_bwd_states", "wkv6_bwd_dstates", "wkv6_bwd_chunk")
+
+F32_FLOPS = 67e12                   # H100 SXM datasheet, outside tensor cores
+SFU_PER_S = 132 * 16 * 1.98e9       # exponentials/s: 132 SMs x 16 SFU lanes
+
+
+def work(B: int, T: int, H: int, hd: int, itemsize: int = 2, *,
+         backward: bool = False):
+    """(float32 FLOP, exponentials, bytes) one call must do and move.
+
+    Bytes: forward r, k, v, y in the compute dtype, w and the state in and
+    out in float32, u; backward r, k, v, dy read and dr, dk, dv written in
+    the compute dtype, w read and dw written, the state and dstate_out
+    read and dstate written, u read and du written, in float32. Operations
+    per 32-token chunk of c tokens with p = c (c - 1) / 2 causal pairs:
+    forward, the chunked algorithm's; backward, the entry state's
+    recomputation, v.dy and A over the pairs, S dy, dS v and Z, dr and dk
+    over the pairs, dv, dS and the dw scan, with one exponential a causal
+    pair and key dim (the least: A, dr and dk share it). The scratch the
+    backward keeps between its passes is not counted."""
+    if backward:
+        nbytes = (B * T * H * hd * (7 * itemsize + 8)
+                  + 3 * B * H * hd * hd * 4 + 2 * H * hd * 4)
+    else:
+        nbytes = (B * T * H * hd * (4 * itemsize + 4)
+                  + 2 * B * H * hd * hd * 4 + H * hd * 4)
+    flops = exps = 0
+    for t0 in range(0, T, WKV_CHUNK):
+        c = min(WKV_CHUNK, T - t0)
+        p = c * (c - 1) // 2
+        if backward:
+            flops += (2 * c * hd * hd + hd * hd + 4 * c * hd      # entry state
+                      + 2 * (p + c) * hd                        # v . dy
+                      + 4 * p * hd + 3 * c * hd                 # A
+                      + 4 * c * hd * hd + 2 * hd * hd           # S dy, dS v, Z
+                      + 8 * p * hd + 12 * c * hd                # dr, dk
+                      + 2 * (p + c) * hd + 2 * c * hd * hd + c * hd   # dv
+                      + 2 * c * hd * hd + hd * hd + c * hd      # dS
+                      + 5 * c * hd)                             # dw
+            exps += p * hd + 4 * c * hd + 2 * hd
+        else:
+            flops += (7 * c * hd + 4 * p * hd + 4 * c * hd * hd
+                      + 2 * (p + c) * hd + hd * hd)
+            exps += 2 * c * hd + p * hd + hd
+    return flops * B * H, exps * B * H, nbytes
+
+
+def cost(B: int, T: int, H: int, hd: int, itemsize: int = 2, *,
+         backward: bool = False):
+    """(FLOP, bytes) of one call (``work``), for a roofline that divides
+    FLOP by the bf16 peak (``H100_SXM.flops_peak``) and bytes by the
+    memory rate. The float32 FLOP run at 67 TFLOP/s and the exponentials
+    on the special-function units, not at the bf16 peak, so the FLOP
+    returned is the peak's worth of the slower of the two: their least
+    time x the bf16 peak."""
+    flops, exps, nbytes = work(B, T, H, hd, itemsize, backward=backward)
+    t_ops = max(flops / F32_FLOPS, exps / SFU_PER_S)
+    return t_ops * H100_SXM.flops_peak, nbytes
 
 
 def _kernel_info(export: str, labels, hd: int) -> dict:
@@ -92,6 +152,11 @@ def _forward(r, k, v, w, u, state):
     name = "wkv6"
     B, T, H, hd = r.shape
     _check(name, r, k, v, w, u, state)
+    if r.device.type == "meta":
+        return build.meta_call(
+            name, (r, k, v, w, u, state),
+            (torch.empty_like(r), torch.empty_like(state)),
+            *cost(B, T, H, hd, r.element_size()))
     build.require_cuda(name, r, k, v, w, u, state)
     for t, what in ((r, "r"), (k, "k"), (v, "v"), (w, "w"),
                     (state, "state")):
@@ -169,8 +234,14 @@ def wkv6_bwd(r, k, v, w, u, state, dy, dstate_out):
     if r.device.type == "cpu":
         return wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out)
     name = "wkv6_bwd"
-    dstate_out = _bwd_check(name, r, k, v, w, u, state, dy, dstate_out)
     B, T, H, hd = r.shape
+    if r.device.type == "meta":
+        _check(name, r, k, v, w, u, state)
+        out = tuple(torch.empty_like(t) for t in (r, r, r, w, u, state))
+        return build.meta_call(name, (r, k, v, w, u, state, dy), out,
+                               *cost(B, T, H, hd, r.element_size(),
+                                     backward=True))
+    dstate_out = _bwd_check(name, r, k, v, w, u, state, dy, dstate_out)
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
     du_part = torch.empty((B, H, -(-T // WKV_CHUNK), hd),

@@ -15,7 +15,10 @@ Axes:
 
 ``make_production_mesh`` needs the 256 (or 512) devices of the reference's
 (16, 16) / (2, 16, 16) mesh and raises where they are absent; it never
-builds a mesh of repeated devices.
+builds a mesh of repeated devices. ``make_placeholder_mesh`` builds those
+meshes (and one H100's) with ``meta`` entries, for the dry run only: it
+reads a mesh's axis sizes and runs nothing on it, as XLA's forced host
+devices stand in for the pods in the reference's dry run.
 """
 from __future__ import annotations
 
@@ -68,6 +71,24 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
                          f"devices; found {found}")
     return Mesh(np.array(_cuda_devices()[:need], dtype=object).reshape(
         shape), axes)
+
+
+PLACEHOLDER_MESHES = {
+    "pod256": ((16, 16), ("data", "model")),
+    "pod512": ((2, 16, 16), ("pod", "data", "model")),
+    "h100": ((1, 1, 1), ("pod", "data", "model")),
+}
+
+
+def make_placeholder_mesh(name: str) -> Mesh:
+    """The dry run's mesh ``name`` (``PLACEHOLDER_MESHES``: the reference's
+    two production meshes and one H100) with a ``meta`` device at every
+    entry."""
+    shape, axes = PLACEHOLDER_MESHES[name]
+    arr = np.empty(shape, dtype=object)
+    for idx in np.ndindex(shape):
+        arr[idx] = torch.device("meta")
+    return Mesh(arr, axes)
 
 
 def make_debug_mesh(n_devices: int = 1, *,

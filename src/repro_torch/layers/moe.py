@@ -87,12 +87,19 @@ def expert_counts(expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
 def _routed_experts(p: MoE, cfg: ModelConfig, xt, gate_vals, expert_idx):
     """sum_k gate_k x FFN_{e_k}(x) over every assignment (dropless),
     grouped by expert. The per-expert counts come to the host here: one
-    sync per call."""
+    sync per call. Meta tensors (the dry run's trace) have no routing to
+    read: the N K assignments are split evenly over the experts, which
+    runs the same rows through the same products (each assignment once),
+    so the trace counts the FLOP and bytes any routing does."""
     N, K = expert_idx.shape
     dt = xt.dtype
     flat = expert_idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    counts = expert_counts(flat, cfg.moe.n_experts).tolist()   # host sync
+    E = cfg.moe.n_experts
+    if flat.device.type == "meta":
+        counts = [N * K // E + (e < N * K % E) for e in range(E)]
+    else:
+        counts = expert_counts(flat, E).tolist()               # host sync
     xs = xt[order // K]                       # assignments, by expert
     ys = torch.empty_like(xs)
     start = 0

@@ -102,6 +102,12 @@ class EncDec(nn.Module):
         self.dec_blocks = nn.ModuleList(DecBlock(cfg, device, generator)
                                         for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
+        self.cfg = cfg
+
+
+def param_specs(cfg: ModelConfig) -> EncDec:
+    """The model on the ``meta`` device: shapes and dtypes, no storage."""
+    return EncDec(cfg, torch.device("meta"))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -206,6 +212,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq: int, dtype=None,
         return attn.KVCache(torch.zeros(shape, dtype=dt, device=device),
                             torch.zeros(shape, dtype=dt, device=device))
     return {"self": kv(seq), "cross": kv(cfg.encdec.encoder_seq_len)}
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, seq: int,
+                       dtype=None) -> dict:
+    """``init_decode_state``'s tree on the ``meta`` device."""
+    return init_decode_state(cfg, batch, seq, dtype, device="meta")
 
 
 @torch.no_grad()

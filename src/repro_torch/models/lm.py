@@ -159,6 +159,7 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, device, generator, l % gs)
                                     for l in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.dtype(), device)
+        self.cfg = cfg
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -174,6 +175,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         raise ValueError(f"generator on {generator.device}, weights on "
                          f"{device}")
     return LM(cfg, device, generator)
+
+
+def param_specs(cfg: ModelConfig) -> LM:
+    """The model on the ``meta`` device, the counterpart of the
+    reference's ``jax.eval_shape`` of ``init_params``: every parameter's
+    shape and dtype, no storage."""
+    return LM(cfg, torch.device("meta"))
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -427,6 +435,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq: int, dtype=None,
             torch.zeros((G,) + t.shape, dtype=t.dtype, device=device)
             for t in shapes))
     return state
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, seq: int,
+                       dtype=None) -> dict:
+    """``init_decode_state``'s tree on the ``meta`` device."""
+    return init_decode_state(cfg, batch, seq, dtype, device="meta")
 
 
 def _at(cache, g: int):

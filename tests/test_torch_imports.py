@@ -68,7 +68,9 @@ def test_port_files_exist():
                  "training/data.py", "training/optimizer.py",
                  "training/checkpoint.py", "training/train_loop.py",
                  "launch/train.py", "launch/mesh.py",
-                 "distributed/sharding.py", "distributed/mesh_tiers.py"):
+                 "distributed/sharding.py", "distributed/mesh_tiers.py",
+                 "launch/dryrun.py", "analysis/roofline.py",
+                 "analysis/report.py"):
         assert want in names, want
     assert (ROOT / "chip_smoke.py").exists()
     for cu in ("kv_gather.cu", "paged_attention.cu", "wkv6.cu",
