@@ -599,6 +599,31 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    7. Then ``dryrun.main`` on the ``h100`` mesh for the qwen1.5-0.5b and
    rwkv6-3b rows (the whole dry run takes longer than 120 s on a CPU) and
    ``report.summarize`` of them.
+83. the partitioned serving step (``api.prefill`` / ``api.decode_step``
+   with ``shard_axes``, ``distributed/partition.py``). (a) On an NCCL
+   group of world size 1 (a ``HashStore``) over a (1, 1, 1) mesh: qwen1.5-
+   0.5b at full width and depth (a prefill of 2 x 2,048, 16 greedy decode
+   steps) and dbrx-132b at 8 of 40 layers under FSDP (2 x 512, 8 steps:
+   expert parallelism and the FSDP gather at a group of one), each held
+   to the unpartitioned step on the same weights: greedy tokens equal and
+   every step's logits bit for bit (phases 69-70's rule), the shards
+   sharing the model's storage, one row 9 launch a layer in the prefill.
+   (b) Rank 0 of ``pod256`` at its own per-device shapes under a fake
+   process group of 256 (its collectives move no bytes: the rank's local
+   work with no wire, values unchecked): qwen1.5-0.5b ``decode_32k`` (8
+   lanes, one kv head), ``prefill_32k`` (2 x 32,768, one head through row
+   9) and dbrx-132b ``decode_32k`` at 8 of 40 layers, each traced on
+   ``meta`` by ``dryrun.build_cell`` and run on instantiated shards 2 + 5
+   times (CUDA events): the p50 beside the per-device traced bound, the
+   launches equal to the trace's entries x 7, the shards' bytes equal to
+   the record's arguments and ``max_memory_allocated`` (less what earlier
+   phases still hold) within 5% of the trace's arguments + temporaries.
+   Then row 9 at that rank's prefill shape (2 x 32,768, one head of 64 on
+   one kv head, causal) and at dbrx-132b's prefill shape of (a) (2 x 512,
+   48 heads of 128 on 8 kv heads, causal) through phase 75's check and
+   timing (float32 and bf16 against the plain
+   version, the heaviest-key control; kernel, plain, library and bound
+   ms), under ``partition`` in the ``flash_attention`` record.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -7909,6 +7934,256 @@ def phase_roofline(torch, np, dev, card):
     return paths
 
 
+# -- the partitioned serving step ---------------------------------------------
+# (a) at world size 1 on NCCL: (arch, layers or 0 for all, batch, prompt,
+# decode steps, FSDP)
+PARTITION_RUNS = (("qwen1.5-0.5b", 0, 2, 2048, 16, False),
+                  ("dbrx-132b", DBRX_LAYERS, 2, 512, 8, True))
+# (b) rank 0 of pod256 at its own shapes under a fake group: (arch, shape,
+# layers or 0 for all)
+PARTITION_CELLS = (("qwen1.5-0.5b", "decode_32k", 0),
+                   ("qwen1.5-0.5b", "prefill_32k", 0),
+                   ("dbrx-132b", "decode_32k", DBRX_LAYERS))
+PARTITION_MESH = "pod256"
+PARTITION_MEM_SLACK = 0.05          # max_memory_allocated vs args + temp
+# row 9 at the shapes the partitioned prefills give it: a rank of pod256
+# in qwen1.5-0.5b's prefill_32k (its 2 rows of the batch, one head on one
+# kv head), and dbrx-132b's world-1 prefill of (a) (2 x 512, 48 heads on 8)
+PARTITION_FLASH = {
+    "qwen1.5-0.5b pod256 rank prefill":
+        ((2, 32768, 32768, 1, 1, 64, True, 0), False),
+    "dbrx-132b world 1 prefill":
+        ((2, 512, 512, 48, 8, 128, True, 0), False)}
+
+
+def greedy_run(torch, np, api, model, cfg, tokens, steps, dev, **kw):
+    """``api.prefill`` of ``tokens`` into a fresh cache (sharded through
+    ``kw["shard_cache"]`` when given), then ``steps`` greedy
+    ``api.decode_step``s -> (every step's logits, the greedy tokens)."""
+    shard = kw.pop("shard_cache", lambda c: c)
+    B, T = tokens.shape
+    cache = shard(api.init_decode_state(cfg, B, T + steps, device=dev))
+    logits, cache = api.prefill(model, cfg, tokens, cache, **kw)
+    outs, toks = [logits], [logits.argmax(-1)]
+    for s in range(steps):
+        logits, cache = api.decode_step(model, cfg, cache, toks[-1],
+                                        np.full(B, T + s), **kw)
+        outs.append(logits)
+        toks.append(logits.argmax(-1))
+    return outs, torch.stack(toks)
+
+
+def partition_world1(torch, np, run, dev, card):
+    """Phase 83(a), one config: the partitioned step on a (1, 1, 1) mesh
+    over the NCCL group of world size 1 (every collective a group of one)
+    against the unpartitioned step on the same weights: greedy tokens
+    equal and every step's logits equal bit for bit (phases 69-70's rule
+    for the dense cache). Returns the partitioned run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import Mesh, rank_context
+    from repro_torch.models import api, lm
+    arch, layers, B, T, steps, fsdp = run
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    model = lm.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=dev)
+    mesh = Mesh(np.full((1, 1, 1), str(dev), dtype=object),
+                ("pod", "data", "model"))
+    rank = rank_context(mesh, device=dev)
+    rules = ShardingRules(mesh, cfg, fsdp=fsdp)
+    t = time.perf_counter()
+    want, want_tok = greedy_run(torch, np, api, model, cfg, tokens, steps,
+                                dev)
+    _sync(torch, dev)
+    t_plain = time.perf_counter() - t
+    local = partition.shard_model(model, rules, rank)
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    got, got_tok = greedy_run(
+        torch, np, api, local, cfg, tokens, steps, dev,
+        shard_axes={"dp": rules.dp, "tp": "model", "mesh": mesh,
+                    "ctx": rank},
+        shard_cache=lambda c: partition.shard_cache(c, rules, rank, B))
+    _sync(torch, dev)
+    t_part = time.perf_counter() - t
+    launches = build.launch_counts()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    worst = max(float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()) for a, b in zip(got, want))
+    held = {n: p.data_ptr() == model.get_parameter(n).data_ptr()
+            for n, p in local.named_parameters()}
+    print(f"partition world 1: {arch} ({cfg.n_layers} layers, FSDP "
+          f"{fsdp}), prefill {B} x {T} + {steps} greedy steps: tokens equal "
+          f"{torch.equal(got_tok, want_tok)}, logits bit-equal {same} "
+          f"(largest relative difference {worst:.3g}); launches {launches}; "
+          f"{sum(held.values())} of {len(held)} shards share the model's "
+          f"storage; partitioned {t_part:.2f} s, unpartitioned "
+          f"{t_plain:.2f} s (host wall); on {card}")
+    flash = launches.get("flash_attention", 0)
+    if not (same and torch.equal(got_tok, want_tok) and all(held.values())
+            and flash == cfg.n_layers):
+        raise AssertionError(f"partition world 1: {arch}: tokens equal "
+                             f"{torch.equal(got_tok, want_tok)}, logits "
+                             f"bit-equal {same}, {flash} flash launches for "
+                             f"{cfg.n_layers} layers")
+    del model, local, want, got
+    release(torch)
+    return launches
+
+
+def partition_cell(torch, np, arch, shape_name, layers, card):
+    """Phase 83(b), one cell: rank 0 of ``PARTITION_MESH`` at its own
+    shapes, under the fake group of the mesh's size (its collectives move
+    no bytes and return garbage: values are not checked). Traced on meta
+    (``dryrun.build_cell``), then run on the card 2 + 5 times on
+    instantiated shards (a zeroed cache): the p50 beside the per-device
+    bound, launches equal to the trace's entries x 7, and
+    ``max_memory_allocated``, less what earlier phases still hold, within
+    ``PARTITION_MEM_SLACK`` of the trace's args + temp. Returns (the cell's
+    row, its launches)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import SHAPES_BY_NAME, ShapeConfig, get_config
+    from repro_torch.core.perfmodel import H100_SXM
+    from repro_torch.distributed import partition
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_placeholder_mesh
+    from repro_torch.models import api
+    mesh = make_placeholder_mesh(PARTITION_MESH)
+    world = int(mesh.devices.size)
+    over = {"n_layers": layers} if layers else None
+    cfg = get_config(arch).replace(**(over or {}))
+    shape = SHAPES_BY_NAME[shape_name]
+    t0 = time.perf_counter()
+    fn, args, mem = dryrun.build_cell(arch, shape_name, mesh, overrides=over)
+    trace = dryrun.trace_cell(fn, args)
+    cost, temp = trace.cost(), trace.peak_bytes
+    calls = roofline.kernel_calls(trace.records.values())
+    t_trace = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    release(torch)
+    base = torch.cuda.memory_allocated()      # what earlier phases hold
+    if shape.kind == "prefill":
+        real = (api.instantiate(args[0], 83, dev),
+                api.instantiate(args[1], 84, dev),
+                partition.materialize(args[2], dev),
+                api.instantiate(args[3], 85, dev))
+    else:
+        real = (api.instantiate(args[0], 83, dev),
+                partition.materialize(args[1], dev),
+                api.instantiate(args[2], 84, dev),
+                api.instantiate(args[3], 85, dev))
+    held = sum(t.numel() * t.element_size()
+               for t in api.tree_leaves([list(real[0].parameters())]
+                                        + list(real[1:])))
+    del args, trace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    for _ in range(ROOFLINE_WARMUP):
+        fn(*real)
+    ms = []
+    for _ in range(ROOFLINE_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*real)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    del real, fn
+    release(torch)
+    runs = ROOFLINE_WARMUP + ROOFLINE_RUNS
+    p50_s = float(np.percentile(ms, 50)) / 1e3
+    local = ShapeConfig(shape.name, shape.seq_len, shape.global_batch,
+                        shape.kind)
+    rl = roofline.roofline_from_cost(
+        cost, model_flops_per_device=roofline.model_flops(cfg, local)
+        / world, hw=H100_SXM)
+    bound_s = max(rl.t_compute, rl.t_memory)
+    args_b = mem["argument_size_in_bytes"]
+    row = dict(arch=arch, shape=shape_name, layers=cfg.n_layers,
+               mesh=PARTITION_MESH, p50_ms=p50_s * 1e3, ms=ms,
+               bound_ms=bound_s * 1e3, t_compute_ms=rl.t_compute * 1e3,
+               t_memory_ms=rl.t_memory * 1e3,
+               t_collective_ms=rl.t_collective * 1e3,
+               bottleneck=rl.bottleneck, flops=cost.flops, bytes=cost.bytes,
+               coll_bytes=cost.coll_bytes, coll_ops=cost.coll_counts,
+               args_gib=args_b / 2 ** 30, temp_gib=temp / 2 ** 30,
+               peak_gib=peak / 2 ** 30, held_gib=base / 2 ** 30,
+               kernel_entries=dict(calls),
+               launches=launches, trace_s=t_trace)
+    print(f"partition cell: {arch} {shape_name} ({cfg.n_layers} layers), "
+          f"rank 0 of {PARTITION_MESH}, the rank's local work with no wire "
+          f"(fake group): p50 {row['p50_ms']:.3f} ms (runs "
+          f"{[round(x, 3) for x in ms]} ms after {ROOFLINE_WARMUP} "
+          f"warm-up) beside the per-device traced bound "
+          f"{row['bound_ms']:.4f} ms (t_compute {row['t_compute_ms']:.4f}, "
+          f"t_memory {row['t_memory_ms']:.4f}; collectives "
+          f"{cost.coll_counts}, {cost.coll_bytes:,.0f} B, "
+          f"{row['t_collective_ms']:.4f} ms at the fabric's rate); args + "
+          f"temp {row['args_gib']:.3f} + {row['temp_gib']:.3f} GiB vs "
+          f"max_memory_allocated {row['peak_gib']:.3f} GiB above the "
+          f"{row['held_gib']:.3f} GiB held before the cell; kernel entries "
+          f"{dict(calls)} x {runs} runs, launches {launches}; traced in "
+          f"{t_trace:.1f} s; on {card}")
+    want = {k: v * runs for k, v in calls.items()}
+    if launches != want:
+        raise AssertionError(f"partition cell: {arch} {shape_name}: "
+                             f"launches {launches} != the trace's entries x "
+                             f"{runs} {want}")
+    if held != args_b:
+        raise AssertionError(f"partition cell: {arch} {shape_name}: the "
+                             f"shards hold {held} B, the record {args_b}")
+    if abs(peak - (args_b + temp)) > PARTITION_MEM_SLACK * (args_b + temp):
+        raise AssertionError(f"partition cell: {arch} {shape_name}: "
+                             f"max_memory_allocated less what was held "
+                             f"before, {peak} B, not within "
+                             f"{PARTITION_MEM_SLACK} of args + temp "
+                             f"{args_b + temp} B")
+    return row, launches
+
+
+def phase_partition(torch, np, report, dev, card):
+    """Phase 83: (a) ``PARTITION_RUNS`` at world size 1 over NCCL
+    (``partition_world1``), (b) ``PARTITION_CELLS`` under a fake group
+    (``partition_cell``), then row 9 at a rank's shape
+    (``PARTITION_FLASH``, the ``partition`` entry of ``flash_attention``).
+    Returns {path: launches}."""
+    import torch.distributed as dist
+    from repro_torch.distributed import partition
+    from repro_torch.launch.mesh import make_placeholder_mesh
+    paths = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    for run in PARTITION_RUNS:
+        paths[f"partition world 1 {run[0]}"] = partition_world1(
+            torch, np, run, dev, card)
+    dist.destroy_process_group()
+    rows = []
+    with partition.fake_world(int(make_placeholder_mesh(
+            PARTITION_MESH).devices.size)):
+        for arch, shape_name, layers in PARTITION_CELLS:
+            row, launches = partition_cell(torch, np, arch, shape_name,
+                                           layers, card)
+            rows.append(row)
+            paths[f"partition {PARTITION_MESH} {arch} {shape_name}"] = \
+                launches
+    print("partition cells: " + json.dumps(
+        [{k: v for k, v in r.items() if k != "ms"} for r in rows]))
+    phase_flash_shapes(torch, report, PARTITION_FLASH, "partition", 83)
+    release(torch)
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -8092,6 +8367,13 @@ def main() -> int:
     roofline_paths = phase_roofline(torch, np, dev, card)
     print(f"roofline phase: {time.perf_counter() - t_roof:.1f} s; done at "
           f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the partitioned serving step: at world size 1 against the
+    # unpartitioned one, and one rank of pod256 at its own shapes ---------
+    t_part = time.perf_counter()
+    partition_paths = phase_partition(torch, np, report, dev, card)
+    print(f"partition phase: {time.perf_counter() - t_part:.1f} s; done at "
+          f"{time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
@@ -8114,7 +8396,8 @@ def main() -> int:
            ("deepseek train", ds_train), ("jamba layer train", jamba_train),
            ("internvl2 train", ivl_train)) + tuple(dense.items()) \
         + tuple(policy.items()) + tuple(whisper.items()) \
-        + tuple(mesh.items()) + tuple(roofline_paths.items())
+        + tuple(mesh.items()) + tuple(roofline_paths.items()) \
+        + tuple(partition_paths.items())
     for k in report:
         k["path"], counts = next(((p, c) for p, c in paths
                                   if c.get(k["name"], 0) > 0), ("none", {}))
@@ -8173,7 +8456,11 @@ def main() -> int:
                ("roofline qwen1.5-0.5b train_4k", ("flash_attention",
                                                    "flash_attention_bwd")),
                ("roofline qwen1.5-0.5b prefill_32k", ("flash_attention",)),
-               ("roofline rwkv6-3b long_500k", ("wkv6",)))
+               ("roofline rwkv6-3b long_500k", ("wkv6",)),
+               ("partition world 1 qwen1.5-0.5b", ("flash_attention",)),
+               ("partition world 1 dbrx-132b", ("flash_attention",)),
+               ("partition pod256 qwen1.5-0.5b prefill_32k",
+                ("flash_attention",)))
     for label, rows in trained:
         if not all(dict(paths)[label].get(k, 0) > 0 for k in rows):
             raise AssertionError(f"the {label} path launched none of some "

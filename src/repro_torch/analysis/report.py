@@ -4,9 +4,11 @@ trace) — the counterpart of ``repro/analysis/report.py``.
 
     PYTHONPATH=src python -m repro_torch.analysis.report results/dryrun_torch
 
-The roofline is the ``h100`` mesh's, against ``perfmodel.H100_SXM``'s
-datasheet constants; the pods' records have no cost (the port has no
-partitioner), so their dry-run rows show "—" there.
+Every term is per device, against ``perfmodel.H100_SXM``'s datasheet
+constants: on ``h100`` the whole step, on the pods rank 0's partitioned
+step (the serving cells of the attention, MLP and MoE families; the other
+pod cells have no trace, and their rows show "—"). A mesh gets a roofline
+table when any of its cells has a trace.
 """
 from __future__ import annotations
 
@@ -96,7 +98,11 @@ def roofline_table_md(records: List[Dict], mesh_name: str) -> str:
                 lines.append(f"| {arch} | {shape} | — | — | — | — | — | — | "
                              f"SKIP: {r.get('reason','')[:60]} |")
                 continue
-            if r.get("status") != "ok" or "roofline" not in r:
+            if r.get("status") == "ok" and "roofline" not in r:
+                lines.append(f"| {arch} | {shape} | — | — | — | — | — | — | "
+                             f"{r.get('cost_reason', 'no trace')[:60]} |")
+                continue
+            if r.get("status") != "ok":
                 lines.append(f"| {arch} | {shape} | — | — | — | — | — | — | "
                              f"ERROR: {r.get('error','')[:60]} |")
                 continue
@@ -154,7 +160,7 @@ def summarize(results_dir: str) -> str:
         recs = collect(results_dir, mesh_name)
         parts.append(dryrun_table_md(recs, mesh_name))
         parts.append("")
-        if mesh_name == "h100":
+        if any("roofline" in r for r in recs):
             parts.append(roofline_table_md(recs, mesh_name))
             parts.append("")
     return "\n".join(parts)

@@ -1,0 +1,266 @@
+"""The partitioned serving step's plumbing: what GSPMD does for the
+reference, written out for ``torch.distributed``.
+
+The reference jits ``api.prefill`` / ``api.decode_step`` under
+``in_shardings`` from ``ShardingRules`` (``repro/launch/dryrun.py``) and
+lets XLA's SPMD partitioner split them. Here every rank of a process group
+runs the step itself on its shards (SPMD), and the layers call the
+collectives where the partitioner would put them
+(``layers/core.py``, ``layers/attention.py``, ``layers/moe.py``):
+
+* :class:`RankContext` — the rank's place on a mesh: its coordinate on
+  each axis (``pod``, ``data``, ``model``), the process group of each axis
+  (the ranks that share every other coordinate) and the device it runs
+  on. ``launch/mesh.py:rank_context`` builds one from an initialised
+  process group.
+* ``shard_model`` / ``shard_cache`` / ``shard_batch`` — the rank's slices
+  of a model, a dense decode cache and a batch, per ``rules.params``,
+  ``rules.cache`` and ``rules.batch_spec``. A rank holds exactly the
+  shards its specs name (a whole tensor, shared, where the spec splits
+  nothing). A sharded module holds its parameters' specs (``pspecs``,
+  read by ``pspec``), a cache leaf its own (``pspec``): the layers read
+  the split from them.
+* ``RankContext.all_reduce`` / ``all_gather`` / ``gather`` — thin wrappers
+  over the functional collectives (``torch.ops._c10d_functional``, each
+  followed by its ``wait_tensor`` off the ``meta`` device), so that a
+  trace records one ``_c10d_functional.*`` op a collective (``analysis/roofline.py`` counts
+  their bytes). ``gather(t, spec)`` un-shards a tensor over the named axes
+  of its spec (FSDP's ``data``).
+
+Collectives run over an axis whenever a spec names it, a group of one
+included, so a step issues the same collectives at any mesh size.
+
+Families: the attention, MLP and MoE layers (dense, MoE and VLM configs
+without MLA). MLA, Mamba, RWKV-6 and the encoder-decoder have no
+partitioned layer yet (``unsupported_reason``).
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+AXES = ("pod", "data", "model")
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+@dataclass
+class RankContext:
+    """One rank's view of a mesh. ``sizes`` and ``coords`` hold every axis
+    of ``AXES`` (an axis the mesh lacks has size 1, coordinate 0);
+    ``groups`` the process group of each mesh axis; ``device`` the card
+    the rank runs on."""
+    rank: int
+    sizes: Dict[str, int]
+    coords: Dict[str, int]
+    groups: Dict[str, object] = field(repr=False)
+    device: torch.device
+
+    def index(self, entry) -> Tuple[int, int]:
+        """The rank's index along a spec entry (None, an axis, or a tuple
+        of axes taken row-major) and the number of shards it makes."""
+        i, n = 0, 1
+        for a in _axes_of(entry):
+            i = i * self.sizes[a] + self.coords[a]
+            n *= self.sizes[a]
+        return i, n
+
+    @property
+    def model_n(self) -> int:
+        return self.sizes["model"]
+
+    def range(self, entry, local: int) -> Tuple[int, int]:
+        """The global [lo, hi) of a dim the rank holds ``local`` entries of
+        under spec entry ``entry``."""
+        i, _ = self.index(entry)
+        return i * local, (i + 1) * local
+
+    # -- collectives ----------------------------------------------------
+    def all_reduce(self, t: torch.Tensor, axis: str,
+                   op: str = "sum") -> torch.Tensor:
+        return _wait(torch.ops._c10d_functional.all_reduce(
+            t, op, self.groups[axis].group_name))
+
+    def all_gather(self, t: torch.Tensor, dim: int,
+                   axis: str) -> torch.Tensor:
+        """The group's tensors concatenated along ``dim`` in rank order."""
+        group = self.groups[axis]
+        n = group.size()
+        out = _wait(torch.ops._c10d_functional.all_gather_into_tensor(
+            t.contiguous(), n, group.group_name))
+        dim %= t.dim()
+        shape = list(t.shape)
+        shape[dim] *= n
+        if all(d == 1 for d in t.shape[:dim]):
+            # the ranks' blocks lie in order along dim already
+            return out.view(shape)
+        return torch.cat(out.chunk(n, 0), dim)
+
+    def gather(self, t: torch.Tensor, t_spec,
+               axes=("data",)) -> torch.Tensor:
+        """``t`` (a shard under ``t_spec``) all-gathered along every dim
+        whose spec names one of ``axes``: FSDP's gather just before use
+        with the default, a replicated copy with every axis."""
+        out = t
+        for d, entry in enumerate(t_spec):
+            for a in _axes_of(entry):
+                if a in axes:
+                    out = self.all_gather(out, d, a)
+        return out
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    """A functional collective's result once it has landed. A meta tensor
+    has nothing to wait for: its trace records the collective alone."""
+    return t if t.is_meta else torch.ops._c10d_functional.wait_tensor(t)
+
+
+def pspec(module: nn.Module, name: str):
+    """The spec of a sharded module's parameter ``name``."""
+    specs = getattr(module, "pspecs", None)
+    if specs is None:
+        raise ValueError(f"{type(module).__name__} holds no partition specs: "
+                         "shard the model with shard_model")
+    return specs[name]
+
+
+def unsupported_reason(cfg) -> Optional[str]:
+    """Why the partitioned step does not take ``cfg`` (None: it does)."""
+    from repro_torch.configs.base import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM
+    if cfg.family == ENCDEC:
+        return "the partitioned encoder-decoder step is not ported"
+    if cfg.family == SSM:
+        return "the partitioned RWKV-6 layer is not ported"
+    if cfg.family == HYBRID:
+        return "the partitioned Mamba layer is not ported"
+    if cfg.mla is not None:
+        return "the partitioned MLA layer is not ported"
+    if cfg.family not in (DENSE, MOE, VLM):
+        return f"the {cfg.family} family has no partitioned step"
+    return None
+
+
+def attn_route(cache_spec) -> str:
+    """A KV cache leaf's (G, B, S, K, hd) spec -> the attention layer's
+    route: ``"heads"`` (kv-heads split over ``model``: each rank runs its
+    own heads), ``"seq"`` (slots split: each rank holds a slot range and
+    decode merges partial softmaxes) or ``"replicated"`` (no split over
+    ``model``)."""
+    if cache_spec[3] == "model":
+        return "heads"
+    if cache_spec[2] == "model":
+        return "seq"
+    return "replicated"
+
+
+# ---------------------------------------------------------------------------
+# Shards
+# ---------------------------------------------------------------------------
+def _own(t: torch.Tensor, spec, ctx: RankContext,
+         copy_whole: bool = False) -> torch.Tensor:
+    """The rank's block of ``t`` under ``spec``: a copy of its own where
+    the spec splits a dim (or ``copy_whole``), else ``t``'s storage."""
+    idx = []
+    for d, entry in enumerate(spec):
+        i, n = ctx.index(entry)
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"{n} ways ({spec})")
+        c = t.shape[d] // n
+        idx.append(slice(i * c, (i + 1) * c))
+    part = t[tuple(idx)]
+    if part.shape == t.shape and not copy_whole:
+        return t.detach()
+    return part.clone(memory_format=torch.contiguous_format)
+
+
+def shard_model(model: nn.Module, rules, ctx: RankContext) -> nn.Module:
+    """A module of ``model``'s class whose parameters are the rank's
+    slices per ``rules.params(model)``; each module holds its parameters'
+    specs in ``pspecs``. Tied parameters stay tied; ``model`` is
+    untouched."""
+    specs = rules.params(model)
+    memo: dict = {}
+    for name, p in model.named_parameters():
+        if id(p) not in memo:
+            memo[id(p)] = nn.Parameter(_own(p.detach(), specs[name], ctx),
+                                       requires_grad=False)
+    out = copy.deepcopy(model, memo)
+    for prefix, mod in out.named_modules():
+        own = {n: specs[f"{prefix}.{n}" if prefix else n]
+               for n, q in mod.named_parameters(recurse=False)}
+        if own:
+            mod.pspecs = own
+    return out
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _zip_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_map(fn, v, s) for v, s in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def shard_cache(cache, rules, ctx: RankContext, batch: int):
+    """The rank's slices of a dense decode cache (``init_decode_state``'s
+    tree) per ``rules.cache(cache, batch)``, each leaf tagged and its own
+    copy (the step writes it in place)."""
+    return _zip_map(lambda t, s: _tag(_own(t, s, ctx, True), s), cache,
+                    rules.cache(cache, batch))
+
+
+def shard_batch(tree, rules, ctx: RankContext, batch: int):
+    """The rank's rows of batch-bearing inputs (tokens, positions, a VLM's
+    prefix embeddings) per ``rules.batch_spec``: split over the dp axes
+    where ``batch`` divides, else whole."""
+    return _map(lambda t: _own(t, rules.batch_spec(t, batch), ctx), tree)
+
+
+def _tag(t: torch.Tensor, t_spec) -> torch.Tensor:
+    t.pspec = t_spec
+    return t
+
+
+def materialize(tree, device):
+    """Zeros shaped like a tree of cache shards (on ``meta``, say) on
+    ``device``, each leaf keeping its spec."""
+    return _map(lambda t: _tag(torch.zeros(t.shape, dtype=t.dtype,
+                                           device=device), t.pspec), tree)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """A fake process group of ``world_size`` for the dry run's trace of
+    one rank's step and the timing of its local work: its collectives
+    move no bytes and return what they are given, or garbage. It never
+    serves a served path."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -44,6 +44,10 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __reduce__(self):
+        # copy and pickle rebuild a spec from its entries, not its tuple
+        return (type(self), tuple(self))
+
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple.__repr__(self)}"
 

@@ -25,14 +25,24 @@ with ``meta`` entries (``launch/mesh.py:make_placeholder_mesh``):
   step generates no code (the hand-written kernels are one library, built
   once for every cell); ``temp_size_in_bytes``: the meta trace's peak of
   live intermediate bytes (``h100`` only, else null).
-* ``cost``: on ``h100``, the meta trace's count (``analysis/roofline.py``)
-  at the cell's global shapes, with ``flops`` and ``bytes accessed``, and
-  the trace written beside the record; on the pods null, with a
-  ``cost_reason``: the port has no partitioner to split a step 256 ways.
+* ``cost``: the meta trace's count (``analysis/roofline.py``), with
+  ``flops``, ``bytes accessed`` and ``collective bytes``, and the trace
+  written beside the record. On ``h100`` the step at the cell's global
+  shapes. On the pods, for the serving cells of the families the
+  partitioned step takes (attention, MLP and MoE layers:
+  ``partition.unsupported_reason``), rank 0's partitioned step
+  (``api.prefill`` / ``api.decode_step`` with ``shard_axes``) on its
+  shards, traced under a fake process group of the mesh's size
+  (``partition.fake_world``): the cost and ``temp_size_in_bytes`` a
+  device, its collectives recorded as ``_c10d_functional`` ops. Every
+  other pod cell keeps ``cost: null``, with a ``cost_reason`` that names
+  what is missing (the partitioned train step; MLA, Mamba, RWKV-6 or the
+  encoder-decoder served).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -43,9 +53,10 @@ import torch
 from repro_torch.analysis.roofline import TraceRecorder
 from repro_torch.configs import (ALL_SHAPES, SHAPES_BY_NAME, get_config,
                                  shape_applicable)
+from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import (PLACEHOLDER_MESHES,
-                                    make_placeholder_mesh)
+                                    make_placeholder_mesh, rank_context)
 from repro_torch.models import api
 from repro_torch.training.optimizer import AdamWConfig, adamw_init
 from repro_torch.training.train_loop import (TrainConfig, make_train_step,
@@ -58,8 +69,9 @@ ASSIGNED = [
 ]
 MESHES = tuple(PLACEHOLDER_MESHES)
 TRACED_MESH = "h100"
-COST_REASON = ("no cost: the port has no SPMD partitioner to split a step "
-               "over this mesh; its cost is traced on the h100 mesh only")
+TRAIN_REASON = ("the partitioned train step (FSDP, sequence parallelism, the "
+                "vocab-parallel cross-entropy, data-parallel gradients) is "
+                "not ported")
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__),
                            "../../../results/dryrun_torch")
@@ -99,20 +111,36 @@ def _memory(arguments: int, outputs: int, aliased: int) -> dict:
             "generated_code_size_in_bytes": 0}
 
 
+def pod_cost_reason(cfg, shape) -> str:
+    """Why a cell on a multi-device mesh has no traced cost ('' if it
+    has one)."""
+    why = TRAIN_REASON if shape.kind == "train" else \
+        partition.unsupported_reason(cfg)
+    return f"no cost: {why}" if why else ""
+
+
+def partitioned(cfg, shape, mesh) -> bool:
+    """Whether the cell traces rank 0's partitioned step."""
+    return mesh.devices.size > 1 and not pod_cost_reason(cfg, shape)
+
+
 def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
                overrides=None, batch_override: int = 0):
-    """Returns (step, its arguments on the meta device, memory per device,
-    ``temp_size_in_bytes`` None) for one cell; ``step(*arguments)`` runs it
-    (on concrete arguments from ``api.instantiate`` too)."""
+    """Returns (step, its arguments on the meta device, memory per device)
+    for one cell; ``step(*arguments)`` runs it (on concrete arguments from
+    ``api.instantiate`` too). Where ``partitioned``, the step is rank 0's
+    partitioned step and its arguments rank 0's shards: the caller holds a
+    process group of the mesh's size (``partition.fake_world``)."""
     cfg = get_config(arch)
-    if overrides:
-        cfg = cfg.replace(**overrides)
-    shape = SHAPES_BY_NAME[shape_name]
     # Serving: FSDP would re-gather weights every decode step — keep them
     # TP-resident unless they don't fit (dbrx-132b: 264 GB bf16 / 16-way TP
-    # = 16.5 GB needs FSDP)
+    # = 16.5 GB needs FSDP); decided at the published depth, so that a
+    # cell cut in depth keeps its layout
+    shape = SHAPES_BY_NAME[shape_name]
     if shape.kind != "train" and cfg.param_count() * 2 / 16 <= 4e9:
         fsdp = False
+    if overrides:
+        cfg = cfg.replace(**overrides)
     rules = ShardingRules(mesh, cfg, fsdp=fsdp)
     sizes = mesh.shape
     model = api.param_specs(cfg)
@@ -141,15 +169,23 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
                          dtype=cfg.torch_compute_dtype())
     memory = _memory(param_b + cache_b + rest_b, cache_b + _per_device(
         logits, rules.batch_spec(logits, B), sizes), cache_b)
+    axes = {}
+    if partitioned(cfg, shape, mesh):
+        rank = rank_context(mesh, device="meta")
+        axes = {"shard_axes": {"dp": rules.dp, "tp": "model", "mesh": mesh,
+                               "ctx": rank}}
+        model = partition.shard_model(model, rules, rank)
+        cache = partition.shard_cache(cache, rules, rank, B)
+        inputs = partition.shard_batch(inputs, rules, rank, B)
     if shape.kind == "prefill":
         tokens = inputs.pop("tokens")
 
         def prefill_fn(model, tokens, cache, extras):
-            return api.prefill(model, cfg, tokens, cache, **extras)
+            return api.prefill(model, cfg, tokens, cache, **extras, **axes)
         return prefill_fn, (model, tokens, cache, inputs), memory
 
     def decode_fn(model, cache, tokens, pos):
-        return api.decode_step(model, cfg, cache, tokens, pos)
+        return api.decode_step(model, cfg, cache, tokens, pos, **axes)
     return decode_fn, (model, cache, inputs["tokens"], inputs["pos"]), memory
 
 
@@ -173,25 +209,31 @@ def run_cell(arch: str, shape_name: str, *, mesh_name: str, out_dir: str,
         rec.update(status="skipped", reason=reason)
         return rec
     mesh = make_placeholder_mesh(mesh_name)
+    traced = mesh_name == TRACED_MESH or partitioned(
+        cfg if not overrides else cfg.replace(**overrides), shape, mesh)
+    world = partition.fake_world(mesh.devices.size) \
+        if traced and mesh_name != TRACED_MESH else contextlib.nullcontext()
     t0 = time.monotonic()
     try:
-        fn, args, mem = build_cell(arch, shape_name, mesh, fsdp=fsdp,
-                                   remat=remat, overrides=overrides,
-                                   batch_override=batch_override)
-        t_lower = time.monotonic() - t0
-        cost, recorder = None, None
-        if mesh_name == TRACED_MESH:
-            recorder = trace_cell(fn, args)
-            c = recorder.cost()
-            cost = {"flops": c.flops, "bytes accessed": c.bytes,
-                    "collective bytes": c.coll_bytes}
+        with world:
+            fn, args, mem = build_cell(arch, shape_name, mesh, fsdp=fsdp,
+                                       remat=remat, overrides=overrides,
+                                       batch_override=batch_override)
+            t_lower = time.monotonic() - t0
+            cost, recorder = None, None
+            if traced:
+                recorder = trace_cell(fn, args)
+                c = recorder.cost()
+                cost = {"flops": c.flops, "bytes accessed": c.bytes,
+                        "collective bytes": c.coll_bytes}
+            del fn, args
         t_trace = time.monotonic() - t0 - t_lower
         if recorder is not None:
             mem["temp_size_in_bytes"] = recorder.peak_bytes
         rec.update(status="ok", lower_s=round(t_lower, 1),
                    compile_s=round(t_trace, 1), memory=mem, cost=cost)
         if cost is None:
-            rec["cost_reason"] = COST_REASON
+            rec["cost_reason"] = pod_cost_reason(cfg, shape)
         temp = mem["temp_size_in_bytes"]
         print(f"[dryrun] {mesh_name} {arch} {shape_name} {tag} OK "
               f"build={t_lower:.1f}s trace={t_trace:.1f}s "

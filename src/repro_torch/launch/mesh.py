@@ -116,3 +116,47 @@ def dp_axes(mesh) -> tuple:
 
 def model_axis(mesh) -> str:
     return "model"
+
+
+def rank_coordinates(mesh, rank: int) -> dict:
+    """The mesh coordinates of process ``rank``: ranks run over the mesh in
+    row-major order, the last axis (``model``) fastest."""
+    idx = np.unravel_index(rank, mesh.devices.shape)
+    return {a: int(i) for a, i in zip(mesh.axis_names, idx)}
+
+
+def rank_context(mesh, *, device=None):
+    """This process's :class:`~repro_torch.distributed.partition.RankContext`
+    on ``mesh`` from the initialised default process group (whose world
+    size must be the mesh's): its coordinates and, for every mesh axis,
+    the group of the ranks that share its other coordinates (made on every
+    rank, in one order). The device is ``cuda:<local rank>`` (``LOCAL_RANK``,
+    else the rank modulo the cards) unless the caller passes one."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.core.device import resolve_device
+    from repro_torch.distributed.partition import AXES, RankContext
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = int(np.prod(mesh.devices.shape))
+    if world != n:
+        raise ValueError(f"a mesh of {n} devices {mesh.shape} under a world "
+                         f"of {world} ranks")
+    shape = mesh.devices.shape
+    ranks = np.arange(n).reshape(shape)
+    groups = {}
+    for ax, name in enumerate(mesh.axis_names):
+        lines = np.moveaxis(ranks, ax, -1).reshape(-1, shape[ax])
+        groups[name], _ = dist.new_subgroups_by_enumeration(
+            [[int(r) for r in line] for line in lines])
+    if device is None:
+        count = torch.cuda.device_count()
+        local = int(os.environ.get("LOCAL_RANK", rank % max(count, 1)))
+        device = f"cuda:{local}"
+    coords = dict.fromkeys(AXES, 0)
+    coords.update(rank_coordinates(mesh, rank))
+    sizes = dict.fromkeys(AXES, 1)
+    sizes.update(mesh.shape)
+    return RankContext(rank=rank, sizes=sizes, coords=coords, groups=groups,
+                       device=resolve_device(device))

@@ -1,6 +1,8 @@
 """GQA attention — ``repro/layers/attention.py`` for the dense family:
 full-sequence attention (``attention_full``: training, and the dense
-KV-cache prefill with ``return_kv``), bidirectional attention
+KV-cache prefill with ``return_kv``; ``attention_prefill_sharded`` and
+``attention_decode_sharded`` are the dense cache's prefill and decode on
+one rank of a mesh), bidirectional attention
 (``attention_bidir``: the encoder-decoder's encoder self-attention and its
 cross-attention), the dense cache's one-token decode
 (``attention_decode``) and, against the paged KV pool, the fused serving
@@ -28,6 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.partition import attn_route, pspec
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -35,7 +38,8 @@ from repro_torch.kernels.paged_attention.ref import (
     append_kv_ref, paged_attention_pool_ref, paged_mixed_attention_pool_ref,
     paged_prefill_attention_pool_ref, write_kv_rows_ref)
 from repro_torch.layers.core import (Linear, _param, apply_rope, check_impl,
-                                     linear, qk_head_norm, select_update)
+                                     linear, linear_cols, linear_rows,
+                                     qk_head_norm, select_update)
 
 
 class KVCache(NamedTuple):
@@ -77,12 +81,19 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x, positions):
     q = linear(p.wq, x).reshape(B, T, cfg.n_heads, hd)
     k = linear(p.wk, x).reshape(B, T, cfg.n_kv_heads, hd)
     v = linear(p.wv, x).reshape(B, T, cfg.n_kv_heads, hd)
+    q, k = _norm_rope(p, cfg, q, k, positions)
+    return q, k, v
+
+
+def _norm_rope(p: Attention, cfg: ModelConfig, q, k, positions):
+    """The q/k head norms (where the config has them), then RoPE: what
+    every projection of q and k goes through, whole or a rank's."""
     if p.q_norm is not None:
         q = qk_head_norm(p.q_norm, q, cfg.rmsnorm_eps)
         k = qk_head_norm(p.k_norm, k, cfg.rmsnorm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k
 
 
 def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
@@ -195,17 +206,235 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache: KVCache, pos,
     B = x.shape[0]
     positions = pos.reshape(-1, 1).expand(B, 1)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    ctx = _decode_attend(cfg, q, k_new, v_new, cache, positions, window)
+    return linear(p.wo, ctx.reshape(B, 1, -1)), cache
+
+
+def _decode_attend(cfg: ModelConfig, q, k_new, v_new, cache: KVCache,
+                   positions, window: int) -> torch.Tensor:
+    """``attention_decode`` after the projections: the new K/V into its
+    slot, then every lane over all slots -> ctx (B,1,H,hd)."""
+    B = q.shape[0]
     slots = cache.k.shape[1]
     is_ring = 0 < window and slots <= window
     p_ = positions[:, :1]
     slot = p_[:, 0] % slots if is_ring else p_[:, 0]
     select_update(cache.k, k_new[:, 0], slot)
     select_update(cache.v, v_new[:, 0], slot)
-    j = torch.arange(slots, device=x.device)[None, :]
+    j = torch.arange(slots, device=q.device)[None, :]
     k_pos = p_ - torch.remainder(p_ - j, slots) if is_ring \
         else j.expand(B, slots)
-    ctx = _sdpa(cfg, q, cache.k, cache.v, _causal_mask(p_, k_pos, window))
-    return linear(p.wo, ctx.reshape(B, 1, -1)), cache
+    return _sdpa(cfg, q, cache.k, cache.v, _causal_mask(p_, k_pos, window))
+
+
+# ---------------------------------------------------------------------------
+# The partitioned step (a rank's shards; ``distributed/partition.py``)
+# ---------------------------------------------------------------------------
+def _heads_qkv(p: Attention, cfg: ModelConfig, x, positions, rank):
+    """The rank's whole heads of q, k and v (the head route: each
+    projection's columns are whole heads), normed and roped as
+    ``_project_qkv`` does -> (q, k, v, (lo, hi) q's global features)."""
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q, lo, hi = linear_cols(p.wq, x, rank)
+    k = linear_cols(p.wk, x, rank)[0].reshape(B, T, -1, hd)
+    v = linear_cols(p.wv, x, rank)[0].reshape(B, T, -1, hd)
+    q, k = _norm_rope(p, cfg, q.reshape(B, T, -1, hd), k, positions)
+    return q, k, v, (lo, hi)
+
+
+def _gathered_qkv(p: Attention, x, rank, with_q: bool):
+    """The projections' outputs with every column: each rank's column
+    slices, concatenated, in ONE all-gather over ``model`` (a projection
+    whose columns are not split is whole already) -> [q if with_q], k, v,
+    each (B, T, features)."""
+    projs = ([p.wq] if with_q else []) + [p.wk, p.wv]
+    outs = [linear_cols(w, x, rank)[0] for w in projs]
+    split = [pspec(w, "w")[1] is not None for w in projs]
+    if any(split):
+        B, T, _ = x.shape
+        widths = [o.shape[-1] for o, s in zip(outs, split) if s]
+        n = rank.model_n
+        full = rank.all_gather(torch.cat([o for o, s in zip(outs, split)
+                                          if s], -1), -1, "model")
+        parts = iter(full.reshape(B, T, n, -1).split(widths, -1))
+        outs = [next(parts).reshape(B, T, -1) if s else o
+                for o, s in zip(outs, split)]
+    return outs
+
+
+def _covered_heads(cfg: ModelConfig, p: Attention, rank):
+    """The global features [flo, fhi) of ``wo``'s rows the rank holds and
+    the heads [h0, h1) they touch."""
+    hd = cfg.resolved_head_dim
+    flo, fhi = rank.range(pspec(p.wo, "w")[0], p.wo.w.shape[0])
+    return flo, fhi, flo // hd, -(-fhi // hd)
+
+
+def _kv_for_heads(k, v, h0: int, h1: int, group: int):
+    """The kv heads that q heads [h0, h1) read (head h reads h // group):
+    a slice where each kv head serves an equal run of them, else one
+    kv row a q head."""
+    kv = [h // group for h in range(h0, h1)]
+    lo, n = kv[0], kv[-1] + 1 - kv[0]
+    run = (h1 - h0) // n
+    if run * n == h1 - h0 and kv == [lo + j // run for j in range(h1 - h0)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.tensor(kv, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _slot_range(cache: KVCache, spec, rank) -> Tuple[int, int]:
+    """The rank's first global slot and the layer's global slot count."""
+    local = cache.k.shape[1]
+    lo, _ = rank.range(spec[2], local)
+    return lo, local * rank.index(spec[2])[1]
+
+
+def _fill_owned_slots(cache: KVCache, k, v, window: int, spec, rank):
+    """``fill_kv_cache`` on a rank that holds slots [lo, lo + local) of the
+    layer's: each slot takes the position ``fill_kv_cache`` puts there
+    (a ring's slot j the p of the last ``slots`` with p % slots == j)."""
+    local = cache.k.shape[1]
+    lo, slots = _slot_range(cache, spec, rank)
+    T = k.shape[1]
+    if window > 0 and T > slots:
+        j = torch.arange(lo, lo + local, device=k.device)
+        src = T - slots + torch.remainder(j - (T - slots), slots)
+        cache.k.copy_(k.index_select(1, src))
+        cache.v.copy_(v.index_select(1, src))
+        return
+    if T > slots:
+        raise ValueError(f"a {T}-token prefill does not fit {slots} slots")
+    n = min(lo + local, T) - lo
+    if n > 0:
+        cache.k[:, :n] = k[:, lo:lo + n].to(cache.k.dtype)
+        cache.v[:, :n] = v[:, lo:lo + n].to(cache.v.dtype)
+
+
+def attention_prefill_sharded(p: Attention, cfg: ModelConfig, x,
+                              cache: KVCache, *, window: int, spec, rank,
+                              impl: str = "kernel") -> torch.Tensor:
+    """``attention_full(return_kv=True)`` + ``fill_kv_cache`` on a rank:
+    x (B,T,d) replicated over ``model``, ``cache`` the rank's block of the
+    layer's cache under ``spec`` (its route, ``partition.attn_route``).
+
+    Heads: the rank's heads through the flash op, its kv heads into its
+    cache, its rows of ``wo`` and one all-reduce. Sequence (or
+    replicated): k and v (and q where the rank's ``wo`` rows are not its
+    own q columns) all-gathered in one collective; the rank runs the
+    flash op over the q heads its ``wo`` rows touch (its own heads where
+    the q heads divide the axis; else at most a head more on each side),
+    keeps its features, writes its slot range of the cache and applies its
+    rows of ``wo``, all-reduced."""
+    check_impl(impl)
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)[None, :]
+    attend = fa_ops.flash_attention if impl == "kernel" else \
+        flash_attention_ref
+    if attn_route(spec) == "heads":
+        q, k, v, (lo, hi) = _heads_qkv(p, cfg, x, positions, rank)
+        ctx = attend(q, k, v, causal=True, window=window)
+        fill_kv_cache(cache, k, v, window)
+        return linear_rows(p.wo, ctx.reshape(B, T, -1), lo, hi, rank)
+    hd, H, K = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    flo, fhi, h0, h1 = _covered_heads(cfg, p, rank)
+    qlo, qhi = rank.range(pspec(p.wq, "w")[1], p.wq.w.shape[1])
+    own_q = (qlo, qhi) == (h0 * hd, h1 * hd)
+    outs = _gathered_qkv(p, x, rank, with_q=not own_q)
+    if own_q:
+        q = linear_cols(p.wq, x, rank)[0].reshape(B, T, -1, hd)
+    else:
+        q = outs.pop(0).reshape(B, T, H, hd)[:, :, h0:h1]
+    k, v = (t.reshape(B, T, K, hd) for t in outs)
+    q, k = _norm_rope(p, cfg, q, k, positions)
+    kc, vc = _kv_for_heads(k, v, h0, h1, H // K)
+    ctx = attend(q.contiguous(), kc.contiguous(), vc.contiguous(),
+                 causal=True, window=window)
+    feats = ctx.reshape(B, T, -1)[..., flo - h0 * hd:fhi - h0 * hd]
+    _fill_owned_slots(cache, k, v, window, spec, rank)
+    return linear_rows(p.wo, feats, flo, fhi, rank)
+
+
+def _partial_sdpa(q, k, v, mask):
+    """``_sdpa`` over a rank's slots without the normalisation: -> (o
+    (B,T,H,hd) float32, the un-normalised value product of the
+    probabilities cast to the compute dtype; m, l (B,T,H) float32: each
+    row's max score and its sum of exp(score - m))."""
+    B, T, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, T, K, H // K, hd)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k) * (1.0 / math.sqrt(hd))
+    scores = torch.where(mask, scores.float(), -1e30)
+    m = scores.amax(-1, keepdim=True)
+    e = torch.exp(scores - m)
+    o = torch.einsum("bkgts,bskd->btkgd", e.to(q.dtype), v)
+
+    def rows(t):                              # (B,K,G,T) -> (B,T,H)
+        return t.permute(0, 3, 1, 2).reshape(B, T, H)
+    return o.reshape(B, T, H, hd).float(), rows(m[..., 0]), rows(e.sum(-1))
+
+
+def _merge_partials(o, m, l, rank, dtype) -> torch.Tensor:
+    """Flash-decoding's merge over ``model``: every rank's (o, m, l) in ONE
+    all-gather, then sum_r o_r e^(m_r - M) / sum_r l_r e^(m_r - M)."""
+    hd = o.shape[-1]
+    packed = torch.cat([o, m[..., None], l[..., None]], -1)
+    parts = rank.all_gather(packed, 0, "model").reshape(
+        rank.model_n, *packed.shape)
+    w = torch.exp(parts[..., hd] - parts[..., hd].amax(0))
+    num = (w[..., None] * parts[..., :hd]).sum(0)
+    return (num / (w * parts[..., hd + 1]).sum(0)[..., None]).to(dtype)
+
+
+def attention_decode_sharded(p: Attention, cfg: ModelConfig, x,
+                             cache: KVCache, pos, *, window: int, spec,
+                             rank) -> torch.Tensor:
+    """``attention_decode`` on a rank (x (B,1,d), ``cache`` the rank's
+    block under ``spec``), the cache updated in place.
+
+    Heads: the rank's heads over its kv heads' cache, its rows of ``wo``,
+    one all-reduce. Sequence: q, k and v gathered in one all-gather; the
+    new K/V written only by the rank whose slot range holds the token's
+    slot (``pos % slots`` in a ring); every head attends over the rank's
+    slots, the partial outputs, row maxima and row sums merged over
+    ``model`` (``_merge_partials``); the rank's features through its rows
+    of ``wo``, all-reduced. Replicated: every slot on every rank."""
+    B = x.shape[0]
+    positions = pos.reshape(-1, 1).expand(B, 1)
+    route = attn_route(spec)
+    if route == "heads":
+        q, k_new, v_new, (lo, hi) = _heads_qkv(p, cfg, x, positions, rank)
+        ctx = _decode_attend(cfg, q, k_new, v_new, cache, positions, window)
+        return linear_rows(p.wo, ctx.reshape(B, 1, -1), lo, hi, rank)
+    hd, H, K = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, k_new, v_new = (t.reshape(B, 1, -1, hd)
+                       for t in _gathered_qkv(p, x, rank, with_q=True))
+    q, k_new = _norm_rope(p, cfg, q, k_new, positions)
+    flo, fhi, _, _ = _covered_heads(cfg, p, rank)
+    if route == "replicated":
+        ctx = _decode_attend(cfg, q, k_new, v_new, cache, positions, window)
+    else:
+        local = cache.k.shape[1]
+        lo, slots = _slot_range(cache, spec, rank)
+        is_ring = 0 < window and slots <= window
+        p_ = positions[:, :1]
+        slot = (p_[:, 0] % slots if is_ring else p_[:, 0]) - lo
+        own = (slot >= 0) & (slot < local)
+        slot = slot.clamp(0, local - 1)
+        rows = torch.arange(B, device=x.device)
+        for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+            buf[rows, slot] = torch.where(own[:, None, None],
+                                          new[:, 0].to(buf.dtype),
+                                          buf[rows, slot])
+        j = lo + torch.arange(local, device=x.device)[None, :]
+        k_pos = p_ - torch.remainder(p_ - j, slots) if is_ring \
+            else j.expand(B, local)
+        o, m, l = _partial_sdpa(q, cache.k, cache.v,
+                                _causal_mask(p_, k_pos, window))
+        ctx = _merge_partials(o, m, l, rank, q.dtype)
+    feats = ctx.reshape(B, 1, H * hd)[..., flo:fhi]
+    return linear_rows(p.wo, feats, flo, fhi, rank)
 
 
 def attention_prefill_chunk(p: Attention, cfg: ModelConfig, x, kv_pool,

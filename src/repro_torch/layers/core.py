@@ -4,6 +4,15 @@
 is ``(d_in, d_out)``, a norm scale is gemma-style ``1 + w``), so weights
 carried over from the JAX package need no transposes; the functions mirror
 ``repro/layers/core.py`` operation for operation.
+
+With a rank context ``ctx`` (``distributed/partition.py``) the layers run on
+a rank's shards, as the reference's partitioner splits them: an
+in-projection's columns (``linear_cols``) and an out-projection's rows
+(``linear_rows``, then one all-reduce over ``model``), Megatron-style; a
+vocab-parallel embedding (mask, local lookup, all-reduce) and unembedding
+(local vocab slice, all-gather) where ``tok``'s spec splits the vocabulary;
+a weight whose spec names ``data`` (FSDP) all-gathered over that axis just
+before use. Without ``ctx`` they run as they always did.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.partition import pspec
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -116,6 +126,42 @@ def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def linear_cols(p: Linear, x: torch.Tensor, ctx):
+    """An in-projection on a rank: x (..., d_in) times the rank's columns
+    of ``w`` (all of them where its spec does not split the output over
+    ``model``), plus that slice of the bias -> (y, lo, hi), y holding the
+    global output features [lo, hi)."""
+    ws = pspec(p, "w")
+    w = ctx.gather(p.w, ws)
+    lo, hi = ctx.range(ws[1], w.shape[1])
+    y = x @ w.to(x.dtype)
+    if p.b is not None:
+        b = ctx.gather(p.b, pspec(p, "b"))
+        y = y + (b if b.shape[0] == hi - lo else b[lo:hi]).to(x.dtype)
+    return y, lo, hi
+
+
+def linear_rows(p: Linear, x: torch.Tensor, lo: int, hi: int, ctx):
+    """An out-projection on a rank: x holds the global input features
+    [lo, hi); the rank's rows of ``w`` (a sub-range of them) make a partial
+    product, all-reduced over ``model`` where the spec splits the rows;
+    then the bias."""
+    ws = pspec(p, "w")
+    w = ctx.gather(p.w, ws)
+    rlo, rhi = ctx.range(ws[0], w.shape[0])
+    if not (lo <= rlo and rhi <= hi):
+        raise ValueError(f"features [{lo}, {hi}) do not cover the rank's "
+                         f"rows [{rlo}, {rhi})")
+    if (rlo, rhi) != (lo, hi):
+        x = x[..., rlo - lo:rhi - lo]
+    y = x @ w.to(x.dtype)
+    if ws[0] is not None:
+        y = ctx.all_reduce(y, ws[0])
+    if p.b is not None:
+        y = y + ctx.gather(p.b, pspec(p, "b")).to(x.dtype)
+    return y
+
+
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "swiglu":
         return F.silu(x)
@@ -139,13 +185,23 @@ class MLP(nn.Module):
                      if cfg.activation in ("swiglu", "geglu") else None)
 
 
-def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    up = linear(p.up, x)
-    if p.gate is not None:
-        h = _act(cfg.activation, linear(p.gate, x)) * up
-    else:
-        h = _act(cfg.activation, up)
-    return linear(p.down, h)
+def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor, ctx=None
+        ) -> torch.Tensor:
+    """With ``ctx``: column-split up / gate, row-split down, one
+    all-reduce."""
+    if ctx is None:
+        up = linear(p.up, x)
+        gate = linear(p.gate, x) if p.gate is not None else None
+        return linear(p.down, _gated(cfg, up, gate))
+    up, lo, hi = linear_cols(p.up, x, ctx)
+    gate = linear_cols(p.gate, x, ctx)[0] if p.gate is not None else None
+    return linear_rows(p.down, _gated(cfg, up, gate), lo, hi, ctx)
+
+
+def _gated(cfg: ModelConfig, up, gate) -> torch.Tensor:
+    if gate is not None:
+        return _act(cfg.activation, gate) * up
+    return _act(cfg.activation, up)
 
 
 class Embedding(nn.Module):
@@ -170,9 +226,26 @@ class Embedding(nn.Module):
                 else torch.zeros(hshape, dtype=dt, device=device))
 
 
-def embed(p: Embedding, cfg: ModelConfig, tokens: torch.Tensor
+def embed(p: Embedding, cfg: ModelConfig, tokens: torch.Tensor, ctx=None
           ) -> torch.Tensor:
-    x = p.tok.to(cfg.torch_compute_dtype())[tokens.long()]
+    """With ``ctx`` and a ``tok`` whose spec splits the vocabulary over
+    ``model``: the rank looks up the tokens in its slice, zeroes the
+    others' rows and all-reduces (one rank adds each row, the rest add
+    zeros: exact)."""
+    tok, axis = p.tok, None
+    if ctx is not None:
+        ts = pspec(p, "tok")
+        tok, axis = ctx.gather(tok, ts), ts[0]
+    tok = tok.to(cfg.torch_compute_dtype())
+    if axis is None:
+        x = tok[tokens.long()]
+    else:
+        lo, _ = ctx.range(axis, tok.shape[0])
+        local = tokens.long() - lo
+        own = (local >= 0) & (local < tok.shape[0])
+        x = tok[local.clamp(0, tok.shape[0] - 1)]
+        x = ctx.all_reduce(torch.where(own[..., None], x,
+                                       torch.zeros_like(x)), axis)
     if cfg.embed_scale:
         # sqrt(d) rounded to the compute dtype first, as the reference does
         # (in bf16 55.43 becomes 55.5 at gemma-7b's d 3,072)
@@ -180,11 +253,18 @@ def embed(p: Embedding, cfg: ModelConfig, tokens: torch.Tensor
     return x
 
 
-def unembed(p: Embedding, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if p.head is None:
-        logits = x @ p.tok.to(x.dtype).T
-    else:
-        logits = x @ p.head.to(x.dtype)
+def unembed(p: Embedding, cfg: ModelConfig, x: torch.Tensor, ctx=None
+            ) -> torch.Tensor:
+    """With ``ctx``: the rank's vocabulary slice of the logits, all-gathered
+    over ``model`` where the spec splits the vocabulary."""
+    tied = p.head is None
+    w, axis = (p.tok if tied else p.head), None
+    if ctx is not None:
+        spec = pspec(p, "tok" if tied else "head")
+        w, axis = ctx.gather(w, spec), spec[0 if tied else 1]
+    logits = x @ (w.to(x.dtype).T if tied else w.to(x.dtype))
+    if axis is not None:
+        logits = ctx.all_gather(logits, -1, axis)
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

@@ -16,7 +16,13 @@ known before the call, so it needs no host sync.
 
 Routing, the gate's rounding to the compute dtype and the sum over the K
 assignments in the compute dtype follow the reference's rounding points.
-Not ported: expert parallelism (``shard_axes``).
+
+Expert parallelism (``shard_axes``, the reference's ``shard_map`` over
+``model``, ``repro/layers/moe.py:156-200``): on a rank of a mesh the router
+is replicated (gathered), the rank runs its E/TP experts on its own token
+rows through the same dispatch, with the capacity from the local token
+count (or dropless), and one all-reduce over ``model`` sums the partial
+outputs.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.partition import pspec
 from repro_torch.layers.core import (MLP, Linear, _act, _param, mlp,
                                      trunc_normal)
 
@@ -61,13 +68,15 @@ class MoE(nn.Module):
                        if m.n_shared_experts else None)
 
 
-def route(p: MoE, cfg: ModelConfig, xt: torch.Tensor):
+def route(p: MoE, cfg: ModelConfig, xt: torch.Tensor, router_w=None):
     """The reference's ``_route`` in float32: softmax over the router
     logits, top-k, gates renormalised (sum clipped at 1e-9) and the Switch
-    aux loss. xt: (N, d) -> (gates (N,K) f32, experts (N,K) int64, aux)."""
+    aux loss. xt: (N, d) -> (gates (N,K) f32, experts (N,K) int64, aux).
+    ``router_w`` stands for ``p.router.w`` (a rank's gathered copy)."""
     m = cfg.moe
     N, E, K = xt.shape[0], m.n_experts, m.top_k
-    probs = torch.softmax(xt.float() @ p.router.w.float(), dim=-1)
+    w = p.router.w if router_w is None else router_w
+    probs = torch.softmax(xt.float() @ w.float(), dim=-1)
     gate_vals, expert_idx = torch.topk(probs, K, dim=-1)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     ce = expert_counts(expert_idx, E).float() / (N * K)
@@ -84,22 +93,32 @@ def expert_counts(expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
         0, flat, torch.ones_like(flat))
 
 
-def _routed_experts(p: MoE, cfg: ModelConfig, xt, gate_vals, expert_idx):
+def _routed_experts(cfg: ModelConfig, xt, gate_vals, expert_idx, stacks,
+                    e_lo: int = 0):
     """sum_k gate_k x FFN_{e_k}(x) over every assignment (dropless),
-    grouped by expert. The per-expert counts come to the host here: one
-    sync per call. Meta tensors (the dry run's trace) have no routing to
-    read: the N K assignments are split evenly over the experts, which
-    runs the same rows through the same products (each assignment once),
-    so the trace counts the FLOP and bytes any routing does."""
+    grouped by expert. ``stacks`` (up, gate or None, down) hold experts
+    [e_lo, e_lo + El): a rank's own under expert parallelism, whose
+    other assignments sort last and add zero. The per-expert counts come
+    to the host here: one sync per call. Meta tensors (the dry run's
+    trace) have no routing to read: the N K assignments are split evenly
+    over the experts, which runs the same rows through the same products
+    (each assignment once), so the trace counts the FLOP and bytes any
+    routing does."""
+    up_w, gate_w, down_w = stacks
     N, K = expert_idx.shape
     dt = xt.dtype
     flat = expert_idx.reshape(-1)
+    E, El = cfg.moe.n_experts, up_w.shape[0]
+    if El < E:
+        local = flat - e_lo
+        is_local = (local >= 0) & (local < El)
+        flat = torch.where(is_local, local, torch.full_like(local, El))
     order = torch.argsort(flat, stable=True)
-    E = cfg.moe.n_experts
     if flat.device.type == "meta":
-        counts = [N * K // E + (e < N * K % E) for e in range(E)]
+        n = N * K * El // E
+        counts = [n // El + (e < n % El) for e in range(El)]
     else:
-        counts = expert_counts(flat, E).tolist()               # host sync
+        counts = expert_counts(flat, El + (El < E)).tolist()[:El]  # sync
     xs = xt[order // K]                       # assignments, by expert
     ys = torch.empty_like(xs)
     start = 0
@@ -107,13 +126,17 @@ def _routed_experts(p: MoE, cfg: ModelConfig, xt, gate_vals, expert_idx):
         if not c:
             continue
         rows = xs[start:start + c]
-        up = rows @ p.up[e].to(dt)
-        h = (_act(cfg.activation, rows @ p.gate[e].to(dt)) * up
-             if p.gate is not None else _act(cfg.activation, up))
-        torch.matmul(h, p.down[e].to(dt), out=ys[start:start + c])
+        up = rows @ up_w[e].to(dt)
+        h = (_act(cfg.activation, rows @ gate_w[e].to(dt)) * up
+             if gate_w is not None else _act(cfg.activation, up))
+        torch.matmul(h, down_w[e].to(dt), out=ys[start:start + c])
         start += c
+    w = gate_vals.reshape(N * K)
+    if El < E:
+        ys[start:].zero_()
+        w = w * is_local
     y_asn = torch.empty_like(ys).index_copy_(0, order, ys)
-    w = gate_vals.reshape(N * K).to(dt)
+    w = w.to(dt)
     return (y_asn * w[:, None]).reshape(N, K, -1).sum(dim=1)
 
 
@@ -140,51 +163,80 @@ def capacity_slots(expert_idx: torch.Tensor, n_experts: int, C: int):
     return pos, pos < C
 
 
-def _dispatch_ffn(p: MoE, cfg: ModelConfig, xt, gate_vals, expert_idx,
-                  C: int):
-    """The reference's capacity dispatch, expert FFN and combine: the kept
-    assignments are scattered into an (E C + 1, d) buffer (the last row
-    takes the dropped ones, as zeros), every expert runs its C rows as
-    batched products (E, C, d) x (E, d, f), and each assignment's row is
-    gathered back and weighted by gate x keep in the compute dtype."""
+def _dispatch_ffn(cfg: ModelConfig, xt, gate_vals, expert_idx, stacks,
+                  C: int, e_lo: int = 0):
+    """The reference's capacity dispatch, expert FFN and combine over the
+    experts [e_lo, e_lo + El) of ``stacks`` (its ``_dispatch_ffn`` with
+    ``e_lo``): the kept assignments are scattered into an (El C + 1, d)
+    buffer (the last row takes the dropped ones and a rank's others, as
+    zeros), every expert runs its C rows as batched products (El, C, d) x
+    (El, d, f), and each assignment's row is gathered back and weighted by
+    gate x keep in the compute dtype. An assignment's slot counts the
+    assignments to its expert before it in token-major order, so a rank's
+    expert keeps what it keeps on one device at the same C."""
+    up_w, gate_w, down_w = stacks
     N, d = xt.shape
     K = expert_idx.shape[1]
-    E = cfg.moe.n_experts
+    E, El = cfg.moe.n_experts, up_w.shape[0]
     dt = xt.dtype
     pos, keep = capacity_slots(expert_idx, E, C)
-    dest = torch.where(keep, expert_idx.reshape(-1) * C + pos,
-                       torch.full_like(pos, E * C))
+    slot = expert_idx.reshape(-1)
+    if El < E:
+        slot = slot - e_lo
+        keep = keep & (slot >= 0) & (slot < El)
+    dest = torch.where(keep, slot * C + pos, torch.full_like(pos, El * C))
     xr = xt[:, None].expand(N, K, d).reshape(N * K, d)
-    buf = xt.new_zeros((E * C + 1, d)).index_add(
+    buf = xt.new_zeros((El * C + 1, d)).index_add(
         0, dest, torch.where(keep[:, None], xr, torch.zeros_like(xr)))
-    xd = buf[:E * C].reshape(E, C, d)
-    up = torch.bmm(xd, p.up.to(dt))
-    h = (_act(cfg.activation, torch.bmm(xd, p.gate.to(dt))) * up
-         if p.gate is not None else _act(cfg.activation, up))
-    y_flat = torch.bmm(h, p.down.to(dt)).reshape(E * C, d)
+    xd = buf[:El * C].reshape(El, C, d)
+    up = torch.bmm(xd, up_w.to(dt))
+    h = (_act(cfg.activation, torch.bmm(xd, gate_w.to(dt))) * up
+         if gate_w is not None else _act(cfg.activation, up))
+    y_flat = torch.bmm(h, down_w.to(dt)).reshape(El * C, d)
     y_asn = torch.where(keep[:, None],
                         torch.index_select(y_flat, 0,
-                                           dest.clamp(max=E * C - 1)),
+                                           dest.clamp(max=El * C - 1)),
                         torch.zeros_like(xr))
     w = (gate_vals.reshape(N * K) * keep).to(dt)
     return (y_asn * w[:, None]).reshape(N, K, d).sum(dim=1)
 
 
 def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
-              dropless: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+              dropless: bool = True, shard_axes=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (out (B, T, d), aux loss f32). Dropless (serving):
     every token's K assignments are kept, so a token's output does not
     depend on the other tokens of the call (pads included). Otherwise
-    (training) capacity dispatch at C = ``moe_capacity(cfg, B T)``:
-    assignments past an expert's C-th, in token-major order, are dropped."""
+    (training, the dense cache's prefill) capacity dispatch at C =
+    ``moe_capacity(cfg, B T)``: assignments past an expert's C-th, in
+    token-major order, are dropped.
+
+    With ``shard_axes`` (``p`` a rank's shard, x its rows: the whole batch
+    where it does not divide the dp axes) expert parallelism: the router
+    gathered whole, the rank's experts from ``e_lo = model rank x El``
+    (gathered over ``data`` where FSDP splits them) on its rows, C from its
+    token count, one all-reduce over ``model``, then the shared experts
+    split as an MLP."""
     B, T, d = x.shape
     xt = x.reshape(B * T, d)
-    gate_vals, expert_idx, aux = route(p, cfg, xt)
-    if dropless:
-        y = _routed_experts(p, cfg, xt, gate_vals, expert_idx)
+    rank = shard_axes["ctx"] if shard_axes else None
+    if rank is None:
+        gate_vals, expert_idx, aux = route(p, cfg, xt)
+        stacks, e_lo = (p.up, p.gate, p.down), 0
     else:
-        y = _dispatch_ffn(p, cfg, xt, gate_vals, expert_idx,
-                          moe_capacity(cfg, B * T))
+        gate_vals, expert_idx, aux = route(p, cfg, xt, rank.gather(
+            p.router.w, pspec(p.router, "w"), ("model", "data")))
+        stacks = tuple(None if getattr(p, n) is None else
+                       rank.gather(getattr(p, n), pspec(p, n))
+                       for n in ("up", "gate", "down"))
+        e_lo, _ = rank.range(pspec(p, "up")[0], p.up.shape[0])
+    if dropless:
+        y = _routed_experts(cfg, xt, gate_vals, expert_idx, stacks, e_lo)
+    else:
+        y = _dispatch_ffn(cfg, xt, gate_vals, expert_idx, stacks,
+                          moe_capacity(cfg, B * T), e_lo)
+    if rank is not None and pspec(p, "up")[0] is not None:
+        y = rank.all_reduce(y, pspec(p, "up")[0])
     if p.shared is not None:
-        y = y + mlp(p.shared, cfg, xt)
+        y = y + mlp(p.shared, cfg, xt, rank)
     return y.reshape(B, T, d), aux.float()

@@ -457,13 +457,17 @@ def _store(view, new):
 
 
 def _group_prefill(blocks, cfg: ModelConfig, x, cache: dict, g: int,
-                   impl: str):
+                   impl: str, shard_axes=None):
     """One layer group over the whole prompt (the reference's
     ``_group_prefill``), filling group g of ``cache`` in place: attention
     through ``attention_full(return_kv=True)`` under the sub-layer's
     window (the flash op for ``impl="kernel"``) then ``fill_kv_cache``,
     MLA through ``mla_full(return_cache=True)``, RWKV-6 and Mamba from the
-    cache's state, then the MLP or the MoE with capacity dispatch."""
+    cache's state, then the MLP or the MoE with capacity dispatch. With
+    ``shard_axes`` the blocks and cache are a rank's shards: attention by
+    ``attention_prefill_sharded`` on the route its cache's spec picks, the
+    MLP split, the MoE expert-parallel."""
+    rank = shard_axes["ctx"] if shard_axes else None
     for i, blk in enumerate(blocks):
         kind = mixer_kind(cfg, i)
         c = _at(cache[f"sub{i}"], g)
@@ -479,6 +483,11 @@ def _group_prefill(blocks, cfg: ModelConfig, x, cache: dict, g: int,
             h, (c_kv, k_rope) = mla_mod.mla_full(blk.mix, cfg, h,
                                                  return_cache=True)
             nc = mla_mod.fill_mla_cache(c, c_kv, k_rope)
+        elif rank is not None:
+            h = attn.attention_prefill_sharded(
+                blk.mix, cfg, h, c, window=layer_window(cfg, i),
+                spec=cache[f"sub{i}"].k.pspec, rank=rank, impl=impl)
+            nc = c
         else:
             w = layer_window(cfg, i)
             h, (k, v) = attn.attention_full(blk.mix, cfg, h, window=w,
@@ -488,42 +497,63 @@ def _group_prefill(blocks, cfg: ModelConfig, x, cache: dict, g: int,
         x = x + h
         h = rms_norm(blk.n2, x, cfg.rmsnorm_eps)
         if isinstance(blk.ffn, MoE):
-            h = moe_apply(blk.ffn, cfg, h, dropless=False)[0]
+            h = moe_apply(blk.ffn, cfg, h, dropless=False,
+                          shard_axes=shard_axes)[0]
         else:
-            h = mlp(blk.ffn, cfg, h)
+            h = mlp(blk.ffn, cfg, h, rank)
         x = x + h
     return x
 
 
+def _check_partitioned(cfg: ModelConfig, shard_axes):
+    if shard_axes is None:
+        return None
+    from repro_torch.distributed.partition import unsupported_reason
+    why = unsupported_reason(cfg)
+    if why:
+        raise NotImplementedError(f"{cfg.name}: {why}")
+    return shard_axes["ctx"]
+
+
 @torch.no_grad()
 def prefill(model: LM, cfg: ModelConfig, tokens, cache: dict, *,
-            prefix_embeds=None, impl: str = "kernel"):
+            prefix_embeds=None, impl: str = "kernel", shard_axes=None):
     """tokens (B,T) (a VLM's ``prefix_embeds`` (B,P,d) before them, at
     positions [0, P)) and an empty cache from ``init_decode_state`` ->
     (the last position's logits (B,V), the cache, filled in place). Every
-    family, windowed attention included."""
+    family, windowed attention included.
+
+    ``shard_axes`` (the reference's ``{"dp", "tp", "mesh"}`` plus
+    ``"ctx"``, the rank's ``RankContext``): the partitioned step on one
+    rank of a mesh. ``model``, ``cache`` and the inputs are then the
+    rank's shards (``partition.shard_model`` / ``shard_cache`` /
+    ``shard_batch``), and the logits the rank's rows over the whole
+    vocabulary. The attention, MLP and MoE families only."""
     check_impl(impl)
+    rank = _check_partitioned(cfg, shard_axes)
     device = model.embed.tok.device
-    x = embed(model.embed, cfg, _tokens_on(tokens, device))
+    x = embed(model.embed, cfg, _tokens_on(tokens, device), rank)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(device=device, dtype=x.dtype), x],
                       dim=1)
     gs = group_size(cfg)
     for g in range(n_groups(cfg)):
         x = _group_prefill(model.blocks[g * gs:(g + 1) * gs], cfg, x, cache,
-                           g, impl)
+                           g, impl, shard_axes)
     x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
-    return unembed(model.embed, cfg, x[:, -1]), cache
+    return unembed(model.embed, cfg, x[:, -1], rank), cache
 
 
 def _group_decode(blocks, cfg: ModelConfig, x, cache: dict, g: int, pos,
-                  impl: str):
+                  impl: str, shard_axes=None):
     """One layer group for one token a lane (the reference's
     ``_group_decode``), updating group g of ``cache`` in place: attention
     through ``attention_decode`` (a ring for a windowed layer), MLA through
     the absorbed ``mla_decode``, RWKV-6 (the WKV op for
     ``impl="kernel"``) and Mamba one step from the cache's state, then the
-    MLP or the dropless MoE."""
+    MLP or the dropless MoE. With ``shard_axes``, a rank's shards:
+    ``attention_decode_sharded``, the MLP split, the MoE expert-parallel."""
+    rank = shard_axes["ctx"] if shard_axes else None
     for i, blk in enumerate(blocks):
         kind = mixer_kind(cfg, i)
         c = _at(cache[f"sub{i}"], g)
@@ -537,32 +567,46 @@ def _group_decode(blocks, cfg: ModelConfig, x, cache: dict, g: int, pos,
             h, nc = mamba_mod.mamba_decode(blk.mix, cfg, h, c)
         elif kind == "mla":
             h, nc = mla_mod.mla_decode(blk.mix, cfg, h, c, pos)
+        elif rank is not None:
+            h = attn.attention_decode_sharded(
+                blk.mix, cfg, h, c, pos, window=layer_window(cfg, i),
+                spec=cache[f"sub{i}"].k.pspec, rank=rank)
+            nc = c
         else:
             h, nc = attn.attention_decode(blk.mix, cfg, h, c, pos,
                                           window=layer_window(cfg, i))
         _store(c, nc)
         x = x + h
-        x = x + ffn_apply(blk.ffn, cfg, rms_norm(blk.n2, x, cfg.rmsnorm_eps))
+        h = rms_norm(blk.n2, x, cfg.rmsnorm_eps)
+        if rank is None:
+            x = x + ffn_apply(blk.ffn, cfg, h)
+        elif isinstance(blk.ffn, MoE):
+            x = x + moe_apply(blk.ffn, cfg, h, dropless=True,
+                              shard_axes=shard_axes)[0]
+        else:
+            x = x + mlp(blk.ffn, cfg, h, rank)
     return x
 
 
 @torch.no_grad()
 def decode_step(model: LM, cfg: ModelConfig, cache: dict, tokens, pos, *,
-                impl: str = "kernel"):
+                impl: str = "kernel", shard_axes=None):
     """One token for every sequence: tokens (B,), pos (B,) (host ints or
     tensors; a scalar pos is every lane's) -> (logits (B,V), the cache,
-    updated in place)."""
+    updated in place). ``shard_axes``: the partitioned step on one rank,
+    as ``prefill`` takes it."""
     check_impl(impl)
+    rank = _check_partitioned(cfg, shard_axes)
     device = model.embed.tok.device
     tokens = _tokens_on(tokens, device).reshape(-1, 1)
     pos = _tokens_on(pos, device).reshape(-1).long()
-    x = embed(model.embed, cfg, tokens)
+    x = embed(model.embed, cfg, tokens, rank)
     gs = group_size(cfg)
     for g in range(n_groups(cfg)):
         x = _group_decode(model.blocks[g * gs:(g + 1) * gs], cfg, x, cache,
-                          g, pos, impl)
+                          g, pos, impl, shard_axes)
     x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
-    return unembed(model.embed, cfg, x[:, 0]), cache
+    return unembed(model.embed, cfg, x[:, 0], rank), cache
 
 
 def _rwkv_layer(blk: Block, cfg: ModelConfig, x, pools: dict, ws, ss, *,

@@ -24,6 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.aqua_tensor import REMOTE, AquaTensor, TransferMeter
+from repro_torch.core.device import resolve_device
 from repro_torch.layers.core import trunc_normal
 from repro_torch.models.lm import LM, group_size
 
@@ -53,11 +54,13 @@ def init_adapter(generator: torch.Generator, cfg: ModelConfig,
 def adapter_from_numpy(adapter: dict, cfg: ModelConfig, device=None) -> dict:
     """The reference's adapter with its arrays as numpy (e.g.
     ``jax.tree.map(np.asarray, ad)``) as the port's: the same values in the
-    config's param dtype on ``device`` (the CPU unless given)."""
+    config's param dtype on ``device`` (CUDA unless the caller passes
+    another; raises when CUDA is absent)."""
+    device = resolve_device(device)
     out = {"alpha": adapter["alpha"], "rank": adapter["rank"]}
     for k in _LEAVES:
         out[k] = torch.from_numpy(np.array(adapter[k], np.float32)).to(
-            device or "cpu", cfg.dtype())
+            device, cfg.dtype())
     return out
 
 

@@ -31,9 +31,10 @@ from repro_torch import configs
 from repro_torch.analysis.roofline import read_trace
 from repro_torch.configs import (ALL_SHAPES, SHAPES_BY_NAME, ShapeConfig,
                                  get_config, smoke_config)
+from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_placeholder_mesh
+from repro_torch.launch.mesh import Mesh, make_placeholder_mesh
 from repro_torch.models import api
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -265,7 +266,7 @@ def _shards(spec, sizes) -> int:
 def test_pod_bytes_per_device_follow_the_specs(mesh_name, tmp_path):
     """qwen1.5-0.5b decode_32k: serving keeps the weights TP-resident (no
     FSDP); each parameter, cache leaf and batch leaf is divided by the
-    mesh axes its spec names. The pods carry no cost."""
+    mesh axes its spec names. The pods carry rank 0's traced cost."""
     arch, shape = "qwen1.5-0.5b", SHAPES_BY_NAME["decode_32k"]
     cfg = get_config(arch)
     mesh = make_placeholder_mesh(mesh_name)
@@ -286,6 +287,134 @@ def test_pod_bytes_per_device_follow_the_specs(mesh_name, tmp_path):
                           out_dir=str(tmp_path))
     assert rec["status"] == "ok", rec.get("error")
     assert rec["memory"]["argument_size_in_bytes"] == want
-    assert rec["memory"]["temp_size_in_bytes"] is None
-    assert rec["cost"] is None and rec["cost_reason"]
+    # rank 0's partitioned step, traced: a cost and temporaries a device
+    assert rec["memory"]["temp_size_in_bytes"] > 0
+    assert rec["cost"]["flops"] > 0 and rec["cost"]["collective bytes"] > 0
+    assert "cost_reason" not in rec
+    assert [p.name for p in tmp_path.iterdir()] == [
+        "qwen1.5-0.5b_decode_32k.trace.jsonl.gz"]
+
+
+# ---------------------------------------------------------------------------
+# The pods' per-device cost: rank 0's partitioned step
+# ---------------------------------------------------------------------------
+IN_SCOPE = ("qwen1.5-0.5b", "gemma-7b", "minicpm-2b", "internvl2-1b",
+            "gemma3-12b", "dbrx-132b")
+
+
+def _smoke_overrides(arch):
+    full, smoke = get_config(arch), smoke_config(get_config(arch))
+    return {f: getattr(smoke, f) for f in full.__dataclass_fields__
+            if getattr(smoke, f) != getattr(full, f)}
+
+
+@pytest.mark.parametrize("arch", IN_SCOPE)
+def test_pod_serving_cells_carry_a_cost(arch, tmp_path):
+    """Every serving cell of the in-scope archs on pod256 (at smoke widths,
+    a small batch): a cost with collectives, the temporaries a device and
+    the trace beside the record."""
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        rec = dryrun.run_cell(arch, shape, mesh_name="pod256",
+                              out_dir=str(tmp_path), tag="smoke",
+                              overrides=_smoke_overrides(arch),
+                              batch_override=16)
+        if rec["status"] == "skipped":
+            assert shape == "long_500k" and arch != "gemma3-12b"
+            continue
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["cost"]["flops"] > 0 and rec["cost"]["collective bytes"] > 0
+        assert rec["memory"]["temp_size_in_bytes"] > 0
+        assert (tmp_path / f"{arch}_{shape}_smoke.trace.jsonl.gz").exists()
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("deepseek-v2-lite-16b", "decode_32k"), ("rwkv6-3b", "long_500k"),
+    ("jamba-v0.1-52b", "prefill_32k"), ("whisper-tiny", "decode_32k"),
+    ("qwen1.5-0.5b", "train_4k")])
+def test_other_pod_cells_name_what_is_missing(arch, shape, tmp_path):
+    rec = dryrun.run_cell(arch, shape, mesh_name="pod512",
+                          out_dir=str(tmp_path))
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["cost"] is None and rec["memory"]["temp_size_in_bytes"] is None
+    missing = {"deepseek-v2-lite-16b": "MLA", "rwkv6-3b": "RWKV-6",
+               "jamba-v0.1-52b": "Mamba", "whisper-tiny": "encoder-decoder",
+               "qwen1.5-0.5b": "train step"}[arch]
+    assert missing in rec["cost_reason"] and "not ported" in rec[
+        "cost_reason"]
     assert not list(tmp_path.iterdir())
+
+
+def _meta_mesh(dims):
+    return Mesh(np.full(dims, "meta", dtype=object), ("pod", "data",
+                                                      "model"))
+
+
+def _rank0_trace(arch, shape, dims, B):
+    """Rank 0's partitioned step of a smoke cell on a small placeholder
+    mesh under a fake group: (recorder, arguments, memory, config)."""
+    with partition.fake_world(int(np.prod(dims))):
+        fn, args, mem = dryrun.build_cell(
+            arch, shape, _meta_mesh(dims), overrides=_smoke_overrides(arch),
+            batch_override=B)
+        return dryrun.trace_cell(fn, args), args, mem
+
+
+def _h100_trace(arch, shape, B):
+    fn, args, _ = dryrun.build_cell(arch, shape, make_placeholder_mesh(
+        "h100"), overrides=_smoke_overrides(arch), batch_override=B)
+    return dryrun.trace_cell(fn, args)
+
+
+@pytest.mark.parametrize("dims", [(1, 2, 2), (1, 1, 4)],
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-12b"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_rank_flop_times_world_is_the_h100_flop(dims, arch, shape):
+    """qwen (the head route) and gemma3 (the sequence route, one q head a
+    rank) split every product: a rank's FLOP times the world size is the
+    one-device trace's, exactly. Its argument bytes are ``_per_device``'s
+    memory record."""
+    B = 4
+    rec, args, mem = _rank0_trace(arch, shape, dims, B)
+    world = int(np.prod(dims))
+    assert rec.cost().flops * world == _h100_trace(arch, shape, B).cost().flops
+    held = sum(t.numel() * t.element_size()
+               for t in api.tree_leaves([list(args[0].parameters())]
+                                        + list(args[1:])))
+    assert held == mem["argument_size_in_bytes"]
+
+
+def _design_collectives(cfg, rules, kind: str, route: str) -> dict:
+    """The collectives the design makes in one step: the embedding's
+    all-reduce and the logits' all-gather (where the vocabulary splits);
+    a layer's all-reduce after ``wo`` and after the feed-forward; on the
+    sequence route the q/k/v all-gather and, in decode, the merge's;
+    under FSDP an all-gather over data of each weight whose spec names it
+    (the router's also over model) and of the embedding's."""
+    model = api.param_specs(cfg)
+    specs = rules.params(model)
+    L = cfg.n_layers
+    ar, ag = 2 * L, 0
+    if specs["embed.tok"][0] == "model":
+        ar, ag = ar + 1, ag + 1
+    if route == "seq":
+        ag += L * (2 if kind == "decode" else 1)
+    ag += sum(("data" in s) + ("model" in s and n.endswith("router.w"))
+              for n, s in specs.items())
+    return {"all_reduce": ar, "all_gather_into_tensor": ag}
+
+
+@pytest.mark.parametrize("arch,dims,route", [
+    ("qwen1.5-0.5b", (1, 2, 2), "heads"), ("gemma3-12b", (1, 1, 4), "seq"),
+    ("dbrx-132b", (1, 2, 2), "heads"), ("dbrx-132b", (1, 1, 4), "seq")])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_collectives_per_step_are_the_design_s(arch, dims, route, shape):
+    cfg = get_config(arch).replace(**_smoke_overrides(arch))
+    rec, args, _ = _rank0_trace(arch, shape, dims, 4)
+    cache = args[2] if shape == "prefill_32k" else args[1]
+    assert {partition.attn_route(c.k.pspec) for c in cache.values()} == {
+        route}
+    rules = ShardingRules(_meta_mesh(dims), cfg,
+                          fsdp=arch == "dbrx-132b")
+    assert rec.cost().coll_counts == _design_collectives(
+        cfg, rules, shape.split("_")[0], route)

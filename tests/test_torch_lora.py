@@ -45,7 +45,7 @@ def _adapters(cfg, tcfg, n, rank=4):
     for i in range(n):
         ad = jlora.init_adapter(jax.random.PRNGKey(i + 1), cfg, rank=rank)
         out.append((ad, tlora.adapter_from_numpy(
-            jax.tree.map(np.asarray, ad), tcfg)))
+            jax.tree.map(np.asarray, ad), tcfg, "cpu")))
     return out
 
 
@@ -196,3 +196,16 @@ def test_apply_lora_refuses_a_hybrid_stack():
     ad = tlora.init_adapter(torch.Generator().manual_seed(0), tcfg, rank=2)
     with pytest.raises(ValueError, match="group size"):
         tlora.apply_lora(model, tcfg, ad)
+
+
+def test_adapter_from_numpy_defaults_to_cuda(monkeypatch):
+    """Like ``from_jax``, the carried-over adapter lands on CUDA unless the
+    caller passes a device, and raises without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = t_smoke_config(t_get_config(ARCH))
+    ad = jax.tree.map(np.asarray, jlora.init_adapter(
+        jax.random.PRNGKey(0), smoke_config(get_config(ARCH)), rank=2))
+    with pytest.raises(RuntimeError, match="CUDA requested"):
+        tlora.adapter_from_numpy(ad, tcfg)
+    assert tlora.adapter_from_numpy(ad, tcfg, "cpu")["q_a"].device.type \
+        == "cpu"

@@ -115,3 +115,42 @@ def test_collect_and_summarize(tmp_path):
         in text
     assert "| gemma-7b | long_500k | — | — | — | — | — | — | SKIP: " \
         "quadratic |" in text
+
+
+def test_pod_cells_with_a_trace_fill_the_pod_columns(tmp_path):
+    """A pod cell traced by the dry run (rank 0's partitioned step, at
+    smoke width on pod256): its dry-run row carries the per-device GFLOP,
+    bytes and collectives, and the pod gets a roofline table whose model
+    FLOP are a device's share."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_config, smoke_config
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.launch import dryrun
+    arch = "qwen1.5-0.5b"
+    full, smoke = get_config(arch), smoke_config(get_config(arch))
+    over = {f: getattr(smoke, f) for f in full.__dataclass_fields__
+            if getattr(smoke, f) != getattr(full, f)}
+    d = tmp_path / "pod256"
+    rec = dryrun.run_cell(arch, "decode_32k", mesh_name="pod256",
+                          out_dir=str(d), overrides=over, batch_override=16)
+    assert rec["status"] == "ok", rec.get("error")
+    trace = d / f"{arch}_decode_32k.trace.jsonl.gz"
+    assert trace.exists()
+    (d / f"{arch}_decode_32k.json").write_text(json.dumps(rec))
+    _write_cell(d, "rwkv6-3b", "decode_32k",
+                {"status": "ok", "compile_s": 0.0, "memory": rec["memory"],
+                 "cost": None, "cost_reason": "no cost: not ported"})
+    recs = {r["arch"]: r for r in report.collect(str(tmp_path), "pod256")}
+    rl = recs[arch]["roofline"]
+    assert rl["flops"] == rec["cost"]["flops"]
+    assert rl["coll_ops"]["all_reduce"] > 0 and rl["coll_bytes"] > 0
+    assert rl["model_flops"] == model_flops(
+        full, SHAPES_BY_NAME["decode_32k"]) / 256
+    assert "roofline" not in recs["rwkv6-3b"]
+    text = report.summarize(str(tmp_path))
+    assert "### Roofline — pod256 (256 chips" in text
+    row = next(line for line in text.splitlines()
+               if line.startswith(f"| {arch} | decode_32k | ok |"))
+    assert "all_reduce:" in row and "—" not in row
+    assert "| rwkv6-3b | decode_32k | ok | 0.0s | — | — | — | — |" in text
+    assert "| rwkv6-3b | decode_32k | — | — | — | — | — | — | no cost: not " \
+        "ported |" in text
