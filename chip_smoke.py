@@ -607,12 +607,20 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    expert parallelism and the FSDP gather at a group of one), each held
    to the unpartitioned step on the same weights: greedy tokens equal and
    every step's logits bit for bit (phases 69-70's rule), the shards
-   sharing the model's storage, one row 9 launch a layer in the prefill.
-   (b) Rank 0 of ``pod256`` at its own per-device shapes under a fake
-   process group of 256 (its collectives move no bytes: the rank's local
-   work with no wire, values unchecked): qwen1.5-0.5b ``decode_32k`` (8
-   lanes, one kv head), ``prefill_32k`` (2 x 32,768, one head through row
-   9) and dbrx-132b ``decode_32k`` at 8 of 40 layers, each traced on
+   sharing the model's storage, one row 9 launch a layer in the prefill;
+   and deepseek-v2-lite-16b at 4 of 27 layers (MLA, one
+   dense and three MoE layers), jamba-v0.1-52b at 8 of 32 (one group:
+   attention, Mamba, MoE) under FSDP, rwkv6-3b and whisper-tiny (over
+   1,500 frames) at full width and depth, 2 x 512 and 8 steps each, every
+   run launching what its unpartitioned run launches. (b) Rank 0 of
+   ``pod256`` at its own per-device shapes under a fake process group of
+   256 (its collectives move no bytes: the rank's local work with no
+   wire, values unchecked): qwen1.5-0.5b ``decode_32k`` (8 lanes, one kv
+   head), ``prefill_32k`` (2 x 32,768, one head through row 9), dbrx-132b
+   ``decode_32k`` at 8 of 40 layers, deepseek
+   ``decode_32k`` at 4 layers, jamba ``decode_32k`` at 8, rwkv6-3b
+   ``long_500k`` (the key-slice WKV, 4 of each head's 64 key rows) and
+   whisper-tiny ``decode_32k``, each traced on
    ``meta`` by ``dryrun.build_cell`` and run on instantiated shards 2 + 5
    times (CUDA events): the p50 beside the per-device traced bound, the
    launches equal to the trace's entries x 7, the shards' bytes equal to
@@ -623,7 +631,14 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    48 heads of 128 on 8 kv heads, causal) through phase 75's check and
    timing (float32 and bf16 against the plain
    version, the heaviest-key control; kernel, plain, library and bound
-   ms), under ``partition`` in the ``flash_attention`` record.
+   ms), under ``partition`` in the ``flash_attention`` record, and at
+   whisper-tiny's rank shapes (one head: the encoder over 1,500
+   frames, the cross-attention of 8 decode rows against them). (c) The
+   key-slice WKV kernel (``csrc/wkv6_keyslice.cu``) against its plain
+   twin at rwkv6-3b's rank shapes, prefill (2, 32,768, 40 heads, K 4, V
+   64) and decode (8, 1, 40, 4, 64), at row 8's limits with a zeroed-state
+   control beyond them; kernel, plain and bound ms in its
+   ``wkv6_keyslice`` record.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -7938,12 +7953,31 @@ def phase_roofline(torch, np, dev, card):
 # (a) at world size 1 on NCCL: (arch, layers or 0 for all, batch, prompt,
 # decode steps, FSDP)
 PARTITION_RUNS = (("qwen1.5-0.5b", 0, 2, 2048, 16, False),
-                  ("dbrx-132b", DBRX_LAYERS, 2, 512, 8, True))
+                  ("dbrx-132b", DBRX_LAYERS, 2, 512, 8, True),
+                  # one dense and three MoE layers
+                  ("deepseek-v2-lite-16b", 4, 2, 512, 8, False),
+                  # one group: attention, Mamba, MoE
+                  ("jamba-v0.1-52b", 8, 2, 512, 8, True),
+                  ("rwkv6-3b", 0, 2, 512, 8, False),
+                  # over 1,500 frames
+                  ("whisper-tiny", 0, 2, 512, 8, False))
+# the kernels each world-1 run must launch (besides launching what the
+# unpartitioned run launches)
+PARTITION_RUN_KERNELS = {"qwen1.5-0.5b": ("flash_attention",),
+                         "dbrx-132b": ("flash_attention",),
+                         "deepseek-v2-lite-16b": (),
+                         "jamba-v0.1-52b": ("flash_attention",),
+                         "rwkv6-3b": ("wkv6",),
+                         "whisper-tiny": ("flash_attention",)}
 # (b) rank 0 of pod256 at its own shapes under a fake group: (arch, shape,
 # layers or 0 for all)
 PARTITION_CELLS = (("qwen1.5-0.5b", "decode_32k", 0),
                    ("qwen1.5-0.5b", "prefill_32k", 0),
-                   ("dbrx-132b", "decode_32k", DBRX_LAYERS))
+                   ("dbrx-132b", "decode_32k", DBRX_LAYERS),
+                   ("deepseek-v2-lite-16b", "decode_32k", 4),
+                   ("jamba-v0.1-52b", "decode_32k", 8),
+                   ("rwkv6-3b", "long_500k", 0),
+                   ("whisper-tiny", "decode_32k", 0))
 PARTITION_MESH = "pod256"
 PARTITION_MEM_SLACK = 0.05          # max_memory_allocated vs args + temp
 # row 9 at the shapes the partitioned prefills give it: a rank of pod256
@@ -7953,17 +7987,31 @@ PARTITION_FLASH = {
     "qwen1.5-0.5b pod256 rank prefill":
         ((2, 32768, 32768, 1, 1, 64, True, 0), False),
     "dbrx-132b world 1 prefill":
-        ((2, 512, 512, 48, 8, 128, True, 0), False)}
+        ((2, 512, 512, 48, 8, 128, True, 0), False),
+    # whisper-tiny on a rank of pod256: the one head its 24 wo rows touch,
+    # its prefill_32k rows' encoder over 1,500 frames and its decode_32k
+    # rows' cross-attention against them
+    "whisper-tiny pod256 rank encoder":
+        ((2, 1500, 1500, 1, 1, 64, False, 0), False),
+    "whisper-tiny pod256 rank cross decode":
+        ((8, 1, 1500, 1, 1, 64, False, 0), False)}
+# the key-slice WKV (rwkv6-3b on a rank of pod256: 4 of each head's 64 key
+# rows) at its prefill_32k and decode_32k rows: (B, T, H, K, V)
+PARTITION_WKV = {"prefill": (2, 32768, 40, 4, 64),
+                 "decode": (8, 1, 40, 4, 64)}
+WKV_KEYSLICE_SRC = "src/repro_torch/csrc/wkv6_keyslice.cu"
 
 
 def greedy_run(torch, np, api, model, cfg, tokens, steps, dev, **kw):
-    """``api.prefill`` of ``tokens`` into a fresh cache (sharded through
+    """``api.prefill`` of ``tokens`` (with ``kw["prefill_kw"]``, an
+    encoder-decoder's frames) into a fresh cache (sharded through
     ``kw["shard_cache"]`` when given), then ``steps`` greedy
     ``api.decode_step``s -> (every step's logits, the greedy tokens)."""
     shard = kw.pop("shard_cache", lambda c: c)
+    extra = kw.pop("prefill_kw", {})
     B, T = tokens.shape
     cache = shard(api.init_decode_state(cfg, B, T + steps, device=dev))
-    logits, cache = api.prefill(model, cfg, tokens, cache, **kw)
+    logits, cache = api.prefill(model, cfg, tokens, cache, **extra, **kw)
     outs, toks = [logits], [logits.argmax(-1)]
     for s in range(steps):
         logits, cache = api.decode_step(model, cfg, cache, toks[-1],
@@ -7978,30 +8026,40 @@ def partition_world1(torch, np, run, dev, card):
     over the NCCL group of world size 1 (every collective a group of one)
     against the unpartitioned step on the same weights: greedy tokens
     equal and every step's logits equal bit for bit (phases 69-70's rule
-    for the dense cache). Returns the partitioned run's launches."""
+    for the dense cache), the same kernel launches as the unpartitioned
+    run, those of ``PARTITION_RUN_KERNELS`` among them (a dense or MoE
+    config's flash launches one a layer). Returns the partitioned run's
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import partition
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import Mesh, rank_context
-    from repro_torch.models import api, lm
+    from repro_torch.models import api
     arch, layers, B, T, steps, fsdp = run
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(n_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(83)
-    model = lm.init_params(cfg, gen, dev)
+    model = api.init_params(cfg, gen, dev)
     tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
                            device=dev)
+    extra = {}
+    if cfg.encdec is not None:
+        extra["prefill_kw"] = {"enc_embeds": torch.randn(
+            (B, cfg.encdec.encoder_seq_len, cfg.d_model), generator=gen,
+            device=dev).to(cfg.torch_compute_dtype())}
     mesh = Mesh(np.full((1, 1, 1), str(dev), dtype=object),
                 ("pod", "data", "model"))
     rank = rank_context(mesh, device=dev)
     rules = ShardingRules(mesh, cfg, fsdp=fsdp)
+    build.reset_launch_counts()
     t = time.perf_counter()
     want, want_tok = greedy_run(torch, np, api, model, cfg, tokens, steps,
-                                dev)
+                                dev, **dict(extra))
     _sync(torch, dev)
     t_plain = time.perf_counter() - t
+    plain_launches = build.launch_counts()
     local = partition.shard_model(model, rules, rank)
     build.reset_launch_counts()
     t = time.perf_counter()
@@ -8009,7 +8067,8 @@ def partition_world1(torch, np, run, dev, card):
         torch, np, api, local, cfg, tokens, steps, dev,
         shard_axes={"dp": rules.dp, "tp": "model", "mesh": mesh,
                     "ctx": rank},
-        shard_cache=lambda c: partition.shard_cache(c, rules, rank, B))
+        shard_cache=lambda c: partition.shard_cache(c, rules, rank, B),
+        **dict(extra))
     _sync(torch, dev)
     t_part = time.perf_counter() - t
     launches = build.launch_counts()
@@ -8021,16 +8080,23 @@ def partition_world1(torch, np, run, dev, card):
     print(f"partition world 1: {arch} ({cfg.n_layers} layers, FSDP "
           f"{fsdp}), prefill {B} x {T} + {steps} greedy steps: tokens equal "
           f"{torch.equal(got_tok, want_tok)}, logits bit-equal {same} "
-          f"(largest relative difference {worst:.3g}); launches {launches}; "
-          f"{sum(held.values())} of {len(held)} shards share the model's "
-          f"storage; partitioned {t_part:.2f} s, unpartitioned "
-          f"{t_plain:.2f} s (host wall); on {card}")
+          f"(largest relative difference {worst:.3g}); launches {launches} "
+          f"(unpartitioned {plain_launches}); {sum(held.values())} of "
+          f"{len(held)} shards share the model's storage; partitioned "
+          f"{t_part:.2f} s, unpartitioned {t_plain:.2f} s (host wall); on "
+          f"{card}")
+    need = PARTITION_RUN_KERNELS[arch]
     flash = launches.get("flash_attention", 0)
+    per_layer = cfg.family in ("dense", "moe") and cfg.mla is None
     if not (same and torch.equal(got_tok, want_tok) and all(held.values())
-            and flash == cfg.n_layers):
+            and launches == plain_launches
+            and all(launches.get(k, 0) > 0 for k in need)
+            and (flash == cfg.n_layers or not per_layer)):
         raise AssertionError(f"partition world 1: {arch}: tokens equal "
                              f"{torch.equal(got_tok, want_tok)}, logits "
-                             f"bit-equal {same}, {flash} flash launches for "
+                             f"bit-equal {same}, launches {launches} vs "
+                             f"unpartitioned {plain_launches} (needs "
+                             f"{list(need)}), {flash} flash launches for "
                              f"{cfg.n_layers} layers")
     del model, local, want, got
     release(torch)
@@ -8152,12 +8218,112 @@ def partition_cell(torch, np, arch, shape_name, layers, card):
     return row, launches
 
 
+def keyslice_inputs(torch, g, shape, wmax, dev):
+    """``wkv_inputs``' distributions at a key slice's shapes: r, k (B, T,
+    H, K) and v (B, T, H, V) in bf16, w in [-wmax, -1e-3], u (H, K), the
+    state slice (B, H, K, V) 0.1 x normal."""
+    B, T, H, K, V = shape
+    r, k = (torch.randn((B, T, H, K), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((B, T, H, V), generator=g, device=dev).to(torch.bfloat16)
+    w = -(torch.rand((B, T, H, K), generator=g, device=dev)
+          * (wmax - 1e-3) + 1e-3)
+    u = torch.randn((H, K), generator=g, device=dev)
+    s0 = torch.randn((B, H, K, V), generator=g, device=dev) * 0.1
+    return r, k, v, w, u, s0
+
+
+def keyslice_bound(shape, io_bytes):
+    """Least time of one key-slice call (``rwkv6_wkv/ops.py:
+    keyslice_work``): its bytes over the memory rate against its float32
+    operations over 67 TFLOP/s and its exponentials over the
+    special-function units. Returns (ms, bound_by, parts)."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    flops, exps, nbytes = wkv_ops.keyslice_work(*shape, io_bytes)
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32": flops / F32_FLOPS * 1e3, "exp": exps / SFU_PER_S * 1e3}
+    ms = max(parts.values())
+    return ms, "bytes" if parts["bytes"] >= ms else "operations", parts
+
+
+def phase_keyslice_wkv(torch, np, report):
+    """Phase 83(c): the key-slice WKV kernel (``wkv6_keyslice``) against
+    its plain twin (the rectangular ``wkv6_plain``: the chunked form at T
+    32,768, the scan at T 1) at rwkv6-3b's pod256 rank shapes
+    (``PARTITION_WKV``), weak and strong decays, at row 8's limits
+    (``WKV_LIMITS``), a control with one lane's incoming state zeroed
+    beyond them. Device times by CUDA events: the kernel queued behind a
+    device-side wait; the plain twin at T 32,768 (~15,000 small launches a
+    call) back to back, its time the host's launch rate. No PyTorch call
+    computes the recurrence: ``library_ms`` is null."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(83)
+    cases = {}
+    for name, shape in PARTITION_WKV.items():
+        B, T, H, K, V = shape
+        ratios, controls, errs = [], [], []
+        for wmax in WKV_DECAYS:
+            args = keyslice_inputs(torch, g, shape, wmax, dev)
+            got = wkv_ops.wkv6_keyslice(*args)
+            s0c = args[5].clone()
+            s0c[0] = 0.0
+            ctrl = wkv_ops.wkv6_keyslice(*args[:5], s0c)
+            plain = wkv_ref.wkv6_plain(*args)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"wkv6_keyslice {name}: not finite")
+            ratios.append(wkv_ratio(got, plain))
+            controls.append(wkv_ratio(ctrl, plain))
+            errs.append((got[0].float() - plain[0].float()).abs().max()
+                        .item())
+            del got, ctrl, plain
+        if T > 1:
+            ms = (device_ms(lambda: wkv_ops.wkv6_keyslice(*args), 5)
+                  + device_ms(lambda: wkv_ops.wkv6_keyslice(*args), 5)) / 2
+            plain_ms = ms_timer(lambda: wkv_ref.wkv6_plain(*args), 1)
+        else:
+            ms, plain_ms = interleaved(
+                lambda: wkv_ref.wkv6_plain(*args),
+                lambda: wkv_ops.wkv6_keyslice(*args), 100)
+        b, by, parts = keyslice_bound(shape, 2)
+        cases[name] = dict(
+            shape=f"B={B} T={T} H={H} K={K} V={V} (bf16 r/k/v/y)",
+            max_abs_err=max(errs), limit_ratio=max(ratios),
+            control_ratio=min(controls), tolerance=(
+                "y rtol 2e-2 atol 5e-2, state rtol 1e-3 atol 5e-4"),
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            bound_parts_ms=parts, library_ms=None)
+        print(f"kernel wkv6_keyslice {cases[name]['shape']}: error/limit "
+              f"{max(ratios):.3g} (vs the plain twin, decays up to "
+              f"{max(WKV_DECAYS)}); control (one lane's state zeroed) "
+              f"{min(controls):.3g}; max abs y err {max(errs):.3g}; kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b * 1e3:.3f} us "
+              f"({by}: bytes {parts['bytes'] * 1e3:.2f}, f32 "
+              f"{parts['f32'] * 1e3:.2f}, exp {parts['exp'] * 1e3:.2f} us)")
+        if not max(ratios) <= 1.0 < min(controls):
+            raise AssertionError(
+                f"wkv6_keyslice {name}: error/limit {max(ratios)} must be "
+                f"<= 1 and the control's {min(controls)} above it")
+        del args
+        release(torch)
+    report.append(dict(
+        name="wkv6_keyslice", route="cuda", source=WKV_KEYSLICE_SRC,
+        replaces="src/repro/kernels/rwkv6_wkv/kernel.py:81",
+        **{**cases["prefill"], "max_abs_err": max(c["max_abs_err"]
+                                                  for c in cases.values())},
+        decode=cases["decode"]))
+
+
 def phase_partition(torch, np, report, dev, card):
     """Phase 83: (a) ``PARTITION_RUNS`` at world size 1 over NCCL
     (``partition_world1``), (b) ``PARTITION_CELLS`` under a fake group
     (``partition_cell``), then row 9 at a rank's shape
-    (``PARTITION_FLASH``, the ``partition`` entry of ``flash_attention``).
-    Returns {path: launches}."""
+    (``PARTITION_FLASH``, the ``partition`` entry of ``flash_attention``)
+    and (c) the key-slice WKV at rwkv6-3b's rank shapes
+    (``phase_keyslice_wkv``, its ``wkv6_keyslice`` entry). Returns {path:
+    launches}."""
     import torch.distributed as dist
     from repro_torch.distributed import partition
     from repro_torch.launch.mesh import make_placeholder_mesh
@@ -8180,6 +8346,7 @@ def phase_partition(torch, np, report, dev, card):
     print("partition cells: " + json.dumps(
         [{k: v for k, v in r.items() if k != "ms"} for r in rows]))
     phase_flash_shapes(torch, report, PARTITION_FLASH, "partition", 83)
+    phase_keyslice_wkv(torch, np, report)
     release(torch)
     return paths
 
@@ -8460,6 +8627,12 @@ def main() -> int:
                ("partition world 1 qwen1.5-0.5b", ("flash_attention",)),
                ("partition world 1 dbrx-132b", ("flash_attention",)),
                ("partition pod256 qwen1.5-0.5b prefill_32k",
+                ("flash_attention",)),
+               ("partition world 1 jamba-v0.1-52b", ("flash_attention",)),
+               ("partition world 1 rwkv6-3b", ("wkv6",)),
+               ("partition world 1 whisper-tiny", ("flash_attention",)),
+               ("partition pod256 rwkv6-3b long_500k", ("wkv6_keyslice",)),
+               ("partition pod256 whisper-tiny decode_32k",
                 ("flash_attention",)))
     for label, rows in trained:
         if not all(dict(paths)[label].get(k, 0) > 0 for k in rows):

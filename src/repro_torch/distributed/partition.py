@@ -30,16 +30,18 @@ collectives where the partitioner would put them
 Collectives run over an axis whenever a spec names it, a group of one
 included, so a step issues the same collectives at any mesh size.
 
-Families: the attention, MLP and MoE layers (dense, MoE and VLM configs
-without MLA). MLA, Mamba, RWKV-6 and the encoder-decoder have no
-partitioned layer yet (``unsupported_reason``).
+Every family the port serves: attention, MLP and MoE layers
+(``layers/core.py``, ``layers/attention.py``, ``layers/moe.py``), MLA
+(``layers/mla.py``), Mamba (``layers/mamba.py``), RWKV-6 over a key slice
+of its state (``layers/rwkv6.py``) and the encoder-decoder
+(``models/encdec.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import copy
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
@@ -134,20 +136,22 @@ def pspec(module: nn.Module, name: str):
     return specs[name]
 
 
-def unsupported_reason(cfg) -> Optional[str]:
-    """Why the partitioned step does not take ``cfg`` (None: it does)."""
-    from repro_torch.configs.base import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM
-    if cfg.family == ENCDEC:
-        return "the partitioned encoder-decoder step is not ported"
-    if cfg.family == SSM:
-        return "the partitioned RWKV-6 layer is not ported"
-    if cfg.family == HYBRID:
-        return "the partitioned Mamba layer is not ported"
-    if cfg.mla is not None:
-        return "the partitioned MLA layer is not ported"
-    if cfg.family not in (DENSE, MOE, VLM):
-        return f"the {cfg.family} family has no partitioned step"
-    return None
+def own_slices(local: torch.Tensor, spec, ctx: RankContext,
+               dims) -> tuple:
+    """Index of the rank's block in a tensor whose dims ``dims`` are
+    global (the others are the rank's already, as a batch of its rows):
+    dim d the global [lo, lo + n) of the ``n = local.shape[d]`` entries
+    ``local`` holds under ``spec``."""
+    idx = [slice(None)] * local.dim()
+    for d in dims:
+        lo, hi = ctx.range(spec[d], local.shape[d])
+        idx[d] = slice(lo, hi)
+    return tuple(idx)
+
+
+def splits(spec, axis: str = "model") -> bool:
+    """Whether a spec names ``axis`` in any dim."""
+    return any(axis in _axes_of(e) for e in spec)
 
 
 def attn_route(cache_spec) -> str:

@@ -7,6 +7,10 @@ reference layer's dispatch between the chunked form and the scan) and
 backward is three launches behind one call (``wkv6_bwd``); each pass also
 runs alone (``wkv6_bwd_states``, ``wkv6_bwd_dstates``, ``wkv6_bwd_chunk``)
 so it can be held against its plain twin.
+``wkv6_keyslice`` is the forward over a key slice of the state (K of the
+head's V key rows, the partitioned step's share): a kernel of its own
+(``csrc/wkv6_keyslice.cu``), which ``wkv6`` routes a rectangular state
+to.
 ``wkv6`` goes through the ``WKV6`` autograd op when a gradient is wanted,
 and straight to the forward otherwise (the serving path, under
 ``no_grad``). Meta tensors (the dry run's trace) of ``wkv6`` and
@@ -90,6 +94,28 @@ def cost(B: int, T: int, H: int, hd: int, itemsize: int = 2, *,
     return t_ops * H100_SXM.flops_peak, nbytes
 
 
+def keyslice_work(B: int, T: int, H: int, K: int, V: int,
+                  itemsize: int = 2):
+    """(float32 FLOP, exponentials, bytes) of one key-slice call: r, k in
+    the compute dtype and w in float32 (K a token and head), v and y in
+    the compute dtype (V), the state slice (K x V float32) read and
+    written, u's slice; per token and head K V products for y, K V for
+    the update, 3 K V additions and multiplies, and one exponential a key
+    dim."""
+    nbytes = (B * T * H * (K * (2 * itemsize + 4) + 2 * V * itemsize)
+              + 2 * B * H * K * V * 4 + H * K * 4)
+    return 5 * B * T * H * K * V, B * T * H * K, nbytes
+
+
+def keyslice_cost(B: int, T: int, H: int, K: int, V: int,
+                  itemsize: int = 2):
+    """(FLOP, bytes) of one key-slice call for the roofline, as ``cost``
+    gives them."""
+    flops, exps, nbytes = keyslice_work(B, T, H, K, V, itemsize)
+    t_ops = max(flops / F32_FLOPS, exps / SFU_PER_S)
+    return t_ops * H100_SXM.flops_peak, nbytes
+
+
 def _kernel_info(export: str, labels, hd: int) -> dict:
     out = (ctypes.c_int * (4 * len(labels)))()
     info = {}
@@ -144,6 +170,67 @@ def _check(name, r, k, v, w, u, state):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {what} {tuple(t.shape)} != "
                              f"{tuple(shape)}")
+
+
+def _keyslice_check(name, r, k, v, w, u, state):
+    """The key-slice kernel's contract; raises on what it does not take
+    (a square state is ``wkv6``'s)."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    if T < 1:
+        raise ValueError(f"{name}: needs at least one token")
+    if V not in (32, 64) or K >= V or V % K or K & (K - 1):
+        raise ValueError(f"{name}: a key slice of K {K} rows of a V {V} "
+                         "state needs V in (32, 64) and K a power of two "
+                         "below V")
+    if r.dtype not in _DTYPE_CODES or k.dtype != r.dtype \
+            or v.dtype != r.dtype:
+        raise ValueError(f"{name}: r, k, v must share float32 or bfloat16, "
+                         f"got {r.dtype}, {k.dtype}, {v.dtype}")
+    for t, what in ((w, "w"), (u, "u"), (state, "state")):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {what} must be float32, got {t.dtype}")
+    for t, shape, what in ((k, r.shape, "k"), (w, r.shape, "w"),
+                           (v, (B, T, H, V), "v"), (u, (H, K), "u"),
+                           (state, (B, H, K, V), "state")):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} != "
+                             f"{tuple(shape)}")
+
+
+def wkv6_keyslice(r, k, v, w, u, state):
+    """The forward over a key slice of every head's state: r, k, w (B,T,H,K)
+    (w float32), v (B,T,H,V), u (H,K) float32, state (B,H,K,V) float32, K
+    a power of two below V, V 32 or 64 -> (the slice's share of y
+    (B,T,H,V) in r's dtype, its rows of the new state (B,H,K,V) float32).
+    CPU tensors take ``wkv6_plain``; CUDA tensors launch
+    ``wkv6_keyslice_kernel``; no backward."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        raise ValueError("wkv6_keyslice: the key-slice forward has no "
+                         "backward")
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, state)
+    name = "wkv6_keyslice"
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    _keyslice_check(name, r, k, v, w, u, state)
+    if r.device.type == "meta":
+        return build.meta_call(
+            name, (r, k, v, w, u, state),
+            (torch.empty_like(v), torch.empty_like(state)),
+            *keyslice_cost(B, T, H, K, V, r.element_size()))
+    build.require_cuda(name, r, k, v, w, u, state)
+    y = torch.empty_like(v)
+    s_out = torch.empty_like(state)
+    with build.on_device(r):
+        rc = build.lib().aqua_wkv6_keyslice(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+            B, T, H, K, V, _DTYPE_CODES[r.dtype], build.stream_of(r))
+    build.check(name, rc)
+    build.LAUNCHES[name] += 1
+    return y, s_out
 
 
 def _forward(r, k, v, w, u, state):
@@ -338,7 +425,10 @@ def wkv6(r, k, v, w, u, state):
     -> (y (B,T,H,hd) in r's dtype, state' (B,H,hd,hd) float32)
 
     Under autograd (grad enabled and an input requiring it) the call is the
-    ``WKV6`` op, whose backward is ``wkv6_bwd``."""
+    ``WKV6`` op, whose backward is ``wkv6_bwd``. A key slice (v's last dim
+    wider than r's: a rectangular state) goes to ``wkv6_keyslice``."""
+    if v.shape[-1] != r.shape[-1]:
+        return wkv6_keyslice(r, k, v, w, u, state)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state)):
         return WKV6.apply(r, k, v, w, u, state)

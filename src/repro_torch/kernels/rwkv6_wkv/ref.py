@@ -9,6 +9,14 @@ Per head (head_dim hd, state S in R^{hd x hd}):
 ``wkv6_ref`` is the sequential scan and ``wkv6_chunked`` the chunked form of
 ``repro/layers/rwkv6.py`` (the algorithm of the Pallas kernel); ``wkv6_plain``
 applies the reference layer's dispatch between them.
+
+The forward's plain versions also take a rectangular state: r, k, w of
+shape (B,T,H,K), v (B,T,H,V), u (H,K) and the state (B,H,K,V) with K <= V.
+Each term of the recurrence is a sum over the key dims i (y_t = sum_i
+r_t[i] (S[i] + u[i] k_t[i] v_t)) and row i of the state is updated from key
+dim i alone, so a key slice's call gives that slice's share of y, exactly,
+and its rows of the new state: the partitioned step's sum of y over the
+slices is the whole y.
 """
 from __future__ import annotations
 
@@ -24,9 +32,9 @@ def _acc_dtype(*tensors) -> torch.dtype:
 
 
 def wkv6_ref(r, k, v, w, u, state):
-    """r,k,v,w: (B,T,H,hd); u: (H,hd); state: (B,H,hd,hd) -> (y in r's
-    dtype, state' float32). Sequential over T, in float32 (float64 when
-    an input is float64)."""
+    """r,k,w: (B,T,H,K); v: (B,T,H,V); u: (H,K); state: (B,H,K,V) -> (y
+    (B,T,H,V) in r's dtype, state' float32). Sequential over T, in float32
+    (float64 when an input is float64)."""
     acc = _acc_dtype(r, k, v, w, u, state)
     rf, kf, vf, wf = (a.to(acc) for a in (r, k, v, w))
     uf = u.to(acc)[None, :, :, None]
@@ -47,8 +55,10 @@ def wkv6_chunked(r, k, v, w, u, state, chunk: int = WKV_CHUNK):
     upper triangle's positive exponents by zero after exp, which turns an
     overflow into NaN; the Pallas kernel masks with ``where``, as here).
     Falls back to the scan when no chunk length divides T, as the reference
-    does."""
+    does. A rectangular state (K key rows, V value columns) as
+    ``wkv6_ref`` takes it."""
     B, T, H, hd = r.shape
+    V = v.shape[-1]
     chunk = min(chunk, T)
     if T % chunk != 0:
         return wkv6_ref(r, k, v, w, u, state)
@@ -58,11 +68,11 @@ def wkv6_chunked(r, k, v, w, u, state, chunk: int = WKV_CHUNK):
 
     def fold(x):
         return (x.to(acc).permute(0, 2, 1, 3)
-                .reshape(B * H, nt, chunk, hd))
+                .reshape(B * H, nt, chunk, x.shape[-1]))
 
     rf, kf, vf, wf = fold(r), fold(k), fold(v), fold(w)
     uf = u.to(acc)[None].expand(B, H, hd).reshape(B * H, 1, hd)
-    S = state.to(acc).reshape(B * H, hd, hd)
+    S = state.to(acc).reshape(B * H, hd, V)
     ti = torch.arange(chunk, device=r.device)
     lower = (ti[None, :] < ti[:, None])[None, :, :, None]    # tau < t
     ys = []
@@ -82,15 +92,15 @@ def wkv6_chunked(r, k, v, w, u, state, chunk: int = WKV_CHUNK):
         k_tail = kc * torch.exp(lw[:, -1:] - lw)
         S = (torch.exp(lw[:, -1])[..., None] * S
              + torch.einsum("bch,bcj->bhj", k_tail, vc))
-    y = torch.stack(ys, dim=1).reshape(B, H, T, hd).permute(0, 2, 1, 3)
-    return y.to(r.dtype), S.reshape(B, H, hd, hd)
+    y = torch.stack(ys, dim=1).reshape(B, H, T, V).permute(0, 2, 1, 3)
+    return y.to(r.dtype), S.reshape(B, H, hd, V)
 
 
 def wkv6_plain(r, k, v, w, u, state):
     """The reference layer's dispatch (``repro/layers/rwkv6.py``
     ``rwkv_time_mix`` without the kernel): the chunked form when
     ``T >= 2 * WKV_CHUNK`` and ``T % WKV_CHUNK == 0``, the scan
-    otherwise."""
+    otherwise. Square or rectangular (a key slice) states."""
     T = r.shape[1]
     if T >= 2 * WKV_CHUNK and T % WKV_CHUNK == 0:
         return wkv6_chunked(r, k, v, w, u, state)

@@ -28,16 +28,13 @@ with ``meta`` entries (``launch/mesh.py:make_placeholder_mesh``):
 * ``cost``: the meta trace's count (``analysis/roofline.py``), with
   ``flops``, ``bytes accessed`` and ``collective bytes``, and the trace
   written beside the record. On ``h100`` the step at the cell's global
-  shapes. On the pods, for the serving cells of the families the
-  partitioned step takes (attention, MLP and MoE layers:
-  ``partition.unsupported_reason``), rank 0's partitioned step
+  shapes. On the pods, for every serving cell, rank 0's partitioned step
   (``api.prefill`` / ``api.decode_step`` with ``shard_axes``) on its
   shards, traced under a fake process group of the mesh's size
   (``partition.fake_world``): the cost and ``temp_size_in_bytes`` a
-  device, its collectives recorded as ``_c10d_functional`` ops. Every
-  other pod cell keeps ``cost: null``, with a ``cost_reason`` that names
-  what is missing (the partitioned train step; MLA, Mamba, RWKV-6 or the
-  encoder-decoder served).
+  device, its collectives recorded as ``_c10d_functional`` ops. A pod's
+  training cell keeps ``cost: null``, with a ``cost_reason`` that names
+  what is missing (the partitioned train step).
 """
 from __future__ import annotations
 
@@ -111,17 +108,15 @@ def _memory(arguments: int, outputs: int, aliased: int) -> dict:
             "generated_code_size_in_bytes": 0}
 
 
-def pod_cost_reason(cfg, shape) -> str:
+def pod_cost_reason(shape) -> str:
     """Why a cell on a multi-device mesh has no traced cost ('' if it
     has one)."""
-    why = TRAIN_REASON if shape.kind == "train" else \
-        partition.unsupported_reason(cfg)
-    return f"no cost: {why}" if why else ""
+    return f"no cost: {TRAIN_REASON}" if shape.kind == "train" else ""
 
 
-def partitioned(cfg, shape, mesh) -> bool:
+def partitioned(shape, mesh) -> bool:
     """Whether the cell traces rank 0's partitioned step."""
-    return mesh.devices.size > 1 and not pod_cost_reason(cfg, shape)
+    return mesh.devices.size > 1 and not pod_cost_reason(shape)
 
 
 def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
@@ -170,7 +165,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
     memory = _memory(param_b + cache_b + rest_b, cache_b + _per_device(
         logits, rules.batch_spec(logits, B), sizes), cache_b)
     axes = {}
-    if partitioned(cfg, shape, mesh):
+    if partitioned(shape, mesh):
         rank = rank_context(mesh, device="meta")
         axes = {"shard_axes": {"dp": rules.dp, "tp": "model", "mesh": mesh,
                                "ctx": rank}}
@@ -209,8 +204,7 @@ def run_cell(arch: str, shape_name: str, *, mesh_name: str, out_dir: str,
         rec.update(status="skipped", reason=reason)
         return rec
     mesh = make_placeholder_mesh(mesh_name)
-    traced = mesh_name == TRACED_MESH or partitioned(
-        cfg if not overrides else cfg.replace(**overrides), shape, mesh)
+    traced = mesh_name == TRACED_MESH or partitioned(shape, mesh)
     world = partition.fake_world(mesh.devices.size) \
         if traced and mesh_name != TRACED_MESH else contextlib.nullcontext()
     t0 = time.monotonic()
@@ -233,7 +227,7 @@ def run_cell(arch: str, shape_name: str, *, mesh_name: str, out_dir: str,
         rec.update(status="ok", lower_s=round(t_lower, 1),
                    compile_s=round(t_trace, 1), memory=mem, cost=cost)
         if cost is None:
-            rec["cost_reason"] = pod_cost_reason(cfg, shape)
+            rec["cost_reason"] = pod_cost_reason(shape)
         temp = mem["temp_size_in_bytes"]
         print(f"[dryrun] {mesh_name} {arch} {shape_name} {tag} OK "
               f"build={t_lower:.1f}s trace={t_trace:.1f}s "

@@ -38,8 +38,9 @@ from repro_torch.kernels.paged_attention.ref import (
     append_kv_ref, paged_attention_pool_ref, paged_mixed_attention_pool_ref,
     paged_prefill_attention_pool_ref, write_kv_rows_ref)
 from repro_torch.layers.core import (Linear, _param, apply_rope, check_impl,
-                                     linear, linear_cols, linear_rows,
-                                     qk_head_norm, select_update)
+                                     linear, linear_cols, linear_gathered,
+                                     linear_rows, qk_head_norm,
+                                     select_update)
 
 
 class KVCache(NamedTuple):
@@ -244,23 +245,11 @@ def _heads_qkv(p: Attention, cfg: ModelConfig, x, positions, rank):
 
 
 def _gathered_qkv(p: Attention, x, rank, with_q: bool):
-    """The projections' outputs with every column: each rank's column
-    slices, concatenated, in ONE all-gather over ``model`` (a projection
-    whose columns are not split is whole already) -> [q if with_q], k, v,
-    each (B, T, features)."""
+    """The projections' outputs with every column, in ONE all-gather over
+    ``model`` (``linear_gathered``) -> [q if with_q], k, v, each (B, T,
+    features)."""
     projs = ([p.wq] if with_q else []) + [p.wk, p.wv]
-    outs = [linear_cols(w, x, rank)[0] for w in projs]
-    split = [pspec(w, "w")[1] is not None for w in projs]
-    if any(split):
-        B, T, _ = x.shape
-        widths = [o.shape[-1] for o, s in zip(outs, split) if s]
-        n = rank.model_n
-        full = rank.all_gather(torch.cat([o for o, s in zip(outs, split)
-                                          if s], -1), -1, "model")
-        parts = iter(full.reshape(B, T, n, -1).split(widths, -1))
-        outs = [next(parts).reshape(B, T, -1) if s else o
-                for o, s in zip(outs, split)]
-    return outs
+    return linear_gathered([(w, x) for w in projs], rank)
 
 
 def _covered_heads(cfg: ModelConfig, p: Attention, rank):
@@ -337,23 +326,57 @@ def attention_prefill_sharded(p: Attention, cfg: ModelConfig, x,
         ctx = attend(q, k, v, causal=True, window=window)
         fill_kv_cache(cache, k, v, window)
         return linear_rows(p.wo, ctx.reshape(B, T, -1), lo, hi, rank)
+    out, k, v = _covered_attention(p, cfg, x, rank, causal=True,
+                                   window=window, impl=impl)
+    _fill_owned_slots(cache, k, v, window, spec, rank)
+    return out
+
+
+def _covered_attention(p, cfg: ModelConfig, x, rank, *, kv=None,
+                       causal: bool, window: int = 0, impl: str = "kernel"):
+    """The flash op over the q heads the rank's ``wo`` rows touch (its own
+    heads where the q heads divide the axis; else at most a head more on
+    each side), against every kv head they read: self-attention with
+    ``kv`` None (k and v, and q where the rank's ``wo`` rows are not its
+    own q columns, all-gathered in one collective; norms and RoPE at
+    ``arange(T)``), else cross-attention over ``kv`` = (k, v) (B,Sk,K,hd)
+    whole (q alone, no RoPE, at any Sk). The rank's features through its
+    rows of ``wo``, all-reduced. -> (out (B,T,d), k, v)"""
+    B, T, _ = x.shape
     hd, H, K = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     flo, fhi, h0, h1 = _covered_heads(cfg, p, rank)
     qlo, qhi = rank.range(pspec(p.wq, "w")[1], p.wq.w.shape[1])
     own_q = (qlo, qhi) == (h0 * hd, h1 * hd)
-    outs = _gathered_qkv(p, x, rank, with_q=not own_q)
+    outs = linear_gathered([(w, x) for w in ([] if own_q else [p.wq])
+                            + ([p.wk, p.wv] if kv is None else [])], rank)
     if own_q:
         q = linear_cols(p.wq, x, rank)[0].reshape(B, T, -1, hd)
     else:
         q = outs.pop(0).reshape(B, T, H, hd)[:, :, h0:h1]
-    k, v = (t.reshape(B, T, K, hd) for t in outs)
-    q, k = _norm_rope(p, cfg, q, k, positions)
+    if kv is None:
+        k, v = (t.reshape(B, T, K, hd) for t in outs)
+        q, k = _norm_rope(p, cfg, q, k,
+                          torch.arange(T, device=x.device)[None, :])
+    else:
+        k, v = kv
     kc, vc = _kv_for_heads(k, v, h0, h1, H // K)
+    attend = fa_ops.flash_attention if impl == "kernel" else \
+        flash_attention_ref
     ctx = attend(q.contiguous(), kc.contiguous(), vc.contiguous(),
-                 causal=True, window=window)
+                 causal=causal, window=window)
     feats = ctx.reshape(B, T, -1)[..., flo - h0 * hd:fhi - h0 * hd]
-    _fill_owned_slots(cache, k, v, window, spec, rank)
-    return linear_rows(p.wo, feats, flo, fhi, rank)
+    return linear_rows(p.wo, feats, flo, fhi, rank), k, v
+
+
+def attention_bidir_sharded(p, cfg: ModelConfig, x, rank, *, kv=None,
+                            impl: str = "kernel") -> torch.Tensor:
+    """``attention_bidir`` on a rank (x (B,T,d) replicated over
+    ``model``; ``kv`` the cross-attention's whole (k, v)): the flash op at
+    ``causal=False`` over the q heads the rank's ``wo`` rows touch
+    (``_covered_attention``)."""
+    check_impl(impl)
+    return _covered_attention(p, cfg, x, rank, kv=kv, causal=False,
+                              impl=impl)[0]
 
 
 def _partial_sdpa(q, k, v, mask):
@@ -435,6 +458,38 @@ def attention_decode_sharded(p: Attention, cfg: ModelConfig, x,
         ctx = _merge_partials(o, m, l, rank, q.dtype)
     feats = ctx.reshape(B, 1, H * hd)[..., flo:fhi]
     return linear_rows(p.wo, feats, flo, fhi, rank)
+
+
+def cross_decode_sharded(p, cfg: ModelConfig, x, cache: KVCache, *, spec,
+                         rank, impl: str = "kernel") -> torch.Tensor:
+    """``attention_bidir(kv=cache)`` of one token a lane on a rank:
+    ``cache`` the rank's block of a layer's cross K/V under ``spec`` (the
+    stacked leaf's). Heads: the rank's heads over its kv heads, its rows
+    of ``wo``. Replicated: the q heads its ``wo`` rows touch over every
+    kv head (``_covered_attention``). Sequence: every head over the
+    rank's slots, the partials merged over ``model``
+    (``_merge_partials``), the rank's features through its rows of
+    ``wo``. Each route all-reduces after ``wo``."""
+    check_impl(impl)
+    B = x.shape[0]
+    hd, H = cfg.resolved_head_dim, cfg.n_heads
+    k, v = cache.k.to(x.dtype), cache.v.to(x.dtype)
+    route = attn_route(spec)
+    if route == "replicated":
+        return attention_bidir_sharded(p, cfg, x, rank, kv=(k, v),
+                                       impl=impl)
+    if route == "heads":
+        q, lo, hi = linear_cols(p.wq, x, rank)
+        attend = fa_ops.flash_attention if impl == "kernel" else \
+            flash_attention_ref
+        ctx = attend(q.reshape(B, 1, -1, hd), k, v, causal=False)
+        return linear_rows(p.wo, ctx.reshape(B, 1, -1), lo, hi, rank)
+    q = linear_gathered([(p.wq, x)], rank)[0].reshape(B, 1, H, hd)
+    every = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=x.device)
+    ctx = _merge_partials(*_partial_sdpa(q, k, v, every), rank, q.dtype)
+    flo, fhi, _, _ = _covered_heads(cfg, p, rank)
+    return linear_rows(p.wo, ctx.reshape(B, 1, H * hd)[..., flo:fhi], flo,
+                       fhi, rank)
 
 
 def attention_prefill_chunk(p: Attention, cfg: ModelConfig, x, kv_pool,

@@ -24,7 +24,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.partition import pspec
+from repro_torch.distributed.partition import AXES, pspec
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -160,6 +160,32 @@ def linear_rows(p: Linear, x: torch.Tensor, lo: int, hi: int, ctx):
     if p.b is not None:
         y = y + ctx.gather(p.b, pspec(p, "b")).to(x.dtype)
     return y
+
+
+def linear_gathered(pairs, ctx):
+    """In-projections on a rank with every output column: ``pairs`` of
+    (Linear, its input); each projection's column slice (``linear_cols``),
+    those that are split concatenated into ONE all-gather over ``model``
+    (a projection whose columns are not split is whole already) -> the
+    outputs, each (..., d_out)."""
+    outs = [linear_cols(p, x, ctx)[0] for p, x in pairs]
+    split = [pspec(p, "w")[1] is not None for p, _ in pairs]
+    if any(split):
+        lead = outs[0].shape[:-1]
+        widths = [o.shape[-1] for o, s in zip(outs, split) if s]
+        full = ctx.all_gather(torch.cat([o for o, s in zip(outs, split)
+                                         if s], -1), -1, "model")
+        parts = iter(full.reshape(*lead, ctx.model_n, -1).split(widths, -1))
+        outs = [next(parts).reshape(*lead, -1) if s else o
+                for o, s in zip(outs, split)]
+    return outs
+
+
+def whole(p: nn.Module, name: str, ctx) -> torch.Tensor:
+    """A sharded module's parameter ``name`` all-gathered over every axis
+    its spec names: the whole tensor (small weights a rank uses in
+    full)."""
+    return ctx.gather(getattr(p, name), pspec(p, name), AXES)
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:

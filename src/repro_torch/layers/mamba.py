@@ -11,7 +11,10 @@ single recurrence step over the per-request state, the state that AQUA
 pages on the ``ssm`` and ``conv`` planes. The reference has no Pallas
 kernel here: the products are ``torch.matmul`` and the scan PyTorch ops.
 
-Not ported: ``shard_axes`` (tensor-parallel sharding of the inner dim).
+On a rank of a mesh (``mamba_sharded``; the reference constrains ``xz``
+to the model axis and lets GSPMD split the rest) the conv runs on the
+rank's channels of the conv state and the scan on its block of the ssm
+state, whose d_state (or inner dim) the rules split over ``model``.
 """
 from __future__ import annotations
 
@@ -23,9 +26,14 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.layers.core import Linear, _param, linear, trunc_normal
+from repro_torch.distributed.partition import own_slices, splits
+from repro_torch.layers.core import (Linear, _param, linear,
+                                     linear_gathered, linear_rows,
+                                     trunc_normal, whole)
 
 MAMBA_CHUNK = 128
+# the most bytes of float32 transition tensors (a, b) scanned at once
+MAMBA_GROUP_BYTES = 1 << 26
 
 
 class MambaState(NamedTuple):
@@ -77,13 +85,15 @@ class Mamba(nn.Module):
         self.out_proj = Linear(di, d, dt, device, generator=generator)
 
 
-def _ssm_inputs(p: Mamba, cfg: ModelConfig, xc):
+def _ssm_inputs(p: Mamba, cfg: ModelConfig, xc, w=None):
     """xc: (B,T,di) post-conv activations -> dt (softplus in float32 of
-    the projection plus ``dt_bias``), B and C in float32."""
+    the projection plus ``dt_bias``), B and C in float32. ``w``: the
+    weights (x_proj, dt_proj, dt_bias) where not ``p``'s own."""
     _, ds, _, dtr = _dims(cfg)
-    bcd = linear(p.x_proj, xc)
+    x_proj, dt_proj, dt_bias = w or (p.x_proj.w, p.dt_proj.w, p.dt_bias)
+    bcd = xc @ x_proj.to(xc.dtype)
     dt_in, Bm, Cm = torch.split(bcd, [dtr, ds, ds], dim=-1)
-    dt = F.softplus(linear(p.dt_proj, dt_in).float() + p.dt_bias.float())
+    dt = F.softplus((dt_in @ dt_proj.to(xc.dtype)).float() + dt_bias.float())
     return dt, Bm.float(), Cm.float()
 
 
@@ -105,25 +115,37 @@ def _chunked_ssm_scan(dt, Bm, Cm, x, A, h0):
     (di,ds); h0: (B,di,ds) float32. -> (y (B,T,di) float32, h (B,di,ds)).
 
     ``MAMBA_CHUNK``-token chunks when T is a multiple of it, else one chunk
-    of T; the transition tensors a, b (B,ck,di,ds) are built per chunk, and
-    h is carried from chunk to chunk."""
+    of T; the transition tensors a, b (B,ck,di,ds) are built and scanned
+    for as many chunks at a time as fit ``MAMBA_GROUP_BYTES`` (one at a
+    time at a full model's widths), and h is carried from chunk to chunk.
+    Every product is elementwise or the chunk's own, so the grouping
+    changes no result."""
     B, T, di = x.shape
+    ds = A.shape[-1]
     nchunk = (T // MAMBA_CHUNK if T % MAMBA_CHUNK == 0 and T >= MAMBA_CHUNK
               else 1)
     ck = T // nchunk
+    group = max(1, min(nchunk, MAMBA_GROUP_BYTES // (B * ck * di * ds * 4)))
     h, ys = h0, []
-    for c in range(nchunk):
-        s = slice(c * ck, (c + 1) * ck)
-        dt_c, B_c, C_c = dt[:, s], Bm[:, s], Cm[:, s]
-        a_c = torch.exp(dt_c[..., None] * A[None, None])       # (B,ck,di,ds)
-        b_c = (dt_c * x[:, s].float())[..., None] * B_c[:, :, None, :]
+    for c0 in range(0, nchunk, group):
+        g = min(group, nchunk - c0)
+        s = slice(c0 * ck, (c0 + g) * ck)
+
+        def chunks(t):                              # (B,g ck,n) -> (B g,ck,n)
+            return t[:, s].reshape(B * g, ck, t.shape[-1])
+        dt_c, B_c = chunks(dt), chunks(Bm)
+        a_c = torch.exp(dt_c[..., None] * A[None, None])       # (Bg,ck,di,ds)
+        b_c = (dt_c * chunks(x).float())[..., None] * B_c[:, :, None, :]
         aa, bb = _inclusive_scan(a_c, b_c)
         del a_c, b_c
-        h_all = aa * h[:, None] + bb                           # (B,ck,di,ds)
+        aa, bb = (t.reshape(B, g, ck, di, ds) for t in (aa, bb))
+        for i in range(g):
+            h_all = aa[:, i] * h[:, None] + bb[:, i]           # (B,ck,di,ds)
+            c = (c0 + i) * ck
+            ys.append(torch.einsum("btds,bts->btd", h_all, Cm[:, c:c + ck]))
+            h = h_all[:, -1]
+            del h_all
         del aa, bb
-        ys.append(torch.einsum("btds,bts->btd", h_all, C_c))
-        h = h_all[:, -1]
-        del h_all
     return torch.cat(ys, dim=1), h
 
 
@@ -152,7 +174,7 @@ def _lane_lengths(n_real, B: int, device):
     return torch.as_tensor(nr.reshape(B)).to(device)
 
 
-def _causal_conv(p: Mamba, x, conv_prev, n_real=None):
+def _causal_conv(p: Mamba, x, conv_prev, n_real=None, w=None):
     """Depthwise causal conv over time. x: (B,T,di); conv_prev:
     (B,dc-1,di). The dc taps are summed in the compute dtype from tap 0,
     then ``conv_b`` is added (the reference's rounding order).
@@ -162,11 +184,13 @@ def _causal_conv(p: Mamba, x, conv_prev, n_real=None):
     window of the last ``dc-1`` inputs ending at that row. Row ``j`` of the
     padded input holds input ``j-(dc-1)``, so the tail of ``n_real`` real
     tokens starts at row ``n_real``; the vector form gathers each lane's
-    window. -> (out (B,T,di), tail (B,dc-1,di))"""
-    dc = p.conv_w.shape[0]
+    window. ``w``: the taps and bias (conv_w, conv_b) where not ``p``'s
+    own (a rank's channels). -> (out (B,T,di), tail (B,dc-1,di))"""
+    conv_w, conv_b = w or (p.conv_w, p.conv_b)
+    dc = conv_w.shape[0]
     B, T, _ = x.shape
     xp = torch.cat([conv_prev.to(x.dtype), x], dim=1)          # (B,T+dc-1,di)
-    w = p.conv_w.to(x.dtype)
+    w = conv_w.to(x.dtype)
     out = xp[:, 0:T] * w[0][None, None]
     for i in range(1, dc):
         out = out + xp[:, i:i + T] * w[i][None, None]
@@ -177,7 +201,7 @@ def _causal_conv(p: Mamba, x, conv_prev, n_real=None):
     else:
         start = T if nr is None else min(max(nr, 0), T)
         tail = xp[:, start:start + dc - 1]
-    return out + p.conv_b.to(x.dtype), tail
+    return out + conv_b.to(x.dtype), tail
 
 
 def mamba_forward(p: Mamba, cfg: ModelConfig, x, state: MambaState,
@@ -220,4 +244,54 @@ def mamba_decode(p: Mamba, cfg: ModelConfig, x, state: MambaState
                      state.ssm.float())
     y = (y[:, None] + p.D.float()[None, None] * xc.float()).to(x.dtype)
     out = linear(p.out_proj, y * F.silu(z))
+    return out, MambaState(h, conv_tail.to(state.conv.dtype))
+
+
+def mamba_sharded(p: Mamba, cfg: ModelConfig, x, state: MambaState,
+                  specs: MambaState, rank, *, decode: bool = False
+                  ) -> Tuple[torch.Tensor, MambaState]:
+    """``mamba_forward`` (``mamba_decode`` with ``decode``) on a rank: x
+    (B,T,d) replicated over ``model``; ``state`` the rank's blocks of the
+    cache under ``specs`` (without the group entry): conv channels
+    [c0, c1), the ssm state's channels [i0, i1) and states [s0, s1).
+
+    ``in_proj``'s columns (the rules split [x_in | z] over ``model``, so a
+    rank holds only x_in's or only z's) are all-gathered whole; the conv
+    runs on the rank's channels against its conv state, and its output is
+    all-gathered whole; x_proj, dt_proj and A_log are gathered whole (they
+    are small); the scan runs on the rank's block of the ssm state over
+    its channels and states, and the partial C.h, placed at its channels,
+    is all-reduced over ``model``; then D, the gate and the rank's rows of
+    ``out_proj``, all-reduced."""
+    B, T, _ = x.shape
+    di = _dims(cfg)[0]
+    x_in, z = torch.chunk(linear_gathered([(p.in_proj, x)], rank)[0], 2,
+                          dim=-1)
+    conv = own_slices(state.conv, specs.conv, rank, (2,))[2]
+    xc, conv_tail = _causal_conv(
+        p, x_in[..., conv], state.conv,
+        w=(whole(p, "conv_w", rank)[:, conv], whole(p, "conv_b", rank)[conv]))
+    xc = F.silu(xc)
+    if splits(specs.conv):
+        xc = rank.all_gather(xc, -1, "model")
+    dt, Bm, Cm = _ssm_inputs(p, cfg, xc, w=tuple(
+        whole(m, n, rank) for m, n in ((p.x_proj, "w"), (p.dt_proj, "w"),
+                                       (p, "dt_bias"))))
+    chans, sts = own_slices(state.ssm, specs.ssm, rank, (1, 2))[1:]
+    A = -torch.exp(whole(p, "A_log", rank).float())[chans, sts]
+    args = (dt[..., chans], Bm[..., sts], Cm[..., sts], xc[..., chans], A,
+            state.ssm.float())
+    if decode:
+        y, h = _ssm_step(*(t[:, 0] for t in args[:4]), *args[4:])
+        y = y[:, None]
+    else:
+        y, h = _chunked_ssm_scan(*args)
+    if splits(specs.ssm):
+        if y.shape[-1] != di:
+            y = torch.zeros((B, T, di), dtype=y.dtype,
+                            device=y.device).index_copy_(
+                2, torch.arange(chans.start, chans.stop, device=y.device), y)
+        y = rank.all_reduce(y, "model")
+    y = (y + whole(p, "D", rank).float()[None, None] * xc.float()).to(x.dtype)
+    out = linear_rows(p.out_proj, y * F.silu(z), 0, di, rank)
     return out, MambaState(h, conv_tail.to(state.conv.dtype))

@@ -11,7 +11,9 @@ as in the attention layers. The reference computes all of it in ``jnp``
 (no Pallas kernel), so the products here are PyTorch's. Training and the
 dense cache's prefill take ``mla_full``, the non-absorbed full-sequence
 causal form; the dense cache (``MLACache``: the latents and roped keys
-of positions [0, seq)) decodes absorbed (``mla_decode``), in place.
+of positions [0, seq)) decodes absorbed (``mla_decode``), in place. On a
+rank of a mesh the rules split the latent cache's columns:
+``mla_prefill_sharded`` / ``mla_decode_sharded``.
 
 Not ported: a low-rank query (``q_lora_rank > 0``).
 """
@@ -25,8 +27,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.partition import own_slices, pspec, splits
 from repro_torch.layers.core import (Linear, RMSNorm, apply_rope, linear,
-                                     rms_norm, select_update)
+                                     linear_rows, rms_norm, select_update,
+                                     whole)
 
 
 class MLACache(NamedTuple):
@@ -63,22 +67,24 @@ def latent_dim(cfg: ModelConfig) -> int:
     return cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
 
 
-def _latents(p: MLA, cfg: ModelConfig, x, positions):
+def _latents(p: MLA, cfg: ModelConfig, x, positions, wdkv=None):
     """x (B,T,d) -> normalised latents (B,T,kv_lora), roped keys
-    (B,T,rope)."""
+    (B,T,rope). ``wdkv``: the projection where not ``p``'s own."""
     r = cfg.mla.kv_lora_rank
-    c = linear(p.wdkv, x)
+    c = linear(p.wdkv, x) if wdkv is None else x @ wdkv.to(x.dtype)
     c_kv = rms_norm(p.kv_norm, c[..., :r], cfg.rmsnorm_eps)
     k_rope = apply_rope(c[..., r:][:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
     return c_kv, k_rope
 
 
-def _queries(p: MLA, cfg: ModelConfig, x, positions):
+def _queries(p: MLA, cfg: ModelConfig, x, positions, wq=None):
+    """x (B,T,d) -> (q_nope, roped q_rope) of every head, or of the heads
+    whose columns ``wq`` holds."""
     m = cfg.mla
     B, T, _ = x.shape
-    q = linear(p.wq, x).reshape(B, T, cfg.n_heads,
-                                m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = (linear(p.wq, x) if wq is None else x @ wq.to(x.dtype)).reshape(
+        B, T, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -97,14 +103,24 @@ def mla_full(p: MLA, cfg: ModelConfig, x, *, return_cache: bool = False):
     roped keys ((B,T,kv_lora), (B,T,rope)). Its q.k width (nope + rope,
     192 on V2) and v width (128) differ, which the flash kernels do not
     take: the products are PyTorch's."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    c_kv, k_rope = _latents(p, cfg, x, positions)
+    ctx = _full_heads(cfg, x, positions, c_kv, k_rope, p.wq.w, p.wuk.w,
+                      p.wuv.w)
+    out = linear(p.wo, ctx)
+    return (out, (c_kv, k_rope)) if return_cache else out
+
+
+def _full_heads(cfg: ModelConfig, x, positions, c_kv, k_rope, wq, wuk, wuv):
+    """``mla_full``'s attention for the heads whose columns ``wq``,
+    ``wuk`` and ``wuv`` hold, over the whole latents -> ctx (B,T,heads x
+    v)."""
     m = cfg.mla
     B, T, _ = x.shape
-    H = cfg.n_heads
-    positions = torch.arange(T, device=x.device)[None, :]
-    c_kv, k_rope = _latents(p, cfg, x, positions)
-    q_nope, q_rope = _queries(p, cfg, x, positions)
-    k_nope = linear(p.wuk, c_kv).reshape(B, T, H, m.qk_nope_head_dim)
-    v = linear(p.wuv, c_kv).reshape(B, T, H, m.v_head_dim)
+    q_nope, q_rope = _queries(None, cfg, x, positions, wq=wq)
+    H = q_nope.shape[2]
+    k_nope = (c_kv @ wuk.to(x.dtype)).reshape(B, T, H, m.qk_nope_head_dim)
+    v = (c_kv @ wuv.to(x.dtype)).reshape(B, T, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, T, H, m.qk_rope_head_dim)], dim=-1)
@@ -113,9 +129,7 @@ def mla_full(p: MLA, cfg: ModelConfig, x, *, return_cache: bool = False):
     mask = (ti[None, :] <= ti[:, None])[None, None]
     scores = scores.float().masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhts,bshd->bthd", probs, v)
-    out = linear(p.wo, ctx.reshape(B, T, -1))
-    return (out, (c_kv, k_rope)) if return_cache else out
+    return torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, -1)
 
 
 def make_mla_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
@@ -354,3 +368,121 @@ def mla_mixed_paged(p: MLA, cfg: ModelConfig, x, lat_pool, block_table,
                                          bt[:, :read_pps], positions))
     out = out_rows[0] if len(out_rows) == 1 else torch.cat(out_rows, dim=0)
     return out, lat_pool
+
+
+# ---------------------------------------------------------------------------
+# The partitioned step (a rank's shards; ``distributed/partition.py``)
+# ---------------------------------------------------------------------------
+def _latent_split(specs: MLACache) -> bool:
+    """Whether the rules split the latent cache's feature dims over
+    ``model`` (both leaves alike); its positions are never split here."""
+    if any(splits((e,)) for e in (specs.c_kv[1], specs.k_rope[1])):
+        raise ValueError("an MLA cache split over its positions is not "
+                         "taken by the partitioned step")
+    split = splits(specs.c_kv)
+    if splits(specs.k_rope) != split:
+        raise ValueError("the MLA cache's latents and roped keys must "
+                         "split alike")
+    return split
+
+
+def _mla_heads(p: MLA, cfg: ModelConfig, rank):
+    """The heads [h0, h1) the rank computes and their ``wq``, ``wuk``,
+    ``wuv`` columns: its own heads where the four projections' splits give
+    it the same whole heads (``wo`` by rows), else every head from the
+    weights gathered whole."""
+    m = cfg.mla
+    widths = ((p.wq, m.qk_nope_head_dim + m.qk_rope_head_dim, 1),
+              (p.wuk, m.qk_nope_head_dim, 1), (p.wuv, m.v_head_dim, 1),
+              (p.wo, m.v_head_dim, 0))
+    heads = set()
+    for w, width, dim in widths:
+        lo, hi = rank.range(pspec(w, "w")[dim], w.w.shape[dim])
+        heads.add((lo // width, hi // width) if lo % width == hi % width == 0
+                  else None)
+    if len(heads) == 1 and None not in heads:
+        h0, h1 = heads.pop()
+        return (h0, h1, *(rank.gather(w.w, pspec(w, "w"))
+                          for w in (p.wq, p.wuk, p.wuv)))
+    return (0, cfg.n_heads, *(whole(w, "w", rank)
+                              for w in (p.wq, p.wuk, p.wuv)))
+
+
+def _out_sharded(p: MLA, cfg: ModelConfig, ctx, h0: int, rank):
+    """The rank's features of ctx (B,T,(h1-h0) v) through its rows of
+    ``wo``, all-reduced."""
+    v = cfg.mla.v_head_dim
+    flo, fhi = rank.range(pspec(p.wo, "w")[0], p.wo.w.shape[0])
+    return linear_rows(p.wo, ctx[..., flo - h0 * v:fhi - h0 * v], flo, fhi,
+                       rank)
+
+
+def mla_prefill_sharded(p: MLA, cfg: ModelConfig, x, cache: MLACache,
+                        specs: MLACache, rank) -> torch.Tensor:
+    """``mla_full(return_cache=True)`` + ``fill_mla_cache`` on a rank: x
+    (B,T,d) replicated over ``model``, ``cache`` the rank's block under
+    ``specs`` (its columns of the latents and of the roped keys). The
+    whole latent projection (``wdkv`` gathered: the rules' column split
+    does not line up with the cache's, and RoPE pairs dim i with i + 32),
+    the norm and RoPE on it, the rank's columns into its cache; then the
+    rank's heads in full and its rows of ``wo``, all-reduced."""
+    _latent_split(specs)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    c_kv, k_rope = _latents(p, cfg, x, positions,
+                            wdkv=whole(p.wdkv, "w", rank))
+    T = x.shape[1]
+    for buf, new, spec in ((cache.c_kv, c_kv, specs.c_kv),
+                           (cache.k_rope, k_rope, specs.k_rope)):
+        buf[:, :T] = new[own_slices(buf, spec, rank, (2,))].to(buf.dtype)
+    h0, _, wq, wuk, wuv = _mla_heads(p, cfg, rank)
+    ctx = _full_heads(cfg, x, positions, c_kv, k_rope, wq, wuk, wuv)
+    return _out_sharded(p, cfg, ctx, h0, rank)
+
+
+def mla_decode_sharded(p: MLA, cfg: ModelConfig, x, cache: MLACache, pos,
+                       specs: MLACache, rank) -> torch.Tensor:
+    """``mla_decode`` on a rank, contraction-parallel over the latent dim
+    the cache splits: the new latent and roped key computed whole, the
+    rank's columns written at row ``pos``; the rank's heads' absorbed
+    queries all-gathered to every head; the scores' two partial einsums
+    over the rank's columns all-reduced (``_absorbed``'s sum, so one rank
+    is the unpartitioned step bit for bit); the softmax; the latent
+    context on the rank's columns all-gathered whole; then ``wuv`` and
+    the rank's rows of ``wo`` on its heads, all-reduced. The cache is
+    updated in place."""
+    m = cfg.mla
+    split = _latent_split(specs)
+    B, dt = x.shape[0], x.dtype
+    positions = pos.reshape(-1, 1).expand(B, 1)
+    c_new, r_new = _latents(p, cfg, x, positions,
+                            wdkv=whole(p.wdkv, "w", rank))
+    cols = []
+    for buf, new, spec in ((cache.c_kv, c_new, specs.c_kv),
+                           (cache.k_rope, r_new, specs.k_rope)):
+        cols.append(own_slices(buf, spec, rank, (2,))[2])
+        select_update(buf, new[:, 0, cols[-1]], positions[:, 0])
+    h0, h1, wq, wuk, wuv = _mla_heads(p, cfg, rank)
+    q_nope, q_rope = _queries(p, cfg, x, positions, wq=wq)
+    q_eff = torch.einsum("bthd,chd->bthc", q_nope, wuk.to(dt).reshape(
+        m.kv_lora_rank, h1 - h0, m.qk_nope_head_dim))
+    if h1 - h0 != cfg.n_heads:
+        q_eff, q_rope = rank.all_gather(torch.cat([q_eff, q_rope], -1), 2,
+                                        "model").split(
+            [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    scores = (torch.einsum("bthc,bsc->bhts", q_eff[..., cols[0]], cache.c_kv)
+              + torch.einsum("bthd,bsd->bhts", q_rope[..., cols[1]],
+                             cache.k_rope))
+    if split:
+        scores = rank.all_reduce(scores, "model")
+    scores = scores * _scale(cfg)
+    S = cache.c_kv.shape[1]
+    mask = (torch.arange(S, device=x.device)[None, :]
+            <= positions[:, :1])[:, None, None, :]
+    probs = torch.softmax(torch.where(mask, scores.float(), -1e30),
+                          dim=-1).to(dt)
+    ctx_lat = torch.einsum("bhts,bsc->bthc", probs, cache.c_kv)
+    if split:
+        ctx_lat = rank.all_gather(ctx_lat, -1, "model")
+    ctx = torch.einsum("bthc,chd->bthd", ctx_lat[:, :, h0:h1], wuv.to(
+        dt).reshape(m.kv_lora_rank, h1 - h0, m.v_head_dim))
+    return _out_sharded(p, cfg, ctx.reshape(B, 1, -1), h0, rank)

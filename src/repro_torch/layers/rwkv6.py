@@ -10,6 +10,11 @@ Recurrence (per head, head_dim hd, state S in R^{hd x hd}):
 ``impl="ref"`` calls the plain version ``wkv6_plain`` directly, which keeps
 the reference's dispatch (chunked for ``T >= 64`` and ``T % 32 == 0``, the
 sequential scan otherwise).
+
+On a rank of a mesh (``rwkv_block_sharded``) the rules split the wkv
+state's key dim over ``model``: the rank runs the recurrence on its key
+rows of every head (``wkv6`` takes that rectangular state to the
+key-slice kernel) and the shares of y are all-reduced.
 """
 from __future__ import annotations
 
@@ -23,8 +28,11 @@ from torch.nn import functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_plain
+from repro_torch.distributed.partition import own_slices, splits
 from repro_torch.layers.core import (Linear, _param, check_impl, linear,
-                                     rms_norm, trunc_normal)
+                                     linear_cols, linear_gathered,
+                                     linear_rows, rms_norm, trunc_normal,
+                                     whole)
 
 
 class RWKVState(NamedTuple):
@@ -99,15 +107,28 @@ def _head_norm(scale, y, H: int, hd: int, eps: float = 1e-5):
     return (yh.reshape(B, T, H * hd) * (1.0 + scale.float())).to(y.dtype)
 
 
-def _tm_inputs(p: TimeMix, x, xx):
+def _tm_inputs(x, xx, mu_x, maa, mix_w1, mix_w2):
     """Data-dependent token-shift interpolation for (w,k,v,r,g)."""
-    x_mix = x + xx * p.mu_x.to(x.dtype)
+    x_mix = x + xx * mu_x.to(x.dtype)
     B, T, _ = x.shape
-    mr = p.mix_w1.shape[1] // 5
-    mix = torch.tanh(x_mix @ p.mix_w1.to(x.dtype)).reshape(B, T, 5, mr)
-    lora = torch.einsum("btfr,frd->btfd", mix, p.mix_w2.to(x.dtype))
-    interp = p.maa.to(x.dtype)[None, None] + lora              # (B,T,5,d)
+    mr = mix_w1.shape[1] // 5
+    mix = torch.tanh(x_mix @ mix_w1.to(x.dtype)).reshape(B, T, 5, mr)
+    lora = torch.einsum("btfr,frd->btfd", mix, mix_w2.to(x.dtype))
+    interp = maa.to(x.dtype)[None, None] + lora                # (B,T,5,d)
     return [x + xx * interp[:, :, i] for i in range(5)]
+
+
+def _log_decay(xw, w0, decay_w1, decay_w2):
+    """The data-dependent log-decay -exp(w0 + LoRA(xw)), float32."""
+    return -torch.exp(w0.float()
+                      + (torch.tanh(xw @ decay_w1.to(xw.dtype))
+                         @ decay_w2.to(xw.dtype)).float())
+
+
+def _shifted(x, shift_prev):
+    """The previous token's row of every row of x (B,T,d): ``shift_prev``
+    (B,d) before the first."""
+    return torch.cat([shift_prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
 def _lane_lengths(n_real, B: int, device) -> Optional[torch.Tensor]:
@@ -149,13 +170,10 @@ def rwkv_time_mix(p: TimeMix, cfg: ModelConfig, x, shift_prev, wkv_state, *,
     hd = cfg.ssm.rwkv_head_dim
     H = d // hd
     nr = _lane_lengths(n_real, B, x.device)
-    prev = torch.cat([shift_prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
-    xx = prev - x
-    xw, xk, xv, xr, xg = _tm_inputs(p, x, xx)
-
-    logw = -torch.exp(p.w0.float()
-                      + (torch.tanh(xw @ p.decay_w1.to(x.dtype))
-                         @ p.decay_w2.to(x.dtype)).float())
+    xx = _shifted(x, shift_prev) - x
+    xw, xk, xv, xr, xg = _tm_inputs(x, xx, p.mu_x, p.maa, p.mix_w1,
+                                    p.mix_w2)
+    logw = _log_decay(xw, p.w0, p.decay_w1, p.decay_w2)
     r = linear(p.wr, xr).reshape(B, T, H, hd)
     k = linear(p.wk, xk).reshape(B, T, H, hd)
     v = linear(p.wv, xv).reshape(B, T, H, hd)
@@ -180,8 +198,7 @@ def rwkv_time_mix(p: TimeMix, cfg: ModelConfig, x, shift_prev, wkv_state, *,
 
 def rwkv_channel_mix(p: ChannelMix, x, shift_prev, n_real=None):
     """-> (out (B,T,d), cm_shift (B,d))."""
-    prev = torch.cat([shift_prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
-    xx = prev - x
+    xx = _shifted(x, shift_prev) - x
     xk = x + xx * p.mu_k.to(x.dtype)
     xr = x + xx * p.mu_r.to(x.dtype)
     k = torch.square(F.relu(linear(p.wk, xk)))
@@ -203,6 +220,89 @@ def rwkv_block(p: RWKV, cfg: ModelConfig, x, state: RWKVState, norms: dict,
     h, cm_shift = rwkv_channel_mix(
         p.cm, rms_norm(norms["n2"], x, cfg.rmsnorm_eps), state.cm_shift,
         n_real=n_real)
+    x = x + h
+    return x, RWKVState(wkv, tm_shift.to(state.tm_shift.dtype),
+                        cm_shift.to(state.cm_shift.dtype))
+
+
+# ---------------------------------------------------------------------------
+# The partitioned step (a rank's shards; ``distributed/partition.py``)
+# ---------------------------------------------------------------------------
+def rwkv_time_mix_sharded(p: TimeMix, cfg: ModelConfig, x, shift_prev,
+                          wkv_state, specs: RWKVState, rank, *,
+                          impl: str = "kernel"):
+    """``rwkv_time_mix`` on a rank: x (B,T,d) replicated over ``model``;
+    ``shift_prev`` and ``wkv_state`` the rank's blocks of the cache under
+    ``specs`` (the leaves' specs without the group entry): its channels of
+    the shift state, its heads and key rows of the wkv state (the rules
+    split the state's key dim where the heads do not divide the axis).
+
+    The small weights (the token-shift LoRA, the decay LoRA, ``u``,
+    ``ln_x``) are gathered whole; r, k and v are projected on the rank's
+    columns and all-gathered in one collective, w computed whole; the
+    rank runs the recurrence on its heads and key rows (``wkv6`` takes a
+    rectangular state to the key-slice kernel), its exact share of y is
+    all-reduced over ``model``, the head norm applied to the whole y, then
+    g on the rank's columns and its rows of ``wo``, all-reduced.
+    -> (out (B,T,d), the rank's tm_shift block, its wkv state)"""
+    check_impl(impl)
+    B, T, d = x.shape
+    hd = cfg.ssm.rwkv_head_dim
+    H = d // hd
+    xx = _shifted(x, rank.gather(shift_prev, specs.tm_shift, ("model",))) - x
+    xw, xk, xv, xr, xg = _tm_inputs(
+        x, xx, *(whole(p, n, rank) for n in ("mu_x", "maa", "mix_w1",
+                                             "mix_w2")))
+    w = _log_decay(xw, *(whole(p, n, rank) for n in (
+        "w0", "decay_w1", "decay_w2"))).reshape(B, T, H, hd)
+    r, k, v = (t.reshape(B, T, H, hd) for t in linear_gathered(
+        [(p.wr, xr), (p.wk, xk), (p.wv, xv)], rank))
+    g, glo, ghi = linear_cols(p.wg, xg, rank)
+    heads, keys = own_slices(wkv_state, specs.wkv, rank, (1, 2))[1:3]
+    u = whole(p, "u", rank).float()[heads, keys]
+
+    def own(t):
+        return t[:, :, heads, keys].contiguous()
+    attend = wkv_ops.wkv6 if impl == "kernel" else wkv6_plain
+    y, wkv_state = attend(own(r), own(k), v[:, :, heads].contiguous(),
+                          own(w), u.contiguous(), wkv_state.contiguous())
+    if splits(specs.wkv):
+        if y.shape[2] != H:
+            y = torch.zeros((B, T, H, hd), dtype=y.dtype,
+                            device=y.device).index_copy_(
+                2, torch.arange(heads.start, heads.stop, device=y.device), y)
+        y = rank.all_reduce(y, "model")
+    y = _head_norm(whole(p, "ln_x", rank), y.reshape(B, T, d), H, hd)
+    out = linear_rows(p.wo, y[..., glo:ghi] * F.silu(g), glo, ghi, rank)
+    tm = x[:, -1][own_slices(shift_prev, specs.tm_shift, rank, (1,))]
+    return out, tm, wkv_state
+
+
+def rwkv_channel_mix_sharded(p: ChannelMix, x, shift_prev, spec, rank):
+    """``rwkv_channel_mix`` on a rank (``shift_prev`` its channels under
+    ``spec``): the key projection and, since the rules split ``cm.wv``'s
+    output, r and the value projection on the rank's columns, each
+    all-gathered whole. -> (out (B,T,d), the rank's cm_shift block)"""
+    xx = _shifted(x, rank.gather(shift_prev, spec, ("model",))) - x
+    xk = x + xx * whole(p, "mu_k", rank).to(x.dtype)
+    xr = x + xx * whole(p, "mu_r", rank).to(x.dtype)
+    k = torch.square(F.relu(linear_gathered([(p.wk, xk)], rank)[0]))
+    r, kv = linear_gathered([(p.wr, xr), (p.wv, k)], rank)
+    return (torch.sigmoid(r) * kv,
+            x[:, -1][own_slices(shift_prev, spec, rank, (1,))])
+
+
+def rwkv_block_sharded(p: RWKV, cfg: ModelConfig, x, state: RWKVState,
+                       norms: dict, specs: RWKVState, rank, *,
+                       impl: str = "kernel") -> Tuple[torch.Tensor, RWKVState]:
+    """``rwkv_block`` on a rank: ``state`` its blocks under ``specs``."""
+    h, tm_shift, wkv = rwkv_time_mix_sharded(
+        p.tm, cfg, rms_norm(norms["n1"], x, cfg.rmsnorm_eps),
+        state.tm_shift, state.wkv, specs, rank, impl=impl)
+    x = x + h
+    h, cm_shift = rwkv_channel_mix_sharded(
+        p.cm, rms_norm(norms["n2"], x, cfg.rmsnorm_eps), state.cm_shift,
+        specs.cm_shift, rank)
     x = x + h
     return x, RWKVState(wkv, tm_shift.to(state.tm_shift.dtype),
                         cm_shift.to(state.cm_shift.dtype))

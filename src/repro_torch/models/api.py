@@ -76,21 +76,16 @@ def decode_state_specs(cfg: ModelConfig, batch: int, seq: int,
     return model_module(cfg).decode_state_specs(cfg, batch, seq, dtype)
 
 
-def _no_partitioned_encdec(cfg: ModelConfig, shard_axes):
-    if shard_axes is not None and cfg.family == ENCDEC:
-        raise NotImplementedError(f"{cfg.name}: the partitioned "
-                                  "encoder-decoder step is not ported")
-
-
 def prefill(model, cfg: ModelConfig, tokens, cache, *, prefix_embeds=None,
             enc_embeds=None, impl: str = "kernel", shard_axes=None):
     """tokens (B,T) + an empty cache (+ an encoder-decoder's
     ``enc_embeds``) -> (last-token logits (B,V), the filled cache).
-    ``shard_axes``: one rank's partitioned step (``lm.prefill``)."""
-    _no_partitioned_encdec(cfg, shard_axes)
+    ``shard_axes``: one rank's partitioned step (``lm.prefill``,
+    ``encdec.prefill``)."""
     if cfg.family == ENCDEC:
         return encdec.prefill(model, cfg, tokens, cache,
-                              enc_embeds=enc_embeds, impl=impl)
+                              enc_embeds=enc_embeds, impl=impl,
+                              shard_axes=shard_axes)
     return lm.prefill(model, cfg, tokens, cache,
                       prefix_embeds=prefix_embeds, impl=impl,
                       shard_axes=shard_axes)
@@ -100,10 +95,10 @@ def decode_step(model, cfg: ModelConfig, cache, tokens, pos, *,
                 impl: str = "kernel", shard_axes=None):
     """One token for every sequence. tokens (B,), pos (B,) -> (logits
     (B,V), the cache). ``shard_axes``: one rank's partitioned step
-    (``lm.decode_step``)."""
-    _no_partitioned_encdec(cfg, shard_axes)
+    (``lm.decode_step``, ``encdec.decode_step``)."""
     if cfg.family == ENCDEC:
-        return encdec.decode_step(model, cfg, cache, tokens, pos, impl=impl)
+        return encdec.decode_step(model, cfg, cache, tokens, pos, impl=impl,
+                                  shard_axes=shard_axes)
     return lm.decode_step(model, cfg, cache, tokens, pos, impl=impl,
                           shard_axes=shard_axes)
 

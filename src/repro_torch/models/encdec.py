@@ -20,7 +20,9 @@ The dense decode cache holds, per decoder layer, a self ``KVCache`` of
 ``seq`` slots and a cross ``KVCache`` of T_enc slots, computed once at
 prefill (the reference's layout: ``{"self": KVCache, "cross": KVCache}``,
 each leaf stacked over the decoder layers). No page plane exists for it:
-the engines refuse the family (``api.supports_paged``).
+the engines refuse the family (``api.supports_paged``). ``prefill`` and
+``decode_step`` with ``shard_axes`` run one rank of a mesh on its
+shards.
 """
 from __future__ import annotations
 
@@ -32,10 +34,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ENCDEC, ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed.partition import own_slices
 from repro_torch.layers import attention as attn
 from repro_torch.layers.core import (MLP, Embedding, Linear, RMSNorm,
-                                     check_impl, embed, linear, mlp,
-                                     rms_norm, unembed)
+                                     check_impl, embed, linear,
+                                     linear_gathered, mlp, rms_norm,
+                                     unembed)
 from repro_torch.models.lm import _at, _tokens_on
 from repro_torch.models.losses import shifted_xent
 
@@ -124,16 +128,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def encode(model: EncDec, cfg: ModelConfig, enc_embeds, *,
-           impl: str = "kernel") -> torch.Tensor:
+           impl: str = "kernel", rank=None) -> torch.Tensor:
     """enc_embeds (B,T_enc,d) -> the normed encoder output (B,T_enc,d) in
-    the compute dtype, on the model's device."""
+    the compute dtype, on the model's device. With ``rank`` (a rank's
+    shards): the bidirectional attention over the q heads the rank's
+    ``wo`` rows touch, the MLP split; the output whole on every rank."""
     device = model.embed.tok.device
     x = enc_embeds.to(device=device, dtype=cfg.torch_compute_dtype())
     eps = cfg.rmsnorm_eps
     for blk in model.enc_blocks:
-        x = x + attn.attention_bidir(blk.attn, cfg, rms_norm(blk.n1, x, eps),
-                                     impl=impl)
-        x = x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, eps))
+        h = rms_norm(blk.n1, x, eps)
+        x = x + (attn.attention_bidir(blk.attn, cfg, h, impl=impl)
+                 if rank is None else
+                 attn.attention_bidir_sharded(blk.attn, cfg, h, rank,
+                                              impl=impl))
+        x = x + mlp(blk.ffn, cfg, rms_norm(blk.n2, x, eps), rank)
     return rms_norm(model.enc_norm, x, eps)
 
 
@@ -151,6 +160,15 @@ def _cross_and_mlp(blk: DecBlock, cfg: ModelConfig, x, ck, cv, impl: str):
     x = x + attn.attention_bidir(blk.cross, cfg, rms_norm(blk.n2, x, eps),
                                  kv=(ck, cv), impl=impl)
     return x + mlp(blk.ffn, cfg, rms_norm(blk.n3, x, eps))
+
+
+def _cross_kv_sharded(p: Cross, cfg: ModelConfig, enc_out, rank):
+    """``cross_kv`` on a rank: the projections' column slices all-gathered
+    whole in one collective."""
+    B, Te, _ = enc_out.shape
+    return tuple(t.reshape(B, Te, cfg.n_kv_heads, cfg.resolved_head_dim)
+                 for t in linear_gathered([(p.wk, enc_out),
+                                           (p.wv, enc_out)], rank))
 
 
 def _dec_train_layer(blk: DecBlock, cfg: ModelConfig, x, enc_out,
@@ -222,48 +240,86 @@ def decode_state_specs(cfg: ModelConfig, batch: int, seq: int,
 
 @torch.no_grad()
 def prefill(model: EncDec, cfg: ModelConfig, tokens, cache: dict, *,
-            enc_embeds, impl: str = "kernel"):
+            enc_embeds, impl: str = "kernel", shard_axes=None):
     """Decoder tokens (B,T), ``enc_embeds`` (B,T_enc,d) and an empty cache
     from ``init_decode_state`` -> (the last position's logits (B,V), the
     cache, filled in place): each layer's self K/V in slots [0, T), its
-    cross K/V of the encoder output in the cache's dtype."""
+    cross K/V of the encoder output in the cache's dtype.
+
+    ``shard_axes`` (with ``"ctx"``, the rank's ``RankContext``): the
+    partitioned step on one rank, ``model``, ``cache`` and the inputs its
+    shards. The encoder on the rank's heads (``encode``), the decoder's
+    self-attention on the route its cache's spec picks
+    (``attention_prefill_sharded``), the cross K/V gathered whole and the
+    rank's block written to its cross cache, the cross-attention over the
+    q heads its ``wo`` rows touch, the MLPs split."""
     check_impl(impl)
+    rank = shard_axes["ctx"] if shard_axes else None
     device = model.embed.tok.device
-    enc_out = encode(model, cfg, enc_embeds, impl=impl)
-    x = embed(model.embed, cfg, _tokens_on(tokens, device))
+    enc_out = encode(model, cfg, enc_embeds, impl=impl, rank=rank)
+    x = embed(model.embed, cfg, _tokens_on(tokens, device), rank)
+    eps = cfg.rmsnorm_eps
     for layer, blk in enumerate(model.dec_blocks):
-        ck, cv = cross_kv(blk.cross, cfg, enc_out)
-        h, (k, v) = attn.attention_full(
-            blk.self, cfg, rms_norm(blk.n1, x, cfg.rmsnorm_eps),
-            return_kv=True, impl=impl)
-        attn.fill_kv_cache(_at(cache["self"], layer), k, v)
         cross = _at(cache["cross"], layer)
-        cross.k.copy_(ck)
-        cross.v.copy_(cv)
-        x = _cross_and_mlp(blk, cfg, x + h, ck, cv, impl)
-    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
-    return unembed(model.embed, cfg, x[:, -1]), cache
+        if rank is None:
+            ck, cv = cross_kv(blk.cross, cfg, enc_out)
+            h, (k, v) = attn.attention_full(
+                blk.self, cfg, rms_norm(blk.n1, x, eps), return_kv=True,
+                impl=impl)
+            attn.fill_kv_cache(_at(cache["self"], layer), k, v)
+            cross.k.copy_(ck)
+            cross.v.copy_(cv)
+            x = _cross_and_mlp(blk, cfg, x + h, ck, cv, impl)
+            continue
+        ck, cv = _cross_kv_sharded(blk.cross, cfg, enc_out, rank)
+        x = x + attn.attention_prefill_sharded(
+            blk.self, cfg, rms_norm(blk.n1, x, eps),
+            _at(cache["self"], layer), window=0,
+            spec=cache["self"].k.pspec, rank=rank, impl=impl)
+        own = own_slices(cross.k, cache["cross"].k.pspec[1:], rank, (1, 2))
+        cross.k.copy_(ck[own])
+        cross.v.copy_(cv[own])
+        x = x + attn.attention_bidir_sharded(
+            blk.cross, cfg, rms_norm(blk.n2, x, eps), rank, kv=(ck, cv),
+            impl=impl)
+        x = x + mlp(blk.ffn, cfg, rms_norm(blk.n3, x, eps), rank)
+    x = rms_norm(model.final_norm, x, eps)
+    return unembed(model.embed, cfg, x[:, -1], rank), cache
 
 
 @torch.no_grad()
 def decode_step(model: EncDec, cfg: ModelConfig, cache: dict, tokens, pos,
-                *, impl: str = "kernel"):
+                *, impl: str = "kernel", shard_axes=None):
     """One token for every sequence: tokens (B,), pos (B,) (host ints or
     tensors; a scalar pos is every lane's) -> (logits (B,V), the cache,
     its self K/V updated in place). The cross K/V is read back in the
     compute dtype; each layer's cross-attention is one row a lane against
-    T_enc keys."""
+    T_enc keys. ``shard_axes``: the partitioned step on one rank, as
+    ``prefill`` takes it (self-attention by ``attention_decode_sharded``,
+    cross-attention by ``cross_decode_sharded`` on its cache's route)."""
     check_impl(impl)
+    rank = shard_axes["ctx"] if shard_axes else None
     device = model.embed.tok.device
     tokens = _tokens_on(tokens, device).reshape(-1, 1)
     pos = _tokens_on(pos, device).reshape(-1).long()
-    x = embed(model.embed, cfg, tokens)
+    x = embed(model.embed, cfg, tokens, rank)
+    eps = cfg.rmsnorm_eps
     for layer, blk in enumerate(model.dec_blocks):
         cross = _at(cache["cross"], layer)
-        h, _ = attn.attention_decode(
-            blk.self, cfg, rms_norm(blk.n1, x, cfg.rmsnorm_eps),
-            _at(cache["self"], layer), pos)
-        x = _cross_and_mlp(blk, cfg, x + h, cross.k.to(x.dtype),
-                           cross.v.to(x.dtype), impl)
-    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
-    return unembed(model.embed, cfg, x[:, 0]), cache
+        if rank is None:
+            h, _ = attn.attention_decode(
+                blk.self, cfg, rms_norm(blk.n1, x, eps),
+                _at(cache["self"], layer), pos)
+            x = _cross_and_mlp(blk, cfg, x + h, cross.k.to(x.dtype),
+                               cross.v.to(x.dtype), impl)
+            continue
+        x = x + attn.attention_decode_sharded(
+            blk.self, cfg, rms_norm(blk.n1, x, eps),
+            _at(cache["self"], layer), pos, window=0,
+            spec=cache["self"].k.pspec, rank=rank)
+        x = x + attn.cross_decode_sharded(
+            blk.cross, cfg, rms_norm(blk.n2, x, eps), cross,
+            spec=cache["cross"].k.pspec, rank=rank, impl=impl)
+        x = x + mlp(blk.ffn, cfg, rms_norm(blk.n3, x, eps), rank)
+    x = rms_norm(model.final_norm, x, eps)
+    return unembed(model.embed, cfg, x[:, 0], rank), cache

@@ -456,6 +456,12 @@ def _store(view, new):
             dst.copy_(src)
 
 
+def _view_specs(cache):
+    """A stacked per-kind cache's leaf specs without the group entry: the
+    specs of ``_at``'s views."""
+    return type(cache)(*(t.pspec[1:] for t in cache))
+
+
 def _group_prefill(blocks, cfg: ModelConfig, x, cache: dict, g: int,
                    impl: str, shard_axes=None):
     """One layer group over the whole prompt (the reference's
@@ -465,20 +471,32 @@ def _group_prefill(blocks, cfg: ModelConfig, x, cache: dict, g: int,
     MLA through ``mla_full(return_cache=True)``, RWKV-6 and Mamba from the
     cache's state, then the MLP or the MoE with capacity dispatch. With
     ``shard_axes`` the blocks and cache are a rank's shards: attention by
-    ``attention_prefill_sharded`` on the route its cache's spec picks, the
-    MLP split, the MoE expert-parallel."""
+    ``attention_prefill_sharded`` on the route its cache's spec picks, MLA
+    by ``mla_prefill_sharded``, RWKV-6 by ``rwkv_block_sharded`` (the
+    key-slice WKV), Mamba by ``mamba_sharded``, the MLP split, the MoE
+    expert-parallel."""
     rank = shard_axes["ctx"] if shard_axes else None
     for i, blk in enumerate(blocks):
         kind = mixer_kind(cfg, i)
         c = _at(cache[f"sub{i}"], g)
+        specs = None if rank is None else _view_specs(cache[f"sub{i}"])
         if kind == "rwkv":
-            x, nc = rwkv.rwkv_block(blk.mix, cfg, x, c,
-                                    {"n1": blk.n1, "n2": blk.n2}, impl=impl)
+            norms = {"n1": blk.n1, "n2": blk.n2}
+            if rank is None:
+                x, nc = rwkv.rwkv_block(blk.mix, cfg, x, c, norms, impl=impl)
+            else:
+                x, nc = rwkv.rwkv_block_sharded(blk.mix, cfg, x, c, norms,
+                                                specs, rank, impl=impl)
             _store(c, nc)
             continue
         h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
         if kind == "mamba":
-            h, nc = mamba_mod.mamba_forward(blk.mix, cfg, h, c)
+            h, nc = (mamba_mod.mamba_forward(blk.mix, cfg, h, c)
+                     if rank is None else
+                     mamba_mod.mamba_sharded(blk.mix, cfg, h, c, specs, rank))
+        elif kind == "mla" and rank is not None:
+            h = mla_mod.mla_prefill_sharded(blk.mix, cfg, h, c, specs, rank)
+            nc = c
         elif kind == "mla":
             h, (c_kv, k_rope) = mla_mod.mla_full(blk.mix, cfg, h,
                                                  return_cache=True)
@@ -505,16 +523,6 @@ def _group_prefill(blocks, cfg: ModelConfig, x, cache: dict, g: int,
     return x
 
 
-def _check_partitioned(cfg: ModelConfig, shard_axes):
-    if shard_axes is None:
-        return None
-    from repro_torch.distributed.partition import unsupported_reason
-    why = unsupported_reason(cfg)
-    if why:
-        raise NotImplementedError(f"{cfg.name}: {why}")
-    return shard_axes["ctx"]
-
-
 @torch.no_grad()
 def prefill(model: LM, cfg: ModelConfig, tokens, cache: dict, *,
             prefix_embeds=None, impl: str = "kernel", shard_axes=None):
@@ -528,9 +536,9 @@ def prefill(model: LM, cfg: ModelConfig, tokens, cache: dict, *,
     rank of a mesh. ``model``, ``cache`` and the inputs are then the
     rank's shards (``partition.shard_model`` / ``shard_cache`` /
     ``shard_batch``), and the logits the rank's rows over the whole
-    vocabulary. The attention, MLP and MoE families only."""
+    vocabulary."""
     check_impl(impl)
-    rank = _check_partitioned(cfg, shard_axes)
+    rank = shard_axes["ctx"] if shard_axes else None
     device = model.embed.tok.device
     x = embed(model.embed, cfg, _tokens_on(tokens, device), rank)
     if prefix_embeds is not None:
@@ -552,19 +560,33 @@ def _group_decode(blocks, cfg: ModelConfig, x, cache: dict, g: int, pos,
     the absorbed ``mla_decode``, RWKV-6 (the WKV op for
     ``impl="kernel"``) and Mamba one step from the cache's state, then the
     MLP or the dropless MoE. With ``shard_axes``, a rank's shards:
-    ``attention_decode_sharded``, the MLP split, the MoE expert-parallel."""
+    ``attention_decode_sharded``, ``mla_decode_sharded``,
+    ``rwkv_block_sharded``, ``mamba_sharded``, the MLP split, the MoE
+    expert-parallel."""
     rank = shard_axes["ctx"] if shard_axes else None
     for i, blk in enumerate(blocks):
         kind = mixer_kind(cfg, i)
         c = _at(cache[f"sub{i}"], g)
+        specs = None if rank is None else _view_specs(cache[f"sub{i}"])
         if kind == "rwkv":
-            x, nc = rwkv.rwkv_block(blk.mix, cfg, x, c,
-                                    {"n1": blk.n1, "n2": blk.n2}, impl=impl)
+            norms = {"n1": blk.n1, "n2": blk.n2}
+            if rank is None:
+                x, nc = rwkv.rwkv_block(blk.mix, cfg, x, c, norms, impl=impl)
+            else:
+                x, nc = rwkv.rwkv_block_sharded(blk.mix, cfg, x, c, norms,
+                                                specs, rank, impl=impl)
             _store(c, nc)
             continue
         h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
         if kind == "mamba":
-            h, nc = mamba_mod.mamba_decode(blk.mix, cfg, h, c)
+            h, nc = (mamba_mod.mamba_decode(blk.mix, cfg, h, c)
+                     if rank is None else
+                     mamba_mod.mamba_sharded(blk.mix, cfg, h, c, specs, rank,
+                                             decode=True))
+        elif kind == "mla" and rank is not None:
+            h = mla_mod.mla_decode_sharded(blk.mix, cfg, h, c, pos, specs,
+                                           rank)
+            nc = c
         elif kind == "mla":
             h, nc = mla_mod.mla_decode(blk.mix, cfg, h, c, pos)
         elif rank is not None:
@@ -596,7 +618,7 @@ def decode_step(model: LM, cfg: ModelConfig, cache: dict, tokens, pos, *,
     updated in place). ``shard_axes``: the partitioned step on one rank,
     as ``prefill`` takes it."""
     check_impl(impl)
-    rank = _check_partitioned(cfg, shard_axes)
+    rank = shard_axes["ctx"] if shard_axes else None
     device = model.embed.tok.device
     tokens = _tokens_on(tokens, device).reshape(-1, 1)
     pos = _tokens_on(pos, device).reshape(-1).long()

@@ -12,6 +12,7 @@ torch, numpy and repro_torch.
 
     python tests/_torch_partition_worker.py RANK WORLD P,D,M STORE OUT_NPZ
 """
+import dataclasses
 import sys
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import Mesh, rank_context
+from repro_torch.layers import mamba as mamba_mod
 from repro_torch.layers import moe as moe_mod
 from repro_torch.models import api, lm
 
@@ -31,7 +33,13 @@ B, T, S, STEPS = 4, 24, 32, 8
 # (gemma3, one kv head), q heads that do not divide the model axis (minicpm
 # 3 heads; internvl2 6 heads on 3 kv heads, whose covered heads straddle
 # kv heads at model 4; a vocabulary of 513 that does not split), and
-# dbrx's expert parallelism under FSDP with capacity drops
+# dbrx's expert parallelism under FSDP with capacity drops; then the
+# families whose caches the rules split as on pod256: deepseek's latent and
+# roped-key columns, jamba's Mamba state by d_state (its 2 kv heads do not
+# divide model 4: the sequence route) under FSDP, rwkv6's wkv state by key
+# rows (3 heads of 32 divide neither 2 nor 4), whisper's 3 heads (the
+# sequence route for the self cache; 33 encoder frames, so the cross
+# cache is replicated)
 CASES = {
     "qwen": ("qwen1.5-0.5b", {}, False),
     "gemma3": ("gemma3-12b", {"n_kv_heads": 1}, False),
@@ -42,11 +50,23 @@ CASES = {
     # 33 slots split neither 2 nor 4 ways: the global layers' caches stay
     # whole on every rank (the replicated route), the rings' 16 split
     "gemma3_whole": ("gemma3-12b", {"n_kv_heads": 1}, False),
+    "deepseek": ("deepseek-v2-lite-16b", {}, False),
+    "jamba": ("jamba-v0.1-52b", {}, True),
+    "rwkv6": ("rwkv6-3b", {"d_model": 96}, False),
+    "whisper": ("whisper-tiny", {"n_heads": 3, "n_kv_heads": 3,
+                                 "encoder_seq_len": 33}, False),
 }
 SLOTS = {"gemma3_whole": 33}
 SPEC_NAMES = ("embed.tok", "blocks.0.mix.wq.w", "blocks.0.mix.wk.w",
               "blocks.0.mix.wo.w", "blocks.0.ffn.up", "blocks.0.ffn.up.w",
               "blocks.0.ffn.router.w", "blocks.0.ffn.down")
+# the weights whose splits the MLA, Mamba, RWKV-6 and cross-attention
+# layers work around
+FAMILY_SPEC_NAMES = ("blocks.0.mix.wdkv.w", "blocks.0.mix.wuk.w",
+                     "blocks.0.mix.in_proj.w", "blocks.0.mix.A_log",
+                     "blocks.0.mix.tm.u", "blocks.0.mix.tm.wr.w",
+                     "blocks.0.mix.cm.wv.w", "dec_blocks.0.cross.wq.w",
+                     "dec_blocks.0.cross.wo.w")
 SEED = 34
 # the dense-cache phases' per-token bound in bf16 (a row's logit distance
 # over its norm), for gemma3's sequence route in bf16
@@ -59,25 +79,45 @@ def case_config(name: str):
     over = dict(over)
     cf = over.pop("moe_capacity_factor", None)
     if cf is not None:
-        import dataclasses
         over["moe"] = dataclasses.replace(cfg.moe, capacity_factor=cf)
+    te = over.pop("encoder_seq_len", None)
+    if te is not None:
+        over["encdec"] = dataclasses.replace(cfg.encdec, encoder_seq_len=te)
     return cfg.replace(**over)
 
 
 def inputs(cfg):
-    """The global prompt and prefix rows of every case, from one seed."""
+    """The global prompt and the prefill's other inputs of every case
+    (a VLM's prefix rows, an encoder-decoder's frame embeddings), from one
+    seed."""
     rng = np.random.default_rng(SEED)
     P = cfg.n_prefix_embeds
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T - P)))
-    prefix = (torch.from_numpy((rng.standard_normal((B, P, cfg.d_model))
-                                * 0.02).astype(np.float32)) if P else None)
-    return tokens, prefix
+    extra = {}
+    if P:
+        extra["prefix_embeds"] = torch.from_numpy(
+            (rng.standard_normal((B, P, cfg.d_model)) * 0.02)
+            .astype(np.float32))
+    if cfg.encdec is not None:
+        extra["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encdec.encoder_seq_len, cfg.d_model)).astype(np.float32))
+    return tokens, extra
 
 
 def moe_inputs(cfg):
     rng = np.random.default_rng(SEED + 1)
     return torch.from_numpy(rng.standard_normal(
         (B, T, cfg.d_model)).astype(np.float32))
+
+
+def mamba_inputs(cfg):
+    """Rows and a non-zero incoming state for jamba's Mamba layer."""
+    rng = np.random.default_rng(SEED + 2)
+    di, ds, dc, _ = mamba_mod._dims(cfg)
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((B, T, cfg.d_model)),
+        rng.standard_normal((B, di, ds)) * 0.5,
+        rng.standard_normal((B, dc - 1, di))))
 
 
 def rel(a, b) -> float:
@@ -111,34 +151,36 @@ def run_case(name, mesh, rank, out):
     cfg = case_config(name)
     fsdp = CASES[name][2]
     torch.manual_seed(0)
-    model = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    model = api.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     rules = ShardingRules(mesh, cfg, fsdp=fsdp)
     axes = {"dp": rules.dp, "tp": "model", "mesh": mesh, "ctx": rank}
-    tokens, prefix = inputs(cfg)
+    tokens, extra = inputs(cfg)
     seq = SLOTS.get(name, S)
-    cache = lm.init_decode_state(cfg, B, seq, device="cpu")
+    cache = api.init_decode_state(cfg, B, seq, device="cpu")
     specs = rules.params(model)
     out[f"{name}/specs"] = np.array(
         [repr(specs[n]) if n in specs else "" for n in SPEC_NAMES])
+    out[f"{name}/family_specs"] = np.array(
+        [repr(specs[n]) for n in FAMILY_SPEC_NAMES if n in specs])
     out[f"{name}/routes"] = np.array(
         [partition.attn_route(rules.cache_spec("", c.k, B))
-         for _, c in sorted(cache.items())])
+         for _, c in sorted(cache.items()) if hasattr(c, "k")])
+    out[f"{name}/cache_specs"] = np.array(
+        [repr(rules.cache_spec("", t, B)) for t in api.tree_leaves(cache)])
 
     # the unpartitioned step on the rank's rows (its dp shard's)
     tok_l = partition.shard_batch(tokens, rules, rank, B)
-    pre_l = None if prefix is None else \
-        partition.shard_batch(prefix, rules, rank, B)
+    extra_l = partition.shard_batch(extra, rules, rank, B)
     rows = tok_l.shape[0]
-    ref_cache = lm.init_decode_state(cfg, rows, seq, device="cpu")
+    ref_cache = api.init_decode_state(cfg, rows, seq, device="cpu")
     with DropSpy() as ref_spy:
-        ref, ref_cache = api.prefill(model, cfg, tok_l, ref_cache,
-                                     prefix_embeds=pre_l)
+        ref, ref_cache = api.prefill(model, cfg, tok_l, ref_cache, **extra_l)
     # the partitioned step on the rank's shards
     model_l = partition.shard_model(model, rules, rank)
     cache_l = partition.shard_cache(cache, rules, rank, B)
     with DropSpy() as spy:
         logits, cache_l = api.prefill(model_l, cfg, tok_l, cache_l,
-                                      prefix_embeds=pre_l, shard_axes=axes)
+                                      shard_axes=axes, **extra_l)
     out[f"{name}/drops"] = np.array([spy.dropped, ref_spy.dropped])
     errs = [rel(logits, ref)]
     # decode: both streams greedy from their own logits
@@ -172,6 +214,19 @@ def run_case(name, mesh, rank, out):
             for n in ("up", "gate", "down"):
                 out[f"dbrx/w_{n}"] = getattr(f, n).numpy()
             out["dbrx/w_router"] = f.router.w.numpy()
+    if name == "jamba":
+        x, ssm, conv = mamba_inputs(cfg)
+        state = partition.shard_cache(
+            {"sub0": mamba_mod.MambaState(ssm[None], conv[None])}, rules,
+            rank, B)["sub0"]
+        y, _ = mamba_mod.mamba_sharded(
+            model_l.blocks[0].mix, cfg, partition.shard_batch(x, rules, rank,
+                                                              B),
+            lm._at(state, 0), lm._view_specs(state), rank)
+        out["jamba/mamba_out"] = y.numpy()
+        if rank.rank == 0:
+            for n, t in model.blocks[0].mix.named_parameters():
+                out[f"jamba/w_{n}"] = t.numpy()
 
 
 def row_rel(a, b) -> float:
@@ -187,7 +242,7 @@ def bf16_sequence_route(mesh, rank, out):
     their partial outputs over their own slots alone (no merge)."""
     from repro_torch.layers import attention as attn_mod
     cfg = case_config("gemma3").replace(compute_dtype="bfloat16")
-    model = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    model = api.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     rules = ShardingRules(mesh, cfg)
     axes = {"dp": rules.dp, "tp": "model", "mesh": mesh, "ctx": rank}
     tokens, _ = inputs(cfg)
@@ -233,19 +288,18 @@ def bit_identity(name, mesh, rank, out):
     """World size 1: the partitioned step is the unpartitioned one, bit for
     bit (every collective over a group of one is exact)."""
     cfg = case_config(name)
-    model = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    model = api.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     rules = ShardingRules(mesh, cfg, fsdp=CASES[name][2])
     axes = {"dp": rules.dp, "tp": "model", "mesh": mesh, "ctx": rank}
-    tokens, prefix = inputs(cfg)
+    tokens, extra = inputs(cfg)
     seq = SLOTS.get(name, S)
-    c0 = lm.init_decode_state(cfg, B, seq, device="cpu")
-    c1 = partition.shard_cache(lm.init_decode_state(cfg, B, seq,
-                                                    device="cpu"),
+    c0 = api.init_decode_state(cfg, B, seq, device="cpu")
+    c1 = partition.shard_cache(api.init_decode_state(cfg, B, seq,
+                                                     device="cpu"),
                                rules, rank, B)
     m1 = partition.shard_model(model, rules, rank)
-    a, c0 = api.prefill(model, cfg, tokens, c0, prefix_embeds=prefix)
-    b, c1 = api.prefill(m1, cfg, tokens, c1, prefix_embeds=prefix,
-                        shard_axes=axes)
+    a, c0 = api.prefill(model, cfg, tokens, c0, **extra)
+    b, c1 = api.prefill(m1, cfg, tokens, c1, shard_axes=axes, **extra)
     same = [torch.equal(a, b)]
     nxt = a.argmax(-1)
     for step in range(2):

@@ -298,8 +298,7 @@ def test_pod_bytes_per_device_follow_the_specs(mesh_name, tmp_path):
 # ---------------------------------------------------------------------------
 # The pods' per-device cost: rank 0's partitioned step
 # ---------------------------------------------------------------------------
-IN_SCOPE = ("qwen1.5-0.5b", "gemma-7b", "minicpm-2b", "internvl2-1b",
-            "gemma3-12b", "dbrx-132b")
+IN_SCOPE = tuple(dryrun.ASSIGNED)
 
 
 def _smoke_overrides(arch):
@@ -310,8 +309,8 @@ def _smoke_overrides(arch):
 
 @pytest.mark.parametrize("arch", IN_SCOPE)
 def test_pod_serving_cells_carry_a_cost(arch, tmp_path):
-    """Every serving cell of the in-scope archs on pod256 (at smoke widths,
-    a small batch): a cost with collectives, the temporaries a device and
+    """Every serving cell of the ten archs on pod256 (at smoke widths, a
+    small batch): a cost with collectives, the temporaries a device and
     the trace beside the record."""
     for shape in ("prefill_32k", "decode_32k", "long_500k"):
         rec = dryrun.run_cell(arch, shape, mesh_name="pod256",
@@ -319,7 +318,8 @@ def test_pod_serving_cells_carry_a_cost(arch, tmp_path):
                               overrides=_smoke_overrides(arch),
                               batch_override=16)
         if rec["status"] == "skipped":
-            assert shape == "long_500k" and arch != "gemma3-12b"
+            assert shape == "long_500k" and arch not in (
+                "gemma3-12b", "rwkv6-3b", "jamba-v0.1-52b")
             continue
         assert rec["status"] == "ok", rec.get("error")
         assert rec["cost"]["flops"] > 0 and rec["cost"]["collective bytes"] > 0
@@ -327,18 +327,13 @@ def test_pod_serving_cells_carry_a_cost(arch, tmp_path):
         assert (tmp_path / f"{arch}_{shape}_smoke.trace.jsonl.gz").exists()
 
 
-@pytest.mark.parametrize("arch,shape", [
-    ("deepseek-v2-lite-16b", "decode_32k"), ("rwkv6-3b", "long_500k"),
-    ("jamba-v0.1-52b", "prefill_32k"), ("whisper-tiny", "decode_32k"),
-    ("qwen1.5-0.5b", "train_4k")])
+@pytest.mark.parametrize("arch,shape", [("qwen1.5-0.5b", "train_4k")])
 def test_other_pod_cells_name_what_is_missing(arch, shape, tmp_path):
     rec = dryrun.run_cell(arch, shape, mesh_name="pod512",
                           out_dir=str(tmp_path))
     assert rec["status"] == "ok", rec.get("error")
     assert rec["cost"] is None and rec["memory"]["temp_size_in_bytes"] is None
-    missing = {"deepseek-v2-lite-16b": "MLA", "rwkv6-3b": "RWKV-6",
-               "jamba-v0.1-52b": "Mamba", "whisper-tiny": "encoder-decoder",
-               "qwen1.5-0.5b": "train step"}[arch]
+    missing = {"qwen1.5-0.5b": "train step"}[arch]
     assert missing in rec["cost_reason"] and "not ported" in rec[
         "cost_reason"]
     assert not list(tmp_path.iterdir())

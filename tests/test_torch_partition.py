@@ -11,8 +11,15 @@ neither way, on the replicated route), q heads that do not divide the model axis
 drops, the partitioned prefill and eight greedy decode steps match the
 unpartitioned step on the rank's rows (logits and every cache block
 within 1e-5 relative, greedy tokens equal), through the specs and routes
-asserted here. dbrx's expert-parallel ``moe_apply`` matches the reference's
-``moe_apply(shard_axes=...)`` jitted on the four forced host devices.
+asserted here; and so do the families whose caches the rules split as on
+pod256: deepseek's MLA (the latent and roped-key columns), jamba (the
+Mamba state by d_state, its kv heads not dividing model 4) under FSDP,
+rwkv6 (3 heads: the wkv state by key rows, through the key-slice WKV) and
+whisper (3 heads: the self cache by slots, the cross cache replicated).
+dbrx's expert-parallel ``moe_apply`` matches the reference's
+``moe_apply(shard_axes=...)``, and jamba's Mamba layer the reference's
+``mamba_forward(shard_axes=...)``, each jitted on the four forced host
+devices. The key slices of the plain WKV sum to the whole.
 gemma3's sequence route in bf16 stays within the dense-cache bf16 bound
 of the unpartitioned step in bf16, a merge-less control beyond it. At
 world size 1 the partitioned step is the unpartitioned one bit for bit, and
@@ -33,7 +40,6 @@ from jax.sharding import Mesh as JMesh
 from repro.configs import get_config as j_get_config
 from repro.configs import smoke_config as j_smoke_config
 from repro.layers.moe import moe_apply as j_moe_apply
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import Mesh, rank_coordinates
@@ -63,15 +69,63 @@ SPECS = {
              "PartitionSpec('model', 'data', None)", "",
              "PartitionSpec('model', 'data')",
              "PartitionSpec('model', 'data', None)"),
+    "deepseek": ("PartitionSpec('model', None)",
+                 "PartitionSpec(None, 'model')", "",
+                 "PartitionSpec('model', None)",
+                 "PartitionSpec('model', None, None)", "",
+                 "PartitionSpec('model', None)",
+                 "PartitionSpec('model', None, None)"),
+    "jamba": ("PartitionSpec('model', 'data')", "", "", "", "",
+              "PartitionSpec('data', 'model')", "", ""),
+    "rwkv6": ("PartitionSpec('model', None)",) + ("",) * 7,
+    "whisper": ("PartitionSpec('model', None)",) + ("",) * 7,
 }
+# worker.FAMILY_SPEC_NAMES' specs: wdkv's and wuk's columns; in_proj's
+# columns ([x_in | z]) and A_log's channels under FSDP; u's key dim, wr's
+# columns and cm.wv's OUTPUT; the cross-attention's q columns, wo rows
+FAMILY_SPECS = {
+    "deepseek": ["PartitionSpec(None, 'model')"] * 2,
+    "jamba": ["PartitionSpec('data', 'model')",
+              "PartitionSpec('model', 'data')"],
+    "rwkv6": ["PartitionSpec(None, 'model')"] * 3,
+    "whisper": ["PartitionSpec(None, 'model')",
+                "PartitionSpec('model', None)"],
+}
+DP = "('pod', 'data')"
+
+
+def _p(*entries) -> str:
+    return "PartitionSpec(" + ", ".join(entries) + ")"
+
+
+# the cache leaves' specs (api.tree_leaves order) of the new families:
+# deepseek's latents and roped keys by columns; rwkv6's wkv state by key
+# rows, its shift states by channels; whisper's cross cache whole, its
+# self cache by slots; jamba's Mamba ssm state by d_state and conv state
+# by channels, its attention layer (sub4) by kv heads at model 2 and by
+# slots at model 4
+STATE = _p("None", DP, "None", "'model'")
+CACHE_SPECS = {
+    "deepseek": [STATE] * 2,
+    "rwkv6": [_p("None", DP, "None", "'model'", "None")]
+    + [_p("None", DP, "'model'")] * 2,
+    "whisper": [_p("None", DP, "None", "None", "None")] * 2
+    + [_p("None", DP, "'model'", "None", "None")] * 2,
+}
+JAMBA_KV = {(1, 2, 2): _p("None", DP, "None", "'model'", "None"),
+            (1, 1, 4): _p("None", DP, "'model'", "None", "None")}
 # the attention route of each sub-layer's cache at model 2 / model 4
 ROUTES = {
     (1, 2, 2): {"qwen": ["heads"], "gemma3": ["seq"] * 6,
                 "minicpm": ["seq"], "internvl2": ["seq"], "dbrx": ["heads"],
-                "gemma3_whole": ["seq"] * 5 + ["replicated"]},
+                "gemma3_whole": ["seq"] * 5 + ["replicated"],
+                "deepseek": [], "jamba": ["heads"], "rwkv6": [],
+                "whisper": ["replicated", "seq"]},
     (1, 1, 4): {"qwen": ["heads"], "gemma3": ["seq"] * 6,
                 "minicpm": ["seq"], "internvl2": ["seq"], "dbrx": ["seq"],
-                "gemma3_whole": ["seq"] * 5 + ["replicated"]},
+                "gemma3_whole": ["seq"] * 5 + ["replicated"],
+                "deepseek": [], "jamba": ["seq"], "rwkv6": [],
+                "whisper": ["replicated", "seq"]},
 }
 
 
@@ -122,6 +176,13 @@ def test_partitioned_step_matches_unpartitioned(runs, dims, case):
             np.unravel_index(r, dims))
         assert list(out[f"{case}/specs"]) == list(SPECS[case])
         assert list(out[f"{case}/routes"]) == ROUTES[dims][case]
+        assert list(out[f"{case}/family_specs"]) == FAMILY_SPECS.get(case,
+                                                                     [])
+        if case == "jamba":
+            want = [STATE] * 8 + [JAMBA_KV[dims]] * 2 + [STATE] * 6
+            assert list(out[f"{case}/cache_specs"]) == want
+        elif case in CACHE_SPECS:
+            assert list(out[f"{case}/cache_specs"]) == CACHE_SPECS[case]
         assert np.all(out[f"{case}/logit_rel"] <= TOL), \
             (r, out[f"{case}/logit_rel"])
         assert np.all(out[f"{case}/cache_rel"] <= TOL), \
@@ -179,6 +240,112 @@ def test_expert_parallel_moe_matches_reference(runs, dims):
                           if out["coords"][2] == 0])
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: "x".join(map(str, d)))
+def test_mamba_layer_matches_reference(runs, dims):
+    """The ranks' rows of jamba's partitioned Mamba layer (``mamba_sharded``
+    under FSDP from a non-zero state: in_proj's columns gathered, the conv
+    on the rank's channels, the scan on its d_state slice, the partial C.h
+    all-reduced) against the reference's ``mamba_forward(shard_axes=...)``
+    jitted on a mesh of the same shape over the forced host devices."""
+    from repro.layers import mamba as j_mamba
+    ranks = runs(dims)
+    cfg = j_smoke_config(j_get_config("jamba-v0.1-52b"))
+    mesh = JMesh(np.array(jax.devices()[:4]).reshape(dims),
+                 ("pod", "data", "model"))
+    w = ranks[0]
+    params = {}
+    for key, val in w.items():
+        if key.startswith("jamba/w_"):
+            *mods, leaf = key[len("jamba/w_"):].split(".")
+            node = params
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = jnp.asarray(val)
+    x, ssm, conv = (t.numpy() for t in worker.mamba_inputs(
+        worker.case_config("jamba")))
+    axes = {"dp": ("pod", "data"), "tp": "model", "mesh": mesh}
+    with mesh:
+        want = np.asarray(jax.jit(lambda p, x, s, c: j_mamba.mamba_forward(
+            p, cfg, x, j_mamba.MambaState(s, c), shard_axes=axes)[0])(
+                params, x, ssm, conv))
+    got = np.concatenate([out["jamba/mamba_out"] for out in ranks
+                          if out["coords"][2] == 0])
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("slices", [2, 4, 16])
+def test_key_slices_of_the_plain_wkv_sum_to_the_whole(slices):
+    """The rectangular plain WKV (``wkv6_plain``, the key-slice kernel's
+    twin) over K / ``slices`` key rows of a 64-wide head: the slices'
+    partial y summed is the whole y within 1e-5, their state rows
+    concatenated the whole state within 1e-6; through the chunked form (T
+    96) and the scan (T 5). ``wkv6`` on the CPU routes a rectangular
+    state there too."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv6_plain
+    rng = np.random.default_rng(slices)
+    B, H, hd = 2, 3, 64
+    kk = hd // slices
+    for T in (96, 5):
+        r, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, T, H, hd)).astype(np.float32)) for _ in range(3))
+        w = torch.from_numpy(-rng.uniform(1e-3, 2.0, (B, T, H, hd))
+                             .astype(np.float32))
+        u = torch.from_numpy(rng.standard_normal((H, hd)).astype(np.float32))
+        s0 = torch.from_numpy((rng.standard_normal((B, H, hd, hd)) * 0.1)
+                              .astype(np.float32))
+        y, s1 = wkv6_plain(r, k, v, w, u, s0)
+        parts = []
+        for i in range(slices):
+            ks = slice(i * kk, (i + 1) * kk)
+            args = (r[..., ks].contiguous(), k[..., ks].contiguous(), v,
+                    w[..., ks].contiguous(), u[:, ks].contiguous(),
+                    s0[:, :, ks].contiguous())
+            parts.append(wkv_ops.wkv6(*args))
+            assert all(torch.equal(a, b) for a, b in zip(
+                parts[-1], wkv6_plain(*args)))
+        y_sum = torch.stack([p[0] for p in parts]).sum(0)
+        s_cat = torch.cat([p[1] for p in parts], 2)
+        assert ((y_sum - y).abs().max() / y.abs().max()) <= 1e-5
+        assert ((s_cat - s1).abs().max() / s1.abs().max()) <= 1e-6
+
+
+def test_key_slice_meta_route_and_refusals():
+    """The key-slice wrapper on ``meta`` tensors (the dry run's trace)
+    makes one ``meta_call`` entry with ``keyslice_cost``; it refuses a key
+    count that is not a power of two below V, a V outside (32, 64) and a
+    gradient."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    def args(K, V, device="meta", grad=False):
+        B, T, H = 2, 7, 3
+        bf = dict(dtype=torch.bfloat16, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return (torch.empty((B, T, H, K), **bf),
+                torch.empty((B, T, H, K), **bf),
+                torch.empty((B, T, H, V), **bf),
+                torch.empty((B, T, H, K), **f32),
+                torch.zeros((H, K), requires_grad=grad, **f32),
+                torch.empty((B, H, K, V), **f32))
+    seen = []
+    build.META_SINKS.append(seen.append)
+    try:
+        y, s = wkv_ops.wkv6(*args(4, 64))
+    finally:
+        build.META_SINKS.remove(seen.append)
+    assert y.shape == (2, 7, 3, 64) and s.shape == (2, 3, 4, 64)
+    assert [e["kernel"] for e in seen] == ["wkv6_keyslice"]
+    flops, nbytes = wkv_ops.keyslice_cost(2, 7, 3, 4, 64)
+    assert (seen[0]["flops"], seen[0]["bytes"]) == (flops, nbytes)
+    for K, V in ((3, 64), (4, 48), (64, 128)):
+        with pytest.raises(ValueError):
+            wkv_ops.wkv6_keyslice(*args(K, V))
+    with pytest.raises(ValueError, match="no backward"):
+        wkv_ops.wkv6(*args(4, 64, "cpu", grad=True))
 
 
 @pytest.mark.parametrize("case", list(worker.CASES))
@@ -250,12 +417,24 @@ def test_a_rank_holds_exactly_its_specs_shards(dims):
         8 // (dims[0] * dims[1]), 5)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "rwkv6-3b",
-                                  "jamba-v0.1-52b", "whisper-tiny"])
-def test_other_families_name_what_is_missing(arch):
-    cfg = smoke_config(get_config(arch))
-    why = partition.unsupported_reason(cfg)
-    assert why and "not ported" in why
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.prefill(api.param_specs(cfg), cfg, torch.zeros(1, 2), {},
-                    shard_axes={"ctx": None})
+@pytest.mark.parametrize("dims", [(1, 2, 2), (2, 2, 4)])
+@pytest.mark.parametrize("case", ["deepseek", "jamba", "rwkv6", "whisper"])
+def test_a_rank_of_a_new_family_holds_exactly_its_specs_shards(case, dims):
+    """As above for the MLA, hybrid, RWKV-6 and encoder-decoder configs:
+    the rank's parameters and cache leaves sum to ``_per_device``'s
+    bytes."""
+    from repro_torch.launch.dryrun import _per_device
+    cfg = worker.case_config(case)
+    mesh = Mesh(np.full(dims, "meta", dtype=object), ("pod", "data",
+                                                      "model"))
+    rules = ShardingRules(mesh, cfg, fsdp=worker.CASES[case][2])
+    ctx = _ctx(dims, 5 % int(np.prod(dims)), "meta")
+    model = api.param_specs(cfg)
+    local = partition.shard_model(model, rules, ctx)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
+    assert nbytes(local.parameters()) == _per_device(
+        dict(model.named_parameters()), rules.params(model), mesh.shape)
+    cache = api.decode_state_specs(cfg, 8, 32)
+    cl = partition.shard_cache(cache, rules, ctx, 8)
+    assert nbytes(api.tree_leaves(cl)) == _per_device(
+        cache, rules.cache(cache, 8), mesh.shape)
