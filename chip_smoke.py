@@ -639,6 +639,27 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    64) and decode (8, 1, 40, 4, 64), at row 8's limits with a zeroed-state
    control beyond them; kernel, plain and bound ms in its
    ``wkv6_keyslice`` record.
+84. the partitioned train step (``make_train_step`` with
+   ``TrainConfig.shard_axes``: FSDP rules, sequence parallelism, remat,
+   micro-batches, the vocab-parallel cross-entropy, data-parallel
+   gradients, the global clipping norm). (a) On an NCCL group of world
+   size 1 over a (1, 1, 1) mesh, two steps against two unpartitioned
+   steps from the same seeded weights and batches: qwen1.5-0.5b at full
+   width and depth (8 x 2,048, 4 micro-batches), internvl2-1b at full
+   width and depth (4 x 1,024: 256 prefix rows, 2 micro-batches) and
+   gemma3-12b at 6 of 48 layers (2 x 2,048, 2 micro-batches: five
+   windowed layers and a global one); every step's loss and grad norm,
+   then every parameter and AdamW moment bit for bit (on the card up to
+   16 GiB of state, else equal checksums of their bits), the same
+   launches, row 9's forward and backward among them; the host wall of
+   both. (b) Rank 0 of ``pod256`` in qwen1.5-0.5b's ``train_4k`` (16 of
+   the 256 rows, 4 micro-batches of 4 x 4,096, one head a rank) under a
+   fake process group, traced on ``meta`` and run 2 + 5 times as phase
+   83(b) runs a serving cell. (c) Row 9 at that rank's micro-batch shape
+   (4 x 4,096, one head of 64 on one kv head, causal), forward and
+   backward, through phase 75's check and timing, under
+   ``partition_train`` in the ``flash_attention`` and
+   ``flash_attention_bwd`` records.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -8104,15 +8125,16 @@ def partition_world1(torch, np, run, dev, card):
 
 
 def partition_cell(torch, np, arch, shape_name, layers, card):
-    """Phase 83(b), one cell: rank 0 of ``PARTITION_MESH`` at its own
-    shapes, under the fake group of the mesh's size (its collectives move
-    no bytes and return garbage: values are not checked). Traced on meta
-    (``dryrun.build_cell``), then run on the card 2 + 5 times on
-    instantiated shards (a zeroed cache): the p50 beside the per-device
-    bound, launches equal to the trace's entries x 7, and
-    ``max_memory_allocated``, less what earlier phases still hold, within
-    ``PARTITION_MEM_SLACK`` of the trace's args + temp. Returns (the cell's
-    row, its launches)."""
+    """Phase 83(b) and 84(b), one cell: rank 0 of ``PARTITION_MESH`` at
+    its own shapes, under the fake group of the mesh's size (its
+    collectives move no bytes and return garbage: values are not checked).
+    Traced on meta (``dryrun.build_cell``), then run on the card 2 + 5
+    times on instantiated shards (a zeroed cache; a train cell's AdamW
+    state from ``adamw_init``, each run a step that updates it): the p50
+    beside the per-device bound, launches equal to the trace's entries x
+    7, and ``max_memory_allocated``, less what earlier phases still hold,
+    within ``PARTITION_MEM_SLACK`` of the trace's args + temp. Returns (the
+    cell's row, its launches)."""
     from repro_torch.analysis import roofline
     from repro_torch.configs import SHAPES_BY_NAME, ShapeConfig, get_config
     from repro_torch.core.perfmodel import H100_SXM
@@ -8135,7 +8157,15 @@ def partition_cell(torch, np, arch, shape_name, layers, card):
     dev = torch.device("cuda")
     release(torch)
     base = torch.cuda.memory_allocated()      # what earlier phases hold
-    if shape.kind == "prefill":
+    if shape.kind == "train":
+        from repro_torch.training.optimizer import AdamWConfig, adamw_init
+        from repro_torch.training.train_loop import trainable_params
+        model = api.instantiate(args[0], 83, dev)
+        real = (model, adamw_init(trainable_params(model),
+                                  AdamWConfig(lr=3e-4)),
+                api.instantiate(args[2], 84, dev))
+        del model
+    elif shape.kind == "prefill":
         real = (api.instantiate(args[0], 83, dev),
                 api.instantiate(args[1], 84, dev),
                 partition.materialize(args[2], dev),
@@ -8147,7 +8177,8 @@ def partition_cell(torch, np, arch, shape_name, layers, card):
                 api.instantiate(args[3], 85, dev))
     held = sum(t.numel() * t.element_size()
                for t in api.tree_leaves([list(real[0].parameters())]
-                                        + list(real[1:])))
+                                        + list(real[1:]))
+               if isinstance(t, torch.Tensor))      # AdamW's step is an int
     del args, trace
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -8351,6 +8382,180 @@ def phase_partition(torch, np, report, dev, card):
     return paths
 
 
+# -- the partitioned train step -----------------------------------------------
+# (a) at world size 1 on NCCL against the unpartitioned step: (arch, layers
+# or 0 for all, batch, sequence with any prefix rows, micro-batches)
+TRAIN_PARTITION_RUNS = (("qwen1.5-0.5b", 0, 8, 2048, 4),
+                        # 256 prefix rows before 768 tokens
+                        ("internvl2-1b", 0, 4, 1024, 2),
+                        # one group: five windowed layers, then a global one
+                        ("gemma3-12b", 6, 2, 2048, 2))
+TRAIN_PARTITION_STEPS = 2
+# a run's state held on the card for torch.equal up to this size, else its
+# bits' checksums (gemma3-12b's 6 layers: 33 GB of parameters and AdamW
+# state, beside a second run's)
+TRAIN_STATE_ON_CARD = 16 * 2 ** 30
+# (b) rank 0 of pod256 in qwen1.5-0.5b's train_4k under a fake group
+TRAIN_PARTITION_CELL = ("qwen1.5-0.5b", "train_4k", 0)
+# (c) row 9 at that rank's micro-batch: 4 rows of 4,096, one head of 64 on
+# one kv head, causal, forward and backward
+TRAIN_PARTITION_FLASH = {
+    "qwen1.5-0.5b pod256 rank train_4k micro-batch":
+        ((4, 4096, 4096, 1, 1, 64, True, 0), True)}
+
+
+def bits_digest(torch, t, chunk=1 << 26):
+    """Two int64 checksums (mod 2^64) of a tensor's bits, chunk by chunk on
+    its device: the sum of its 16- or 32-bit words and the sum of each
+    word times its index mod 65,521, plus one. A change in any word moves
+    the first."""
+    flat = t.detach().reshape(-1)
+    words = flat.view(torch.int32 if flat.element_size() == 4
+                      else torch.int16)
+    s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i in range(0, words.numel(), chunk):
+        w = words[i:i + chunk].to(torch.int64)
+        idx = torch.arange(i, i + w.numel(), device=t.device) % 65521 + 1
+        s1 += w.sum()
+        s2 += (w * idx).sum()
+    return int(s1), int(s2)
+
+
+def train_state(torch, model, opt, on_card):
+    """A train run's parameters and AdamW moments (and master) by name:
+    clones on the card (``on_card``), else their bits' checksums."""
+    named = {f"param {n}": p for n, p in model.named_parameters()}
+    for part in ("mu", "nu", "master"):
+        named.update({f"{part} {n}": t
+                      for n, t in (getattr(opt, part) or {}).items()})
+    return {k: t.detach().clone() if on_card else bits_digest(torch, t)
+            for k, t in named.items()}
+
+
+def train_partition_world1(torch, np, run, dev, card):
+    """Phase 84(a), one config: ``TRAIN_PARTITION_STEPS`` steps of the
+    partitioned train step (``TrainConfig.shard_axes`` on a (1, 1, 1) mesh
+    over the NCCL group of world size 1, FSDP rules, sequence parallelism,
+    remat, micro-batches) against as many unpartitioned steps from the
+    same seeded weights and batches: every step's loss and ``grad_norm``
+    bit for bit, then every parameter and AdamW moment (and master) bit
+    for bit (``torch.equal`` on the card up to ``TRAIN_STATE_ON_CARD`` of
+    state, else equal checksums of their bits), the same kernel launches,
+    row 9's forward and backward among them. Prints both runs' host wall.
+    Returns the partitioned run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import Mesh, rank_context
+    from repro_torch.models import api
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 make_train_step,
+                                                 trainable_params)
+    arch, layers, B, T, micro = run
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    mesh = Mesh(np.full((1, 1, 1), str(dev), dtype=object),
+                ("pod", "data", "model"))
+    rank = rank_context(mesh, device=dev)
+    rules = ShardingRules(mesh, cfg, fsdp=True)
+    axes = {"dp": rules.dp, "tp": "model", "mesh": mesh, "sp": True,
+            "ctx": rank}
+    ocfg = AdamWConfig(lr=3e-4)
+    batches = [make_batch(DataConfig(seed=84, batch=B, seq_len=T), cfg, s)
+               for s in range(TRAIN_PARTITION_STEPS)]
+    on_card = cfg.param_count() * (cfg.dtype().itemsize + 12) \
+        <= TRAIN_STATE_ON_CARD
+    runs = {}
+    for label, shard_axes in (("unpartitioned", None),
+                              ("partitioned", axes)):
+        gen = torch.Generator(device=dev).manual_seed(84)
+        model = api.init_params(cfg, gen, dev)
+        if shard_axes:
+            model = partition.shard_model(model, rules, rank,
+                                          requires_grad=True)
+        opt = adamw_init(trainable_params(model), ocfg)
+        step = make_train_step(cfg, ocfg, TrainConfig(
+            micro_batches=micro, remat=True, shard_axes=shard_axes))
+        build.reset_launch_counts()
+        _sync(torch, dev)
+        t = time.perf_counter()
+        stats = []
+        for b in batches:
+            model, opt, st = step(model, opt, b)
+            stats.append((st["loss"].detach().clone(),
+                          st["grad_norm"].detach().clone()))
+        _sync(torch, dev)
+        runs[label] = dict(wall=time.perf_counter() - t, stats=stats,
+                           launches=build.launch_counts(),
+                           state=train_state(torch, model, opt, on_card))
+        del model, opt, step
+        release(torch)
+    want, got = runs["unpartitioned"], runs["partitioned"]
+    same_stats = all(torch.equal(a, b) for x, y in zip(want["stats"],
+                                                       got["stats"])
+                     for a, b in zip(x, y))
+    same = [(torch.equal(want["state"][k], got["state"][k]) if on_card
+             else want["state"][k] == got["state"][k])
+            for k in want["state"]]
+    launches = got["launches"]
+    print(f"partition train world 1: {arch} ({cfg.n_layers} layers, FSDP "
+          f"rules, {B} x {T}, {micro} micro-batches, remat, sequence "
+          f"parallel), {TRAIN_PARTITION_STEPS} steps: losses "
+          f"{[float(x[0]) for x in got['stats']]} and grad norms "
+          f"{[float(x[1]) for x in got['stats']]} bit-equal {same_stats}; "
+          f"{sum(same)} of {len(same)} parameters and moments bit-equal "
+          f"({'torch.equal on the card' if on_card else 'equal bit checksums'}"
+          f"); launches {launches} (unpartitioned {want['launches']}); "
+          f"partitioned {got['wall']:.2f} s, unpartitioned "
+          f"{want['wall']:.2f} s (host wall); on {card}")
+    if not (same_stats and all(same) and launches == want["launches"]
+            and launches.get("flash_attention", 0) > 0
+            and launches.get("flash_attention_bwd", 0) > 0
+            and set(got["state"]) == set(want["state"])):
+        raise AssertionError(f"partition train world 1: {arch}: stats "
+                             f"bit-equal {same_stats}, {sum(same)} of "
+                             f"{len(same)} tensors bit-equal, launches "
+                             f"{launches} vs {want['launches']}")
+    return launches
+
+
+def phase_partition_train(torch, np, report, dev, card):
+    """Phase 84: (a) ``TRAIN_PARTITION_RUNS`` at world size 1 over NCCL
+    (``train_partition_world1``), (b) rank 0 of ``PARTITION_MESH`` in
+    ``TRAIN_PARTITION_CELL`` under a fake group (``partition_cell``), (c)
+    row 9 at that rank's micro-batch shape, forward and backward
+    (``TRAIN_PARTITION_FLASH``, the ``partition_train`` entries of
+    ``flash_attention`` and ``flash_attention_bwd``). Returns {path:
+    launches}."""
+    import torch.distributed as dist
+    from repro_torch.distributed import partition
+    from repro_torch.launch.mesh import make_placeholder_mesh
+    paths = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    for run in TRAIN_PARTITION_RUNS:
+        paths[f"partition train world 1 {run[0]}"] = train_partition_world1(
+            torch, np, run, dev, card)
+    dist.destroy_process_group()
+    arch, shape_name, layers = TRAIN_PARTITION_CELL
+    with partition.fake_world(int(make_placeholder_mesh(
+            PARTITION_MESH).devices.size)):
+        row, launches = partition_cell(torch, np, arch, shape_name, layers,
+                                       card)
+    paths[f"partition {PARTITION_MESH} {arch} {shape_name}"] = launches
+    print("partition train cell: " + json.dumps(
+        {k: v for k, v in row.items() if k != "ms"}))
+    phase_flash_shapes(torch, report, TRAIN_PARTITION_FLASH,
+                       "partition_train", 84)
+    release(torch)
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -8541,6 +8746,14 @@ def main() -> int:
     partition_paths = phase_partition(torch, np, report, dev, card)
     print(f"partition phase: {time.perf_counter() - t_part:.1f} s; done at "
           f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the partitioned train step: at world size 1 against the
+    # unpartitioned one, and one rank of pod256 in train_4k ---------------
+    t_ptrain = time.perf_counter()
+    partition_paths.update(phase_partition_train(torch, np, report, dev,
+                                                 card))
+    print(f"partition train phase: {time.perf_counter() - t_ptrain:.1f} s; "
+          f"done at {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the first path that runs it: the qwen engine
     # (the fused step), the qwen per-request path, the split-pool drive, the
     # rwkv engine, the rwkv per-request path, the train run; and on every
@@ -8633,7 +8846,12 @@ def main() -> int:
                ("partition world 1 whisper-tiny", ("flash_attention",)),
                ("partition pod256 rwkv6-3b long_500k", ("wkv6_keyslice",)),
                ("partition pod256 whisper-tiny decode_32k",
-                ("flash_attention",)))
+                ("flash_attention",))) + tuple(
+        (label, ("flash_attention", "flash_attention_bwd")) for label in (
+            "partition train world 1 qwen1.5-0.5b",
+            "partition train world 1 internvl2-1b",
+            "partition train world 1 gemma3-12b",
+            "partition pod256 qwen1.5-0.5b train_4k"))
     for label, rows in trained:
         if not all(dict(paths)[label].get(k, 0) > 0 for k in rows):
             raise AssertionError(f"the {label} path launched none of some "

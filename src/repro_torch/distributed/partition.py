@@ -1,9 +1,9 @@
-"""The partitioned serving step's plumbing: what GSPMD does for the
-reference, written out for ``torch.distributed``.
+"""The partitioned serving and train steps' plumbing: what GSPMD does for
+the reference, written out for ``torch.distributed``.
 
-The reference jits ``api.prefill`` / ``api.decode_step`` under
-``in_shardings`` from ``ShardingRules`` (``repro/launch/dryrun.py``) and
-lets XLA's SPMD partitioner split them. Here every rank of a process group
+The reference jits ``api.prefill`` / ``api.decode_step`` and its train
+step under ``in_shardings`` from ``ShardingRules``
+(``repro/launch/dryrun.py``) and lets XLA's SPMD partitioner split them. Here every rank of a process group
 runs the step itself on its shards (SPMD), and the layers call the
 collectives where the partitioner would put them
 (``layers/core.py``, ``layers/attention.py``, ``layers/moe.py``):
@@ -20,12 +20,41 @@ collectives where the partitioner would put them
   nothing). A sharded module holds its parameters' specs (``pspecs``,
   read by ``pspec``), a cache leaf its own (``pspec``): the layers read
   the split from them.
-* ``RankContext.all_reduce`` / ``all_gather`` / ``gather`` — thin wrappers
-  over the functional collectives (``torch.ops._c10d_functional``, each
-  followed by its ``wait_tensor`` off the ``meta`` device), so that a
-  trace records one ``_c10d_functional.*`` op a collective (``analysis/roofline.py`` counts
-  their bytes). ``gather(t, spec)`` un-shards a tensor over the named axes
-  of its spec (FSDP's ``data``).
+* ``RankContext.all_reduce`` / ``all_gather`` / ``reduce_scatter`` /
+  ``gather`` — the functional collectives (``torch.ops._c10d_functional``,
+  each followed by its ``wait_tensor`` off the ``meta`` device), so that a
+  trace records one ``_c10d_functional.*`` op a collective
+  (``analysis/roofline.py`` counts their bytes), forward and backward.
+  ``gather(t, spec)`` un-shards a tensor over the named axes of its spec
+  (FSDP's ``data``). ``enter`` and ``split`` move no bytes forward.
+
+The collectives are differentiable (``torch.autograd.Function``s over the
+same ops), under one convention: over ``model`` every rank holds the same
+loss, and the gradient a rank holds of a tensor replicated over ``model``
+is the whole gradient; over the data-parallel axes the global loss is the
+mean of the ranks' losses (``reduce_gradients``). Between a collective
+that hands a rank its share of the work and the one that combines the
+shares, every rank does work of its own (its heads, columns, rows,
+positions or vocabulary slice), so the gradient it computes there is its
+part of the whole. Hence the backwards:
+
+* ``all_reduce`` (partial sums -> a sum used alike on every rank): the
+  gradient passes through unchanged.
+* ``enter`` (a replicated tensor, an activation or a weight, consumed by
+  the rank's own work): the identity; its gradient is summed over the
+  axis.
+* ``all_gather`` (shards -> the whole, consumed by the rank's own work:
+  the sequence-parallel stream, FSDP's weights, the projections the
+  covered attention route gathers): its gradient reduce-scattered (summed,
+  each rank keeping its shard's).
+* ``reduce_scatter`` (partial sums -> the rank's shard of the sum): its
+  gradient all-gathered.
+* ``split`` (a replicated tensor -> the rank's shard, consumed by its own
+  work): its gradient all-gathered.
+
+``torch.distributed``'s own autograd collectives take the loss to be the
+sum of the ranks' losses instead, which over ``model`` would scale the
+gradients by its size.
 
 Collectives run over an axis whenever a spec names it, a group of one
 included, so a step issues the same collectives at any mesh size.
@@ -34,7 +63,10 @@ Every family the port serves: attention, MLP and MoE layers
 (``layers/core.py``, ``layers/attention.py``, ``layers/moe.py``), MLA
 (``layers/mla.py``), Mamba (``layers/mamba.py``), RWKV-6 over a key slice
 of its state (``layers/rwkv6.py``) and the encoder-decoder
-(``models/encdec.py``).
+(``models/encdec.py``). It trains the attention and MLP families
+(``training/train_loop.py`` with ``TrainConfig.shard_axes``): the rank's
+gradients reduced over the data-parallel axes by ``reduce_gradients``,
+its loss by ``dp_mean``.
 """
 from __future__ import annotations
 
@@ -87,26 +119,34 @@ class RankContext:
         i, _ = self.index(entry)
         return i * local, (i + 1) * local
 
-    # -- collectives ----------------------------------------------------
+    # -- collectives (differentiable; the module docstring's convention) --
     def all_reduce(self, t: torch.Tensor, axis: str,
                    op: str = "sum") -> torch.Tensor:
-        return _wait(torch.ops._c10d_functional.all_reduce(
-            t, op, self.groups[axis].group_name))
+        """The group's tensors reduced (``op``: ``"sum"``, or ``"max"`` of a
+        tensor that takes no gradient), used alike on every rank."""
+        return _AllReduce.apply(t, self.groups[axis], op)
 
     def all_gather(self, t: torch.Tensor, dim: int,
                    axis: str) -> torch.Tensor:
         """The group's tensors concatenated along ``dim`` in rank order."""
-        group = self.groups[axis]
-        n = group.size()
-        out = _wait(torch.ops._c10d_functional.all_gather_into_tensor(
-            t.contiguous(), n, group.group_name))
-        dim %= t.dim()
-        shape = list(t.shape)
-        shape[dim] *= n
-        if all(d == 1 for d in t.shape[:dim]):
-            # the ranks' blocks lie in order along dim already
-            return out.view(shape)
-        return torch.cat(out.chunk(n, 0), dim)
+        return _AllGather.apply(t, dim, self.groups[axis])
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int,
+                       axis: str) -> torch.Tensor:
+        """The sum of the group's tensors, the rank's block of it along
+        ``dim`` (blocks in rank order)."""
+        return _ReduceScatter.apply(t, dim, self.groups[axis])
+
+    def enter(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """``t``, replicated over ``axis``, consumed by the rank's own
+        work: ``t`` itself, its gradient summed over the axis."""
+        return _Enter.apply(t, self.groups[axis])
+
+    def split(self, t: torch.Tensor, dim: int,
+              axis: str = "model") -> torch.Tensor:
+        """The rank's block along ``dim`` of ``t``, replicated over
+        ``axis``; its gradient all-gathered."""
+        return _Split.apply(t, dim, self.groups[axis])
 
     def gather(self, t: torch.Tensor, t_spec,
                axes=("data",)) -> torch.Tensor:
@@ -125,6 +165,100 @@ def _wait(t: torch.Tensor) -> torch.Tensor:
     """A functional collective's result once it has landed. A meta tensor
     has nothing to wait for: its trace records the collective alone."""
     return t if t.is_meta else torch.ops._c10d_functional.wait_tensor(t)
+
+
+def _all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    return _wait(torch.ops._c10d_functional.all_reduce(
+        t, op, group.group_name))
+
+
+def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = group.size()
+    out = _wait(torch.ops._c10d_functional.all_gather_into_tensor(
+        t.contiguous(), n, group.group_name))
+    dim %= t.dim()
+    shape = list(t.shape)
+    shape[dim] *= n
+    if all(d == 1 for d in t.shape[:dim]):
+        # the ranks' blocks lie in order along dim already
+        return out.view(shape)
+    return torch.cat(out.chunk(n, 0), dim)
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = group.size()
+    dim %= t.dim()
+    shape = list(t.shape)
+    if shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"{n} ways")
+    shape[dim] //= n
+    if any(d != 1 for d in t.shape[:dim]):
+        # the ranks' blocks in order along dim 0
+        t = torch.cat(t.chunk(n, dim), 0)
+    out = _wait(torch.ops._c10d_functional.reduce_scatter_tensor(
+        t.contiguous().reshape(-1), "sum", n, group.group_name))
+    return out.view(shape)
+
+
+def _block(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = group.size()
+    c = t.shape[dim] // n
+    return t.narrow(dim, dist.get_rank(group) * c, c)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, op):
+        return _all_reduce(t, group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.group), None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _block(t, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
 
 
 def pspec(module: nn.Module, name: str):
@@ -188,17 +322,21 @@ def _own(t: torch.Tensor, spec, ctx: RankContext,
     return part.clone(memory_format=torch.contiguous_format)
 
 
-def shard_model(model: nn.Module, rules, ctx: RankContext) -> nn.Module:
+def shard_model(model: nn.Module, rules, ctx: RankContext, *,
+                requires_grad: bool = False) -> nn.Module:
     """A module of ``model``'s class whose parameters are the rank's
     slices per ``rules.params(model)``; each module holds its parameters'
     specs in ``pspecs``. Tied parameters stay tied; ``model`` is
-    untouched."""
+    untouched. Frozen shards share a whole tensor's storage with
+    ``model``; with ``requires_grad`` (the partitioned train step, which
+    updates them in place) every shard is a copy of its own."""
     specs = rules.params(model)
     memo: dict = {}
     for name, p in model.named_parameters():
         if id(p) not in memo:
-            memo[id(p)] = nn.Parameter(_own(p.detach(), specs[name], ctx),
-                                       requires_grad=False)
+            memo[id(p)] = nn.Parameter(
+                _own(p.detach(), specs[name], ctx, requires_grad),
+                requires_grad=requires_grad)
     out = copy.deepcopy(model, memo)
     for prefix, mod in out.named_modules():
         own = {n: specs[f"{prefix}.{n}" if prefix else n]
@@ -206,6 +344,67 @@ def shard_model(model: nn.Module, rules, ctx: RankContext) -> nn.Module:
         if own:
             mod.pspecs = own
     return out
+
+
+def param_specs(model: nn.Module) -> Dict[str, tuple]:
+    """``{name: spec}`` of a sharded model's parameters, from the specs
+    its modules hold."""
+    out = {}
+    for name, _ in model.named_parameters():
+        mod, _, leaf = name.rpartition(".")
+        out[name] = pspec(model.get_submodule(mod), leaf)
+    return out
+
+
+@torch.no_grad()
+def reduce_gradients(grads: Dict[str, torch.Tensor], specs, ctx: RankContext,
+                     dp) -> Dict[str, torch.Tensor]:
+    """Data-parallel gradients: the rank's gradients of its own loss
+    (``grads``, by parameter name) -> its shards of the gradient of the
+    mean loss over the ``dp`` axes. A gradient whose spec names a dp axis
+    was reduce-scattered over it by its weight's gather (FSDP); every
+    other is summed over the axis, in all-reduces of buckets of such
+    gradients concatenated (``BUCKET`` elements at most, besides a larger
+    gradient alone); then all are divided by the axes' size (not at a
+    size of 1, where the step is the unpartitioned one bit for bit)."""
+    grads = dict(grads)
+    n = 1
+    for axis in dp:
+        n *= ctx.sizes[axis]
+        names = [k for k in grads if not splits(specs[k], axis)]
+        for bucket in _buckets(names, grads):
+            flat = ctx.all_reduce(torch.cat([grads[k].reshape(-1)
+                                             for k in bucket]), axis)
+            for k, part in zip(bucket, flat.split([grads[k].numel()
+                                                   for k in bucket])):
+                grads[k] = part.view_as(grads[k])
+    return grads if n == 1 else {k: g / n for k, g in grads.items()}
+
+
+BUCKET = 1 << 25
+
+
+def _buckets(names, tensors):
+    """``names`` in order, cut into runs of at most ``BUCKET`` elements."""
+    out, size = [], BUCKET
+    for k in names:
+        if size + tensors[k].numel() > BUCKET:
+            out.append([])
+            size = 0
+        out[-1].append(k)
+        size += tensors[k].numel()
+    return out
+
+
+@torch.no_grad()
+def dp_mean(t: torch.Tensor, ctx: RankContext, dp) -> torch.Tensor:
+    """The mean over the ``dp`` axes of a value each rank holds (its
+    loss), the tensor itself where they are of size 1."""
+    n = 1
+    for axis in dp:
+        n *= ctx.sizes[axis]
+        t = ctx.all_reduce(t, axis)
+    return t if n == 1 else t / n
 
 
 def _map(fn, tree):

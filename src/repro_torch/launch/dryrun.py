@@ -32,9 +32,13 @@ with ``meta`` entries (``launch/mesh.py:make_placeholder_mesh``):
   (``api.prefill`` / ``api.decode_step`` with ``shard_axes``) on its
   shards, traced under a fake process group of the mesh's size
   (``partition.fake_world``): the cost and ``temp_size_in_bytes`` a
-  device, its collectives recorded as ``_c10d_functional`` ops. A pod's
-  training cell keeps ``cost: null``, with a ``cost_reason`` that names
-  what is missing (the partitioned train step).
+  device, its collectives recorded as ``_c10d_functional`` ops. For the
+  training cells of the attention and MLP families (dense and VLM), rank
+  0's partitioned train step (``make_train_step`` with
+  ``TrainConfig.shard_axes``: FSDP, four micro-batches of the rank's
+  rows, remat, sequence parallelism), forward and backward. The other
+  families' training cells keep ``cost: null``, with a ``cost_reason``
+  that names what their family is missing (``TRAIN_MISSING``).
 """
 from __future__ import annotations
 
@@ -66,9 +70,16 @@ ASSIGNED = [
 ]
 MESHES = tuple(PLACEHOLDER_MESHES)
 TRACED_MESH = "h100"
-TRAIN_REASON = ("the partitioned train step (FSDP, sequence parallelism, the "
-                "vocab-parallel cross-entropy, data-parallel gradients) is "
-                "not ported")
+# what the partitioned train step of each family not yet ported lacks
+TRAIN_MISSING = {
+    "moe": "the expert-parallel MoE backward",
+    "mla": "the partitioned MLA backward and the expert-parallel MoE "
+           "backward",
+    "hybrid": "the partitioned Mamba backward and the expert-parallel MoE "
+              "backward",
+    "ssm": "the key-slice WKV backward",
+    "encdec": "the partitioned encoder-decoder step",
+}
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__),
                            "../../../results/dryrun_torch")
@@ -108,15 +119,25 @@ def _memory(arguments: int, outputs: int, aliased: int) -> dict:
             "generated_code_size_in_bytes": 0}
 
 
-def pod_cost_reason(shape) -> str:
+def train_family(cfg) -> str:
+    """The family whose partitioned train step a config takes: ``"mla"``
+    for an MLA config, else its ``family``."""
+    return "mla" if cfg.mla is not None else cfg.family
+
+
+def pod_cost_reason(cfg, shape) -> str:
     """Why a cell on a multi-device mesh has no traced cost ('' if it
     has one)."""
-    return f"no cost: {TRAIN_REASON}" if shape.kind == "train" else ""
+    family = train_family(cfg)
+    if shape.kind != "train" or family not in TRAIN_MISSING:
+        return ""
+    return (f"no cost: the partitioned train step of the {family} family "
+            f"is not ported ({TRAIN_MISSING[family]})")
 
 
-def partitioned(shape, mesh) -> bool:
+def partitioned(cfg, shape, mesh) -> bool:
     """Whether the cell traces rank 0's partitioned step."""
-    return mesh.devices.size > 1 and not pod_cost_reason(shape)
+    return mesh.devices.size > 1 and not pod_cost_reason(cfg, shape)
 
 
 def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
@@ -150,11 +171,20 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
         opt = adamw_init(params, ocfg)
         state_b = param_b + _per_device(opt, rules.opt_state(opt, params),
                                         sizes)
-        # 4 micro-batches: grad accumulation bounds activation memory
-        step = make_train_step(cfg, ocfg, TrainConfig(micro_batches=4,
-                                                      remat=remat))
         memory = _memory(state_b + _per_device(
             inputs, rules.batch(inputs, B), sizes), state_b, state_b)
+        axes = None
+        if partitioned(cfg, shape, mesh):
+            rank = rank_context(mesh, device="meta")
+            axes = {"dp": rules.dp, "tp": "model", "mesh": mesh, "sp": True,
+                    "ctx": rank}
+            model = partition.shard_model(model, rules, rank,
+                                          requires_grad=True)
+            opt = adamw_init(trainable_params(model), ocfg)
+            inputs = partition.shard_batch(inputs, rules, rank, B)
+        # 4 micro-batches: grad accumulation bounds activation memory
+        step = make_train_step(cfg, ocfg, TrainConfig(
+            micro_batches=4, remat=remat, shard_axes=axes))
         return step, (model, opt, inputs), memory
 
     cache = inputs.pop("cache")
@@ -165,7 +195,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
     memory = _memory(param_b + cache_b + rest_b, cache_b + _per_device(
         logits, rules.batch_spec(logits, B), sizes), cache_b)
     axes = {}
-    if partitioned(shape, mesh):
+    if partitioned(cfg, shape, mesh):
         rank = rank_context(mesh, device="meta")
         axes = {"shard_axes": {"dp": rules.dp, "tp": "model", "mesh": mesh,
                                "ctx": rank}}
@@ -204,7 +234,7 @@ def run_cell(arch: str, shape_name: str, *, mesh_name: str, out_dir: str,
         rec.update(status="skipped", reason=reason)
         return rec
     mesh = make_placeholder_mesh(mesh_name)
-    traced = mesh_name == TRACED_MESH or partitioned(shape, mesh)
+    traced = mesh_name == TRACED_MESH or partitioned(cfg, shape, mesh)
     world = partition.fake_world(mesh.devices.size) \
         if traced and mesh_name != TRACED_MESH else contextlib.nullcontext()
     t0 = time.monotonic()
@@ -227,7 +257,7 @@ def run_cell(arch: str, shape_name: str, *, mesh_name: str, out_dir: str,
         rec.update(status="ok", lower_s=round(t_lower, 1),
                    compile_s=round(t_trace, 1), memory=mem, cost=cost)
         if cost is None:
-            rec["cost_reason"] = pod_cost_reason(shape)
+            rec["cost_reason"] = pod_cost_reason(cfg, shape)
         temp = mem["temp_size_in_bytes"]
         print(f"[dryrun] {mesh_name} {arch} {shape_name} {tag} OK "
               f"build={t_lower:.1f}s trace={t_trace:.1f}s "

@@ -39,7 +39,7 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_prefill_attention_pool_ref, write_kv_rows_ref)
 from repro_torch.layers.core import (Linear, _param, apply_rope, check_impl,
                                      linear, linear_cols, linear_gathered,
-                                     linear_rows, qk_head_norm,
+                                     linear_rows, own_weight, qk_head_norm,
                                      select_update)
 
 
@@ -86,12 +86,16 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def _norm_rope(p: Attention, cfg: ModelConfig, q, k, positions):
+def _norm_rope(p: Attention, cfg: ModelConfig, q, k, positions, rank=None):
     """The q/k head norms (where the config has them), then RoPE: what
-    every projection of q and k goes through, whole or a rank's."""
+    every projection of q and k goes through, whole or a rank's (whose
+    head-norm scales enter its own work: ``own_weight``)."""
     if p.q_norm is not None:
-        q = qk_head_norm(p.q_norm, q, cfg.rmsnorm_eps)
-        k = qk_head_norm(p.k_norm, k, cfg.rmsnorm_eps)
+        qs, ks = ((p.q_norm, p.k_norm) if rank is None else
+                  (own_weight(p, "q_norm", rank),
+                   own_weight(p, "k_norm", rank)))
+        q = qk_head_norm(qs, q, cfg.rmsnorm_eps)
+        k = qk_head_norm(ks, k, cfg.rmsnorm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k
@@ -240,7 +244,7 @@ def _heads_qkv(p: Attention, cfg: ModelConfig, x, positions, rank):
     q, lo, hi = linear_cols(p.wq, x, rank)
     k = linear_cols(p.wk, x, rank)[0].reshape(B, T, -1, hd)
     v = linear_cols(p.wv, x, rank)[0].reshape(B, T, -1, hd)
-    q, k = _norm_rope(p, cfg, q.reshape(B, T, -1, hd), k, positions)
+    q, k = _norm_rope(p, cfg, q.reshape(B, T, -1, hd), k, positions, rank)
     return q, k, v, (lo, hi)
 
 
@@ -333,7 +337,8 @@ def attention_prefill_sharded(p: Attention, cfg: ModelConfig, x,
 
 
 def _covered_attention(p, cfg: ModelConfig, x, rank, *, kv=None,
-                       causal: bool, window: int = 0, impl: str = "kernel"):
+                       causal: bool, window: int = 0, impl: str = "kernel",
+                       scatter=None):
     """The flash op over the q heads the rank's ``wo`` rows touch (its own
     heads where the q heads divide the axis; else at most a head more on
     each side), against every kv head they read: self-attention with
@@ -341,7 +346,8 @@ def _covered_attention(p, cfg: ModelConfig, x, rank, *, kv=None,
     own q columns, all-gathered in one collective; norms and RoPE at
     ``arange(T)``), else cross-attention over ``kv`` = (k, v) (B,Sk,K,hd)
     whole (q alone, no RoPE, at any Sk). The rank's features through its
-    rows of ``wo``, all-reduced. -> (out (B,T,d), k, v)"""
+    rows of ``wo``, all-reduced (reduce-scattered along ``scatter``
+    under sequence parallelism). -> (out (B,T,d), k, v)"""
     B, T, _ = x.shape
     hd, H, K = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     flo, fhi, h0, h1 = _covered_heads(cfg, p, rank)
@@ -356,7 +362,7 @@ def _covered_attention(p, cfg: ModelConfig, x, rank, *, kv=None,
     if kv is None:
         k, v = (t.reshape(B, T, K, hd) for t in outs)
         q, k = _norm_rope(p, cfg, q, k,
-                          torch.arange(T, device=x.device)[None, :])
+                          torch.arange(T, device=x.device)[None, :], rank)
     else:
         k, v = kv
     kc, vc = _kv_for_heads(k, v, h0, h1, H // K)
@@ -365,7 +371,35 @@ def _covered_attention(p, cfg: ModelConfig, x, rank, *, kv=None,
     ctx = attend(q.contiguous(), kc.contiguous(), vc.contiguous(),
                  causal=causal, window=window)
     feats = ctx.reshape(B, T, -1)[..., flo - h0 * hd:fhi - h0 * hd]
-    return linear_rows(p.wo, feats, flo, fhi, rank), k, v
+    return linear_rows(p.wo, feats, flo, fhi, rank, scatter), k, v
+
+
+def attention_train_sharded(p: Attention, cfg: ModelConfig, x, rank, *,
+                            window: int, sp: bool,
+                            impl: str = "kernel") -> torch.Tensor:
+    """``attention_full`` in the partitioned train step: x (B,T,d), the
+    rank's block of the positions (B, T / model, d) under sequence
+    parallelism (``sp``), all-gathered along T, else the stream,
+    replicated over ``model``, entering the rank's work. Where the kv
+    heads divide ``model`` the rank's heads (``_heads_qkv``, the serving
+    prefill's head route); else the q heads its ``wo`` rows touch against
+    every kv head they read (``_covered_attention``). Both run the flash
+    op, forward and backward, under the layer's window; ``wo``'s partial
+    sums are all-reduced, or reduce-scattered along T under ``sp``."""
+    check_impl(impl)
+    x = rank.all_gather(x, 1, "model") if sp else rank.enter(x)
+    B, T, _ = x.shape
+    scatter = 1 if sp else None
+    if cfg.n_kv_heads % rank.model_n:
+        return _covered_attention(p, cfg, x, rank, causal=True,
+                                  window=window, impl=impl,
+                                  scatter=scatter)[0]
+    positions = torch.arange(T, device=x.device)[None, :]
+    attend = fa_ops.flash_attention if impl == "kernel" else \
+        flash_attention_ref
+    q, k, v, (lo, hi) = _heads_qkv(p, cfg, x, positions, rank)
+    ctx = attend(q, k, v, causal=True, window=window)
+    return linear_rows(p.wo, ctx.reshape(B, T, -1), lo, hi, rank, scatter)
 
 
 def attention_bidir_sharded(p, cfg: ModelConfig, x, rank, *, kv=None,

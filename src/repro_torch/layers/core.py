@@ -13,6 +13,15 @@ vocab-parallel embedding (mask, local lookup, all-reduce) and unembedding
 (local vocab slice, all-gather) where ``tok``'s spec splits the vocabulary;
 a weight whose spec names ``data`` (FSDP) all-gathered over that axis just
 before use. Without ``ctx`` they run as they always did.
+
+The same layers run the partitioned train step (the collectives are
+differentiable: ``distributed/partition.py``). A sharded MLP's input
+enters the rank's work through ``ctx.enter``, or, under sequence
+parallelism (``sp``: the residual stream split along T over ``model``),
+is all-gathered along T, and its out-projection's partial sums are then
+reduce-scattered along T instead of all-reduced. A weight or bias
+replicated over ``model`` that a rank's own work consumes enters it the
+same way, so that its gradient is summed over the axis.
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.partition import AXES, pspec
+from repro_torch.distributed.partition import AXES, pspec, splits
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -55,12 +64,16 @@ class RMSNorm(nn.Module):
         self.scale = _param(torch.zeros(d, dtype=dtype, device=device))
 
 
-def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6,
+             ctx=None) -> torch.Tensor:
+    """With ``ctx``, x is the rank's own work (its block of the positions
+    under sequence parallelism): the scale enters it (``own_weight``)."""
     dt = x.dtype
+    scale = p.scale if ctx is None else own_weight(p, "scale", ctx)
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + p.scale.float())).to(dt)
+    return (x * (1.0 + scale.float())).to(dt)
 
 
 def qk_head_norm(scale: torch.Tensor, x: torch.Tensor,
@@ -126,26 +139,35 @@ def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def own_weight(p: nn.Module, name: str, ctx) -> torch.Tensor:
+    """A sharded module's parameter ``name`` for the rank's own work: its
+    FSDP shards gathered (``ctx.gather``); one replicated over ``model``
+    entered first (``ctx.enter``: its gradient summed over the axis)."""
+    t, spec = getattr(p, name), pspec(p, name)
+    return ctx.gather(t if splits(spec) else ctx.enter(t), spec)
+
+
 def linear_cols(p: Linear, x: torch.Tensor, ctx):
     """An in-projection on a rank: x (..., d_in) times the rank's columns
     of ``w`` (all of them where its spec does not split the output over
     ``model``), plus that slice of the bias -> (y, lo, hi), y holding the
     global output features [lo, hi)."""
-    ws = pspec(p, "w")
-    w = ctx.gather(p.w, ws)
-    lo, hi = ctx.range(ws[1], w.shape[1])
+    w = own_weight(p, "w", ctx)
+    lo, hi = ctx.range(pspec(p, "w")[1], w.shape[1])
     y = x @ w.to(x.dtype)
     if p.b is not None:
-        b = ctx.gather(p.b, pspec(p, "b"))
+        b = own_weight(p, "b", ctx)
         y = y + (b if b.shape[0] == hi - lo else b[lo:hi]).to(x.dtype)
     return y, lo, hi
 
 
-def linear_rows(p: Linear, x: torch.Tensor, lo: int, hi: int, ctx):
+def linear_rows(p: Linear, x: torch.Tensor, lo: int, hi: int, ctx,
+                scatter: Optional[int] = None):
     """An out-projection on a rank: x holds the global input features
     [lo, hi); the rank's rows of ``w`` (a sub-range of them) make a partial
-    product, all-reduced over ``model`` where the spec splits the rows;
-    then the bias."""
+    product, all-reduced over ``model`` where the spec splits the rows
+    (with ``scatter``, reduce-scattered along that dim instead: sequence
+    parallelism); then the bias."""
     ws = pspec(p, "w")
     w = ctx.gather(p.w, ws)
     rlo, rhi = ctx.range(ws[0], w.shape[0])
@@ -155,10 +177,17 @@ def linear_rows(p: Linear, x: torch.Tensor, lo: int, hi: int, ctx):
     if (rlo, rhi) != (lo, hi):
         x = x[..., rlo - lo:rhi - lo]
     y = x @ w.to(x.dtype)
-    if ws[0] is not None:
+    if scatter is not None:
+        if ws[0] is None:
+            raise ValueError("sequence parallelism needs the out-"
+                             "projection's rows split over model")
+        y = ctx.reduce_scatter(y, scatter, ws[0])
+    elif ws[0] is not None:
         y = ctx.all_reduce(y, ws[0])
     if p.b is not None:
-        y = y + ctx.gather(p.b, pspec(p, "b")).to(x.dtype)
+        b = (own_weight(p, "b", ctx) if scatter is not None
+             else ctx.gather(p.b, pspec(p, "b")))
+        y = y + b.to(x.dtype)
     return y
 
 
@@ -211,17 +240,21 @@ class MLP(nn.Module):
                      if cfg.activation in ("swiglu", "geglu") else None)
 
 
-def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor, ctx=None
-        ) -> torch.Tensor:
+def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor, ctx=None,
+        sp: bool = False) -> torch.Tensor:
     """With ``ctx``: column-split up / gate, row-split down, one
-    all-reduce."""
+    all-reduce. With ``sp``, x is the rank's block of the positions
+    (B, T / model, d): all-gathered along T before the projections, the
+    partial sums reduce-scattered along T after ``down``."""
     if ctx is None:
         up = linear(p.up, x)
         gate = linear(p.gate, x) if p.gate is not None else None
         return linear(p.down, _gated(cfg, up, gate))
+    x = ctx.all_gather(x, 1, "model") if sp else ctx.enter(x)
     up, lo, hi = linear_cols(p.up, x, ctx)
     gate = linear_cols(p.gate, x, ctx)[0] if p.gate is not None else None
-    return linear_rows(p.down, _gated(cfg, up, gate), lo, hi, ctx)
+    return linear_rows(p.down, _gated(cfg, up, gate), lo, hi, ctx,
+                       scatter=1 if sp else None)
 
 
 def _gated(cfg: ModelConfig, up, gate) -> torch.Tensor:
@@ -279,15 +312,26 @@ def embed(p: Embedding, cfg: ModelConfig, tokens: torch.Tensor, ctx=None
     return x
 
 
-def unembed(p: Embedding, cfg: ModelConfig, x: torch.Tensor, ctx=None
-            ) -> torch.Tensor:
-    """With ``ctx``: the rank's vocabulary slice of the logits, all-gathered
-    over ``model`` where the spec splits the vocabulary."""
+def vocab_axis(p: Embedding):
+    """The mesh axis a sharded embedding's unembedding splits its
+    vocabulary over, or None."""
     tied = p.head is None
-    w, axis = (p.tok if tied else p.head), None
+    return pspec(p, "tok" if tied else "head")[0 if tied else 1]
+
+
+def unembed(p: Embedding, cfg: ModelConfig, x: torch.Tensor, ctx=None,
+            local: bool = False) -> torch.Tensor:
+    """With ``ctx``: the rank's vocabulary slice of the logits, all-gathered
+    over ``model`` where the spec splits the vocabulary. With ``local``
+    (the train step: x is the rank's own work), the rank's logits as they
+    are, a weight replicated over ``model`` entering the rank's work."""
+    tied = p.head is None
+    name = "tok" if tied else "head"
+    w, axis = getattr(p, name), None
     if ctx is not None:
-        spec = pspec(p, "tok" if tied else "head")
-        w, axis = ctx.gather(w, spec), spec[0 if tied else 1]
+        w = (own_weight(p, name, ctx) if local
+             else ctx.gather(w, pspec(p, name)))
+        axis = None if local else vocab_axis(p)
     logits = x @ (w.to(x.dtype).T if tied else w.to(x.dtype))
     if axis is not None:
         logits = ctx.all_gather(logits, -1, axis)

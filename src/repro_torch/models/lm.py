@@ -34,7 +34,8 @@ from repro_torch.layers import mamba as mamba_mod
 from repro_torch.layers import mla as mla_mod
 from repro_torch.layers import rwkv6 as rwkv
 from repro_torch.layers.core import (MLP, Embedding, RMSNorm, check_impl,
-                                     embed, mlp, rms_norm, unembed)
+                                     embed, mlp, rms_norm, unembed,
+                                     vocab_axis)
 from repro_torch.layers.moe import MoE, moe_apply
 from repro_torch.models.losses import shifted_xent
 
@@ -319,83 +320,140 @@ def _tokens_on(tokens, device) -> torch.Tensor:
     return tokens.to(device)
 
 
-def _train_group(blocks, cfg: ModelConfig, x, impl: str):
+def _train_group(blocks, cfg: ModelConfig, x, impl: str, rank=None,
+                 sp: bool = False):
     """One layer group of the training forward (the reference's
     ``_group_train``): each sub-layer by its kinds, RWKV-6 and Mamba from a
     zero state, attention through ``attention_full`` under the sub-layer's
     window (the flash op for ``impl="kernel"``), MLA through ``mla_full``,
-    then the MLP or the MoE with capacity dispatch. -> (x, the group's
-    summed MoE aux loss)."""
+    then the MLP or the MoE with capacity dispatch. With ``rank`` (the
+    partitioned train step: attention and MLP layers), the rank's shards
+    through ``attention_train_sharded`` and the split MLP; with ``sp`` the
+    stream x is the rank's block of the positions, normed there. -> (x,
+    the group's summed MoE aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     B = x.shape[0]
+    own = rank if sp else None
     for i, blk in enumerate(blocks):
         kind = mixer_kind(cfg, i)
+        if rank is not None and (kind not in ("attn", "attn_local")
+                                 or isinstance(blk.ffn, MoE)):
+            raise NotImplementedError(
+                f"{cfg.name}: the partitioned train step covers attention "
+                f"and MLP layers, not {kind} / {type(blk.ffn).__name__}")
         if kind == "rwkv":
             st = rwkv.init_rwkv_state(cfg, B, x.dtype, x.device)
             x, _ = rwkv.rwkv_block(blk.mix, cfg, x, st,
                                    {"n1": blk.n1, "n2": blk.n2}, impl=impl)
             continue
-        h = rms_norm(blk.n1, x, cfg.rmsnorm_eps)
+        h = rms_norm(blk.n1, x, cfg.rmsnorm_eps, own)
         if kind == "mamba":
             st = mamba_mod.init_mamba_state(cfg, B, x.dtype, x.device)
             h, _ = mamba_mod.mamba_forward(blk.mix, cfg, h, st)
         elif kind == "mla":
             h = mla_mod.mla_full(blk.mix, cfg, h)
+        elif rank is not None:
+            h = attn.attention_train_sharded(
+                blk.mix, cfg, h, rank, window=layer_window(cfg, i), sp=sp,
+                impl=impl)
         else:
             h = attn.attention_full(blk.mix, cfg, h,
                                     window=layer_window(cfg, i), impl=impl)
         x = x + h
-        h = rms_norm(blk.n2, x, cfg.rmsnorm_eps)
+        h = rms_norm(blk.n2, x, cfg.rmsnorm_eps, own)
         if isinstance(blk.ffn, MoE):
             h, a = moe_apply(blk.ffn, cfg, h, dropless=False)
             aux = aux + a
         else:
-            h = mlp(blk.ffn, cfg, h)
+            h = mlp(blk.ffn, cfg, h, rank, sp)
         x = x + h
     return x, aux
 
 
+def seq_parallel(T: int, shard_axes) -> bool:
+    """The reference's ``_sp_constrain`` rule: the residual stream of T
+    positions is split along T over ``model`` between layer groups where
+    ``shard_axes`` asks for it (``"sp"``) and ``T % model == 0``, ``T >=
+    model``; else it stays replicated."""
+    if not shard_axes or not shard_axes.get("sp"):
+        return False
+    n = shard_axes["ctx"].model_n
+    return T % n == 0 and T >= n
+
+
 def forward(model: LM, cfg: ModelConfig, tokens, *, prefix_embeds=None,
-            remat: bool = False, impl: str = "kernel"):
+            remat: bool = False, impl: str = "kernel", shard_axes=None):
     """Training forward (the reference's ``forward`` and ``_group_train``):
     tokens (B,T), and for a VLM ``prefix_embeds`` (B,P,d) put before them
     in the compute dtype -> (logits (B,P+T,V), the MoE aux loss summed over
     layers, float32). Both move to the model's device. ``remat``
     recomputes each layer group (one layer; a hybrid's period) in the
     backward (``torch.utils.checkpoint``, the counterpart of
-    ``jax.checkpoint`` of the group body)."""
+    ``jax.checkpoint`` of the group body).
+
+    ``shard_axes`` (the reference's ``{"dp", "tp", "mesh", "sp"}`` plus
+    ``"ctx"``, the rank's ``RankContext``): the partitioned train step on
+    one rank, ``model`` and the inputs the rank's shards and rows. The
+    stream is split along T over ``model`` between groups where
+    ``seq_parallel`` says so (entering as the rank's block of the
+    embeddings, ``ctx.split``). The logits are the rank's: its vocabulary
+    slice over every position where the unembedding's spec splits the
+    vocabulary (the final stream all-gathered along T, or entering the
+    rank's work), else, under sequence parallelism, every logit of its
+    block of the positions, else all of them."""
+    rank = shard_axes["ctx"] if shard_axes else None
     device = model.embed.tok.device
     tokens = _tokens_on(tokens, device)
-    x = embed(model.embed, cfg, tokens)
+    x = embed(model.embed, cfg, tokens, rank)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(device=device, dtype=x.dtype), x],
                       dim=1)
+    sp = seq_parallel(x.shape[1], shard_axes)
+    if sp:
+        x = rank.split(x, 1, "model")
     aux = torch.zeros((), dtype=torch.float32, device=device)
     gs = group_size(cfg)
     for g in range(n_groups(cfg)):
         blocks = model.blocks[g * gs:(g + 1) * gs]
         if remat:
-            x, a = checkpoint(_train_group, blocks, cfg, x, impl,
+            x, a = checkpoint(_train_group, blocks, cfg, x, impl, rank, sp,
                               use_reentrant=False)
         else:
-            x, a = _train_group(blocks, cfg, x, impl)
+            x, a = _train_group(blocks, cfg, x, impl, rank, sp)
         aux = aux + a
-    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
-    return unembed(model.embed, cfg, x), aux
+    x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps, rank if sp else None)
+    if rank is None:
+        return unembed(model.embed, cfg, x), aux
+    if vocab_axis(model.embed) is None:
+        # the whole vocabulary: the rank's positions, or all of them alike
+        return unembed(model.embed, cfg, x, rank, local=sp), aux
+    x = rank.all_gather(x, 1, "model") if sp else rank.enter(x)
+    return unembed(model.embed, cfg, x, rank, local=True), aux
 
 
 def loss_fn(model: LM, cfg: ModelConfig, batch: dict, *,
-            remat: bool = False, impl: str = "kernel"):
+            remat: bool = False, impl: str = "kernel", shard_axes=None):
     """Next-token cross-entropy of ``batch["tokens"]`` (B,T) over the text
     positions (after ``batch["prefix_embeds"]``, when present), plus
     ``aux_loss_coef x aux / max(n_layers // moe_every, 1)`` for a MoE
-    family -> float32 scalar."""
+    family -> float32 scalar. ``shard_axes``: the rank's loss in the
+    partitioned train step (its rows' mean, the same on every rank of its
+    ``model`` group), through the vocab-parallel or position-split
+    ``shifted_xent``."""
     tokens = _tokens_on(batch["tokens"], model.embed.tok.device)
-    logits, aux = forward(model, cfg, tokens,
-                          prefix_embeds=batch.get("prefix_embeds"),
-                          remat=remat, impl=impl)
-    P = logits.shape[1] - tokens.shape[1]
-    loss = shifted_xent(logits[:, P:], tokens)
+    prefix = batch.get("prefix_embeds")
+    logits, aux = forward(model, cfg, tokens, prefix_embeds=prefix,
+                          remat=remat, impl=impl, shard_axes=shard_axes)
+    P = 0 if prefix is None else prefix.shape[1]
+    vocab = vocab_axis(model.embed) if shard_axes else None
+    if vocab is not None:
+        loss = shifted_xent(logits[:, P:], tokens, {
+            "ctx": shard_axes["ctx"], "vocab": vocab})
+    elif seq_parallel(P + tokens.shape[1], shard_axes):
+        loss = shifted_xent(logits, tokens, {
+            "ctx": shard_axes["ctx"], "seq": "model", "prefix": P})
+    else:
+        loss = shifted_xent(logits[:, P:], tokens)
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_loss_coef * aux / max(
             cfg.n_layers // cfg.moe.moe_every, 1)

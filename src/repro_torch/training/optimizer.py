@@ -17,6 +17,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.partition import AXES, splits
+
 
 class AdamWState(NamedTuple):
     step: int
@@ -46,18 +48,41 @@ def adamw_init(params: Dict[str, torch.Tensor], cfg: AdamWConfig
     return AdamWState(0, zeros(), zeros(), master)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tensors))
+def global_norm(tensors, specs=None, rank=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in float32.
+
+    With ``specs`` (each tensor's partition spec, in order) and ``rank``
+    (its ``RankContext``), the tensors are the rank's shards and the norm
+    is the global tensors': each shard's sum of squares is summed over the
+    axes its spec splits (one all-reduce an axis for the shards that share
+    those axes), so every element counts once and a replicated copy once;
+    then the sums are added in order, as without them."""
+    sums = [torch.sum(torch.square(g.float())) for g in tensors]
+    if rank is not None:
+        split = [tuple(a for a in AXES if splits(s, a)) for s in specs]
+        for axes in sorted(set(split)):
+            idx = [i for i, a in enumerate(split) if a == axes]
+            part = torch.stack([sums[i] for i in idx])
+            for axis in axes:
+                part = rank.all_reduce(part, axis)
+            for j, i in enumerate(idx):
+                sums[i] = part[j]
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
 def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
-                 params: Dict[str, torch.Tensor], cfg: AdamWConfig
+                 params: Dict[str, torch.Tensor], cfg: AdamWConfig, *,
+                 specs=None, rank=None
                  ) -> Tuple[Dict[str, torch.Tensor], AdamWState, dict]:
+    """One AdamW step, elementwise on each tensor. With ``specs`` (by
+    parameter name) and ``rank``, the parameters, gradients and state are
+    the rank's shards and the clipping norm is the global one
+    (``global_norm``)."""
     step = state.step + 1
-    gnorm = global_norm(grads[n] for n in params)
+    gnorm = global_norm([grads[n] for n in params],
+                        None if specs is None else [specs[n] for n in params],
+                        rank)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip > 0 else 1.0)
     lr = cfg.lr(step) if callable(cfg.lr) else cfg.lr

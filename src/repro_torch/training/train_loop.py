@@ -1,7 +1,8 @@
 """Train step with micro-batch gradient accumulation and remat, and the
 fault-tolerant outer loop (checkpoint/restart, failure injection, straggler
-monitor) — ``repro/training/train_loop.py`` on one device (its sharding
-axes come with ``distributed/sharding.py``).
+monitor) — ``repro/training/train_loop.py``. With ``TrainConfig.shard_axes``
+the step is one rank's of the partitioned train step (the reference jits
+it under ``ShardingRules``' shardings in ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import partition
 from repro_torch.models import api
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import DataConfig, make_batch
@@ -29,6 +31,9 @@ class TrainConfig:
     ckpt_every: int = 50
     keep: int = 3
     impl: str = "kernel"        # flash and WKV ops, or "ref" (plain twins)
+    # the partitioned train step: the reference's {"dp", "tp", "mesh", "sp"}
+    # plus "ctx", the rank's RankContext; None on one device
+    shard_axes: Optional[dict] = None
 
 
 def trainable_params(model) -> Dict[str, torch.Tensor]:
@@ -46,10 +51,21 @@ def make_train_step(mcfg: ModelConfig, ocfg: AdamWConfig, tcfg: TrainConfig):
     are accumulated in float32, one micro-batch's graph alive at a time.
     The batch's tensors (tokens, a VLM's prefix embeddings) move to the
     model's device first. The model's parameters and the optimizer state
-    are updated in place."""
+    are updated in place.
+
+    With ``tcfg.shard_axes`` the model, optimizer state and batch are one
+    rank's shards and rows (``partition.shard_model(requires_grad=True)``,
+    ``adamw_init`` of its parameters, ``partition.shard_batch``): the
+    micro-batches are split from the rank's rows, each rank's gradients
+    of its own loss are reduced to the shards of the mean loss's over the
+    dp axes (``partition.reduce_gradients``), the clipping norm is the
+    global one, and the reported loss and ``grad_norm`` are global."""
+    axes = tcfg.shard_axes
+    rank = axes["ctx"] if axes else None
 
     def grads_of(model, params, mb):
-        loss = api.loss_fn(model, mcfg, mb, remat=tcfg.remat, impl=tcfg.impl)
+        loss = api.loss_fn(model, mcfg, mb, remat=tcfg.remat, impl=tcfg.impl,
+                           shard_axes=axes)
         gs = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, gs))
 
@@ -70,11 +86,17 @@ def make_train_step(mcfg: ModelConfig, ocfg: AdamWConfig, tcfg: TrainConfig):
                 for k in gsum:
                     gsum[k] += g[k]
                 lsum = lsum + l
-            grads = {k: g / n for k, g in gsum.items()}
+            grads = {k: g.div_(n) for k, g in gsum.items()}
             loss = lsum / n
         else:
             loss, grads = grads_of(model, params, batch)
-        _, opt_state, stats = adamw_update(grads, opt_state, params, ocfg)
+        specs = None
+        if rank is not None:
+            specs = partition.param_specs(model)
+            grads = partition.reduce_gradients(grads, specs, rank, axes["dp"])
+            loss = partition.dp_mean(loss, rank, axes["dp"])
+        _, opt_state, stats = adamw_update(grads, opt_state, params, ocfg,
+                                           specs=specs, rank=rank)
         return model, opt_state, dict(stats, loss=loss)
 
     return train_step

@@ -327,15 +327,82 @@ def test_pod_serving_cells_carry_a_cost(arch, tmp_path):
         assert (tmp_path / f"{arch}_{shape}_smoke.trace.jsonl.gz").exists()
 
 
-@pytest.mark.parametrize("arch,shape", [("qwen1.5-0.5b", "train_4k")])
+@pytest.mark.parametrize("arch,shape", [("dbrx-132b", "train_4k")])
 def test_other_pod_cells_name_what_is_missing(arch, shape, tmp_path):
     rec = dryrun.run_cell(arch, shape, mesh_name="pod512",
                           out_dir=str(tmp_path))
     assert rec["status"] == "ok", rec.get("error")
     assert rec["cost"] is None and rec["memory"]["temp_size_in_bytes"] is None
-    missing = {"qwen1.5-0.5b": "train step"}[arch]
+    missing = {"dbrx-132b": "train step"}[arch]
     assert missing in rec["cost_reason"] and "not ported" in rec[
         "cost_reason"]
+    assert not list(tmp_path.iterdir())
+
+
+# the partitioned train step covers the attention and MLP families
+TRAIN_ARCHS = ("qwen1.5-0.5b", "gemma-7b", "minicpm-2b", "internvl2-1b",
+               "gemma3-12b")
+# each other arch's family as ``dryrun.TRAIN_MISSING`` names it
+TRAIN_MISSING = {"dbrx-132b": "moe", "deepseek-v2-lite-16b": "mla",
+                 "jamba-v0.1-52b": "hybrid", "rwkv6-3b": "ssm",
+                 "whisper-tiny": "encdec"}
+# a small batch a pod's dp ranks split into 4 rows each
+TRAIN_BATCH = {"pod256": 64, "pod512": 128}
+
+
+def _train_state_bytes(cfg, mesh, B):
+    """A device's bytes of the train cell's arguments per the specs: the
+    parameters, AdamW's moments (and master, for bf16 parameters) and the
+    batch, each divided by the mesh axes its spec names."""
+    rules = ShardingRules(mesh, cfg, fsdp=True)
+    sizes = mesh.shape
+    want = 0
+    for name, p in api.param_specs(cfg).named_parameters():
+        n = _shards(rules.param_spec(name, p), sizes)
+        state = 8 + (4 if p.dtype != torch.float32 else 0)
+        want += (p.numel() * p.element_size() + p.numel() * state) // n
+    for leaf in api.tree_leaves(api.make_inputs(
+            cfg, SHAPES_BY_NAME["train_4k"], B)):
+        want += leaf.numel() * leaf.element_size() // _shards(
+            rules.batch_spec(leaf, B), sizes)
+    return want
+
+
+@pytest.mark.parametrize("mesh_name", ["pod256", "pod512"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_pod_train_cells_carry_a_cost(arch, mesh_name, tmp_path):
+    """The train_4k cell of each attention / MLP arch on the pods (smoke
+    widths, 4 rows a dp rank): rank 0's partitioned train step traced, a
+    cost with collectives, the temporaries a device, the trace beside the
+    record, and the arguments a device as its specs divide them."""
+    B = TRAIN_BATCH[mesh_name]
+    rec = dryrun.run_cell(arch, "train_4k", mesh_name=mesh_name,
+                          out_dir=str(tmp_path), tag="smoke",
+                          overrides=_smoke_overrides(arch),
+                          batch_override=B)
+    assert rec["status"] == "ok", rec.get("error")
+    assert "cost_reason" not in rec
+    assert rec["cost"]["flops"] > 0 and rec["cost"]["collective bytes"] > 0
+    assert rec["memory"]["temp_size_in_bytes"] > 0
+    assert (tmp_path / f"{arch}_train_4k_smoke.trace.jsonl.gz").exists()
+    cfg = get_config(arch).replace(**_smoke_overrides(arch))
+    assert rec["memory"]["argument_size_in_bytes"] == _train_state_bytes(
+        cfg, make_placeholder_mesh(mesh_name), B)
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_MISSING))
+def test_pod_train_cells_of_other_families_name_their_family(arch,
+                                                             tmp_path):
+    rec = dryrun.run_cell(arch, "train_4k", mesh_name="pod256",
+                          out_dir=str(tmp_path), tag="smoke",
+                          overrides=_smoke_overrides(arch),
+                          batch_override=TRAIN_BATCH["pod256"])
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["cost"] is None
+    family = TRAIN_MISSING[arch]
+    assert rec["cost_reason"].startswith(
+        f"no cost: the partitioned train step of the {family} family is not "
+        f"ported ({dryrun.TRAIN_MISSING[family]})")
     assert not list(tmp_path.iterdir())
 
 
@@ -363,19 +430,21 @@ def _h100_trace(arch, shape, B):
 @pytest.mark.parametrize("dims", [(1, 2, 2), (1, 1, 4)],
                          ids=lambda d: "x".join(map(str, d)))
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-12b"])
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
 def test_rank_flop_times_world_is_the_h100_flop(dims, arch, shape):
     """qwen (the head route) and gemma3 (the sequence route, one q head a
-    rank) split every product: a rank's FLOP times the world size is the
-    one-device trace's, exactly. Its argument bytes are ``_per_device``'s
-    memory record."""
-    B = 4
+    rank; in training the covered route at model 4) split every product,
+    the train step's backward and vocab-parallel loss included: a rank's
+    FLOP times the world size is the one-device trace's, exactly. Its
+    argument bytes are ``_per_device``'s memory record."""
+    B = 8 if shape == "train_4k" else 4
     rec, args, mem = _rank0_trace(arch, shape, dims, B)
     world = int(np.prod(dims))
     assert rec.cost().flops * world == _h100_trace(arch, shape, B).cost().flops
     held = sum(t.numel() * t.element_size()
                for t in api.tree_leaves([list(args[0].parameters())]
-                                        + list(args[1:])))
+                                        + list(args[1:]))
+               if isinstance(t, torch.Tensor))      # AdamW's step is an int
     assert held == mem["argument_size_in_bytes"]
 
 

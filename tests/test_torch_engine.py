@@ -62,6 +62,16 @@ def _serve(eng):
             "messages_host": meter.messages_host}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # one intra-op thread: under the tier-1 run's six workers the default
+    # (one a core) oversubscribes the host
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=[ARCH, "rwkv6-3b",
                                         "deepseek-v2-lite-16b",
                                         "jamba-v0.1-52b", "dbrx-132b",

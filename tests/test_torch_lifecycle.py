@@ -68,6 +68,16 @@ PAYLOAD_TOL = dict(rtol=0, atol=1e-5)
 STATE_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # one intra-op thread: under the tier-1 run's six workers the default
+    # (one a core) oversubscribes the host
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _models(arch):
     cfg = smoke_config(get_config(arch))
     params = japi.init_params(jax.random.PRNGKey(0), cfg)
