@@ -424,9 +424,9 @@ phase spans and peaks):
    kernels) against ``impl="ref"`` (autograd through the plain chunked
    form), a control whose first layer drops its WKV state every 256
    tokens beyond; 32 ``wkv6_bwd`` and at least 32 ``wkv6`` launches.
-64. rwkv6-3b train run — phase 13 at 4 x 2048 with remat (57.11 GiB of
-   training state at 16 B a parameter, printed first), with its profiled
-   step's ``wkv6`` / ``wkv6_bwd`` launches.
+64. rwkv6-3b train run — phase 13 at 4 x 2048 with remat for 5 steps
+   (57.11 GiB of training state at 16 B a parameter, printed first), with
+   its profiled step's ``wkv6`` / ``wkv6_bwd`` launches.
 65. deepseek-v2-lite-16b train — 3 of 27 layers (``DEEPSEEK_TRAIN_LAYERS``,
    2,173,972,480 parameters), batch 4 x 2048 (capacity 960 a expert):
    the share of assignments each layer's capacity dispatch drops, phase
@@ -645,20 +645,28 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    gradients, the global clipping norm). (a) On an NCCL group of world
    size 1 over a (1, 1, 1) mesh, two steps against two unpartitioned
    steps from the same seeded weights and batches: qwen1.5-0.5b at full
-   width and depth (8 x 2,048, 4 micro-batches), internvl2-1b at full
+   width and depth (4 x 2,048, 4 micro-batches), internvl2-1b at full
    width and depth (4 x 1,024: 256 prefix rows, 2 micro-batches) and
    gemma3-12b at 6 of 48 layers (2 x 2,048, 2 micro-batches: five
-   windowed layers and a global one); every step's loss and grad norm,
-   then every parameter and AdamW moment bit for bit (on the card up to
-   16 GiB of state, else equal checksums of their bits), the same
-   launches, row 9's forward and backward among them; the host wall of
-   both. (b) Rank 0 of ``pod256`` in qwen1.5-0.5b's ``train_4k`` (16 of
-   the 256 rows, 4 micro-batches of 4 x 4,096, one head a rank) under a
-   fake process group, traced on ``meta`` and run 2 + 5 times as phase
-   83(b) runs a serving cell. (c) Row 9 at that rank's micro-batch shape
-   (4 x 4,096, one head of 64 on one kv head, causal), forward and
-   backward, through phase 75's check and timing, under
-   ``partition_train`` in the ``flash_attention`` and
+   windowed layers and a global one), deepseek-v2-lite-16b at 3 of 27
+   layers (4 x 1,024, 2 micro-batches: MLA and the expert-parallel MoE)
+   and jamba-v0.1-52b in two layers at full width (1 x 512: attention +
+   MLP, then Mamba + the MoE, a hybrid period of 2); every step's loss and
+   grad norm, then every parameter and AdamW moment bit for bit (on the
+   card up to 16 GiB of state, else equal checksums of their bits), the
+   same launches, row 9's forward and backward among them where the
+   config has attention, and the same share of assignments dropped per
+   MoE layer; the host wall of both. (b) Rank 0 of ``pod256``
+   in ``train_4k`` (16 of the 256 rows: its rows of 4 micro-batches of
+   64, 4 x 4,096 each) under a fake process group, traced on ``meta`` and
+   run as phase 83(b) runs a serving cell, 3 times (the p50 of 3; their
+   meta traces meanwhile in worker processes while (a) runs):
+   qwen1.5-0.5b (one head a rank), dbrx-132b at 8 layers,
+   deepseek-v2-lite-16b at 4 and jamba-v0.1-52b at 8 (one hybrid
+   period). (c) Row 9 at those ranks' micro-batch shapes (4 x 4,096, causal:
+   qwen one head of 64 on one kv head, dbrx 3 heads of 128 on one, jamba 2
+   on one), forward and backward, through phase 75's check and timing,
+   under ``partition_train`` in the ``flash_attention`` and
    ``flash_attention_bwd`` records.
 
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -5436,7 +5444,8 @@ RWKV_CHECK_LAYERS = 4               # the per-parameter check's depth: at
 #                                     random init the whole depth's
 #                                     gradients part with any rounding
 DEEPSEEK_TRAIN_LAYERS = 3           # 2,173,972,480 params, 32.39 GiB state
-SHORT_RUN_STEPS = 5                 # deepseek's and internvl2's runs
+SHORT_RUN_STEPS = 5                 # rwkv6-3b's, deepseek's and
+#                                     internvl2's runs
 JAMBA_TRAIN_SEQ = 1024              # the Mamba scan's autograd keeps ~1 GB
 #                                     of doubling products a 128-token chunk
 TRAIN_STATE_BYTES = 16              # bf16 param + grad, f32 master, mu, nu
@@ -5898,9 +5907,11 @@ def encdec_model_flop(cfg, batch, seq):
             p["encoder_params"] + p["decoder_params"])
 
 
-def moe_drop_shares(torch, cfg, model, batch):
+def moe_drop_shares(torch, cfg, model, batch, shard_axes=None):
     """Per MoE layer, the share of (token, k) assignments the capacity
-    dispatch drops on ``batch`` (one forward under ``no_grad``)."""
+    dispatch drops on ``batch`` (one forward under ``no_grad``; with
+    ``shard_axes`` the partitioned forward of a world of one, whose rank
+    routes every row)."""
     from repro_torch.layers import moe as moe_mod
     from repro_torch.models import lm
     shares = []
@@ -5918,7 +5929,8 @@ def moe_drop_shares(torch, cfg, model, batch):
     try:
         with torch.no_grad():
             lm.forward(model, cfg, batch["tokens"],
-                       prefix_embeds=batch.get("prefix_embeds"))
+                       prefix_embeds=batch.get("prefix_embeds"),
+                       shard_axes=shard_axes)
     finally:
         lm.moe_apply = inner
     return shares
@@ -8124,17 +8136,49 @@ def partition_world1(torch, np, run, dev, card):
     return launches
 
 
-def partition_cell(torch, np, arch, shape_name, layers, card):
+def trace_summary(fn, args):
+    """``dryrun.trace_cell`` of a cell's step -> (its traced cost, peak
+    temporary bytes, kernel entries by name, row 9's (q, k) signatures)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.launch import dryrun
+    trace = dryrun.trace_cell(fn, args)
+    flash = sorted({json.dumps(r["ins"][:2]) for r in trace.records.values()
+                    if r.get("kernel") == "flash_attention"})
+    return (trace.cost(), trace.peak_bytes,
+            dict(roofline.kernel_calls(trace.records.values())), flash)
+
+
+def traced_partition_cell(arch, shape_name, layers):
+    """``trace_summary`` of rank 0's step in a ``PARTITION_MESH`` cell,
+    under a fake group of its own: phase 84 runs it in a worker process
+    while the card runs (a) -> the summary and its seconds."""
+    from repro_torch.distributed import partition
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_placeholder_mesh
+    t0 = time.perf_counter()
+    mesh = make_placeholder_mesh(PARTITION_MESH)
+    with partition.fake_world(int(mesh.devices.size)):
+        fn, args, _ = dryrun.build_cell(
+            arch, shape_name, mesh,
+            overrides={"n_layers": layers} if layers else None)
+        out = trace_summary(fn, args)
+    return out + (time.perf_counter() - t0,)
+
+
+def partition_cell(torch, np, arch, shape_name, layers, card,
+                   warmup=ROOFLINE_WARMUP, timed=ROOFLINE_RUNS, traced=None):
     """Phase 83(b) and 84(b), one cell: rank 0 of ``PARTITION_MESH`` at
     its own shapes, under the fake group of the mesh's size (its
     collectives move no bytes and return garbage: values are not checked).
-    Traced on meta (``dryrun.build_cell``), then run on the card 2 + 5
-    times on instantiated shards (a zeroed cache; a train cell's AdamW
+    Traced on meta (``trace_summary``, or ``traced``: the summary and
+    seconds ``traced_partition_cell`` returned; row 9's entries' shapes
+    printed), then run on the card ``warmup`` + ``timed`` times on
+    instantiated shards (a zeroed cache; a train cell's AdamW
     state from ``adamw_init``, each run a step that updates it): the p50
     beside the per-device bound, launches equal to the trace's entries x
-    7, and ``max_memory_allocated``, less what earlier phases still hold,
-    within ``PARTITION_MEM_SLACK`` of the trace's args + temp. Returns (the
-    cell's row, its launches)."""
+    the runs, and ``max_memory_allocated``, less what earlier phases still
+    hold, within ``PARTITION_MEM_SLACK`` of the trace's args + temp.
+    Returns (the cell's row, its launches)."""
     from repro_torch.analysis import roofline
     from repro_torch.configs import SHAPES_BY_NAME, ShapeConfig, get_config
     from repro_torch.core.perfmodel import H100_SXM
@@ -8150,10 +8194,11 @@ def partition_cell(torch, np, arch, shape_name, layers, card):
     shape = SHAPES_BY_NAME[shape_name]
     t0 = time.perf_counter()
     fn, args, mem = dryrun.build_cell(arch, shape_name, mesh, overrides=over)
-    trace = dryrun.trace_cell(fn, args)
-    cost, temp = trace.cost(), trace.peak_bytes
-    calls = roofline.kernel_calls(trace.records.values())
-    t_trace = time.perf_counter() - t0
+    if traced is None:
+        cost, temp, calls, flash_shapes = trace_summary(fn, args)
+        t_trace = time.perf_counter() - t0
+    else:
+        cost, temp, calls, flash_shapes, t_trace = traced
     dev = torch.device("cuda")
     release(torch)
     base = torch.cuda.memory_allocated()      # what earlier phases hold
@@ -8179,14 +8224,14 @@ def partition_cell(torch, np, arch, shape_name, layers, card):
                for t in api.tree_leaves([list(real[0].parameters())]
                                         + list(real[1:]))
                if isinstance(t, torch.Tensor))      # AdamW's step is an int
-    del args, trace
+    del args
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
-    for _ in range(ROOFLINE_WARMUP):
+    for _ in range(warmup):
         fn(*real)
     ms = []
-    for _ in range(ROOFLINE_RUNS):
+    for _ in range(timed):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -8198,7 +8243,7 @@ def partition_cell(torch, np, arch, shape_name, layers, card):
     peak = torch.cuda.max_memory_allocated() - base
     del real, fn
     release(torch)
-    runs = ROOFLINE_WARMUP + ROOFLINE_RUNS
+    runs = warmup + timed
     p50_s = float(np.percentile(ms, 50)) / 1e3
     local = ShapeConfig(shape.name, shape.seq_len, shape.global_batch,
                         shape.kind)
@@ -8216,12 +8261,12 @@ def partition_cell(torch, np, arch, shape_name, layers, card):
                coll_bytes=cost.coll_bytes, coll_ops=cost.coll_counts,
                args_gib=args_b / 2 ** 30, temp_gib=temp / 2 ** 30,
                peak_gib=peak / 2 ** 30, held_gib=base / 2 ** 30,
-               kernel_entries=dict(calls),
+               kernel_entries=dict(calls), flash_shapes=flash_shapes,
                launches=launches, trace_s=t_trace)
     print(f"partition cell: {arch} {shape_name} ({cfg.n_layers} layers), "
           f"rank 0 of {PARTITION_MESH}, the rank's local work with no wire "
           f"(fake group): p50 {row['p50_ms']:.3f} ms (runs "
-          f"{[round(x, 3) for x in ms]} ms after {ROOFLINE_WARMUP} "
+          f"{[round(x, 3) for x in ms]} ms after {warmup} "
           f"warm-up) beside the per-device traced bound "
           f"{row['bound_ms']:.4f} ms (t_compute {row['t_compute_ms']:.4f}, "
           f"t_memory {row['t_memory_ms']:.4f}; collectives "
@@ -8230,7 +8275,9 @@ def partition_cell(torch, np, arch, shape_name, layers, card):
           f"temp {row['args_gib']:.3f} + {row['temp_gib']:.3f} GiB vs "
           f"max_memory_allocated {row['peak_gib']:.3f} GiB above the "
           f"{row['held_gib']:.3f} GiB held before the cell; kernel entries "
-          f"{dict(calls)} x {runs} runs, launches {launches}; traced in "
+          f"{dict(calls)} x {runs} runs (row 9's (q, k) "
+          f"{[json.loads(x) for x in flash_shapes]}), launches {launches}; "
+          f"traced in "
           f"{t_trace:.1f} s; on {card}")
     want = {k: v * runs for k, v in calls.items()}
     if launches != want:
@@ -8383,25 +8430,50 @@ def phase_partition(torch, np, report, dev, card):
 
 
 # -- the partitioned train step -----------------------------------------------
-# (a) at world size 1 on NCCL against the unpartitioned step: (arch, layers
-# or 0 for all, batch, sequence with any prefix rows, micro-batches)
-TRAIN_PARTITION_RUNS = (("qwen1.5-0.5b", 0, 8, 2048, 4),
+# (a) at world size 1 on NCCL against the unpartitioned step: (arch, config
+# overrides, batch, sequence with any prefix rows, micro-batches)
+TRAIN_PARTITION_RUNS = (("qwen1.5-0.5b", {}, 4, 2048, 4),
                         # 256 prefix rows before 768 tokens
-                        ("internvl2-1b", 0, 4, 1024, 2),
+                        ("internvl2-1b", {}, 4, 1024, 2),
                         # one group: five windowed layers, then a global one
-                        ("gemma3-12b", 6, 2, 2048, 2))
+                        ("gemma3-12b", {"n_layers": 6}, 2, 2048, 2),
+                        # MLA and the MoE (64 experts, 2 shared) at full
+                        # width: 2,173,972,480 parameters, 32.39 GiB state
+                        ("deepseek-v2-lite-16b", {"n_layers": 3}, 4, 1024,
+                         2),
+                        # jamba's three mixers at full width in two layers,
+                        # a hybrid period of 2: attention + MLP, then Mamba
+                        # + the MoE (16 experts of 14,336); ~3.7 G
+                        # parameters, ~59 GB of state: one micro-batch,
+                        # so no float32 gradient sum beside it
+                        ("jamba-v0.1-52b", {"n_layers": 2, "hybrid": (2, 0)},
+                         1, 512, 1))
 TRAIN_PARTITION_STEPS = 2
 # a run's state held on the card for torch.equal up to this size, else its
 # bits' checksums (gemma3-12b's 6 layers: 33 GB of parameters and AdamW
 # state, beside a second run's)
 TRAIN_STATE_ON_CARD = 16 * 2 ** 30
-# (b) rank 0 of pod256 in qwen1.5-0.5b's train_4k under a fake group
-TRAIN_PARTITION_CELL = ("qwen1.5-0.5b", "train_4k", 0)
-# (c) row 9 at that rank's micro-batch: 4 rows of 4,096, one head of 64 on
-# one kv head, causal, forward and backward
+# (b) rank 0 of pod256 in train_4k under a fake group: (arch, layers or 0
+# for all, warm-up runs, timed runs): qwen1.5-0.5b whole, the MoE, MLA and
+# hybrid families' cells at the depths of phase 83's decode cells (dbrx 8
+# of 40 layers, deepseek 4 of 27, jamba 8 of 32: one hybrid period); the
+# p50 of 3 runs, the first of them the warm-up, to keep the script inside
+# its limit
+TRAIN_PARTITION_CELLS = (("qwen1.5-0.5b", 0, 0, 3),
+                         ("dbrx-132b", DBRX_LAYERS, 0, 3),
+                         ("deepseek-v2-lite-16b", 4, 0, 3),
+                         ("jamba-v0.1-52b", 8, 0, 3))
+# (c) row 9 at those ranks' micro-batches: 4 rows of 4,096, causal, forward
+# and backward: qwen one head of 64 on one kv head; dbrx the 3 of 48 heads
+# of 128 its wo rows touch, on the 1 kv head of 8 they read; jamba 2 of 32
+# on 1 of 8
 TRAIN_PARTITION_FLASH = {
     "qwen1.5-0.5b pod256 rank train_4k micro-batch":
-        ((4, 4096, 4096, 1, 1, 64, True, 0), True)}
+        ((4, 4096, 4096, 1, 1, 64, True, 0), True),
+    "dbrx-132b pod256 rank train_4k micro-batch":
+        ((4, 4096, 4096, 3, 1, 128, True, 0), True),
+    "jamba-v0.1-52b pod256 rank train_4k micro-batch":
+        ((4, 4096, 4096, 2, 1, 128, True, 0), True)}
 
 
 def bits_digest(torch, t, chunk=1 << 26):
@@ -8442,23 +8514,31 @@ def train_partition_world1(torch, np, run, dev, card):
     bit for bit, then every parameter and AdamW moment (and master) bit
     for bit (``torch.equal`` on the card up to ``TRAIN_STATE_ON_CARD`` of
     state, else equal checksums of their bits), the same kernel launches,
-    row 9's forward and backward among them. Prints both runs' host wall.
-    Returns the partitioned run's launches."""
+    row 9's forward and backward among them where the config has an
+    attention layer (none where it has none: deepseek's MLA is PyTorch's
+    products), and for a MoE the same share of assignments dropped per
+    layer on the first micro-batch. Prints both runs' host wall. Returns
+    the partitioned run's launches."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import HybridConfig
     from repro_torch.distributed import partition
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import Mesh, rank_context
-    from repro_torch.models import api
+    from repro_torch.models import api, lm
     from repro_torch.training.data import DataConfig, make_batch
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     from repro_torch.training.train_loop import (TrainConfig,
                                                  make_train_step,
                                                  trainable_params)
-    arch, layers, B, T, micro = run
-    cfg = get_config(arch)
-    if layers:
-        cfg = cfg.replace(n_layers=layers)
+    arch, over, B, T, micro = run
+    over = dict(over)
+    if "hybrid" in over:
+        period, attn_index = over["hybrid"]
+        over["hybrid"] = HybridConfig(period=period, attn_index=attn_index)
+    cfg = get_config(arch).replace(**over)
+    attends = any(lm.mixer_kind(cfg, i) in ("attn", "attn_local")
+                  for i in range(lm.group_size(cfg)))
     mesh = Mesh(np.full((1, 1, 1), str(dev), dtype=object),
                 ("pod", "data", "model"))
     rank = rank_context(mesh, device=dev)
@@ -8478,6 +8558,11 @@ def train_partition_world1(torch, np, run, dev, card):
         if shard_axes:
             model = partition.shard_model(model, rules, rank,
                                           requires_grad=True)
+        # the drop share per MoE layer of the first micro-batch the step
+        # routes, at the config's capacity factor
+        drops = (moe_drop_shares(torch, cfg, model, {
+            k: v[:B // micro].to(dev) for k, v in batches[0].items()},
+            shard_axes) if cfg.moe is not None else [])
         opt = adamw_init(trainable_params(model), ocfg)
         step = make_train_step(cfg, ocfg, TrainConfig(
             micro_batches=micro, remat=True, shard_axes=shard_axes))
@@ -8491,7 +8576,7 @@ def train_partition_world1(torch, np, run, dev, card):
                           st["grad_norm"].detach().clone()))
         _sync(torch, dev)
         runs[label] = dict(wall=time.perf_counter() - t, stats=stats,
-                           launches=build.launch_counts(),
+                           launches=build.launch_counts(), drops=drops,
                            state=train_state(torch, model, opt, on_card))
         del model, opt, step
         release(torch)
@@ -8512,10 +8597,15 @@ def train_partition_world1(torch, np, run, dev, card):
           f"({'torch.equal on the card' if on_card else 'equal bit checksums'}"
           f"); launches {launches} (unpartitioned {want['launches']}); "
           f"partitioned {got['wall']:.2f} s, unpartitioned "
-          f"{want['wall']:.2f} s (host wall); on {card}")
+          f"{want['wall']:.2f} s (host wall); assignments dropped per MoE "
+          f"layer at capacity factor "
+          f"{cfg.moe.capacity_factor if cfg.moe else None}: partitioned "
+          f"{[round(x, 4) for x in got['drops']]}, unpartitioned "
+          f"{[round(x, 4) for x in want['drops']]}; on {card}")
+    row9 = launches.get("flash_attention", 0) > 0 and launches.get(
+        "flash_attention_bwd", 0) > 0
     if not (same_stats and all(same) and launches == want["launches"]
-            and launches.get("flash_attention", 0) > 0
-            and launches.get("flash_attention_bwd", 0) > 0
+            and row9 == attends and got["drops"] == want["drops"]
             and set(got["state"]) == set(want["state"])):
         raise AssertionError(f"partition train world 1: {arch}: stats "
                              f"bit-equal {same_stats}, {sum(same)} of "
@@ -8526,30 +8616,44 @@ def train_partition_world1(torch, np, run, dev, card):
 
 def phase_partition_train(torch, np, report, dev, card):
     """Phase 84: (a) ``TRAIN_PARTITION_RUNS`` at world size 1 over NCCL
-    (``train_partition_world1``), (b) rank 0 of ``PARTITION_MESH`` in
-    ``TRAIN_PARTITION_CELL`` under a fake group (``partition_cell``), (c)
-    row 9 at that rank's micro-batch shape, forward and backward
+    (``train_partition_world1``), (b) rank 0 of ``PARTITION_MESH`` in the
+    ``train_4k`` cells of ``TRAIN_PARTITION_CELLS`` under a fake group
+    (``partition_cell``; their meta traces run meanwhile in spawned worker
+    processes, one a cell, ``traced_partition_cell``), (c) row 9 at those
+    ranks' micro-batch shapes, forward and backward
     (``TRAIN_PARTITION_FLASH``, the ``partition_train`` entries of
     ``flash_attention`` and ``flash_attention_bwd``). Returns {path:
     launches}."""
+    import concurrent.futures
+    import multiprocessing
     import torch.distributed as dist
     from repro_torch.distributed import partition
     from repro_torch.launch.mesh import make_placeholder_mesh
     paths = {}
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    for run in TRAIN_PARTITION_RUNS:
-        paths[f"partition train world 1 {run[0]}"] = train_partition_world1(
-            torch, np, run, dev, card)
-    dist.destroy_process_group()
-    arch, shape_name, layers = TRAIN_PARTITION_CELL
-    with partition.fake_world(int(make_placeholder_mesh(
-            PARTITION_MESH).devices.size)):
-        row, launches = partition_cell(torch, np, arch, shape_name, layers,
-                                       card)
-    paths[f"partition {PARTITION_MESH} {arch} {shape_name}"] = launches
-    print("partition train cell: " + json.dumps(
-        {k: v for k, v in row.items() if k != "ms"}))
+    with concurrent.futures.ProcessPoolExecutor(
+            len(TRAIN_PARTITION_CELLS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        traces = [pool.submit(traced_partition_cell, arch, "train_4k", layers)
+                  for arch, layers, _, _ in TRAIN_PARTITION_CELLS]
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        for run in TRAIN_PARTITION_RUNS:
+            paths[f"partition train world 1 {run[0]}"] = \
+                train_partition_world1(torch, np, run, dev, card)
+        dist.destroy_process_group()
+        rows = []
+        with partition.fake_world(int(make_placeholder_mesh(
+                PARTITION_MESH).devices.size)):
+            for (arch, layers, warmup, timed), traced in zip(
+                    TRAIN_PARTITION_CELLS, traces):
+                row, launches = partition_cell(
+                    torch, np, arch, "train_4k", layers, card, warmup, timed,
+                    traced.result())
+                rows.append(row)
+                paths[f"partition {PARTITION_MESH} {arch} train_4k"] = \
+                    launches
+    print("partition train cells: " + json.dumps(
+        [{k: v for k, v in r.items() if k != "ms"} for r in rows]))
     phase_flash_shapes(torch, report, TRAIN_PARTITION_FLASH,
                        "partition_train", 84)
     release(torch)
@@ -8689,6 +8793,7 @@ def main() -> int:
     release(torch)
     lap("rwkv6-3b train step")
     rwkv_train = phase_train_run(torch, np, rcfg_t, dev, remat=True,
+                                 steps=SHORT_RUN_STEPS,
                                  label="rwkv6-3b train", seed=6)
     release(torch)
     lap("rwkv6-3b train run")
@@ -8748,7 +8853,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     # -- the partitioned train step: at world size 1 against the
-    # unpartitioned one, and one rank of pod256 in train_4k ---------------
+    # unpartitioned one, and rank 0 of pod256 in train_4k -----------------
     t_ptrain = time.perf_counter()
     partition_paths.update(phase_partition_train(torch, np, report, dev,
                                                  card))
@@ -8851,7 +8956,10 @@ def main() -> int:
             "partition train world 1 qwen1.5-0.5b",
             "partition train world 1 internvl2-1b",
             "partition train world 1 gemma3-12b",
-            "partition pod256 qwen1.5-0.5b train_4k"))
+            "partition train world 1 jamba-v0.1-52b",
+            "partition pod256 qwen1.5-0.5b train_4k",
+            "partition pod256 dbrx-132b train_4k",
+            "partition pod256 jamba-v0.1-52b train_4k"))
     for label, rows in trained:
         if not all(dict(paths)[label].get(k, 0) > 0 for k in rows):
             raise AssertionError(f"the {label} path launched none of some "

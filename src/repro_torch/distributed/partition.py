@@ -15,7 +15,8 @@ collectives where the partitioner would put them
   process group.
 * ``shard_model`` / ``shard_cache`` / ``shard_batch`` — the rank's slices
   of a model, a dense decode cache and a batch, per ``rules.params``,
-  ``rules.cache`` and ``rules.batch_spec``. A rank holds exactly the
+  ``rules.cache`` and ``rules.batch_spec`` (a train step's batch by
+  micro-batch, as the reference splits it). A rank holds exactly the
   shards its specs name (a whole tensor, shared, where the spec splits
   nothing). A sharded module holds its parameters' specs (``pspecs``,
   read by ``pspec``), a cache leaf its own (``pspec``): the layers read
@@ -56,6 +57,14 @@ part of the whole. Hence the backwards:
 sum of the ranks' losses instead, which over ``model`` would scale the
 gradients by its size.
 
+Two more rules keep a layer's work the rank's own. An all-reduced sum
+that only the rank's own work consumes enters it again (``enter``:
+Mamba's C.h, read by the rank's rows of ``out_proj``). A term every rank
+of ``model`` computes alike from replicated inputs and adds to the loss
+(the MoE's aux loss, from the router every rank runs whole) takes its
+gradient on the group's first rank alone: the shares then sum to it
+once.
+
 Collectives run over an axis whenever a spec names it, a group of one
 included, so a step issues the same collectives at any mesh size.
 
@@ -63,10 +72,14 @@ Every family the port serves: attention, MLP and MoE layers
 (``layers/core.py``, ``layers/attention.py``, ``layers/moe.py``), MLA
 (``layers/mla.py``), Mamba (``layers/mamba.py``), RWKV-6 over a key slice
 of its state (``layers/rwkv6.py``) and the encoder-decoder
-(``models/encdec.py``). It trains the attention and MLP families
-(``training/train_loop.py`` with ``TrainConfig.shard_axes``): the rank's
-gradients reduced over the data-parallel axes by ``reduce_gradients``,
-its loss by ``dp_mean``.
+(``models/encdec.py``). It trains the attention, MLP, MoE, MLA and hybrid
+families (``training/train_loop.py`` with ``TrainConfig.shard_axes``:
+``attention_train_sharded``, the split MLP, the expert-parallel
+``moe_apply``, ``mla_train_sharded``, ``mamba_train_sharded`` from a zero
+state that ``shard_state`` splits), each rank on its rows of the
+reference's micro-batches (``shard_batch``): the rank's gradients reduced
+over the data-parallel axes by ``reduce_gradients``, its loss by
+``dp_mean``. RWKV-6 and the encoder-decoder do not train partitioned.
 """
 from __future__ import annotations
 
@@ -366,8 +379,10 @@ def reduce_gradients(grads: Dict[str, torch.Tensor], specs, ctx: RankContext,
     other is summed over the axis, in all-reduces of buckets of such
     gradients concatenated (``BUCKET`` elements at most, besides a larger
     gradient alone); then all are divided by the axes' size (not at a
-    size of 1, where the step is the unpartitioned one bit for bit)."""
-    grads = dict(grads)
+    size of 1, where the step is the unpartitioned one bit for bit).
+    ``grads`` is updated in place and returned: each gradient's earlier
+    copy is freed once its bucket lands, so the step holds one set of
+    gradients and a bucket, not two sets."""
     n = 1
     for axis in dp:
         n *= ctx.sizes[axis]
@@ -378,7 +393,10 @@ def reduce_gradients(grads: Dict[str, torch.Tensor], specs, ctx: RankContext,
             for k, part in zip(bucket, flat.split([grads[k].numel()
                                                    for k in bucket])):
                 grads[k] = part.view_as(grads[k])
-    return grads if n == 1 else {k: g / n for k, g in grads.items()}
+    if n > 1:
+        for g in grads.values():
+            g.div_(n)
+    return grads
 
 
 BUCKET = 1 << 25
@@ -435,11 +453,40 @@ def shard_cache(cache, rules, ctx: RankContext, batch: int):
                     rules.cache(cache, batch))
 
 
-def shard_batch(tree, rules, ctx: RankContext, batch: int):
+def shard_batch(tree, rules, ctx: RankContext, batch: int,
+                micro_batches: int = 1):
     """The rank's rows of batch-bearing inputs (tokens, positions, a VLM's
     prefix embeddings) per ``rules.batch_spec``: split over the dp axes
-    where ``batch`` divides, else whole."""
-    return _map(lambda t: _own(t, rules.batch_spec(t, batch), ctx), tree)
+    where ``batch`` divides, else whole. With ``micro_batches`` n (the
+    train step's), the reference's rows of each micro-batch: it cuts the
+    global batch into n micro-batches of ``batch / n`` rows and splits
+    each over the dp axes (where they divide it), so the rank holds its
+    block of micro-batch 0, then of micro-batch 1, ... (its micro-batch m
+    holds rows [m batch / n + r batch / (n dp), ...) on dp rank r)."""
+    n = micro_batches
+
+    def own(t):
+        if n == 1 or t.shape[0] != batch:
+            return _own(t, rules.batch_spec(t, batch), ctx)
+        if batch % n:
+            raise ValueError(f"a batch of {batch} rows does not split into "
+                             f"{n} micro-batches")
+        mb = t.reshape(n, batch // n, *t.shape[1:])
+        part = _own(mb, (None, *rules.batch_spec(mb[0], batch // n)), ctx)
+        return part.reshape(-1, *t.shape[1:])
+    return _map(own, tree)
+
+
+def shard_state(state, rules, ctx: RankContext):
+    """A layer's zero recurrent state for the rank's rows (a NamedTuple of
+    (B, ...) leaves, as the training forward starts a Mamba layer) ->
+    (the rank's blocks of it, their specs): split over ``model`` as
+    ``rules.cache`` splits the decode cache's leaves, the rows not
+    again."""
+    specs = type(state)(*(rules.cache_spec(name, t[None], 0)[1:]
+                          for name, t in zip(state._fields, state)))
+    return type(state)(*(_own(t, s, ctx, True)
+                         for t, s in zip(state, specs))), specs
 
 
 def _tag(t: torch.Tensor, t_spec) -> torch.Tensor:

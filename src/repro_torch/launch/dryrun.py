@@ -33,12 +33,13 @@ with ``meta`` entries (``launch/mesh.py:make_placeholder_mesh``):
   shards, traced under a fake process group of the mesh's size
   (``partition.fake_world``): the cost and ``temp_size_in_bytes`` a
   device, its collectives recorded as ``_c10d_functional`` ops. For the
-  training cells of the attention and MLP families (dense and VLM), rank
-  0's partitioned train step (``make_train_step`` with
-  ``TrainConfig.shard_axes``: FSDP, four micro-batches of the rank's
-  rows, remat, sequence parallelism), forward and backward. The other
-  families' training cells keep ``cost: null``, with a ``cost_reason``
-  that names what their family is missing (``TRAIN_MISSING``).
+  training cells of the attention, MLP, MoE, MLA and hybrid families,
+  rank 0's partitioned train step (``make_train_step`` with
+  ``TrainConfig.shard_axes``: FSDP, the rank's rows of four
+  micro-batches, remat, sequence parallelism), forward and backward.
+  RWKV-6's and the encoder-decoder's training cells keep ``cost: null``,
+  with a ``cost_reason`` that names what their family is missing
+  (``TRAIN_MISSING``).
 """
 from __future__ import annotations
 
@@ -72,14 +73,12 @@ MESHES = tuple(PLACEHOLDER_MESHES)
 TRACED_MESH = "h100"
 # what the partitioned train step of each family not yet ported lacks
 TRAIN_MISSING = {
-    "moe": "the expert-parallel MoE backward",
-    "mla": "the partitioned MLA backward and the expert-parallel MoE "
-           "backward",
-    "hybrid": "the partitioned Mamba backward and the expert-parallel MoE "
-              "backward",
     "ssm": "the key-slice WKV backward",
     "encdec": "the partitioned encoder-decoder step",
 }
+# the reference's dry run: grad accumulation over 4 micro-batches bounds
+# activation memory
+TRAIN_MICRO_BATCHES = 4
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__),
                            "../../../results/dryrun_torch")
@@ -181,10 +180,11 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
             model = partition.shard_model(model, rules, rank,
                                           requires_grad=True)
             opt = adamw_init(trainable_params(model), ocfg)
-            inputs = partition.shard_batch(inputs, rules, rank, B)
-        # 4 micro-batches: grad accumulation bounds activation memory
+            inputs = partition.shard_batch(inputs, rules, rank, B,
+                                           TRAIN_MICRO_BATCHES)
         step = make_train_step(cfg, ocfg, TrainConfig(
-            micro_batches=4, remat=remat, shard_axes=axes))
+            micro_batches=TRAIN_MICRO_BATCHES, remat=remat,
+            shard_axes=axes))
         return step, (model, opt, inputs), memory
 
     cache = inputs.pop("cache")

@@ -139,12 +139,14 @@ def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def own_weight(p: nn.Module, name: str, ctx) -> torch.Tensor:
+def own_weight(p: nn.Module, name: str, ctx,
+               axes=("data",)) -> torch.Tensor:
     """A sharded module's parameter ``name`` for the rank's own work: its
-    FSDP shards gathered (``ctx.gather``); one replicated over ``model``
-    entered first (``ctx.enter``: its gradient summed over the axis)."""
+    shards gathered over ``axes`` (``ctx.gather``; FSDP's with the
+    default); one replicated over ``model`` entered first (``ctx.enter``:
+    its gradient summed over the axis)."""
     t, spec = getattr(p, name), pspec(p, name)
-    return ctx.gather(t if splits(spec) else ctx.enter(t), spec)
+    return ctx.gather(t if splits(spec) else ctx.enter(t), spec, axes)
 
 
 def linear_cols(p: Linear, x: torch.Tensor, ctx):
@@ -212,9 +214,11 @@ def linear_gathered(pairs, ctx):
 
 def whole(p: nn.Module, name: str, ctx) -> torch.Tensor:
     """A sharded module's parameter ``name`` all-gathered over every axis
-    its spec names: the whole tensor (small weights a rank uses in
-    full)."""
-    return ctx.gather(getattr(p, name), pspec(p, name), AXES)
+    its spec names: the whole tensor (small weights a rank uses in full).
+    The work on it is the rank's own, as ``own_weight`` takes it: in
+    training what a rank computes from it feeds only its own shares, so
+    its gradient is summed over ``model``."""
+    return own_weight(p, name, ctx, AXES)
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:

@@ -24,9 +24,12 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.partition import own_slices, splits
+from repro_torch.distributed.partition import (own_slices, shard_state,
+                                                splits)
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.layers.core import (Linear, _param, linear,
                                      linear_gathered, linear_rows,
                                      trunc_normal, whole)
@@ -110,6 +113,32 @@ def _inclusive_scan(a, b):
     return a, b
 
 
+def _scan_group(dt, Bm, Cm, x, A, h, g: int, ck: int):
+    """g chunks of ck tokens of the selective scan: dt, x (B, g ck, di);
+    Bm, Cm (B, g ck, ds); h (B,di,ds) the state before them. Their
+    transition tensors a, b (B g, ck, di, ds) built and scanned at once,
+    then h carried from chunk to chunk -> (y (B, g ck, di) float32, h)."""
+    B, _, di = x.shape
+    ds = A.shape[-1]
+
+    def chunks(t):                                  # (B,g ck,n) -> (B g,ck,n)
+        return t.reshape(B * g, ck, t.shape[-1])
+    dt_c, B_c = chunks(dt), chunks(Bm)
+    a_c = torch.exp(dt_c[..., None] * A[None, None])           # (Bg,ck,di,ds)
+    b_c = (dt_c * chunks(x).float())[..., None] * B_c[:, :, None, :]
+    aa, bb = _inclusive_scan(a_c, b_c)
+    del a_c, b_c
+    aa, bb = (t.reshape(B, g, ck, di, ds) for t in (aa, bb))
+    ys = []
+    for i in range(g):
+        h_all = aa[:, i] * h[:, None] + bb[:, i]               # (B,ck,di,ds)
+        ys.append(torch.einsum("btds,bts->btd", h_all,
+                               Cm[:, i * ck:(i + 1) * ck]))
+        h = h_all[:, -1]
+        del h_all
+    return torch.cat(ys, dim=1), h
+
+
 def _chunked_ssm_scan(dt, Bm, Cm, x, A, h0):
     """Selective scan, chunked. dt, x: (B,T,di); Bm, Cm: (B,T,ds); A:
     (di,ds); h0: (B,di,ds) float32. -> (y (B,T,di) float32, h (B,di,ds)).
@@ -117,35 +146,28 @@ def _chunked_ssm_scan(dt, Bm, Cm, x, A, h0):
     ``MAMBA_CHUNK``-token chunks when T is a multiple of it, else one chunk
     of T; the transition tensors a, b (B,ck,di,ds) are built and scanned
     for as many chunks at a time as fit ``MAMBA_GROUP_BYTES`` (one at a
-    time at a full model's widths), and h is carried from chunk to chunk.
-    Every product is elementwise or the chunk's own, so the grouping
-    changes no result."""
+    time at a full model's widths, ``_scan_group``), and h is carried from
+    chunk to chunk. Every product is elementwise or the chunk's own, so
+    the grouping changes no result. Under autograd each group is
+    recomputed in the backward (``torch.utils.checkpoint``): its doubling
+    steps' products, ~1 GB a 128-token chunk at jamba's width, are then
+    held for one group at a time, not for every chunk of the layer."""
     B, T, di = x.shape
     ds = A.shape[-1]
     nchunk = (T // MAMBA_CHUNK if T % MAMBA_CHUNK == 0 and T >= MAMBA_CHUNK
               else 1)
     ck = T // nchunk
     group = max(1, min(nchunk, MAMBA_GROUP_BYTES // (B * ck * di * ds * 4)))
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dt, Bm, Cm, x, A, h0))
     h, ys = h0, []
     for c0 in range(0, nchunk, group):
         g = min(group, nchunk - c0)
         s = slice(c0 * ck, (c0 + g) * ck)
-
-        def chunks(t):                              # (B,g ck,n) -> (B g,ck,n)
-            return t[:, s].reshape(B * g, ck, t.shape[-1])
-        dt_c, B_c = chunks(dt), chunks(Bm)
-        a_c = torch.exp(dt_c[..., None] * A[None, None])       # (Bg,ck,di,ds)
-        b_c = (dt_c * chunks(x).float())[..., None] * B_c[:, :, None, :]
-        aa, bb = _inclusive_scan(a_c, b_c)
-        del a_c, b_c
-        aa, bb = (t.reshape(B, g, ck, di, ds) for t in (aa, bb))
-        for i in range(g):
-            h_all = aa[:, i] * h[:, None] + bb[:, i]           # (B,ck,di,ds)
-            c = (c0 + i) * ck
-            ys.append(torch.einsum("btds,bts->btd", h_all, Cm[:, c:c + ck]))
-            h = h_all[:, -1]
-            del h_all
-        del aa, bb
+        args = (dt[:, s], Bm[:, s], Cm[:, s], x[:, s], A, h, g, ck)
+        y, h = (checkpoint(_scan_group, *args, use_reentrant=False) if grad
+                else _scan_group(*args))
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 
@@ -248,7 +270,8 @@ def mamba_decode(p: Mamba, cfg: ModelConfig, x, state: MambaState
 
 
 def mamba_sharded(p: Mamba, cfg: ModelConfig, x, state: MambaState,
-                  specs: MambaState, rank, *, decode: bool = False
+                  specs: MambaState, rank, *, decode: bool = False,
+                  scatter: Optional[int] = None
                   ) -> Tuple[torch.Tensor, MambaState]:
     """``mamba_forward`` (``mamba_decode`` with ``decode``) on a rank: x
     (B,T,d) replicated over ``model``; ``state`` the rank's blocks of the
@@ -262,7 +285,13 @@ def mamba_sharded(p: Mamba, cfg: ModelConfig, x, state: MambaState,
     are small); the scan runs on the rank's block of the ssm state over
     its channels and states, and the partial C.h, placed at its channels,
     is all-reduced over ``model``; then D, the gate and the rank's rows of
-    ``out_proj``, all-reduced."""
+    ``out_proj``, all-reduced (reduce-scattered along ``scatter``: the
+    train step's sequence parallelism).
+
+    In training (``mamba_train_sharded``) x enters the rank's work: every
+    product above feeds only the rank's own channels, states and
+    ``out_proj`` rows, so each gradient it holds is its share, and the
+    all-reduced C.h, consumed by its own rows alone, enters them."""
     B, T, _ = x.shape
     di = _dims(cfg)[0]
     x_in, z = torch.chunk(linear_gathered([(p.in_proj, x)], rank)[0], 2,
@@ -291,7 +320,27 @@ def mamba_sharded(p: Mamba, cfg: ModelConfig, x, state: MambaState,
             y = torch.zeros((B, T, di), dtype=y.dtype,
                             device=y.device).index_copy_(
                 2, torch.arange(chans.start, chans.stop, device=y.device), y)
-        y = rank.all_reduce(y, "model")
+        y = rank.enter(rank.all_reduce(y, "model"))
     y = (y + whole(p, "D", rank).float()[None, None] * xc.float()).to(x.dtype)
-    out = linear_rows(p.out_proj, y * F.silu(z), 0, di, rank)
+    out = linear_rows(p.out_proj, y * F.silu(z), 0, di, rank, scatter)
     return out, MambaState(h, conv_tail.to(state.conv.dtype))
+
+
+def mamba_train_sharded(p: Mamba, cfg: ModelConfig, x, shard_axes, *,
+                        sp: bool) -> torch.Tensor:
+    """The training forward's Mamba on a rank (the reference's
+    ``mamba_forward`` under ``shard_axes``, whose ``xz`` it constrains to
+    ``model``): ``mamba_sharded`` at every position from a zero state,
+    split over ``model`` as the mesh's ``ShardingRules`` split the decode
+    cache's (``partition.shard_state``). x (B,T,d), the rank's block of the
+    positions (B, T / model, d) under sequence parallelism (``sp``),
+    all-gathered along T, else the stream, replicated over ``model``,
+    entering the rank's work; ``out_proj``'s partial sums all-reduced, or
+    reduce-scattered along T under ``sp``."""
+    rank = shard_axes["ctx"]
+    x = rank.all_gather(x, 1, "model") if sp else rank.enter(x)
+    state, specs = shard_state(
+        init_mamba_state(cfg, x.shape[0], x.dtype, x.device),
+        ShardingRules(shard_axes["mesh"], cfg), rank)
+    return mamba_sharded(p, cfg, x, state, specs, rank,
+                         scatter=1 if sp else None)[0]

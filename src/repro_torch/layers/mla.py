@@ -13,7 +13,8 @@ dense cache's prefill take ``mla_full``, the non-absorbed full-sequence
 causal form; the dense cache (``MLACache``: the latents and roped keys
 of positions [0, seq)) decodes absorbed (``mla_decode``), in place. On a
 rank of a mesh the rules split the latent cache's columns:
-``mla_prefill_sharded`` / ``mla_decode_sharded``.
+``mla_prefill_sharded`` / ``mla_decode_sharded``; the partitioned train
+step runs ``mla_train_sharded``.
 
 Not ported: a low-rank query (``q_lora_rank > 0``).
 """
@@ -67,12 +68,16 @@ def latent_dim(cfg: ModelConfig) -> int:
     return cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
 
 
-def _latents(p: MLA, cfg: ModelConfig, x, positions, wdkv=None):
+def _latents(p: MLA, cfg: ModelConfig, x, positions, rank=None):
     """x (B,T,d) -> normalised latents (B,T,kv_lora), roped keys
-    (B,T,rope). ``wdkv``: the projection where not ``p``'s own."""
+    (B,T,rope). With ``rank`` (a rank's shards) the latents are computed
+    whole: ``wdkv`` gathered (the rules' column split does not line up
+    with the cache's, and RoPE pairs dim i with i + 32); in training they
+    feed the rank's own heads, so the norm's scale enters its work."""
     r = cfg.mla.kv_lora_rank
-    c = linear(p.wdkv, x) if wdkv is None else x @ wdkv.to(x.dtype)
-    c_kv = rms_norm(p.kv_norm, c[..., :r], cfg.rmsnorm_eps)
+    c = (linear(p.wdkv, x) if rank is None
+         else x @ whole(p.wdkv, "w", rank).to(x.dtype))
+    c_kv = rms_norm(p.kv_norm, c[..., :r], cfg.rmsnorm_eps, rank)
     k_rope = apply_rope(c[..., r:][:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
     return c_kv, k_rope
@@ -408,13 +413,15 @@ def _mla_heads(p: MLA, cfg: ModelConfig, rank):
                               for w in (p.wq, p.wuk, p.wuv)))
 
 
-def _out_sharded(p: MLA, cfg: ModelConfig, ctx, h0: int, rank):
+def _out_sharded(p: MLA, cfg: ModelConfig, ctx, h0: int, rank,
+                 scatter=None):
     """The rank's features of ctx (B,T,(h1-h0) v) through its rows of
-    ``wo``, all-reduced."""
+    ``wo``, all-reduced (reduce-scattered along ``scatter``: the train
+    step's sequence parallelism)."""
     v = cfg.mla.v_head_dim
     flo, fhi = rank.range(pspec(p.wo, "w")[0], p.wo.w.shape[0])
     return linear_rows(p.wo, ctx[..., flo - h0 * v:fhi - h0 * v], flo, fhi,
-                       rank)
+                       rank, scatter)
 
 
 def mla_prefill_sharded(p: MLA, cfg: ModelConfig, x, cache: MLACache,
@@ -428,8 +435,7 @@ def mla_prefill_sharded(p: MLA, cfg: ModelConfig, x, cache: MLACache,
     rank's heads in full and its rows of ``wo``, all-reduced."""
     _latent_split(specs)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    c_kv, k_rope = _latents(p, cfg, x, positions,
-                            wdkv=whole(p.wdkv, "w", rank))
+    c_kv, k_rope = _latents(p, cfg, x, positions, rank)
     T = x.shape[1]
     for buf, new, spec in ((cache.c_kv, c_kv, specs.c_kv),
                            (cache.k_rope, k_rope, specs.k_rope)):
@@ -437,6 +443,27 @@ def mla_prefill_sharded(p: MLA, cfg: ModelConfig, x, cache: MLACache,
     h0, _, wq, wuk, wuv = _mla_heads(p, cfg, rank)
     ctx = _full_heads(cfg, x, positions, c_kv, k_rope, wq, wuk, wuv)
     return _out_sharded(p, cfg, ctx, h0, rank)
+
+
+def mla_train_sharded(p: MLA, cfg: ModelConfig, x, rank, *,
+                      sp: bool) -> torch.Tensor:
+    """``mla_full`` in the partitioned train step, from the serving
+    prefill's pieces: x (B,T,d), the rank's block of the positions (B, T /
+    model, d) under sequence parallelism (``sp``), all-gathered along T
+    (the causal attention reads every position), else the stream,
+    replicated over ``model``, entering the rank's work. The latents
+    computed whole (``wdkv`` gathered, ``kv_norm``'s scale entered), the
+    rank's heads (``_mla_heads``) over them as ``mla_full`` computes them,
+    the (B, heads, T, T) float32 scores included, then its rows of ``wo``,
+    all-reduced, or reduce-scattered along T under ``sp``. Everything a
+    rank computes feeds its own heads and rows: its gradients are its
+    shares."""
+    x = rank.all_gather(x, 1, "model") if sp else rank.enter(x)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    c_kv, k_rope = _latents(p, cfg, x, positions, rank)
+    h0, _, wq, wuk, wuv = _mla_heads(p, cfg, rank)
+    ctx = _full_heads(cfg, x, positions, c_kv, k_rope, wq, wuk, wuv)
+    return _out_sharded(p, cfg, ctx, h0, rank, 1 if sp else None)
 
 
 def mla_decode_sharded(p: MLA, cfg: ModelConfig, x, cache: MLACache, pos,
@@ -454,8 +481,7 @@ def mla_decode_sharded(p: MLA, cfg: ModelConfig, x, cache: MLACache, pos,
     split = _latent_split(specs)
     B, dt = x.shape[0], x.dtype
     positions = pos.reshape(-1, 1).expand(B, 1)
-    c_new, r_new = _latents(p, cfg, x, positions,
-                            wdkv=whole(p.wdkv, "w", rank))
+    c_new, r_new = _latents(p, cfg, x, positions, rank)
     cols = []
     for buf, new, spec in ((cache.c_kv, c_new, specs.c_kv),
                            (cache.k_rope, r_new, specs.k_rope)):

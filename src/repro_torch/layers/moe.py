@@ -22,7 +22,9 @@ Expert parallelism (``shard_axes``, the reference's ``shard_map`` over
 is replicated (gathered), the rank runs its E/TP experts on its own token
 rows through the same dispatch, with the capacity from the local token
 count (or dropless), and one all-reduce over ``model`` sums the partial
-outputs.
+outputs (a reduce-scatter along T under the train step's sequence
+parallelism). The same code trains: ``moe_apply``'s docstring gives the
+router's gradient.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.partition import pspec
 from repro_torch.layers.core import (MLP, Linear, _act, _param, mlp,
-                                     trunc_normal)
+                                     trunc_normal, whole)
 
 
 def expert_ff(cfg: ModelConfig) -> int:
@@ -202,7 +204,7 @@ def _dispatch_ffn(cfg: ModelConfig, xt, gate_vals, expert_idx, stacks,
 
 
 def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
-              dropless: bool = True, shard_axes=None
+              dropless: bool = True, shard_axes=None, sp: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (out (B, T, d), aux loss f32). Dropless (serving):
     every token's K assignments are kept, so a token's output does not
@@ -212,31 +214,63 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     token-major order, are dropped.
 
     With ``shard_axes`` (``p`` a rank's shard, x its rows: the whole batch
-    where it does not divide the dp axes) expert parallelism: the router
-    gathered whole, the rank's experts from ``e_lo = model rank x El``
-    (gathered over ``data`` where FSDP splits them) on its rows, C from its
-    token count, one all-reduce over ``model``, then the shared experts
-    split as an MLP."""
+    where it does not divide the dp axes) expert parallelism, the
+    reference's ``shard_map`` over ``model`` (its ``in_specs P(dp, None,
+    None)``): the router gathered whole, the rank's experts from ``e_lo =
+    model rank x El`` (gathered over ``data`` where FSDP splits them) on
+    its rows at every position, C from its token count, one all-reduce
+    over ``model``, then the shared experts split as an MLP. With ``sp``
+    (the partitioned train step's stream split along T over ``model``) x
+    is the rank's block of the positions (B, T / model, d): all-gathered
+    along T first, the experts' partial sums reduce-scattered along T.
+
+    In training x enters the rank's work (``enter``, or the all-gather):
+    the gate values weight only its own experts' outputs, so the router's
+    gradient through them is the rank's share. The aux loss is computed
+    alike on every rank of ``model`` from the same rows: its gradient is
+    taken on the group's first rank alone (its value on every rank), so
+    that the shares sum to it once. The routing counts and slots are
+    integers, outside the autograd graph."""
+    rank = shard_axes["ctx"] if shard_axes else None
+    x_in = x
+    if rank is None:
+        # the routed and the shared experts each reach x by one edge, as
+        # a rank's collectives reach it: their gradients add in the same
+        # order, and the partitioned step at world size 1 is this bit for
+        # bit
+        x = x.view_as(x)
+    else:
+        x = rank.all_gather(x, 1, "model") if sp else rank.enter(x)
     B, T, d = x.shape
     xt = x.reshape(B * T, d)
-    rank = shard_axes["ctx"] if shard_axes else None
     if rank is None:
         gate_vals, expert_idx, aux = route(p, cfg, xt)
         stacks, e_lo = (p.up, p.gate, p.down), 0
     else:
-        gate_vals, expert_idx, aux = route(p, cfg, xt, rank.gather(
-            p.router.w, pspec(p.router, "w"), ("model", "data")))
+        axis = pspec(p, "up")[0]
+        if axis is None and rank.model_n > 1 and torch.is_grad_enabled():
+            raise ValueError(f"{cfg.name}: training under expert "
+                             "parallelism needs the experts split over "
+                             "model")
+        gate_vals, expert_idx, aux = route(p, cfg, xt,
+                                           whole(p.router, "w", rank))
+        if rank.coords["model"]:
+            aux = aux.detach()
         stacks = tuple(None if getattr(p, n) is None else
                        rank.gather(getattr(p, n), pspec(p, n))
                        for n in ("up", "gate", "down"))
-        e_lo, _ = rank.range(pspec(p, "up")[0], p.up.shape[0])
+        e_lo, _ = rank.range(axis, p.up.shape[0])
     if dropless:
         y = _routed_experts(cfg, xt, gate_vals, expert_idx, stacks, e_lo)
     else:
         y = _dispatch_ffn(cfg, xt, gate_vals, expert_idx, stacks,
                           moe_capacity(cfg, B * T), e_lo)
-    if rank is not None and pspec(p, "up")[0] is not None:
-        y = rank.all_reduce(y, pspec(p, "up")[0])
+    y = y.reshape(B, T, d)
+    if rank is not None and sp:
+        y = rank.reduce_scatter(y, 1, axis)
+    elif rank is not None and axis is not None:
+        y = rank.all_reduce(y, axis)
     if p.shared is not None:
-        y = y + mlp(p.shared, cfg, xt, rank)
-    return y.reshape(B, T, d), aux.float()
+        y = y + (mlp(p.shared, cfg, x_in, rank, sp) if rank is not None
+                 else mlp(p.shared, cfg, x_in.view_as(x_in)))
+    return y, aux.float()

@@ -320,36 +320,43 @@ def _tokens_on(tokens, device) -> torch.Tensor:
     return tokens.to(device)
 
 
-def _train_group(blocks, cfg: ModelConfig, x, impl: str, rank=None,
+def _train_group(blocks, cfg: ModelConfig, x, impl: str, shard_axes=None,
                  sp: bool = False):
     """One layer group of the training forward (the reference's
     ``_group_train``): each sub-layer by its kinds, RWKV-6 and Mamba from a
     zero state, attention through ``attention_full`` under the sub-layer's
     window (the flash op for ``impl="kernel"``), MLA through ``mla_full``,
-    then the MLP or the MoE with capacity dispatch. With ``rank`` (the
-    partitioned train step: attention and MLP layers), the rank's shards
-    through ``attention_train_sharded`` and the split MLP; with ``sp`` the
-    stream x is the rank's block of the positions, normed there. -> (x,
-    the group's summed MoE aux loss)."""
+    then the MLP or the MoE with capacity dispatch. With ``shard_axes``
+    (the partitioned train step: every family but RWKV-6) the rank's
+    shards: attention through ``attention_train_sharded``, MLA through
+    ``mla_train_sharded``, Mamba through ``mamba_train_sharded``, the split
+    MLP, the expert-parallel MoE; with ``sp`` the stream x is the rank's
+    block of the positions, normed there. -> (x, the group's summed MoE
+    aux loss)."""
+    rank = shard_axes["ctx"] if shard_axes else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     B = x.shape[0]
     own = rank if sp else None
     for i, blk in enumerate(blocks):
         kind = mixer_kind(cfg, i)
-        if rank is not None and (kind not in ("attn", "attn_local")
-                                 or isinstance(blk.ffn, MoE)):
+        if rank is not None and kind == "rwkv":
             raise NotImplementedError(
-                f"{cfg.name}: the partitioned train step covers attention "
-                f"and MLP layers, not {kind} / {type(blk.ffn).__name__}")
+                f"{cfg.name}: the partitioned train step does not cover "
+                "RWKV-6 layers")
         if kind == "rwkv":
             st = rwkv.init_rwkv_state(cfg, B, x.dtype, x.device)
             x, _ = rwkv.rwkv_block(blk.mix, cfg, x, st,
                                    {"n1": blk.n1, "n2": blk.n2}, impl=impl)
             continue
         h = rms_norm(blk.n1, x, cfg.rmsnorm_eps, own)
-        if kind == "mamba":
+        if kind == "mamba" and rank is not None:
+            h = mamba_mod.mamba_train_sharded(blk.mix, cfg, h, shard_axes,
+                                              sp=sp)
+        elif kind == "mamba":
             st = mamba_mod.init_mamba_state(cfg, B, x.dtype, x.device)
             h, _ = mamba_mod.mamba_forward(blk.mix, cfg, h, st)
+        elif kind == "mla" and rank is not None:
+            h = mla_mod.mla_train_sharded(blk.mix, cfg, h, rank, sp=sp)
         elif kind == "mla":
             h = mla_mod.mla_full(blk.mix, cfg, h)
         elif rank is not None:
@@ -362,7 +369,8 @@ def _train_group(blocks, cfg: ModelConfig, x, impl: str, rank=None,
         x = x + h
         h = rms_norm(blk.n2, x, cfg.rmsnorm_eps, own)
         if isinstance(blk.ffn, MoE):
-            h, a = moe_apply(blk.ffn, cfg, h, dropless=False)
+            h, a = moe_apply(blk.ffn, cfg, h, dropless=False,
+                             shard_axes=shard_axes, sp=sp)
             aux = aux + a
         else:
             h = mlp(blk.ffn, cfg, h, rank, sp)
@@ -416,10 +424,10 @@ def forward(model: LM, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     for g in range(n_groups(cfg)):
         blocks = model.blocks[g * gs:(g + 1) * gs]
         if remat:
-            x, a = checkpoint(_train_group, blocks, cfg, x, impl, rank, sp,
-                              use_reentrant=False)
+            x, a = checkpoint(_train_group, blocks, cfg, x, impl, shard_axes,
+                              sp, use_reentrant=False)
         else:
-            x, a = _train_group(blocks, cfg, x, impl, rank, sp)
+            x, a = _train_group(blocks, cfg, x, impl, shard_axes, sp)
         aux = aux + a
     x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps, rank if sp else None)
     if rank is None:

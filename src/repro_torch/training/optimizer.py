@@ -6,8 +6,11 @@ state are dicts keyed by parameter name (``dict(model.named_parameters())``)
 and are UPDATED IN PLACE: the reference returns new trees; here
 ``adamw_update`` writes the moments, the master and the params it was given
 and returns them for the same call shape. The arithmetic is the
-reference's, one plain loop over the parameters. Schedules: linear warmup
--> cosine, and WSD (warmup-stable-decay).
+reference's, one plain loop over the parameters, each taken in runs of at
+most ``CHUNK`` elements: every operation is elementwise, so the runs
+change no result, and the float32 temporaries stay a run's, not a whole
+tensor's (jamba's expert stacks are 0.94 G elements each). Schedules:
+linear warmup -> cosine, and WSD (warmup-stable-decay).
 """
 from __future__ import annotations
 
@@ -89,18 +92,25 @@ def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
     c1 = 1 - cfg.b1 ** step
     c2 = 1 - cfg.b2 ** step
     for n, p in params.items():
-        g = grads[n].float() * scale
-        m, v = state.mu[n], state.nu[n]
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        p32 = state.master[n] if state.master is not None else p
-        upd = (m / c1) / (torch.sqrt(v / c2) + cfg.eps) \
-            + cfg.weight_decay * p32
-        p32.sub_(lr * upd)
-        if state.master is not None:
-            p.copy_(p32)            # cast to the param dtype
+        flat = [t.view(-1) for t in (state.mu[n], state.nu[n], p)
+                + ((state.master[n],) if state.master is not None else ())]
+        g_all = grads[n].reshape(-1)
+        for i in range(0, g_all.numel(), CHUNK):
+            m, v, p_, *master = (t[i:i + CHUNK] for t in flat)
+            g = g_all[i:i + CHUNK].float() * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+            p32 = master[0] if master else p_
+            upd = (m / c1) / (torch.sqrt(v / c2) + cfg.eps) \
+                + cfg.weight_decay * p32
+            p32.sub_(lr * upd)
+            if master:
+                p_.copy_(p32)       # cast to the param dtype
     return params, AdamWState(step, state.mu, state.nu, state.master), {
         "grad_norm": gnorm, "lr": lr}
+
+
+CHUNK = 1 << 26
 
 
 # ---------------------------------------------------------------------------

@@ -55,11 +55,14 @@ def make_train_step(mcfg: ModelConfig, ocfg: AdamWConfig, tcfg: TrainConfig):
 
     With ``tcfg.shard_axes`` the model, optimizer state and batch are one
     rank's shards and rows (``partition.shard_model(requires_grad=True)``,
-    ``adamw_init`` of its parameters, ``partition.shard_batch``): the
-    micro-batches are split from the rank's rows, each rank's gradients
-    of its own loss are reduced to the shards of the mean loss's over the
-    dp axes (``partition.reduce_gradients``), the clipping norm is the
-    global one, and the reported loss and ``grad_norm`` are global."""
+    ``adamw_init`` of its parameters, ``partition.shard_batch`` with
+    ``micro_batches``: its block of each of the reference's micro-batches,
+    in order, so its micro-batch m is its rows of the global one), each
+    rank's gradients of its own loss are reduced to the shards of the
+    mean loss's over the dp axes (``partition.reduce_gradients``), the
+    clipping norm is the global one, and the reported loss and
+    ``grad_norm`` are global: the loss the mean of the ranks' (a MoE's aux
+    term averaged over the dp ranks' rows, as its gradient is)."""
     axes = tcfg.shard_axes
     rank = axes["ctx"] if axes else None
 

@@ -13,9 +13,15 @@ against autograd of the unsharded function (``collective_grads``).
 Imports only torch, numpy and repro_torch.
 
     python tests/_torch_partition_train_worker.py RANK WORLD P,D,M STORE \
-        WEIGHTS_DIR OUT_NPZ
+        WEIGHTS_DIR OUT_NPZ [SUITE]
+
+``SUITE`` picks the cases: ``dense`` (the default, ``CASES``) or ``moe``
+(``MOE_CASES``; at world size 4 also each micro-batch's rows,
+``micro_rows``, and the MoE layer's gradients, ``router_grads``, in
+place of ``collective_grads``).
 """
 import copy
+import dataclasses
 import sys
 
 import numpy as np
@@ -27,6 +33,7 @@ from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import Mesh, rank_context
 from repro_torch.layers.core import vocab_axis
+from repro_torch.layers.moe import moe_apply
 from repro_torch.models import api, lm
 from repro_torch.training.optimizer import AdamWConfig, adamw_init
 from repro_torch.training.train_loop import (TrainConfig, make_train_step,
@@ -59,21 +66,45 @@ CASES = {
 }
 # the cases taken at world size 4 and held against the reference there
 MESH_CASES = ("qwen", "gemma3", "minicpm", "internvl2")
+# the MoE, MLA and hybrid families (``test_torch_partition_train_moe.py``,
+# the worker's suite ``moe``), every case at world sizes 4 and 1: dbrx
+# (its attention on the head route over model 2, the covered one over
+# model 4; 2 experts a rank, then 1) at 24 tokens, split along T on both
+# meshes; deepseek (MLA with a shared expert) at 18 and jamba (one
+# period: Mamba, attention at index 4, the MoE on odd layers) at 22, split
+# along T over model 2 and replicated over model 4; and dbrx at the
+# production capacity factor 1.25, whose experts drop assignments
+MOE_CASES = {
+    "dbrx": ("dbrx-132b", {}, T),
+    "deepseek": ("deepseek-v2-lite-16b", {}, 18),
+    "jamba": ("jamba-v0.1-52b", {}, 22),
+    "dbrx_c125": ("dbrx-132b", {"capacity_factor": 1.25}, T),
+}
+SUITES = {"dense": (CASES, MESH_CASES), "moe": (MOE_CASES, tuple(MOE_CASES))}
+ALL_CASES = {**CASES, **MOE_CASES}
 SEED = 36
 
 
-def case_config(name: str):
-    arch, over, _ = CASES[name]
-    return smoke_config(get_config(arch)).replace(**over)
+def case_config(name: str, get=get_config, smoke=smoke_config):
+    """A case's smoke config (``get`` / ``smoke``: a package's
+    ``get_config`` and ``smoke_config``, the port's by default); a
+    ``capacity_factor`` override replaces the MoE's."""
+    arch, over, _ = ALL_CASES[name]
+    over = dict(over)
+    cfg = smoke(get(arch))
+    if "capacity_factor" in over:
+        over["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=over.pop("capacity_factor"))
+    return cfg.replace(**over)
 
 
 def batch(name: str) -> dict:
     """The global batch of a case from one seed: tokens, and a VLM's
     prefix rows."""
     cfg = case_config(name)
-    rng = np.random.default_rng(SEED + list(CASES).index(name))
+    rng = np.random.default_rng(SEED + list(ALL_CASES).index(name))
     out = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (B, CASES[name][2])).astype(np.int32))}
+        0, cfg.vocab_size, (B, ALL_CASES[name][2])).astype(np.int32))}
     if cfg.n_prefix_embeds:
         out["prefix_embeds"] = torch.from_numpy((rng.standard_normal(
             (B, cfg.n_prefix_embeds, cfg.d_model)) * 0.02).astype(np.float32))
@@ -103,10 +134,10 @@ def run_case(name, mesh, rank, weights_dir, out):
     local = partition.shard_model(model, rules, rank, requires_grad=True)
     opt = adamw_init(trainable_params(local), AdamWConfig(**OCFG))
     glob = batch(name)
-    mine = partition.shard_batch(glob, rules, rank, B)
+    mine = partition.shard_batch(glob, rules, rank, B, MICRO)
     local, opt, stats = step_of(cfg, axes)(local, opt, mine)
     specs = partition.param_specs(local)
-    T_all = cfg.n_prefix_embeds + CASES[name][2]
+    T_all = cfg.n_prefix_embeds + ALL_CASES[name][2]
     out[f"{name}/layout"] = np.array([
         "covered" if cfg.n_kv_heads % rank.model_n else "heads",
         "sp" if lm.seq_parallel(T_all, axes) else "replicated",
@@ -198,26 +229,96 @@ def collective_grads(rank, out):
             (got - want).norm() / want.norm()))
 
 
+def micro_rows(mesh, rank, out):
+    """The global rows of each of the rank's micro-batches, as the train
+    step cuts them from ``shard_batch``'s rows (a batch of row ids)."""
+    cfg = case_config("dbrx")
+    rules = ShardingRules(mesh, cfg, fsdp=True)
+    ids = torch.arange(B)[:, None].expand(B, 2).contiguous()
+    mine = partition.shard_batch({"tokens": ids}, rules, rank, B, MICRO)
+    out["rows"] = mine["tokens"][:, 0].reshape(MICRO, -1).numpy()
+
+
+def router_grads(mesh, rank, weights_dir, out):
+    """dbrx's first MoE layer alone, its stream split along T over
+    ``model`` and replicated: each rank's loss is its outputs' product
+    with a fixed tensor, summed over its positions and ``model``, plus
+    half its aux loss; the data-parallel loss their mean over the dp
+    ranks. The router's, the up stack's and the input's gradients on a
+    rank (reduced over dp as the train step reduces them, gathered whole)
+    against autograd of the unsharded layer on each dp rank's rows,
+    relative distance saved by name."""
+    cfg, model = load_model("dbrx", weights_dir)
+    rules = ShardingRules(mesh, cfg, fsdp=True)
+    axes = {"dp": rules.dp, "tp": "model", "mesh": mesh, "ctx": rank}
+    n, m = rank.model_n, rank.coords["model"]
+    dp_i, dp_n = rank.index(rules.dp)
+    rng = np.random.default_rng(SEED)
+    Bg, Tg = 2 * dp_n, 8 * n
+    X = torch.from_numpy(rng.standard_normal((Bg, Tg, cfg.d_model)))
+    G = torch.from_numpy(rng.standard_normal((Bg, Tg, cfg.d_model)))
+    X, G = X.float(), G.float()
+    ffn = model.blocks[0].ffn
+    names = ("router.w", "up")
+    whole = trainable_params(ffn)
+    xw = X.clone().requires_grad_()
+    loss = 0.0
+    for r in range(dp_n):
+        rows = slice(r * 2, (r + 1) * 2)
+        y, aux = moe_apply(ffn, cfg, xw[rows], dropless=False)
+        loss = loss + ((y * G[rows]).sum() + 0.5 * aux) / dp_n
+    want = torch.autograd.grad(loss, [whole[k] for k in names] + [xw])
+    local = partition.shard_model(model, rules, rank,
+                                  requires_grad=True).blocks[0].ffn
+    specs = {k: partition.pspec(local.get_submodule(k.rpartition(".")[0]),
+                                k.rpartition(".")[2]) for k in names}
+    rows = slice(dp_i * 2, (dp_i + 1) * 2)
+    for sp in (True, False):
+        pos = slice(m * 8, (m + 1) * 8) if sp else slice(None)
+        x = X[rows, pos].clone().requires_grad_()
+        y, aux = moe_apply(local, cfg, x, dropless=False, shard_axes=axes,
+                           sp=sp)
+        part = (y * G[rows, pos]).sum()
+        if sp:
+            part = rank.all_reduce(part, "model")
+        params = dict(local.named_parameters())
+        got = torch.autograd.grad(part + 0.5 * aux,
+                                  [params[k] for k in names] + [x])
+        grads = partition.reduce_gradients(dict(zip(names, got)), specs,
+                                           rank, rules.dp)
+        layout = "sp" if sp else "replicated"
+        for k, w in zip(names, want):
+            g = rank.gather(grads[k], specs[k], partition.AXES)
+            out[f"router_grad/{layout}/{k}"] = np.array(float(
+                (g - w).norm() / w.norm()))
+        gx = got[-1] / dp_n
+        out[f"router_grad/{layout}/x"] = np.array(float(
+            (gx - want[-1][rows, pos]).norm() / want[-1][rows, pos].norm()))
+
+
 def main(rank: int, world: int, shape: str, store_file: str,
-         weights_dir: str, out_path: str) -> None:
+         weights_dir: str, out_path: str, suite: str = "dense") -> None:
     torch.set_num_threads(1)
+    cases, mesh_cases = SUITES[suite]
     dims = tuple(int(x) for x in shape.split(","))
     store = dist.FileStore(store_file, world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     mesh = Mesh(np.full(dims, "cpu", dtype=object), ("pod", "data", "model"))
     ctx = rank_context(mesh, device="cpu")
     out = {"coords": np.array([ctx.coords[a] for a in partition.AXES])}
-    for name in CASES:
+    for name in cases:
         if world == 1:
             bit_identity(name, mesh, ctx, weights_dir, out)
-        elif name in MESH_CASES:
+        elif name in mesh_cases:
             run_case(name, mesh, ctx, weights_dir, out)
-    if world > 1:
+    if world > 1 and suite == "dense":
         collective_grads(ctx, out)
+    if world > 1 and suite == "moe":
+        micro_rows(mesh, ctx, out)
+        router_grads(mesh, ctx, weights_dir, out)
     dist.destroy_process_group()
     np.savez(out_path, **out)
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-         sys.argv[5], sys.argv[6])
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])

@@ -16,6 +16,7 @@ pods' bytes per device from the port's sharding specs. The reference's
 devices on every later JAX test of the worker; its record keys are read
 from its source."""
 import ast
+import dataclasses
 import gzip
 import json
 from pathlib import Path
@@ -327,27 +328,37 @@ def test_pod_serving_cells_carry_a_cost(arch, tmp_path):
         assert (tmp_path / f"{arch}_{shape}_smoke.trace.jsonl.gz").exists()
 
 
-@pytest.mark.parametrize("arch,shape", [("dbrx-132b", "train_4k")])
+@pytest.mark.parametrize("arch,shape", [("rwkv6-3b", "train_4k")])
 def test_other_pod_cells_name_what_is_missing(arch, shape, tmp_path):
     rec = dryrun.run_cell(arch, shape, mesh_name="pod512",
                           out_dir=str(tmp_path))
     assert rec["status"] == "ok", rec.get("error")
     assert rec["cost"] is None and rec["memory"]["temp_size_in_bytes"] is None
-    missing = {"dbrx-132b": "train step"}[arch]
+    missing = {"rwkv6-3b": "train step"}[arch]
     assert missing in rec["cost_reason"] and "not ported" in rec[
         "cost_reason"]
     assert not list(tmp_path.iterdir())
 
 
-# the partitioned train step covers the attention and MLP families
+# the partitioned train step covers the attention, MLP, MoE, MLA and
+# hybrid families
 TRAIN_ARCHS = ("qwen1.5-0.5b", "gemma-7b", "minicpm-2b", "internvl2-1b",
-               "gemma3-12b")
+               "gemma3-12b", "dbrx-132b", "deepseek-v2-lite-16b",
+               "jamba-v0.1-52b")
 # each other arch's family as ``dryrun.TRAIN_MISSING`` names it
-TRAIN_MISSING = {"dbrx-132b": "moe", "deepseek-v2-lite-16b": "mla",
-                 "jamba-v0.1-52b": "hybrid", "rwkv6-3b": "ssm",
-                 "whisper-tiny": "encdec"}
+TRAIN_MISSING = {"rwkv6-3b": "ssm", "whisper-tiny": "encdec"}
 # a small batch a pod's dp ranks split into 4 rows each
 TRAIN_BATCH = {"pod256": 64, "pod512": 128}
+
+
+def _train_overrides(arch):
+    """``_smoke_overrides`` with a MoE's 16 experts: expert parallelism in
+    training needs them split over the pods' model axis of 16, as the
+    reference's ``moe_apply`` asserts."""
+    over = _smoke_overrides(arch)
+    if "moe" in over:
+        over["moe"] = dataclasses.replace(over["moe"], n_experts=16)
+    return over
 
 
 def _train_state_bytes(cfg, mesh, B):
@@ -371,21 +382,22 @@ def _train_state_bytes(cfg, mesh, B):
 @pytest.mark.parametrize("mesh_name", ["pod256", "pod512"])
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_pod_train_cells_carry_a_cost(arch, mesh_name, tmp_path):
-    """The train_4k cell of each attention / MLP arch on the pods (smoke
-    widths, 4 rows a dp rank): rank 0's partitioned train step traced, a
+    """The train_4k cell of each arch whose family the partitioned train
+    step covers, on the pods (smoke widths, 4 rows a dp rank, one of each
+    of its 4 micro-batches): rank 0's partitioned train step traced, a
     cost with collectives, the temporaries a device, the trace beside the
     record, and the arguments a device as its specs divide them."""
     B = TRAIN_BATCH[mesh_name]
     rec = dryrun.run_cell(arch, "train_4k", mesh_name=mesh_name,
                           out_dir=str(tmp_path), tag="smoke",
-                          overrides=_smoke_overrides(arch),
+                          overrides=_train_overrides(arch),
                           batch_override=B)
     assert rec["status"] == "ok", rec.get("error")
     assert "cost_reason" not in rec
     assert rec["cost"]["flops"] > 0 and rec["cost"]["collective bytes"] > 0
     assert rec["memory"]["temp_size_in_bytes"] > 0
     assert (tmp_path / f"{arch}_train_4k_smoke.trace.jsonl.gz").exists()
-    cfg = get_config(arch).replace(**_smoke_overrides(arch))
+    cfg = get_config(arch).replace(**_train_overrides(arch))
     assert rec["memory"]["argument_size_in_bytes"] == _train_state_bytes(
         cfg, make_placeholder_mesh(mesh_name), B)
 
