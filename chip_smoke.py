@@ -596,9 +596,9 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    ``torch.cuda.max_memory_allocated``. It fails when the larger roofline
    term exceeds 1.05 x the p50 (a bound above the time means a wrong
    count) or when a kernel's launches differ from the trace's entries x
-   7. Then ``dryrun.main`` on the ``h100`` mesh for the qwen1.5-0.5b and
-   rwkv6-3b rows (the whole dry run takes longer than 120 s on a CPU) and
-   ``report.summarize`` of them.
+   7. Meanwhile, in a worker process, ``dryrun.main`` on the ``h100`` mesh
+   for the qwen1.5-0.5b and rwkv6-3b rows (the whole dry run takes longer
+   than 120 s on a CPU); then ``report.summarize`` of them.
 83. the partitioned serving step (``api.prefill`` / ``api.decode_step``
    with ``shard_axes``, ``distributed/partition.py``). (a) On an NCCL
    group of world size 1 (a ``HashStore``) over a (1, 1, 1) mesh: qwen1.5-
@@ -651,23 +651,42 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    windowed layers and a global one), deepseek-v2-lite-16b at 3 of 27
    layers (4 x 1,024, 2 micro-batches: MLA and the expert-parallel MoE)
    and jamba-v0.1-52b in two layers at full width (1 x 512: attention +
-   MLP, then Mamba + the MoE, a hybrid period of 2); every step's loss and
-   grad norm, then every parameter and AdamW moment bit for bit (on the
-   card up to 16 GiB of state, else equal checksums of their bits), the
-   same launches, row 9's forward and backward among them where the
-   config has attention, and the same share of assignments dropped per
-   MoE layer; the host wall of both. (b) Rank 0 of ``pod256``
+   MLP, then Mamba + the MoE, a hybrid period of 2), rwkv6-3b at 4 of 32
+   layers at full width (4 x 2,048, 2 micro-batches: at a group of one
+   the square WKV and its backward, rows 8 and 8b) and whisper-tiny at
+   full width and depth (8 x 448 over 1,500 frames, 2 micro-batches);
+   every step's loss and grad norm, then every parameter and AdamW moment
+   bit for bit (on the card up to 16 GiB of state, else equal checksums
+   of their bits), the same launches, row 9's forward and backward among
+   them where the config has attention, and the same share of assignments
+   dropped per MoE layer; the host wall of both. (b) Rank 0 of ``pod256``
    in ``train_4k`` (16 of the 256 rows: its rows of 4 micro-batches of
    64, 4 x 4,096 each) under a fake process group, traced on ``meta`` and
-   run as phase 83(b) runs a serving cell, 3 times (the p50 of 3; their
+   run as phase 83(b) runs a serving cell, twice (the p50 of 2; their
    meta traces meanwhile in worker processes while (a) runs):
    qwen1.5-0.5b (one head a rank), dbrx-132b at 8 layers,
-   deepseek-v2-lite-16b at 4 and jamba-v0.1-52b at 8 (one hybrid
-   period). (c) Row 9 at those ranks' micro-batch shapes (4 x 4,096, causal:
-   qwen one head of 64 on one kv head, dbrx 3 heads of 128 on one, jamba 2
-   on one), forward and backward, through phase 75's check and timing,
-   under ``partition_train`` in the ``flash_attention`` and
-   ``flash_attention_bwd`` records.
+   deepseek-v2-lite-16b at 4, jamba-v0.1-52b at 8 (one hybrid period),
+   rwkv6-3b at 8 of 32 (4 of each head's 64 key rows: the key-slice WKV
+   forward and backward kernels) and whisper-tiny (the covered route: one
+   head a rank). (c) Row 9 at those ranks' micro-batch shapes (4 x 4,096,
+   causal: qwen one head of 64 on one kv head, dbrx 3 heads of 128 on
+   one, jamba 2 on one; whisper-tiny's encoder over 1,500 frames and its
+   cross-attention of 4,096 rows against them, one head of 64; its
+   decoder's self-attention is qwen's shape), forward and backward,
+   through phase 75's check and timing, under ``partition_train`` in the
+   ``flash_attention`` and ``flash_attention_bwd`` records. (d) The
+   key-slice WKV backward kernel (``csrc/wkv6_keyslice_bwd.cu``) against
+   its plain twin (the rectangular ``wkv6_backward_plain``) at the
+   ``pod256`` rank's rwkv6-3b ``train_4k`` micro-batch (4, 4,096, 40
+   heads, K 4, V 64) in bf16 and at (2, 1,031, 40, 8, 64) in float32,
+   weak and strong decays: dr, dk, dv, dw, du and dstate within row 8b's
+   limits (bf16 2e-2 of the plain norm, per 32 tokens; float32 rtol 1e-3
+   atol 5e-4), a control (the kernel on a dy with one token zeroed)
+   beyond them; ``wkv6_keyslice`` forward and backward through autograd
+   (the ``WKV6KeySlice`` op) against autograd of the plain forward;
+   kernel, plain and bound ms of the backward (its ``wkv6_keyslice_bwd``
+   record) and of the forward at that shape (``wkv6_keyslice``'s
+   ``train`` case).
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -7947,38 +7966,54 @@ def roofline_cell(torch, np, arch, shape_name, B, model, card):
     return row, launches
 
 
-def phase_roofline(torch, np, dev, card):
-    """Phase 82: ``ROOFLINE_CELLS`` traced and run (``roofline_cell``),
-    then the dry run's ``DRYRUN_ROWS`` on the ``h100`` mesh into a
-    temporary directory and ``report.summarize`` of them. Returns {path:
-    launches}."""
+def dryrun_rows(archs):
+    """The dry run's rows of ``archs`` on the ``h100`` mesh into a
+    temporary directory -> (``report.summarize`` of them, seconds): phase
+    82 runs it in a worker process while the card runs its cells."""
     import tempfile
     from repro_torch.analysis import report
-    from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
-    from repro_torch.models import lm
-    paths, rows, model, built = {}, [], None, None
-    for arch, shape_name, B in ROOFLINE_CELLS:
-        if built != arch:
-            del model
-            release(torch)
-            gen = torch.Generator(device="cuda").manual_seed(82)
-            model, built = lm.init_params(get_config(arch), gen, dev), arch
-        row, launches = roofline_cell(torch, np, arch, shape_name, B, model,
-                                      card)
-        rows.append(row)
-        paths[f"roofline {arch} {shape_name}"] = launches
-    del model
-    release(torch)
-    print("roofline cells: " + json.dumps(
-        [{k: v for k, v in r.items() if k != "ms"} for r in rows]))
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        for arch in DRYRUN_ROWS:
+        for arch in archs:
             dryrun.main(["--mesh", "h100", "--arch", arch, "--out", out])
-        print(report.summarize(out))
+        return report.summarize(out), time.perf_counter() - t
+
+
+def phase_roofline(torch, np, dev, card):
+    """Phase 82: ``ROOFLINE_CELLS`` traced and run (``roofline_cell``),
+    while the dry run's ``DRYRUN_ROWS`` on the ``h100`` mesh go into a
+    temporary directory in a spawned worker process (``dryrun_rows``),
+    then ``report.summarize`` of them. Returns {path: launches}."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    paths, rows, model, built = {}, [], None, None
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        dry = pool.submit(dryrun_rows, DRYRUN_ROWS)
+        for arch, shape_name, B in ROOFLINE_CELLS:
+            if built != arch:
+                del model
+                release(torch)
+                gen = torch.Generator(device="cuda").manual_seed(82)
+                model, built = lm.init_params(get_config(arch), gen,
+                                              dev), arch
+            row, launches = roofline_cell(torch, np, arch, shape_name, B,
+                                          model, card)
+            rows.append(row)
+            paths[f"roofline {arch} {shape_name}"] = launches
+        del model
+        release(torch)
+        print("roofline cells: " + json.dumps(
+            [{k: v for k, v in r.items() if k != "ms"} for r in rows]))
+        t = time.perf_counter()
+        summary, seconds = dry.result()
+    print(summary)
     print(f"dry run of the {list(DRYRUN_ROWS)} rows on the h100 mesh: "
-          f"{time.perf_counter() - t:.1f} s (host)")
+          f"{seconds:.1f} s (host, in a worker process beside the cells; "
+          f"{time.perf_counter() - t:.1f} s waited for after them)")
     return paths
 
 
@@ -8447,22 +8482,30 @@ TRAIN_PARTITION_RUNS = (("qwen1.5-0.5b", {}, 4, 2048, 4),
                         # parameters, ~59 GB of state: one micro-batch,
                         # so no float32 gradient sum beside it
                         ("jamba-v0.1-52b", {"n_layers": 2, "hybrid": (2, 0)},
-                         1, 512, 1))
+                         1, 512, 1),
+                        # at a group of one the wkv state is whole: the
+                        # square WKV and its backward (rows 8, 8b)
+                        ("rwkv6-3b", {"n_layers": 4}, 4, 2048, 2),
+                        # 8 x 448 decoder tokens over 1,500 frames
+                        ("whisper-tiny", {}, 8, 448, 2))
 TRAIN_PARTITION_STEPS = 2
 # a run's state held on the card for torch.equal up to this size, else its
 # bits' checksums (gemma3-12b's 6 layers: 33 GB of parameters and AdamW
 # state, beside a second run's)
 TRAIN_STATE_ON_CARD = 16 * 2 ** 30
+RWKV_CELL_LAYERS = 8                # rwkv6-3b's pod256 train_4k cell
 # (b) rank 0 of pod256 in train_4k under a fake group: (arch, layers or 0
 # for all, warm-up runs, timed runs): qwen1.5-0.5b whole, the MoE, MLA and
 # hybrid families' cells at the depths of phase 83's decode cells (dbrx 8
-# of 40 layers, deepseek 4 of 27, jamba 8 of 32: one hybrid period); the
-# p50 of 3 runs, the first of them the warm-up, to keep the script inside
-# its limit
-TRAIN_PARTITION_CELLS = (("qwen1.5-0.5b", 0, 0, 3),
-                         ("dbrx-132b", DBRX_LAYERS, 0, 3),
-                         ("deepseek-v2-lite-16b", 4, 0, 3),
-                         ("jamba-v0.1-52b", 8, 0, 3))
+# of 40 layers, deepseek 4 of 27, jamba 8 of 32: one hybrid period),
+# rwkv6-3b's at 8 of 32 and whisper-tiny's whole; the p50 of 2 runs, the
+# first of them the warm-up, to keep the script inside its limit
+TRAIN_PARTITION_CELLS = (("qwen1.5-0.5b", 0, 0, 2),
+                         ("dbrx-132b", DBRX_LAYERS, 0, 2),
+                         ("deepseek-v2-lite-16b", 4, 0, 2),
+                         ("jamba-v0.1-52b", 8, 0, 2),
+                         ("rwkv6-3b", RWKV_CELL_LAYERS, 0, 2),
+                         ("whisper-tiny", 0, 0, 2))
 # (c) row 9 at those ranks' micro-batches: 4 rows of 4,096, causal, forward
 # and backward: qwen one head of 64 on one kv head; dbrx the 3 of 48 heads
 # of 128 its wo rows touch, on the 1 kv head of 8 they read; jamba 2 of 32
@@ -8473,7 +8516,174 @@ TRAIN_PARTITION_FLASH = {
     "dbrx-132b pod256 rank train_4k micro-batch":
         ((4, 4096, 4096, 3, 1, 128, True, 0), True),
     "jamba-v0.1-52b pod256 rank train_4k micro-batch":
-        ((4, 4096, 4096, 2, 1, 128, True, 0), True)}
+        ((4, 4096, 4096, 2, 1, 128, True, 0), True),
+    # whisper-tiny's rank: the head its wo rows touch, the encoder over
+    # 1,500 frames and the decoder's 4,096 rows against them (its
+    # self-attention is qwen's shape above)
+    "whisper-tiny pod256 rank train_4k encoder":
+        ((4, 1500, 1500, 1, 1, 64, False, 0), True),
+    "whisper-tiny pod256 rank train_4k cross-attention":
+        ((4, 4096, 1500, 1, 1, 64, False, 0), True)}
+# (d) the key-slice WKV backward: (B, T, H, K, V) of the pod256 rank's
+# rwkv6-3b train_4k micro-batch (bf16) and a float32 shape of 8 key rows
+# whose last tile is short
+TRAIN_PARTITION_WKV = {"train": ((4, 4096, 40, 4, 64), "bfloat16"),
+                       "float32": ((2, 1031, 40, 8, 64), "float32")}
+WKV_KEYSLICE_BWD_SRC = "src/repro_torch/csrc/wkv6_keyslice_bwd.cu"
+
+
+def keyslice_bwd_bound(shape, io_bytes):
+    """Least time of the backward of one key-slice call
+    (``rwkv6_wkv/ops.py:keyslice_bwd_work``): its bytes over the memory
+    rate against its float32 operations over 67 TFLOP/s and its
+    exponentials over the special-function units. Returns (ms, bound_by,
+    parts)."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    flops, exps, nbytes = wkv_ops.keyslice_bwd_work(*shape, io_bytes)
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32": flops / F32_FLOPS * 1e3, "exp": exps / SFU_PER_S * 1e3}
+    ms = max(parts.values())
+    return ms, "bytes" if parts["bytes"] >= ms else "operations", parts
+
+
+def keyslice_autograd_check(torch, wkv_ops, wkv_ref, g, dev):
+    """``wkv6_keyslice`` forward and backward through autograd (the
+    ``WKV6KeySlice`` op: one launch of each kernel) against autograd of
+    the plain forward (``wkv6_plain``, the chunked form), float32 at (2,
+    1,024, 40, K 4, V 64): every gradient at float32's limits. Returns
+    error/limit."""
+    from repro_torch.kernels import build
+    shape = (2, 1024, 40, 4, 64)
+    B, T, H, K, V = shape
+    args = keyslice_inputs(torch, g, shape, max(WKV_DECAYS), dev)
+    args = [a.float() for a in args]
+    dy = torch.randn((B, T, H, V), generator=g, device=dev)
+    dso = torch.randn((B, H, K, V), generator=g, device=dev)
+
+    def grads(fn):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        y, s1 = fn(*leaves)
+        return torch.autograd.grad((y * dy).sum() + (s1 * dso).sum(),
+                                   leaves)
+    before = build.launch_counts()
+    got = grads(wkv_ops.wkv6)
+    after = build.launch_counts()
+    want = grads(wkv_ref.wkv6_plain)
+    torch.cuda.synchronize()
+    launched = {n: after.get(n, 0) - before.get(n, 0)
+                for n in ("wkv6_keyslice", "wkv6_keyslice_bwd")}
+    if launched != {"wkv6_keyslice": 1, "wkv6_keyslice_bwd": 1}:
+        raise AssertionError(f"wkv6_keyslice through autograd launched "
+                             f"{launched}")
+    ratio = wkv_bwd_ratio(torch, got, want, "float32")
+    print(f"kernel wkv6_keyslice through autograd (WKV6KeySlice) B={B} "
+          f"T={T} H={H} K={K} V={V} float32: every gradient against "
+          f"autograd of wkv6_plain, error/limit {ratio:.3g} (rtol 1e-3, "
+          f"atol 5e-4); launches {launched}")
+    return ratio
+
+
+def phase_keyslice_wkv_bwd(torch, np, report):
+    """Phase 84(d) (module docstring): the key-slice WKV backward kernel
+    against its plain twin at ``TRAIN_PARTITION_WKV``, the autograd op,
+    and the kernel's and the forward's times at the rank's shape."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
+    for K, V in ((4, 64), (8, 64)):
+        for name, info in wkv_ops.wkv6_keyslice_bwd_kernel_info(K,
+                                                                V).items():
+            print(f"wkv6_keyslice_bwd kernel K {K} V {V}: {name} "
+                  f"{json.dumps(info)}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(84)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    cases = {}
+    for name, (shape, dname) in TRAIN_PARTITION_WKV.items():
+        B, T, H, K, V = shape
+        dt = dtypes[dname]
+        ratios, controls, errs = [], [], []
+        for wmax in WKV_DECAYS:
+            r, k, v, w, u, s0 = keyslice_inputs(torch, g, shape, wmax, dev)
+            dy = torch.randn((B, T, H, V), generator=g, device=dev)
+            dso = torch.randn((B, H, K, V), generator=g, device=dev)
+            args = [r.to(dt), k.to(dt), v.to(dt), w, u, s0, dy.to(dt), dso]
+            got = wkv_ops.wkv6_keyslice_bwd(*args)
+            dyc = args[6].clone()
+            dyc[:, T // 2] = 0
+            ctrl = wkv_ops.wkv6_keyslice_bwd(*args[:6], dyc, dso)
+            want = wkv_ref.wkv6_backward_plain(*args)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(t).all()) for t in got):
+                raise AssertionError(f"wkv6_keyslice_bwd {name}: not finite")
+            ratios.append(wkv_bwd_ratio(torch, got, want, dname))
+            controls.append(wkv_bwd_ratio(torch, ctrl, want, dname))
+            errs.append(max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(got, want)))
+            del got, ctrl, want, dyc
+        cases[name] = dict(
+            shape=f"B={B} T={T} H={H} K={K} V={V} ({dname} r/k/v/dy)",
+            max_abs_err=max(errs), limit_ratio=max(ratios),
+            control_ratio=min(controls))
+        print(f"kernel wkv6_keyslice_bwd {cases[name]['shape']}: "
+              f"error/limit {max(ratios):.3g} (dr, dk, dv, dw, du, dstate "
+              f"against the plain twin, decays up to {max(WKV_DECAYS)}; "
+              f"limit {WKV_BWD_LIMITS[dname]}); control (dy with token "
+              f"{T // 2} zeroed) {min(controls):.3g}; max abs err "
+              f"{max(errs):.3g}")
+        if not max(ratios) <= 1.0 < min(controls):
+            raise AssertionError(
+                f"wkv6_keyslice_bwd {name}: error/limit {max(ratios)} must "
+                f"be <= 1 and the control's {min(controls)} above it")
+        if name == "train":
+            # plain, kernel, kernel, plain; the plain twins issue thousands
+            # of launches a call: host-paced event timing
+            p1 = ms_timer(lambda: wkv_ref.wkv6_backward_plain(*args), 1)
+            k1 = device_ms(lambda: wkv_ops.wkv6_keyslice_bwd(*args), 5)
+            k2 = device_ms(lambda: wkv_ops.wkv6_keyslice_bwd(*args), 5)
+            p2 = ms_timer(lambda: wkv_ref.wkv6_backward_plain(*args), 1)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            fwd = args[:6]
+            f_ms = (device_ms(lambda: wkv_ops.wkv6_keyslice(*fwd), 5)
+                    + device_ms(lambda: wkv_ops.wkv6_keyslice(*fwd), 5)) / 2
+            f_plain = ms_timer(lambda: wkv_ref.wkv6_plain(*fwd), 1)
+            b, by, parts = keyslice_bwd_bound(shape, 2)
+            fb, fby, fparts = keyslice_bound(shape, 2)
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                          bound_parts_ms=parts)
+            fwd_train = dict(shape=cases[name]["shape"], ms=f_ms,
+                             plain_ms=f_plain, bound_ms=fb, bound_by=fby,
+                             bound_parts_ms=fparts, library_ms=None)
+            print(f"kernel wkv6_keyslice_bwd {cases[name]['shape']}: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{b:.4f} ms ({by}: bytes {parts['bytes']:.4f}, f32 "
+                  f"{parts['f32']:.4f}, exp {parts['exp']:.4f} ms), "
+                  f"{b / ms:.4f} of it; the forward wkv6_keyslice there: "
+                  f"kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, bound "
+                  f"{fb:.4f} ms ({fby})")
+        del args
+        release(torch)
+    autograd_ratio = keyslice_autograd_check(torch, wkv_ops, wkv_ref, g, dev)
+    if not autograd_ratio <= 1.0:
+        raise AssertionError(f"wkv6_keyslice through autograd: error/limit "
+                             f"{autograd_ratio}")
+    main = cases["train"]
+    report.append(dict(
+        name="wkv6_keyslice_bwd", route="cuda", source=WKV_KEYSLICE_BWD_SRC,
+        replaces="src/repro/kernels/rwkv6_wkv/kernel.py:81",
+        replaces_note="no Pallas backward: the reference differentiates "
+        "wkv6_chunked (src/repro/layers/rwkv6.py:92) under GSPMD, which "
+        "splits the state of wkv6 by key rows",
+        shape=main["shape"],
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        limit_ratio=max(c["limit_ratio"] for c in cases.values()),
+        control_ratio=min(c["control_ratio"] for c in cases.values()),
+        tolerance="bf16 2e-2 of the plain norm (per 32 tokens for dr, dk, "
+        "dv, dw); float32 rtol 1e-3 atol 5e-4",
+        **timing, library_ms=None, autograd_limit_ratio=autograd_ratio,
+        cases=cases))
+    for k in report:
+        if k["name"] == "wkv6_keyslice":
+            k["train"] = fwd_train
 
 
 def bits_digest(torch, t, chunk=1 << 26):
@@ -8622,8 +8832,8 @@ def phase_partition_train(torch, np, report, dev, card):
     processes, one a cell, ``traced_partition_cell``), (c) row 9 at those
     ranks' micro-batch shapes, forward and backward
     (``TRAIN_PARTITION_FLASH``, the ``partition_train`` entries of
-    ``flash_attention`` and ``flash_attention_bwd``). Returns {path:
-    launches}."""
+    ``flash_attention`` and ``flash_attention_bwd``), (d) the key-slice
+    WKV backward (``phase_keyslice_wkv_bwd``). Returns {path: launches}."""
     import concurrent.futures
     import multiprocessing
     import torch.distributed as dist
@@ -8656,6 +8866,7 @@ def phase_partition_train(torch, np, report, dev, card):
         [{k: v for k, v in r.items() if k != "ms"} for r in rows]))
     phase_flash_shapes(torch, report, TRAIN_PARTITION_FLASH,
                        "partition_train", 84)
+    phase_keyslice_wkv_bwd(torch, np, report)
     release(torch)
     return paths
 
@@ -8957,9 +9168,14 @@ def main() -> int:
             "partition train world 1 internvl2-1b",
             "partition train world 1 gemma3-12b",
             "partition train world 1 jamba-v0.1-52b",
+            "partition train world 1 whisper-tiny",
             "partition pod256 qwen1.5-0.5b train_4k",
             "partition pod256 dbrx-132b train_4k",
-            "partition pod256 jamba-v0.1-52b train_4k"))
+            "partition pod256 jamba-v0.1-52b train_4k",
+            "partition pod256 whisper-tiny train_4k")) + (
+        ("partition train world 1 rwkv6-3b", ("wkv6", "wkv6_bwd")),
+        ("partition pod256 rwkv6-3b train_4k", ("wkv6_keyslice",
+                                                "wkv6_keyslice_bwd")))
     for label, rows in trained:
         if not all(dict(paths)[label].get(k, 0) > 0 for k in rows):
             raise AssertionError(f"the {label} path launched none of some "

@@ -47,7 +47,11 @@ part of the whole. Hence the backwards:
 * ``all_gather`` (shards -> the whole, consumed by the rank's own work:
   the sequence-parallel stream, FSDP's weights, the projections the
   covered attention route gathers): its gradient reduce-scattered (summed,
-  each rank keeping its shard's).
+  each rank keeping its shard's). With ``alike`` (shards -> the whole,
+  consumed by work every rank does alike: RWKV-6's channel-mix output, the
+  stream an RWKV-6 layer runs whole under sequence parallelism): the
+  gradient is the whole one on every rank already, and each keeps its
+  shard's block.
 * ``reduce_scatter`` (partial sums -> the rank's shard of the sum): its
   gradient all-gathered.
 * ``split`` (a replicated tensor -> the rank's shard, consumed by its own
@@ -72,14 +76,15 @@ Every family the port serves: attention, MLP and MoE layers
 (``layers/core.py``, ``layers/attention.py``, ``layers/moe.py``), MLA
 (``layers/mla.py``), Mamba (``layers/mamba.py``), RWKV-6 over a key slice
 of its state (``layers/rwkv6.py``) and the encoder-decoder
-(``models/encdec.py``). It trains the attention, MLP, MoE, MLA and hybrid
-families (``training/train_loop.py`` with ``TrainConfig.shard_axes``:
+(``models/encdec.py``). It trains every family the same way
+(``training/train_loop.py`` with ``TrainConfig.shard_axes``:
 ``attention_train_sharded``, the split MLP, the expert-parallel
-``moe_apply``, ``mla_train_sharded``, ``mamba_train_sharded`` from a zero
-state that ``shard_state`` splits), each rank on its rows of the
-reference's micro-batches (``shard_batch``): the rank's gradients reduced
-over the data-parallel axes by ``reduce_gradients``, its loss by
-``dp_mean``. RWKV-6 and the encoder-decoder do not train partitioned.
+``moe_apply``, ``mla_train_sharded``, ``mamba_train_sharded`` and
+``rwkv_train_sharded`` from a zero state that ``shard_state`` splits, the
+latter through the key-slice WKV's backward, and the encoder-decoder's
+``encdec.forward``), each rank on its rows of the reference's
+micro-batches (``shard_batch``): the rank's gradients reduced over the
+data-parallel axes by ``reduce_gradients``, its loss by ``dp_mean``.
 """
 from __future__ import annotations
 
@@ -139,9 +144,14 @@ class RankContext:
         tensor that takes no gradient), used alike on every rank."""
         return _AllReduce.apply(t, self.groups[axis], op)
 
-    def all_gather(self, t: torch.Tensor, dim: int,
-                   axis: str) -> torch.Tensor:
-        """The group's tensors concatenated along ``dim`` in rank order."""
+    def all_gather(self, t: torch.Tensor, dim: int, axis: str,
+                   alike: bool = False) -> torch.Tensor:
+        """The group's tensors concatenated along ``dim`` in rank order.
+        With ``alike`` the whole feeds work every rank does alike (its
+        gradient the whole one on every rank): the backward keeps the
+        rank's block of it."""
+        if alike:
+            return _AllGatherAlike.apply(t, dim, self.groups[axis])
         return _AllGather.apply(t, dim, self.groups[axis])
 
     def reduce_scatter(self, t: torch.Tensor, dim: int,
@@ -239,6 +249,17 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _AllGatherAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.group).contiguous(), None, None
 
 
 class _ReduceScatter(torch.autograd.Function):

@@ -67,6 +67,9 @@ _SIGNATURES = {
     "aqua_wkv6_info": [_I, _I, _P],
     "aqua_wkv6_keyslice": [_P] * 8 + [_I] * 6 + [_P],
     "aqua_wkv6_bwd": [_P] * 16 + [_I] * 6 + [_P],
+    "aqua_wkv6_keyslice_bwd": [_P] * 15 + [_I] * 6 + [_P],
+    "aqua_wkv6_keyslice_bwd_tile": [_I, _I],
+    "aqua_wkv6_keyslice_bwd_info": [_I, _I, _I, _P],
     "aqua_wkv6_bwd_info": [_I, _I, _P],
     "aqua_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _L, _L, _L, ctypes.c_float, _I, _P],

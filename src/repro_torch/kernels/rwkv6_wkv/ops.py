@@ -10,12 +10,14 @@ so it can be held against its plain twin.
 ``wkv6_keyslice`` is the forward over a key slice of the state (K of the
 head's V key rows, the partitioned step's share): a kernel of its own
 (``csrc/wkv6_keyslice.cu``), which ``wkv6`` routes a rectangular state
-to.
-``wkv6`` goes through the ``WKV6`` autograd op when a gradient is wanted,
-and straight to the forward otherwise (the serving path, under
-``no_grad``). Meta tensors (the dry run's trace) of ``wkv6`` and
-``wkv6_bwd`` launch nothing: they get meta outputs and one
-``build.meta_call`` entry with ``cost``.
+to. Its backward, ``wkv6_keyslice_bwd``, is another
+(``csrc/wkv6_keyslice_bwd.cu``); CPU tensors take the rectangular
+``wkv6_backward_plain``.
+``wkv6`` and ``wkv6_keyslice`` go through their autograd ops (``WKV6``,
+``WKV6KeySlice``) when a gradient is wanted, and straight to the forward
+otherwise (the serving path, under ``no_grad``). Meta tensors (the dry
+run's trace) of the forwards and backwards launch nothing: they get meta
+outputs and one ``build.meta_call`` entry with their cost.
 """
 from __future__ import annotations
 
@@ -116,6 +118,31 @@ def keyslice_cost(B: int, T: int, H: int, K: int, V: int,
     return t_ops * H100_SXM.flops_peak, nbytes
 
 
+def keyslice_bwd_work(B: int, T: int, H: int, K: int, V: int,
+                     itemsize: int = 2):
+    """(float32 FLOP, exponentials, bytes) of the backward of one key-slice
+    call. Bytes: r, k, dr, dk in the compute dtype and w, dw in float32 (K
+    a token and head), v, dy, dv in the compute dtype (V), the state slice
+    and dstate_out read and dstate written (K x V float32), u read and du
+    written. Operations per token and head, the least the gradients need:
+    the state recomputed (3 K V), the sums over the value columns of dr,
+    dk and dw and dv's over the key rows (8 K V), the dS update (3 K V),
+    dy . v (2 V); one exponential a key dim. The scratch of tile states the
+    kernel keeps between its passes is not counted."""
+    nbytes = (B * T * H * (K * (4 * itemsize + 8) + 3 * V * itemsize)
+              + 3 * B * H * K * V * 4 + 2 * H * K * 4)
+    return B * T * H * (14 * K * V + 2 * V), B * T * H * K, nbytes
+
+
+def keyslice_bwd_cost(B: int, T: int, H: int, K: int, V: int,
+                      itemsize: int = 2):
+    """(FLOP, bytes) of the backward of one key-slice call for the
+    roofline, as ``cost`` gives them."""
+    flops, exps, nbytes = keyslice_bwd_work(B, T, H, K, V, itemsize)
+    t_ops = max(flops / F32_FLOPS, exps / SFU_PER_S)
+    return t_ops * H100_SXM.flops_peak, nbytes
+
+
 def _kernel_info(export: str, labels, hd: int) -> dict:
     out = (ctypes.c_int * (4 * len(labels)))()
     info = {}
@@ -143,6 +170,23 @@ def wkv6_bwd_kernel_info(hd: int) -> dict:
     """The same for the backward's three kernels, one per pass
     (``BWD_PASSES``)."""
     return _kernel_info("aqua_wkv6_bwd_info", BWD_PASSES, hd)
+
+
+def wkv6_keyslice_bwd_kernel_info(K: int, V: int) -> dict:
+    """The same for the key-slice backward kernel at K key rows of V
+    columns, with the tokens a tile of its scratch (``tile_tokens``)."""
+    out = (ctypes.c_int * 4)()
+    info = {}
+    for dtype, code in _DTYPE_CODES.items():
+        dname = str(dtype).split('.')[-1]
+        build.check(f"wkv6_keyslice_bwd {dname}",
+                    build.lib().aqua_wkv6_keyslice_bwd_info(
+                        code, K, V, ctypes.addressof(out)))
+        info[f"wkv6_keyslice_bwd<{dname}>"] = dict(
+            registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+            blocks_per_sm=out[3],
+            tile_tokens=build.lib().aqua_wkv6_keyslice_bwd_tile(K, V))
+    return info
 
 
 def _check(name, r, k, v, w, u, state):
@@ -204,11 +248,16 @@ def wkv6_keyslice(r, k, v, w, u, state):
     a power of two below V, V 32 or 64 -> (the slice's share of y
     (B,T,H,V) in r's dtype, its rows of the new state (B,H,K,V) float32).
     CPU tensors take ``wkv6_plain``; CUDA tensors launch
-    ``wkv6_keyslice_kernel``; no backward."""
+    ``wkv6_keyslice_kernel``. Under autograd (grad enabled and an input
+    requiring it) the call is the ``WKV6KeySlice`` op, whose backward is
+    ``wkv6_keyslice_bwd``."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state)):
-        raise ValueError("wkv6_keyslice: the key-slice forward has no "
-                         "backward")
+        return WKV6KeySlice.apply(r, k, v, w, u, state)
+    return _keyslice_forward(r, k, v, w, u, state)
+
+
+def _keyslice_forward(r, k, v, w, u, state):
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, state)
     name = "wkv6_keyslice"
@@ -396,6 +445,83 @@ def wkv6_bwd_chunk(r, k, v, w, u, state, dy, states, dstates):
     return dr, dk, dv, dw, du_part.sum((0, 2))
 
 
+def wkv6_keyslice_bwd(r, k, v, w, u, state, dy, dstate_out):
+    """The backward of ``wkv6_keyslice``: its operands, dy (B,T,H,V) in r's
+    dtype and dstate_out (B,H,K,V) float32 (the gradient of the slice's
+    final state; None is zero) -> (dr, dk (B,T,H,K) in r's dtype, dv
+    (B,T,H,V) in v's, the slice's share of the whole's, dw (B,T,H,K), du
+    (H,K) and dstate (B,H,K,V), float32). K a power of two from 1 to 16
+    below V, V 32 or 64. CPU tensors take ``wkv6_backward_plain``; CUDA
+    tensors launch ``wkv6_keyslice_bwd_kernel``, which writes du per
+    sequence: the sum over them is taken here."""
+    if r.device.type == "cpu":
+        return wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out)
+    name = "wkv6_keyslice_bwd"
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    _keyslice_check(name, r, k, v, w, u, state)
+    if K > 16:
+        raise ValueError(f"{name}: K {K} key rows; the kernel takes 1 to 16")
+    if r.device.type == "meta":
+        out = tuple(torch.empty_like(t) for t in (r, r, v, w, u, state))
+        return build.meta_call(name, (r, k, v, w, u, state, dy), out,
+                               *keyslice_bwd_cost(B, T, H, K, V,
+                                                  r.element_size()))
+    if dstate_out is None:
+        dstate_out = torch.zeros_like(state)
+    if dy.dtype != r.dtype or tuple(dy.shape) != tuple(v.shape):
+        raise ValueError(f"{name}: dy {dy.dtype} {tuple(dy.shape)} must be "
+                         f"{r.dtype} {tuple(v.shape)}")
+    if dstate_out.dtype != torch.float32 \
+            or tuple(dstate_out.shape) != tuple(state.shape):
+        raise ValueError(f"{name}: dstate_out {dstate_out.dtype} "
+                         f"{tuple(dstate_out.shape)} must be float32 "
+                         f"{tuple(state.shape)}")
+    build.require_cuda(name, r, k, v, w, u, state, dy, dstate_out)
+    dr, dk = torch.empty_like(r), torch.empty_like(r)
+    dv, dw = torch.empty_like(v), torch.empty_like(w)
+    du_part = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
+    dstate = torch.empty_like(state)
+    lib = build.lib()
+    tile = lib.aqua_wkv6_keyslice_bwd_tile(K, V)
+    ckpt = torch.empty((B, H, -(-T // tile), K, V), dtype=torch.float32,
+                       device=r.device)
+    with build.on_device(r):
+        rc = lib.aqua_wkv6_keyslice_bwd(
+            *(t.data_ptr() for t in (r, k, v, w, u, state, dy, dstate_out,
+                                     dr, dk, dv, dw, du_part, dstate,
+                                     ckpt)),
+            B, T, H, K, V, _DTYPE_CODES[r.dtype], build.stream_of(r))
+    build.check(name, rc)
+    build.LAUNCHES[name] += 1
+    return dr, dk, dv, dw, du_part.sum(0), dstate
+
+
+def _grad_operand(g, dtype):
+    """A gradient handed to a backward kernel: contiguous, of ``dtype``, on
+    a 16-byte boundary (the kernels read whole rows in 16-byte pieces)."""
+    g = g.to(dtype).contiguous()
+    return g.clone() if g.data_ptr() % 16 else g
+
+
+class WKV6KeySlice(torch.autograd.Function):
+    """``wkv6_keyslice`` with its backward: the key-slice forward (its plain
+    version on the CPU), then ``wkv6_keyslice_bwd`` from the saved
+    operands, which recomputes the states."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _keyslice_forward(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        return wkv6_keyslice_bwd(r, k, v, w, u, state,
+                                 _grad_operand(dy, r.dtype),
+                                 _grad_operand(dstate, state.dtype))
+
+
 class WKV6(torch.autograd.Function):
     """``wkv6`` with its backward: the forward kernel (or its plain version
     on the CPU), then ``wkv6_bwd`` from the saved operands. Neither y nor
@@ -409,13 +535,8 @@ class WKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dstate):
         r, k, v, w, u, state = ctx.saved_tensors
-
-        def operand(g, dtype):
-            # the kernels read whole rows in 16-byte pieces
-            g = g.to(dtype).contiguous()
-            return g.clone() if g.data_ptr() % 16 else g
-        return wkv6_bwd(r, k, v, w, u, state, operand(dy, r.dtype),
-                        operand(dstate, state.dtype))
+        return wkv6_bwd(r, k, v, w, u, state, _grad_operand(dy, r.dtype),
+                        _grad_operand(dstate, state.dtype))
 
 
 def wkv6(r, k, v, w, u, state):

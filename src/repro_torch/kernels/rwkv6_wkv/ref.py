@@ -128,12 +128,13 @@ def _chunk_bounds(T):
 def wkv6_bwd_states_plain(k, v, w, state):
     """Pass 1 of the backward: the entry state of each chunk of
     ``WKV_CHUNK`` tokens (the last may be short), recomputed from the
-    initial state. k, v: (B,T,H,hd); w: (B,T,H,hd) float32; state:
-    (B,H,hd,hd) -> (B,H,nt,hd,hd) float32 (float64 when an input is)."""
-    B, T, H, hd = k.shape
+    initial state. k, w: (B,T,H,K), w float32; v: (B,T,H,V); state:
+    (B,H,K,V) -> (B,H,nt,K,V) float32 (float64 when an input is)."""
+    B, T, H, K = k.shape
+    V = v.shape[-1]
     acc = _acc_dtype(k, v, w, state)
     kf, vf, wf = _fold_bh(k, acc), _fold_bh(v, acc), _fold_bh(w, acc)
-    S = state.to(acc).reshape(B * H, hd, hd)
+    S = state.to(acc).reshape(B * H, K, V)
     entry = []
     for t0, t1 in _chunk_bounds(T):
         entry.append(S)
@@ -141,25 +142,26 @@ def wkv6_bwd_states_plain(k, v, w, state):
         kb = kf[:, t0:t1] * torch.exp(lw[:, -1:] - lw)
         S = (torch.exp(lw[:, -1])[..., None] * S
              + torch.einsum("bti,btj->bij", kb, vf[:, t0:t1]))
-    return torch.stack(entry, 1).reshape(B, H, len(entry), hd, hd)
+    return torch.stack(entry, 1).reshape(B, H, len(entry), K, V)
 
 
 def wkv6_bwd_dstates_plain(r, w, dy, dstate_out):
-    """Pass 2: the chunks in reverse, carrying dS. r, dy: (B,T,H,hd); w:
-    (B,T,H,hd) float32; dstate_out: (B,H,hd,hd) the gradient of the final
-    state, or None (zero) -> (dstates (B,H,nt,hd,hd), the gradient of each
-    chunk's exit state; dstate (B,H,hd,hd), that of the initial state),
+    """Pass 2: the chunks in reverse, carrying dS. r, w: (B,T,H,K), w
+    float32; dy: (B,T,H,V); dstate_out: (B,H,K,V) the gradient of the
+    final state, or None (zero) -> (dstates (B,H,nt,K,V), the gradient of
+    each chunk's exit state; dstate (B,H,K,V), that of the initial state),
     float32 (float64 when an input is). Per chunk, a_t = e^{lw_prev_t}:
 
         dS <- sum_t (r_t a_t) dy_t^T + e^{lw_last} dS
     """
-    B, T, H, hd = r.shape
+    B, T, H, K = r.shape
+    V = dy.shape[-1]
     acc = _acc_dtype(r, w, dy, *(() if dstate_out is None else
                                  (dstate_out,)))
     rf, wf, dyf = _fold_bh(r, acc), _fold_bh(w, acc), _fold_bh(dy, acc)
-    dS = (torch.zeros((B * H, hd, hd), dtype=acc, device=r.device)
+    dS = (torch.zeros((B * H, K, V), dtype=acc, device=r.device)
           if dstate_out is None
-          else dstate_out.to(acc).reshape(B * H, hd, hd))
+          else dstate_out.to(acc).reshape(B * H, K, V))
     bounds = _chunk_bounds(T)
     exits = [None] * len(bounds)
     for c in reversed(range(len(bounds))):
@@ -169,16 +171,18 @@ def wkv6_bwd_dstates_plain(r, w, dy, dstate_out):
         dS = (torch.einsum("bti,btj->bij", rf[:, t0:t1] * torch.exp(lw_prev),
                            dyf[:, t0:t1])
               + torch.exp(lw[:, -1])[..., None] * dS)
-    return (torch.stack(exits, 1).reshape(B, H, len(bounds), hd, hd),
-            dS.reshape(B, H, hd, hd))
+    return (torch.stack(exits, 1).reshape(B, H, len(bounds), K, V),
+            dS.reshape(B, H, K, V))
 
 
 def wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states, dstates):
     """Pass 3: every gradient of each chunk from its entry state S
     (``states``, pass 1) and its exit-state gradient dS (``dstates``, pass
-    2); the chunks are independent. -> (dr, dk, dv in r's dtype, dw
-    (B,T,H,hd) and du_part (B,H,nt,hd), each chunk's share of du, float32;
-    float64 when an input is).
+    2); the chunks are independent. -> (dr, dk (B,T,H,K) in r's dtype, dv
+    (B,T,H,V) in v's, dw (B,T,H,K) and du_part (B,H,nt,K), each chunk's
+    share of du, float32; float64 when an input is). A key slice of the
+    state (K of the V key rows) gives its rows' dr, dk, dw and du and its
+    share of dv: the shares of the slices sum to the whole's dv.
 
     Per chunk, with lw the inclusive cumsum of w, lw_prev[t] = lw[t - 1],
     a_t = e^{lw_prev_t}, D[t,tau] = e^{lw_prev_t - lw_tau} (tau < t), b_tau
@@ -197,14 +201,16 @@ def wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states, dstates):
     sum of dk_tau), YS_tau = k_tau b_tau (dS v_tau) and Z = e^{lw_last}
     rowsum(S * dS): the derivatives through lw_prev, lw and lw_last,
     gathered onto each w_s."""
-    B, T, H, hd = r.shape
+    B, T, H, K = r.shape
+    V = v.shape[-1]
     acc = _acc_dtype(r, k, v, w, u, dy, states, dstates)
     rf, kf, vf, wf, dyf = (_fold_bh(a, acc) for a in (r, k, v, w, dy))
-    uf = u.to(acc)[None].expand(B, H, hd).reshape(B * H, 1, hd)
+    uf = u.to(acc)[None].expand(B, H, K).reshape(B * H, 1, K)
     nt = states.shape[2]
-    Sc = states.to(acc).reshape(B * H, nt, hd, hd)
-    dSc = dstates.to(acc).reshape(B * H, nt, hd, hd)
-    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    Sc = states.to(acc).reshape(B * H, nt, K, V)
+    dSc = dstates.to(acc).reshape(B * H, nt, K, V)
+    dr, dk, dw = (torch.empty_like(rf) for _ in range(3))
+    dv = torch.empty_like(vf)
     du = []
     for c, (t0, t1) in enumerate(_chunk_bounds(T)):
         S, dS = Sc[:, c], dSc[:, c]
@@ -241,12 +247,12 @@ def wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states, dstates):
         dw[:, t0:t1] = after - from_s + before + Z[:, None]
 
     def unfold(x, dtype):
-        return x.reshape(B, H, T, hd).permute(0, 2, 1, 3).to(dtype)
+        return x.reshape(B, H, T, -1).permute(0, 2, 1, 3).to(dtype)
 
     out_f = torch.float64 if acc == torch.float64 else torch.float32
     return (unfold(dr, r.dtype), unfold(dk, k.dtype), unfold(dv, v.dtype),
             unfold(dw, out_f),
-            torch.stack(du, 1).reshape(B, H, nt, hd).to(out_f))
+            torch.stack(du, 1).reshape(B, H, nt, K).to(out_f))
 
 
 def wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out):
@@ -259,7 +265,14 @@ def wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out):
     state: (B,H,hd,hd) the state before token 0; dstate_out: (B,H,hd,hd)
     the gradient of the final state, or None (zero).
     -> (dr, dk, dv in r's dtype, dw float32 (B,T,H,hd), du float32 (H,hd)
-    summed over B and the chunks, dstate float32 (B,H,hd,hd))."""
+    summed over B and the chunks, dstate float32 (B,H,hd,hd)).
+
+    A rectangular state, as the forward's plain versions take it (r, k, w
+    (B,T,H,K), v and dy (B,T,H,V), u (H,K), state and dstate_out
+    (B,H,K,V)): the backward of a key slice's call, the plain twin of the
+    key-slice backward kernel. Its dr, dk, dw, du and dstate are the
+    whole's rows of the slice, and its dv the slice's share of the
+    whole's (the shares of the slices sum to it)."""
     states = wkv6_bwd_states_plain(k, v, w, state)
     dstates, dstate = wkv6_bwd_dstates_plain(r, w, dy, dstate_out)
     acc = _acc_dtype(r, k, v, w, u, state, dy)

@@ -32,14 +32,12 @@ with ``meta`` entries (``launch/mesh.py:make_placeholder_mesh``):
   (``api.prefill`` / ``api.decode_step`` with ``shard_axes``) on its
   shards, traced under a fake process group of the mesh's size
   (``partition.fake_world``): the cost and ``temp_size_in_bytes`` a
-  device, its collectives recorded as ``_c10d_functional`` ops. For the
-  training cells of the attention, MLP, MoE, MLA and hybrid families,
-  rank 0's partitioned train step (``make_train_step`` with
-  ``TrainConfig.shard_axes``: FSDP, the rank's rows of four
-  micro-batches, remat, sequence parallelism), forward and backward.
-  RWKV-6's and the encoder-decoder's training cells keep ``cost: null``,
-  with a ``cost_reason`` that names what their family is missing
-  (``TRAIN_MISSING``).
+  device, its collectives recorded as ``_c10d_functional`` ops. For every
+  training cell, rank 0's partitioned train step (``make_train_step``
+  with ``TrainConfig.shard_axes``: FSDP, the rank's rows of four
+  micro-batches, remat, sequence parallelism where the family takes it),
+  forward and backward; RWKV-6's through the key-slice WKV and its
+  backward, each a trace entry with its cost.
 """
 from __future__ import annotations
 
@@ -71,11 +69,6 @@ ASSIGNED = [
 ]
 MESHES = tuple(PLACEHOLDER_MESHES)
 TRACED_MESH = "h100"
-# what the partitioned train step of each family not yet ported lacks
-TRAIN_MISSING = {
-    "ssm": "the key-slice WKV backward",
-    "encdec": "the partitioned encoder-decoder step",
-}
 # the reference's dry run: grad accumulation over 4 micro-batches bounds
 # activation memory
 TRAIN_MICRO_BATCHES = 4
@@ -118,34 +111,13 @@ def _memory(arguments: int, outputs: int, aliased: int) -> dict:
             "generated_code_size_in_bytes": 0}
 
 
-def train_family(cfg) -> str:
-    """The family whose partitioned train step a config takes: ``"mla"``
-    for an MLA config, else its ``family``."""
-    return "mla" if cfg.mla is not None else cfg.family
-
-
-def pod_cost_reason(cfg, shape) -> str:
-    """Why a cell on a multi-device mesh has no traced cost ('' if it
-    has one)."""
-    family = train_family(cfg)
-    if shape.kind != "train" or family not in TRAIN_MISSING:
-        return ""
-    return (f"no cost: the partitioned train step of the {family} family "
-            f"is not ported ({TRAIN_MISSING[family]})")
-
-
-def partitioned(cfg, shape, mesh) -> bool:
-    """Whether the cell traces rank 0's partitioned step."""
-    return mesh.devices.size > 1 and not pod_cost_reason(cfg, shape)
-
-
 def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
                overrides=None, batch_override: int = 0):
     """Returns (step, its arguments on the meta device, memory per device)
     for one cell; ``step(*arguments)`` runs it (on concrete arguments from
-    ``api.instantiate`` too). Where ``partitioned``, the step is rank 0's
-    partitioned step and its arguments rank 0's shards: the caller holds a
-    process group of the mesh's size (``partition.fake_world``)."""
+    ``api.instantiate`` too). On a mesh of more than one device the step is
+    rank 0's partitioned step and its arguments rank 0's shards: the caller
+    holds a process group of the mesh's size (``partition.fake_world``)."""
     cfg = get_config(arch)
     # Serving: FSDP would re-gather weights every decode step — keep them
     # TP-resident unless they don't fit (dbrx-132b: 264 GB bf16 / 16-way TP
@@ -173,7 +145,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
         memory = _memory(state_b + _per_device(
             inputs, rules.batch(inputs, B), sizes), state_b, state_b)
         axes = None
-        if partitioned(cfg, shape, mesh):
+        if mesh.devices.size > 1:
             rank = rank_context(mesh, device="meta")
             axes = {"dp": rules.dp, "tp": "model", "mesh": mesh, "sp": True,
                     "ctx": rank}
@@ -195,7 +167,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=True, remat=True,
     memory = _memory(param_b + cache_b + rest_b, cache_b + _per_device(
         logits, rules.batch_spec(logits, B), sizes), cache_b)
     axes = {}
-    if partitioned(cfg, shape, mesh):
+    if mesh.devices.size > 1:
         rank = rank_context(mesh, device="meta")
         axes = {"shard_axes": {"dp": rules.dp, "tp": "model", "mesh": mesh,
                                "ctx": rank}}
@@ -234,7 +206,7 @@ def run_cell(arch: str, shape_name: str, *, mesh_name: str, out_dir: str,
         rec.update(status="skipped", reason=reason)
         return rec
     mesh = make_placeholder_mesh(mesh_name)
-    traced = mesh_name == TRACED_MESH or partitioned(cfg, shape, mesh)
+    traced = mesh_name == TRACED_MESH or mesh.devices.size > 1
     world = partition.fake_world(mesh.devices.size) \
         if traced and mesh_name != TRACED_MESH else contextlib.nullcontext()
     t0 = time.monotonic()
@@ -256,8 +228,6 @@ def run_cell(arch: str, shape_name: str, *, mesh_name: str, out_dir: str,
             mem["temp_size_in_bytes"] = recorder.peak_bytes
         rec.update(status="ok", lower_s=round(t_lower, 1),
                    compile_s=round(t_trace, 1), memory=mem, cost=cost)
-        if cost is None:
-            rec["cost_reason"] = pod_cost_reason(cfg, shape)
         temp = mem["temp_size_in_bytes"]
         print(f"[dryrun] {mesh_name} {arch} {shape_name} {tag} OK "
               f"build={t_lower:.1f}s trace={t_trace:.1f}s "

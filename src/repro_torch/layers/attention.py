@@ -353,11 +353,13 @@ def _covered_attention(p, cfg: ModelConfig, x, rank, *, kv=None,
     flo, fhi, h0, h1 = _covered_heads(cfg, p, rank)
     qlo, qhi = rank.range(pspec(p.wq, "w")[1], p.wq.w.shape[1])
     own_q = (qlo, qhi) == (h0 * hd, h1 * hd)
+    if own_q:
+        # q before k and v, as ``_project_qkv`` makes them: at a group of
+        # one their gradients then reach x in the unpartitioned order
+        q = linear_cols(p.wq, x, rank)[0].reshape(B, T, -1, hd)
     outs = linear_gathered([(w, x) for w in ([] if own_q else [p.wq])
                             + ([p.wk, p.wv] if kv is None else [])], rank)
-    if own_q:
-        q = linear_cols(p.wq, x, rank)[0].reshape(B, T, -1, hd)
-    else:
+    if not own_q:
         q = outs.pop(0).reshape(B, T, H, hd)[:, :, h0:h1]
     if kv is None:
         k, v = (t.reshape(B, T, K, hd) for t in outs)
@@ -405,12 +407,13 @@ def attention_train_sharded(p: Attention, cfg: ModelConfig, x, rank, *,
 def attention_bidir_sharded(p, cfg: ModelConfig, x, rank, *, kv=None,
                             impl: str = "kernel") -> torch.Tensor:
     """``attention_bidir`` on a rank (x (B,T,d) replicated over
-    ``model``; ``kv`` the cross-attention's whole (k, v)): the flash op at
-    ``causal=False`` over the q heads the rank's ``wo`` rows touch
-    (``_covered_attention``)."""
+    ``model``, entering the rank's work; ``kv`` the cross-attention's
+    whole (k, v)): the flash op at ``causal=False`` over the q heads the
+    rank's ``wo`` rows touch (``_covered_attention``), forward and
+    backward."""
     check_impl(impl)
-    return _covered_attention(p, cfg, x, rank, kv=kv, causal=False,
-                              impl=impl)[0]
+    return _covered_attention(p, cfg, rank.enter(x), rank, kv=kv,
+                              causal=False, impl=impl)[0]
 
 
 def _partial_sdpa(q, k, v, mask):

@@ -193,19 +193,20 @@ def linear_rows(p: Linear, x: torch.Tensor, lo: int, hi: int, ctx,
     return y
 
 
-def linear_gathered(pairs, ctx):
+def linear_gathered(pairs, ctx, alike: bool = False):
     """In-projections on a rank with every output column: ``pairs`` of
     (Linear, its input); each projection's column slice (``linear_cols``),
     those that are split concatenated into ONE all-gather over ``model``
     (a projection whose columns are not split is whole already) -> the
-    outputs, each (..., d_out)."""
+    outputs, each (..., d_out). With ``alike`` the outputs feed work every
+    rank does alike, not the rank's own (``RankContext.all_gather``)."""
     outs = [linear_cols(p, x, ctx)[0] for p, x in pairs]
     split = [pspec(p, "w")[1] is not None for p, _ in pairs]
     if any(split):
         lead = outs[0].shape[:-1]
         widths = [o.shape[-1] for o, s in zip(outs, split) if s]
         full = ctx.all_gather(torch.cat([o for o, s in zip(outs, split)
-                                         if s], -1), -1, "model")
+                                         if s], -1), -1, "model", alike)
         parts = iter(full.reshape(*lead, ctx.model_n, -1).split(widths, -1))
         outs = [next(parts).reshape(*lead, -1) if s else o
                 for o, s in zip(outs, split)]

@@ -14,7 +14,10 @@ sequential scan otherwise).
 On a rank of a mesh (``rwkv_block_sharded``) the rules split the wkv
 state's key dim over ``model``: the rank runs the recurrence on its key
 rows of every head (``wkv6`` takes that rectangular state to the
-key-slice kernel) and the shares of y are all-reduced.
+key-slice kernel) and the shares of y are all-reduced. The partitioned
+train step (``rwkv_train_sharded``) runs the same block from a zero state
+under autograd: the key-slice kernel's backward, the collectives'
+(``distributed/partition.py``).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from torch.nn import functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_plain
-from repro_torch.distributed.partition import own_slices, splits
+from repro_torch.distributed.partition import own_slices, shard_state, splits
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.layers.core import (Linear, _param, check_impl, linear,
                                      linear_cols, linear_gathered,
                                      linear_rows, rms_norm, trunc_normal,
@@ -244,8 +248,15 @@ def rwkv_time_mix_sharded(p: TimeMix, cfg: ModelConfig, x, shift_prev,
     rectangular state to the key-slice kernel), its exact share of y is
     all-reduced over ``model``, the head norm applied to the whole y, then
     g on the rank's columns and its rows of ``wo``, all-reduced.
+
+    Under autograd (the train step) the work after x is the rank's own:
+    x enters it, and so does the all-reduced y, whose head norm feeds only
+    the rank's columns (``distributed/partition.py``'s convention); the
+    small weights enter through ``whole``; v's partial gradients (a key
+    slice's share) are summed over ``model`` by its all-gather's backward.
     -> (out (B,T,d), the rank's tm_shift block, its wkv state)"""
     check_impl(impl)
+    x = rank.enter(x)
     B, T, d = x.shape
     hd = cfg.ssm.rwkv_head_dim
     H = d // hd
@@ -269,9 +280,9 @@ def rwkv_time_mix_sharded(p: TimeMix, cfg: ModelConfig, x, shift_prev,
     if splits(specs.wkv):
         if y.shape[2] != H:
             y = torch.zeros((B, T, H, hd), dtype=y.dtype,
-                            device=y.device).index_copy_(
+                            device=y.device).index_copy(
                 2, torch.arange(heads.start, heads.stop, device=y.device), y)
-        y = rank.all_reduce(y, "model")
+        y = rank.enter(rank.all_reduce(y, "model"))
     y = _head_norm(whole(p, "ln_x", rank), y.reshape(B, T, d), H, hd)
     out = linear_rows(p.wo, y[..., glo:ghi] * F.silu(g), glo, ghi, rank)
     tm = x[:, -1][own_slices(shift_prev, specs.tm_shift, rank, (1,))]
@@ -282,12 +293,16 @@ def rwkv_channel_mix_sharded(p: ChannelMix, x, shift_prev, spec, rank):
     """``rwkv_channel_mix`` on a rank (``shift_prev`` its channels under
     ``spec``): the key projection and, since the rules split ``cm.wv``'s
     output, r and the value projection on the rank's columns, each
-    all-gathered whole. -> (out (B,T,d), the rank's cm_shift block)"""
+    all-gathered whole. Under autograd x enters the rank's work; the
+    gathered r and value product feed the output every rank computes
+    alike, so their gather's backward keeps the rank's block of the
+    gradient (``alike``). -> (out (B,T,d), the rank's cm_shift block)"""
+    x = rank.enter(x)
     xx = _shifted(x, rank.gather(shift_prev, spec, ("model",))) - x
     xk = x + xx * whole(p, "mu_k", rank).to(x.dtype)
     xr = x + xx * whole(p, "mu_r", rank).to(x.dtype)
     k = torch.square(F.relu(linear_gathered([(p.wk, xk)], rank)[0]))
-    r, kv = linear_gathered([(p.wr, xr), (p.wv, k)], rank)
+    r, kv = linear_gathered([(p.wr, xr), (p.wv, k)], rank, alike=True)
     return (torch.sigmoid(r) * kv,
             x[:, -1][own_slices(shift_prev, spec, rank, (1,))])
 
@@ -306,3 +321,28 @@ def rwkv_block_sharded(p: RWKV, cfg: ModelConfig, x, state: RWKVState,
     x = x + h
     return x, RWKVState(wkv, tm_shift.to(state.tm_shift.dtype),
                         cm_shift.to(state.cm_shift.dtype))
+
+
+def rwkv_train_sharded(p: RWKV, cfg: ModelConfig, x, norms: dict,
+                       shard_axes, *, sp: bool,
+                       impl: str = "kernel") -> torch.Tensor:
+    """An RWKV sub-layer of the training forward on a rank (the
+    reference's ``rwkv_block`` from a zero state, which its ``_group_train``
+    runs between ``_sp_constrain``s): ``rwkv_block_sharded`` from a zero
+    state split over ``model`` as the mesh's ``ShardingRules`` split the
+    decode cache's (``partition.shard_state``: the wkv state by key rows,
+    or heads, the shift states by channels). x (B,T,d) is the stream,
+    replicated over ``model``, or under sequence parallelism (``sp``) the
+    rank's block of the positions (B, T / model, d): then all-gathered
+    along T into the stream every rank runs alike (its gradient the
+    rank's block of the whole) and split back after the block.
+    -> x after the sub-layer, in the layout it came in."""
+    rank = shard_axes["ctx"]
+    if sp:
+        x = rank.all_gather(x, 1, "model", alike=True)
+    state, specs = shard_state(
+        init_rwkv_state(cfg, x.shape[0], x.dtype, x.device),
+        ShardingRules(shard_axes["mesh"], cfg), rank)
+    x, _ = rwkv_block_sharded(p, cfg, x, state, norms, specs, rank,
+                              impl=impl)
+    return rank.split(x, 1, "model") if sp else x

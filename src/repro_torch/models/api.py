@@ -38,23 +38,16 @@ def param_specs(cfg: ModelConfig):
     return model_module(cfg).param_specs(cfg)
 
 
-def _no_partitioned_train(cfg: ModelConfig, shard_axes):
-    if shard_axes and cfg.family == ENCDEC:
-        raise NotImplementedError(f"{cfg.name}: the partitioned train step "
-                                  "of the encoder-decoder is not ported")
-
-
 def forward(model, cfg: ModelConfig, tokens, *, prefix_embeds=None,
             enc_embeds=None, remat: bool = False, impl: str = "kernel",
             shard_axes=None):
     """tokens (B,T) (a VLM's ``prefix_embeds`` (B,P,d) before them; an
     encoder-decoder's ``enc_embeds`` (B,T_enc,d) for its encoder) ->
     (logits (B,P+T,V), aux). ``shard_axes``: one rank's partitioned
-    forward (``lm.forward``), its logits the rank's."""
-    _no_partitioned_train(cfg, shard_axes)
+    forward (``lm.forward``, ``encdec.forward``), its logits the rank's."""
     if cfg.family == ENCDEC:
         return encdec.forward(model, cfg, tokens, enc_embeds, remat=remat,
-                              impl=impl)
+                              impl=impl, shard_axes=shard_axes)
     return lm.forward(model, cfg, tokens, prefix_embeds=prefix_embeds,
                       remat=remat, impl=impl, shard_axes=shard_axes)
 
@@ -65,13 +58,9 @@ def loss_fn(model, cfg: ModelConfig, batch: dict, *, remat: bool = False,
     ``batch["prefix_embeds"]``, when present; given
     ``batch["enc_embeds"]`` for an encoder-decoder), plus the MoE aux
     term. ``shard_axes``: the rank's loss in the partitioned train step
-    (``lm.loss_fn``)."""
-    _no_partitioned_train(cfg, shard_axes)
-    if shard_axes:
-        return lm.loss_fn(model, cfg, batch, remat=remat, impl=impl,
-                          shard_axes=shard_axes)
+    (``lm.loss_fn``, ``encdec.loss_fn``)."""
     return model_module(cfg).loss_fn(model, cfg, batch, remat=remat,
-                                     impl=impl)
+                                     impl=impl, shard_axes=shard_axes)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq: int, dtype=None,

@@ -22,7 +22,8 @@ prefill (the reference's layout: ``{"self": KVCache, "cross": KVCache}``,
 each leaf stacked over the decoder layers). No page plane exists for it:
 the engines refuse the family (``api.supports_paged``). ``prefill`` and
 ``decode_step`` with ``shard_axes`` run one rank of a mesh on its
-shards.
+shards, and so do ``forward`` and ``loss_fn`` (the partitioned train
+step).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from repro_torch.layers import attention as attn
 from repro_torch.layers.core import (MLP, Embedding, Linear, RMSNorm,
                                      check_impl, embed, linear,
                                      linear_gathered, mlp, rms_norm,
-                                     unembed)
+                                     unembed, vocab_axis)
 from repro_torch.models.lm import _at, _tokens_on
 from repro_torch.models.losses import shifted_xent
 
@@ -172,46 +173,85 @@ def _cross_kv_sharded(p: Cross, cfg: ModelConfig, enc_out, rank):
 
 
 def _dec_train_layer(blk: DecBlock, cfg: ModelConfig, x, enc_out,
-                     impl: str):
+                     impl: str, rank=None):
     """One decoder layer of the training forward (the reference's scan
     body): causal self-attention, cross-attention over the encoder
-    output's K/V, the MLP."""
-    ck, cv = cross_kv(blk.cross, cfg, enc_out)
-    x = x + attn.attention_full(blk.self, cfg,
-                                rms_norm(blk.n1, x, cfg.rmsnorm_eps),
-                                impl=impl)
-    return _cross_and_mlp(blk, cfg, x, ck, cv, impl)
+    output's K/V, the MLP. With ``rank`` (the partitioned train step, the
+    stream replicated over ``model``, as the reference leaves it): the
+    self-attention through ``attention_train_sharded`` (whisper's heads
+    that do not divide ``model``: the covered route), the cross K/V's
+    column slices all-gathered whole (``_cross_kv_sharded``), the
+    cross-attention over the q heads the rank's ``wo`` rows touch, the
+    split MLP."""
+    eps = cfg.rmsnorm_eps
+    if rank is None:
+        ck, cv = cross_kv(blk.cross, cfg, enc_out)
+        x = x + attn.attention_full(blk.self, cfg, rms_norm(blk.n1, x, eps),
+                                    impl=impl)
+        return _cross_and_mlp(blk, cfg, x, ck, cv, impl)
+    ck, cv = _cross_kv_sharded(blk.cross, cfg, enc_out, rank)
+    x = x + attn.attention_train_sharded(
+        blk.self, cfg, rms_norm(blk.n1, x, eps), rank, window=0, sp=False,
+        impl=impl)
+    x = x + attn.attention_bidir_sharded(
+        blk.cross, cfg, rms_norm(blk.n2, x, eps), rank, kv=(ck, cv),
+        impl=impl)
+    return x + mlp(blk.ffn, cfg, rms_norm(blk.n3, x, eps), rank)
 
 
 def forward(model: EncDec, cfg: ModelConfig, tokens, enc_embeds, *,
-            remat: bool = False, impl: str = "kernel"):
+            remat: bool = False, impl: str = "kernel", shard_axes=None):
     """Training forward: decoder tokens (B,T) and ``enc_embeds``
     (B,T_enc,d), both moved to the model's device -> (logits (B,T,V), a
     zero float32 aux loss). ``remat`` recomputes each decoder layer in the
     backward (``torch.utils.checkpoint``; the reference checkpoints the
-    decoder's scan body alone)."""
+    decoder's scan body alone).
+
+    ``shard_axes`` (with ``"ctx"``, the rank's ``RankContext``): the
+    partitioned train step on one rank (the reference's GSPMD over the
+    same rules), ``model`` and the inputs its shards and rows. The
+    encoder on the q heads the rank's ``wo`` rows touch with the MLP
+    split (``encode``); its output, replicated over ``model``, enters the
+    rank's work (each decoder layer's cross K/V columns); the decoder's
+    layers by ``_dec_train_layer``. The logits are the rank's vocabulary
+    slice where the unembedding's spec splits the vocabulary, else all of
+    them."""
     check_impl(impl)
+    rank = shard_axes["ctx"] if shard_axes else None
     device = model.embed.tok.device
-    enc_out = encode(model, cfg, enc_embeds, impl=impl)
-    x = embed(model.embed, cfg, _tokens_on(tokens, device))
+    enc_out = encode(model, cfg, enc_embeds, impl=impl, rank=rank)
+    if rank is not None:
+        enc_out = rank.enter(enc_out)
+    x = embed(model.embed, cfg, _tokens_on(tokens, device), rank)
     for blk in model.dec_blocks:
         if remat:
             x = checkpoint(_dec_train_layer, blk, cfg, x, enc_out, impl,
-                           use_reentrant=False)
+                           rank, use_reentrant=False)
         else:
-            x = _dec_train_layer(blk, cfg, x, enc_out, impl)
+            x = _dec_train_layer(blk, cfg, x, enc_out, impl, rank)
     x = rms_norm(model.final_norm, x, cfg.rmsnorm_eps)
-    return (unembed(model.embed, cfg, x),
-            torch.zeros((), dtype=torch.float32, device=device))
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    if rank is None:
+        return unembed(model.embed, cfg, x), aux
+    if vocab_axis(model.embed) is None:
+        return unembed(model.embed, cfg, x, rank), aux
+    return unembed(model.embed, cfg, rank.enter(x), rank, local=True), aux
 
 
 def loss_fn(model: EncDec, cfg: ModelConfig, batch: dict, *,
-            remat: bool = False, impl: str = "kernel"):
+            remat: bool = False, impl: str = "kernel", shard_axes=None):
     """Next-token cross-entropy of ``batch["tokens"]`` given
-    ``batch["enc_embeds"]`` -> float32 scalar."""
+    ``batch["enc_embeds"]`` -> float32 scalar. ``shard_axes``: the rank's
+    loss in the partitioned train step (its rows' mean, the same on every
+    rank of its ``model`` group), through the vocab-parallel
+    ``shifted_xent`` where the vocabulary is split."""
     tokens = _tokens_on(batch["tokens"], model.embed.tok.device)
     logits, _ = forward(model, cfg, tokens, batch["enc_embeds"],
-                        remat=remat, impl=impl)
+                        remat=remat, impl=impl, shard_axes=shard_axes)
+    vocab = vocab_axis(model.embed) if shard_axes else None
+    if vocab is not None:
+        return shifted_xent(logits, tokens, {"ctx": shard_axes["ctx"],
+                                             "vocab": vocab})
     return shifted_xent(logits, tokens)
 
 

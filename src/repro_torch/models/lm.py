@@ -327,22 +327,24 @@ def _train_group(blocks, cfg: ModelConfig, x, impl: str, shard_axes=None,
     zero state, attention through ``attention_full`` under the sub-layer's
     window (the flash op for ``impl="kernel"``), MLA through ``mla_full``,
     then the MLP or the MoE with capacity dispatch. With ``shard_axes``
-    (the partitioned train step: every family but RWKV-6) the rank's
-    shards: attention through ``attention_train_sharded``, MLA through
+    (the partitioned train step) the rank's shards: RWKV-6 through
+    ``rwkv_train_sharded`` (the key-slice WKV and its backward),
+    attention through ``attention_train_sharded``, MLA through
     ``mla_train_sharded``, Mamba through ``mamba_train_sharded``, the split
     MLP, the expert-parallel MoE; with ``sp`` the stream x is the rank's
-    block of the positions, normed there. -> (x, the group's summed MoE
-    aux loss)."""
+    block of the positions, normed there (an RWKV-6 sub-layer gathers it
+    whole). -> (x, the group's summed MoE aux loss)."""
     rank = shard_axes["ctx"] if shard_axes else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     B = x.shape[0]
     own = rank if sp else None
     for i, blk in enumerate(blocks):
         kind = mixer_kind(cfg, i)
-        if rank is not None and kind == "rwkv":
-            raise NotImplementedError(
-                f"{cfg.name}: the partitioned train step does not cover "
-                "RWKV-6 layers")
+        if kind == "rwkv" and rank is not None:
+            x = rwkv.rwkv_train_sharded(blk.mix, cfg, x,
+                                        {"n1": blk.n1, "n2": blk.n2},
+                                        shard_axes, sp=sp, impl=impl)
+            continue
         if kind == "rwkv":
             st = rwkv.init_rwkv_state(cfg, B, x.dtype, x.device)
             x, _ = rwkv.rwkv_block(blk.mix, cfg, x, st,

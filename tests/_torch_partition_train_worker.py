@@ -15,10 +15,12 @@ Imports only torch, numpy and repro_torch.
     python tests/_torch_partition_train_worker.py RANK WORLD P,D,M STORE \
         WEIGHTS_DIR OUT_NPZ [SUITE]
 
-``SUITE`` picks the cases: ``dense`` (the default, ``CASES``) or ``moe``
+``SUITE`` picks the cases: ``dense`` (the default, ``CASES``), ``moe``
 (``MOE_CASES``; at world size 4 also each micro-batch's rows,
 ``micro_rows``, and the MoE layer's gradients, ``router_grads``, in
-place of ``collective_grads``).
+place of ``collective_grads``) or ``rnn`` (``RNN_CASES``; on mesh (1, 1,
+4) also the controls of ``CONTROLS``, each a rank that drops one
+collective, in place of ``collective_grads``).
 """
 import copy
 import dataclasses
@@ -32,6 +34,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import Mesh, rank_context
+from repro_torch.layers import rwkv6 as rwkv
 from repro_torch.layers.core import vocab_axis
 from repro_torch.layers.moe import moe_apply
 from repro_torch.models import api, lm
@@ -80,8 +83,21 @@ MOE_CASES = {
     "jamba": ("jamba-v0.1-52b", {}, 22),
     "dbrx_c125": ("dbrx-132b", {"capacity_factor": 1.25}, T),
 }
-SUITES = {"dense": (CASES, MESH_CASES), "moe": (MOE_CASES, tuple(MOE_CASES))}
-ALL_CASES = {**CASES, **MOE_CASES}
+# RWKV-6 and the encoder-decoder (``test_torch_partition_train_rnn.py``,
+# the worker's suite ``rnn``), every case at world sizes 4 and 1: rwkv6 at
+# d_model 96 (3 heads of 32: model 2 and 4 split each head's 32 key rows,
+# K 16 and K 8, through the key-slice WKV and its backward) at 24 tokens,
+# the stream split along T on both meshes; whisper with 3 heads (dividing
+# neither 2 nor 4: the covered route) over 33 encoder frames, its stream
+# replicated as the reference leaves it
+RNN_CASES = {
+    "rwkv6": ("rwkv6-3b", {"d_model": 96}, T),
+    "whisper": ("whisper-tiny", {"n_heads": 3, "n_kv_heads": 3,
+                                 "encoder_seq_len": 33}, T),
+}
+SUITES = {"dense": (CASES, MESH_CASES), "moe": (MOE_CASES, tuple(MOE_CASES)),
+          "rnn": (RNN_CASES, tuple(RNN_CASES))}
+ALL_CASES = {**CASES, **MOE_CASES, **RNN_CASES}
 SEED = 36
 
 
@@ -95,12 +111,15 @@ def case_config(name: str, get=get_config, smoke=smoke_config):
     if "capacity_factor" in over:
         over["moe"] = dataclasses.replace(
             cfg.moe, capacity_factor=over.pop("capacity_factor"))
+    if "encoder_seq_len" in over:
+        over["encdec"] = dataclasses.replace(
+            cfg.encdec, encoder_seq_len=over.pop("encoder_seq_len"))
     return cfg.replace(**over)
 
 
 def batch(name: str) -> dict:
-    """The global batch of a case from one seed: tokens, and a VLM's
-    prefix rows."""
+    """The global batch of a case from one seed: tokens, a VLM's prefix
+    rows and an encoder-decoder's frame embeddings."""
     cfg = case_config(name)
     rng = np.random.default_rng(SEED + list(ALL_CASES).index(name))
     out = {"tokens": torch.from_numpy(rng.integers(
@@ -108,6 +127,9 @@ def batch(name: str) -> dict:
     if cfg.n_prefix_embeds:
         out["prefix_embeds"] = torch.from_numpy((rng.standard_normal(
             (B, cfg.n_prefix_embeds, cfg.d_model)) * 0.02).astype(np.float32))
+    if cfg.encdec is not None:
+        out["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encdec.encoder_seq_len, cfg.d_model)).astype(np.float32))
     return out
 
 
@@ -126,7 +148,10 @@ def step_of(cfg, axes):
         micro_batches=MICRO, remat=True, shard_axes=axes))
 
 
-def run_case(name, mesh, rank, weights_dir, out):
+def run_case(name, mesh, rank, weights_dir, out, key=None):
+    """One partitioned step of case ``name``, saved under ``key`` (the
+    name by default)."""
+    key = key or name
     cfg, model = load_model(name, weights_dir)
     rules = ShardingRules(mesh, cfg, fsdp=True)
     axes = {"dp": rules.dp, "tp": "model", "mesh": mesh, "sp": True,
@@ -138,18 +163,63 @@ def run_case(name, mesh, rank, weights_dir, out):
     local, opt, stats = step_of(cfg, axes)(local, opt, mine)
     specs = partition.param_specs(local)
     T_all = cfg.n_prefix_embeds + ALL_CASES[name][2]
-    out[f"{name}/layout"] = np.array([
+    out[f"{key}/layout"] = np.array([
         "covered" if cfg.n_kv_heads % rank.model_n else "heads",
-        "sp" if lm.seq_parallel(T_all, axes) else "replicated",
+        "sp" if cfg.encdec is None and lm.seq_parallel(T_all, axes)
+        else "replicated",
         "vocab split" if vocab_axis(local.embed) else "whole vocab",
         "fsdp" if any("data" in s for s in specs.values()) else "no fsdp"])
-    out[f"{name}/rows"] = np.array(mine["tokens"].shape[0])
-    out[f"{name}/loss"] = np.array(float(stats["loss"]))
-    out[f"{name}/grad_norm"] = np.array(float(stats["grad_norm"]))
+    if cfg.encdec is None and lm.mixer_kind(cfg, 0) == "rwkv":
+        # the key rows of each head's wkv state the rank holds
+        state, _ = partition.shard_state(
+            rwkv.init_rwkv_state(cfg, 1), rules, rank)
+        out[f"{key}/wkv_keys"] = np.array(state.wkv.shape[2])
+    out[f"{key}/rows"] = np.array(mine["tokens"].shape[0])
+    out[f"{key}/loss"] = np.array(float(stats["loss"]))
+    out[f"{key}/grad_norm"] = np.array(float(stats["grad_norm"]))
     whole = lambda t, s: rank.gather(t.detach(), s, partition.AXES)  # noqa
     for n, p in local.named_parameters():
-        out[f"{name}/param/{n}"] = whole(p, specs[n]).numpy()
-        out[f"{name}/mu/{n}"] = whole(opt.mu[n], specs[n]).numpy()
+        out[f"{key}/param/{n}"] = whole(p, specs[n]).numpy()
+        out[f"{key}/mu/{n}"] = whole(opt.mu[n], specs[n]).numpy()
+
+
+def _own_cross_kv(p, cfg, enc_out, rank):
+    """``encdec._cross_kv_sharded`` without its all-gather: the rank's
+    own columns of the cross K/V, zeros elsewhere."""
+    from torch.nn import functional as F
+    from repro_torch.layers.core import linear_cols
+    B, Te, _ = enc_out.shape
+    width = cfg.n_kv_heads * cfg.resolved_head_dim
+    outs = []
+    for lin in (p.wk, p.wv):
+        y, lo, hi = linear_cols(lin, enc_out, rank)
+        outs.append(F.pad(y, (lo, width - hi)).reshape(
+            B, Te, cfg.n_kv_heads, cfg.resolved_head_dim))
+    return tuple(outs)
+
+
+# name -> (case, module, attribute, stand-in): a rank that drops one
+# collective, which the test must see fail against the reference: RWKV-6
+# without the all-reduce of y's share over the key slices, and an encoder
+# rank without its cross-K/V gather
+CONTROLS = {
+    "rwkv6_no_y_all_reduce": ("rwkv6", "repro_torch.layers.rwkv6", "splits",
+                              lambda spec, axis="model": False),
+    "whisper_no_cross_kv_gather": ("whisper", "repro_torch.models.encdec",
+                                   "_cross_kv_sharded", _own_cross_kv),
+}
+
+
+def run_controls(mesh, rank, weights_dir, out):
+    import importlib
+    for key, (name, module, attr, stand_in) in CONTROLS.items():
+        mod = importlib.import_module(module)
+        kept = getattr(mod, attr)
+        setattr(mod, attr, stand_in)
+        try:
+            run_case(name, mesh, rank, weights_dir, out, key)
+        finally:
+            setattr(mod, attr, kept)
 
 
 def bit_identity(name, mesh, rank, weights_dir, out):
@@ -316,6 +386,8 @@ def main(rank: int, world: int, shape: str, store_file: str,
     if world > 1 and suite == "moe":
         micro_rows(mesh, ctx, out)
         router_grads(mesh, ctx, weights_dir, out)
+    if dims == (1, 1, 4) and suite == "rnn":
+        run_controls(mesh, ctx, weights_dir, out)
     dist.destroy_process_group()
     np.savez(out_path, **out)
 

@@ -34,6 +34,7 @@ from repro_torch.configs import (ALL_SHAPES, SHAPES_BY_NAME, ShapeConfig,
                                  get_config, smoke_config)
 from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.kernels import build
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh, make_placeholder_mesh
 from repro_torch.models import api
@@ -330,23 +331,42 @@ def test_pod_serving_cells_carry_a_cost(arch, tmp_path):
 
 @pytest.mark.parametrize("arch,shape", [("rwkv6-3b", "train_4k")])
 def test_other_pod_cells_name_what_is_missing(arch, shape, tmp_path):
+    """The last cell that named what it missed, rwkv6-3b's train_4k on
+    pod512 (at smoke widths, 4 rows a dp rank), now traces rank 0's
+    partitioned step: no ``cost_reason``, and its trace holds the key-slice
+    WKV forward twice a layer and micro-batch (remat recomputes it) and its
+    backward once, each with the key rows a rank holds (smoke head dim 32
+    over model 16: 2)."""
+    seen = []
+    with partition.fake_world(512):
+        fn, args, _ = dryrun.build_cell(
+            arch, shape, make_placeholder_mesh("pod512"),
+            overrides=_train_overrides(arch),
+            batch_override=TRAIN_BATCH["pod512"])
+        build.META_SINKS.append(seen.append)
+        try:
+            dryrun.trace_cell(fn, args)
+        finally:
+            build.META_SINKS.remove(seen.append)
+    cfg = get_config(arch).replace(**_train_overrides(arch))
+    n = cfg.n_layers * dryrun.TRAIN_MICRO_BATCHES
+    kernels = [e["kernel"] for e in seen]
+    assert kernels.count("wkv6_keyslice") == 2 * n
+    assert kernels.count("wkv6_keyslice_bwd") == n
+    assert "wkv6" not in kernels and "wkv6_bwd" not in kernels
+    for e in seen:
+        assert e["ins"][0][0][-1] == cfg.ssm.rwkv_head_dim // 16
+        assert e["flops"] > 0 and e["bytes"] > 0
     rec = dryrun.run_cell(arch, shape, mesh_name="pod512",
-                          out_dir=str(tmp_path))
+                          out_dir=str(tmp_path), tag="smoke",
+                          overrides=_train_overrides(arch),
+                          batch_override=TRAIN_BATCH["pod512"])
     assert rec["status"] == "ok", rec.get("error")
-    assert rec["cost"] is None and rec["memory"]["temp_size_in_bytes"] is None
-    missing = {"rwkv6-3b": "train step"}[arch]
-    assert missing in rec["cost_reason"] and "not ported" in rec[
-        "cost_reason"]
-    assert not list(tmp_path.iterdir())
+    assert "cost_reason" not in rec and rec["cost"]["flops"] > 0
 
 
-# the partitioned train step covers the attention, MLP, MoE, MLA and
-# hybrid families
-TRAIN_ARCHS = ("qwen1.5-0.5b", "gemma-7b", "minicpm-2b", "internvl2-1b",
-               "gemma3-12b", "dbrx-132b", "deepseek-v2-lite-16b",
-               "jamba-v0.1-52b")
-# each other arch's family as ``dryrun.TRAIN_MISSING`` names it
-TRAIN_MISSING = {"rwkv6-3b": "ssm", "whisper-tiny": "encdec"}
+# the partitioned train step covers every family
+TRAIN_ARCHS = tuple(dryrun.ASSIGNED)
 # a small batch a pod's dp ranks split into 4 rows each
 TRAIN_BATCH = {"pod256": 64, "pod512": 128}
 
@@ -400,22 +420,6 @@ def test_pod_train_cells_carry_a_cost(arch, mesh_name, tmp_path):
     cfg = get_config(arch).replace(**_train_overrides(arch))
     assert rec["memory"]["argument_size_in_bytes"] == _train_state_bytes(
         cfg, make_placeholder_mesh(mesh_name), B)
-
-
-@pytest.mark.parametrize("arch", sorted(TRAIN_MISSING))
-def test_pod_train_cells_of_other_families_name_their_family(arch,
-                                                             tmp_path):
-    rec = dryrun.run_cell(arch, "train_4k", mesh_name="pod256",
-                          out_dir=str(tmp_path), tag="smoke",
-                          overrides=_smoke_overrides(arch),
-                          batch_override=TRAIN_BATCH["pod256"])
-    assert rec["status"] == "ok", rec.get("error")
-    assert rec["cost"] is None
-    family = TRAIN_MISSING[arch]
-    assert rec["cost_reason"].startswith(
-        f"no cost: the partitioned train step of the {family} family is not "
-        f"ported ({dryrun.TRAIN_MISSING[family]})")
-    assert not list(tmp_path.iterdir())
 
 
 def _meta_mesh(dims):

@@ -458,7 +458,8 @@ def test_every_csrc_kernel_notes_what_it_replaces():
     assert [s.name for s in sources] == ["flash_attention.cu",
                                          "kv_gather.cu",
                                          "paged_attention.cu", "wkv6.cu",
-                                         "wkv6_bwd.cu", "wkv6_keyslice.cu"]
+                                         "wkv6_bwd.cu", "wkv6_keyslice.cu",
+                                         "wkv6_keyslice_bwd.cu"]
     for s in sources:
         text = s.read_text()
         assert "Replaces" in text or "replaces" in text

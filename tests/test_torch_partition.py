@@ -25,8 +25,6 @@ of the unpartitioned step in bf16, a merge-less control beyond it. At
 world size 1 the partitioned step is the unpartitioned one bit for bit, and
 ``shard_axes=None`` is the call without it."""
 import dataclasses
-import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -47,8 +45,8 @@ from repro_torch.models import api, lm
 
 sys.path.insert(0, str(Path(__file__).parent))
 import _torch_partition_worker as worker  # noqa: E402
+import _torch_ranks as spawn  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
 MESHES = ((1, 2, 2), (1, 1, 4))
 TOL = 1e-5
 
@@ -129,42 +127,21 @@ ROUTES = {
 }
 
 
-def _start(dims, tmp: Path):
-    """The worker on every rank of a (pod, data, model) mesh of ``dims``."""
-    world = int(np.prod(dims))
-    shape = ",".join(map(str, dims))
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               OMP_NUM_THREADS="1")
-    tmp.mkdir()
-    return tmp, [subprocess.Popen(
-        [sys.executable, str(Path(worker.__file__)), str(r), str(world),
-         shape, str(tmp / "store"), str(tmp / f"rank{r}.npz")],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Each mesh's ranks, spawned once and all at once (meshes (1, 2, 2),
     (1, 1, 4) and (1, 1, 1)); ``runs(dims)`` waits for a mesh's and
-    returns each rank's saved arrays."""
+    returns each rank's saved arrays, or fails with every rank's return
+    code and log tail (``tests/_torch_ranks.py``)."""
     base = tmp_path_factory.mktemp("partition")
-    started = {dims: _start(dims, base / "x".join(map(str, dims)))
+    started = {dims: spawn.start(Path(worker.__file__), dims,
+                                base / "x".join(map(str, dims)))
                for dims in MESHES + ((1, 1, 1),)}
-    done = {}
-
-    def get(dims):
-        if dims not in done:
-            tmp, procs = started[dims]
-            logs = [p.communicate(timeout=600)[0] for p in procs]
-            assert all(p.returncode == 0 for p in procs), logs
-            done[dims] = [dict(np.load(tmp / f"rank{r}.npz"))
-                          for r in range(len(procs))]
-        return done[dims]
-    yield get
-    for _, procs in started.values():
-        for p in procs:
-            p.communicate(timeout=600)
+    try:
+        yield lambda dims: started[dims].outputs()
+    finally:
+        for group in started.values():
+            group.close()
 
 
 @pytest.mark.parametrize("case", list(worker.CASES))
@@ -199,22 +176,31 @@ def test_bf16_sequence_route_within_the_dense_cache_bound(runs, dims):
     ``_partial_sdpa`` casts them, then merged) stays within the dense-cache
     phases' bf16 bound of the unpartitioned step in bf16 at every step; a
     rank that normalises over its own slots alone goes beyond it."""
-    for out in runs(dims):
-        assert list(out["gemma3_bf16/routes"]) == ["seq"] * 6
-        assert np.all(out["gemma3_bf16/row_rel"] <= worker.BF16_TOL), \
-            out["gemma3_bf16/row_rel"]
+    for r, out in enumerate(runs(dims)):
+        assert list(out["gemma3_bf16/routes"]) == ["seq"] * 6, (
+            "rank", r, "routes", list(out["gemma3_bf16/routes"]))
+        assert np.all(out["gemma3_bf16/row_rel"] <= worker.BF16_TOL), (
+            "rank", r, "bf16 per-row logit distance to the unpartitioned "
+            "step, step by step", out["gemma3_bf16/row_rel"],
+            "bound", worker.BF16_TOL)
         assert out["gemma3_bf16/control_row_rel"][1:].max() \
-            > worker.BF16_TOL, out["gemma3_bf16/control_row_rel"]
+            > worker.BF16_TOL, (
+            "rank", r, "the merge-less control's per-row distance",
+            out["gemma3_bf16/control_row_rel"], "must exceed",
+            worker.BF16_TOL)
 
 
 @pytest.mark.parametrize("dims", MESHES, ids=lambda d: "x".join(map(str, d)))
 def test_dbrx_prefill_drops_capacity_as_the_unpartitioned_step(runs, dims):
     """Capacity comes from the rank's token count: a rank drops what the
     unpartitioned step drops on the same rows, and it drops some."""
-    for out in runs(dims):
+    for r, out in enumerate(runs(dims)):
         got, want = out["dbrx/drops"]
-        assert got == want > 0
-        assert out["dbrx/moe_drops"] > 0
+        assert got == want > 0, ("rank", r, "prefill drops partitioned",
+                                 got, "unpartitioned", want)
+        assert out["dbrx/moe_drops"] > 0, (
+            "rank", r, "expert-parallel moe_apply drops",
+            out["dbrx/moe_drops"])
 
 
 @pytest.mark.parametrize("dims", MESHES, ids=lambda d: "x".join(map(str, d)))
@@ -238,8 +224,11 @@ def test_expert_parallel_moe_matches_reference(runs, dims):
     # the rows of each dp shard, from its model-coordinate-0 rank
     got = np.concatenate([out["dbrx/moe_out"] for out in ranks
                           if out["coords"][2] == 0])
-    assert got.shape == want.shape
-    assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+    assert got.shape == want.shape, ("rows", got.shape, want.shape)
+    err = np.abs(got - want).max()
+    assert err <= TOL * np.abs(want).max(), (
+        "moe_apply rows' largest distance to the reference", err, "limit",
+        TOL * np.abs(want).max())
 
 
 @pytest.mark.parametrize("dims", MESHES, ids=lambda d: "x".join(map(str, d)))
@@ -272,8 +261,11 @@ def test_mamba_layer_matches_reference(runs, dims):
                 params, x, ssm, conv))
     got = np.concatenate([out["jamba/mamba_out"] for out in ranks
                           if out["coords"][2] == 0])
-    assert got.shape == want.shape
-    assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+    assert got.shape == want.shape, ("rows", got.shape, want.shape)
+    err = np.abs(got - want).max()
+    assert err <= TOL * np.abs(want).max(), (
+        "Mamba rows' largest distance to the reference", err, "limit",
+        TOL * np.abs(want).max())
 
 
 @pytest.mark.parametrize("slices", [2, 4, 16])
@@ -316,8 +308,10 @@ def test_key_slices_of_the_plain_wkv_sum_to_the_whole(slices):
 def test_key_slice_meta_route_and_refusals():
     """The key-slice wrapper on ``meta`` tensors (the dry run's trace)
     makes one ``meta_call`` entry with ``keyslice_cost``; it refuses a key
-    count that is not a power of two below V, a V outside (32, 64) and a
-    gradient."""
+    count that is not a power of two below V and a V outside (32, 64).
+    Under autograd it is the ``WKV6KeySlice`` op (its backward, the
+    rectangular plain backward on the CPU, is held in
+    ``tests/test_torch_wkv_keyslice_bwd.py``)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 
@@ -344,8 +338,13 @@ def test_key_slice_meta_route_and_refusals():
     for K, V in ((3, 64), (4, 48), (64, 128)):
         with pytest.raises(ValueError):
             wkv_ops.wkv6_keyslice(*args(K, V))
-    with pytest.raises(ValueError, match="no backward"):
-        wkv_ops.wkv6(*args(4, 64, "cpu", grad=True))
+    cpu = [torch.rand(t.shape, dtype=t.dtype) for t in args(4, 64)]
+    cpu[3] = -cpu[3]
+    u = cpu[4].requires_grad_()
+    y, _ = wkv_ops.wkv6(*cpu)
+    assert y.grad_fn.name() == "WKV6KeySliceBackward"
+    y.float().sum().backward()
+    assert u.grad is not None and u.grad.shape == (3, 4)
 
 
 @pytest.mark.parametrize("case", list(worker.CASES))

@@ -19,8 +19,6 @@ step within 1e-5 relative. At world size 1 two partitioned steps equal
 two unpartitioned ones bit for bit, for those and gemma-7b. Each collective's gradient under a
 loss replicated over ``model`` equals autograd of the unsharded function,
 so that a factor of the axis' size fails by name."""
-import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -42,8 +40,8 @@ from repro_torch.params import from_jax
 
 sys.path.insert(0, str(Path(__file__).parent))
 import _torch_partition_train_worker as worker  # noqa: E402
+import _torch_ranks as spawn  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
 MESHES = ((1, 2, 2), (1, 1, 4))
 TOL = 1e-5
 # the layout each case takes on each mesh: attention route, the stream,
@@ -74,19 +72,6 @@ def _weights(cfg, seed: int):
     return jax.tree.map(lambda s: jnp.asarray(
         rng.standard_normal(s.shape) * 0.05, s.dtype),
         japi.param_specs(cfg))
-
-
-def _start(dims, tmp: Path, weights: Path):
-    world = int(np.prod(dims))
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               OMP_NUM_THREADS="1")
-    tmp.mkdir()
-    return tmp, [subprocess.Popen(
-        [sys.executable, str(Path(worker.__file__)), str(r), str(world),
-         ",".join(map(str, dims)), str(tmp / "store"), str(weights),
-         str(tmp / f"rank{r}.npz")],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
 
 
 def _reference_step(name, dims, params):
@@ -126,24 +111,20 @@ def runs(tmp_path_factory):
                          worker.case_config(name), device="cpu")
         np.savez(weights / f"{name}.npz", **{
             n: p.detach().numpy() for n, p in model.named_parameters()})
-    started = {dims: _start(dims, base / "x".join(map(str, dims)), weights)
+    started = {dims: spawn.start(Path(worker.__file__), dims,
+                                base / "x".join(map(str, dims)),
+                                middle=(weights,))
                for dims in MESHES + ((1, 1, 1),)}
     refs = {dims: {name: _reference_step(name, dims, params[name])
                    for name in worker.MESH_CASES} for dims in MESHES}
-    done = {}
 
     def get(dims):
-        if dims not in done:
-            tmp, procs = started[dims]
-            logs = [p.communicate(timeout=600)[0] for p in procs]
-            assert all(p.returncode == 0 for p in procs), logs
-            done[dims] = [dict(np.load(tmp / f"rank{r}.npz"))
-                          for r in range(len(procs))]
-        return done[dims], refs.get(dims)
-    yield get
-    for _, procs in started.values():
-        for p in procs:
-            p.communicate(timeout=600)
+        return started[dims].outputs(), refs.get(dims)
+    try:
+        yield get
+    finally:
+        for group in started.values():
+            group.close()
 
 
 def _rel(a, b) -> float:
