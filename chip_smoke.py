@@ -634,11 +634,15 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    ms), under ``partition`` in the ``flash_attention`` record, and at
    whisper-tiny's rank shapes (one head: the encoder over 1,500
    frames, the cross-attention of 8 decode rows against them). (c) The
-   key-slice WKV kernel (``csrc/wkv6_keyslice.cu``) against its plain
-   twin at rwkv6-3b's rank shapes, prefill (2, 32,768, 40 heads, K 4, V
-   64) and decode (8, 1, 40, 4, 64), at row 8's limits with a zeroed-state
-   control beyond them; kernel, plain and bound ms in its
-   ``wkv6_keyslice`` record.
+   key-slice WKV forward (``csrc/wkv6_keyslice.cu``: 32-token chunk sums,
+   a scan over the chunks, a chunk pass) against its plain twin at
+   rwkv6-3b's rank shapes, prefill (2, 32,768, 40 heads, K 4, V 64) and
+   decode (8, 1, 40, 4, 64), at row 8's limits with a zeroed-state
+   control beyond them; kernel, plain and bound ms and the earlier
+   design's ms in its ``wkv6_keyslice`` record; then each of its three
+   kernels alone against its plain twin (``keyslice_pass_checks``: T 1,
+   31, 32, 33, 1,031 at K 4, 8, 16, float32 and bf16, and the prefill
+   shape), each with a control beyond its limit, and their ``*_info``.
 84. the partitioned train step (``make_train_step`` with
    ``TrainConfig.shard_axes``: FSDP rules, sequence parallelism, remat,
    micro-batches, the vocab-parallel cross-entropy, data-parallel
@@ -675,18 +679,21 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    decoder's self-attention is qwen's shape), forward and backward,
    through phase 75's check and timing, under ``partition_train`` in the
    ``flash_attention`` and ``flash_attention_bwd`` records. (d) The
-   key-slice WKV backward kernel (``csrc/wkv6_keyslice_bwd.cu``) against
-   its plain twin (the rectangular ``wkv6_backward_plain``) at the
-   ``pod256`` rank's rwkv6-3b ``train_4k`` micro-batch (4, 4,096, 40
-   heads, K 4, V 64) in bf16 and at (2, 1,031, 40, 8, 64) in float32,
-   weak and strong decays: dr, dk, dv, dw, du and dstate within row 8b's
-   limits (bf16 2e-2 of the plain norm, per 32 tokens; float32 rtol 1e-3
-   atol 5e-4), a control (the kernel on a dy with one token zeroed)
-   beyond them; ``wkv6_keyslice`` forward and backward through autograd
-   (the ``WKV6KeySlice`` op) against autograd of the plain forward;
-   kernel, plain and bound ms of the backward (its ``wkv6_keyslice_bwd``
-   record) and of the forward at that shape (``wkv6_keyslice``'s
-   ``train`` case).
+   key-slice WKV backward (``csrc/wkv6_keyslice_bwd.cu``: chunk sums, the
+   scan both ways, a chunk pass) against its plain twin (the rectangular
+   ``wkv6_backward_plain``) at the ``pod256`` rank's rwkv6-3b
+   ``train_4k`` micro-batch (4, 4,096, 40 heads, K 4, V 64) in bf16 and
+   at (2, 1,031, 40, 8, 64) in float32, weak and strong decays: dr, dk,
+   dv, dw, du and dstate within row 8b's limits (bf16 2e-2 of the plain
+   norm, per 32 tokens; float32 rtol 1e-3 atol 5e-4), a control (the
+   kernel on a dy with one token zeroed) beyond them; each of its kernels
+   and state passes alone against its plain twin as in (c), at the
+   micro-batch too, with their ``*_info``; ``wkv6_keyslice`` forward and
+   backward through autograd (the ``WKV6KeySlice`` op) against autograd
+   of the plain forward; kernel, plain, bound and the earlier design's ms
+   of the backward (its ``wkv6_keyslice_bwd`` record) and of the forward
+   at that shape (``wkv6_keyslice``'s ``train`` case), and each pass's
+   kernel ms there from the profiler.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -5550,31 +5557,40 @@ def wkv_bwd_pass_ratios(torch, wkv_ops, wkv_ref, args, dname):
     return out
 
 
-def wkv_bwd_pass_ms(torch, wkv_ops, args, calls=20):
-    """Device ms of each pass's kernel per ``wkv6_bwd`` call, by kernel
-    name, from ``calls`` calls under one profiler session (after a warm-up
-    call): each kernel's summed time over its own number of events, so an
-    event the trace drops at the window's edge costs no pass its number.
-    None where the trace holds no event of some pass."""
+def kernel_ms_by_name(torch, fn, kernels, calls=20):
+    """Device ms a call of ``fn`` spends in each kernel of ``kernels``
+    ({label: a substring of the kernel's name}), from ``calls`` calls under
+    one profiler session (after a warm-up call): each kernel's summed time
+    over its own number of events, so an event the trace drops at the
+    window's edge costs no kernel its number. None where the trace holds
+    no event of some kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    wkv_ops.wkv6_bwd(*args)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            wkv_ops.wkv6_bwd(*args)
+            fn()
         torch.cuda.synchronize()
-    us = {name: [] for name in wkv_ops.BWD_PASSES}
+    us = {label: [] for label in kernels}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        for name in us:
-            if f"{name}_kernel" in e.name:
-                us[name].append(e.time_range.elapsed_us())
+        for label, part in kernels.items():
+            if part in e.name:
+                us[label].append(e.time_range.elapsed_us())
     if not all(us.values()):
         return None
-    return {name: sum(v) / len(v) / 1e3 for name, v in us.items()}
+    return {label: sum(v) / len(v) / 1e3 for label, v in us.items()}
+
+
+def wkv_bwd_pass_ms(torch, wkv_ops, args, calls=20):
+    """Device ms of each pass's kernel per ``wkv6_bwd`` call, by kernel
+    name (``kernel_ms_by_name``)."""
+    return kernel_ms_by_name(
+        torch, lambda: wkv_ops.wkv6_bwd(*args),
+        {name: f"{name}_kernel" for name in wkv_ops.BWD_PASSES}, calls)
 
 
 def phase_wkv_bwd_kernel(torch, np, cfg, report):
@@ -8359,6 +8375,156 @@ def keyslice_bound(shape, io_bytes):
     return ms, "bytes" if parts["bytes"] >= ms else "operations", parts
 
 
+# the key-slice kernels' passes are each held against their plain twins
+# at the chunk-boundary lengths, at each of these key slices (B 2, 8 heads,
+# V 64), float32 and bf16, and at the rank shapes
+KEYSLICE_PASS_T = (1, 31, 32, 33, 1031)
+KEYSLICE_PASS_K = (4, 8, 16)
+KEYSLICE_PASS_SHAPES = tuple(((2, T, 8, K, 64), dname)
+                             for T in KEYSLICE_PASS_T
+                             for K in KEYSLICE_PASS_K
+                             for dname in ("float32", "bfloat16"))
+# what this script measured on an H100 80GB HBM3 at 700 W for the design
+# the chunked key-slice kernels replaced (a block or a warp per sequence
+# and head walking every token in series): the forward at the prefill and
+# train_4k rank shapes, the backward at the latter
+KEYSLICE_EARLIER_MS = {"wkv6_keyslice": 6.9726,
+                       "wkv6_keyslice train": 0.8869,
+                       "wkv6_keyslice_bwd": 5.0157}
+# the kernels of a key-slice call, by pass, as the profiler names them
+KEYSLICE_KERNELS = {"wkv6_keyslice": {"sums": "sums_kernel",
+                                      "scan": "scan_kernel",
+                                      "chunk": "fwd_chunk_kernel"},
+                    "wkv6_keyslice_bwd": {"sums": "sums_kernel",
+                                          "scan": "scan_kernel",
+                                          "chunk": "bwd_chunk_kernel"}}
+
+
+def keyslice_pass_checks(torch, wkv_ops, wkv_ref, g, dev, backward,
+                         shapes):
+    """Each kernel of the key-slice forward (the chunk sums, the forward
+    scan, the forward chunk pass) or, ``backward``, of its backward (the
+    chunk sums with Gamma, the scan both ways, the backward chunk pass,
+    and its state passes through ``wkv6_keyslice_bwd_states`` /
+    ``_dstates``) alone against its plain twin on the twins' own inputs,
+    at ``shapes`` (((B, T, H, K, V), dtype name), ...), the decays up to
+    ``max(WKV_DECAYS)``: the summaries and chunk states at the state's
+    limits (rtol 1e-3, atol 5e-4: their arithmetic is float32 in either
+    dtype), the forward chunk pass at row 8's (``wkv_ratio``), the
+    backward's at row 8b's (``wkv_bwd_ratio``). A control for each: the
+    kernel on an input changed where its output must move beyond the
+    limit (the sums: k at the last token and r at the first token of the
+    middle chunk zeroed, where no decay hides them; the scans: one
+    sequence's initial state and final-state gradient zeroed; the forward
+    chunk pass: one sequence's chunk states zeroed; the backward's: dy at
+    the middle token zeroed). Returns {kernel: (largest error/limit,
+    smallest control/limit)}; raises when an error is beyond its limit or
+    a control within it."""
+    state_lim = WKV_LIMITS[1]
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    out = {}
+
+    def lim(got, want):
+        return max(limit_ratio(a, b, *state_lim) for a, b in zip(got, want))
+
+    def note(name, ratio, control):
+        was = out.get(name, (0.0, float("inf")))
+        out[name] = (max(was[0], ratio), min(was[1], control))
+
+    for shape, dname in shapes:
+        B, T, H, K, V = shape
+        dt = dtypes[dname]
+        r, k, v, w, u, s0 = keyslice_inputs(torch, g, shape,
+                                            max(WKV_DECAYS), dev)
+        r, k, v = (x.to(dt) for x in (r, k, v))
+        first = T // 2 // 32 * 32
+        k0, r0, s0c = k.clone(), r.clone(), s0.clone()
+        k0[:, min(T, first + 32) - 1] = 0
+        r0[:, first] = 0
+        s0c[0] = 0
+        if not backward:
+            want = wkv_ref.wkv6_keyslice_sums_plain(k, v, w)[:2]
+            note("wkv6_keyslice_sums",
+                 lim(wkv_ops.wkv6_keyslice_sums(k, v, w)[:2], want),
+                 lim(wkv_ops.wkv6_keyslice_sums(k0, v, w)[:2], want))
+            d, delta = want
+            want = wkv_ref.wkv6_keyslice_scan_plain(d, delta, s0)[:2]
+            note("wkv6_keyslice_scan",
+                 lim(wkv_ops.wkv6_keyslice_scan(d, delta, s0)[:2], want),
+                 lim(wkv_ops.wkv6_keyslice_scan(d, delta, s0c)[:2], want))
+            states = want[0].contiguous()
+            zeroed = states.clone()
+            zeroed[0] = 0
+            want = wkv_ref.wkv6_keyslice_chunk_plain(r, k, v, w, u, states)
+            note("wkv6_keyslice_chunk",
+                 wkv_ratio(wkv_ops.wkv6_keyslice_chunk(r, k, v, w, u,
+                                                       states), want),
+                 wkv_ratio(wkv_ops.wkv6_keyslice_chunk(r, k, v, w, u,
+                                                       zeroed), want))
+        else:
+            dy = torch.randn((B, T, H, V), generator=g, device=dev).to(dt)
+            ds = torch.randn((B, H, K, V), generator=g, device=dev)
+            dsc = ds.clone()
+            dsc[0] = 0
+            dyc = dy.clone()
+            dyc[:, T // 2] = 0
+            args = (r, k, v, w, u, s0, dy, ds)
+            want = wkv_ref.wkv6_keyslice_sums_plain(k, v, w, r, dy)
+            note("wkv6_keyslice_bwd_sums",
+                 lim(wkv_ops.wkv6_keyslice_sums(k, v, w, r, dy), want),
+                 lim(wkv_ops.wkv6_keyslice_sums(k0, v, w, r0, dy), want))
+            d, delta, gamma = want
+            want = wkv_ref.wkv6_keyslice_scan_plain(d, delta, s0, gamma, ds)
+            note("wkv6_keyslice_bwd_scan",
+                 lim(wkv_ops.wkv6_keyslice_scan(d, delta, s0, gamma, ds),
+                     want),
+                 lim(wkv_ops.wkv6_keyslice_scan(d, delta, s0c, gamma, dsc),
+                     want))
+            states, dstates = want[0].contiguous(), want[2].contiguous()
+            note("wkv6_keyslice_bwd_states",
+                 lim([wkv_ops.wkv6_keyslice_bwd_states(*args)], [states]),
+                 lim([wkv_ops.wkv6_keyslice_bwd_states(*args[:5], s0c,
+                                                       *args[6:])],
+                     [states]))
+            note("wkv6_keyslice_bwd_dstates",
+                 lim(wkv_ops.wkv6_keyslice_bwd_dstates(*args), want[2:]),
+                 lim(wkv_ops.wkv6_keyslice_bwd_dstates(*args[:7], dsc),
+                     want[2:]))
+            part = wkv_ref.wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states,
+                                                dstates)
+            want = list(part[:4]) + [part[4].sum((0, 2))]
+            note("wkv6_keyslice_bwd_chunk",
+                 wkv_bwd_ratio(torch, wkv_ops.wkv6_keyslice_bwd_chunk(
+                     *args[:7], states, dstates), want, dname),
+                 wkv_bwd_ratio(torch, wkv_ops.wkv6_keyslice_bwd_chunk(
+                     *args[:6], dyc, states, dstates), want, dname))
+        del r, k, v, w, u, s0, k0, r0, s0c, want
+    torch.cuda.synchronize()
+    for name, (ratio, control) in out.items():
+        print(f"kernel {name} alone against its plain twin over "
+              f"{len(shapes)} shapes: error/limit {ratio:.3g}, control "
+              f"{control:.3g}")
+        if not ratio <= 1.0 < control:
+            raise AssertionError(f"{name}: error/limit {ratio} must be <= "
+                                 f"1 and the control's {control} above it")
+    return out
+
+
+def keyslice_info(wkv_ops, backward):
+    """Print ``*_info`` of the key-slice forward's or backward's kernels
+    (registers, spills, shared bytes, blocks per SM) at K 4, 8, 16 of V
+    64; returns them at K 4."""
+    fn = (wkv_ops.wkv6_keyslice_bwd_kernel_info if backward
+          else wkv_ops.wkv6_keyslice_kernel_info)
+    for K in KEYSLICE_PASS_K:
+        info = fn(K, 64)
+        for name, one in info.items():
+            print(f"key-slice kernel K {K} V 64: {name} {json.dumps(one)}")
+        if K == 4:
+            kept = info
+    return kept
+
+
 def phase_keyslice_wkv(torch, np, report):
     """Phase 83(c): the key-slice WKV kernel (``wkv6_keyslice``) against
     its plain twin (the rectangular ``wkv6_plain``: the chunked form at T
@@ -8368,9 +8534,13 @@ def phase_keyslice_wkv(torch, np, report):
     beyond them. Device times by CUDA events: the kernel queued behind a
     device-side wait; the plain twin at T 32,768 (~15,000 small launches a
     call) back to back, its time the host's launch rate. No PyTorch call
-    computes the recurrence: ``library_ms`` is null."""
+    computes the recurrence: ``library_ms`` is null. Then each kernel of
+    the forward alone against its plain twin (``keyslice_pass_checks``) at
+    the chunk-boundary lengths and at the prefill shape, with the
+    kernels' ``*_info``."""
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
+    info = keyslice_info(wkv_ops, backward=False)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(83)
     cases = {}
@@ -8421,12 +8591,17 @@ def phase_keyslice_wkv(torch, np, report):
                 f"<= 1 and the control's {min(controls)} above it")
         del args
         release(torch)
+    passes = keyslice_pass_checks(
+        torch, wkv_ops, wkv_ref, g, dev, False,
+        KEYSLICE_PASS_SHAPES + ((PARTITION_WKV["prefill"], "bfloat16"),))
+    release(torch)
     report.append(dict(
         name="wkv6_keyslice", route="cuda", source=WKV_KEYSLICE_SRC,
         replaces="src/repro/kernels/rwkv6_wkv/kernel.py:81",
         **{**cases["prefill"], "max_abs_err": max(c["max_abs_err"]
                                                   for c in cases.values())},
-        decode=cases["decode"]))
+        earlier_ms=KEYSLICE_EARLIER_MS["wkv6_keyslice"],
+        decode=cases["decode"], passes=passes, info=info))
 
 
 def phase_partition(torch, np, report, dev, card):
@@ -8584,16 +8759,13 @@ def keyslice_autograd_check(torch, wkv_ops, wkv_ref, g, dev):
 
 
 def phase_keyslice_wkv_bwd(torch, np, report):
-    """Phase 84(d) (module docstring): the key-slice WKV backward kernel
-    against its plain twin at ``TRAIN_PARTITION_WKV``, the autograd op,
-    and the kernel's and the forward's times at the rank's shape."""
+    """Phase 84(d) (module docstring): the key-slice WKV backward against
+    its plain twin at ``TRAIN_PARTITION_WKV``, each of its kernels alone
+    (``keyslice_pass_checks``), the autograd op, and the backward's and
+    the forward's times, whole and by pass, at the rank's shape."""
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
-    for K, V in ((4, 64), (8, 64)):
-        for name, info in wkv_ops.wkv6_keyslice_bwd_kernel_info(K,
-                                                                V).items():
-            print(f"wkv6_keyslice_bwd kernel K {K} V {V}: {name} "
-                  f"{json.dumps(info)}")
+    info = keyslice_info(wkv_ops, backward=True)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(84)
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -8648,20 +8820,41 @@ def phase_keyslice_wkv_bwd(torch, np, report):
             f_plain = ms_timer(lambda: wkv_ref.wkv6_plain(*fwd), 1)
             b, by, parts = keyslice_bwd_bound(shape, 2)
             fb, fby, fparts = keyslice_bound(shape, 2)
+            # each pass's kernel alone, from the profiler's device times
+            pass_ms = kernel_ms_by_name(
+                torch, lambda: wkv_ops.wkv6_keyslice_bwd(*args),
+                KEYSLICE_KERNELS["wkv6_keyslice_bwd"])
+            f_pass_ms = kernel_ms_by_name(
+                torch, lambda: wkv_ops.wkv6_keyslice(*fwd),
+                KEYSLICE_KERNELS["wkv6_keyslice"])
             timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                          bound_parts_ms=parts)
+                          bound_parts_ms=parts, pass_ms=pass_ms,
+                          earlier_ms=KEYSLICE_EARLIER_MS[
+                              "wkv6_keyslice_bwd"])
             fwd_train = dict(shape=cases[name]["shape"], ms=f_ms,
                              plain_ms=f_plain, bound_ms=fb, bound_by=fby,
-                             bound_parts_ms=fparts, library_ms=None)
+                             bound_parts_ms=fparts, library_ms=None,
+                             pass_ms=f_pass_ms,
+                             earlier_ms=KEYSLICE_EARLIER_MS[
+                                 "wkv6_keyslice train"])
             print(f"kernel wkv6_keyslice_bwd {cases[name]['shape']}: "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{b:.4f} ms ({by}: bytes {parts['bytes']:.4f}, f32 "
                   f"{parts['f32']:.4f}, exp {parts['exp']:.4f} ms), "
                   f"{b / ms:.4f} of it; the forward wkv6_keyslice there: "
                   f"kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, bound "
-                  f"{fb:.4f} ms ({fby})")
+                  f"{fb:.4f} ms ({fby}); ms a pass: backward "
+                  f"{json.dumps(pass_ms)}, forward {json.dumps(f_pass_ms)}; "
+                  f"the earlier design: backward "
+                  f"{KEYSLICE_EARLIER_MS['wkv6_keyslice_bwd']} ms, forward "
+                  f"{KEYSLICE_EARLIER_MS['wkv6_keyslice train']} ms")
         del args
         release(torch)
+    passes = keyslice_pass_checks(
+        torch, wkv_ops, wkv_ref, g, dev, True,
+        KEYSLICE_PASS_SHAPES + ((TRAIN_PARTITION_WKV["train"][0],
+                                 "bfloat16"),))
+    release(torch)
     autograd_ratio = keyslice_autograd_check(torch, wkv_ops, wkv_ref, g, dev)
     if not autograd_ratio <= 1.0:
         raise AssertionError(f"wkv6_keyslice through autograd: error/limit "
@@ -8680,7 +8873,7 @@ def phase_keyslice_wkv_bwd(torch, np, report):
         tolerance="bf16 2e-2 of the plain norm (per 32 tokens for dr, dk, "
         "dv, dw); float32 rtol 1e-3 atol 5e-4",
         **timing, library_ms=None, autograd_limit_ratio=autograd_ratio,
-        cases=cases))
+        cases=cases, passes=passes, info=info))
     for k in report:
         if k["name"] == "wkv6_keyslice":
             k["train"] = fwd_train

@@ -8,11 +8,15 @@ backward is three launches behind one call (``wkv6_bwd``); each pass also
 runs alone (``wkv6_bwd_states``, ``wkv6_bwd_dstates``, ``wkv6_bwd_chunk``)
 so it can be held against its plain twin.
 ``wkv6_keyslice`` is the forward over a key slice of the state (K of the
-head's V key rows, the partitioned step's share): a kernel of its own
-(``csrc/wkv6_keyslice.cu``), which ``wkv6`` routes a rectangular state
-to. Its backward, ``wkv6_keyslice_bwd``, is another
-(``csrc/wkv6_keyslice_bwd.cu``); CPU tensors take the rectangular
-``wkv6_backward_plain``.
+head's V key rows, the partitioned step's share), which ``wkv6`` routes a
+rectangular state to, and ``wkv6_keyslice_bwd`` its backward (CPU
+tensors take the rectangular ``wkv6_plain`` and ``wkv6_backward_plain``).
+Each is three launches behind one call (``csrc/wkv6_keyslice.cu``,
+``csrc/wkv6_keyslice_bwd.cu``): 32-token chunk sums, a scan over the
+chunks, a chunk pass. Each kernel also runs alone against its plain twin
+(``wkv6_keyslice_sums``, ``wkv6_keyslice_scan``, ``wkv6_keyslice_chunk``,
+``wkv6_keyslice_bwd_chunk``), and so do the backward's state passes
+(``wkv6_keyslice_bwd_states``, ``wkv6_keyslice_bwd_dstates``).
 ``wkv6`` and ``wkv6_keyslice`` go through their autograd ops (``WKV6``,
 ``WKV6KeySlice``) when a gradient is wanted, and straight to the forward
 otherwise (the serving path, under ``no_grad``). Meta tensors (the dry
@@ -31,12 +35,17 @@ from repro_torch.kernels.rwkv6_wkv.ref import (WKV_CHUNK, wkv6_backward_plain,
                                                wkv6_bwd_chunk_plain,
                                                wkv6_bwd_dstates_plain,
                                                wkv6_bwd_states_plain,
+                                               wkv6_keyslice_chunk_plain,
+                                               wkv6_keyslice_scan_plain,
+                                               wkv6_keyslice_sums_plain,
                                                wkv6_plain)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 BWD_PASSES = ("wkv6_bwd_states", "wkv6_bwd_dstates", "wkv6_bwd_chunk")
+# the key-slice kernels' passes, one launch each (csrc/wkv6_keyslice.cuh)
+KEYSLICE_PASSES = ("sums", "scan", "chunk")
 
 F32_FLOPS = 67e12                   # H100 SXM datasheet, outside tensor cores
 SFU_PER_S = 132 * 16 * 1.98e9       # exponentials/s: 132 SMs x 16 SFU lanes
@@ -127,8 +136,8 @@ def keyslice_bwd_work(B: int, T: int, H: int, K: int, V: int,
     written. Operations per token and head, the least the gradients need:
     the state recomputed (3 K V), the sums over the value columns of dr,
     dk and dw and dv's over the key rows (8 K V), the dS update (3 K V),
-    dy . v (2 V); one exponential a key dim. The scratch of tile states the
-    kernel keeps between its passes is not counted."""
+    dy . v (2 V); one exponential a key dim. The scratch of chunk states
+    the kernels keep between their passes is not counted."""
     nbytes = (B * T * H * (K * (4 * itemsize + 8) + 3 * V * itemsize)
               + 3 * B * H * K * V * 4 + 2 * H * K * 4)
     return B * T * H * (14 * K * V + 2 * V), B * T * H * K, nbytes
@@ -143,13 +152,13 @@ def keyslice_bwd_cost(B: int, T: int, H: int, K: int, V: int,
     return t_ops * H100_SXM.flops_peak, nbytes
 
 
-def _kernel_info(export: str, labels, hd: int) -> dict:
+def _kernel_info(export: str, labels, *dims: int) -> dict:
     out = (ctypes.c_int * (4 * len(labels)))()
     info = {}
     for dtype, code in _DTYPE_CODES.items():
         dname = str(dtype).split('.')[-1]
         build.check(f"{export} {dname}",
-                    getattr(build.lib(), export)(code, hd,
+                    getattr(build.lib(), export)(code, *dims,
                                                  ctypes.addressof(out)))
         for n, label in enumerate(labels):
             info[f"{label}<{dname}>"] = dict(
@@ -172,21 +181,20 @@ def wkv6_bwd_kernel_info(hd: int) -> dict:
     return _kernel_info("aqua_wkv6_bwd_info", BWD_PASSES, hd)
 
 
+def wkv6_keyslice_kernel_info(K: int, V: int) -> dict:
+    """The same for the key-slice forward's three kernels at K key rows of
+    V columns, one per pass (``KEYSLICE_PASSES``); the shared memory is
+    static and dynamic together."""
+    return _kernel_info("aqua_wkv6_keyslice_info",
+                        tuple(f"wkv6_keyslice_{p}" for p in KEYSLICE_PASSES),
+                        K, V)
+
+
 def wkv6_keyslice_bwd_kernel_info(K: int, V: int) -> dict:
-    """The same for the key-slice backward kernel at K key rows of V
-    columns, with the tokens a tile of its scratch (``tile_tokens``)."""
-    out = (ctypes.c_int * 4)()
-    info = {}
-    for dtype, code in _DTYPE_CODES.items():
-        dname = str(dtype).split('.')[-1]
-        build.check(f"wkv6_keyslice_bwd {dname}",
-                    build.lib().aqua_wkv6_keyslice_bwd_info(
-                        code, K, V, ctypes.addressof(out)))
-        info[f"wkv6_keyslice_bwd<{dname}>"] = dict(
-            registers=out[0], local_bytes=out[1], smem_bytes=out[2],
-            blocks_per_sm=out[3],
-            tile_tokens=build.lib().aqua_wkv6_keyslice_bwd_tile(K, V))
-    return info
+    """The same for the key-slice backward's three kernels."""
+    return _kernel_info("aqua_wkv6_keyslice_bwd_info",
+                        tuple(f"wkv6_keyslice_bwd_{p}"
+                              for p in KEYSLICE_PASSES), K, V)
 
 
 def _check(name, r, k, v, w, u, state):
@@ -247,14 +255,48 @@ def wkv6_keyslice(r, k, v, w, u, state):
     (w float32), v (B,T,H,V), u (H,K) float32, state (B,H,K,V) float32, K
     a power of two below V, V 32 or 64 -> (the slice's share of y
     (B,T,H,V) in r's dtype, its rows of the new state (B,H,K,V) float32).
-    CPU tensors take ``wkv6_plain``; CUDA tensors launch
-    ``wkv6_keyslice_kernel``. Under autograd (grad enabled and an input
-    requiring it) the call is the ``WKV6KeySlice`` op, whose backward is
-    ``wkv6_keyslice_bwd``."""
+    CPU tensors take ``wkv6_plain``; CUDA tensors launch the three passes
+    of ``csrc/wkv6_keyslice.cu`` (the chunk pass alone at T <= 32). Under
+    autograd (grad enabled and an input requiring it) the call is the
+    ``WKV6KeySlice`` op, whose backward is ``wkv6_keyslice_bwd``."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state)):
         return WKV6KeySlice.apply(r, k, v, w, u, state)
     return _keyslice_forward(r, k, v, w, u, state)
+
+
+def _aligned(t):
+    """``t``, or a copy on a 16-byte boundary: the key-slice kernels read
+    rows of v and dy in 16-byte pieces."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _chunk_scratch(like, *shape):
+    """A float32 (B, H, ceil(T / 32), *shape) tensor beside ``like``
+    (B,T,H,.): a decay (K) or a state (K, V) a chunk."""
+    B, T, H = like.shape[:3]
+    return torch.empty((B, H, -(-T // WKV_CHUNK)) + shape,
+                       dtype=torch.float32, device=like.device)
+
+
+def _ks_launch(name, export, passes, at, dims, dtype, ptrs):
+    """One call of the key-slice C entry ``export`` (``aqua_wkv6_keyslice``
+    or ``aqua_wkv6_keyslice_bwd``) running the passes of bit mask
+    ``passes`` (1 sums, 2 scan, 4 chunk) on ``ptrs`` (None where unused),
+    dims (B, T, H, K, V), on ``at``'s card and stream."""
+    with build.on_device(at):
+        rc = getattr(build.lib(), export)(
+            *(0 if t is None else t.data_ptr() for t in ptrs), *dims,
+            _DTYPE_CODES[dtype], passes, build.stream_of(at))
+    build.check(name, rc)
+
+
+def _fwd_launch(name, passes, r, k, v, w, u, s0, *, y=None, s_out=None,
+                d=None, states=None, s_last=None):
+    B, T, H, K = k.shape
+    _ks_launch(name, "aqua_wkv6_keyslice", passes, k,
+               (B, T, H, K, v.shape[-1]), k.dtype,
+               (r, k, v, w, u, s0, y, s_out, d, states, s_last))
 
 
 def _keyslice_forward(r, k, v, w, u, state):
@@ -270,16 +312,115 @@ def _keyslice_forward(r, k, v, w, u, state):
             (torch.empty_like(v), torch.empty_like(state)),
             *keyslice_cost(B, T, H, K, V, r.element_size()))
     build.require_cuda(name, r, k, v, w, u, state)
+    v = _aligned(v)
     y = torch.empty_like(v)
     s_out = torch.empty_like(state)
-    with build.on_device(r):
-        rc = build.lib().aqua_wkv6_keyslice(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-            B, T, H, K, V, _DTYPE_CODES[r.dtype], build.stream_of(r))
-    build.check(name, rc)
+    if T <= WKV_CHUNK:
+        _fwd_launch(name, 4, r, k, v, w, u, state, y=y, s_out=s_out,
+                    states=state)
+    else:
+        _fwd_launch(name, 7, r, k, v, w, u, state, y=y, s_out=s_out,
+                    d=_chunk_scratch(k, K), states=_chunk_scratch(k, K, V))
     build.LAUNCHES[name] += 1
     return y, s_out
+
+
+def _on_card(name, *tensors) -> bool:
+    """True for CUDA tensors (checked as the kernels want them), False for
+    CPU ones; a single pass does not run on ``meta``."""
+    dev = tensors[0].device.type
+    if dev == "cpu":
+        return False
+    if dev != "cuda":
+        raise ValueError(f"{name}: takes CPU or CUDA tensors, not {dev}")
+    build.require_cuda(name, *tensors)
+    return True
+
+
+def wkv6_keyslice_sums(k, v, w, r=None, dy=None):
+    """Pass 1 alone, the chunk sums: k, w (B,T,H,K), v (B,T,H,V) and, for
+    the backward's, r (B,T,H,K) and dy (B,T,H,V) -> (d (B,H,nt,K), Delta
+    and Gamma (B,H,nt,K,V), float32; Gamma None without r). CPU tensors
+    take ``wkv6_keyslice_sums_plain``; CUDA tensors launch ``sums_kernel``
+    (through the backward's entry given r)."""
+    name = "wkv6_keyslice_sums"
+    extra = () if r is None else (r, dy)
+    if not _on_card(name, k, v, w, *extra):
+        return wkv6_keyslice_sums_plain(k, v, w, r, dy)
+    K, V = k.shape[-1], v.shape[-1]
+    d, delta = _chunk_scratch(k, K), _chunk_scratch(k, K, V)
+    if r is None:
+        _fwd_launch(name, 1, None, k, _aligned(v), w, None, None, d=d,
+                    states=delta)
+        gamma = None
+    else:
+        gamma = _chunk_scratch(k, K, V)
+        _bwd_ks_launch(name, 1, r, k, _aligned(v), w, None, None,
+                       _aligned(dy), None, d=d, states=delta, dstates=gamma)
+    build.LAUNCHES[name] += 1
+    return d, delta, gamma
+
+
+def wkv6_keyslice_scan(d, delta, state, gamma=None, dstate_out=None):
+    """Pass 2 alone, the scan over the chunks, from pass 1's summaries: d
+    (B,H,nt,K), Delta (B,H,nt,K,V), state (B,H,K,V) and, for the
+    backward's reverse scan, Gamma (B,H,nt,K,V) and dstate_out (B,H,K,V;
+    None is zero) -> (each chunk's entry state (B,H,nt,K,V), the final
+    state, and given Gamma each chunk's exit-state gradient and the
+    initial state's gradient, None otherwise), float32. CPU tensors take
+    ``wkv6_keyslice_scan_plain``; CUDA tensors launch ``scan_kernel`` (both
+    directions in one launch given Gamma)."""
+    name = "wkv6_keyslice_scan"
+    extra = () if gamma is None else (gamma,)
+    if not _on_card(name, d, delta, state, *extra):
+        return wkv6_keyslice_scan_plain(d, delta, state, gamma, dstate_out)
+    B, H, nt, K, V = delta.shape
+    dims = (B, nt * WKV_CHUNK, H, K, V)
+    states, s_last = delta.clone(), torch.empty_like(state)
+    dstates = dstate = None
+    if gamma is None:
+        _ks_launch(name, "aqua_wkv6_keyslice", 2, d, dims, torch.float32,
+                   (None,) * 5 + (state, None, None, d, states, s_last))
+    else:
+        if dstate_out is None:
+            dstate_out = torch.zeros_like(state)
+        dstates, dstate = gamma.clone(), torch.empty_like(state)
+        _ks_launch(name, "aqua_wkv6_keyslice_bwd", 2, d, dims, torch.float32,
+                   (None,) * 5 + (state, None, dstate_out) + (None,) * 5
+                   + (dstate, d, states, dstates, s_last))
+    build.LAUNCHES[name] += 1
+    return states, s_last, dstates, dstate
+
+
+def wkv6_keyslice_chunk(r, k, v, w, u, states):
+    """Pass 3 of the forward alone: ``wkv6_keyslice``'s operands but each
+    chunk's entry state (B,H,nt,K,V) float32 in place of the initial one
+    -> (y (B,T,H,V) in r's dtype, the last chunk's exit state (B,H,K,V)
+    float32). CPU tensors take ``wkv6_keyslice_chunk_plain``; CUDA tensors
+    launch ``fwd_chunk_kernel``."""
+    name = "wkv6_keyslice_chunk"
+    if not _on_card(name, r, k, v, w, u, states):
+        return wkv6_keyslice_chunk_plain(r, k, v, w, u, states)
+    _keyslice_check(name, r, k, v, w, u, states[:, :, 0])
+    _states_check(name, states, k, v)
+    v = _aligned(v)
+    y = torch.empty_like(v)
+    s_out = torch.empty_like(states[:, :, 0])
+    _fwd_launch(name, 4, r, k, v, w, u, None, y=y, s_out=s_out,
+                states=states)
+    build.LAUNCHES[name] += 1
+    return y, s_out
+
+
+def _states_check(name, states, k, v):
+    """Chunk states (or their gradients) as the chunk passes read them."""
+    B, T, H, K = k.shape
+    want = (B, H, -(-T // WKV_CHUNK), K, v.shape[-1])
+    if states.dtype != torch.float32 or tuple(states.shape) != want \
+            or not states.is_contiguous():
+        raise ValueError(f"{name}: chunk states must be contiguous float32 "
+                         f"{want}, got {states.dtype} "
+                         f"{tuple(states.shape)}")
 
 
 def _forward(r, k, v, w, u, state):
@@ -445,28 +586,29 @@ def wkv6_bwd_chunk(r, k, v, w, u, state, dy, states, dstates):
     return dr, dk, dv, dw, du_part.sum((0, 2))
 
 
-def wkv6_keyslice_bwd(r, k, v, w, u, state, dy, dstate_out):
-    """The backward of ``wkv6_keyslice``: its operands, dy (B,T,H,V) in r's
-    dtype and dstate_out (B,H,K,V) float32 (the gradient of the slice's
-    final state; None is zero) -> (dr, dk (B,T,H,K) in r's dtype, dv
-    (B,T,H,V) in v's, the slice's share of the whole's, dw (B,T,H,K), du
-    (H,K) and dstate (B,H,K,V), float32). K a power of two from 1 to 16
-    below V, V 32 or 64. CPU tensors take ``wkv6_backward_plain``; CUDA
-    tensors launch ``wkv6_keyslice_bwd_kernel``, which writes du per
-    sequence: the sum over them is taken here."""
-    if r.device.type == "cpu":
-        return wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out)
-    name = "wkv6_keyslice_bwd"
-    B, T, H, K = r.shape
-    V = v.shape[-1]
+def _bwd_ks_launch(name, passes, r, k, v, w, u, s0, dy, ds_out, *,
+                   grads=(None,) * 6, d=None, states=None, dstates=None):
+    """``aqua_wkv6_keyslice_bwd`` on ``grads`` (dr, dk, dv, dw, du_part,
+    ds_in) and the scratch."""
+    B, T, H, K = k.shape
+    _ks_launch(name, "aqua_wkv6_keyslice_bwd", passes, k,
+               (B, T, H, K, v.shape[-1]), k.dtype,
+               (r, k, v, w, u, s0, dy, ds_out, *grads, d, states, dstates,
+                None))
+
+
+def _keyslice_bwd_keys(name, r, k, v, w, u, state):
+    """``_keyslice_check`` and the backward's 1 to 16 key rows."""
     _keyslice_check(name, r, k, v, w, u, state)
-    if K > 16:
-        raise ValueError(f"{name}: K {K} key rows; the kernel takes 1 to 16")
-    if r.device.type == "meta":
-        out = tuple(torch.empty_like(t) for t in (r, r, v, w, u, state))
-        return build.meta_call(name, (r, k, v, w, u, state, dy), out,
-                               *keyslice_bwd_cost(B, T, H, K, V,
-                                                  r.element_size()))
+    if r.shape[-1] > 16:
+        raise ValueError(f"{name}: K {r.shape[-1]} key rows; the kernel "
+                         "takes 1 to 16")
+
+
+def _keyslice_bwd_check(name, r, k, v, w, u, state, dy, dstate_out):
+    """The key-slice backward's contract; returns dstate_out (zeros for
+    None)."""
+    _keyslice_bwd_keys(name, r, k, v, w, u, state)
     if dstate_out is None:
         dstate_out = torch.zeros_like(state)
     if dy.dtype != r.dtype or tuple(dy.shape) != tuple(v.shape):
@@ -478,23 +620,115 @@ def wkv6_keyslice_bwd(r, k, v, w, u, state, dy, dstate_out):
                          f"{tuple(dstate_out.shape)} must be float32 "
                          f"{tuple(state.shape)}")
     build.require_cuda(name, r, k, v, w, u, state, dy, dstate_out)
-    dr, dk = torch.empty_like(r), torch.empty_like(r)
-    dv, dw = torch.empty_like(v), torch.empty_like(w)
-    du_part = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
+    return dstate_out
+
+
+def _keyslice_grads(r, v, w, nt):
+    """dr, dk, dv, dw and du_part (B,H,nt,K) of a key-slice backward."""
+    B, T, H, K = r.shape
+    return (torch.empty_like(r), torch.empty_like(r), torch.empty_like(v),
+            torch.empty_like(w),
+            torch.empty((B, H, nt, K), dtype=torch.float32, device=r.device))
+
+
+def wkv6_keyslice_bwd(r, k, v, w, u, state, dy, dstate_out):
+    """The backward of ``wkv6_keyslice``: its operands, dy (B,T,H,V) in r's
+    dtype and dstate_out (B,H,K,V) float32 (the gradient of the slice's
+    final state; None is zero) -> (dr, dk (B,T,H,K) in r's dtype, dv
+    (B,T,H,V) in v's, the slice's share of the whole's, dw (B,T,H,K), du
+    (H,K) and dstate (B,H,K,V), float32). K a power of two from 1 to 16
+    below V, V 32 or 64. CPU tensors take ``wkv6_backward_plain``; CUDA
+    tensors launch the three passes of ``csrc/wkv6_keyslice_bwd.cu`` (the
+    chunk pass alone at T <= 32), which write du per (sequence, chunk): the
+    sum over both is taken here, in a fixed order. The scratch, a decay a
+    chunk and two float32 (B, H, ceil(T / 32), K, V) tensors of chunk
+    states, lives for the call."""
+    if r.device.type == "cpu":
+        return wkv6_backward_plain(r, k, v, w, u, state, dy, dstate_out)
+    name = "wkv6_keyslice_bwd"
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    if r.device.type == "meta":
+        _keyslice_bwd_keys(name, r, k, v, w, u, state)
+        out = tuple(torch.empty_like(t) for t in (r, r, v, w, u, state))
+        return build.meta_call(name, (r, k, v, w, u, state, dy), out,
+                               *keyslice_bwd_cost(B, T, H, K, V,
+                                                  r.element_size()))
+    dstate_out = _keyslice_bwd_check(name, r, k, v, w, u, state, dy,
+                                     dstate_out)
+    v, dy = _aligned(v), _aligned(dy)
+    nt = -(-T // WKV_CHUNK)
+    dr, dk, dv, dw, du_part = _keyslice_grads(r, v, w, nt)
     dstate = torch.empty_like(state)
-    lib = build.lib()
-    tile = lib.aqua_wkv6_keyslice_bwd_tile(K, V)
-    ckpt = torch.empty((B, H, -(-T // tile), K, V), dtype=torch.float32,
-                       device=r.device)
-    with build.on_device(r):
-        rc = lib.aqua_wkv6_keyslice_bwd(
-            *(t.data_ptr() for t in (r, k, v, w, u, state, dy, dstate_out,
-                                     dr, dk, dv, dw, du_part, dstate,
-                                     ckpt)),
-            B, T, H, K, V, _DTYPE_CODES[r.dtype], build.stream_of(r))
-    build.check(name, rc)
+    grads = (dr, dk, dv, dw, du_part, dstate)
+    if nt == 1:
+        _bwd_ks_launch(name, 4, r, k, v, w, u, state, dy, dstate_out,
+                       grads=grads, states=state, dstates=dstate_out)
+    else:
+        _bwd_ks_launch(name, 7, r, k, v, w, u, state, dy, dstate_out,
+                       grads=grads, d=_chunk_scratch(k, K),
+                       states=_chunk_scratch(k, K, V),
+                       dstates=_chunk_scratch(k, K, V))
     build.LAUNCHES[name] += 1
-    return dr, dk, dv, dw, du_part.sum(0), dstate
+    return dr, dk, dv, dw, du_part.sum((0, 2)), dstate
+
+
+def wkv6_keyslice_bwd_states(r, k, v, w, u, state, dy, dstate_out):
+    """Passes 1 and 2 of the key-slice backward forward in time
+    (``wkv6_keyslice_bwd``'s operands; the forward's state passes too):
+    each chunk's entry state, (B,H,nt,K,V) float32. CPU tensors take
+    ``wkv6_bwd_states_plain``."""
+    name = "wkv6_keyslice_bwd_states"
+    if not _on_card(name, r, k, v, w, u, state, dy):
+        return wkv6_bwd_states_plain(k, v, w, state)
+    dstate_out = _keyslice_bwd_check(name, r, k, v, w, u, state, dy,
+                                     dstate_out)
+    K = k.shape[-1]
+    states = _chunk_scratch(k, K, v.shape[-1])
+    _bwd_ks_launch(name, 3, r, k, _aligned(v), w, u, state, _aligned(dy),
+                   dstate_out, d=_chunk_scratch(k, K), states=states)
+    build.LAUNCHES[name] += 1
+    return states
+
+
+def wkv6_keyslice_bwd_dstates(r, k, v, w, u, state, dy, dstate_out):
+    """Passes 1 and 2 in reverse: (each chunk's exit-state gradient
+    (B,H,nt,K,V), the initial state's (B,H,K,V)), float32. CPU tensors take
+    ``wkv6_bwd_dstates_plain``."""
+    name = "wkv6_keyslice_bwd_dstates"
+    if not _on_card(name, r, k, v, w, u, state, dy):
+        return wkv6_bwd_dstates_plain(r, w, dy, dstate_out)
+    dstate_out = _keyslice_bwd_check(name, r, k, v, w, u, state, dy,
+                                     dstate_out)
+    K = k.shape[-1]
+    dstates, dstate = _chunk_scratch(k, K, v.shape[-1]), torch.empty_like(
+        state)
+    _bwd_ks_launch(name, 3, r, k, _aligned(v), w, u, state, _aligned(dy),
+                   dstate_out, grads=(None,) * 5 + (dstate,),
+                   d=_chunk_scratch(k, K), dstates=dstates)
+    build.LAUNCHES[name] += 1
+    return dstates, dstate
+
+
+def wkv6_keyslice_bwd_chunk(r, k, v, w, u, state, dy, states, dstates):
+    """Pass 3 alone, from the chunks' entry states and exit-state gradients
+    (B,H,nt,K,V) float32: (dr, dk, dv in r's dtype, dw (B,T,H,K), du (H,K)
+    float32). CPU tensors take ``wkv6_bwd_chunk_plain``."""
+    name = "wkv6_keyslice_bwd_chunk"
+    if not _on_card(name, r, k, v, w, u, state, dy, states, dstates):
+        dr, dk, dv, dw, du_part = wkv6_bwd_chunk_plain(
+            r, k, v, w, u, dy, states, dstates)
+        return dr, dk, dv, dw, du_part.sum((0, 2))
+    _keyslice_bwd_check(name, r, k, v, w, u, state, dy, None)
+    for t in (states, dstates):
+        _states_check(name, t, k, v)
+    v, dy = _aligned(v), _aligned(dy)
+    dr, dk, dv, dw, du_part = _keyslice_grads(r, v, w, states.shape[2])
+    _bwd_ks_launch(name, 4, r, k, v, w, u, state, dy, None,
+                   grads=(dr, dk, dv, dw, du_part, None), states=states,
+                   dstates=dstates)
+    build.LAUNCHES[name] += 1
+    return dr, dk, dv, dw, du_part.sum((0, 2))
 
 
 def _grad_operand(g, dtype):

@@ -17,6 +17,13 @@ r_t[i] (S[i] + u[i] k_t[i] v_t)) and row i of the state is updated from key
 dim i alone, so a key slice's call gives that slice's share of y, exactly,
 and its rows of the new state: the partitioned step's sum of y over the
 slices is the whole y.
+
+The key-slice kernels' passes have twins of their own, which compose to
+the functions above: ``wkv6_keyslice_sums_plain`` (each 32-token chunk's
+decay, its recurrence from a zero state and the reverse recurrence of the
+state gradient from zero), ``wkv6_keyslice_scan_plain`` (the chunk states
+from those) and ``wkv6_keyslice_chunk_plain`` (y of every chunk from its
+entry state); the backward's chunk pass is ``wkv6_bwd_chunk_plain``.
 """
 from __future__ import annotations
 
@@ -123,6 +130,104 @@ def _fold_bh(x, acc):
 
 def _chunk_bounds(T):
     return [(t0, min(T, t0 + WKV_CHUNK)) for t0 in range(0, T, WKV_CHUNK)]
+
+
+def _by_chunk(x, acc):
+    """(B,T,H,n) -> (B*H, nt, WKV_CHUNK, n) in ``acc``, the last chunk
+    padded with zero rows (a zero k or r adds nothing, a zero w decays
+    nothing)."""
+    xf = _fold_bh(x, acc)
+    T = xf.shape[1]
+    nt = -(-T // WKV_CHUNK)
+    pad = xf.new_zeros((xf.shape[0], nt * WKV_CHUNK - T, xf.shape[2]))
+    return torch.cat([xf, pad], 1).reshape(xf.shape[0], nt, WKV_CHUNK,
+                                           xf.shape[2])
+
+
+def wkv6_keyslice_sums_plain(k, v, w, r=None, dy=None):
+    """Pass 1 of the key-slice WKV's chunked passes (the plain twin of
+    ``csrc/wkv6_keyslice.cuh``'s ``sums_kernel``): per chunk of
+    ``WKV_CHUNK`` tokens (the last may be short), with lw the inclusive
+    cumsum of w in the chunk and lw_prev[t] = lw[t - 1],
+
+        d     = e^{lw_last}                            (B,H,nt,K)
+        Delta = sum_t (k_t e^{lw_last - lw_t}) v_t^T   (B,H,nt,K,V)
+        Gamma = sum_t (r_t e^{lw_prev_t}) dy_t^T       (B,H,nt,K,V)
+
+    Delta is the recurrence S <- e^{w_t} S + k_t v_t^T over the chunk from
+    a zero state, Gamma the reverse recurrence of the state gradient dS <-
+    r_t dy_t^T + e^{w_t} dS from zero; Gamma only given r and dy (None
+    otherwise). k, r, w (B,T,H,K), v, dy (B,T,H,V) -> (d, Delta, Gamma),
+    float32 (float64 when an input is)."""
+    B, T, H, K = k.shape
+    V = v.shape[-1]
+    acc = _acc_dtype(k, v, w, *(() if r is None else (r, dy)))
+    kc, vc, wc = (_by_chunk(x, acc) for x in (k, v, w))
+    nt = kc.shape[1]
+    lw = torch.cumsum(wc, 2)
+    last = lw[:, :, -1:]
+    d = torch.exp(last[:, :, 0]).reshape(B, H, nt, K)
+    delta = torch.einsum("bcti,bctj->bcij", kc * torch.exp(last - lw), vc)
+    gamma = None
+    if r is not None:
+        rc, dyc = _by_chunk(r, acc), _by_chunk(dy, acc)
+        lw_prev = torch.cat([torch.zeros_like(lw[:, :, :1]), lw[:, :, :-1]],
+                            2)
+        gamma = torch.einsum("bcti,bctj->bcij", rc * torch.exp(lw_prev),
+                             dyc).reshape(B, H, nt, K, V)
+    return d, delta.reshape(B, H, nt, K, V), gamma
+
+
+def wkv6_keyslice_scan_plain(d, delta, state, gamma=None, dstate_out=None):
+    """Pass 2 (the twin of ``scan_kernel``): the chunks in order from the
+    initial state, S_{c+1} = d_c S_c + Delta_c, and given Gamma in reverse
+    from the final state's gradient, dS_exit(c - 1) = d_c dS_exit(c) +
+    Gamma_c. d (B,H,nt,K), Delta and Gamma (B,H,nt,K,V) of
+    ``wkv6_keyslice_sums_plain``; state, dstate_out (B,H,K,V) (None is
+    zero) -> (each chunk's entry state (B,H,nt,K,V), the final state, and
+    given Gamma each chunk's exit-state gradient (B,H,nt,K,V) and the
+    initial state's gradient (B,H,K,V), None otherwise), float32 (float64
+    when an input is)."""
+    acc = _acc_dtype(d, delta, state)
+    nt = d.shape[2]
+    dd = d.to(acc)[..., None]
+    S = state.to(acc)
+    states = []
+    for c in range(nt):
+        states.append(S)
+        S = dd[:, :, c] * S + delta[:, :, c].to(acc)
+    if gamma is None:
+        return torch.stack(states, 2), S, None, None
+    G = (torch.zeros_like(S) if dstate_out is None else dstate_out.to(acc))
+    exits = [None] * nt
+    for c in reversed(range(nt)):
+        exits[c] = G
+        G = dd[:, :, c] * G + gamma[:, :, c].to(acc)
+    return torch.stack(states, 2), S, torch.stack(exits, 2), G
+
+
+def wkv6_keyslice_chunk_plain(r, k, v, w, u, states):
+    """Pass 3 of the forward (the twin of ``csrc/wkv6_keyslice.cu``'s
+    ``fwd_chunk_kernel``): each chunk's tokens walked from its entry state
+    (``states``, (B,H,nt,K,V)), every chunk at once, as ``wkv6_ref`` walks
+    them. r, k, w (B,T,H,K), v (B,T,H,V), u (H,K) -> (y (B,T,H,V) in r's
+    dtype, the last chunk's exit state (B,H,K,V) float32; float64 when an
+    input is)."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    acc = _acc_dtype(r, k, v, w, u, states)
+    rc, kc, vc, wc = (_by_chunk(x, acc) for x in (r, k, v, w))
+    nt = rc.shape[1]
+    S = states.to(acc).reshape(B * H, nt, K, V)
+    uf = u.to(acc)[None].expand(B, H, K).reshape(B * H, 1, K, 1)
+    ys = []
+    for t in range(WKV_CHUNK):
+        kv = kc[:, :, t, :, None] * vc[:, :, t, None, :]
+        ys.append(torch.einsum("bci,bcij->bcj", rc[:, :, t], S + uf * kv))
+        S = torch.exp(wc[:, :, t])[..., None] * S + kv
+    y = torch.stack(ys, 2).reshape(B, H, nt * WKV_CHUNK, V)[:, :, :T]
+    return (y.permute(0, 2, 1, 3).to(r.dtype),
+            S[:, -1].reshape(B, H, K, V))
 
 
 def wkv6_bwd_states_plain(k, v, w, state):
