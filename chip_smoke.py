@@ -638,8 +638,8 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    a scan over the chunks, a chunk pass) against its plain twin at
    rwkv6-3b's rank shapes, prefill (2, 32,768, 40 heads, K 4, V 64) and
    decode (8, 1, 40, 4, 64), at row 8's limits with a zeroed-state
-   control beyond them; kernel, plain and bound ms and the earlier
-   design's ms in its ``wkv6_keyslice`` record; then each of its three
+   control beyond them; kernel, plain and bound ms in its
+   ``wkv6_keyslice`` record; then each of its three
    kernels alone against its plain twin (``keyslice_pass_checks``: T 1,
    31, 32, 33, 1,031 at K 4, 8, 16, float32 and bf16, and the prefill
    shape), each with a control beyond its limit, and their ``*_info``.
@@ -690,10 +690,10 @@ Then whisper-tiny, the encoder-decoder family, and windowed training
    and state passes alone against its plain twin as in (c), at the
    micro-batch too, with their ``*_info``; ``wkv6_keyslice`` forward and
    backward through autograd (the ``WKV6KeySlice`` op) against autograd
-   of the plain forward; kernel, plain, bound and the earlier design's ms
-   of the backward (its ``wkv6_keyslice_bwd`` record) and of the forward
-   at that shape (``wkv6_keyslice``'s ``train`` case), and each pass's
-   kernel ms there from the profiler.
+   of the plain forward; kernel, plain and bound ms of the backward (its
+   ``wkv6_keyslice_bwd`` record) and of the forward at that shape
+   (``wkv6_keyslice``'s ``train`` case), and each pass's kernel ms there
+   from the profiler.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -8384,13 +8384,6 @@ KEYSLICE_PASS_SHAPES = tuple(((2, T, 8, K, 64), dname)
                              for T in KEYSLICE_PASS_T
                              for K in KEYSLICE_PASS_K
                              for dname in ("float32", "bfloat16"))
-# what this script measured on an H100 80GB HBM3 at 700 W for the design
-# the chunked key-slice kernels replaced (a block or a warp per sequence
-# and head walking every token in series): the forward at the prefill and
-# train_4k rank shapes, the backward at the latter
-KEYSLICE_EARLIER_MS = {"wkv6_keyslice": 6.9726,
-                       "wkv6_keyslice train": 0.8869,
-                       "wkv6_keyslice_bwd": 5.0157}
 # the kernels of a key-slice call, by pass, as the profiler names them
 KEYSLICE_KERNELS = {"wkv6_keyslice": {"sums": "sums_kernel",
                                       "scan": "scan_kernel",
@@ -8448,10 +8441,10 @@ def keyslice_pass_checks(torch, wkv_ops, wkv_ref, g, dev, backward,
                  lim(wkv_ops.wkv6_keyslice_sums(k, v, w)[:2], want),
                  lim(wkv_ops.wkv6_keyslice_sums(k0, v, w)[:2], want))
             d, delta = want
-            want = wkv_ref.wkv6_keyslice_scan_plain(d, delta, s0)[:2]
+            want = wkv_ref.wkv6_keyslice_scan_plain(d, delta, s0)[:1]
             note("wkv6_keyslice_scan",
-                 lim(wkv_ops.wkv6_keyslice_scan(d, delta, s0)[:2], want),
-                 lim(wkv_ops.wkv6_keyslice_scan(d, delta, s0c)[:2], want))
+                 lim(wkv_ops.wkv6_keyslice_scan(d, delta, s0)[:1], want),
+                 lim(wkv_ops.wkv6_keyslice_scan(d, delta, s0c)[:1], want))
             states = want[0].contiguous()
             zeroed = states.clone()
             zeroed[0] = 0
@@ -8480,16 +8473,16 @@ def keyslice_pass_checks(torch, wkv_ops, wkv_ref, g, dev, backward,
                      want),
                  lim(wkv_ops.wkv6_keyslice_scan(d, delta, s0c, gamma, dsc),
                      want))
-            states, dstates = want[0].contiguous(), want[2].contiguous()
+            states, dstates = want[0].contiguous(), want[1].contiguous()
             note("wkv6_keyslice_bwd_states",
                  lim([wkv_ops.wkv6_keyslice_bwd_states(*args)], [states]),
                  lim([wkv_ops.wkv6_keyslice_bwd_states(*args[:5], s0c,
                                                        *args[6:])],
                      [states]))
             note("wkv6_keyslice_bwd_dstates",
-                 lim(wkv_ops.wkv6_keyslice_bwd_dstates(*args), want[2:]),
+                 lim(wkv_ops.wkv6_keyslice_bwd_dstates(*args), want[1:]),
                  lim(wkv_ops.wkv6_keyslice_bwd_dstates(*args[:7], dsc),
-                     want[2:]))
+                     want[1:]))
             part = wkv_ref.wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states,
                                                 dstates)
             want = list(part[:4]) + [part[4].sum((0, 2))]
@@ -8600,7 +8593,6 @@ def phase_keyslice_wkv(torch, np, report):
         replaces="src/repro/kernels/rwkv6_wkv/kernel.py:81",
         **{**cases["prefill"], "max_abs_err": max(c["max_abs_err"]
                                                   for c in cases.values())},
-        earlier_ms=KEYSLICE_EARLIER_MS["wkv6_keyslice"],
         decode=cases["decode"], passes=passes, info=info))
 
 
@@ -8828,15 +8820,11 @@ def phase_keyslice_wkv_bwd(torch, np, report):
                 torch, lambda: wkv_ops.wkv6_keyslice(*fwd),
                 KEYSLICE_KERNELS["wkv6_keyslice"])
             timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                          bound_parts_ms=parts, pass_ms=pass_ms,
-                          earlier_ms=KEYSLICE_EARLIER_MS[
-                              "wkv6_keyslice_bwd"])
+                          bound_parts_ms=parts, pass_ms=pass_ms)
             fwd_train = dict(shape=cases[name]["shape"], ms=f_ms,
                              plain_ms=f_plain, bound_ms=fb, bound_by=fby,
                              bound_parts_ms=fparts, library_ms=None,
-                             pass_ms=f_pass_ms,
-                             earlier_ms=KEYSLICE_EARLIER_MS[
-                                 "wkv6_keyslice train"])
+                             pass_ms=f_pass_ms)
             print(f"kernel wkv6_keyslice_bwd {cases[name]['shape']}: "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{b:.4f} ms ({by}: bytes {parts['bytes']:.4f}, f32 "
@@ -8844,10 +8832,7 @@ def phase_keyslice_wkv_bwd(torch, np, report):
                   f"{b / ms:.4f} of it; the forward wkv6_keyslice there: "
                   f"kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, bound "
                   f"{fb:.4f} ms ({fby}); ms a pass: backward "
-                  f"{json.dumps(pass_ms)}, forward {json.dumps(f_pass_ms)}; "
-                  f"the earlier design: backward "
-                  f"{KEYSLICE_EARLIER_MS['wkv6_keyslice_bwd']} ms, forward "
-                  f"{KEYSLICE_EARLIER_MS['wkv6_keyslice train']} ms")
+                  f"{json.dumps(pass_ms)}, forward {json.dumps(f_pass_ms)}")
         del args
         release(torch)
     passes = keyslice_pass_checks(

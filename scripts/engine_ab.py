@@ -45,15 +45,19 @@ def one(root: Path) -> int:
 
 def in_turns(script: str, one_root, doc: str) -> int:
     """``script --one ROOT`` runs ``one_root(ROOT)``; ``script ROOT...``
-    runs that for each ROOT in turn, each in a process of its own."""
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        return one_root(Path(sys.argv[2]).resolve())
-    if len(sys.argv) < 2:
+    runs that for each ROOT in turn, each in a process of its own. Any
+    other ``--`` option is passed on to every run, where ``one_root`` reads
+    it from ``sys.argv``."""
+    opts = [a for a in sys.argv[1:] if a.startswith("--") and a != "--one"]
+    args = [a for a in sys.argv[1:] if a not in opts]
+    if len(args) == 2 and args[0] == "--one":
+        return one_root(Path(args[1]).resolve())
+    if not args:
         print(doc, file=sys.stderr)
         return 2
     rc = 0
-    for root in sys.argv[1:]:
-        rc |= subprocess.run([sys.executable, script, "--one",
+    for root in args:
+        rc |= subprocess.run([sys.executable, script, *opts, "--one",
                               root]).returncode
     return rc
 

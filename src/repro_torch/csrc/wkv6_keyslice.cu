@@ -132,23 +132,21 @@ int by_type(int dtype, int K, int V, F&& f) {
 
 // r, k: (B, T, H, K) and v, y: (B, T, H, V) of the compute dtype (0
 // float32, 1 bfloat16); w: (B, T, H, K) float32 log-decay <= 0; u: (H, K)
-// float32; s0, s_out, s_last: (B, H, K, V) float32; d: (B, H, nt, K) and
-// states: (B, H, nt, K, V) float32 scratch, nt = ceil(T / 32). passes: bit
-// 0 runs pass 1 (k, v, w -> d, Delta into states), bit 1 pass 2 (d,
-// states, s0 -> each chunk's entry state in states, and the final state
-// into s_last when it is not null), bit 2 pass 3 (r, k, v, w, u, states ->
-// y, and the last chunk's exit state into s_out when it is not null); a
-// pass not run may get null for what only it touches. With nt == 1 pass 3
-// alone may take s0 as states. v and y start on a 16-byte boundary. V is
-// 32 or 64 and K a power of two below it; T >= 1. Returns the first
-// launch's error.
+// float32; s0, s_out: (B, H, K, V) float32; d: (B, H, nt, K) and states:
+// (B, H, nt, K, V) float32 scratch, nt = ceil(T / 32). passes: bit 0 runs
+// pass 1 (k, v, w -> d, Delta into states), bit 1 pass 2 (d, states, s0 ->
+// each chunk's entry state in states), bit 2 pass 3 (r, k, v, w, u, states
+// -> y, and the last chunk's exit state, the final state, into s_out when
+// it is not null); a pass not run may get null for what only it touches.
+// With nt == 1 pass 3 alone may take s0 as states. v and y start on a
+// 16-byte boundary. V is 32 or 64 and K a power of two below it; T >= 1.
+// Returns the first launch's error.
 extern "C" int aqua_wkv6_keyslice(const void* r, const void* k,
                                   const void* v, const void* w,
                                   const void* u, const void* s0, void* y,
                                   void* s_out, void* d, void* states,
-                                  void* s_last, int B, int T_len, int H,
-                                  int K, int V, int dtype, int passes,
-                                  void* stream) {
+                                  int B, int T_len, int H, int K, int V,
+                                  int dtype, int passes, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0) return 0;
   return by_type(dtype, K, V, [&](auto t, auto KC, auto VC) {
     using T = decltype(t);
@@ -157,7 +155,7 @@ extern "C" int aqua_wkv6_keyslice(const void* r, const void* k,
     const int nt = (T_len + kChunk - 1) / kChunk;
     const int blocks = B * H * nt;
     if (passes & 1) {
-      ks::sums_kernel<T, KK, VV, true, false><<<blocks, VV, 0, st>>>(
+      ks::sums_kernel<T, KK, VV, false><<<blocks, VV, 0, st>>>(
           static_cast<const T*>(k), static_cast<const T*>(v),
           static_cast<const float*>(w), nullptr, nullptr,
           static_cast<float*>(d), static_cast<float*>(states), nullptr,
@@ -167,8 +165,8 @@ extern "C" int aqua_wkv6_keyslice(const void* r, const void* k,
     if (passes & 2) {
       if (int rc = ks::launch_scan<KK, VV>(
               static_cast<const float*>(d), static_cast<const float*>(s0),
-              static_cast<float*>(states), static_cast<float*>(s_last),
-              nullptr, nullptr, nullptr, B, H, nt, st))
+              static_cast<float*>(states), nullptr, nullptr, nullptr, B,
+              H, nt, st))
         return rc;
     }
     if (passes & 4) {
@@ -190,7 +188,7 @@ extern "C" int aqua_wkv6_keyslice_info(int dtype, int K, int V, int* out) {
   return by_type(dtype, K, V, [&](auto t, auto KC, auto VC) {
     using T = decltype(t);
     constexpr int KK = decltype(KC)::value, VV = decltype(VC)::value;
-    if (int rc = ks::info(ks::sums_kernel<T, KK, VV, true, false>, VV, 0, out))
+    if (int rc = ks::info(ks::sums_kernel<T, KK, VV, false>, VV, 0, out))
       return rc;
     if (int rc = ks::info(ks::scan_kernel<KK, VV>, ks::kScanThreads, 0,
                           out + 4))

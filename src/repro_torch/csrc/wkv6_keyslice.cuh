@@ -23,8 +23,9 @@
 //                 column of every key row, so each staged e^{w}, k and r
 //                 value is read once a step for K entries
 //   scan_kernel   a thread per (b, h, i, j) entry and direction: walks the
-//                 chunks, forward (entry states) or in reverse (exit-state
-//                 gradients), overwriting each summary with what it gives;
+//                 chunks forward (entry states) and, for the backward, in
+//                 reverse (exit-state gradients), overwriting each summary
+//                 with what it gives;
 //                 a summary's load does not wait on the carried value, so
 //                 each thread issues kScanAhead chunks' loads together
 //
@@ -202,47 +203,41 @@ struct KeyRows {
 __device__ __forceinline__ float exp_of(float x) { return expf(x); }
 
 // -- pass 1: each chunk's summaries ------------------------------------------
-// d: (B, H, nt, K); delta, gamma: (B, H, nt, K, V), float32, each written
-// when its flag is set. V threads a summary (with both, the first V walk
-// Delta forward, the others Gamma back), thread j's column of every key
-// row in registers.
-template <typename T, int K, int V, bool kDelta, bool kGamma>
-__global__ void __launch_bounds__((kDelta + kGamma) * V)
+// d: (B, H, nt, K); delta and, with kGamma, gamma: (B, H, nt, K, V),
+// float32. V threads a summary (with kGamma, the first V walk Delta
+// forward, the others Gamma back), thread j's column of every key row in
+// registers.
+template <typename T, int K, int V, bool kGamma>
+__global__ void __launch_bounds__((1 + kGamma) * V)
     sums_kernel(const T* __restrict__ k, const T* __restrict__ v,
                 const float* __restrict__ w, const T* __restrict__ r,
                 const T* __restrict__ dy, float* __restrict__ d,
                 float* __restrict__ delta, float* __restrict__ gamma,
                 int T_len, int H, int nt) {
-  constexpr int NT = (kDelta + kGamma) * V;
-  constexpr int KK = kDelta ? K : 1;
-  constexpr int VK = kDelta ? V : 1;
+  constexpr int NT = (1 + kGamma) * V;
   constexpr int KR = kGamma ? K : 1;
   constexpr int VR = kGamma ? V : 1;
   __shared__ __align__(16) float sw[kChunk][K];
   __shared__ __align__(16) float sd[kChunk][K];
-  __shared__ __align__(16) float sk[kChunk][KK];
+  __shared__ __align__(16) float sk[kChunk][K];
   __shared__ __align__(16) float sr[kChunk][KR];
-  __shared__ __align__(16) float sv[kChunk][VK];
+  __shared__ __align__(16) float sv[kChunk][V];
   __shared__ __align__(16) float sdy[kChunk][VR];
   const Chunk ch = chunk_of<K, V>(T_len, H, nt);
   const int tid = threadIdx.x;
   KeyRows<K, NT> ww, kk, rr;
   ValueRows<T, V, NT> vv, yy;
   ww.load(w, ch, H, tid);
-  if constexpr (kDelta) {
-    kk.load(k, ch, H, tid);
-    vv.load(v, ch, H, tid);
-  }
+  kk.load(k, ch, H, tid);
+  vv.load(v, ch, H, tid);
   if constexpr (kGamma) {
     rr.load(r, ch, H, tid);
     yy.load(dy, ch, H, tid);
   }
   ww.store(sw, ch, tid);
   ww.store(sd, ch, tid, exp_of);
-  if constexpr (kDelta) {
-    kk.store(sk, ch, tid);
-    vv.store(sv, ch, tid);
-  }
+  kk.store(sk, ch, tid);
+  vv.store(sv, ch, tid);
   if constexpr (kGamma) {
     rr.store(sr, ch, tid);
     yy.store(sdy, ch, tid);
@@ -254,63 +249,55 @@ __global__ void __launch_bounds__((kDelta + kGamma) * V)
     d[ch.bhc * K + tid] = expf(lw);
   }
   const long long out0 = ch.bhc * K * V;
-  const bool walks_gamma = !kDelta || tid >= V;
-  if constexpr (kDelta) {
-    if (!walks_gamma) {
-      const int j = tid;
-      float s[K];
+  if (tid < V) {
+    const int j = tid;
+    float s[K];
 #pragma unroll
-      for (int i = 0; i < K; ++i) s[i] = 0.f;
+    for (int i = 0; i < K; ++i) s[i] = 0.f;
 #pragma unroll 4
-      for (int t = 0; t < ch.n; ++t) {
-        const float vj = sv[t][j];
+    for (int t = 0; t < ch.n; ++t) {
+      const float vj = sv[t][j];
 #pragma unroll
-        for (int i = 0; i < K; ++i)
-          s[i] = fmaf(sd[t][i], s[i], sk[t][i] * vj);
-      }
-#pragma unroll
-      for (int i = 0; i < K; ++i) delta[out0 + i * V + j] = s[i];
+      for (int i = 0; i < K; ++i)
+        s[i] = fmaf(sd[t][i], s[i], sk[t][i] * vj);
     }
-  }
-  if constexpr (kGamma) {
-    if (walks_gamma) {
-      const int j = kDelta ? tid - V : tid;
-      float g[K];
 #pragma unroll
-      for (int i = 0; i < K; ++i) g[i] = 0.f;
+    for (int i = 0; i < K; ++i) delta[out0 + i * V + j] = s[i];
+  } else if constexpr (kGamma) {
+    const int j = tid - V;
+    float g[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) g[i] = 0.f;
 #pragma unroll 4
-      for (int t = ch.n - 1; t >= 0; --t) {
-        const float dj = sdy[t][j];
+    for (int t = ch.n - 1; t >= 0; --t) {
+      const float dj = sdy[t][j];
 #pragma unroll
-        for (int i = 0; i < K; ++i)
-          g[i] = fmaf(sd[t][i], g[i], sr[t][i] * dj);
-      }
-#pragma unroll
-      for (int i = 0; i < K; ++i) gamma[out0 + i * V + j] = g[i];
+      for (int i = 0; i < K; ++i)
+        g[i] = fmaf(sd[t][i], g[i], sr[t][i] * dj);
     }
+#pragma unroll
+    for (int i = 0; i < K; ++i) gamma[out0 + i * V + j] = g[i];
   }
 }
 
 // -- pass 2: the scan over the chunks ----------------------------------------
-// A thread per (b, h, i, j) of B * H * K * V entries. Forward (states not
-// null, blockIdx.y 0): states holds Delta_c on entry and each chunk's
-// entry state on exit, from s0; s_last (when not null) gets the state
-// after the last chunk. Reverse (dstates not null, blockIdx.y 1 when both
-// run): dstates holds Gamma_c on entry and each chunk's exit-state
-// gradient on exit, from ds_out; ds_in (when not null) gets the initial
-// state's gradient.
+// A thread per (b, h, i, j) of B * H * K * V entries and direction.
+// Forward (blockIdx.y 0): states holds Delta_c on entry and each chunk's
+// entry state on exit, from s0. Reverse (blockIdx.y 1, run when dstates is
+// not null): dstates holds Gamma_c on entry and each chunk's exit-state
+// gradient on exit, from ds_out; ds_in gets the initial state's gradient.
+// The final state is the chunk pass's to write.
 template <int K, int V>
 __global__ void __launch_bounds__(kScanThreads)
     scan_kernel(const float* __restrict__ d, const float* __restrict__ s0,
-                float* states, float* __restrict__ s_last,
-                const float* __restrict__ ds_out, float* dstates,
-                float* __restrict__ ds_in, long long entries, int nt) {
+                float* states, const float* __restrict__ ds_out,
+                float* dstates, float* __restrict__ ds_in,
+                long long entries, int nt) {
   constexpr int KV = K * V;
   const long long e =
       static_cast<long long>(blockIdx.x) * kScanThreads + threadIdx.x;
   if (e >= entries) return;
-  const bool reverse =
-      states == nullptr || (dstates != nullptr && blockIdx.y == 1);
+  const bool reverse = blockIdx.y == 1;
   const long long bh = e / KV;
   const int ij = static_cast<int>(e % KV);
   const float* dd = d + bh * nt * K + ij / V;
@@ -336,20 +323,19 @@ __global__ void __launch_bounds__(kScanThreads)
       }
     }
   }
-  float* out = reverse ? ds_in : s_last;
-  if (out != nullptr) out[e] = s;
+  if (reverse) ds_in[e] = s;
 }
 
 template <int K, int V>
 int launch_scan(const float* d, const float* s0, float* states,
-                float* s_last, const float* ds_out, float* dstates,
-                float* ds_in, int B, int H, int nt, cudaStream_t stream) {
+                const float* ds_out, float* dstates, float* ds_in, int B,
+                int H, int nt, cudaStream_t stream) {
   const long long entries = static_cast<long long>(B) * H * K * V;
   const dim3 grid(static_cast<unsigned>((entries + kScanThreads - 1) /
                                         kScanThreads),
-                  states != nullptr && dstates != nullptr ? 2 : 1);
+                  dstates != nullptr ? 2 : 1);
   scan_kernel<K, V><<<grid, kScanThreads, 0, stream>>>(
-      d, s0, states, s_last, ds_out, dstates, ds_in, entries, nt);
+      d, s0, states, ds_out, dstates, ds_in, entries, nt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,7 +55,8 @@
 // shared-memory traffic: a block writes the chunk's states and their
 // gradients (64 KiB at K 4) and reads them back, and a phase of it
 // waits on the one before; so every shared load that can is 8 or 16
-// bytes wide (scripts/wkv_keyslice_phase_profile.py times each phase).
+// bytes wide (scripts/wkv_bwd_phase_profile.py --keyslice times each
+// phase).
 // Float32 throughout with explicit fmaf (the build passes -fmad=false).
 #include "wkv6_keyslice.cuh"
 
@@ -368,15 +369,12 @@ int by_type(int dtype, int K, int V, F&& f) {
 
 // r, k, dr, dk: (B, T, H, K) and v, dy, dv: (B, T, H, V) of the compute
 // dtype (0 float32, 1 bfloat16); w, dw: (B, T, H, K) float32; u: (H, K)
-// float32; s0, ds_out, ds_in, s_last: (B, H, K, V) float32; du_part: (B,
-// H, nt, K) float32, each chunk's du, which the caller sums; d: (B, H, nt,
-// K), states and dstates: (B, H, nt, K, V) float32 scratch, nt = ceil(T /
-// 32). passes: bit 0 runs pass 1 (k, v, w -> d, and Delta into states
-// when it is not null; r, dy -> Gamma into dstates when it is not null),
-// bit 1 pass 2 (forward when states is not null: s0 -> each chunk's entry
-// state, the
-// final state into s_last when it is not null; in reverse when dstates is
-// not null: ds_out -> each chunk's exit-state gradient, the initial
+// float32; s0, ds_out, ds_in: (B, H, K, V) float32; du_part: (B, H, nt,
+// K) float32, each chunk's du, which the caller sums; d: (B, H, nt, K),
+// states and dstates: (B, H, nt, K, V) float32 scratch, nt = ceil(T / 32).
+// passes: bit 0 runs pass 1 (k, v, w -> d, Delta into states; r, dy ->
+// Gamma into dstates), bit 1 pass 2 (both ways: s0 -> each chunk's entry
+// state, and ds_out -> each chunk's exit-state gradient, the initial
 // state's into ds_in), bit 2 pass 3 (r, k, v, w, u, dy, states, dstates ->
 // dr, dk, dv, dw, du_part, and, when pass 2 does not run, chunk 0's
 // entry-state gradient into ds_in if it is not null); a pass not run may
@@ -388,8 +386,8 @@ extern "C" int aqua_wkv6_keyslice_bwd(
     const void* r, const void* k, const void* v, const void* w,
     const void* u, const void* s0, const void* dy, const void* ds_out,
     void* dr, void* dk, void* dv, void* dw, void* du_part, void* ds_in,
-    void* d, void* states, void* dstates, void* s_last, int B, int T_len,
-    int H, int K, int V, int dtype, int passes, void* stream) {
+    void* d, void* states, void* dstates, int B, int T_len, int H, int K,
+    int V, int dtype, int passes, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0) return 0;
   return by_type(dtype, K, V, [&](auto t, auto KC, auto VC) {
     using T = decltype(t);
@@ -398,31 +396,18 @@ extern "C" int aqua_wkv6_keyslice_bwd(
     const int nt = (T_len + kChunk - 1) / kChunk;
     const int blocks = B * H * nt;
     if (passes & 1) {
-      const auto k_ = static_cast<const T*>(k);
-      const auto v_ = static_cast<const T*>(v);
-      const auto w_ = static_cast<const float*>(w);
-      const auto r_ = static_cast<const T*>(r);
-      const auto dy_ = static_cast<const T*>(dy);
-      const auto d_ = static_cast<float*>(d);
-      const auto s_ = static_cast<float*>(states);
-      const auto g_ = static_cast<float*>(dstates);
-      if (states != nullptr && dstates != nullptr) {
-        ks::sums_kernel<T, KK, VV, true, true><<<blocks, 2 * VV, 0, st>>>(
-            k_, v_, w_, r_, dy_, d_, s_, g_, T_len, H, nt);
-      } else if (states != nullptr) {
-        ks::sums_kernel<T, KK, VV, true, false><<<blocks, VV, 0, st>>>(
-            k_, v_, w_, r_, dy_, d_, s_, g_, T_len, H, nt);
-      } else {
-        ks::sums_kernel<T, KK, VV, false, true><<<blocks, VV, 0, st>>>(
-            k_, v_, w_, r_, dy_, d_, s_, g_, T_len, H, nt);
-      }
+      ks::sums_kernel<T, KK, VV, true><<<blocks, 2 * VV, 0, st>>>(
+          static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const float*>(w), static_cast<const T*>(r),
+          static_cast<const T*>(dy), static_cast<float*>(d),
+          static_cast<float*>(states), static_cast<float*>(dstates), T_len,
+          H, nt);
       if (int rc = static_cast<int>(cudaGetLastError())) return rc;
     }
     if (passes & 2) {
       if (int rc = ks::launch_scan<KK, VV>(
               static_cast<const float*>(d), static_cast<const float*>(s0),
-              static_cast<float*>(states), static_cast<float*>(s_last),
-              static_cast<const float*>(ds_out),
+              static_cast<float*>(states), static_cast<const float*>(ds_out),
               static_cast<float*>(dstates), static_cast<float*>(ds_in), B,
               H, nt, st))
         return rc;
@@ -455,8 +440,7 @@ extern "C" int aqua_wkv6_keyslice_bwd_info(int dtype, int K, int V,
     using T = decltype(t);
     constexpr int KK = decltype(KC)::value, VV = decltype(VC)::value;
     if (int rc = prepare<T, KK, VV>()) return rc;
-    if (int rc = ks::info(ks::sums_kernel<T, KK, VV, true, true>, 2 * VV, 0,
-                          out))
+    if (int rc = ks::info(ks::sums_kernel<T, KK, VV, true>, 2 * VV, 0, out))
       return rc;
     if (int rc = ks::info(ks::scan_kernel<KK, VV>, ks::kScanThreads, 0,
                           out + 4))

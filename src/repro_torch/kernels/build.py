@@ -65,10 +65,10 @@ _SIGNATURES = {
                                    _I, _I, _L, ctypes.c_float, _I, _P],
     "aqua_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "aqua_wkv6_info": [_I, _I, _P],
-    "aqua_wkv6_keyslice": [_P] * 11 + [_I] * 7 + [_P],
+    "aqua_wkv6_keyslice": [_P] * 10 + [_I] * 7 + [_P],
     "aqua_wkv6_keyslice_info": [_I, _I, _I, _P],
     "aqua_wkv6_bwd": [_P] * 16 + [_I] * 6 + [_P],
-    "aqua_wkv6_keyslice_bwd": [_P] * 18 + [_I] * 7 + [_P],
+    "aqua_wkv6_keyslice_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "aqua_wkv6_keyslice_bwd_info": [_I, _I, _I, _P],
     "aqua_wkv6_bwd_info": [_I, _I, _P],
     "aqua_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -265,10 +265,13 @@ def wkv6_keyslice(r, k, v, w, u, state):
     return _keyslice_forward(r, k, v, w, u, state)
 
 
-def _aligned(t):
-    """``t``, or a copy on a 16-byte boundary: the key-slice kernels read
-    rows of v and dy in 16-byte pieces."""
-    return t.clone() if t.data_ptr() % 16 else t
+def _require_aligned(name, **tensors):
+    """The kernels read rows in 16-byte pieces, so these operands start on
+    a 16-byte boundary; raises on one that does not."""
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must start on a 16-byte "
+                             f"boundary (data_ptr {t.data_ptr()})")
 
 
 def _chunk_scratch(like, *shape):
@@ -292,11 +295,12 @@ def _ks_launch(name, export, passes, at, dims, dtype, ptrs):
 
 
 def _fwd_launch(name, passes, r, k, v, w, u, s0, *, y=None, s_out=None,
-                d=None, states=None, s_last=None):
+                d=None, states=None):
     B, T, H, K = k.shape
+    _require_aligned(name, v=v)
     _ks_launch(name, "aqua_wkv6_keyslice", passes, k,
                (B, T, H, K, v.shape[-1]), k.dtype,
-               (r, k, v, w, u, s0, y, s_out, d, states, s_last))
+               (r, k, v, w, u, s0, y, s_out, d, states))
 
 
 def _keyslice_forward(r, k, v, w, u, state):
@@ -312,7 +316,6 @@ def _keyslice_forward(r, k, v, w, u, state):
             (torch.empty_like(v), torch.empty_like(state)),
             *keyslice_cost(B, T, H, K, V, r.element_size()))
     build.require_cuda(name, r, k, v, w, u, state)
-    v = _aligned(v)
     y = torch.empty_like(v)
     s_out = torch.empty_like(state)
     if T <= WKV_CHUNK:
@@ -350,13 +353,12 @@ def wkv6_keyslice_sums(k, v, w, r=None, dy=None):
     K, V = k.shape[-1], v.shape[-1]
     d, delta = _chunk_scratch(k, K), _chunk_scratch(k, K, V)
     if r is None:
-        _fwd_launch(name, 1, None, k, _aligned(v), w, None, None, d=d,
-                    states=delta)
+        _fwd_launch(name, 1, None, k, v, w, None, None, d=d, states=delta)
         gamma = None
     else:
         gamma = _chunk_scratch(k, K, V)
-        _bwd_ks_launch(name, 1, r, k, _aligned(v), w, None, None,
-                       _aligned(dy), None, d=d, states=delta, dstates=gamma)
+        _bwd_ks_launch(name, 1, r, k, v, w, None, None, dy, None, d=d,
+                       states=delta, dstates=gamma)
     build.LAUNCHES[name] += 1
     return d, delta, gamma
 
@@ -365,9 +367,9 @@ def wkv6_keyslice_scan(d, delta, state, gamma=None, dstate_out=None):
     """Pass 2 alone, the scan over the chunks, from pass 1's summaries: d
     (B,H,nt,K), Delta (B,H,nt,K,V), state (B,H,K,V) and, for the
     backward's reverse scan, Gamma (B,H,nt,K,V) and dstate_out (B,H,K,V;
-    None is zero) -> (each chunk's entry state (B,H,nt,K,V), the final
-    state, and given Gamma each chunk's exit-state gradient and the
-    initial state's gradient, None otherwise), float32. CPU tensors take
+    None is zero) -> (each chunk's entry state (B,H,nt,K,V), and given
+    Gamma each chunk's exit-state gradient and the initial state's
+    gradient, None otherwise), float32. CPU tensors take
     ``wkv6_keyslice_scan_plain``; CUDA tensors launch ``scan_kernel`` (both
     directions in one launch given Gamma)."""
     name = "wkv6_keyslice_scan"
@@ -376,20 +378,20 @@ def wkv6_keyslice_scan(d, delta, state, gamma=None, dstate_out=None):
         return wkv6_keyslice_scan_plain(d, delta, state, gamma, dstate_out)
     B, H, nt, K, V = delta.shape
     dims = (B, nt * WKV_CHUNK, H, K, V)
-    states, s_last = delta.clone(), torch.empty_like(state)
+    states = delta.clone()
     dstates = dstate = None
     if gamma is None:
         _ks_launch(name, "aqua_wkv6_keyslice", 2, d, dims, torch.float32,
-                   (None,) * 5 + (state, None, None, d, states, s_last))
+                   (None,) * 5 + (state, None, None, d, states))
     else:
         if dstate_out is None:
             dstate_out = torch.zeros_like(state)
         dstates, dstate = gamma.clone(), torch.empty_like(state)
         _ks_launch(name, "aqua_wkv6_keyslice_bwd", 2, d, dims, torch.float32,
                    (None,) * 5 + (state, None, dstate_out) + (None,) * 5
-                   + (dstate, d, states, dstates, s_last))
+                   + (dstate, d, states, dstates))
     build.LAUNCHES[name] += 1
-    return states, s_last, dstates, dstate
+    return states, dstates, dstate
 
 
 def wkv6_keyslice_chunk(r, k, v, w, u, states):
@@ -403,7 +405,6 @@ def wkv6_keyslice_chunk(r, k, v, w, u, states):
         return wkv6_keyslice_chunk_plain(r, k, v, w, u, states)
     _keyslice_check(name, r, k, v, w, u, states[:, :, 0])
     _states_check(name, states, k, v)
-    v = _aligned(v)
     y = torch.empty_like(v)
     s_out = torch.empty_like(states[:, :, 0])
     _fwd_launch(name, 4, r, k, v, w, u, None, y=y, s_out=s_out,
@@ -435,11 +436,7 @@ def _forward(r, k, v, w, u, state):
             (torch.empty_like(r), torch.empty_like(state)),
             *cost(B, T, H, hd, r.element_size()))
     build.require_cuda(name, r, k, v, w, u, state)
-    for t, what in ((r, "r"), (k, "k"), (v, "v"), (w, "w"),
-                    (state, "state")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {what} must start on a 16-byte "
-                             f"boundary (data_ptr {t.data_ptr()})")
+    _require_aligned(name, r=r, k=k, v=v, w=w, state=state)
     y = torch.empty_like(r)
     s_out = torch.empty_like(state)
     lib = build.lib()
@@ -591,10 +588,10 @@ def _bwd_ks_launch(name, passes, r, k, v, w, u, s0, dy, ds_out, *,
     """``aqua_wkv6_keyslice_bwd`` on ``grads`` (dr, dk, dv, dw, du_part,
     ds_in) and the scratch."""
     B, T, H, K = k.shape
+    _require_aligned(name, v=v, dy=dy)
     _ks_launch(name, "aqua_wkv6_keyslice_bwd", passes, k,
                (B, T, H, K, v.shape[-1]), k.dtype,
-               (r, k, v, w, u, s0, dy, ds_out, *grads, d, states, dstates,
-                None))
+               (r, k, v, w, u, s0, dy, ds_out, *grads, d, states, dstates))
 
 
 def _keyslice_bwd_keys(name, r, k, v, w, u, state):
@@ -656,7 +653,6 @@ def wkv6_keyslice_bwd(r, k, v, w, u, state, dy, dstate_out):
                                                   r.element_size()))
     dstate_out = _keyslice_bwd_check(name, r, k, v, w, u, state, dy,
                                      dstate_out)
-    v, dy = _aligned(v), _aligned(dy)
     nt = -(-T // WKV_CHUNK)
     dr, dk, dv, dw, du_part = _keyslice_grads(r, v, w, nt)
     dstate = torch.empty_like(state)
@@ -673,41 +669,45 @@ def wkv6_keyslice_bwd(r, k, v, w, u, state, dy, dstate_out):
     return dr, dk, dv, dw, du_part.sum((0, 2)), dstate
 
 
+def _keyslice_bwd_state_passes(name, r, k, v, w, u, state, dy,
+                               dstate_out):
+    """Passes 1 and 2 of the key-slice backward, both ways in one call:
+    (each chunk's entry state, each chunk's exit-state gradient
+    (B,H,nt,K,V), the initial state's (B,H,K,V)), float32."""
+    dstate_out = _keyslice_bwd_check(name, r, k, v, w, u, state, dy,
+                                     dstate_out)
+    K, V = k.shape[-1], v.shape[-1]
+    states, dstates = _chunk_scratch(k, K, V), _chunk_scratch(k, K, V)
+    dstate = torch.empty_like(state)
+    _bwd_ks_launch(name, 3, r, k, v, w, u, state, dy, dstate_out,
+                   grads=(None,) * 5 + (dstate,), d=_chunk_scratch(k, K),
+                   states=states, dstates=dstates)
+    build.LAUNCHES[name] += 1
+    return states, dstates, dstate
+
+
 def wkv6_keyslice_bwd_states(r, k, v, w, u, state, dy, dstate_out):
-    """Passes 1 and 2 of the key-slice backward forward in time
-    (``wkv6_keyslice_bwd``'s operands; the forward's state passes too):
-    each chunk's entry state, (B,H,nt,K,V) float32. CPU tensors take
-    ``wkv6_bwd_states_plain``."""
+    """Passes 1 and 2 of the key-slice backward (``wkv6_keyslice_bwd``'s
+    operands), forward in time: each chunk's entry state, (B,H,nt,K,V)
+    float32. CPU tensors take ``wkv6_bwd_states_plain``; CUDA tensors run
+    both directions and keep this one."""
     name = "wkv6_keyslice_bwd_states"
     if not _on_card(name, r, k, v, w, u, state, dy):
         return wkv6_bwd_states_plain(k, v, w, state)
-    dstate_out = _keyslice_bwd_check(name, r, k, v, w, u, state, dy,
-                                     dstate_out)
-    K = k.shape[-1]
-    states = _chunk_scratch(k, K, v.shape[-1])
-    _bwd_ks_launch(name, 3, r, k, _aligned(v), w, u, state, _aligned(dy),
-                   dstate_out, d=_chunk_scratch(k, K), states=states)
-    build.LAUNCHES[name] += 1
-    return states
+    return _keyslice_bwd_state_passes(name, r, k, v, w, u, state, dy,
+                                      dstate_out)[0]
 
 
 def wkv6_keyslice_bwd_dstates(r, k, v, w, u, state, dy, dstate_out):
     """Passes 1 and 2 in reverse: (each chunk's exit-state gradient
     (B,H,nt,K,V), the initial state's (B,H,K,V)), float32. CPU tensors take
-    ``wkv6_bwd_dstates_plain``."""
+    ``wkv6_bwd_dstates_plain``; CUDA tensors run both directions and keep
+    this one."""
     name = "wkv6_keyslice_bwd_dstates"
     if not _on_card(name, r, k, v, w, u, state, dy):
         return wkv6_bwd_dstates_plain(r, w, dy, dstate_out)
-    dstate_out = _keyslice_bwd_check(name, r, k, v, w, u, state, dy,
-                                     dstate_out)
-    K = k.shape[-1]
-    dstates, dstate = _chunk_scratch(k, K, v.shape[-1]), torch.empty_like(
-        state)
-    _bwd_ks_launch(name, 3, r, k, _aligned(v), w, u, state, _aligned(dy),
-                   dstate_out, grads=(None,) * 5 + (dstate,),
-                   d=_chunk_scratch(k, K), dstates=dstates)
-    build.LAUNCHES[name] += 1
-    return dstates, dstate
+    return _keyslice_bwd_state_passes(name, r, k, v, w, u, state, dy,
+                                      dstate_out)[1:]
 
 
 def wkv6_keyslice_bwd_chunk(r, k, v, w, u, state, dy, states, dstates):
@@ -722,7 +722,6 @@ def wkv6_keyslice_bwd_chunk(r, k, v, w, u, state, dy, states, dstates):
     _keyslice_bwd_check(name, r, k, v, w, u, state, dy, None)
     for t in (states, dstates):
         _states_check(name, t, k, v)
-    v, dy = _aligned(v), _aligned(dy)
     dr, dk, dv, dw, du_part = _keyslice_grads(r, v, w, states.shape[2])
     _bwd_ks_launch(name, 4, r, k, v, w, u, state, dy, None,
                    grads=(dr, dk, dv, dw, du_part, None), states=states,

@@ -184,10 +184,11 @@ def wkv6_keyslice_scan_plain(d, delta, state, gamma=None, dstate_out=None):
     from the final state's gradient, dS_exit(c - 1) = d_c dS_exit(c) +
     Gamma_c. d (B,H,nt,K), Delta and Gamma (B,H,nt,K,V) of
     ``wkv6_keyslice_sums_plain``; state, dstate_out (B,H,K,V) (None is
-    zero) -> (each chunk's entry state (B,H,nt,K,V), the final state, and
-    given Gamma each chunk's exit-state gradient (B,H,nt,K,V) and the
-    initial state's gradient (B,H,K,V), None otherwise), float32 (float64
-    when an input is)."""
+    zero) -> (each chunk's entry state (B,H,nt,K,V), and given Gamma each
+    chunk's exit-state gradient (B,H,nt,K,V) and the initial state's
+    gradient (B,H,K,V), None otherwise), float32 (float64 when an input
+    is). The final state is the chunk pass's
+    (``wkv6_keyslice_chunk_plain``)."""
     acc = _acc_dtype(d, delta, state)
     nt = d.shape[2]
     dd = d.to(acc)[..., None]
@@ -197,13 +198,13 @@ def wkv6_keyslice_scan_plain(d, delta, state, gamma=None, dstate_out=None):
         states.append(S)
         S = dd[:, :, c] * S + delta[:, :, c].to(acc)
     if gamma is None:
-        return torch.stack(states, 2), S, None, None
+        return torch.stack(states, 2), None, None
     G = (torch.zeros_like(S) if dstate_out is None else dstate_out.to(acc))
     exits = [None] * nt
     for c in reversed(range(nt)):
         exits[c] = G
         G = dd[:, :, c] * G + gamma[:, :, c].to(acc)
-    return torch.stack(states, 2), S, torch.stack(exits, 2), G
+    return torch.stack(states, 2), torch.stack(exits, 2), G
 
 
 def wkv6_keyslice_chunk_plain(r, k, v, w, u, states):

@@ -80,11 +80,10 @@ def _rel(a, b) -> float:
 
 def _forward(r, k, v, w, u, s0):
     """The forward's passes composed: chunk sums, the scan, the chunk
-    pass -> (y, the chunk pass's final state, the scan's)."""
+    pass -> (y, the final state)."""
     d, delta, _ = ref.wkv6_keyslice_sums_plain(k, v, w)
-    states, s_last, _, _ = ref.wkv6_keyslice_scan_plain(d, delta, s0)
-    y, s_out = ref.wkv6_keyslice_chunk_plain(r, k, v, w, u, states)
-    return y, s_out, s_last
+    states = ref.wkv6_keyslice_scan_plain(d, delta, s0)[0]
+    return ref.wkv6_keyslice_chunk_plain(r, k, v, w, u, states)
 
 
 def _backward(r, k, v, w, u, s0, dy, ds):
@@ -92,7 +91,7 @@ def _backward(r, k, v, w, u, s0, dy, ds):
     ways, the chunk pass -> (dr, dk, dv, dw, du, dstate, the chunks' entry
     states, their exit-state gradients)."""
     d, delta, gamma = ref.wkv6_keyslice_sums_plain(k, v, w, r, dy)
-    states, _, dstates, dstate = ref.wkv6_keyslice_scan_plain(
+    states, dstates, dstate = ref.wkv6_keyslice_scan_plain(
         d, delta, s0, gamma, ds)
     dr, dk, dv, dw, du_part = ref.wkv6_bwd_chunk_plain(
         r, k, v, w, u, dy, states, dstates)
@@ -103,12 +102,11 @@ def _backward(r, k, v, w, u, s0, dy, ds):
 @pytest.mark.parametrize("K,V", SLICES)
 def test_forward_twins_compose_to_the_plain_forward(K, V, T):
     args = _inputs(T, K, V)[:6]
-    y, s_out, s_last = _forward(*args)
+    y, s_out = _forward(*args)
     for fn in (ref.wkv6_ref, ref.wkv6_plain):
         want_y, want_s = fn(*args)
         assert _rel(y, want_y) <= 1e-12, fn.__name__
         assert _rel(s_out, want_s) <= 1e-12, fn.__name__
-        assert _rel(s_last, want_s) <= 1e-12, fn.__name__
 
 
 @pytest.mark.parametrize("T", LENGTHS)
@@ -155,7 +153,7 @@ def test_key_slices_sum_to_the_reference(T, fwd):
         ks = slice(lo, lo + K)
         part = (r[..., ks], k[..., ks], v, w[..., ks], u[:, ks],
                 s0[:, :, ks])
-        yy, s_out, _ = _forward(*part)
+        yy, s_out = _forward(*part)
         y += yy
         s1[:, :, ks] = s_out
         g = _backward(*part, dy, ds[:, :, ks])
@@ -183,7 +181,7 @@ def test_pass_wrappers_on_the_cpu_are_the_twins():
          ref.wkv6_keyslice_scan_plain(d, delta, s0)),
         (ops.wkv6_keyslice_scan(d, delta, s0, gamma, ds),
          ref.wkv6_keyslice_scan_plain(d, delta, s0, gamma, ds))]
-    states, _, dstates, _ = pairs[-1][1]
+    states, dstates, _ = pairs[-1][1]
     part = ref.wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states, dstates)
     pairs += [
         (ops.wkv6_keyslice_chunk(r, k, v, w, u, states),
@@ -274,15 +272,15 @@ def test_cuda_each_pass_matches_its_twin(K, V, T, dtype):
     r, k, v, dy = (x.to(dtype) for x in (r, k, v, dy))
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     d, delta, gamma = ref.wkv6_keyslice_sums_plain(k, v, w, r, dy)
-    states, s_last, dstates, dstate = ref.wkv6_keyslice_scan_plain(
+    states, dstates, dstate = ref.wkv6_keyslice_scan_plain(
         d, delta, s0, gamma, ds)
     part = ref.wkv6_bwd_chunk_plain(r, k, v, w, u, dy, states, dstates)
     checks = [
         (ops.wkv6_keyslice_sums(k, v, w)[:2], (d, delta)),
         (ops.wkv6_keyslice_sums(k, v, w, r, dy), (d, delta, gamma)),
-        (ops.wkv6_keyslice_scan(d, delta, s0)[:2], (states, s_last)),
+        (ops.wkv6_keyslice_scan(d, delta, s0)[:1], (states,)),
         (ops.wkv6_keyslice_scan(d, delta, s0, gamma, ds),
-         (states, s_last, dstates, dstate)),
+         (states, dstates, dstate)),
         (ops.wkv6_keyslice_chunk(r, k, v, w, u, states),
          ref.wkv6_keyslice_chunk_plain(r, k, v, w, u, states)),
         (ops.wkv6_keyslice_bwd_chunk(r, k, v, w, u, s0, dy, states, dstates),
